@@ -9,8 +9,9 @@ Module names mirror the JAX package so each counterpart is easy to find.
   taxonomy      L3/L2 habitat label spaces (copy)
   templates     prompt ensembles (copy)
   tokenizer     byte-level CLIP BPE, pure Python
-  models        CLIP ViT + text towers (nn.Module), weight carry from the
-                JAX package's npz layout, zoo, text head, fast ViT encode
+  models        CLIP ViT + text towers and SigLIP (nn.Module), weight
+                carry from the JAX package's npz layout, zoo, text head,
+                fast ViT and SigLIP encodes
   ops           eval preprocessing; the hand-written CUDA block kernels
   serving       ClassifierEngine + DynamicBatcher
 

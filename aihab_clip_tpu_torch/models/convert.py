@@ -10,6 +10,11 @@ Input is the flat ``{"a/b/c": ndarray}`` form that ``save_params_npz``
   * LayerNorm ``scale``              -> ``weight``
   * ``resblocks_<i>``                -> ``resblocks.<i>``
   * ``text/token_embedding``         -> ``text.token_embedding.weight``
+
+The same rules carry a SigLIP tree into ``SigLIPModel``: its separate
+``attn/{q,k,v,out}_proj`` and ``text/head`` Dense kernels, the conv1 bias,
+``attnpool/{probe,attn,ln,mlp}`` and the scalar ``logit_scale`` and
+``logit_bias`` keep their names.
 """
 
 from __future__ import annotations
@@ -66,8 +71,8 @@ def _convert_key(key: str, v: np.ndarray):
 
 
 def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax-layout CLIP ViT params (nested or ``/``-flat) -> a state dict
-    for ``CLIPModel.load_state_dict``."""
+    """Flax-layout CLIP ViT or SigLIP params (nested or ``/``-flat) -> a
+    state dict for ``CLIPModel`` or ``SigLIPModel.load_state_dict``."""
     sd = {}
     for key, v in flatten_params(params).items():
         name, arr = _convert_key(key, v)

@@ -1,5 +1,7 @@
 """Fast ViT encode: the CLIP vision tower over the Hopper block kernels
-(counterpart of ``aihab_clip_tpu/models/fast_vit.py``).
+(counterpart of ``aihab_clip_tpu/models/fast_vit.py``).  SigLIP towers
+dispatch to ``fast_siglip`` from ``pack_fastest`` and
+``encode_image_fastest``.
 
 ``pack_fastest`` lays the tower's weights out once, at load, in the
 kernels' layout (GEMM weights [in, out] contiguous in the compute dtype, LN
@@ -17,16 +19,21 @@ import torch
 
 from ..ops.block_kernel import (ACTS, attn_block_fused, full_block_fused,
                                 mlp_block_fused)
-from .clip import CLIPConfig, CLIPModel
+from .clip import CLIPConfig
+from .fast_siglip import pack_siglip_fast_params, siglip_encode_fast
+from .siglip import SigLIPConfig
 
 def _ln(x, scale, bias, eps=1e-5):
     y = torch.nn.functional.layer_norm(x.float(), scale.shape, scale, bias, eps)
     return y.to(x.dtype)
 
 
-def pack_fastest(model: CLIPModel, config: CLIPConfig, dtype=torch.bfloat16):
-    """Weights of a CLIP ViT tower in the kernels' layout, on the model's
-    device.  Built once at load; ``None`` for towers without a fast path."""
+def pack_fastest(model, config, dtype=torch.bfloat16):
+    """Weights of a CLIP ViT or SigLIP tower in the kernels' layout, on the
+    model's device.  Built once at load; ``None`` for towers without a fast
+    path."""
+    if isinstance(config, SigLIPConfig):
+        return pack_siglip_fast_params(model, config, dtype)
     if not (isinstance(config, CLIPConfig) and config.is_vit):
         return None
     vp = model.visual
@@ -91,13 +98,14 @@ def _fused_block_plan(config: CLIPConfig, merge_blocks: str = "auto"):
 
 def _apply_fused_blocks(packed, x, plan, *, start: int, stop: int):
     """Run blocks [start, stop) through the block kernels."""
-    if plan["attn_split"]:
+    if plan["attn_split"] or plan["mlp_chunks"]:
         raise NotImplementedError(
-            "head-group-split attention (attn_block_split, K5) is not ported")
+            "the H100 plan splits no CLIP block: head-group attention "
+            "(attn_block_split, K5) and the chunked MLP (mlp_block_split, "
+            "K4) serve SigLIP's fast encode (models/fast_siglip.py)")
     if not plan["mlp_whole"]:
-        missing = ("mlp_block_split (K4)" if plan["mlp_chunks"] else
-                   "per-op ln_matmul / matmul_residual (K16)")
-        raise NotImplementedError(f"{missing} is not ported")
+        raise NotImplementedError(
+            "per-op ln_matmul / matmul_residual (K16) is not ported")
     heads, act = plan["heads"], plan["act"]
     b, s, w = x.shape
     for blk in packed["blocks"][start:stop]:
@@ -132,14 +140,19 @@ def vit_encode_block_fused(packed, images: torch.Tensor, config: CLIPConfig,
     return pre, pre @ packed["proj"]
 
 
-def encode_image_fastest(model: CLIPModel, x: torch.Tensor, config, *,
+def encode_image_fastest(model, x: torch.Tensor, config, *,
                          project: bool = False, packed=None):
-    """The fastest image encode for where ``x`` lives: CLIP ViT towers on
-    the card take the block kernels (``packed`` from ``pack_fastest``,
-    required there); the CPU runs the canonical module."""
-    if x.is_cuda and isinstance(config, CLIPConfig) and config.is_vit:
-        if packed is None:
-            raise ValueError("the card path needs packed=pack_fastest(...), "
-                             "built once at load")
-        return vit_encode_block_fused(packed, x, config, project=project)
-    return model.encode_image(x, project=project)
+    """The fastest image encode for where ``x`` lives: CLIP ViT and SigLIP
+    towers on the card take the block kernels (``packed`` from
+    ``pack_fastest``, required there); the CPU runs the canonical module."""
+    on_card = x.is_cuda and (isinstance(config, SigLIPConfig) or (
+        isinstance(config, CLIPConfig) and config.is_vit))
+    if not on_card:
+        return model.encode_image(x, project=project)
+    if packed is None:
+        raise ValueError("the card path needs packed=pack_fastest(...), "
+                         "built once at load")
+    if isinstance(config, SigLIPConfig):
+        return siglip_encode_fast(model, x, config, project=project,
+                                  packed=packed)
+    return vit_encode_block_fused(packed, x, config, project=project)

@@ -1,7 +1,10 @@
 """Prompt-ensemble text classifier head (counterpart of
 ``aihab_clip_tpu/models/text_head.py``): encode each class's template
 prompts, L2-normalize, mean over templates, re-normalize, stack ->
-[dim, n_classes]."""
+[dim, n_classes].  Works for ``CLIPModel`` and ``SigLIPModel`` alike:
+both expose ``encode_text(tokens) -> (pre, projected)``.  Without a
+``tokenize_fn`` the prompts take the CLIP BPE, truncated to the model's
+context (64 for SigLIP), as in the JAX package."""
 
 from __future__ import annotations
 
@@ -9,9 +12,9 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..tokenizer import tokenize
-from .clip import CLIPModel
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -19,7 +22,7 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     return x / x.norm(dim=dim, keepdim=True).clamp_min(eps)
 
 
-def compute_text_weights(model: CLIPModel, tokens: torch.Tensor,
+def compute_text_weights(model: nn.Module, tokens: torch.Tensor,
                          num_classes: int, num_templates: int) -> torch.Tensor:
     """[C*T, ctx] tokens -> [dim, C] ensemble classifier weights."""
     expected = num_classes * num_templates
@@ -35,14 +38,16 @@ def compute_text_weights(model: CLIPModel, tokens: torch.Tensor,
 
 
 @torch.inference_mode()
-def build_text_head(model: CLIPModel, prompts: Sequence[str],
+def build_text_head(model: nn.Module, prompts: Sequence[str],
                     num_classes: int, num_templates: int,
                     batch_size: int = 256,
                     context_length: Optional[int] = None,
                     tokenize_fn=None) -> Dict[str, Any]:
-    """Tokenize + batched encode.  Returns {'text_weights' [dim, C] fp32,
-    'text_weights_before' [C, T, pre] fp32, 'prompt_tokens' [C*T, ctx]
-    int32, 'num_templates'}, tensors on the model's device."""
+    """Tokenize (``tokenize_fn(texts, context_length) -> [N, ctx]`` ints,
+    default the CLIP BPE) + batched encode.  Returns {'text_weights'
+    [dim, C] fp32, 'text_weights_before' [C, T, pre] fp32,
+    'prompt_tokens' [C*T, ctx] int32, 'num_templates'}, tensors on the
+    model's device."""
     ctx = context_length or model.config.context_length
     tok = tokenize_fn or (lambda texts, context_length: tokenize(
         texts, context_length=context_length, truncate=True))

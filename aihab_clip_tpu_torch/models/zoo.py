@@ -1,9 +1,14 @@
 """Model zoo (counterpart of ``aihab_clip_tpu/models/zoo.py``).
 
 ``load(name)`` resolves, in order:
-  1. ``random:<ARCH>`` -> parameters drawn from a seeded ``torch.Generator``
-     (development / benchmarks without weights);
-  2. the converted cache ``<cache_root>/converted/<safe>.npz`` plus
+  1. SigLIP names (``zoo.py:82-214``: ``random:``, ``hf-hub:`` and
+     registry forms, any ``ViT-{B,L,SO400M}-<p>-SigLIP[2][-<res>]`` tag):
+     ``random:`` draws a ``SigLIPModel`` from a seeded ``torch.Generator``;
+     any other SigLIP name raises ``SigLIPAssetsMissingError``, because
+     reading a local HF snapshot waits for a snapshot in the repository;
+  2. ``random:<ARCH>`` -> CLIP parameters drawn from a seeded
+     ``torch.Generator`` (development / benchmarks without weights);
+  3. the converted cache ``<cache_root>/converted/<safe>.npz`` plus
      ``.config.json`` — the JAX package's naming (``zoo.py:344-366``) and
      layout, carried over by ``convert.flax_params_to_state_dict``, so a
      cache written by the JAX package loads here.
@@ -16,13 +21,15 @@ import dataclasses
 import json
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from ..backend import resolve_device
 from .clip import CLIP_ARCHS, CLIPConfig, CLIPModel
 from .convert import flax_params_to_state_dict, load_params_npz
+from .siglip import (SIGLIP_ARCHS, SigLIPConfig, SigLIPModel,
+                     init_siglip_random_, siglip_config_for_name)
 
 
 def default_cache_root() -> Path:
@@ -33,9 +40,68 @@ def default_cache_root() -> Path:
 @dataclasses.dataclass
 class CLIPBundle:
     name: str
-    config: CLIPConfig
-    model: CLIPModel
+    config: Any                  # CLIPConfig | SigLIPConfig
+    model: Any                   # CLIPModel | SigLIPModel
     source: str  # 'npz-cache' | 'random'
+    tokenize_fn: Optional[Callable] = None  # None: the CLIP BPE
+
+
+# open_clip/timm hub names -> the HF transformers repos holding the same
+# weights in SiglipModel format
+_SIGLIP_HF_ALIASES = {
+    "timm/ViT-SO400M-16-SigLIP2-384": "google/siglip2-so400m-patch16-384",
+    "timm/ViT-B-16-SigLIP": "google/siglip-base-patch16-224",
+}
+
+
+class SigLIPAssetsMissingError(FileNotFoundError):
+    """A SigLIP model was asked for by name, but its snapshot (weights and
+    sentencepiece tokenizer) cannot be read.  The CLIP BPE gives wrong
+    token ids for these checkpoints, so there is no silent fallback."""
+
+
+def is_siglip_name(name: str) -> bool:
+    plain = name.replace("random:", "").replace("hf-hub:", "")
+    return ("siglip" in name.lower() or plain in SIGLIP_ARCHS
+            or plain.split("/")[-1] in SIGLIP_ARCHS)
+
+
+def _siglip_arch_for(name: str) -> Tuple[Optional[str],
+                                         Optional[SigLIPConfig]]:
+    """A SigLIP name -> (arch name, config), without building anything:
+    the registry, then the open_clip tag grid, then SO400M-16-384 for any
+    other name that says SigLIP; (None, None) otherwise."""
+    stripped = name.replace("hf-hub:", "").replace("random:", "")
+    tail = stripped.split("/")[-1]
+    for cand in (stripped, tail):
+        if cand in SIGLIP_ARCHS:
+            return cand, SIGLIP_ARCHS[cand]
+    for cand in (stripped, tail):
+        cfg = siglip_config_for_name(cand)
+        if cfg is not None:
+            return cand, cfg
+    if "siglip" in stripped.lower():
+        return ("ViT-SO400M-16-SigLIP2-384",
+                SIGLIP_ARCHS["ViT-SO400M-16-SigLIP2-384"])
+    return None, None
+
+
+def _load_siglip(name: str, dtype, dev: torch.device, seed: int,
+                 random_cfg: Optional[SigLIPConfig]) -> CLIPBundle:
+    if not name.startswith("random:"):
+        stripped = name.replace("hf-hub:", "")
+        repos = [stripped] + ([_SIGLIP_HF_ALIASES[stripped]]
+                              if stripped in _SIGLIP_HF_ALIASES else [])
+        raise SigLIPAssetsMissingError(
+            f"No readable snapshot for SigLIP '{name}' (candidates {repos}): "
+            "this package reads no HF snapshot yet.  Use "
+            "'random:<arch>' to run without weights.")
+    cfg = random_cfg or _siglip_arch_for(name)[1]
+    with torch.device("meta"):
+        model = SigLIPModel(cfg, dtype=dtype)
+    model = model.to_empty(device="cpu")
+    init_siglip_random_(model, torch.Generator().manual_seed(seed))
+    return CLIPBundle(name, cfg, model.to(dev).eval(), "random")
 
 
 def _npz_cache_path(key: str, cache_root: Path) -> Path:
@@ -84,12 +150,17 @@ def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
 
 def load(name: str, dtype=torch.float32, device="cuda", seed: int = 0,
          cache_dir: Optional[str] = None,
-         random_cfg: Optional[CLIPConfig] = None) -> CLIPBundle:
-    """Load a CLIP ViT as a ``CLIPBundle`` on ``device`` (default the card;
-    raises without one unless ``device="cpu"``).  Parameters are fp32; the
-    towers compute in ``dtype``."""
+         random_cfg: Optional[Any] = None) -> CLIPBundle:
+    """Load a CLIP ViT or a SigLIP model as a ``CLIPBundle`` on ``device``
+    (default the card; raises without one unless ``device="cpu"``).
+    Parameters are fp32; the towers compute in ``dtype``.  ``random_cfg``
+    (a ``CLIPConfig`` or ``SigLIPConfig``) shapes a ``random:`` model."""
     dev = resolve_device(device)
     cache_root = Path(cache_dir) if cache_dir else default_cache_root()
+
+    if isinstance(random_cfg, SigLIPConfig) or (random_cfg is None
+                                                and is_siglip_name(name)):
+        return _load_siglip(name, dtype, dev, seed, random_cfg)
 
     if name.startswith("random:"):
         cfg = random_cfg or CLIP_ARCHS[name.split(":", 1)[1]]

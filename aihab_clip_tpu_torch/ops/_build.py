@@ -67,10 +67,11 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.aihab_ln_gemm.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, f,
-                                          p]
-            lib.aihab_gemm_residual.argtypes = [p, p, p, p, i, p, i, i, i, i, p]
-            lib.aihab_attention.argtypes = [p, p, i, i, i, i, f, p]
+            lib.aihab_ln_gemm.argtypes = [p, i, p, p, p, i, p, p, p, i, i, i,
+                                          i, f, f, i, i, p]
+            lib.aihab_gemm_residual.argtypes = [p, p, i, p, p, i, p, i, i, i,
+                                                i, p]
+            lib.aihab_attention.argtypes = [p, p, i, i, i, i, i, i, f, p]
             for fn in (lib.aihab_ln_gemm, lib.aihab_gemm_residual,
                        lib.aihab_attention):
                 fn.restype = ctypes.c_int

@@ -62,10 +62,13 @@ def _eval_weight_mats(h: int, w: int, resolution: int):
 
 
 def normalize_stats_for(config):
-    """Pixel normalization stats for a model family.  This slice ports CLIP
-    towers only, which use CLIP's stats (SigLIP's 0.5/0.5 comes with its
-    port)."""
-    del config
+    """Pixel normalization stats for a model family: SigLIP checkpoints use
+    0.5/0.5 (``models/siglip.py:siglip_normalize_stats``), everything else
+    CLIP's stats."""
+    from ..models.siglip import SigLIPConfig, siglip_normalize_stats
+
+    if isinstance(config, SigLIPConfig):
+        return siglip_normalize_stats()
     return CLIP_MEAN, CLIP_STD
 
 

@@ -5,6 +5,9 @@
   prompt-ensemble text head, and classifies ``uint8 [B, D, D, 3]`` batches
   to softmax probabilities through eval preprocessing, the fastest encode
   for the device (the Hopper block kernels on the card) and the logits.
+  CLIP ViT towers and SigLIP (``random:ViT-SO400M-16-SigLIP2-384``, the
+  system's default backbone, with its 0.5/0.5 pixel stats and its text
+  head) take the same path.
 * :class:`DynamicBatcher` — request threads submit single decoded images; a
   collector thread coalesces them into padded batches of the smallest
   bucket that holds them, and a fetch thread waits on each batch's result,
@@ -93,7 +96,8 @@ class ClassifierEngine:
                                    use_descriptive=not flat)
         head = build_text_head(self.bundle.model, prompts,
                                len(self.class_names), tpc,
-                               context_length=cfg.context_length)
+                               context_length=cfg.context_length,
+                               tokenize_fn=self.bundle.tokenize_fn)
         self._text_weights = head["text_weights"]
         self._packed = None
         if self.device.type == "cuda":

@@ -1,6 +1,6 @@
-"""Plain versions of the block kernels (K1-K3) against the JAX Pallas
-kernels run in interpret mode, and — on a card — each CUDA kernel against
-its plain version."""
+"""Plain versions of the block kernels (K1-K5) against the JAX Pallas
+kernels run in interpret mode.  The CUDA kernels against their plain
+versions on a card: ``tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -131,52 +131,158 @@ def test_block_argument_checks():
                             padded_io=True)
 
 
-@pytest.mark.gpu
-def test_cuda_kernels_match_plain():
-    """Each CUDA kernel against its plain version on the card (bf16)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    g = torch.Generator().manual_seed(0)
-    dev = torch.device("cuda")
-    w, heads, hidden = 128, 2, 512
+# ---------------------------------------------------------------------------
+# K5 attn_block_split and K4 mlp_block_split (the SigLIP path)
 
-    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-    def close(out, ref, rel):
-        torch.cuda.synchronize()
-        out, ref = out.float(), ref.float()
-        assert torch.isfinite(out).all()
-        assert ((out - ref).norm() / ref.norm()).item() <= rel
+def _split_attn_inputs(seed, head_dim, heads=2, s=37, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    w = heads * head_dim
 
-    x = rnd(3, 80, w)
-    p = [1 + rnd(w, scale=0.1, dtype=torch.float32),
-         rnd(w, scale=0.1, dtype=torch.float32),
-         rnd(w, 3 * w, scale=w ** -0.5), rnd(3 * w, scale=0.1, dtype=torch.float32),
-         rnd(w, w, scale=w ** -0.5), rnd(w, scale=0.1, dtype=torch.float32),
-         1 + rnd(w, scale=0.1, dtype=torch.float32),
-         rnd(w, scale=0.1, dtype=torch.float32),
-         rnd(w, hidden, scale=w ** -0.5),
-         rnd(hidden, scale=0.1, dtype=torch.float32),
-         rnd(hidden, w, scale=hidden ** -0.5),
-         rnd(w, scale=0.1, dtype=torch.float32)]
-    x2 = x.reshape(-1, w)
-    for act in ("none",) + tuple(ACTS):
-        for xin in (x2, x2.float()):
-            close(bk.ln_gemm(xin, *p[:4], act=act),
-                  bk.ln_gemm_plain(xin, *p[:4], act=act), 2e-3)
-    for res in (x2, x2.float()):
-        for odt in (torch.bfloat16, torch.float32):
-            close(bk.gemm_residual(x2, p[4], p[5], res, out_dtype=odt),
-                  bk.gemm_residual_plain(x2, p[4], p[5], res, out_dtype=odt),
-                  2e-3)
-    qkv = rnd(3, 80, 3 * w, scale=2.0)
-    for seq_len in (80, 70):
-        close(bk.attention(qkv, heads, seq_len)[:, :seq_len],
-              bk.attention_plain(qkv, heads, seq_len)[:, :seq_len], 5e-3)
-    close(bk.full_block_fused(x, *p, heads),
-          bk.full_block_fused_plain(x, *p, heads), 1e-2)
-    close(bk.attn_block_fused(x, *p[:6], heads),
-          bk.attn_block_fused_plain(x, *p[:6], heads), 1e-2)
-    close(bk.mlp_block_fused(x2, *p[6:]), bk.mlp_block_fused_plain(x2, *p[6:]),
-          1e-2)
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = n(2, s, w)
+    wqkv, bqkv = n(w, 3 * w, scale=w ** -0.5), n(3 * w, scale=0.1)
+    wout, bout = n(w, w, scale=w ** -0.5), n(w, scale=0.1)
+    ln = (1 + n(w, scale=0.1), n(w, scale=0.1))
+    if dtype != np.float32:   # values exactly representable in bf16
+        x, wqkv, wout = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                         for a in (x, wqkv, wout))
+    return x, wqkv, bqkv, wout, bout, ln
+
+
+def _jax_split_attn(x, wqkv, bqkv, wout, bout, ln, heads, n_groups, dt, **kw):
+    wg, bg, og = jax_bk.regroup_attn_weights_f(
+        jnp.asarray(wqkv, dt), jnp.asarray(bqkv), jnp.asarray(wout, dt),
+        heads, n_groups)
+    out = jax_bk.attn_block_split(jnp.asarray(x, dt), wg, bg, og,
+                                  jnp.asarray(bout), *_j(ln), heads, n_groups,
+                                  ln_eps=1e-6, interpret=True, **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port_split_attn(x, wqkv, bqkv, wout, bout, ln, heads, n_groups, dt,
+                     **kw):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt)
+
+    wg, bg, og = bk.regroup_attn_weights_f(t(wqkv), torch.from_numpy(bqkv),
+                                           t(wout), heads, n_groups)
+    return bk.attn_block_split(t(x), wg, bg, og, torch.from_numpy(bout),
+                               *_t(ln), heads, n_groups, ln_eps=1e-6, **kw)
+
+
+@pytest.mark.parametrize("seq", ["ragged", "padded_io"])
+@pytest.mark.parametrize("n_groups", [1, 2])
+@pytest.mark.parametrize("head_dim", [32, 72])
+def test_attn_block_split_plain_matches_pallas(head_dim, n_groups, seq):
+    """K5 in fp32 against the Pallas kernel in interpret mode: S=37 (no
+    multiple of 16), or a 48-row padded input holding 37 real tokens."""
+    padded = seq == "padded_io"
+    args = _split_attn_inputs(7, head_dim, s=48 if padded else 37)
+    kw = dict(padded_io=True, seq_len=37) if padded else {}
+    ref = _jax_split_attn(*args, 2, n_groups, jnp.float32, **kw)
+    out = _port_split_attn(*args, 2, n_groups, torch.float32, **kw)
+    assert out.shape == args[0].shape
+    np.testing.assert_allclose(out.numpy()[:, :37], ref[:, :37], atol=2e-4,
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2, 4])
+def test_regroup_matches_jax_exactly(n_groups):
+    x, wqkv, bqkv, wout, _, _ = _split_attn_inputs(8, 72, heads=4)
+    ref = jax_bk.regroup_attn_weights_f(jnp.asarray(wqkv), jnp.asarray(bqkv),
+                                        jnp.asarray(wout), 4, n_groups)
+    out = bk.regroup_attn_weights_f(*_t([wqkv, bqkv, wout]), 4, n_groups)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _split_mlp_inputs(seed, w=144, hidden=344, m=37):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return [n(m, w), 1 + n(w, scale=0.1), n(w, scale=0.1),
+            n(w, hidden, scale=w ** -0.5), n(hidden, scale=0.1),
+            n(hidden, w, scale=hidden ** -0.5), n(w, scale=0.1)]
+
+
+@pytest.mark.parametrize("f32_partial", [False, True])
+@pytest.mark.parametrize("n_chunks", [1, 2, 4])
+def test_mlp_block_split_plain_matches_pallas(n_chunks, f32_partial):
+    """K4 in fp32, gelu_tanh, eps 1e-6, hidden 344 (no multiple of 128)."""
+    args = _split_mlp_inputs(9)
+    ref = jax_bk.mlp_block_split(*_j(args), n_chunks=n_chunks,
+                                 act="gelu_tanh", ln_eps=1e-6, interpret=True,
+                                 f32_partial=f32_partial)
+    out = bk.mlp_block_split(*_t(args), n_chunks=n_chunks, act="gelu_tanh",
+                             ln_eps=1e-6, tile_m=128, f32_partial=f32_partial)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4,
+                               rtol=2e-4)
+
+
+def _bf16_ulp(ref):
+    """The spacing of bf16 numbers at |ref| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+def test_bf16_attn_block_split_rounds_like_the_tpu_kernel():
+    """bf16 K5 at head_dim 72 against the JAX kernel in bf16: the q-scale
+    before q's rounding, P normalised before its cast and the fp32 group
+    sum put the plain version within 1 bf16 ulp of the TPU kernel; the
+    CUDA kernel's order (1/sum on the output rows) does not."""
+    args = _split_attn_inputs(10, 72, dtype="bf16")
+    ref = _jax_split_attn(*args, 2, 2, jnp.bfloat16)
+    out = _port_split_attn(*args, 2, 2, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    d = np.abs(out.float().numpy() - ref)
+    assert (d <= _bf16_ulp(ref)).all(), d.max()
+    x = torch.from_numpy(args[0]).bfloat16()
+    flat = bk._split_layouts(x, *bk.regroup_attn_weights_f(
+        torch.from_numpy(args[1]).bfloat16(), torch.from_numpy(args[2]),
+        torch.from_numpy(args[3]).bfloat16(), 2, 2), 2, 2)
+    rows = bk._attn_split(bk._PLAIN, x, *flat, torch.from_numpy(args[4]),
+                          *_t(args[5]), 2, 1, 37, 1e-6).float().numpy()
+    assert (np.abs(rows - ref) > _bf16_ulp(ref)).any()
+
+
+def test_bf16_mlp_block_split_rounds_like_the_tpu_kernel():
+    """bf16 K4 (2 chunks, partial in bf16 between them) against the JAX
+    kernel in bf16: within 2 bf16 ulps (an fp32 sum taken in another
+    order can land on the other side of a rounding boundary, and the
+    chunk-0 partial then carries that ulp into chunk 1)."""
+    args = _split_mlp_inputs(11)
+    bf = [jnp.asarray(a, jnp.bfloat16) if i in (0, 3, 5) else jnp.asarray(a)
+          for i, a in enumerate(args)]
+    ref = np.asarray(jax_bk.mlp_block_split(
+        *bf, n_chunks=2, act="gelu_tanh", ln_eps=1e-6,
+        interpret=True).astype(jnp.float32))
+    pt = [torch.from_numpy(np.asarray(a.astype(jnp.float32))).bfloat16()
+          if i in (0, 3, 5) else torch.from_numpy(args[i])
+          for i, a in enumerate(bf)]
+    out = bk.mlp_block_split(*pt, n_chunks=2, act="gelu_tanh", ln_eps=1e-6)
+    assert out.dtype == torch.bfloat16
+    d = np.abs(out.float().numpy() - ref)
+    assert (d <= 2 * _bf16_ulp(ref)).all(), d.max()
+
+
+def test_split_argument_checks():
+    args = _split_mlp_inputs(12)
+    with pytest.raises(ValueError, match="n_chunks"):
+        bk.mlp_block_split(*_t(args), n_chunks=3)
+    with pytest.raises(ValueError, match="activation"):
+        bk.mlp_block_split(*_t(args), act="relu")
+    x, wqkv, bqkv, wout, bout, ln = _split_attn_inputs(13, 72, heads=4)
+    with pytest.raises(ValueError, match="n_groups"):
+        bk.attn_block_split(*_t([x, wqkv, bqkv, wout, bout, *ln]), 4, 3)
+    with pytest.raises(ValueError, match="seq_len"):
+        _port_split_attn(*_split_attn_inputs(13, 72, s=48), 2, 1,
+                         torch.float32, padded_io=True)
+    bk.reset_launch_counts()
+    bk.mlp_block_split(*_t(args), n_chunks=2)
+    _port_split_attn(*_split_attn_inputs(14, 72), 2, 2, torch.float32)
+    assert all(v == 0 for v in bk.launch_counts().values())
