@@ -12,7 +12,11 @@
 //   mlp_block_split  (:525, :577/:587) = per hidden chunk c: ln_gemm(act) over
 //       c_fc's columns of c -> gemm_residual over c_proj's rows of c, whose
 //       residual is x (chunk 0, + b_proj) or the previous partial, stored in
-//       x's dtype (or fp32) as the TPU kernel stores it between chunks.
+//       x's dtype (or fp32) as the TPU kernel stores it between chunks;
+// and of aihab_clip_tpu/ops/attention.py:
+//   _pallas_attention (:91, :113), fused_attention's forward (K6) = attention
+//       over separate q, k, v, storing the row log-sum-exp for the backward
+//       (fused_attention_bwd.cu).
 // The Pallas program keeps a whole ViT-B block's 14 MB of weights resident in
 // VMEM and runs one program per image.  A Hopper SM has 227 KB of shared
 // memory, so the block is cut at its GEMM boundaries instead: the weights
@@ -45,14 +49,9 @@
 // with g = heads is the packed q | k | v of CLIP's in_proj.  The q-scale
 // epilogue multiplies columns n with n % group_cols < q_cols by q_scale.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
 #include <type_traits>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
 
 namespace {
 
@@ -73,39 +72,6 @@ __device__ __forceinline__ float act_f32(float h, int act) {
     return h / (1.0f + expf(-f));
   }
   return h;
-}
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float* v) {
-  uint4 raw;
-  bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(v[j]);  // round to nearest even
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -385,72 +351,54 @@ int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float*
 
 // ---------------------------------------------------------------------------
 // Attention: out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys < seq_len) v
-// over qkv[b, :, 3W] in the grouped layout above (g heads per group).
 // One block per (64-query tile, head, image); 4 warps of 16 query rows.  Keys
 // stream through shared memory 64 at a time with an fp32 online softmax, so
 // no [S, S] tensor exists anywhere; P is cast to bf16 before the PV product
 // (block_kernel.py:993-998, :815) and the 1/sum is applied to the output rows.
-// Each lane owns one query row's half (HDP/2 output dims) in registers.
-// Head width D is a template parameter: WMMA contracts 16 at a time, so the
-// shared-memory tiles are HDP = D rounded up to 16 wide (80 for D=72) with
-// zero columns past D, which add nothing to q k^T; PV's extra output columns
-// are never stored.  A row of D=72 bf16 is 144 bytes, so every 16-byte load
-// of a head's row stays aligned.  D=64 is the instance CLIP runs (HDP = D).
-// scale is 1/sqrt(D) for CLIP (exact at 1/8) and 1 when ln_gemm's epilogue
-// has already scaled q before rounding it, as attn_block_split does.
+// Each lane owns one query row's half (HDP/2 output dims) in registers.  D=64
+// is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).
+// Operands: q, k and v of head h start at column (h / g) * group_stride +
+// (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
+// of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
+// v = qkv + 2gD, ld = 3W, group_stride = 3gD; fused_attention's separate
+// [B, S, W] tensors (ops/attention.py:91, K6) are ld = W, g = heads.
+// scale is 1/sqrt(D) on the fp32 scores (CLIP, K6) or 1 when ln_gemm's
+// epilogue has already scaled q before rounding it, as attn_block_split does.
+// With lse non-null each valid row also stores its fp32 log-sum-exp
+// m + log(l) (of the scaled scores) at lse[(b * heads + h) * S + q], which
+// the backward kernels (fused_attention_bwd.cu) rebuild P from.
 // ---------------------------------------------------------------------------
-
-constexpr int AQ = 64, AKV = 64, ATT_THREADS = 128;
-constexpr int P_LD = AKV + 8;  // bf16
-
-template <int HD>
-struct AttnTile {
-  static constexpr int HDP = (HD + 15) / 16 * 16;  // padded head width
-  static constexpr int T_LD = HDP + 8;             // bf16
-  static constexpr int S_LD = (AKV > HDP ? AKV : HDP) + 4;  // fp32 scores / PV out
-  static constexpr int HALF = HDP / 2;             // output columns per lane
-  static constexpr int SMEM =
-      (AQ * T_LD + 2 * AKV * T_LD) * 2 + 4 * 16 * S_LD * 4 + 4 * 16 * P_LD * 2;
-};
 
 template <int HD>
 __global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
-                 int seq_len, int heads, int group_heads, float scale) {
+attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
+                 const bf16* __restrict__ vp, bf16* __restrict__ out,
+                 float* __restrict__ lse, int S, int seq_len, int heads,
+                 int group_heads, int ld, int group_stride, float scale) {
   using T = AttnTile<HD>;
   constexpr int HDP = T::HDP, T_LD = T::T_LD, S_LD = T::S_LD, HALF = T::HALF;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + AQ * T_LD;
-  bf16* Vs = Ks + AKV * T_LD;
-  float* Ss_all = reinterpret_cast<float*>(Vs + AKV * T_LD);
+  bf16* Ks = Qs + T::TILE;
+  bf16* Vs = Ks + T::TILE;
+  float* Ss_all = reinterpret_cast<float*>(Vs + T::TILE);
   bf16* Ps_all = reinterpret_cast<bf16*>(Ss_all + 4 * 16 * S_LD);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
   const int W = heads * HD;
-  const int gw = group_heads * HD;  // one group's q (or k, or v) columns
-  const size_t ld = 3 * static_cast<size_t>(W);
-  const bf16* base = qkv + static_cast<size_t>(b) * S * ld +
-                     (h / group_heads) * 3 * gw + (h % group_heads) * HD;
+  const size_t head_off = static_cast<size_t>(b) * S * ld +
+                          (h / group_heads) * group_stride + (h % group_heads) * HD;
+  const bf16* qb = qp + head_off;
+  const bf16* kb = kp + head_off;
+  const bf16* vb = vp + head_off;
   float* Ss = Ss_all + warp * 16 * S_LD;
   bf16* Ps = Ps_all + warp * 16 * P_LD;
 
-  if constexpr (HDP > HD) {  // the zero columns past the head width
-    for (int v = tid; v < AQ * (HDP - HD) / 8; v += ATT_THREADS) {
-      const int r = v / ((HDP - HD) / 8), c = HD + (v % ((HDP - HD) / 8)) * 8;
-      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(Qs + r * T_LD + c) = z;
-      *reinterpret_cast<uint4*>(Ks + r * T_LD + c) = z;
-      *reinterpret_cast<uint4*>(Vs + r * T_LD + c) = z;
-    }
-  }
-  for (int v = tid; v < AQ * HD / 8; v += ATT_THREADS) {
-    const int r = v / (HD / 8), c = (v % (HD / 8)) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S) raw = *reinterpret_cast<const uint4*>(base + (q0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(Qs + r * T_LD + c) = raw;
-  }
+  zero_pad_columns<HD>(Qs, tid);
+  zero_pad_columns<HD>(Ks, tid);
+  zero_pad_columns<HD>(Vs, tid);
+  load_tile<HD>(Qs, qb, q0, S, ld, tid);
   __syncthreads();
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HDP / 16];
 #pragma unroll
@@ -470,17 +418,8 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * AKV;
     __syncthreads();  // every warp is done with the previous K/V tile
-    for (int v = tid; v < AKV * HD / 8; v += ATT_THREADS) {
-      const int r = v / (HD / 8), c = (v % (HD / 8)) * 8;
-      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (k0 + r < seq_len) {  // masked keys load as zeros
-        const bf16* p = base + (k0 + r) * ld + c;
-        kr = *reinterpret_cast<const uint4*>(p + gw);
-        vr = *reinterpret_cast<const uint4*>(p + 2 * gw);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * T_LD + c) = kr;
-      *reinterpret_cast<uint4*>(Vs + r * T_LD + c) = vr;
-    }
+    load_tile<HD>(Ks, kb, k0, seq_len, ld, tid);  // masked keys load as zeros
+    load_tile<HD>(Vs, vb, k0, seq_len, ld, tid);
     __syncthreads();
 
 #pragma unroll
@@ -549,21 +488,37 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
 #pragma unroll
     for (int c = 0; c < HALF; c += 8)
       if (half * HALF + c < HD) store8(dst + c, o + c);
+    if (lse != nullptr && half == 0)
+      lse[(static_cast<size_t>(b) * heads + h) * S + q] = m_run + logf(l_run);
   }
 }
 
 template <int HD>
-int launch_attention(const void* qkv, void* out, int B, int S, int seq_len, int heads,
-                     int group_heads, float scale, cudaStream_t stream) {
+int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
+                     int B, int S, int seq_len, int heads, int group_heads, int ld,
+                     int group_stride, float scale, cudaStream_t stream) {
   auto kernel = attention_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AttnTile<HD>::SMEM);
+  constexpr int smem = 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + AQ - 1) / AQ, heads, B);
-  kernel<<<grid, ATT_THREADS, AttnTile<HD>::SMEM, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, seq_len, heads,
-      group_heads, scale);
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(q, k, v, static_cast<bf16*>(out), lse, S,
+                                              seq_len, heads, group_heads, ld,
+                                              group_stride, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
+                       int B, int S, int seq_len, int heads, int group_heads, int head_dim,
+                       int ld, int group_stride, float scale, cudaStream_t stream) {
+  if (head_dim == 64)
+    return launch_attention<64>(q, k, v, out, lse, B, S, seq_len, heads, group_heads, ld,
+                                group_stride, scale, stream);
+  if (head_dim == 72)
+    return launch_attention<72>(q, k, v, out, lse, B, S, seq_len, heads, group_heads, ld,
+                                group_stride, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -609,12 +564,23 @@ int aihab_gemm_residual(const void* a, const void* w, int ldw, const float* bias
 // in the grouped layout (group_heads heads per group); D is 64 or 72.
 int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int heads,
                     int group_heads, int head_dim, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return launch_attention<64>(qkv, out, B, S, seq_len, heads, group_heads, scale, s);
-  if (head_dim == 72)
-    return launch_attention<72>(qkv, out, B, S, seq_len, heads, group_heads, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* base = static_cast<const bf16*>(qkv);
+  const int gw = group_heads * head_dim;
+  return attention_dispatch(base, base + gw, base + 2 * gw, out, nullptr, B, S, seq_len,
+                            heads, group_heads, head_dim, 3 * heads * head_dim, 3 * gw,
+                            scale, static_cast<cudaStream_t>(stream));
+}
+
+// fused_attention's forward (K6): out = softmax(scale * q k^T) v over
+// separate q, k, v [B,S,heads*D] bf16 (heads packed in the last dim), and the
+// fp32 row log-sum-exp lse[B,heads,S] when lse is non-null; D is 64 or 72.
+int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                              void* lse, int B, int S, int heads, int head_dim, float scale,
+                              void* stream) {
+  return attention_dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), out, static_cast<float*>(lse), B,
+                            S, S, heads, heads, head_dim, heads * head_dim, 0, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,16 +1,21 @@
-"""Fast SigLIP encode: the SigLIP vision tower over the Hopper block kernels
-(counterpart of ``aihab_clip_tpu/models/fast_siglip.py:52-221``).
+"""Fast SigLIP encodes: the SigLIP vision tower over the Hopper block
+kernels (counterpart of ``aihab_clip_tpu/models/fast_siglip.py``).
 
 ``pack_siglip_fast_params`` lays the tower's weights out once, at load:
 the separate q/k/v projections regrouped into head groups
 (``regroup_attn_weights_f``) and then laid out as one [W, G*3gD] matrix,
 so a single ``ln_gemm`` computes every group; the out-proj grouped as
 [G, gD, W]; the MLP weights [in, out] in the compute dtype; LN and bias
-vectors fp32.  ``siglip_encode_fast`` runs
+vectors fp32.  ``siglip_encode_fast`` (serving, forward only) runs
 
   patchify (patch matmul + conv bias) + positional embedding
   -> per block: ``attn_block_split`` (K5) -> ``mlp_block_split`` (K4)
   -> ``ln_post`` -> MAP pooling head.
+
+``siglip_encode_hybrid`` is the PEFT train step's encode: the frozen bottom
+``n_prefix`` blocks through K5/K4 without a graph, then the trainable blocks
+as the canonical ``SigLIPBlock`` modules under autograd (their attention
+through the fused attention kernel, K6), then the MAP head.
 
 The patch matmul, ``ln_post`` and the MAP head stay plain PyTorch (the JAX
 package left them to XLA; the head pools one probe token).  The blocks run
@@ -18,8 +23,8 @@ in the hand-written kernels of ``ops/block_kernel.py`` when the pack lives
 on the card and in their plain versions on the CPU.  The head grouping and
 the chunk count keep the JAX values, which the TPU's VMEM chose (8 groups
 of 2 heads and 2 chunks at SO400M), so the packed tensors and the rounding
-points are the JAX path's.  The hybrid, scan and int8 entry points of the
-JAX module come with later slices.
+points are the JAX path's.  The scan and int8 entry points of the JAX
+module come with later slices.
 """
 
 from __future__ import annotations
@@ -37,12 +42,13 @@ from .siglip import LN_EPS, SigLIPConfig, SigLIPModel
 MLP_WHOLE_KERNEL_MAX_BYTES = 11 * 2 ** 20
 
 
-def siglip_attn_groups(config: SigLIPConfig) -> int:
-    """Head groups of the JAX encode path: 8 heads per group for towers of
-    width <= 1024, 2 for wider ones (SO400M: 16 heads -> 8 groups), halved
-    until it divides the heads; 1 head per group when nothing does."""
+def siglip_attn_groups(config: SigLIPConfig, hybrid: bool = False) -> int:
+    """Head groups of the JAX paths: 8 heads per group (4 for the PEFT
+    hybrid prefix) for towers of width <= 1024, 2 for wider ones (SO400M:
+    16 heads -> 8 groups either way), halved until it divides the heads;
+    1 head per group when nothing does."""
     heads = config.vision_heads
-    hpg = 8 if config.vision_width <= 1024 else 2
+    hpg = (4 if hybrid else 8) if config.vision_width <= 1024 else 2
     while hpg > 1 and heads % hpg:
         hpg //= 2
     return heads // hpg
@@ -62,12 +68,17 @@ def _siglip_mlp_chunks(config: SigLIPConfig, dtype) -> int:
 
 
 def pack_siglip_fast_params(model: SigLIPModel, config: SigLIPConfig,
-                            dtype=torch.bfloat16) -> Dict:
+                            dtype=torch.bfloat16, *, start: int = 0,
+                            stop: Optional[int] = None,
+                            hybrid: bool = False) -> Dict:
     """The vision tower's weights in the kernels' layout, on the model's
-    device.  Built once at load."""
-    n_groups = siglip_attn_groups(config)
+    device, for blocks [start, stop) (default all; the PEFT hybrid packs
+    its frozen prefix, with ``hybrid``'s grouping).  Built once at load (or
+    once per training run)."""
+    n_groups = siglip_attn_groups(config, hybrid)
     vp = model.visual
     width = config.vision_width
+    stop = config.vision_layers if stop is None else stop
 
     def mat(t):       # torch [out, in] -> kernel [in, out], compute dtype
         return t.detach().T.to(dtype).contiguous()
@@ -76,7 +87,7 @@ def pack_siglip_fast_params(model: SigLIPModel, config: SigLIPConfig,
         return t.detach().float().contiguous()
 
     blocks = []
-    for blk in vp.transformer.resblocks:
+    for blk in vp.transformer.resblocks[start:stop]:
         at = blk.attn
         projs = (at.q_proj, at.k_proj, at.v_proj)
         wqkv_g, b_qkv_g, wout_g = regroup_attn_weights_f(
@@ -93,7 +104,7 @@ def pack_siglip_fast_params(model: SigLIPModel, config: SigLIPConfig,
             w_proj=mat(blk.mlp.c_proj.weight),
             b_proj=vec(blk.mlp.c_proj.bias)))
     return dict(
-        dtype=dtype, n_groups=n_groups,
+        dtype=dtype, n_groups=n_groups, start=start,
         mlp_chunks=_siglip_mlp_chunks(config, dtype),
         patch_kernel=vp.patch_kernel().detach().to(dtype).contiguous(),
         patch_bias=vp.conv1.bias.detach().to(dtype),
@@ -118,7 +129,8 @@ def _apply_fused_siglip_blocks(packed, x, config: SigLIPConfig, *,
     """Blocks [start, stop) of the pack through K5 -> K4 (forward only)."""
     heads, width = config.vision_heads, config.vision_width
     b, s, _ = x.shape
-    for blk in packed["blocks"][start:stop]:
+    first = packed["start"]
+    for blk in packed["blocks"][start - first:stop - first]:
         x = attn_block_split(x, blk["wqkv_g"], blk["b_qkv_g"], blk["wout_g"],
                              blk["b_out"], blk["ln1_scale"], blk["ln1_bias"],
                              heads, packed["n_groups"], ln_eps=LN_EPS)
@@ -148,5 +160,40 @@ def siglip_encode_fast(model: SigLIPModel, images: torch.Tensor,
     x = _siglip_embed(packed, images, config)
     x = _apply_fused_siglip_blocks(packed, x, config, start=0,
                                    stop=config.vision_layers)
+    pooled = _map_pool(model, x)
+    return (pooled, pooled) if project else pooled
+
+
+def siglip_encode_hybrid(model: SigLIPModel, images: torch.Tensor,
+                         config: SigLIPConfig, n_prefix: int, *,
+                         project: bool = False, dtype=torch.bfloat16,
+                         packed_prefix: Optional[Dict] = None):
+    """The PEFT train step's encode (``fast_siglip.py:319-386``): the stem
+    and the ``n_prefix`` FROZEN bottom blocks through K5/K4 under
+    ``torch.no_grad()`` (the counterpart of JAX's ``stop_gradient`` on the
+    fused region's inputs: no graph is built there), then the canonical
+    ``SigLIPBlock`` modules ``[n_prefix, L)`` and the MAP head under
+    autograd, in ``dtype``.  ``packed_prefix`` (``pack_siglip_fast_params``
+    with ``stop=n_prefix, hybrid=True``) is packed once per run by the
+    caller; it is packed here when not given.  With ``n_prefix`` 0 the stem
+    is differentiable too."""
+    vp = model.visual
+    if n_prefix > 0:
+        if packed_prefix is None:
+            packed_prefix = pack_siglip_fast_params(
+                model, config, dtype, stop=n_prefix, hybrid=True)
+        with torch.no_grad():
+            x = _siglip_embed(packed_prefix, images, config)
+            x = _apply_fused_siglip_blocks(packed_prefix, x, config, start=0,
+                                           stop=n_prefix)
+        x = x.to(dtype)
+    else:
+        x = _siglip_embed(dict(
+            dtype=dtype, patch_kernel=vp.patch_kernel().to(dtype),
+            patch_bias=vp.conv1.bias.to(dtype),
+            positional_embedding=vp.positional_embedding.to(dtype)),
+            images, config)
+    for blk in vp.transformer.resblocks[n_prefix:]:
+        x = blk(x)
     pooled = _map_pool(model, x)
     return (pooled, pooled) if project else pooled

@@ -17,9 +17,11 @@ Covers the system's default backbone (``hf-hub:timm/ViT-SO400M-16-SigLIP2-384``,
 Module and parameter names follow the JAX package's tree (``visual``/
 ``text``, ``transformer.resblocks.<i>``, ``attn.{q,k,v,out}_proj``,
 ``attnpool.{probe,attn,ln,mlp}``), so ``convert.flax_params_to_state_dict``
-carries its parameters over.  Attention is plain PyTorch math (the
-counterpart of ``ops/attention.py::_xla_attention``); the fused attention
-kernel of the PEFT path (K6) comes with that slice.
+carries its parameters over.  Self-attention goes through
+``ops.attention.attention``, the JAX dispatch: the fused kernel (K6, forward
+and backward) for bf16 towers on the card at S in [512, 1536] (SO400M's 576
+patch tokens), plain math otherwise (the text tower's S=64, fp32 towers, the
+CPU).  The MAP probe's cross-attention stays plain math, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm, attention, linear
+from ..ops.attention import attention, dot_product_attention
+from .layers import LayerNorm, linear
 
 LN_EPS = 1e-6
 
@@ -140,8 +143,8 @@ class SigLIPMLP(nn.Module):
 
 
 class SigLIPAttention(nn.Module):
-    """Separate q/k/v/out projections (HF Siglip layout); ``kv_in`` other
-    than ``q_in`` makes it the MAP probe's cross-attention."""
+    """Separate q/k/v/out projections (HF Siglip layout); ``kv_in`` of
+    another length than ``q_in`` makes it the MAP probe's cross-attention."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -156,16 +159,13 @@ class SigLIPAttention(nn.Module):
     def forward(self, q_in: torch.Tensor,
                 kv_in: Optional[torch.Tensor] = None) -> torch.Tensor:
         kv_in = q_in if kv_in is None else kv_in
-        b, sq, w = q_in.shape
-
-        def heads(t):
-            return t.reshape(b, t.shape[1], self.heads,
-                             w // self.heads).transpose(1, 2)
-
-        q = heads(linear(q_in, self.q_proj.weight, self.q_proj.bias))
-        k = heads(linear(kv_in, self.k_proj.weight, self.k_proj.bias))
-        v = heads(linear(kv_in, self.v_proj.weight, self.v_proj.bias))
-        out = attention(q, k, v).transpose(1, 2).reshape(b, sq, w)
+        q = linear(q_in, self.q_proj.weight, self.q_proj.bias)
+        k = linear(kv_in, self.k_proj.weight, self.k_proj.bias)
+        v = linear(kv_in, self.v_proj.weight, self.v_proj.bias)
+        if q_in.shape[1] == kv_in.shape[1]:
+            out = attention(q, k, v, self.heads)
+        else:  # the MAP probe: one query, plain math
+            out = dot_product_attention(q, k, v, self.heads)
         return linear(out, self.out_proj.weight, self.out_proj.bias)
 
 

@@ -1,10 +1,15 @@
-"""Build and load the CUDA block kernels (``csrc/block_kernels.cu``).
+"""Build and load the CUDA kernels (``csrc/*.cu``).
 
-The source compiles with ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
-seconds.  The library lands in ``<checkout>/build/`` under a name keyed by
-the source's hash, so an edited source is never served a stale build.
-Nothing is compiled at import: the first kernel launch builds.
+Each source compiles with ``nvcc`` into a shared library of its own with a
+plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
+takes seconds, and the sources build in parallel (one ``nvcc`` each, all
+started together).  A library lands in ``<checkout>/build/`` under a name
+keyed by the hash of its source and the shared header, so an edited source
+is never served a stale build.  Nothing is compiled at import: the first
+kernel launch builds.
+
+  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5; K6 fwd)
+  fused_attention_bwd.cu fused_attention's backward (K6b)
 """
 
 from __future__ import annotations
@@ -18,14 +23,36 @@ import threading
 import time
 from pathlib import Path
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "block_kernels.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("block_kernels", "fused_attention_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each C entry point's argument types (every one returns a CUDA error code)
+_ARGTYPES = {
+    "block_kernels": {
+        "aihab_ln_gemm": [_p, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i,
+                          _f, _f, _i, _i, _p],
+        "aihab_gemm_residual": [_p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _i,
+                                _p],
+        "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _p],
+        "aihab_fused_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
+                                      _p],
+    },
+    "fused_attention_bwd": {
+        "aihab_fused_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+                                      _i, _i, _i, _i, _f, _p],
+    },
+}
+
+_SOURCE_OF = {fn: src for src, fns in _ARGTYPES.items() for fn in fns}
+
 _lock = threading.Lock()
-_lib = None
-# what the last build reported: {"seconds", "ptxas", "path"} (None = cached)
+_libs: dict = {}
+# what each source's last build reported: {"seconds", "ptxas", "path"}
+# (seconds None = served from the cache)
 build_info: dict = {}
 
 
@@ -34,46 +61,68 @@ def _nvcc() -> str:
     for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA block "
-                       "kernels are compiled on first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are compiled on first use")
 
 
-def build() -> Path:
-    """Compile the kernels if this source has no library yet; return its
-    path.  Records the compile seconds and ptxas's register/shared-memory
-    report in ``build_info``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"block_kernels-{digest}.so"
-    if out.is_file():
-        build_info.update(seconds=None, ptxas="", path=str(out))
-        return out
+def _library_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes() + \
+        (_CSRC / "common.cuh").read_bytes()
+    return BUILD_DIR / f"{name}-{hashlib.sha256(src).hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every source that has no library yet, all at once; return
+    {source name: library path}.  Records each build's seconds and ptxas's
+    register/shared-memory report in ``build_info``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    paths = {name: _library_path(name) for name in SOURCES}
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr, path=str(out))
-    return out
+    for name, out in paths.items():
+        if out.is_file():
+            build_info[name] = dict(seconds=None, ptxas="", path=str(out))
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, paths[name])
+        build_info[name] = dict(seconds=time.perf_counter() - t0, ptxas=err,
+                                path=str(paths[name]))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def library(name: str = "block_kernels") -> ctypes.CDLL:
+    """The loaded library of source ``name`` (every source is built on the
+    first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.aihab_ln_gemm.argtypes = [p, i, p, p, p, i, p, p, p, i, i, i,
-                                          i, f, f, i, i, p]
-            lib.aihab_gemm_residual.argtypes = [p, p, i, p, p, i, p, i, i, i,
-                                                i, p]
-            lib.aihab_attention.argtypes = [p, p, i, i, i, i, i, i, f, p]
-            for fn in (lib.aihab_ln_gemm, lib.aihab_gemm_residual,
-                       lib.aihab_attention):
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if not _libs:
+            for src, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for fn, argtypes in _ARGTYPES[src].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _libs[src] = lib
+        return _libs[name]
+
+
+def launch(fn: str, device, *args) -> None:
+    """Call the C entry point ``fn`` with ``args`` and the current stream of
+    ``device``; raise on the CUDA error code it returns."""
+    import torch
+
+    lib = library(_SOURCE_OF[fn])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

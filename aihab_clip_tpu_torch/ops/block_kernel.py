@@ -54,6 +54,8 @@ from types import SimpleNamespace
 
 import torch
 
+from ._build import launch
+
 ACTS = {"none": 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu_poly": 3}
 # the attention kernel's head widths: CLIP ViT-B/L/H (64), SigLIP SO400M (72)
 HEAD_DIMS = (64, 72)
@@ -203,17 +205,6 @@ def _vec_f32(t, n, device, name):
     return t
 
 
-def _launch(fn, device, *args):
-    from ._build import library
-
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
-
-
 def ln_gemm(x, ln_scale, ln_bias, w, bias, *, act="none", eps=1e-5,
             q_scale=1.0, q_width=0):
     """x [M, K] (bf16 or fp32) -> act(LN(x) @ w + bias) [M, N] bf16, the
@@ -237,10 +228,10 @@ def ln_gemm(x, ln_scale, ln_bias, w, bias, *, act="none", eps=1e-5,
     bias = _vec_f32(bias, n, dev, "bias")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     stats = torch.empty((m, 2), dtype=torch.float32, device=dev)  # mean, rstd
-    _launch("aihab_ln_gemm", dev, x.data_ptr(), int(x.dtype == torch.float32),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), ldw,
-            bias.data_ptr(), y.data_ptr(), stats.data_ptr(), m, n, k,
-            ACTS[act], eps, q_scale, q_width, max(3 * q_width, 1))
+    launch("aihab_ln_gemm", dev, x.data_ptr(), int(x.dtype == torch.float32),
+           ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), ldw,
+           bias.data_ptr(), y.data_ptr(), stats.data_ptr(), m, n, k,
+           ACTS[act], eps, q_scale, q_width, max(3 * q_width, 1))
     ln_gemm.launches += 1
     return y
 
@@ -266,10 +257,10 @@ def gemm_residual(a, w, bias, residual, *, out_dtype=None):
     _check("residual", residual, (torch.bfloat16, torch.float32), (m, n), dev)
     bias_ptr = None if bias is None else _vec_f32(bias, n, dev, "bias")
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
-    _launch("aihab_gemm_residual", dev, a.data_ptr(), w.data_ptr(), ldw,
-            None if bias_ptr is None else bias_ptr.data_ptr(),
-            residual.data_ptr(), int(residual.dtype == torch.float32),
-            y.data_ptr(), int(out_dtype == torch.float32), m, n, k)
+    launch("aihab_gemm_residual", dev, a.data_ptr(), w.data_ptr(), ldw,
+           None if bias_ptr is None else bias_ptr.data_ptr(),
+           residual.data_ptr(), int(residual.dtype == torch.float32),
+           y.data_ptr(), int(out_dtype == torch.float32), m, n, k)
     gemm_residual.launches += 1
     return y
 
@@ -300,8 +291,8 @@ def attention(qkv, heads: int, seq_len: int | None = None, *,
         raise ValueError(f"seq_len {seq_len} outside [1, {s}]")
     _check("qkv", qkv, torch.bfloat16, (b, s, w3), qkv.device)
     out = torch.empty((b, s, w), dtype=torch.bfloat16, device=qkv.device)
-    _launch("aihab_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
-            b, s, seq_len, heads, g, d, 1.0 if q_scaled else 1.0 / math.sqrt(d))
+    launch("aihab_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
+           b, s, seq_len, heads, g, d, 1.0 if q_scaled else 1.0 / math.sqrt(d))
     attention.launches += 1
     return out
 

@@ -25,13 +25,28 @@ Phases (any failure raises and the exit code is non-zero):
      ``mlp_block_split`` (K4); features against the fp32 canonical module
      on the card; the batch-64 device-time split; ``classify_batch``
      images/s at batch 64;
-  6. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
+  6. SigLIP PEFT path, on the engine's seeded SO400M weights — the default
+     fine-tune (``configs/base.yaml`` + ``cs.yaml``: batch 16 at 384 from
+     439x439 uint8, random crop + rotation, tune_text, unlocked_groups 11,
+     unlocked_layers 1, fused prefix 17, bf16 over fp32 Adam): one train
+     step against the same step with every kernel swapped for its plain
+     version and against the fp32 canonical tower (loss and gradient
+     gates); launches per step (17 K5, 17 K4, 10 K6 forward, 10 K6
+     backward); the step's device time and its split; then
+     ``train.peft.finetune`` over 128 train / 16 val / 32 test images (8
+     steps, val + test through ``siglip_encode_fast``), frozen leaves
+     bit-identical, trained leaves moved;
+  7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
+Each phase prints its seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -48,7 +63,14 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 N_REQUESTS = 160
 SL_REQUESTS = 96
 SRC = "aihab_clip_tpu_torch/csrc/block_kernels.cu"
+SRC_BWD = "aihab_clip_tpu_torch/csrc/fused_attention_bwd.cu"
 JAX_BK = "aihab_clip_tpu/ops/block_kernel.py"
+JAX_ATT = "aihab_clip_tpu/ops/attention.py"
+# the default fine-tune (configs/base.yaml finetune + cs.yaml data): batch
+# 16 at 384 from 439x439 uint8, lr_v 5e-5, unlocked_groups 11, text
+# unlocked_layers 1 -> a frozen prefix of 27 + 1 - 11 = 17 blocks
+PEFT_B, PEFT_DECODE, PEFT_LR, PEFT_UNLOCKED, PEFT_PREFIX = 16, 439, 5e-5, 11, 17
+PEFT_SPLITS = (128, 16, 32)      # train (8 steps), val, test
 # tolerances against the plain version on the same inputs, as (rel L2,
 # max|d| / max|ref|): both round to bf16 at the same points, so they differ
 # where an fp32 sum lands on the other side of a bf16 rounding boundary
@@ -56,10 +78,15 @@ JAX_BK = "aihab_clip_tpu/ops/block_kernel.py"
 # inside a block.  Attention also rounds P to bf16 against its running
 # (online) row max where the plain version uses the final row max, and
 # applies 1/sum to the output rows where K5's plain version normalises P
-# before its cast.
+# before its cast.  The attention backward also forms its row term as
+# rowsum(dO * O) over the bf16 output, where the plain version sums dp * p
+# (measured: 1.5e-3 rel L2 on dq and dk at SO400M shapes on an H100, PERF.md).
 TOL = {"kernel": (2e-3, 0.02), "attention": (5e-3, 0.02),
-       "block": (1e-2, 0.04)}
+       "attention_bwd": (5e-3, 0.02), "block": (1e-2, 0.04)}
 COS_MIN = 0.999
+# the train step: loss relative |d| and gradient cosine against the same
+# step with every kernel plain (bf16), and against the fp32 canonical tower
+STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -82,6 +109,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase(name):
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - t_phase[0]:.1f}s")
+        t_phase[0] = now
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -93,14 +126,16 @@ def main() -> None:
           f"{torch.cuda.device_count()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # ---- 2. build
+    # ---- 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
     _build.library()
-    print(f"[build] {time.perf_counter() - t0:.2f}s total, nvcc "
-          f"{_build.build_info.get('seconds')}s -> {_build.build_info['path']}")
-    for line in _build.build_info.get("ptxas", "").splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry")):
-            print(f"[build] {line.strip()}")
+    print(f"[build] {time.perf_counter() - t0:.2f}s total")
+    for name, info in _build.build_info.items():
+        print(f"[build] {name}: nvcc {info['seconds']}s -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling entry")):
+                print(f"[build] {line.strip()}")
+    phase("build")
 
     # ---- 3. kernels at ViT-B/16 shapes
     gen = torch.Generator().manual_seed(SEED)
@@ -147,9 +182,9 @@ def main() -> None:
 
     def run_cases(cases):
         """Each case: (name, replaces, tolerance kind, kernel fn, plain fn,
-        library fn or None, flops, bytes, launch counter, path)."""
+        library fn or None, flops, bytes, launch counter, path[, source])."""
         for (name, replaces, kind_, fn, plain, lib, flops, nbytes, counter,
-             path) in cases:
+             path, *src) in cases:
             err, rel, lim = compare(name, fn(), plain(), kind_)
             ms, plain_ms = timed(fn), timed(plain, iters=5)
             lib_ms = timed(lib) if lib is not None else None
@@ -158,7 +193,8 @@ def main() -> None:
                   f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}, "
                   f"bound {b_ms:.4f} by {b_by}; {flops / ms / 1e9:.1f} "
                   f"TFLOP/s)")
-            rows.append(dict(name=name, route="cuda", source=SRC,
+            rows.append(dict(name=name, route="cuda",
+                             source=src[0] if src else SRC,
                              replaces=replaces, launches=None,
                              counter=counter, path=path, max_abs_err=err,
                              tol_max_abs=lim, rel_l2=rel,
@@ -274,6 +310,10 @@ def main() -> None:
     # ---- 3b. kernels at SigLIP SO400M shapes
     siglip_kernel_cases(bk, rnd, vec, run_cases)
 
+    # ---- 3c. fused attention (K6) forward and backward, SigLIP PEFT shapes
+    fused_attention_cases(rnd, run_cases, compare)
+    phase("kernels")
+
     # ---- 4. the ViT path: engine + dynamic batcher
     from aihab_clip_tpu_torch.models import load
     from aihab_clip_tpu_torch.models.fast_vit import (encode_image_fastest,
@@ -281,11 +321,10 @@ def main() -> None:
     from aihab_clip_tpu_torch.ops.preprocess import eval_transform
     from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
 
-    t0 = time.perf_counter()
     engine = ClassifierEngine(model="random:ViT-B/16", batch_size=64,
                               device="cuda")
     engine.warmup()
-    print(f"[path] engine built + warm in {time.perf_counter() - t0:.1f}s")
+    print(f"[path] engine built + warm in {time.perf_counter() - t_phase[0]:.1f}s")
     images = np.random.default_rng(SEED).integers(
         0, 256, (N_REQUESTS, 224, 224, 3), dtype=np.uint8)
 
@@ -368,20 +407,33 @@ def main() -> None:
     del engine, batch, xb
     torch.cuda.empty_cache()
 
-    # ---- 5. the SigLIP path: engine + dynamic batcher
-    counts["siglip"], rates["siglip_so400m_64"] = siglip_path(bk, timed)
+    phase("vit path")
 
-    # ---- 6. kernels line + result
+    # ---- 5. the SigLIP path: engine + dynamic batcher
+    counts["siglip"], rates["siglip_so400m_64"], engine = siglip_path(
+        bk, timed)
+    phase("siglip path")
+
+    # ---- 6. the SigLIP PEFT path on the engine's weights
+    counts["siglip_peft"], train = peft_path(engine, bk)
+    del engine
+    torch.cuda.empty_cache()
+    phase("peft path")
+
+    # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
-             "siglip": "SigLIP SO400M engine + DynamicBatcher"}
+             "siglip": "SigLIP SO400M engine + DynamicBatcher",
+             "siglip_peft": f"SigLIP SO400M finetune ({PEFT_SPLITS[0] // PEFT_B}"
+                            " steps + val/test)"}
     for row in rows:
         counter = row.pop("counter").__name__
         row["launches"] = counts[row["path"]][counter]
         row["path"] = names[row["path"]]
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
-    print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates}))
+    print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
+                      "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -509,7 +561,8 @@ def siglip_kernel_cases(bk, rnd, vec, run_cases) -> None:
 
 def siglip_path(bk, timed):
     """ClassifierEngine + DynamicBatcher on random SO400M weights; returns
-    the launch counts of the batcher run and images/s at batch 64."""
+    the launch counts of the batcher run, images/s at batch 64 and the
+    engine."""
     import torch
 
     from aihab_clip_tpu_torch.models.fast_siglip import (
@@ -602,7 +655,370 @@ def siglip_path(bk, timed):
     rate = images_per_s(engine, 64, dim, n=5)
     print(f"[siglip] classify_batch end-to-end at batch 64: {rate:.1f} "
           f"images/s")
-    return counts, rate
+    return counts, rate, engine
+
+
+def fused_attention_cases(rnd, run_cases, compare) -> None:
+    """K6 at the SigLIP PEFT shapes (B=16, S=576, 16 heads of 72, bf16):
+    the forward (with the row log-sum-exp) and the backward (dq, dk, dv)
+    against their plain versions on the same inputs and output cotangent,
+    timed beside SDPA forward and forward + backward; then a ragged S at
+    head_dim 72 and head_dim 64, compared only."""
+    import torch
+
+    from aihab_clip_tpu_torch.ops import attention as att
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def inputs(b, s, heads, d):
+        return [rnd(b, s, heads * d) for _ in range(4)]
+
+    def cat_bwd(q, k, v, out, lse, g, heads):
+        return torch.cat(att.fused_attention_bwd(q, k, v, out, lse, g, heads),
+                         -1)
+
+    for b, s, heads, d in ((4, 577, SL_HEADS, 72), (4, 576, SL_HEADS, 64)):
+        q, k, v, g = inputs(b, s, heads, d)
+        out, lse = att.fused_attention_fwd(q, k, v, heads)
+        compare(f"fused_attention_fwd[B={b} S={s} hd{d}]", out,
+                att.fused_attention_plain(q, k, v, heads), "attention")
+        for name, got, ref in zip(
+                ("dq", "dk", "dv"),
+                att.fused_attention_bwd(q, k, v, out, lse, g, heads),
+                att.fused_attention_bwd_plain(q, k, v, g, heads)):
+            compare(f"fused_attention_bwd {name}[B={b} S={s} hd{d}]", got,
+                    ref, "attention_bwd")
+
+    b, s, heads, d = PEFT_B, SL_S, SL_HEADS, SL_W // SL_HEADS
+    q, k, v, g = inputs(b, s, heads, d)
+    out, lse = att.fused_attention_fwd(q, k, v, heads)
+    for name, got, ref in zip(
+            ("dq", "dk", "dv"),
+            att.fused_attention_bwd(q, k, v, out, lse, g, heads),
+            att.fused_attention_bwd_plain(q, k, v, g, heads)):
+        compare(f"fused_attention_bwd {name}[B={b} S={s} hd{d}]", got, ref,
+                "attention_bwd")
+    q4, k4, v4, g4 = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v, g))
+    q4g, k4g, v4g = (t.clone().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(q4g, k4g, v4g), (q4g, k4g, v4g), g4)
+
+    act_bytes = 2 * b * s * SL_W
+    print(f"[kernels] fused attention (K6) at B={b} S={s} {heads}x{d}: "
+          f"bound fwd {4 * b * heads * s * s * d / 1e9:.1f} GFLOP, bwd "
+          f"{10 * b * heads * s * s * d / 1e9:.1f} GFLOP")
+    run_cases([
+        ("fused_attention_fwd", f"{JAX_ATT}:91", "attention",
+         lambda: att.fused_attention_fwd(q, k, v, heads)[0],
+         lambda: att.fused_attention_plain(q, k, v, heads),
+         lambda: sdpa(q4, k4, v4),
+         4 * b * heads * s * s * d, 4 * act_bytes + 4 * b * heads * s,
+         att.fused_attention_fwd, "siglip_peft"),
+        ("fused_attention_bwd", f"{JAX_ATT}:204", "attention_bwd",
+         lambda: cat_bwd(q, k, v, out, lse, g, heads),
+         lambda: torch.cat(att.fused_attention_bwd_plain(q, k, v, g, heads),
+                           -1),
+         sdpa_fwd_bwd, 10 * b * heads * s * s * d, 7 * act_bytes,
+         att.fused_attention_bwd, "siglip_peft", SRC_BWD),
+    ])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the SigLIP train step swapped for its plain version
+    (K5, K4, and K6 forward and backward as one autograd Function over the
+    plain forward and the plain backward)."""
+    import torch
+    from unittest import mock
+
+    from aihab_clip_tpu_torch.models import fast_siglip
+    from aihab_clip_tpu_torch.ops import attention as att
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+
+    class PlainFusedAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, heads):
+            ctx.save_for_backward(q, k, v)
+            ctx.heads = heads
+            return att.fused_attention_plain(q, k, v, heads)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (*att.fused_attention_bwd_plain(*ctx.saved_tensors, g,
+                                                   ctx.heads), None)
+
+    with mock.patch.object(att, "fused_attention", PlainFusedAttention.apply), \
+            mock.patch.object(fast_siglip, "attn_block_split",
+                              bk.attn_block_split_plain), \
+            mock.patch.object(fast_siglip, "mlp_block_split",
+                              bk.mlp_block_split_plain):
+        yield
+
+
+def peft_path(engine, bk):
+    """The default SigLIP PEFT run on the serving engine's seeded SO400M
+    weights (no second draw of 1.13 B parameters).  Returns the launch
+    counts of the ``finetune`` run and the train figures."""
+    import torch
+
+    from aihab_clip_tpu_torch.data import ImageArrayDataset, SplitView
+    from aihab_clip_tpu_torch.models import build_text_head, fast_siglip
+    from aihab_clip_tpu_torch.models.text_head import compute_text_weights
+    from aihab_clip_tpu_torch.ops import attention as att
+    from aihab_clip_tpu_torch.ops.fast_warp import fast_train_transform
+    from aihab_clip_tpu_torch.ops.preprocess import normalize_stats_for
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.train import evaluate, masked_ce_metrics
+    from aihab_clip_tpu_torch.train.peft import (
+        PEFTConfig, _build_loss_fn, _pack_prefix, build_lock_mask, finetune,
+        make_train_step, peft_fused_prefix_len, step_generator)
+
+    dev = torch.device("cuda")
+    model, mcfg = engine.bundle.model, engine.bundle.config
+    layers = mcfg.vision_layers
+    n_suffix = layers - PEFT_PREFIX
+
+    def counts():
+        return {**bk.launch_counts(), **att.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        att.reset_launch_counts()
+
+    n_prefix = peft_fused_prefix_len(mcfg, PEFT_UNLOCKED, dev)
+    check(n_prefix == PEFT_PREFIX, f"fused prefix {n_prefix}")
+    prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+    tokens = build_text_head(model, prompts, 20, tpc,
+                             context_length=mcfg.context_length)["prompt_tokens"]
+    check(tuple(tokens.shape) == (20 * tpc, mcfg.context_length),
+          f"prompt tokens {tuple(tokens.shape)}")
+    cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                     lr=PEFT_LR, epochs=1, crop_mode="random", flip=False,
+                     rotation=True, tune_text=True, num_templates=tpc,
+                     compute_dtype=torch.bfloat16, fused_prefix=n_prefix)
+    mask = build_lock_mask(model, layers, mcfg.text_layers,
+                           unlocked_groups=PEFT_UNLOCKED, tune_text=True,
+                           unlocked_text_layers=1)
+    trainable = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    n_train = sum(p.numel() for _, p in trainable)
+    text_train = sorted(n for n, _ in trainable if n.startswith("text."))
+    print(f"[peft] {len(trainable)} trainable leaves, {n_train:,} parameters "
+          f"(of {sum(p.numel() for p in model.parameters()):,}); text: "
+          f"{text_train}; fused prefix {n_prefix}, suffix {n_suffix} blocks")
+    check(text_train == ["text.ln_final.bias", "text.ln_final.weight"],
+          "only text/ln_final trains at unlocked_layers=1 (the head quirk)")
+
+    rng = np.random.default_rng(SEED + 2)
+    n_all = sum(PEFT_SPLITS)
+    labels = rng.integers(0, 20, n_all)
+    ds = ImageArrayDataset(
+        images=rng.integers(0, 256, (n_all, PEFT_DECODE, PEFT_DECODE, 3),
+                            dtype=np.uint8),
+        labels=labels, l2_labels=np.zeros(n_all, np.int64),
+        poly_labels=np.full(n_all, -1, np.int64),
+        plot_word_labels=[""] * n_all, poly_word_labels=[""] * n_all,
+        file_names=[f"synthetic_{i}.jpg" for i in range(n_all)],
+        plot_idx=list(range(n_all)), image_sources=["synthetic"] * n_all)
+    n_tr, n_val, n_te = PEFT_SPLITS
+    train_view = SplitView(ds, np.arange(n_tr), PEFT_B, shuffle=True,
+                           seed=SEED)
+    val_view = SplitView(ds, np.arange(n_tr, n_tr + n_val), PEFT_B)
+    test_view = SplitView(ds, np.arange(n_tr + n_val, n_all), PEFT_B)
+
+    # -- one train step: kernels, plain versions, fp32 canonical tower
+    batch = next(train_view.batches(0))
+    imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
+        batch.images, batch.labels, batch.valid))
+    pprefix = _pack_prefix(model, cfg)
+
+    def step_grads(c, pp):
+        loss_fn = _build_loss_fn(model, c, None, tokens)
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(imgs, labs, valid, step_generator(SEED, 0, 0), pp)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).float().flatten()
+                          for _, p in trainable])
+        return loss.item(), grad
+
+    reset()
+    loss_k, g_k = step_grads(cfg, pprefix)
+    per_step = counts()
+    print(f"[peft] launches in one step: {per_step}")
+    want = {"attn_block_split": PEFT_PREFIX, "mlp_block_split": PEFT_PREFIX,
+            "fused_attention_fwd": n_suffix, "fused_attention_bwd": n_suffix,
+            "full_block_fused": 0}
+    for key, n in want.items():
+        check(per_step[key] == n, f"{key}: {per_step[key]} launches in one "
+              f"step, want {n}")
+    with plain_kernels():
+        reset()
+        loss_p, g_p = step_grads(cfg, pprefix)
+        check(not any(counts().values()), f"plain step launched {counts()}")
+    vis_dt, txt_dt = model.visual.dtype, model.text.dtype
+    model.visual.dtype = model.text.dtype = torch.float32
+    try:
+        loss_f, g_f = step_grads(dataclasses.replace(
+            cfg, compute_dtype=torch.float32, fused_prefix=0), None)
+    finally:
+        model.visual.dtype, model.text.dtype = vis_dt, txt_dt
+    model.zero_grad(set_to_none=True)
+    gates = {}
+    for name, loss_r, g_r in (("plain", loss_p, g_p), ("fp32", loss_f, g_f)):
+        rel = abs(loss_k - loss_r) / abs(loss_r)
+        cos = torch.nn.functional.cosine_similarity(g_k, g_r, dim=0).item()
+        lim_rel, lim_cos = STEP_GATES[name]
+        gates[name] = dict(loss=loss_r, loss_rel=rel, grad_cos=cos)
+        print(f"[peft] train step vs {name}: loss {loss_k:.6f} vs "
+              f"{loss_r:.6f}, rel |d| {rel:.3e} (limit {lim_rel:g}); gradient "
+              f"cosine {cos:.6f} (limit {lim_cos:g}), |g| {g_k.norm().item():.4g}"
+              f" vs {g_r.norm().item():.4g}")
+        check(rel <= lim_rel and cos >= lim_cos, f"train step vs {name}")
+    del g_k, g_p, g_f
+
+    # -- the step's device time (CUDA events), after warm-up
+    opt, step = make_train_step(model, cfg, None, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(7):
+        if i == 2:
+            reset()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step(imgs, labs, valid, step_generator(SEED, 1, i), PEFT_LR, pprefix)
+        e1.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            step_ms.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated()
+    for key, n in want.items():
+        check(counts()[key] == n * len(step_ms), f"{key} over the timed steps")
+    ms = statistics.median(step_ms)
+
+    # where the time goes: the same step rebuilt from the loss's pieces with
+    # a CUDA event at each phase boundary; the backward is split into the
+    # suffix's and the text tower's by first taking the loss's gradients
+    # with respect to the image features f and the text weights w
+    mean, std = normalize_stats_for(mcfg)
+    res = mcfg.image_resolution
+    phases = ("augment", "prefix (K5/K4)", "suffix fwd", "text fwd",
+              "loss + dL/df, dL/dw", "suffix bwd", "text bwd", "Adam")
+
+    def split_step(i):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        x = fast_train_transform(imgs, step_generator(SEED, 2, i), res,
+                                 crop_mode="random", rotation=True,
+                                 dtype=torch.bfloat16, mean=mean, std=std)
+        ev[1].record()
+        with torch.no_grad():
+            x = fast_siglip._apply_fused_siglip_blocks(
+                pprefix, fast_siglip._siglip_embed(pprefix, x, mcfg), mcfg,
+                start=0, stop=PEFT_PREFIX)
+        ev[2].record()
+        for blk in model.visual.transformer.resblocks[PEFT_PREFIX:]:
+            x = blk(x)
+        f = fast_siglip._map_pool(model, x).float()
+        f = f / f.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        ev[3].record()
+        w = compute_text_weights(model, tokens, 20, tpc)
+        ev[4].record()
+        loss = masked_ce_metrics(100.0 * f @ w, labs, valid)[0]
+        g_f, g_w = torch.autograd.grad(loss, (f, w))
+        ev[5].record()
+        f.backward(g_f)
+        ev[6].record()
+        w.backward(g_w)
+        ev[7].record()
+        opt.step()
+        ev[8].record()
+        torch.cuda.synchronize()
+        return [ev[j].elapsed_time(ev[j + 1]) for j in range(8)]
+
+    splits = [split_step(i) for i in range(7)][2:]
+    split = {name: statistics.median(row[j] for row in splits)
+             for j, name in enumerate(phases)}
+    split_total = statistics.median(sum(row) for row in splits)
+    model.zero_grad(set_to_none=True)
+    train = dict(step_ms=ms, step_ms_all=step_ms,
+                 images_per_s=1e3 * PEFT_B / ms, peak_gib=peak / 2 ** 30,
+                 trainable_params=n_train, split_ms=split,
+                 split_total_ms=split_total, step_checks=gates)
+    print(f"[peft] train step at batch {PEFT_B}: median {ms:.3f} ms over "
+          f"{len(step_ms)} steps ({', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{1e3 * PEFT_B / ms:.1f} trained images/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    print(f"[peft] split of one step (CUDA events at the phase boundaries, "
+          f"median of 5; {split_total:.3f} ms in all): " + ", ".join(
+              f"{name} {t:.3f}" for name, t in split.items()))
+
+    # -- the train path: finetune, then val/test through siglip_encode_fast
+    class Log:
+        records: list = []
+
+        def log(self, row):
+            self.records.append(row)
+
+    log = Log()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset()
+    t0 = time.perf_counter()
+    out = finetune(model, train_view, val_view, test_view,
+                   dataclasses.replace(cfg, fused_prefix=-1),
+                   prompt_tokens=tokens, unlocked_groups=PEFT_UNLOCKED,
+                   unlocked_text_layers=1, seed=SEED, logger=log,
+                   device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = counts()
+    steps = n_tr // PEFT_B
+    eval_batches = (n_val + n_te) // PEFT_B
+    print(f"[peft] finetune: {steps} steps + {eval_batches} eval batches in "
+          f"{wall:.2f}s; launches {run_counts}")
+    for key, n in want.items():
+        extra = layers * eval_batches if key in ("attn_block_split",
+                                                 "mlp_block_split") else 0
+        check(run_counts[key] == n * steps + extra,
+              f"{key}: {run_counts[key]} launches in finetune, want "
+              f"{n * steps + extra}")
+    losses = [r["train_loss"] for r in log.records if "train_loss" in r]
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"train loss {losses}")
+    with_grad = [n for n, p in model.named_parameters() if mask[n]
+                 and p.grad is not None and p.grad.abs().max().item() > 0]
+    moved = [n for n in with_grad
+             if not torch.equal(before[n], out["params"][n])]
+    frozen_changed = [n for n, p in model.named_parameters()
+                      if not mask[n] and not torch.equal(before[n], p)]
+    print(f"[peft] train loss {losses[0]:.4f}; {len(moved)} of "
+          f"{len(with_grad)} trainable leaves with a nonzero gradient moved "
+          f"({len(trainable)} trainable); {len(mask) - len(trainable)} frozen "
+          f"leaves, {len(frozen_changed)} changed")
+    check(len(with_grad) > 0 and len(moved) == len(with_grad),
+          "trainable leaves with a gradient did not all move")
+    check(not frozen_changed, f"frozen leaves changed: {frozen_changed[:5]}")
+    test = out["test"]
+    check(int(test["cm"].sum()) == n_te and np.isfinite(test["loss"]),
+          f"test confusion matrix sums to {int(test['cm'].sum())}")
+    with torch.inference_mode():
+        w_now = compute_text_weights(model, tokens, 20, tpc)
+    val = evaluate(model, val_view, w_now, res, 20,
+                   compute_dtype=torch.bfloat16, return_confusion_matrix=True)
+    check(int(val["cm"].sum()) == n_val, "val confusion matrix")
+    check(abs(val["loss"] - out["val"]["loss"]) <= 1e-5 * abs(val["loss"]),
+          "val loss of finetune and of evaluate differ")
+    print(f"[peft] val loss {val['loss']:.4f} top1 {val['top1']:.4f} "
+          f"(cm sum {int(val['cm'].sum())}); test loss {test['loss']:.4f} top1 "
+          f"{test['top1']:.4f} (cm sum {int(test['cm'].sum())})")
+    train.update(finetune_s=wall, train_loss=losses[0],
+                 val_loss=val["loss"], test_loss=test["loss"],
+                 moved_leaves=len(moved), frozen_leaves=len(mask) - len(trainable))
+    del before
+    return run_counts, train
 
 
 if __name__ == "__main__":

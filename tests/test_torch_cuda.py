@@ -156,3 +156,114 @@ def test_cuda_siglip_fast_encode_matches_fp32_module():
         2 * (1 + packed["mlp_chunks"])
     cos = torch.nn.functional.cosine_similarity(fast, ref, dim=-1)
     assert cos.min().item() >= 0.999
+
+
+@pytest.mark.gpu
+def test_cuda_fused_attention_matches_plain():
+    """K6 forward and backward against their plain versions on the card
+    (bf16): head_dim 72 at S=576 (nine full tiles) and at a ragged S,
+    head_dim 64 at another ragged S; the autograd Function and the dispatch
+    take the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import attention as att
+
+    g = torch.Generator().manual_seed(2)
+    dev = torch.device("cuda")
+
+    def close(out, ref, rel):
+        torch.cuda.synchronize()
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        err = ((out - ref).norm() / ref.norm()).item()
+        assert err <= rel, err
+
+    for heads, d, s in ((4, 72, 576), (2, 72, 100), (2, 64, 77)):
+        q, k, v, dout = (torch.randn(2, s, heads * d, generator=g).to(
+            dev, torch.bfloat16) for _ in range(4))
+        out, lse = att.fused_attention_fwd(q, k, v, heads)
+        close(out, att.fused_attention_plain(q, k, v, heads), 5e-3)
+        _, scores = att._probs(q, k, heads, None)
+        close(lse, torch.logsumexp(scores, -1), 1e-5)
+        grads = att.fused_attention_bwd(q, k, v, out, lse, dout, heads)
+        for got, ref in zip(grads, att.fused_attention_bwd_plain(
+                q, k, v, dout, heads)):
+            close(got, ref, 1e-2)
+        only_kv = att.fused_attention_bwd(q, k, v, out, lse, dout, heads,
+                                          need_dq=False)
+        assert only_kv[0] is None
+        assert torch.equal(only_kv[1], grads[1])
+        assert torch.equal(only_kv[2], grads[2])
+
+        qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+        att.reset_launch_counts()
+        y = att.attention(qa, ka, va, heads, use_fused=True)
+        y.backward(dout.transpose(0, 1).contiguous().transpose(0, 1))
+        assert att.launch_counts() == {"fused_attention_fwd": 1,
+                                       "fused_attention_bwd": 1}
+        assert torch.equal(y, out)
+        for got, ref in zip((qa.grad, ka.grad, va.grad), grads):
+            assert torch.equal(got, ref)
+    att.reset_launch_counts()
+    x = torch.randn(1, 600, 144, generator=g).to(dev, torch.bfloat16)
+    att.attention(x, x, x, 2)
+    att.attention(x[:, :500].contiguous(), x[:, :500].contiguous(),
+                  x[:, :500].contiguous(), 2)
+    att.attention(x.float(), x.float(), x.float(), 2)
+    assert att.launch_counts()["fused_attention_fwd"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_tiny_finetune_runs_the_kernels():
+    """One epoch of PEFT on a small head_dim-72 SigLIP tower at S=576 on the
+    card: the frozen prefix through K5/K4, the trainable block's attention
+    through K6 forward and backward, frozen leaves untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data import ImageArrayDataset, SplitView
+    from aihab_clip_tpu_torch.models import SIGLIP_ARCHS, load
+    from aihab_clip_tpu_torch.ops import attention as att
+    from aihab_clip_tpu_torch.train.peft import PEFTConfig, finetune
+
+    cfg = dataclasses.replace(
+        SIGLIP_ARCHS["SigLIP-Tiny"], embed_dim=144, image_resolution=384,
+        patch_size=16, vision_width=144, vision_layers=3, vision_heads=2,
+        vision_mlp_dim=344, text_width=144, text_heads=2, text_mlp_dim=344)
+    model = load("random:peft72", dtype=torch.bfloat16, device="cuda",
+                 random_cfg=cfg, seed=6).model
+    n = 12
+    rng = np.random.default_rng(7)
+    ds = ImageArrayDataset(
+        images=rng.integers(0, 256, (n, 400, 400, 3), dtype=np.uint8),
+        labels=rng.integers(0, 20, n), l2_labels=np.zeros(n, np.int64),
+        poly_labels=np.full(n, -1, np.int64), plot_word_labels=[""] * n,
+        poly_word_labels=[""] * n, file_names=[""] * n,
+        plot_idx=list(range(n)), image_sources=[""] * n)
+    weights = torch.nn.functional.normalize(
+        torch.randn(144, 20, generator=torch.Generator().manual_seed(8)),
+        dim=0).cuda()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    bk.reset_launch_counts()
+    att.reset_launch_counts()
+    out = finetune(model, SplitView(ds, np.arange(8), 4, shuffle=True), None,
+                   SplitView(ds, np.arange(8, n), 4),
+                   PEFTConfig(resolution=384, num_classes=20, lr=1e-3,
+                              epochs=1, rotation=True,
+                              compute_dtype=torch.bfloat16, fused_prefix=2),
+                   text_weights=weights, unlocked_groups=2, verbose=False,
+                   device="cuda")
+    torch.cuda.synchronize()
+    assert att.launch_counts() == {"fused_attention_fwd": 2,
+                                   "fused_attention_bwd": 2}
+    # 2 steps x 2 prefix blocks + 1 test batch x 3 blocks
+    assert bk.launch_counts()["attn_block_split"] == 7
+    assert bk.launch_counts()["mlp_block_split"] == 7
+    assert np.isfinite(out["test"]["loss"]) and out["test"]["cm"].sum() == 4
+    moved = 0
+    for name, trainable in out["mask"].items():
+        same = torch.equal(before[name], out["params"][name])
+        assert same or trainable, name
+        moved += not same
+    assert moved > 0
