@@ -55,25 +55,6 @@
 
 namespace {
 
-enum Act { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU_TANH = 2, ACT_GELU_POLY = 3 };
-
-// The activations of block_kernel.py::_act_f32, in fp32.
-__device__ __forceinline__ float act_f32(float h, int act) {
-  if (act == ACT_QUICK_GELU) return h / (1.0f + expf(-1.702f * h));
-  if (act == ACT_GELU_TANH) {
-    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * h * (1.0f + tanhf(k * (h + 0.044715f * h * h * h)));
-  }
-  if (act == ACT_GELU_POLY) {
-    // exact GELU as h * sigmoid(odd deg-5 poly), block_kernel.py:450
-    const float hc = fminf(fmaxf(h, -7.5f), 7.5f);
-    const float u = hc * hc;
-    const float f = hc * (1.5953873f + u * (0.07364605f + u * -6.3791875e-4f));
-    return h / (1.0f + expf(-f));
-  }
-  return h;
-}
-
 // ---------------------------------------------------------------------------
 // LN statistics: stats[r] = (mean, rsqrt(var + eps)) of row r, two-pass fp32
 // (block_kernel.py:33), one warp per row.  A pre-pass of ln_gemm, so the
@@ -128,19 +109,6 @@ constexpr int B_VECS = BK * BN / 8 / GEMM_THREADS;
 static_assert(GEMM_THREADS % (BK / 8) == 0, "a thread keeps one A column slice");
 constexpr int GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2 +
                           (GEMM_THREADS / 32) * 16 * E_LD * 4 + BM * 8;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));  // src-size 0 writes zeros
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename TA, bool LN, bool RES, typename TR, typename TO>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
@@ -356,7 +324,8 @@ int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float*
 // no [S, S] tensor exists anywhere; P is cast to bf16 before the PV product
 // (block_kernel.py:993-998, :815) and the 1/sum is applied to the output rows.
 // Each lane owns one query row's half (HDP/2 output dims) in registers.  D=64
-// is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).
+// is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).  The
+// output is bf16, or fp32 (TO) for quant_attn_block_split (quant_kernels.cu).
 // Operands: q, k and v of head h start at column (h / g) * group_stride +
 // (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
 // of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
@@ -369,10 +338,10 @@ int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float*
 // the backward kernels (fused_attention_bwd.cu) rebuild P from.
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, typename TO>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
-                 const bf16* __restrict__ vp, bf16* __restrict__ out,
+                 const bf16* __restrict__ vp, TO* __restrict__ out,
                  float* __restrict__ lse, int S, int seq_len, int heads,
                  int group_heads, int ld, int group_stride, float scale) {
   using T = AttnTile<HD>;
@@ -484,7 +453,7 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     const float inv = 1.f / l_run;
 #pragma unroll
     for (int c = 0; c < HALF; ++c) o[c] *= inv;
-    bf16* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
+    TO* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
 #pragma unroll
     for (int c = 0; c < HALF; c += 8)
       if (half * HALF + c < HD) store8(dst + c, o + c);
@@ -493,31 +462,32 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   }
 }
 
-template <int HD>
+template <int HD, typename TO>
 int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
                      int B, int S, int seq_len, int heads, int group_heads, int ld,
                      int group_stride, float scale, cudaStream_t stream) {
-  auto kernel = attention_kernel<HD>;
+  auto kernel = attention_kernel<HD, TO>;
   constexpr int smem = 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + AQ - 1) / AQ, heads, B);
-  kernel<<<grid, ATT_THREADS, smem, stream>>>(q, k, v, static_cast<bf16*>(out), lse, S,
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(q, k, v, static_cast<TO*>(out), lse, S,
                                               seq_len, heads, group_heads, ld,
                                               group_stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TO>
 int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
                        int B, int S, int seq_len, int heads, int group_heads, int head_dim,
                        int ld, int group_stride, float scale, cudaStream_t stream) {
   if (head_dim == 64)
-    return launch_attention<64>(q, k, v, out, lse, B, S, seq_len, heads, group_heads, ld,
-                                group_stride, scale, stream);
+    return launch_attention<64, TO>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
+                                    ld, group_stride, scale, stream);
   if (head_dim == 72)
-    return launch_attention<72>(q, k, v, out, lse, B, S, seq_len, heads, group_heads, ld,
-                                group_stride, scale, stream);
+    return launch_attention<72, TO>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
+                                    ld, group_stride, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -560,15 +530,22 @@ int aihab_gemm_residual(const void* a, const void* w, int ldw, const float* bias
       a, nullptr, nullptr, nullptr, w, bias, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1, s);
 }
 
-// out[B,S,heads*D] (bf16) = masked multi-head attention over qkv[B,S,3*heads*D]
-// in the grouped layout (group_heads heads per group); D is 64 or 72.
+// out[B,S,heads*D] (bf16, or fp32 with out_f32) = masked multi-head attention
+// over qkv[B,S,3*heads*D] in the grouped layout (group_heads heads per group);
+// D is 64 or 72.  The fp32 output is quant_attn_block_split's (K13), whose
+// per-group requantize reads the PV product unrounded, as the TPU kernel does.
 int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int heads,
-                    int group_heads, int head_dim, float scale, void* stream) {
+                    int group_heads, int head_dim, float scale, int out_f32, void* stream) {
   const bf16* base = static_cast<const bf16*>(qkv);
   const int gw = group_heads * head_dim;
-  return attention_dispatch(base, base + gw, base + 2 * gw, out, nullptr, B, S, seq_len,
-                            heads, group_heads, head_dim, 3 * heads * head_dim, 3 * gw,
-                            scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_f32)
+    return attention_dispatch<float>(base, base + gw, base + 2 * gw, out, nullptr, B, S,
+                                     seq_len, heads, group_heads, head_dim,
+                                     3 * heads * head_dim, 3 * gw, scale, s);
+  return attention_dispatch<bf16>(base, base + gw, base + 2 * gw, out, nullptr, B, S,
+                                  seq_len, heads, group_heads, head_dim,
+                                  3 * heads * head_dim, 3 * gw, scale, s);
 }
 
 // fused_attention's forward (K6): out = softmax(scale * q k^T) v over
@@ -577,10 +554,10 @@ int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int h
 int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void* out,
                               void* lse, int B, int S, int heads, int head_dim, float scale,
                               void* stream) {
-  return attention_dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                            static_cast<const bf16*>(v), out, static_cast<float*>(lse), B,
-                            S, S, heads, heads, head_dim, heads * head_dim, 0, scale,
-                            static_cast<cudaStream_t>(stream));
+  return attention_dispatch<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                  static_cast<const bf16*>(v), out, static_cast<float*>(lse),
+                                  B, S, S, heads, heads, head_dim, heads * head_dim, 0, scale,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

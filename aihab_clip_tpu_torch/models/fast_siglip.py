@@ -13,7 +13,8 @@ vectors fp32.  ``siglip_encode_fast`` (serving, forward only) runs
   -> ``ln_post`` -> MAP pooling head.
 
 ``siglip_encode_hybrid`` is the PEFT train step's encode: the frozen bottom
-``n_prefix`` blocks through K5/K4 without a graph, then the trainable blocks
+``n_prefix`` blocks through K5/K4 (or, with ``qprefix``, the int8 kernels
+K13/K9/K10 of ``quant_siglip``) without a graph, then the trainable blocks
 as the canonical ``SigLIPBlock`` modules under autograd (their attention
 through the fused attention kernel, K6), then the MAP head.
 
@@ -23,8 +24,8 @@ in the hand-written kernels of ``ops/block_kernel.py`` when the pack lives
 on the card and in their plain versions on the CPU.  The head grouping and
 the chunk count keep the JAX values, which the TPU's VMEM chose (8 groups
 of 2 heads and 2 chunks at SO400M), so the packed tensors and the rounding
-points are the JAX path's.  The scan and int8 entry points of the JAX
-module come with later slices.
+points are the JAX path's.  The scan entry points of the JAX module come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -167,7 +168,8 @@ def siglip_encode_fast(model: SigLIPModel, images: torch.Tensor,
 def siglip_encode_hybrid(model: SigLIPModel, images: torch.Tensor,
                          config: SigLIPConfig, n_prefix: int, *,
                          project: bool = False, dtype=torch.bfloat16,
-                         packed_prefix: Optional[Dict] = None):
+                         packed_prefix: Optional[Dict] = None,
+                         qprefix: Optional[Dict] = None):
     """The PEFT train step's encode (``fast_siglip.py:319-386``): the stem
     and the ``n_prefix`` FROZEN bottom blocks through K5/K4 under
     ``torch.no_grad()`` (the counterpart of JAX's ``stop_gradient`` on the
@@ -175,10 +177,26 @@ def siglip_encode_hybrid(model: SigLIPModel, images: torch.Tensor,
     ``SigLIPBlock`` modules ``[n_prefix, L)`` and the MAP head under
     autograd, in ``dtype``.  ``packed_prefix`` (``pack_siglip_fast_params``
     with ``stop=n_prefix, hybrid=True``) is packed once per run by the
-    caller; it is packed here when not given.  With ``n_prefix`` 0 the stem
-    is differentiable too."""
+    caller; it is packed here when not given.  ``qprefix``
+    ({resblocks_i: ``quant_siglip.quantize_siglip_block``}) switches the
+    prefix blocks to the int8 kernels (K13 -> K9 -> K10); the stem stays in
+    ``dtype``, as in JAX.  With ``n_prefix`` 0 the stem is differentiable
+    too."""
     vp = model.visual
-    if n_prefix > 0:
+
+    def stem():   # the canonical stem's weights in dtype
+        return dict(dtype=dtype, patch_kernel=vp.patch_kernel().to(dtype),
+                    patch_bias=vp.conv1.bias.to(dtype),
+                    positional_embedding=vp.positional_embedding.to(dtype))
+
+    if n_prefix > 0 and qprefix is not None:
+        from .quant_siglip import apply_int8_siglip_blocks
+
+        with torch.no_grad():
+            x = apply_int8_siglip_blocks(
+                qprefix, _siglip_embed(stem(), images, config), config,
+                start=0, stop=n_prefix)
+    elif n_prefix > 0:
         if packed_prefix is None:
             packed_prefix = pack_siglip_fast_params(
                 model, config, dtype, stop=n_prefix, hybrid=True)
@@ -186,13 +204,9 @@ def siglip_encode_hybrid(model: SigLIPModel, images: torch.Tensor,
             x = _siglip_embed(packed_prefix, images, config)
             x = _apply_fused_siglip_blocks(packed_prefix, x, config, start=0,
                                            stop=n_prefix)
-        x = x.to(dtype)
     else:
-        x = _siglip_embed(dict(
-            dtype=dtype, patch_kernel=vp.patch_kernel().to(dtype),
-            patch_bias=vp.conv1.bias.to(dtype),
-            positional_embedding=vp.positional_embedding.to(dtype)),
-            images, config)
+        x = _siglip_embed(stem(), images, config)
+    x = x.to(dtype)
     for blk in vp.transformer.resblocks[n_prefix:]:
         x = blk(x)
     pooled = _map_pool(model, x)

@@ -8,8 +8,10 @@ keyed by the hash of its source and the shared header, so an edited source
 is never served a stale build.  Nothing is compiled at import: the first
 kernel launch builds.
 
-  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5; K6 fwd)
+  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5; K6 fwd;
+                         K13's attention core, fp32 output)
   fused_attention_bwd.cu fused_attention's backward (K6b)
+  quant_kernels.cu       row_quant, int8_gemm (K8, K9, K10, K13)
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("block_kernels", "fused_attention_bwd")
+SOURCES = ("block_kernels", "fused_attention_bwd", "quant_kernels")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,13 +39,18 @@ _ARGTYPES = {
                           _f, _f, _i, _i, _p],
         "aihab_gemm_residual": [_p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _i,
                                 _p],
-        "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _p],
+        "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _p],
         "aihab_fused_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
                                       _p],
     },
     "fused_attention_bwd": {
         "aihab_fused_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
                                       _i, _i, _i, _i, _f, _p],
+    },
+    "quant_kernels": {
+        "aihab_row_quant": [_p, _i, _i, _i, _i, _i, _p, _p, _f, _p, _p, _p],
+        "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i, _i,
+                            _i, _f, _i, _i, _p],
     },
 }
 

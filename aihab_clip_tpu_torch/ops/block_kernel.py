@@ -132,14 +132,14 @@ def _split_qkv(qkv, heads, group_heads):
 
 def attention_plain(qkv, heads: int, seq_len: int | None = None, *,
                     group_heads: int | None = None, q_scaled: bool = False,
-                    normalize_p: bool = False):
+                    normalize_p: bool = False, out_dtype=None):
     """qkv [B, S, 3W] (q | k | v, heads packed; or head-grouped, see
-    ``attention``) -> [B, S, W]; keys at or beyond ``seq_len`` masked.
-    q is scaled before its rounding to the compute dtype (the TPU
-    kernel's order) unless ``q_scaled`` says the qkv producer did it.  P is
-    cast to the compute dtype before PV; the 1/sum applies to the output
-    rows, as in the CUDA kernel, or to P before the cast with
-    ``normalize_p``, as in the TPU kernels."""
+    ``attention``) -> [B, S, W] in ``out_dtype`` (default qkv's); keys at or
+    beyond ``seq_len`` masked.  q is scaled before its rounding to the
+    compute dtype (the TPU kernel's order) unless ``q_scaled`` says the qkv
+    producer did it.  P is cast to the compute dtype before PV; the 1/sum
+    applies to the output rows, as in the CUDA kernel, or to P before the
+    cast with ``normalize_p``, as in the TPU kernels."""
     b, s, w3 = qkv.shape
     w = w3 // 3
     d = w // heads
@@ -156,7 +156,7 @@ def attention_plain(qkv, heads: int, seq_len: int | None = None, *,
         o = (p / p.sum(-1, keepdim=True)).to(cdt).float() @ v
     else:
         o = (p.to(cdt).float() @ v) / p.sum(-1, keepdim=True)
-    return o.transpose(1, 2).reshape(b, s, w).to(cdt)
+    return o.transpose(1, 2).reshape(b, s, w).to(out_dtype or cdt)
 
 
 _PLAIN = SimpleNamespace(ln_gemm=ln_gemm_plain, attention=attention_plain,
@@ -266,9 +266,12 @@ def gemm_residual(a, w, bias, residual, *, out_dtype=None):
 
 
 def attention(qkv, heads: int, seq_len: int | None = None, *,
-              group_heads: int | None = None, q_scaled: bool = False):
-    """qkv [B, S, 3W] bf16 -> masked multi-head attention [B, S, W] bf16
-    (keys >= ``seq_len`` masked).  Layout: ``group_heads`` heads per group
+              group_heads: int | None = None, q_scaled: bool = False,
+              out_dtype=None):
+    """qkv [B, S, 3W] bf16 -> masked multi-head attention [B, S, W] in
+    ``out_dtype`` (default bf16; fp32 keeps the PV product unrounded, as
+    ``quant_attn_block_split`` reads it; keys >= ``seq_len`` masked).
+    Layout: ``group_heads`` heads per group
     (default all: CLIP's packed q | k | v), each group's columns q_g | k_g
     | v_g.  ``q_scaled``: q already holds q / sqrt(d), rounded; otherwise
     the kernel scales the fp32 scores (exactly the plain version's
@@ -276,7 +279,8 @@ def attention(qkv, heads: int, seq_len: int | None = None, *,
     72); plain version ``attention_plain`` on CPU tensors."""
     if not qkv.is_cuda:
         return attention_plain(qkv, heads, seq_len, group_heads=group_heads,
-                               q_scaled=q_scaled)
+                               q_scaled=q_scaled, out_dtype=out_dtype)
+    out_dtype = out_dtype or torch.bfloat16
     b, s, w3 = qkv.shape
     w = w3 // 3
     d = w // heads
@@ -289,10 +293,13 @@ def attention(qkv, heads: int, seq_len: int | None = None, *,
         raise ValueError(f"group of {g} heads does not divide {heads}")
     if not 1 <= seq_len <= s:
         raise ValueError(f"seq_len {seq_len} outside [1, {s}]")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype} not bf16/fp32")
     _check("qkv", qkv, torch.bfloat16, (b, s, w3), qkv.device)
-    out = torch.empty((b, s, w), dtype=torch.bfloat16, device=qkv.device)
+    out = torch.empty((b, s, w), dtype=out_dtype, device=qkv.device)
     launch("aihab_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
-           b, s, seq_len, heads, g, d, 1.0 if q_scaled else 1.0 / math.sqrt(d))
+           b, s, seq_len, heads, g, d, 1.0 if q_scaled else 1.0 / math.sqrt(d),
+           int(out_dtype == torch.float32))
     attention.launches += 1
     return out
 

@@ -1,0 +1,461 @@
+"""W8A8 int8 kernels on Hopper, with their plain versions (counterpart of
+``aihab_clip_tpu/ops/quant_matmul.py``).
+
+  * ``quant_matmul_fused``      (K8)  [LN] -> row quantize -> int8 GEMM ->
+                                      dequant + bias -> act [+ residual]
+  * ``quant_matmul_fused_qout`` (K9)  LN -> row quantize -> int8 GEMM ->
+                                      dequant + bias -> act -> requantize
+  * ``quant_matmul_q8in``       (K10) int8 GEMM on quantized rows ->
+                                      dequant + bias + residual
+  * ``quant_attn_block_split``  (K13) LN -> row quantize -> int8 QKV over
+                                      head groups -> bf16 MHA -> requantize
+                                      per group -> int8 out-proj, the group
+                                      partials summed in fp32 + b + x
+
+On the TPU each is one Pallas program per row tile (K13: per image and head
+group) with its int8 weights resident in VMEM.  On the H100 each is a
+composition of hand-written CUDA kernels (``csrc/quant_kernels.cu``, whose
+header gives the design and the bound):
+
+  * ``row_quant``  optional fp32 LN, then per row (or per head group of a
+                   row) s = max(amax, 1e-12) * (1/127) and the int8 codes
+  * ``int8_gemm``  int8 x int8 -> int32 on the tensor cores, dequant
+                   acc * (s_x * s_w) + bias, act, q-scale, residual; or with
+                   a dequant per head group of K, summed in group order
+  * ``attention``  (``ops/block_kernel.py``) the bf16 attention core over
+                   the grouped qkv, q pre-scaled, fp32 output
+
+K8 = row_quant -> int8_gemm.  K9 = row_quant(LN) -> int8_gemm (fp32 y) ->
+row_quant(y): the requantize needs a whole row, which no GEMM tile holds.
+K10 = int8_gemm.  K13 = row_quant(LN) -> int8_gemm (bf16 qkv, q * 1/sqrt(d)
+in fp32 before the rounding, as the TPU kernel rounds it) -> attention (fp32)
+-> row_quant per head group, each group's codes padded with zeros to a
+multiple of 32 -> int8_gemm with a dequant per group.
+
+Layouts.  The public functions keep the JAX signatures and layouts: ``w8``
+[K, N] with ``w_scale`` [N]; K13's ``wqkv8_g`` [G, W, 3gD] and ``wout8_g``
+[G, gD, W].  Hopper's int8 tensor cores take both operands K-major, so the
+kernels read every weight as [N, K] rows.  ``int8_weight`` and
+``int8_attn_weights`` lay the weights out so once, at quantize time, and
+return views of JAX's shapes over that storage; the wrappers read such views
+in place and copy any other layout on each call.
+
+Every wrapper runs its plain PyTorch version when handed CPU tensors and
+launches its kernels (or raises) for CUDA tensors — there is no fallback.
+Each counts its launches in a plain integer attribute
+(``quant_matmul_fused.launches``).  The plain versions take the integer
+products in float64, exact for int8 codes (``ops/quant.int_matmul``), and
+round where the kernels and the TPU kernels round.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+from types import SimpleNamespace
+
+import torch
+
+from . import block_kernel as bk
+from ._build import launch
+from .block_kernel import ACTS, _check, _ln_f32, _vec_f32, act_f32
+from .quant import int_matmul
+
+# the int8 GEMM's k-step in bytes: a grouped K is padded to a multiple of it
+GEMM_BK = 32
+
+
+def _group_pad(width: int) -> int:
+    return -(-width // GEMM_BK) * GEMM_BK
+
+
+# ---------------------------------------------------------------------------
+# weight layouts
+# ---------------------------------------------------------------------------
+
+
+def int8_weight(w8: torch.Tensor) -> torch.Tensor:
+    """[K, N] int8 -> the same values as a [K, N] view of K-major ([N, K]
+    row-major) storage, which the kernels read in place."""
+    return w8.t().contiguous().t()
+
+
+def _kmajor(w8: torch.Tensor) -> torch.Tensor:
+    """The [N, K] row-major operand behind a [K, N] weight (a copy unless
+    ``w8`` is an ``int8_weight`` view)."""
+    return w8.t().contiguous()
+
+
+def int8_attn_weights(wqkv8_g: torch.Tensor, wout8_g: torch.Tensor):
+    """K13's grouped weights -> the same values as views of JAX's shapes over
+    the kernels' storage: ``wqkv8_g`` [G, W, 3gD] over [G, 3gD, W], and
+    ``wout8_g`` [G, gD, W] over [W, G, P], each group's gD rows of K padded
+    with zeros to P, a multiple of 32."""
+    g, gd, w = wout8_g.shape
+    qkv = wqkv8_g.transpose(1, 2).contiguous().transpose(1, 2)
+    out = torch.zeros(w, g, _group_pad(gd), dtype=torch.int8,
+                      device=wout8_g.device)
+    out[:, :, :gd] = wout8_g.permute(2, 0, 1)
+    return qkv, out[:, :, :gd].permute(1, 2, 0)
+
+
+def _qkv_operand(wqkv8_g):
+    """[G, W, 3gD] -> the [G*3gD, W] operand (a view of ``int8_attn_weights``
+    storage, else a copy)."""
+    g, w, c = wqkv8_g.shape
+    return wqkv8_g.transpose(1, 2).reshape(g * c, w)
+
+
+def _out_operand(wout8_g):
+    """[G, gD, W] -> the [W, G*P] operand, each group's K padded to P."""
+    g, gd, w = wout8_g.shape
+    p = _group_pad(gd)
+    if wout8_g.stride() == (p, 1, g * p):       # int8_attn_weights storage
+        return torch.as_strided(wout8_g, (w, g * p), (g * p, 1))
+    out = torch.zeros(w, g, p, dtype=torch.int8, device=wout8_g.device)
+    out[:, :, :gd] = wout8_g.permute(2, 0, 1)
+    return out.reshape(w, g * p)
+
+
+# ---------------------------------------------------------------------------
+# the pieces: plain versions and CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def row_quant_plain(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
+                    group_pad=0):
+    """Plain version of ``row_quant`` (same signature)."""
+    xf = x.float()
+    if ln_scale is not None:
+        xf = _ln_f32(xf, ln_scale, ln_bias, eps)
+    m, k = xf.shape
+    kg = group or k
+    xg = xf.reshape(m, k // kg, kg)
+    s = xg.abs().amax(-1).clamp_min(1e-12) * (1.0 / 127.0)      # [M, G]
+    q = torch.round(xg / s[..., None]).clamp(-127, 127).to(torch.int8)
+    if group_pad > kg:
+        q = torch.nn.functional.pad(q, (0, group_pad - kg))
+    return q.reshape(m, -1), s
+
+
+def row_quant(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
+              group_pad=0):
+    """x [M, K] (bf16 or fp32) -> (codes [M, G*P] int8, scales [M, G] fp32):
+    an optional fp32 LN over the row, then per group of ``group`` columns
+    (default the whole row, G = 1) s = max(amax, 1e-12) * (1/127) and codes
+    clip(round(v / s), -127, 127), each group's codes padded with zeros to
+    ``group_pad`` (P, default the group width).  Kernel ``row_quant``."""
+    if not x.is_cuda:
+        return row_quant_plain(x, ln_scale, ln_bias, eps=eps, group=group,
+                               group_pad=group_pad)
+    m, k = x.shape
+    kg = group or k
+    kp = max(group_pad, kg)
+    if k % kg:
+        raise ValueError(f"group {kg} does not divide the row width {k}")
+    dev = x.device
+    _check("x", x, (torch.bfloat16, torch.float32), (m, k), dev)
+    ln = ((None, None) if ln_scale is None else
+          (_vec_f32(ln_scale, k, dev, "ln_scale"),
+           _vec_f32(ln_bias, k, dev, "ln_bias")))
+    q = torch.empty((m, (k // kg) * kp), dtype=torch.int8, device=dev)
+    s = torch.empty((m, k // kg), dtype=torch.float32, device=dev)
+    launch("aihab_row_quant", dev, x.data_ptr(), int(x.dtype == torch.float32),
+           m, k, kg, kp, *(None if t is None else t.data_ptr() for t in ln),
+           eps, q.data_ptr(), s.data_ptr())
+    row_quant.launches += 1
+    return q, s
+
+
+def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
+                    out_dtype=torch.bfloat16, q_scale=1.0, q_width=0,
+                    groups=1):
+    """Plain version of ``int8_gemm`` (same signature)."""
+    m, k = a8.shape
+    kg = k // groups
+    sa = sa.reshape(m, groups).float()
+    ws = ws.float()[None, :]
+    for g in range(groups):
+        cols = slice(g * kg, (g + 1) * kg)
+        part = int_matmul(a8[:, cols], wt[:, cols].t()) * (sa[:, g:g + 1] * ws)
+        if g == 0:
+            y = part + bias.float()[None, :]
+            if groups > 1:
+                y = y + residual.float()
+        else:
+            y = y + part
+    if groups == 1:
+        y = act_f32(y, act)
+        if q_width:
+            is_q = torch.arange(y.shape[-1], device=y.device) % (3 * q_width) \
+                < q_width
+            y = torch.where(is_q, y * q_scale, y)
+        if residual is not None:
+            y = y + residual.float()
+    return y.to(out_dtype)
+
+
+def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
+              out_dtype=torch.bfloat16, q_scale=1.0, q_width=0, groups=1):
+    """a8 [M, K] int8 (row scales ``sa`` [M, groups]) times ``wt`` [N, K]
+    int8 (K-major, column scales ``ws`` [N]) -> [M, N] in ``out_dtype``.
+
+    groups = 1: act(acc * (sa * ws) + bias), the q columns of each head group
+    (``q_width`` wide, groups 3 q_width wide) times ``q_scale``, + residual.
+    groups > 1: K is ``groups`` equal spans; span g's int32 sum is
+    dequantized with ``sa[:, g]``, and the partials sum in fp32 as
+    (part_0 + bias) + residual + part_1 + ... (K13's out-proj).  Kernel
+    ``int8_gemm``."""
+    if not a8.is_cuda:
+        return int8_gemm_plain(a8, sa, wt, ws, bias, act=act,
+                               residual=residual, out_dtype=out_dtype,
+                               q_scale=q_scale, q_width=q_width,
+                               groups=groups)
+    m, k = a8.shape
+    n = wt.shape[0]
+    if k % 16 or n % 8 or q_width % 2:
+        raise ValueError(f"int8_gemm needs K a multiple of 16, N of 8 and an "
+                         f"even q_width, got {k}, {n}, {q_width}")
+    if groups > 1 and (k % (groups * GEMM_BK) or act != "none" or q_width
+                       or residual is None or residual.dtype != out_dtype):
+        raise ValueError("grouped int8_gemm needs spans that are multiples of "
+                         f"{GEMM_BK}, no activation or q-scale, and a "
+                         "residual of the output's dtype")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype} not bf16/fp32")
+    dev = a8.device
+    _check("a8", a8, torch.int8, (m, k), dev)
+    _check("wt", wt, torch.int8, (n, k), dev)
+    sa = sa.to(dtype=torch.float32).contiguous()
+    if sa.numel() != m * groups or sa.device != dev:
+        raise ValueError(f"sa must hold {m} x {groups} scales on {dev}")
+    ws = _vec_f32(ws, n, dev, "ws")
+    bias = _vec_f32(bias, n, dev, "bias")
+    if residual is not None:
+        _check("residual", residual, (torch.bfloat16, torch.float32), (m, n),
+               dev)
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    launch("aihab_int8_gemm", dev, a8.data_ptr(), sa.data_ptr(),
+           wt.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+           None if residual is None else residual.data_ptr(),
+           int(residual is not None and residual.dtype == torch.float32),
+           y.data_ptr(), int(out_dtype == torch.float32), m, n, k, groups,
+           ACTS[act], q_scale, q_width, max(3 * q_width, 1))
+    int8_gemm.launches += 1
+    return y
+
+
+_PLAIN = SimpleNamespace(row_quant=row_quant_plain, int8_gemm=int8_gemm_plain,
+                         attention=partial(bk.attention_plain,
+                                           normalize_p=True))
+_KERNELS = SimpleNamespace(row_quant=row_quant, int8_gemm=int8_gemm,
+                           attention=bk.attention)
+
+
+# ---------------------------------------------------------------------------
+# the compositions, shared by the kernel and plain paths
+# ---------------------------------------------------------------------------
+
+
+def _check_act(act):
+    if act not in ACTS:
+        raise ValueError(f"unknown activation '{act}'")
+
+
+def _k8(ops, x, w8, w_scale, bias, act, residual, ln_scale, ln_bias, ln_eps):
+    x8, sx = ops.row_quant(x, ln_scale, ln_bias, eps=ln_eps)
+    return ops.int8_gemm(x8, sx, _kmajor(w8), w_scale, bias, act=act,
+                         residual=residual, out_dtype=x.dtype)
+
+
+def _k9(ops, x, w8, w_scale, bias, ln_scale, ln_bias, act, ln_eps):
+    x8, sx = ops.row_quant(x, ln_scale, ln_bias, eps=ln_eps)
+    y = ops.int8_gemm(x8, sx, _kmajor(w8), w_scale, bias, act=act,
+                      out_dtype=torch.float32)
+    return ops.row_quant(y)
+
+
+def _k10(ops, x8, x_scale, w8, w_scale, bias, residual):
+    return ops.int8_gemm(x8, x_scale, _kmajor(w8), w_scale, bias,
+                         residual=residual, out_dtype=residual.dtype)
+
+
+def _k13(ops, x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g, out_scale, b_out,
+         ln_scale, ln_bias, heads, n_groups, ln_eps, seq_len):
+    b, s, w = x.shape
+    d = w // heads
+    gd = heads // n_groups * d
+    x2 = x.reshape(b * s, w)
+    x8, sx = ops.row_quant(x2, ln_scale, ln_bias, eps=ln_eps)
+    qkv = ops.int8_gemm(x8, sx, _qkv_operand(wqkv8_g), qkv_scale_g.reshape(-1),
+                        b_qkv_g.reshape(-1), out_dtype=torch.bfloat16,
+                        q_scale=1.0 / math.sqrt(d), q_width=gd)
+    attn = ops.attention(qkv.reshape(b, s, 3 * w), heads, seq_len,
+                         group_heads=heads // n_groups, q_scaled=True,
+                         out_dtype=torch.float32)
+    a8, sa = ops.row_quant(attn.reshape(b * s, w), group=gd,
+                           group_pad=_group_pad(gd))
+    out = ops.int8_gemm(a8, sa, _out_operand(wout8_g), out_scale, b_out,
+                        residual=x2, out_dtype=x.dtype, groups=n_groups)
+    return out.reshape(b, s, w)
+
+
+# ---------------------------------------------------------------------------
+# the TPU kernels' functions
+# ---------------------------------------------------------------------------
+
+
+def quant_matmul_fused_plain(x, w8, w_scale, bias, act: str = "none",
+                             residual=None, ln_scale=None, ln_bias=None,
+                             ln_eps: float = 1e-5):
+    """Plain version of ``quant_matmul_fused`` (same signature)."""
+    _check_act(act)
+    return _k8(_PLAIN, x, w8, w_scale, bias, act, residual, ln_scale, ln_bias,
+               ln_eps)
+
+
+def quant_matmul_fused(x, w8, w_scale, bias, act: str = "none",
+                       residual=None, ln_scale=None, ln_bias=None,
+                       ln_eps: float = 1e-5):
+    """y = act(dequant(q(opt_LN(x)) @ w8) + bias) [+ residual] (K8).
+
+    x [M, K] bf16/fp32, w8 [K, N] int8, w_scale [N] fp32, bias [N] fp32;
+    ``ln_scale``/``ln_bias`` add an fp32 LayerNorm over K before the
+    quantize; ``act`` one of none, quick_gelu, gelu_tanh, gelu_poly.  Output
+    in x's dtype."""
+    _check_act(act)
+    if not x.is_cuda:
+        return quant_matmul_fused_plain(x, w8, w_scale, bias, act, residual,
+                                        ln_scale, ln_bias, ln_eps)
+    out = _k8(_KERNELS, x, w8, w_scale, bias, act, residual, ln_scale,
+              ln_bias, ln_eps)
+    quant_matmul_fused.launches += 1
+    return out
+
+
+def quant_matmul_fused_qout_plain(x, w8, w_scale, bias, ln_scale, ln_bias,
+                                  act: str = "quick_gelu",
+                                  ln_eps: float = 1e-5):
+    """Plain version of ``quant_matmul_fused_qout`` (same signature)."""
+    _check_act(act)
+    return _k9(_PLAIN, x, w8, w_scale, bias, ln_scale, ln_bias, act, ln_eps)
+
+
+def quant_matmul_fused_qout(x, w8, w_scale, bias, ln_scale, ln_bias,
+                            act: str = "quick_gelu", ln_eps: float = 1e-5):
+    """LN -> W8A8 GEMM -> act -> requantize (K9): returns (y8 [M, N] int8,
+    y_scale [M, 1] fp32), the requantize over each whole row of the fp32
+    activation."""
+    _check_act(act)
+    if not x.is_cuda:
+        return quant_matmul_fused_qout_plain(x, w8, w_scale, bias, ln_scale,
+                                             ln_bias, act, ln_eps)
+    out = _k9(_KERNELS, x, w8, w_scale, bias, ln_scale, ln_bias, act, ln_eps)
+    quant_matmul_fused_qout.launches += 1
+    return out
+
+
+def quant_matmul_q8in_plain(x8, x_scale, w8, w_scale, bias, residual):
+    """Plain version of ``quant_matmul_q8in`` (same signature)."""
+    return _k10(_PLAIN, x8, x_scale, w8, w_scale, bias, residual)
+
+
+def quant_matmul_q8in(x8, x_scale, w8, w_scale, bias, residual):
+    """y = dequant(x8 @ w8) + bias + residual for rows quantized before
+    (K10): x8 [M, K] int8 with x_scale [M, 1]; output in the residual's
+    dtype."""
+    if not x8.is_cuda:
+        return quant_matmul_q8in_plain(x8, x_scale, w8, w_scale, bias,
+                                       residual)
+    out = _k10(_KERNELS, x8, x_scale, w8, w_scale, bias, residual)
+    quant_matmul_q8in.launches += 1
+    return out
+
+
+def _k13_seq_len(x, heads, n_groups, padded_io, seq_len):
+    if heads % n_groups:
+        raise ValueError(f"n_groups {n_groups} must divide heads {heads} "
+                         "(a floored group size would silently drop heads)")
+    if padded_io:
+        if seq_len is None:
+            raise ValueError("padded_io=True requires seq_len")
+        if x.shape[1] % 16:
+            raise ValueError(f"padded_io input S={x.shape[1]} not a multiple "
+                             "of 16")
+        return seq_len
+    return x.shape[1]
+
+
+def quant_attn_block_split_plain(x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g,
+                                 out_scale, b_out, ln_scale, ln_bias,
+                                 heads: int, n_groups: int,
+                                 ln_eps: float = 1e-5,
+                                 padded_io: bool = False,
+                                 seq_len: int | None = None):
+    """Plain version of ``quant_attn_block_split`` (same signature); its
+    attention normalises P before the bf16 cast, as the TPU kernel does."""
+    seq_len = _k13_seq_len(x, heads, n_groups, padded_io, seq_len)
+    return _k13(_PLAIN, x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g, out_scale,
+                b_out, ln_scale, ln_bias, heads, n_groups, ln_eps, seq_len)
+
+
+def quant_attn_block_split(x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g,
+                           out_scale, b_out, ln_scale, ln_bias, heads: int,
+                           n_groups: int, ln_eps: float = 1e-5,
+                           padded_io: bool = False,
+                           seq_len: int | None = None):
+    """x [B, S, W] -> x + int8_out_proj(MHA(int8_qkv(LN(x)))) over
+    ``n_groups`` head groups (K13), output in x's dtype.
+
+    ``wqkv8_g`` [G, W, 3gD] (group j's columns q_j | k_j | v_j),
+    ``qkv_scale_g``/``b_qkv_g`` [G, 3gD], ``wout8_g`` [G, gD, W]
+    (``regroup_attn_weights``).  The attention core is bf16 whatever x's
+    dtype (q * 1/sqrt(d) in fp32 before its cast), its output fp32; each
+    head group's output is requantized with its own row scale, and the
+    group partials of the out-proj sum in fp32 in group order.
+    ``padded_io``: x arrives padded past the real sequence ``seq_len``
+    (S a multiple of 16); keys at or beyond it are masked and the padded
+    result is returned whole.  No padding is needed otherwise."""
+    if not x.is_cuda:
+        return quant_attn_block_split_plain(
+            x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g, out_scale, b_out,
+            ln_scale, ln_bias, heads, n_groups, ln_eps, padded_io, seq_len)
+    seq_len = _k13_seq_len(x, heads, n_groups, padded_io, seq_len)
+    out = _k13(_KERNELS, x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g, out_scale,
+               b_out, ln_scale, ln_bias, heads, n_groups, ln_eps, seq_len)
+    quant_attn_block_split.launches += 1
+    return out
+
+
+def regroup_attn_weights(wqkv8, qkv_scale, b_qkv, wout8, heads: int,
+                         n_groups: int):
+    """[W, 3W] packed q|k|v (+ scales/bias) and [W, W] out-proj -> the
+    per-head-group tensors of ``quant_attn_block_split``: [G, W, 3gD],
+    [G, 3gD], [G, 3gD] fp32, [G, gD, W] (quant_matmul.py:861)."""
+    if heads % n_groups:
+        raise ValueError(f"n_groups {n_groups} must divide heads {heads}")
+    w = wqkv8.shape[0]
+    gd = w // n_groups
+
+    def group_cols(t):   # [..., 3W] (q | k | v) -> [G, ..., 3gD]
+        parts = t.reshape(*t.shape[:-1], 3, n_groups, gd)
+        return parts.movedim(-2, 0).flatten(-2)
+
+    return (group_cols(wqkv8).contiguous(), group_cols(qkv_scale).contiguous(),
+            group_cols(b_qkv.float()).contiguous(),
+            wout8.reshape(n_groups, gd, -1).contiguous())
+
+
+COUNTED = (row_quant, int8_gemm, quant_matmul_fused, quant_matmul_fused_qout,
+           quant_matmul_q8in, quant_attn_block_split)
+for _fn in COUNTED:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in COUNTED:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in COUNTED}

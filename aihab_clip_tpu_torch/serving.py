@@ -7,7 +7,10 @@
   for the device (the Hopper block kernels on the card) and the logits.
   CLIP ViT towers and SigLIP (``random:ViT-SO400M-16-SigLIP2-384``, the
   system's default backbone, with its 0.5/0.5 pixel stats and its text
-  head) take the same path.
+  head) take the same path.  ``quantize="int8"`` serves SigLIP towers
+  through the int8 kernels (``models/quant_siglip``: K8 patchify, then K13,
+  K9 and K10 per block); int8 for CLIP ViT towers waits for
+  ``quant_full_block_fused`` (K14) and the ViT int8 pieces (K11, K12).
 * :class:`DynamicBatcher` — request threads submit single decoded images; a
   collector thread coalesces them into padded batches of the smallest
   bucket that holds them, and a fetch thread waits on each batch's result,
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+from .models.siglip import SigLIPConfig
 
 
 class ClassifierEngine:
@@ -63,10 +67,8 @@ class ClassifierEngine:
         if lora:
             raise NotImplementedError("LoRA merging (train/lora.py) is not "
                                       "ported yet")
-        if quantize != "none":
-            raise NotImplementedError(
-                f"quantize={quantize!r}: the int8 kernels (K8-K15, "
-                "ops/quant_matmul.py) are not ported yet")
+        if quantize not in ("none", "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         del lora_alpha
         self.model_name = model
         self.batch_size = int(batch_size)
@@ -84,6 +86,12 @@ class ClassifierEngine:
         self.bundle = load(model, dtype=self._compute_dtype,
                            device=self.device)
         cfg = self.bundle.config
+        if quantize == "int8" and not isinstance(cfg, SigLIPConfig):
+            raise NotImplementedError(
+                "quantize='int8' serves SigLIP towers only: the CLIP ViT int8 "
+                "tower waits for quant_full_block_fused (K14), "
+                "quant_attn_block_fused (K12) and quant_mlp_block_fused "
+                "(K11), ROADMAP A11")
         self.resolution = resolution or cfg.image_resolution
         if self.resolution != cfg.image_resolution:
             raise ValueError(
@@ -99,8 +107,13 @@ class ClassifierEngine:
                                context_length=cfg.context_length,
                                tokenize_fn=self.bundle.tokenize_fn)
         self._text_weights = head["text_weights"]
-        self._packed = None
-        if self.device.type == "cuda":
+        self._packed = self._qparams = None
+        if quantize == "int8":
+            from .models.quant_siglip import quantize_siglip_params
+
+            # from the fp32 parameters, once, into the kernels' layout
+            self._qparams = quantize_siglip_params(self.bundle.model, cfg)
+        elif self.device.type == "cuda":
             from .models.fast_vit import pack_fastest
 
             self._packed = pack_fastest(self.bundle.model, cfg,
@@ -119,8 +132,17 @@ class ClassifierEngine:
         mean, std = normalize_stats_for(cfg)
         x = eval_transform(images_u8, self.resolution,
                            dtype=self._compute_dtype, mean=mean, std=std)
-        _, feats = encode_image_fastest(self.bundle.model, x, cfg,
-                                        project=True, packed=self._packed)
+        if self._qparams is not None:
+            from .models.quant_siglip import siglip_encode_int8
+
+            # no dtype, as the JAX engine calls it (serving.py:201-203): the
+            # int8 encode computes in bf16 even where the engine's compute
+            # dtype is fp32 (on the CPU)
+            _, feats = siglip_encode_int8(self._qparams, self.bundle.model,
+                                          x, cfg, project=True)
+        else:
+            _, feats = encode_image_fastest(self.bundle.model, x, cfg,
+                                            project=True, packed=self._packed)
         feats = feats.float()
         feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         return torch.softmax(100.0 * feats @ self._text_weights, dim=-1)

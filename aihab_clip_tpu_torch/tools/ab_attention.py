@@ -9,9 +9,11 @@ and times its own kernels.  The order is parent, change, change, parent
 (``--reps`` rounds of it).  Timed: ``ops.block_kernel.attention`` at the
 ViT-B/16 serving shape (B=64, S=197, 12 heads of 64, packed q | k | v) and
 at the SigLIP SO400M shape (B=64, S=576, 16 heads of 72, 8 groups of 2,
-q pre-scaled), CUDA events over 50 launches after warm-up.  Prints one JSON
-line per run and a summary line with the change's time relative to the
-parent's.
+q pre-scaled), and ``ops.attention.fused_attention_fwd`` (K6) at the SO400M
+PEFT shape (B=16, S=576, 16 heads of 72), CUDA events over 50 launches after
+warm-up; and ``ClassifierEngine("random:ViT-B/16").classify_batch`` images/s
+at batch 64 on the host clock (20 batches after 3).  Prints one JSON line per
+run and a summary line with the change's figure relative to the parent's.
 """
 
 from __future__ import annotations
@@ -24,15 +26,17 @@ import sys
 from pathlib import Path
 
 _TIMING = r"""
-import json, torch
+import json, time, numpy as np, torch
+from aihab_clip_tpu_torch.ops import attention as att
 from aihab_clip_tpu_torch.ops import block_kernel as bk
+from aihab_clip_tpu_torch.serving import ClassifierEngine
 g = torch.Generator().manual_seed(0)
 out = {}
-for name, (b, s, heads, d, groups, q_scaled) in {
-        "attention[hd64, ViT-B/16]": (64, 197, 12, 64, None, False),
-        "attention[hd72, grouped, SO400M]": (64, 576, 16, 72, 2, True)}.items():
-    qkv = torch.randn(b, s, 3 * heads * d, generator=g).to("cuda", torch.bfloat16)
-    fn = lambda: bk.attention(qkv, heads, group_heads=groups, q_scaled=q_scaled)
+
+def rnd(*shape):
+    return torch.randn(*shape, generator=g).to("cuda", torch.bfloat16)
+
+def timed(fn):
     for _ in range(5):
         fn()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -41,7 +45,25 @@ for name, (b, s, heads, d, groups, q_scaled) in {
         fn()
     e1.record()
     torch.cuda.synchronize()
-    out[name] = e0.elapsed_time(e1) / 50
+    return e0.elapsed_time(e1) / 50
+
+for name, (b, s, heads, d, groups, q_scaled) in {
+        "attention[hd64, ViT-B/16]": (64, 197, 12, 64, None, False),
+        "attention[hd72, grouped, SO400M]": (64, 576, 16, 72, 2, True)}.items():
+    qkv = rnd(b, s, 3 * heads * d)
+    out[name] = timed(lambda: bk.attention(qkv, heads, group_heads=groups,
+                                           q_scaled=q_scaled))
+q, k, v = (rnd(16, 576, 16 * 72) for _ in range(3))
+out["fused_attention_fwd[hd72, B=16 S=576]"] = timed(
+    lambda: att.fused_attention_fwd(q, k, v, 16))
+eng = ClassifierEngine("random:ViT-B/16", batch_size=64, verbose=False)
+u8 = np.random.default_rng(64).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+for _ in range(3):
+    eng.classify_batch(u8)
+t0 = time.perf_counter()
+for _ in range(20):
+    eng.classify_batch(u8)
+out["classify_batch[ViT-B/16, batch 64] images/s"] = 20 * 64 / (time.perf_counter() - t0)
 print(json.dumps(out))
 """
 
@@ -70,7 +92,7 @@ def main() -> None:
     for name in runs["parent"][0]:
         p = sum(r[name] for r in runs["parent"]) / len(runs["parent"])
         c = sum(r[name] for r in runs["change"]) / len(runs["change"])
-        summary[name] = dict(parent_ms=p, change_ms=c, change_over_parent=c / p)
+        summary[name] = dict(parent=p, change=c, change_over_parent=c / p)
     print(json.dumps({"summary": summary}))
 
 

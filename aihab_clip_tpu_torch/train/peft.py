@@ -11,8 +11,9 @@
     only ``text.ln_final`` trains; the port keeps that;
   * a train step: the device-side augmentation (``ops/fast_warp``), the
     image encode (for SigLIP with a frozen prefix ``siglip_encode_hybrid``:
-    K5/K4 for the prefix, the canonical blocks with the fused attention
-    kernel K6 forward and backward for the rest), fp32 L2 normalisation,
+    K5/K4 for the prefix, or with ``prefix_quant`` the int8 kernels
+    K13/K9/K10, the canonical blocks with the fused attention kernel K6
+    forward and backward for the rest), fp32 L2 normalisation,
     the in-step text-head recompute when ``tune_text``, masked CE of
     ``100 * f @ T`` (``logit_scale`` is ignored, as in the reference), then
     Adam (optax's defaults: betas 0.9/0.999, eps 1e-8) over fp32 master
@@ -137,9 +138,13 @@ class PEFTConfig:
     # through K5/K4 in the train step.  -1 = auto (``peft_fused_prefix_len``),
     # 0 = off (canonical modules), > 0 = explicit block count
     fused_prefix: int = -1
+    # int8 frozen prefix (SigLIP, with fused_prefix > 0): the prefix blocks
+    # run the int8 kernels K13 -> K9 -> K10 on weights quantized once per
+    # run; opt-in (``finetune.fused_prefix_quant``), the suffix then trains
+    # on int8-noise features
+    prefix_quant: bool = False
     # options of the JAX finetune that raise here until their slice
     device_dataset: Any = False
-    prefix_quant: bool = False
     scan_blocks: bool = False
     lora_rank: int = 0
 
@@ -147,7 +152,8 @@ class PEFTConfig:
 # the ROADMAP item that brings each option of the JAX finetune not ported yet
 _UNPORTED = {
     "lora_rank": "LoRA adapters (train/lora.py), ROADMAP A8",
-    "prefix_quant": "the int8 prefix (K8-K15), ROADMAP A11",
+    "prefix_quant": "the CLIP ViT int8 prefix (quant_full_block_fused, "
+                    "K14), ROADMAP A11",
     "scan_blocks": "the scanned encode (siglip_encode_scan), ROADMAP A8",
     "device_dataset": "the epoch scan / chunked regimes, ROADMAP A8",
     "mesh": "parallelism, ROADMAP A14",
@@ -158,9 +164,9 @@ _UNPORTED = {
 }
 
 
-def _check_unported(cfg: PEFTConfig, **options) -> None:
+def _check_unported(cfg: PEFTConfig, siglip: bool, **options) -> None:
     requested = dict(options, lora_rank=cfg.lora_rank > 0,
-                     prefix_quant=cfg.prefix_quant,
+                     prefix_quant=cfg.prefix_quant and not siglip,
                      scan_blocks=cfg.scan_blocks,
                      device_dataset=cfg.device_dataset)
     for name, value in requested.items():
@@ -185,8 +191,8 @@ def peft_fused_prefix_len(config, unlocked_groups: int, device) -> int:
 
 def _pack_prefix(model, cfg: PEFTConfig):
     """The hybrid prefix's K5/K4 weight pack, built once per run (the
-    frozen weights never change)."""
-    if cfg.fused_prefix <= 0:
+    frozen weights never change); None with the int8 prefix."""
+    if cfg.fused_prefix <= 0 or cfg.prefix_quant:
         return None
     from ..models.fast_siglip import pack_siglip_fast_params
 
@@ -194,9 +200,28 @@ def _pack_prefix(model, cfg: PEFTConfig):
                                    stop=cfg.fused_prefix, hybrid=True)
 
 
+def _quantize_prefix(model, cfg: PEFTConfig):
+    """The int8 frozen prefix (``peft.py:273-299``): {resblocks_i:
+    ``quantize_siglip_block``} for the bottom ``fused_prefix`` blocks, with
+    the hybrid head grouping, quantized once per run; None when the int8
+    prefix is off."""
+    if cfg.fused_prefix <= 0 or not cfg.prefix_quant:
+        return None
+    from ..models.fast_siglip import siglip_attn_groups
+    from ..models.quant_siglip import quantize_siglip_block
+
+    n_groups = siglip_attn_groups(model.config, hybrid=True)
+    blocks = model.visual.transformer.resblocks
+    return {f"resblocks_{i}": quantize_siglip_block(
+        blocks[i], model.config.vision_heads, n_groups)
+        for i in range(cfg.fused_prefix)}
+
+
 def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
     """The train step's image encode: the frozen-prefix hybrid when
-    ``fused_prefix`` > 0 (SigLIP), the canonical module otherwise."""
+    ``fused_prefix`` > 0 (SigLIP), the canonical module otherwise.
+    ``pprefix`` is the run's prefix (``_pack_prefix``, or
+    ``_quantize_prefix`` with ``prefix_quant``), built here when absent."""
     if cfg.fused_prefix > 0:
         if not isinstance(model.config, SigLIPConfig):
             raise NotImplementedError(
@@ -204,6 +229,11 @@ def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
                 "ported: ROADMAP A8; pass fused_prefix=0")
         from ..models.fast_siglip import siglip_encode_hybrid
 
+        if cfg.prefix_quant:
+            return siglip_encode_hybrid(
+                model, x, model.config, cfg.fused_prefix, project=True,
+                dtype=cfg.compute_dtype,
+                qprefix=pprefix or _quantize_prefix(model, cfg))
         return siglip_encode_hybrid(model, x, model.config, cfg.fused_prefix,
                                     project=True, dtype=cfg.compute_dtype,
                                     packed_prefix=pprefix)
@@ -291,7 +321,8 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     one unless ``device="cpu"``), where the model must already live.
     Returns {val, test, params, tracker, report, mask}: ``params`` are the
     trained parameters by name (the model's own tensors)."""
-    _check_unported(cfg, profile_dir=profile_dir, checkpoint_fn=checkpoint_fn,
+    _check_unported(cfg, isinstance(model.config, SigLIPConfig),
+                    profile_dir=profile_dir, checkpoint_fn=checkpoint_fn,
                     resume_from=resume_from, mesh=mesh, fsdp=fsdp)
     dev = resolve_device(device)
     on = model.logit_scale.device
@@ -312,7 +343,8 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         if verbose and cfg.fused_prefix:
             print(f"[peft] fused frozen-prefix forward: bottom "
                   f"{cfg.fused_prefix}/{ccfg.vision_layers} visual blocks "
-                  "run the forward-only block kernels")
+                  f"run the forward-only {'int8 ' if cfg.prefix_quant else ''}"
+                  "block kernels")
     elif cfg.fused_prefix > 0:
         # every prefix block must be frozen: no gradient reaches it
         max_prefix = max(0, ccfg.vision_layers + 1 - unlocked_groups)
@@ -334,7 +366,9 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         raise ValueError("tune_text=False requires precomputed text_weights")
 
     opt, step = make_train_step(model, cfg, text_weights, prompt_tokens)
-    pprefix = _pack_prefix(model, cfg)
+    # the frozen prefix's weights, packed (or quantized) once per run
+    pprefix = (_quantize_prefix(model, cfg) if cfg.prefix_quant
+               else _pack_prefix(model, cfg))
 
     def current_text_weights():
         if cfg.tune_text:

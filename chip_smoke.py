@@ -19,12 +19,24 @@ Phases (any failure raises and the exit code is non-zero):
      features agree with the fp32 canonical module on the card; the
      ``merge_blocks="off"`` path (K2 + K3) is driven and read the same way;
      end-to-end ``classify_batch`` images/s at batch 64 and 256;
+     3d: the int8 kernels at SO400M shapes (``csrc/quant_kernels.cu``):
+     K8 at the patchify shape, K9 (c_fc), K10 (c_proj), K13 at B=64, S=576,
+     8 groups, and their pieces (row_quant, int8_gemm, the fp32-output
+     attention), each against its plain version and beside
+     ``torch._int_mm``; then K8's LN/act/residual options and a ragged K13
+     (S=577 in a 592 pad) at small shapes, compared only;
   5. SigLIP path — ``ClassifierEngine("random:ViT-SO400M-16-SigLIP2-384",
      batch_size=64)`` answers >= 96 single 384x384 requests through
      ``DynamicBatcher``, every block through ``attn_block_split`` (K5) and
      ``mlp_block_split`` (K4); features against the fp32 canonical module
      on the card; the batch-64 device-time split; ``classify_batch``
      images/s at batch 64;
+     5b: the same model with ``quantize="int8"`` (a second draw of the same
+     seeded weights: the engine takes a model name, as in JAX) answers the
+     same requests, per batch 1 K8, 27 K13, 27 K9, 27 K10 and no K4/K5;
+     features against the same encode with every kernel plain and against
+     the fp32 canonical tower; top-1 agreement with the bf16 engine; the
+     batch-64 split; images/s beside the bf16 engine's;
   6. SigLIP PEFT path, on the engine's seeded SO400M weights — the default
      fine-tune (``configs/base.yaml`` + ``cs.yaml``: batch 16 at 384 from
      439x439 uint8, random crop + rotation, tune_text, unlocked_groups 11,
@@ -32,7 +44,9 @@ Phases (any failure raises and the exit code is non-zero):
      step against the same step with every kernel swapped for its plain
      version and against the fp32 canonical tower (loss and gradient
      gates); launches per step (17 K5, 17 K4, 10 K6 forward, 10 K6
-     backward); the step's device time and its split; then
+     backward); the step's device time and its split; 6b: the same step
+     with ``prefix_quant`` (17 K13, 17 K9, 17 K10, no K4/K5) against the
+     bf16-prefix step (loss and gradient gate) and its time; then
      ``train.peft.finetune`` over 128 train / 16 val / 32 test images (8
      steps, val + test through ``siglip_encode_fast``), frozen leaves
      bit-identical, trained leaves moved;
@@ -59,11 +73,14 @@ B, S, W, HEADS, HIDDEN = 64, 197, 768, 12, 3072
 SL_S, SL_W, SL_HEADS, SL_HIDDEN, SL_GROUPS, SL_CHUNKS = 576, 1152, 16, 4304, 8, 2
 SL_LAYERS, SL_MODEL = 27, "random:ViT-SO400M-16-SigLIP2-384"
 PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 N_REQUESTS = 160
 SL_REQUESTS = 96
 SRC = "aihab_clip_tpu_torch/csrc/block_kernels.cu"
 SRC_BWD = "aihab_clip_tpu_torch/csrc/fused_attention_bwd.cu"
+SRC_Q = "aihab_clip_tpu_torch/csrc/quant_kernels.cu"
+JAX_QM = "aihab_clip_tpu/ops/quant_matmul.py"
 JAX_BK = "aihab_clip_tpu/ops/block_kernel.py"
 JAX_ATT = "aihab_clip_tpu/ops/attention.py"
 # the default fine-tune (configs/base.yaml finetune + cs.yaml data): batch
@@ -87,6 +104,21 @@ COS_MIN = 0.999
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
 STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
+# the int8-prefix step against the bf16-prefix step: the suffix trains on
+# int8-noise features
+INT8_STEP_GATE = (5e-2, 0.9)
+# int8 serving: per-image feature cosine against the same encode with every
+# kernel plain (the JAX gate against its int8 reference) and against the
+# fp32 canonical tower (tests/test_quant.py:66,262)
+INT8_COS = {"plain": 0.995, "fp32": 0.99}
+# K9's requantized codes against the plain version: equal in >= 99.9% of
+# entries and never more than 1 apart (flips come from the LN's fp32
+# reduction order).  Scales within 1e-6 relative in >= 99% of rows; a row
+# where an input code flipped has every y moved by one code step times a
+# weight, and its scale with them: those stay within 1e-3 (measured 4.3e-4
+# at SO400M shapes on an H100, PERF.md)
+CODES_MIN_EQUAL, SCALE_RTOL, SCALE_ROWS, SCALE_RTOL_FLIPPED = \
+    0.999, 1e-6, 0.99, 1e-3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -174,9 +206,32 @@ def main() -> None:
         return err, rel, lim
 
     def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+        """flops: bf16 FLOPs, or (bf16 FLOPs, int8 ops)."""
+        f16, i8 = flops if isinstance(flops, tuple) else (flops, 0)
+        t_ops = f16 / PEAK_FLOPS + i8 / PEAK_INT8_OPS
+        t_bytes = nbytes / PEAK_BYTES
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes")
+
+    def compare_codes(name, out, ref):
+        """K9's (codes, scales) against the plain version's."""
+        torch.cuda.synchronize()
+        d = (out[0].int() - ref[0].int()).abs()
+        equal = (d == 0).float().mean().item()
+        rel_rows = ((out[1] - ref[1]).abs() / ref[1].abs()).flatten()
+        srel = rel_rows.max().item()
+        rows_ok = (rel_rows <= SCALE_RTOL).float().mean().item()
+        print(f"[kernels] {name}: codes equal {equal:.6f} (limit "
+              f"{CODES_MIN_EQUAL}), max|d| {d.max().item()} (limit 1); scales "
+              f"within {SCALE_RTOL:g} rel in {rows_ok:.6f} of rows (limit "
+              f"{SCALE_ROWS}), max rel {srel:.3e} (limit "
+              f"{SCALE_RTOL_FLIPPED:g})")
+        check(bool(torch.isfinite(out[1]).all()), f"{name}: non-finite scales")
+        check(d.max().item() <= 1 and equal >= CODES_MIN_EQUAL
+              and rows_ok >= SCALE_ROWS and srel <= SCALE_RTOL_FLIPPED,
+              f"{name} disagrees with its plain version (equal {equal}, "
+              f"scale rows {rows_ok}, max rel {srel})")
+        return float(d.max().item()), 1.0 - equal, 1.0
 
     rows = []
 
@@ -185,21 +240,27 @@ def main() -> None:
         library fn or None, flops, bytes, launch counter, path[, source])."""
         for (name, replaces, kind_, fn, plain, lib, flops, nbytes, counter,
              path, *src) in cases:
-            err, rel, lim = compare(name, fn(), plain(), kind_)
+            if kind_ == "codes":
+                err, rel, lim = compare_codes(name, fn(), plain())
+                tol_rel = 1.0 - CODES_MIN_EQUAL
+            else:
+                err, rel, lim = compare(name, fn(), plain(), kind_)
+                tol_rel = TOL[kind_][0]
             ms, plain_ms = timed(fn), timed(plain, iters=5)
             lib_ms = timed(lib) if lib is not None else None
             b_ms, b_by = bound(flops, nbytes)
+            ops = sum(flops) if isinstance(flops, tuple) else flops
             print(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
                   f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}, "
-                  f"bound {b_ms:.4f} by {b_by}; {flops / ms / 1e9:.1f} "
-                  f"TFLOP/s)")
+                  f"bound {b_ms:.4f} by {b_by}; {ops / ms / 1e9:.1f} "
+                  f"T(FL)OP/s)")
             rows.append(dict(name=name, route="cuda",
                              source=src[0] if src else SRC,
                              replaces=replaces, launches=None,
                              counter=counter, path=path, max_abs_err=err,
                              tol_max_abs=lim, rel_l2=rel,
-                             tol_rel_l2=TOL[kind_][0], ms=ms,
-                             tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                             tol_rel_l2=tol_rel, ms=ms,
+                             tflops=ops / ms / 1e9, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
             torch.cuda.empty_cache()
 
@@ -312,6 +373,9 @@ def main() -> None:
 
     # ---- 3c. fused attention (K6) forward and backward, SigLIP PEFT shapes
     fused_attention_cases(rnd, run_cases, compare)
+
+    # ---- 3d. the int8 kernels (K8, K9, K10, K13) at SO400M shapes
+    int8_kernel_cases(rnd, vec, run_cases, compare)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -414,6 +478,11 @@ def main() -> None:
         bk, timed)
     phase("siglip path")
 
+    # ---- 5b. the int8 SigLIP path: engine + dynamic batcher
+    counts["siglip_int8"], rates["siglip_so400m_int8_64"], int8_figures = \
+        siglip_int8_path(bk, timed, engine, rates["siglip_so400m_64"])
+    phase("siglip int8 path")
+
     # ---- 6. the SigLIP PEFT path on the engine's weights
     counts["siglip_peft"], train = peft_path(engine, bk)
     del engine
@@ -424,6 +493,7 @@ def main() -> None:
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
              "siglip": "SigLIP SO400M engine + DynamicBatcher",
+             "siglip_int8": "SigLIP SO400M int8 engine + DynamicBatcher",
              "siglip_peft": f"SigLIP SO400M finetune ({PEFT_SPLITS[0] // PEFT_B}"
                             " steps + val/test)"}
     for row in rows:
@@ -433,7 +503,7 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
-                      "train": train}))
+                      "int8": int8_figures, "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -559,6 +629,168 @@ def siglip_kernel_cases(bk, rnd, vec, run_cases) -> None:
           f"{SL_LAYERS} blocks {1e3 * SL_LAYERS * (k5_ops + k4_ops) / PEAK_FLOPS:.2f} ms")
 
 
+def int8_kernel_cases(rnd, vec, run_cases, compare) -> None:
+    """The int8 SigLIP path's kernels at SO400M shapes, batch 64: K8 at the
+    patchify shape (no LN, act or residual), K9 (LN2 + c_fc + gelu_tanh +
+    requantize), K10 (c_proj + bias + residual), K13 (8 groups of 2 heads of
+    72) and their pieces, each timed beside ``torch._int_mm`` at its GEMM's
+    shape (the GEMM core only; K13 has no one-call counterpart); then K8's
+    options and a ragged K13 at small shapes, compared only."""
+    import math
+
+    import torch
+
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    b, s, w, heads, hid = B, SL_S, SL_W, SL_HEADS, SL_HIDDEN
+    d, groups = w // heads, SL_GROUPS
+    gd, kp = w // groups, qm._group_pad(w // groups)
+    m, kpatch = b * s, 16 * 16 * 3
+
+    def weight(k, n):
+        w8, ws = quantize_weight(rnd(k, n, scale=k ** -0.5,
+                                     dtype=torch.float32))
+        return qm.int8_weight(w8), ws
+
+    x = rnd(b, s, w)
+    x2 = x.reshape(m, w)
+    patches = rnd(m, kpatch)
+    ln1, ln2 = (vec(w, one=True), vec(w)), (vec(w, one=True), vec(w))
+    wp8, sp = weight(kpatch, w)
+    wf8, sf = weight(w, hid)
+    wc8, sc = weight(hid, w)
+    bp, bf, bc, bo = vec(w), vec(hid), vec(w), vec(w)
+    wq8, sq = quantize_weight(rnd(w, 3 * w, scale=w ** -0.5,
+                                  dtype=torch.float32))
+    wo8, so = quantize_weight(rnd(w, w, scale=w ** -0.5, dtype=torch.float32))
+    wg, sg, bg, og = qm.regroup_attn_weights(wq8, sq, vec(3 * w), wo8, heads,
+                                             groups)
+    wg, og = qm.int8_attn_weights(wg, og)
+    k13 = (wg, sg, bg, og, so, bo, *ln1, heads, groups)
+    h8, hs = qm.quant_matmul_fused_qout(x2, wf8, sf, bf, *ln2,
+                                        act="gelu_tanh", ln_eps=1e-6)
+    # the pieces' inputs, as the compositions make them
+    x8, sx = qm.row_quant(x2, *ln1, eps=1e-6)
+    y = qm.int8_gemm(x8, sx, wf8.t(), sf, bf, act="gelu_tanh",
+                     out_dtype=torch.float32)
+    qkv = qm.int8_gemm(x8, sx, qm._qkv_operand(wg), sg.reshape(-1),
+                       bg.reshape(-1), q_scale=1.0 / math.sqrt(d),
+                       q_width=gd).reshape(b, s, 3 * w)
+    attn = bk.attention(qkv, heads, group_heads=heads // groups,
+                        q_scaled=True, out_dtype=torch.float32)
+    a8, sa = qm.row_quant(attn.reshape(m, w), group=gd, group_pad=kp)
+    wout = qm._out_operand(og)
+    # torch._int_mm yardsticks at each GEMM's shape, int32 out
+    mm_in = {kk: torch.randint(-127, 128, (m, kk), dtype=torch.int8,
+                               device=x.device) for kk in (kpatch, w, hid)}
+    int_mm = torch._int_mm
+    f_patch, f_fc = 2 * m * kpatch * w, 2 * m * w * hid
+    f_qkv, f_out = 2 * m * w * 3 * w, 2 * m * w * w
+    f_att = 4 * b * heads * s * s * d
+    print(f"[kernels] int8 at SO400M shapes: B={b} S={s} W={w} {heads}x{d} "
+          f"hidden {hid}, {groups} groups of {gd} columns (padded to {kp})")
+    run_cases([
+        ("quant_matmul_fused[patchify]", f"{JAX_QM}:376", "kernel",
+         lambda: qm.quant_matmul_fused(patches, wp8, sp, bp),
+         lambda: qm.quant_matmul_fused_plain(patches, wp8, sp, bp),
+         lambda: int_mm(mm_in[kpatch], wp8), (0, f_patch),
+         2 * m * kpatch + kpatch * w + 8 * w + 2 * m * w,
+         qm.quant_matmul_fused, "siglip_int8", SRC_Q),
+        ("quant_matmul_fused_qout[c_fc]", f"{JAX_QM}:130", "codes",
+         lambda: qm.quant_matmul_fused_qout(x2, wf8, sf, bf, *ln2,
+                                            act="gelu_tanh", ln_eps=1e-6),
+         lambda: qm.quant_matmul_fused_qout_plain(x2, wf8, sf, bf, *ln2,
+                                                  act="gelu_tanh",
+                                                  ln_eps=1e-6),
+         lambda: int_mm(mm_in[w], wf8), (0, f_fc),
+         2 * m * w + w * hid + 8 * (w + hid) + m * hid + 4 * m,
+         qm.quant_matmul_fused_qout, "siglip_int8", SRC_Q),
+        ("quant_matmul_q8in[c_proj]", f"{JAX_QM}:165", "kernel",
+         lambda: qm.quant_matmul_q8in(h8, hs, wc8, sc, bc, x2),
+         lambda: qm.quant_matmul_q8in_plain(h8, hs, wc8, sc, bc, x2),
+         lambda: int_mm(mm_in[hid], wc8), (0, f_fc),
+         m * hid + 4 * m + hid * w + 8 * w + 2 * m * w + 2 * m * w,
+         qm.quant_matmul_q8in, "siglip_int8", SRC_Q),
+        ("quant_attn_block_split", f"{JAX_QM}:622", "block",
+         lambda: qm.quant_attn_block_split(x, *k13, ln_eps=1e-6),
+         lambda: qm.quant_attn_block_split_plain(x, *k13, ln_eps=1e-6),
+         None, (f_att, f_qkv + f_out), 4 * m * w + 4 * w * w + 20 * w,
+         qm.quant_attn_block_split, "siglip_int8", SRC_Q),
+        ("row_quant[LN, SO400M bf16 rows]", f"{JAX_QM}:565", "codes",
+         lambda: qm.row_quant(x2, *ln1, eps=1e-6),
+         lambda: qm.row_quant_plain(x2, *ln1, eps=1e-6), None, 0,
+         2 * m * w + 8 * w + m * w + 4 * m, qm.row_quant, "siglip_int8",
+         SRC_Q),
+        ("row_quant[requantize fp32 c_fc rows, 4304]", f"{JAX_QM}:113",
+         "codes", lambda: qm.row_quant(y), lambda: qm.row_quant_plain(y),
+         None, 0, 4 * m * hid + m * hid + 4 * m, qm.row_quant, "siglip_int8",
+         SRC_Q),
+        ("int8_gemm[c_fc, gelu_tanh, fp32 out]", f"{JAX_QM}:109", "kernel",
+         lambda: qm.int8_gemm(x8, sx, wf8.t(), sf, bf, act="gelu_tanh",
+                              out_dtype=torch.float32),
+         lambda: qm.int8_gemm_plain(x8, sx, wf8.t(), sf, bf, act="gelu_tanh",
+                                    out_dtype=torch.float32),
+         lambda: int_mm(mm_in[w], wf8), (0, f_fc),
+         m * w + 4 * m + w * hid + 8 * hid + 4 * m * hid, qm.int8_gemm,
+         "siglip_int8", SRC_Q),
+        ("int8_gemm[qkv groups, q-scale]", f"{JAX_QM}:576", "kernel",
+         lambda: qm.int8_gemm(x8, sx, qm._qkv_operand(wg), sg.reshape(-1),
+                              bg.reshape(-1), q_scale=1.0 / math.sqrt(d),
+                              q_width=gd),
+         lambda: qm.int8_gemm_plain(x8, sx, qm._qkv_operand(wg),
+                                    sg.reshape(-1), bg.reshape(-1),
+                                    q_scale=1.0 / math.sqrt(d), q_width=gd),
+         lambda: int_mm(mm_in[w], qm._qkv_operand(wg).t()), (0, f_qkv),
+         m * w + 4 * m + 3 * w * w + 24 * w + 2 * m * 3 * w, qm.int8_gemm,
+         "siglip_int8", SRC_Q),
+        ("attention[hd72, grouped, q-scaled, fp32 out]", f"{JAX_QM}:586",
+         "attention",
+         lambda: bk.attention(qkv, heads, group_heads=heads // groups,
+                              q_scaled=True, out_dtype=torch.float32),
+         lambda: bk.attention_plain(qkv, heads, group_heads=heads // groups,
+                                    q_scaled=True, normalize_p=True,
+                                    out_dtype=torch.float32),
+         None, f_att, 2 * m * 3 * w + 4 * m * w, bk.attention, "siglip_int8"),
+        ("int8_gemm[out-proj, 8 group partials + x]", f"{JAX_QM}:605",
+         "kernel",
+         lambda: qm.int8_gemm(a8, sa, wout, so, bo, residual=x2,
+                              out_dtype=torch.bfloat16, groups=groups),
+         lambda: qm.int8_gemm_plain(a8, sa, wout, so, bo, residual=x2,
+                                    out_dtype=torch.bfloat16, groups=groups),
+         None, (0, f_out), m * w + 4 * m * groups + w * w + 8 * w
+         + 2 * m * w + 2 * m * w, qm.int8_gemm, "siglip_int8", SRC_Q),
+    ])
+    del x, x2, patches, h8, hs, x8, y, qkv, attn, a8, mm_in
+    k13_ops = f_qkv + f_out
+    print(f"[kernels] SO400M int8 bound per block at batch {b}: K13 "
+          f"{1e3 * (k13_ops / PEAK_INT8_OPS + f_att / PEAK_FLOPS):.4f} ms, K9 "
+          f"and K10 {1e3 * f_fc / PEAK_INT8_OPS:.4f} ms each; {SL_LAYERS} "
+          f"blocks {1e3 * SL_LAYERS * (k13_ops / PEAK_INT8_OPS + f_att / PEAK_FLOPS + 2 * f_fc / PEAK_INT8_OPS):.2f} ms")
+
+    # every option of K8 (later slices call them) and a ragged K13, small
+    wf8s, sfs = weight(w, 344)
+    xs, rs, b344 = rnd(300, w, scale=2.0), rnd(300, 344), vec(344)
+    for act in ("none", "quick_gelu", "gelu_tanh", "gelu_poly"):
+        for label, opts in (("", {}), ("+res", dict(residual=rs)),
+                            ("+LN", dict(ln_scale=ln2[0], ln_bias=ln2[1])),
+                            ("+LN+res", dict(residual=rs, ln_scale=ln2[0],
+                                             ln_bias=ln2[1]))):
+            compare(f"quant_matmul_fused[{act}{label}, 300x{w}x344]",
+                    qm.quant_matmul_fused(xs, wf8s, sfs, b344, act=act,
+                                          **opts),
+                    qm.quant_matmul_fused_plain(xs, wf8s, sfs, b344,
+                                                act=act, **opts), "kernel")
+    xr = rnd(4, 592, w)
+    compare("quant_attn_block_split[B=4, S=577 in 592, padded_io]",
+            qm.quant_attn_block_split(xr, *k13, ln_eps=1e-6, padded_io=True,
+                                      seq_len=577)[:, :577],
+            qm.quant_attn_block_split_plain(xr, *k13, ln_eps=1e-6,
+                                            padded_io=True,
+                                            seq_len=577)[:, :577], "block")
+
+
 def siglip_path(bk, timed):
     """ClassifierEngine + DynamicBatcher on random SO400M weights; returns
     the launch counts of the batcher run, images/s at batch 64 and the
@@ -656,6 +888,145 @@ def siglip_path(bk, timed):
     print(f"[siglip] classify_batch end-to-end at batch 64: {rate:.1f} "
           f"images/s")
     return counts, rate, engine
+
+
+@contextlib.contextmanager
+def plain_int8_kernels():
+    """Every kernel of the int8 SigLIP encode swapped for its plain
+    version."""
+    from unittest import mock
+
+    from aihab_clip_tpu_torch.models import quant_siglip as qs
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    with mock.patch.multiple(
+            qs, quant_matmul_fused=qm.quant_matmul_fused_plain,
+            quant_attn_block_split=qm.quant_attn_block_split_plain,
+            quant_matmul_fused_qout=qm.quant_matmul_fused_qout_plain,
+            quant_matmul_q8in=qm.quant_matmul_q8in_plain):
+        yield
+
+
+def siglip_int8_path(bk, timed, bf16_engine, bf16_rate):
+    """ClassifierEngine(quantize="int8") + DynamicBatcher on the same seeded
+    SO400M weights as the bf16 engine (a second draw: the engine takes a
+    model name, as JAX's does); returns the launch counts of the batcher
+    run, images/s at batch 64 and the path's figures."""
+    import torch
+
+    from aihab_clip_tpu_torch.models import quant_siglip as qs
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.preprocess import (eval_transform,
+                                                     normalize_stats_for)
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    engine = ClassifierEngine(model=SL_MODEL, batch_size=64, quantize="int8",
+                              device="cuda")
+    t_built = time.perf_counter() - t0
+    engine.warmup()
+    cfg = engine.bundle.config
+    res, dim = cfg.image_resolution, engine.decode_dim
+    qp = engine._qparams
+    n_groups = int(qp["transformer"]["resblocks_0"]["attn/qkv_g"]["w8_g"]
+                   .shape[0])
+    print(f"[int8] {SL_MODEL} quantize='int8': built in {t_built:.1f}s (a "
+          f"second draw of the seeded weights), warm in "
+          f"{time.perf_counter() - t0:.1f}s; {n_groups} head groups")
+    check(n_groups == SL_GROUPS, f"int8 head groups {n_groups}")
+    images = np.random.default_rng(SEED + 1).integers(
+        0, 256, (SL_REQUESTS, dim, dim, 3), dtype=np.uint8)
+
+    def counts():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    bk.reset_launch_counts()
+    qm.reset_launch_counts()
+    batcher = DynamicBatcher(engine, max_wait_ms=5.0)
+    batcher.start()
+    t0 = time.perf_counter()
+    futures = [batcher.submit(img) for img in images]
+    probs = np.stack([f.result(timeout=600) for f in futures])
+    wall = time.perf_counter() - t0
+    batcher.stop()
+    run = counts()
+    n = batcher.stats.batches
+    print(f"[int8] {len(futures)} requests answered in {wall:.3f}s over {n} "
+          f"batches; launches {run}")
+    check(probs.shape == (SL_REQUESTS, 20), f"probs shape {probs.shape}")
+    check(bool(np.isfinite(probs).all()), "non-finite probabilities")
+    check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)), "rows not softmax")
+    want = {"quant_matmul_fused": n, "quant_attn_block_split": SL_LAYERS * n,
+            "quant_matmul_fused_qout": SL_LAYERS * n,
+            "quant_matmul_q8in": SL_LAYERS * n, "attention": SL_LAYERS * n,
+            "row_quant": (1 + 4 * SL_LAYERS) * n,
+            "int8_gemm": (1 + 4 * SL_LAYERS) * n, "attn_block_split": 0,
+            "mlp_block_split": 0, "ln_gemm": 0, "gemm_residual": 0}
+    for key, v in want.items():
+        check(run[key] == v, f"{key} launched {run[key]} times for {n} "
+              f"batches (want {v})")
+
+    # features: against the same encode with every kernel plain, and against
+    # the fp32 canonical tower (same parameters, compute dtype fp32)
+    ref_tower = copy.copy(engine.bundle.model.visual)
+    ref_tower.dtype = torch.float32
+    mean, std = normalize_stats_for(cfg)
+    n_ref = 16
+    batch = torch.from_numpy(images[:64]).to(dev)
+    figures = {}
+    with torch.inference_mode():
+        xb = eval_transform(batch, res, dtype=torch.bfloat16, mean=mean,
+                            std=std)
+        feats = qs.siglip_encode_int8(qp, engine.bundle.model, xb[:n_ref],
+                                      cfg).float()
+        with plain_int8_kernels():
+            plain = qs.siglip_encode_int8(qp, engine.bundle.model,
+                                          xb[:n_ref], cfg).float()
+        ref_feats = ref_tower(eval_transform(batch[:n_ref], res, mean=mean,
+                                             std=std))
+        for name, other in (("plain", plain), ("fp32", ref_feats)):
+            cos = torch.nn.functional.cosine_similarity(feats, other, dim=-1)
+            figures[f"cos_{name}_min"] = cos.min().item()
+            print(f"[int8] features vs {'the same encode with every kernel plain' if name == 'plain' else 'the fp32 canonical tower'} "
+                  f"({n_ref} images): cosine min {cos.min().item():.6f} mean "
+                  f"{cos.mean().item():.6f} (limit {INT8_COS[name]})")
+            check(cos.min().item() >= INT8_COS[name], f"int8 cosine vs {name}")
+        ref_probs = torch.softmax(100.0 * torch.nn.functional.normalize(
+            ref_feats, dim=-1) @ engine._text_weights, -1).cpu().numpy()
+        bf16_probs = np.concatenate([bf16_engine.classify_batch(
+            images[i:i + 64]) for i in range(0, SL_REQUESTS, 64)])
+        figures["top1_vs_bf16"] = float(
+            (bf16_probs.argmax(-1) == probs.argmax(-1)).mean())
+        figures["top1_vs_fp32"] = float(
+            (ref_probs.argmax(-1) == probs[:n_ref].argmax(-1)).mean())
+        print(f"[int8] top-1 agreement with the bf16 engine: "
+              f"{figures['top1_vs_bf16']:.4f} over {SL_REQUESTS}, max|dprob| "
+              f"{np.abs(bf16_probs - probs).max():.4g}; with the fp32 "
+              f"canonical tower {figures['top1_vs_fp32']:.4f} over {n_ref}")
+
+        # where the time goes at batch 64 (CUDA events)
+        tokens = qs.siglip_patchify_int8(qp, xb, cfg)
+        t_pre = timed(lambda: eval_transform(batch, res, dtype=torch.bfloat16,
+                                             mean=mean, std=std), 10)
+        t_k8 = timed(lambda: qs.siglip_patchify_int8(qp, xb, cfg), 10)
+        t_blocks = timed(lambda: qs.apply_int8_siglip_blocks(
+            qp["transformer"], tokens, cfg, start=0, stop=cfg.vision_layers),
+            3)
+        t_all = timed(lambda: engine.classify(batch), 3)
+    figures.update(classify_ms=t_all, eval_transform_ms=t_pre, k8_ms=t_k8,
+                   blocks_ms=t_blocks,
+                   head_rest_ms=t_all - t_pre - t_k8 - t_blocks)
+    print(f"[int8] batch 64 device time: classify {t_all:.3f} ms = "
+          f"eval_transform {t_pre:.3f} + K8 patchify {t_k8:.3f} + "
+          f"{cfg.vision_layers} blocks {t_blocks:.3f} + MAP head/rest "
+          f"{t_all - t_pre - t_k8 - t_blocks:.3f}")
+    rate = images_per_s(engine, 64, dim, n=5)
+    print(f"[int8] classify_batch end-to-end at batch 64: {rate:.1f} "
+          f"images/s (bf16 engine {bf16_rate:.1f}, same run)")
+    del engine, batch, xb, tokens, ref_tower
+    torch.cuda.empty_cache()
+    return run, rate, figures
 
 
 def fused_attention_cases(rnd, run_cases, compare) -> None:
@@ -771,9 +1142,11 @@ def peft_path(engine, bk):
     from aihab_clip_tpu_torch.ops.preprocess import normalize_stats_for
     from aihab_clip_tpu_torch.templates import gen_prompts
     from aihab_clip_tpu_torch.train import evaluate, masked_ce_metrics
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
     from aihab_clip_tpu_torch.train.peft import (
-        PEFTConfig, _build_loss_fn, _pack_prefix, build_lock_mask, finetune,
-        make_train_step, peft_fused_prefix_len, step_generator)
+        PEFTConfig, _build_loss_fn, _pack_prefix, _quantize_prefix,
+        build_lock_mask, finetune, make_train_step, peft_fused_prefix_len,
+        step_generator)
 
     dev = torch.device("cuda")
     model, mcfg = engine.bundle.model, engine.bundle.config
@@ -781,11 +1154,13 @@ def peft_path(engine, bk):
     n_suffix = layers - PEFT_PREFIX
 
     def counts():
-        return {**bk.launch_counts(), **att.launch_counts()}
+        return {**bk.launch_counts(), **att.launch_counts(),
+                **qm.launch_counts()}
 
     def reset():
         bk.reset_launch_counts()
         att.reset_launch_counts()
+        qm.reset_launch_counts()
 
     n_prefix = peft_fused_prefix_len(mcfg, PEFT_UNLOCKED, dev)
     check(n_prefix == PEFT_PREFIX, f"fused prefix {n_prefix}")
@@ -877,7 +1252,33 @@ def peft_path(engine, bk):
               f"cosine {cos:.6f} (limit {lim_cos:g}), |g| {g_k.norm().item():.4g}"
               f" vs {g_r.norm().item():.4g}")
         check(rel <= lim_rel and cos >= lim_cos, f"train step vs {name}")
-    del g_k, g_p, g_f
+
+    # -- 6b. the same step with the int8 frozen prefix (prefix_quant)
+    cfg8 = dataclasses.replace(cfg, prefix_quant=True)
+    qprefix = _quantize_prefix(model, cfg8)
+    reset()
+    loss_q, g_q = step_grads(cfg8, qprefix)
+    per_step_q = counts()
+    print(f"[peft int8] launches in one prefix_quant step: {per_step_q}")
+    want_q = {"quant_attn_block_split": PEFT_PREFIX,
+              "quant_matmul_fused_qout": PEFT_PREFIX,
+              "quant_matmul_q8in": PEFT_PREFIX, "quant_matmul_fused": 0,
+              "attn_block_split": 0, "mlp_block_split": 0,
+              "fused_attention_fwd": n_suffix,
+              "fused_attention_bwd": n_suffix}
+    for key, n in want_q.items():
+        check(per_step_q[key] == n, f"{key}: {per_step_q[key]} launches in "
+              f"one prefix_quant step, want {n}")
+    rel = abs(loss_q - loss_k) / abs(loss_k)
+    cos = torch.nn.functional.cosine_similarity(g_q, g_k, dim=0).item()
+    lim_rel, lim_cos = INT8_STEP_GATE
+    gates["int8_prefix"] = dict(loss=loss_q, loss_rel=rel, grad_cos=cos)
+    print(f"[peft int8] prefix_quant step vs the bf16-prefix step: loss "
+          f"{loss_q:.6f} vs {loss_k:.6f}, rel |d| {rel:.3e} (limit "
+          f"{lim_rel:g}); gradient cosine {cos:.6f} (limit {lim_cos:g}), |g| "
+          f"{g_q.norm().item():.4g} vs {g_k.norm().item():.4g}")
+    check(rel <= lim_rel and cos >= lim_cos, "prefix_quant step vs bf16")
+    del g_k, g_p, g_f, g_q
 
     # -- the step's device time (CUDA events), after warm-up
     opt, step = make_train_step(model, cfg, None, tokens)
@@ -898,6 +1299,23 @@ def peft_path(engine, bk):
     for key, n in want.items():
         check(counts()[key] == n * len(step_ms), f"{key} over the timed steps")
     ms = statistics.median(step_ms)
+
+    # the prefix_quant step's device time, the same way
+    _, step8 = make_train_step(model, cfg8, None, tokens)
+    q_ms = []
+    for i in range(7):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step8(imgs, labs, valid, step_generator(SEED, 3, i), PEFT_LR, qprefix)
+        e1.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            q_ms.append(e0.elapsed_time(e1))
+    print(f"[peft int8] prefix_quant train step at batch {PEFT_B}: median "
+          f"{statistics.median(q_ms):.3f} ms over {len(q_ms)} steps ("
+          f"{', '.join(f'{t:.2f}' for t in q_ms)}); bf16 prefix {ms:.3f} ms")
+    del qprefix, step8
 
     # where the time goes: the same step rebuilt from the loss's pieces with
     # a CUDA event at each phase boundary; the backward is split into the
@@ -946,6 +1364,8 @@ def peft_path(engine, bk):
     split_total = statistics.median(sum(row) for row in splits)
     model.zero_grad(set_to_none=True)
     train = dict(step_ms=ms, step_ms_all=step_ms,
+                 int8_prefix_step_ms=statistics.median(q_ms),
+                 int8_prefix_step_ms_all=q_ms,
                  images_per_s=1e3 * PEFT_B / ms, peak_gib=peak / 2 ** 30,
                  trainable_params=n_train, split_ms=split,
                  split_total_ms=split_total, step_checks=gates)

@@ -267,3 +267,143 @@ def test_cuda_tiny_finetune_runs_the_kernels():
         assert same or trainable, name
         moved += not same
     assert moved > 0
+
+
+@pytest.mark.gpu
+def test_cuda_int8_kernels_match_plain():
+    """The int8 kernels against their plain versions on the card: row_quant
+    (LN, bf16/fp32, head groups with padding) bit for bit up to the LN's
+    reduction order, int8_gemm exactly up to fp32 rounding, K8 with every
+    option, K9, K10, and K13 at head_dim 72 with a ragged ``padded_io``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(3)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def close(out, ref, rel):
+        torch.cuda.synchronize()
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        err = ((out - ref).norm() / ref.norm()).item()
+        assert err <= rel, err
+
+    def codes(got, want):
+        torch.cuda.synchronize()
+        d = (got.int() - want.int()).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+
+    def weight(k, n):
+        w8, ws = quantize_weight(rnd(k, n, scale=k ** -0.5))
+        return qm.int8_weight(w8), ws
+
+    m, k, n = 300, 256, 352       # K of q8in: a multiple of 16
+    ln = (1 + rnd(k, scale=0.1), rnd(k, scale=0.1))
+    for dt in (torch.bfloat16, torch.float32):
+        x = rnd(m, k, scale=2.0, dtype=dt)
+        for lnk in ({}, dict(ln_scale=ln[0], ln_bias=ln[1])):
+            q, s = qm.row_quant(x, *lnk.values())
+            qp, sp = qm.row_quant_plain(x, *lnk.values())
+            codes(q, qp)
+            close(s, sp, 1e-6)
+    a = rnd(m, 4 * 72)
+    q, s = qm.row_quant(a, group=144, group_pad=160)
+    qp, sp = qm.row_quant_plain(a, group=144, group_pad=160)
+    assert q.shape == (m, 320) and torch.equal(q, qp) and torch.equal(s, sp)
+
+    w8, ws = weight(k, n)
+    b = rnd(n, scale=0.1)
+    x8, sx = qm.row_quant(rnd(m, k))
+    for act in ("none", "quick_gelu", "gelu_tanh", "gelu_poly"):
+        for odt in (torch.bfloat16, torch.float32):
+            for res in (None, rnd(m, n, dtype=odt)):
+                close(qm.int8_gemm(x8, sx, w8.t(), ws, b, act=act,
+                                   residual=res, out_dtype=odt),
+                      qm.int8_gemm_plain(x8, sx, w8.t(), ws, b, act=act,
+                                         residual=res, out_dtype=odt), 2e-3)
+    for dt in (torch.bfloat16, torch.float32):
+        x = rnd(m, k, scale=2.0, dtype=dt)
+        r = rnd(m, n, dtype=dt)
+        for act in ("none", "gelu_tanh", "gelu_poly", "quick_gelu"):
+            for opts in ({}, dict(residual=r),
+                         dict(ln_scale=ln[0], ln_bias=ln[1]),
+                         dict(residual=r, ln_scale=ln[0], ln_bias=ln[1])):
+                close(qm.quant_matmul_fused(x, w8, ws, b, act=act, **opts),
+                      qm.quant_matmul_fused_plain(x, w8, ws, b, act=act,
+                                                  **opts), 2e-3)
+        y8, ys = qm.quant_matmul_fused_qout(x, w8, ws, b, *ln, act="gelu_tanh")
+        p8, ps = qm.quant_matmul_fused_qout_plain(x, w8, ws, b, *ln,
+                                                  act="gelu_tanh")
+        codes(y8, p8)
+        close(ys, ps, 1e-6)
+        w2, s2 = weight(n, k)
+        close(qm.quant_matmul_q8in(p8, ps, w2, s2, ln[1], x),
+              qm.quant_matmul_q8in_plain(p8, ps, w2, s2, ln[1], x), 2e-3)
+
+    heads, d, groups = 4, 72, 2
+    w = heads * d
+    wq8, sq = quantize_weight(rnd(w, 3 * w, scale=w ** -0.5))
+    wo8, so = quantize_weight(rnd(w, w, scale=w ** -0.5))
+    wg, sg, bg, og = qm.regroup_attn_weights(wq8, sq, rnd(3 * w, scale=0.1),
+                                             wo8, heads, groups)
+    wg, og = qm.int8_attn_weights(wg, og)
+    lnw = (1 + rnd(w, scale=0.1), rnd(w, scale=0.1))
+    bo = rnd(w, scale=0.1)
+    for dt in (torch.bfloat16, torch.float32):
+        for s_len, kw in ((77, {}), (96, dict(padded_io=True, seq_len=81))):
+            x = rnd(3, s_len, w, dtype=dt)
+            qm.reset_launch_counts()
+            out = qm.quant_attn_block_split(x, wg, sg, bg, og, so, bo, *lnw,
+                                            heads, groups, ln_eps=1e-6, **kw)
+            counts = qm.launch_counts()
+            assert counts["quant_attn_block_split"] == 1
+            assert counts["row_quant"] == counts["int8_gemm"] == 2
+            close(out, qm.quant_attn_block_split_plain(
+                x, wg, sg, bg, og, so, bo, *lnw, heads, groups, ln_eps=1e-6,
+                **kw), 1e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_siglip_encode_matches_plain():
+    """A small head_dim-72 SigLIP tower through the int8 kernels against the
+    same encode with every kernel plain, and the int8 engine's launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from unittest import mock
+
+    from aihab_clip_tpu_torch.models import SIGLIP_ARCHS, load
+    from aihab_clip_tpu_torch.models import quant_siglip as qs
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    cfg = dataclasses.replace(
+        SIGLIP_ARCHS["SigLIP-Tiny"], embed_dim=288, image_resolution=64,
+        vision_width=288, vision_heads=4, vision_mlp_dim=688, text_width=288,
+        text_heads=4, text_mlp_dim=688)
+    bundle = load("random:head72", dtype=torch.bfloat16, device="cuda",
+                  random_cfg=cfg, seed=4)
+    x = torch.randn(5, 64, 64, 3, generator=torch.Generator().manual_seed(5))
+    qparams = qs.quantize_siglip_params(bundle.model, cfg)
+    qm.reset_launch_counts()
+    with torch.inference_mode():
+        fast = qs.siglip_encode_int8(qparams, bundle.model, x.cuda(),
+                                     cfg).float()
+        torch.cuda.synchronize()
+        counts = qm.launch_counts()
+        with mock.patch.multiple(
+                qs, quant_matmul_fused=qm.quant_matmul_fused_plain,
+                quant_attn_block_split=qm.quant_attn_block_split_plain,
+                quant_matmul_fused_qout=qm.quant_matmul_fused_qout_plain,
+                quant_matmul_q8in=qm.quant_matmul_q8in_plain):
+            plain = qs.siglip_encode_int8(qparams, bundle.model, x.cuda(),
+                                          cfg).float()
+    assert counts["quant_matmul_fused"] == 1
+    for key in ("quant_attn_block_split", "quant_matmul_fused_qout",
+                "quant_matmul_q8in"):
+        assert counts[key] == cfg.vision_layers, (key, counts)
+    cos = torch.nn.functional.cosine_similarity(fast, plain, dim=-1)
+    assert cos.min().item() >= 0.995

@@ -65,7 +65,8 @@ def test_entry_points_refuse_missing_card():
 def test_unported_options_raise():
     from aihab_clip_tpu_torch.serving import ClassifierEngine
 
-    with pytest.raises(NotImplementedError, match="K8-K15"):
+    # int8 serves SigLIP; the CLIP ViT int8 tower waits for K14
+    with pytest.raises(NotImplementedError, match="K14"):
         ClassifierEngine(model="random:Tiny", quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="LoRA"):
         ClassifierEngine(model="random:Tiny", lora="x.npz", device="cpu")

@@ -288,8 +288,9 @@ def test_fused_prefix_length_matches_jax_on_the_accelerator(monkeypatch):
     ({}, {"fsdp": True}), ({}, {"resume_from": "ckpt"}),
     ({}, {"checkpoint_fn": print}), ({}, {"profile_dir": "trace"}),
 ])
-def test_unported_options_raise(siglip_tiny, change, kwargs):
-    _, _, model = siglip_tiny
+def test_unported_options_raise(siglip_tiny, clip_tiny, change, kwargs):
+    # the int8 prefix is ported for SigLIP; a CLIP ViT's waits for K14
+    model = clip_tiny[1] if "prefix_quant" in change else siglip_tiny[2]
     ds = _dataset(ImageArrayDataset, n=8)
     cfg = peft.PEFTConfig(resolution=32, num_classes=20, lr=1e-3, epochs=1,
                           **change)
