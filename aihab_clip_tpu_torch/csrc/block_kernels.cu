@@ -325,7 +325,16 @@ int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float*
 // (block_kernel.py:993-998, :815) and the 1/sum is applied to the output rows.
 // Each lane owns one query row's half (HDP/2 output dims) in registers.  D=64
 // is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).  The
-// output is bf16, or fp32 (TO) for quant_attn_block_split (quant_kernels.cu).
+// output is bf16, or fp32 (TO) for the int8 blocks of quant_kernels.cu (K12,
+// K13, K14).  NORM_P (fp32 only; K12 and K14) follows their TPU kernels'
+// rounding points (quant_matmul.py:472-478): a first pass over the keys takes
+// the row max m and sum l, and the second casts P = exp(s - m) / l to bf16
+// before the PV product, whose sum is the output unscaled.  The int8
+// requantize that reads this output turns a difference in P's rounding into
+// code flips, which K14's next requantizes multiply (at ViT-B/16: 6.8e-3 rel
+// L2 against its plain version with the 1/sum on the output rows, 2.0e-3
+// with NORM_P).  The first pass recomputes q k^T: K13 keeps the one-pass form
+// (its attention at SO400M: 1.58 ms, 2.36 ms with NORM_P).
 // Operands: q, k and v of head h start at column (h / g) * group_stride +
 // (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
 // of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
@@ -338,7 +347,7 @@ int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float*
 // the backward kernels (fused_attention_bwd.cu) rebuild P from.
 // ---------------------------------------------------------------------------
 
-template <int HD, typename TO>
+template <int HD, typename TO, bool NORM_P>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
                  const bf16* __restrict__ vp, TO* __restrict__ out,
@@ -353,6 +362,7 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   float* Ss_all = reinterpret_cast<float*>(Vs + T::TILE);
   bf16* Ps_all = reinterpret_cast<bf16*>(Ss_all + 4 * 16 * S_LD);
 
+  static_assert(!NORM_P || std::is_same<TO, float>::value, "NORM_P is fp32 only");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
   const int W = heads * HD;
@@ -383,14 +393,9 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   float* orow = Ss + row * S_LD + half * HALF;       // this lane's PV columns
   bf16* prow = Ps + row * P_LD + half * (AKV / 2);
 
-  const int n_tiles = (seq_len + AKV - 1) / AKV;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * AKV;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<HD>(Ks, kb, k0, seq_len, ld, tid);  // masked keys load as zeros
-    load_tile<HD>(Vs, vb, k0, seq_len, ld, tid);
-    __syncthreads();
-
+  // the scaled, masked scores of the K tile at key k0 (in shared memory) for
+  // this lane's columns into sv; returns the row's max over the tile
+  auto tile_scores = [&](int k0, float* sv) {
 #pragma unroll
     for (int j = 0; j < AKV / 16; ++j) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
@@ -404,8 +409,6 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
       wmma::store_matrix_sync(Ss + j * 16, sf, S_LD, wmma::mem_row_major);
     }
     __syncwarp();
-
-    float sv[AKV / 2];
     float mx = -1e30f;
 #pragma unroll
     for (int c = 0; c < AKV / 2; ++c) {
@@ -413,7 +416,11 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
       sv[c] = s;
       mx = fmaxf(mx, s);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  };
+  // the online update of the row max m_run and sum l_run by one tile; returns
+  // the factor that rescales what was summed before it
+  auto online = [&](const float* sv, float mx) {
     const float m_new = fmaxf(m_run, mx);
     const float alpha = expf(m_run - m_new);
     float sum = 0.f;
@@ -421,11 +428,42 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     for (int c = 0; c < AKV / 2; ++c) {
       const float p = expf(sv[c] - m_new);
       sum += p;
-      prow[c] = __float2bfloat16(p);
+      if constexpr (!NORM_P) prow[c] = __float2bfloat16(p);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     l_run = l_run * alpha + sum;
     m_run = m_new;
+    return alpha;
+  };
+
+  const int n_tiles = (seq_len + AKV - 1) / AKV;
+  if constexpr (NORM_P) {  // first pass: the row max and sum over every key
+    for (int t = 0; t < n_tiles; ++t) {
+      __syncthreads();  // every warp is done with the previous K tile
+      load_tile<HD>(Ks, kb, t * AKV, seq_len, ld, tid);
+      __syncthreads();
+      float sv[AKV / 2];
+      online(sv, tile_scores(t * AKV, sv));
+      __syncwarp();
+    }
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * AKV;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile<HD>(Ks, kb, k0, seq_len, ld, tid);  // masked keys load as zeros
+    load_tile<HD>(Vs, vb, k0, seq_len, ld, tid);
+    __syncthreads();
+
+    float sv[AKV / 2];
+    const float mx = tile_scores(k0, sv);
+    float alpha = 1.f;
+    if constexpr (NORM_P) {
+#pragma unroll
+      for (int c = 0; c < AKV / 2; ++c)
+        prow[c] = __float2bfloat16(__fdiv_rn(expf(sv[c] - m_run), l_run));
+    } else {
+      alpha = online(sv, mx);
+    }
     __syncwarp();
 
 #pragma unroll
@@ -450,7 +488,7 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
 
   const int q = q0 + warp * 16 + row;
   if (q < S) {
-    const float inv = 1.f / l_run;
+    const float inv = NORM_P ? 1.f : 1.f / l_run;
 #pragma unroll
     for (int c = 0; c < HALF; ++c) o[c] *= inv;
     TO* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
@@ -462,11 +500,11 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   }
 }
 
-template <int HD, typename TO>
+template <int HD, typename TO, bool NORM_P>
 int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
                      int B, int S, int seq_len, int heads, int group_heads, int ld,
                      int group_stride, float scale, cudaStream_t stream) {
-  auto kernel = attention_kernel<HD, TO>;
+  auto kernel = attention_kernel<HD, TO, NORM_P>;
   constexpr int smem = 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -478,15 +516,15 @@ int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, flo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TO>
+template <typename TO, bool NORM_P = false>
 int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
                        int B, int S, int seq_len, int heads, int group_heads, int head_dim,
                        int ld, int group_stride, float scale, cudaStream_t stream) {
   if (head_dim == 64)
-    return launch_attention<64, TO>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
+    return launch_attention<64, TO, NORM_P>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
                                     ld, group_stride, scale, stream);
   if (head_dim == 72)
-    return launch_attention<72, TO>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
+    return launch_attention<72, TO, NORM_P>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
                                     ld, group_stride, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -532,13 +570,20 @@ int aihab_gemm_residual(const void* a, const void* w, int ldw, const float* bias
 
 // out[B,S,heads*D] (bf16, or fp32 with out_f32) = masked multi-head attention
 // over qkv[B,S,3*heads*D] in the grouped layout (group_heads heads per group);
-// D is 64 or 72.  The fp32 output is quant_attn_block_split's (K13), whose
-// per-group requantize reads the PV product unrounded, as the TPU kernel does.
+// D is 64 or 72.  The fp32 output is the int8 blocks' (K12, K13, K14), whose
+// requantize reads the PV product unrounded, as the TPU kernels do; norm_p
+// (fp32 only) normalises P before its bf16 cast, as they do.
 int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int heads,
-                    int group_heads, int head_dim, float scale, int out_f32, void* stream) {
+                    int group_heads, int head_dim, float scale, int out_f32, int norm_p,
+                    void* stream) {
   const bf16* base = static_cast<const bf16*>(qkv);
   const int gw = group_heads * head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (norm_p && !out_f32) return static_cast<int>(cudaErrorInvalidValue);
+  if (norm_p)
+    return attention_dispatch<float, true>(base, base + gw, base + 2 * gw, out, nullptr, B,
+                                           S, seq_len, heads, group_heads, head_dim,
+                                           3 * heads * head_dim, 3 * gw, scale, s);
   if (out_f32)
     return attention_dispatch<float>(base, base + gw, base + 2 * gw, out, nullptr, B, S,
                                      seq_len, heads, group_heads, head_dim,

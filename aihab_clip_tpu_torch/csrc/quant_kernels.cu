@@ -1,5 +1,5 @@
-// Hopper (sm_90a) int8 (W8A8 dynamic) kernels: SigLIP's int8 serving tower
-// and the int8 frozen prefix of its PEFT step.
+// Hopper (sm_90a) int8 (W8A8 dynamic) kernels: the int8 serving towers of
+// SigLIP and CLIP ViT and the int8 frozen prefixes of their PEFT steps.
 //
 // They replace the Pallas TPU kernels of aihab_clip_tpu/ops/quant_matmul.py:
 //   quant_matmul_fused      (K8,  :376, pallas_call :415) = row_quant [+ LN] ->
@@ -12,7 +12,15 @@
 //       every head group's q|k|v columns (bf16, q * 1/sqrt(d) in fp32 before its
 //       store) -> attention (block_kernels.cu, fp32 output) -> row_quant per head
 //       group -> int8_gemm with a dequant per group, the group partials summed in
-//       fp32, in group order, onto part_0 + b_out + x.
+//       fp32, in group order, onto part_0 + b_out + x;
+//   quant_attn_block_fused  (K12, :490, :509) = K13 with one group, its
+//       attention normalising P before the bf16 cast as the TPU kernel does:
+//       the whole attention row requantized, out-proj + b_out + x;
+//   quant_mlp_block_fused   (K11, :238, :262) = K9 -> K10 over the block's MLP;
+//   quant_full_block_fused  (K14, :794, :817) = K12 with the mid-block residual
+//       y1 stored in fp32 -> row_quant + LN2 -> int8_gemm (act, fp32 h) ->
+//       row_quant per mlp_chunks slice of h -> int8_gemm in the residual-first
+//       mode, out = (y1 + b2) + part_0 + part_1 ... (:779-790).
 // The Pallas programs keep a whole weight matrix (SO400M's c_fc: 5 MB int8)
 // resident in VMEM and quantize, multiply and requantize one row tile in one
 // program.  An SM has 227 KB, so the chain is cut at its GEMMs: a row's codes
@@ -31,7 +39,10 @@
 // bytes-bound pass, one warp per row.  K9's requantize needs the whole
 // 4304-wide row, which no GEMM tile sees: its GEMM stores fp32 y and a second
 // row_quant pass reads it back (1.27 GB per block at batch 64, ~0.38 ms of
-// bytes, which a fused design removes later).  K13's groups are 144 columns
+// bytes, which a fused design removes later).  At ViT-B/16, batch 64 (M =
+// 12,608, W = 768, hidden 3072) K14 is 178.5 GOP of int8 GEMM plus 7.6 GFLOP
+// of bf16 attention (0.098 ms), K12 59.5 GOP (0.038 ms) and K11 119 GOP
+// (0.060 ms), all bound by operations.  K13's groups are 144 columns
 // wide, no multiple of the 32-byte k-step: row_quant pads each group's codes
 // with zeros to 160, the out-proj weight is padded the same way, and the GEMM
 // dequantizes its int32 sum at each group boundary with the group's row scale.
@@ -124,6 +135,8 @@ row_quant_kernel(const T* __restrict__ x, int M, int K, int KG, int KGP,
 //           n % group_cols < q_cols); y += R (if given); stored as TO.
 //   G > 1:  y = (part_0 + bias) + R, then y += part_g for g = 1 .. G-1 in order
 //           (quant_matmul.py:609-615); stored as TO.
+//   RES_FIRST (any G >= 1, R fp32): y = (R + bias) + part_0, then y += part_g
+//           in order (K14's c_proj, quant_matmul.py:779-790); stored as TO.
 // Block tile 128x128, k-step 32, 8 warps of 64x32 (4x4 m16n8k32 tiles); both
 // operand tiles stream through a 4-stage cp.async ring into shared rows of 48
 // bytes (32 + 16 of padding, which keeps ldmatrix free of bank conflicts).
@@ -156,7 +169,7 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <bool GROUPED, typename TR, typename TO>
+template <bool GROUPED, bool RES_FIRST, typename TR, typename TO>
 __global__ void __launch_bounds__(QTHREADS, 1)
 int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
                  const int8_t* __restrict__ B, const float* __restrict__ ws,
@@ -230,10 +243,15 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
             float& y = yv[mi][ni][h * 2 + e];
             const float part = __fmul_rn(__int2float_rn(a), __fmul_rn(sr, wsv[ni][e]));
             if (g == 0) {
-              y = __fadd_rn(part, bv[ni][e]);
               const int col = n0 + wn * 32 + ni * 8 + tig * 2 + e;
-              if (GROUPED && R != nullptr && row < M && col < N)
-                y = __fadd_rn(y, to_f32(R[static_cast<size_t>(row) * N + col]));
+              const bool has_r = GROUPED && R != nullptr && row < M && col < N;
+              const float r = has_r ? to_f32(R[static_cast<size_t>(row) * N + col]) : 0.f;
+              if (RES_FIRST) {
+                y = __fadd_rn(__fadd_rn(r, bv[ni][e]), part);
+              } else {
+                y = __fadd_rn(part, bv[ni][e]);
+                if (has_r) y = __fadd_rn(y, r);
+              }
             } else {
               y = __fadd_rn(y, part);
             }
@@ -300,11 +318,11 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
     }
 }
 
-template <bool GROUPED, typename TR, typename TO>
+template <bool GROUPED, bool RES_FIRST, typename TR, typename TO>
 int launch_int8_gemm(const void* a, const float* sa, const void* w, const float* ws,
                      const float* bias, const void* r, void* y, int M, int N, int K, int G,
                      int act, float q_scale, int q_cols, int group_cols, cudaStream_t stream) {
-  auto kernel = int8_gemm_kernel<GROUPED, TR, TO>;
+  auto kernel = int8_gemm_kernel<GROUPED, RES_FIRST, TR, TO>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QGEMM_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -344,30 +362,39 @@ int aihab_row_quant(const void* x, int x_f32, int M, int K, int KG, int KGP,
 // y[M, N] = epilogue(a[M, K] . w[N, K]^T) (int8, K-major), dequantized with
 // the row scales sa[M, groups] and column scales ws[N], + bias[N]; r (may be
 // null) and y bf16 or fp32.  groups > 1: r and y share one dtype, act is none
-// and q_cols is 0 (the wrappers check).
+// and q_cols is 0 (the wrappers check).  res_first (groups >= 1): r fp32 is
+// added to the bias before the first partial; act none, q_cols 0.
 int aihab_int8_gemm(const void* a, const float* sa, const void* w, const float* ws,
                     const float* bias, const void* r, int r_f32, void* y, int y_f32, int M,
-                    int N, int K, int groups, int act, float q_scale, int q_cols,
-                    int group_cols, void* stream) {
+                    int N, int K, int groups, int res_first, int act, float q_scale,
+                    int q_cols, int group_cols, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res_first) {
+    if (!r_f32) return static_cast<int>(cudaErrorInvalidValue);
+    if (y_f32)
+      return launch_int8_gemm<true, true, float, float>(a, sa, w, ws, bias, r, y, M, N, K,
+                                                        groups, ACT_NONE, 1.f, 0, 1, s);
+    return launch_int8_gemm<true, true, float, bf16>(a, sa, w, ws, bias, r, y, M, N, K,
+                                                     groups, ACT_NONE, 1.f, 0, 1, s);
+  }
   if (groups > 1) {
     if (y_f32)
-      return launch_int8_gemm<true, float, float>(a, sa, w, ws, bias, r, y, M, N, K, groups,
-                                                  ACT_NONE, 1.f, 0, 1, s);
-    return launch_int8_gemm<true, bf16, bf16>(a, sa, w, ws, bias, r, y, M, N, K, groups,
-                                              ACT_NONE, 1.f, 0, 1, s);
+      return launch_int8_gemm<true, false, float, float>(a, sa, w, ws, bias, r, y, M, N, K,
+                                                         groups, ACT_NONE, 1.f, 0, 1, s);
+    return launch_int8_gemm<true, false, bf16, bf16>(a, sa, w, ws, bias, r, y, M, N, K,
+                                                     groups, ACT_NONE, 1.f, 0, 1, s);
   }
   if (r_f32 && y_f32)
-    return launch_int8_gemm<false, float, float>(a, sa, w, ws, bias, r, y, M, N, K, 1, act,
-                                                 q_scale, q_cols, group_cols, s);
+    return launch_int8_gemm<false, false, float, float>(a, sa, w, ws, bias, r, y, M, N, K, 1,
+                                                        act, q_scale, q_cols, group_cols, s);
   if (r_f32)
-    return launch_int8_gemm<false, float, bf16>(a, sa, w, ws, bias, r, y, M, N, K, 1, act,
-                                                q_scale, q_cols, group_cols, s);
+    return launch_int8_gemm<false, false, float, bf16>(a, sa, w, ws, bias, r, y, M, N, K, 1,
+                                                       act, q_scale, q_cols, group_cols, s);
   if (y_f32)
-    return launch_int8_gemm<false, bf16, float>(a, sa, w, ws, bias, r, y, M, N, K, 1, act,
-                                                q_scale, q_cols, group_cols, s);
-  return launch_int8_gemm<false, bf16, bf16>(a, sa, w, ws, bias, r, y, M, N, K, 1, act,
-                                             q_scale, q_cols, group_cols, s);
+    return launch_int8_gemm<false, false, bf16, float>(a, sa, w, ws, bias, r, y, M, N, K, 1,
+                                                       act, q_scale, q_cols, group_cols, s);
+  return launch_int8_gemm<false, false, bf16, bf16>(a, sa, w, ws, bias, r, y, M, N, K, 1,
+                                                    act, q_scale, q_cols, group_cols, s);
 }
 
 }  // extern "C"

@@ -11,9 +11,17 @@ and projection products stay ``torch.matmul``, as the JAX package left
 them to XLA; every block GEMM and the attention run in the hand-written
 kernels of ``ops/block_kernel.py`` when the pack lives on the card, and in
 their plain versions on the CPU.
+
+``vit_encode_hybrid`` is the PEFT train step's encode: the frozen bottom
+``n_prefix`` blocks through K1 over a pack of those blocks (or, with
+``qprefix``, the int8 block K14 of ``quant_vit``) without a graph, then the
+trainable blocks as the canonical ``ResidualAttentionBlock`` modules under
+autograd.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 
@@ -28,12 +36,14 @@ def _ln(x, scale, bias, eps=1e-5):
     return y.to(x.dtype)
 
 
-def pack_fastest(model, config, dtype=torch.bfloat16):
+def pack_fastest(model, config, dtype=torch.bfloat16, *,
+                 stop: Optional[int] = None):
     """Weights of a CLIP ViT or SigLIP tower in the kernels' layout, on the
-    model's device.  Built once at load; ``None`` for towers without a fast
-    path."""
+    model's device, for blocks [0, stop) (default all; the PEFT hybrid packs
+    its frozen CLIP prefix).  Built once at load (or once per training
+    run); ``None`` for towers without a fast path."""
     if isinstance(config, SigLIPConfig):
-        return pack_siglip_fast_params(model, config, dtype)
+        return pack_siglip_fast_params(model, config, dtype, stop=stop)
     if not (isinstance(config, CLIPConfig) and config.is_vit):
         return None
     vp = model.visual
@@ -45,7 +55,7 @@ def pack_fastest(model, config, dtype=torch.bfloat16):
         return t.detach().float().contiguous()
 
     blocks = []
-    for blk in vp.transformer.resblocks:
+    for blk in vp.transformer.resblocks[:stop]:
         blocks.append(dict(
             ln1_scale=vec(blk.ln_1.weight), ln1_bias=vec(blk.ln_1.bias),
             w_qkv=mat(blk.attn.in_proj_weight), b_qkv=vec(blk.attn.in_proj_bias),
@@ -156,3 +166,50 @@ def encode_image_fastest(model, x: torch.Tensor, config, *,
         return siglip_encode_fast(model, x, config, project=project,
                                   packed=packed)
     return vit_encode_block_fused(packed, x, config, project=project)
+
+
+def vit_encode_hybrid(model, images: torch.Tensor, config: CLIPConfig,
+                      n_prefix: int, *, project: bool = False,
+                      dtype=torch.bfloat16,
+                      packed_prefix: Optional[Dict] = None,
+                      qprefix: Optional[Dict] = None):
+    """The PEFT train step's encode (``fast_vit.py:687-739``): the stem and
+    the ``n_prefix`` FROZEN bottom blocks through K1 under
+    ``torch.no_grad()`` (the counterpart of JAX's ``stop_gradient`` on the
+    fused region's inputs: no graph is built there), then the canonical
+    ``ResidualAttentionBlock`` modules ``[n_prefix, L)``, ``ln_post`` and
+    ``proj`` under autograd, in ``dtype``.  ``packed_prefix``
+    (``pack_fastest`` with ``stop=n_prefix``) is packed once per run by the
+    caller; it is packed here when not given.  ``qprefix`` ({resblocks_i:
+    ``quant_vit.quantize_vit_block``}) switches the prefix blocks to the
+    int8 block K14; the stem stays in ``dtype``, as in JAX.  With
+    ``n_prefix`` 0 the stem is differentiable too."""
+    vp = model.visual
+    if n_prefix > 0 and qprefix is None and packed_prefix is None:
+        packed_prefix = pack_fastest(model, config, dtype, stop=n_prefix)
+    # the stem's weights in dtype: the pack's, or the canonical tower's
+    stem = packed_prefix or dict(
+        dtype=dtype, patch_kernel=vp.patch_kernel().to(dtype),
+        class_embedding=vp.class_embedding.to(dtype),
+        positional_embedding=vp.positional_embedding.to(dtype),
+        ln_pre=(vp.ln_pre.weight, vp.ln_pre.bias))
+    if n_prefix > 0:
+        with torch.no_grad():
+            x = _vit_embed(stem, images, config)
+            if qprefix is not None:
+                from .quant_vit import apply_int8_vit_blocks
+
+                x = apply_int8_vit_blocks(qprefix, x, config, start=0,
+                                          stop=n_prefix)
+            else:
+                x = _apply_fused_blocks(stem, x, _fused_block_plan(config),
+                                        start=0, stop=n_prefix)
+    else:
+        x = _vit_embed(stem, images, config)
+    x = x.to(dtype)
+    for blk in vp.transformer.resblocks[n_prefix:]:
+        x = blk(x)
+    pre = vp.ln_post(x[:, 0, :])
+    if not project:
+        return pre
+    return pre, pre @ vp.proj.to(pre.dtype)

@@ -11,7 +11,7 @@ kernel launch builds.
   block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5; K6 fwd;
                          K13's attention core, fp32 output)
   fused_attention_bwd.cu fused_attention's backward (K6b)
-  quant_kernels.cu       row_quant, int8_gemm (K8, K9, K10, K13)
+  quant_kernels.cu       row_quant, int8_gemm (K8-K14)
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ _ARGTYPES = {
                           _f, _f, _i, _i, _p],
         "aihab_gemm_residual": [_p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _i,
                                 _p],
-        "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _p],
+        "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _i, _p],
         "aihab_fused_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
                                       _p],
     },
@@ -50,7 +50,7 @@ _ARGTYPES = {
     "quant_kernels": {
         "aihab_row_quant": [_p, _i, _i, _i, _i, _i, _p, _p, _f, _p, _p, _p],
         "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i, _i,
-                            _i, _f, _i, _i, _p],
+                            _i, _i, _f, _i, _i, _p],
     },
 }
 

@@ -267,10 +267,13 @@ def gemm_residual(a, w, bias, residual, *, out_dtype=None):
 
 def attention(qkv, heads: int, seq_len: int | None = None, *,
               group_heads: int | None = None, q_scaled: bool = False,
-              out_dtype=None):
+              out_dtype=None, normalize_p: bool = False):
     """qkv [B, S, 3W] bf16 -> masked multi-head attention [B, S, W] in
-    ``out_dtype`` (default bf16; fp32 keeps the PV product unrounded, as
-    ``quant_attn_block_split`` reads it; keys >= ``seq_len`` masked).
+    ``out_dtype`` (default bf16; fp32 keeps the PV product unrounded, as the
+    int8 blocks K12-K14 read it; keys >= ``seq_len`` masked).
+    ``normalize_p`` (fp32 output only) casts P normalised to bf16, as the
+    TPU kernels do, in a second pass over the keys; otherwise the 1/sum
+    applies to the output rows.
     Layout: ``group_heads`` heads per group
     (default all: CLIP's packed q | k | v), each group's columns q_g | k_g
     | v_g.  ``q_scaled``: q already holds q / sqrt(d), rounded; otherwise
@@ -279,7 +282,8 @@ def attention(qkv, heads: int, seq_len: int | None = None, *,
     72); plain version ``attention_plain`` on CPU tensors."""
     if not qkv.is_cuda:
         return attention_plain(qkv, heads, seq_len, group_heads=group_heads,
-                               q_scaled=q_scaled, out_dtype=out_dtype)
+                               q_scaled=q_scaled, out_dtype=out_dtype,
+                               normalize_p=normalize_p)
     out_dtype = out_dtype or torch.bfloat16
     b, s, w3 = qkv.shape
     w = w3 // 3
@@ -295,11 +299,13 @@ def attention(qkv, heads: int, seq_len: int | None = None, *,
         raise ValueError(f"seq_len {seq_len} outside [1, {s}]")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype} not bf16/fp32")
+    if normalize_p and out_dtype != torch.float32:
+        raise ValueError("normalize_p needs the fp32 output")
     _check("qkv", qkv, torch.bfloat16, (b, s, w3), qkv.device)
     out = torch.empty((b, s, w), dtype=out_dtype, device=qkv.device)
     launch("aihab_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
            b, s, seq_len, heads, g, d, 1.0 if q_scaled else 1.0 / math.sqrt(d),
-           int(out_dtype == torch.float32))
+           int(out_dtype == torch.float32), int(normalize_p))
     attention.launches += 1
     return out
 

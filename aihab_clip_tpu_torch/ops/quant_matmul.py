@@ -11,6 +11,15 @@
                                       head groups -> bf16 MHA -> requantize
                                       per group -> int8 out-proj, the group
                                       partials summed in fp32 + b + x
+  * ``quant_attn_block_fused``  (K12) K13 with one group: the whole
+                                      attention row requantized
+  * ``quant_mlp_block_fused``   (K11) LN -> quantize -> int8 c_fc -> act ->
+                                      requantize the hidden row -> int8
+                                      c_proj + b2 + x
+  * ``quant_full_block_fused``  (K14) K12 with the mid-block residual y1 in
+                                      fp32, then K11 over y1 with the hidden
+                                      row requantized per chunk and
+                                      out = (y1 + b2) + the chunk partials
 
 On the TPU each is one Pallas program per row tile (K13: per image and head
 group) with its int8 weights resident in VMEM.  On the H100 each is a
@@ -21,16 +30,23 @@ header gives the design and the bound):
                    row) s = max(amax, 1e-12) * (1/127) and the int8 codes
   * ``int8_gemm``  int8 x int8 -> int32 on the tensor cores, dequant
                    acc * (s_x * s_w) + bias, act, q-scale, residual; or with
-                   a dequant per head group of K, summed in group order
+                   a dequant per group of K, summed in group order onto
+                   part_0 + bias + residual, or (residual-first) onto
+                   residual + bias
   * ``attention``  (``ops/block_kernel.py``) the bf16 attention core over
-                   the grouped qkv, q pre-scaled, fp32 output
+                   the grouped qkv, q pre-scaled, fp32 output (for K12 and
+                   K14 with P normalised before its bf16 cast)
 
 K8 = row_quant -> int8_gemm.  K9 = row_quant(LN) -> int8_gemm (fp32 y) ->
 row_quant(y): the requantize needs a whole row, which no GEMM tile holds.
 K10 = int8_gemm.  K13 = row_quant(LN) -> int8_gemm (bf16 qkv, q * 1/sqrt(d)
 in fp32 before the rounding, as the TPU kernel rounds it) -> attention (fp32)
 -> row_quant per head group, each group's codes padded with zeros to a
-multiple of 32 -> int8_gemm with a dequant per group.
+multiple of 32 -> int8_gemm with a dequant per group.  K12 = K13's chain with
+one group.  K11 = K9 -> K10.  K14 = K12's chain with an fp32 out-proj output
+(y1) -> row_quant(LN2) -> int8_gemm (act, fp32 h) -> row_quant per hidden
+chunk -> int8_gemm residual-first, so its fp32 sum runs in the TPU kernel's
+order, (y1 + b2) + part_0 + part_1 ...
 
 Layouts.  The public functions keep the JAX signatures and layouts: ``w8``
 [K, N] with ``w_scale`` [N]; K13's ``wqkv8_g`` [G, W, 3gD] and ``wout8_g``
@@ -169,7 +185,7 @@ def row_quant(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
 
 def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
                     out_dtype=torch.bfloat16, q_scale=1.0, q_width=0,
-                    groups=1):
+                    groups=1, residual_first=False):
     """Plain version of ``int8_gemm`` (same signature)."""
     m, k = a8.shape
     kg = k // groups
@@ -178,13 +194,15 @@ def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
     for g in range(groups):
         cols = slice(g * kg, (g + 1) * kg)
         part = int_matmul(a8[:, cols], wt[:, cols].t()) * (sa[:, g:g + 1] * ws)
-        if g == 0:
+        if g:
+            y = y + part
+        elif residual_first:
+            y = (residual.float() + bias.float()[None, :]) + part
+        else:
             y = part + bias.float()[None, :]
             if groups > 1:
                 y = y + residual.float()
-        else:
-            y = y + part
-    if groups == 1:
+    if groups == 1 and not residual_first:
         y = act_f32(y, act)
         if q_width:
             is_q = torch.arange(y.shape[-1], device=y.device) % (3 * q_width) \
@@ -196,7 +214,8 @@ def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
 
 
 def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
-              out_dtype=torch.bfloat16, q_scale=1.0, q_width=0, groups=1):
+              out_dtype=torch.bfloat16, q_scale=1.0, q_width=0, groups=1,
+              residual_first=False):
     """a8 [M, K] int8 (row scales ``sa`` [M, groups]) times ``wt`` [N, K]
     int8 (K-major, column scales ``ws`` [N]) -> [M, N] in ``out_dtype``.
 
@@ -204,20 +223,28 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
     (``q_width`` wide, groups 3 q_width wide) times ``q_scale``, + residual.
     groups > 1: K is ``groups`` equal spans; span g's int32 sum is
     dequantized with ``sa[:, g]``, and the partials sum in fp32 as
-    (part_0 + bias) + residual + part_1 + ... (K13's out-proj).  Kernel
-    ``int8_gemm``."""
+    (part_0 + bias) + residual + part_1 + ... (K13's out-proj).
+    ``residual_first`` (any groups, an fp32 residual): (residual + bias) +
+    part_0 + part_1 + ... (K14's c_proj).  Kernel ``int8_gemm``."""
     if not a8.is_cuda:
         return int8_gemm_plain(a8, sa, wt, ws, bias, act=act,
                                residual=residual, out_dtype=out_dtype,
                                q_scale=q_scale, q_width=q_width,
-                               groups=groups)
+                               groups=groups, residual_first=residual_first)
     m, k = a8.shape
     n = wt.shape[0]
     if k % 16 or n % 8 or q_width % 2:
         raise ValueError(f"int8_gemm needs K a multiple of 16, N of 8 and an "
                          f"even q_width, got {k}, {n}, {q_width}")
-    if groups > 1 and (k % (groups * GEMM_BK) or act != "none" or q_width
-                       or residual is None or residual.dtype != out_dtype):
+    if residual_first and (k % (groups * GEMM_BK) or act != "none" or q_width
+                           or residual is None
+                           or residual.dtype != torch.float32):
+        raise ValueError("residual-first int8_gemm needs spans that are "
+                         f"multiples of {GEMM_BK}, no activation or q-scale, "
+                         "and an fp32 residual")
+    if groups > 1 and not residual_first and (
+            k % (groups * GEMM_BK) or act != "none" or q_width
+            or residual is None or residual.dtype != out_dtype):
         raise ValueError("grouped int8_gemm needs spans that are multiples of "
                          f"{GEMM_BK}, no activation or q-scale, and a "
                          "residual of the output's dtype")
@@ -240,7 +267,8 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
            None if residual is None else residual.data_ptr(),
            int(residual is not None and residual.dtype == torch.float32),
            y.data_ptr(), int(out_dtype == torch.float32), m, n, k, groups,
-           ACTS[act], q_scale, q_width, max(3 * q_width, 1))
+           int(residual_first), ACTS[act], q_scale, q_width,
+           max(3 * q_width, 1))
     int8_gemm.launches += 1
     return y
 
@@ -278,6 +306,58 @@ def _k9(ops, x, w8, w_scale, bias, ln_scale, ln_bias, act, ln_eps):
 def _k10(ops, x8, x_scale, w8, w_scale, bias, residual):
     return ops.int8_gemm(x8, x_scale, _kmajor(w8), w_scale, bias,
                          residual=residual, out_dtype=residual.dtype)
+
+
+def _int8_attn(ops, x2, b, s, wqkv8, qkv_scale, b_qkv, ln_scale, ln_bias,
+               heads, seq_len):
+    """K12's chain up to the out-proj's input: LN1 -> quantize -> int8 QKV
+    (bf16, q * 1/sqrt(d) in fp32 before the store) -> attention over every
+    head (fp32, P normalised before its bf16 cast, as in the TPU kernel) ->
+    the whole row requantized.  Returns (a8, sa)."""
+    w = x2.shape[1]
+    x8, sx = ops.row_quant(x2, ln_scale, ln_bias)
+    qkv = ops.int8_gemm(x8, sx, _kmajor(wqkv8), qkv_scale, b_qkv,
+                        out_dtype=torch.bfloat16,
+                        q_scale=1.0 / math.sqrt(w // heads), q_width=w)
+    attn = ops.attention(qkv.reshape(b, s, 3 * w), heads, seq_len,
+                         q_scaled=True, out_dtype=torch.float32,
+                         normalize_p=True)
+    return ops.row_quant(attn.reshape(b * s, w))
+
+
+def _k12(ops, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out, ln_scale,
+         ln_bias, heads, seq_len, out_dtype):
+    """K12 over [B, S, W] x; out-proj + b_out + x stored as ``out_dtype``
+    ([B*S, W]; K14 keeps it fp32)."""
+    b, s, w = x.shape
+    x2 = x.reshape(b * s, w)
+    a8, sa = _int8_attn(ops, x2, b, s, wqkv8, qkv_scale, b_qkv, ln_scale,
+                        ln_bias, heads, seq_len)
+    return ops.int8_gemm(a8, sa, _kmajor(wout8), out_scale, b_out,
+                         residual=x2, out_dtype=out_dtype)
+
+
+def _k11(ops, x, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln_scale, ln_bias,
+         act, ln_eps):
+    h8, hs = _k9(ops, x, w1_8, w1_scale, b1, ln_scale, ln_bias, act, ln_eps)
+    return _k10(ops, h8, hs, w2_8, w2_scale, b2, x)
+
+
+def _k14(ops, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out, ln1_scale,
+         ln1_bias, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln2_scale,
+         ln2_bias, heads, mlp_chunks, act):
+    b, s, w = x.shape
+    y1 = _k12(ops, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out,
+              ln1_scale, ln1_bias, heads, s, torch.float32)
+    l8, sl = ops.row_quant(y1, ln2_scale, ln2_bias)
+    h = ops.int8_gemm(l8, sl, _kmajor(w1_8), w1_scale, b1, act=act,
+                      out_dtype=torch.float32)
+    ch = h.shape[1] // mlp_chunks
+    h8, hs = ops.row_quant(h, group=ch, group_pad=_group_pad(ch))
+    out = ops.int8_gemm(h8, hs, _out_operand(w2_8.reshape(mlp_chunks, ch, w)),
+                        w2_scale, b2, residual=y1, out_dtype=x.dtype,
+                        groups=mlp_chunks, residual_first=True)
+    return out.reshape(b, s, w)
 
 
 def _k13(ops, x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g, out_scale, b_out,
@@ -427,6 +507,112 @@ def quant_attn_block_split(x, wqkv8_g, qkv_scale_g, b_qkv_g, wout8_g,
     return out
 
 
+def quant_attn_block_fused_plain(x, wqkv8, qkv_scale, b_qkv, wout8,
+                                 out_scale, b_out, ln_scale, ln_bias,
+                                 heads: int, padded_io: bool = False,
+                                 seq_len: int | None = None):
+    """Plain version of ``quant_attn_block_fused`` (same signature)."""
+    seq_len = _k13_seq_len(x, heads, 1, padded_io, seq_len)
+    return _k12(_PLAIN, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out,
+                ln_scale, ln_bias, heads, seq_len, x.dtype).reshape(x.shape)
+
+
+def quant_attn_block_fused(x, wqkv8, qkv_scale, b_qkv, wout8, out_scale,
+                           b_out, ln_scale, ln_bias, heads: int,
+                           padded_io: bool = False,
+                           seq_len: int | None = None):
+    """x [B, S, W] -> x + int8_out_proj(MHA(int8_qkv(LN(x)))) (K12), output
+    in x's dtype.  ``wqkv8`` [W, 3W] (q | k | v), ``wout8`` [W, W]; scales
+    [3W], [W] and fp32 biases.  The attention core is bf16 (q * 1/sqrt(d)
+    in fp32 before its cast), its fp32 output requantized over the whole
+    row.  ``padded_io``/``seq_len`` as in ``quant_attn_block_split``: the
+    TPU kernel padded S to a multiple of 16 itself, the kernels here mask
+    their ragged edges and need no padding."""
+    if not x.is_cuda:
+        return quant_attn_block_fused_plain(
+            x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out, ln_scale,
+            ln_bias, heads, padded_io, seq_len)
+    seq_len = _k13_seq_len(x, heads, 1, padded_io, seq_len)
+    out = _k12(_KERNELS, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out,
+               ln_scale, ln_bias, heads, seq_len, x.dtype)
+    quant_attn_block_fused.launches += 1
+    return out.reshape(x.shape)
+
+
+def quant_mlp_block_fused_plain(x, w1_8, w1_scale, b1, w2_8, w2_scale, b2,
+                                ln_scale, ln_bias, act: str = "quick_gelu",
+                                ln_eps: float = 1e-5, tile_m: int = 0):
+    """Plain version of ``quant_mlp_block_fused`` (same signature)."""
+    _check_act(act)
+    return _k11(_PLAIN, x, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln_scale,
+                ln_bias, act, ln_eps)
+
+
+def quant_mlp_block_fused(x, w1_8, w1_scale, b1, w2_8, w2_scale, b2,
+                          ln_scale, ln_bias, act: str = "quick_gelu",
+                          ln_eps: float = 1e-5, tile_m: int = 0):
+    """x [M, W] -> x + int8_c_proj(requant(act(int8_c_fc(quant(LN(x))))))
+    (K11), output in x's dtype: ``w1_8`` [W, H], ``w2_8`` [H, W], the hidden
+    row requantized whole, c_proj summed as (part + b2) + x.  ``tile_m`` was
+    the TPU kernel's row tile: accepted and ignored."""
+    _check_act(act)
+    if not x.is_cuda:
+        return quant_mlp_block_fused_plain(x, w1_8, w1_scale, b1, w2_8,
+                                           w2_scale, b2, ln_scale, ln_bias,
+                                           act, ln_eps)
+    out = _k11(_KERNELS, x, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln_scale,
+               ln_bias, act, ln_eps)
+    quant_mlp_block_fused.launches += 1
+    return out
+
+
+def _check_chunks(w1_8, mlp_chunks):
+    if mlp_chunks < 1 or w1_8.shape[1] % mlp_chunks:
+        raise ValueError(f"mlp_chunks {mlp_chunks} does not divide hidden "
+                         f"{w1_8.shape[1]}")
+
+
+def quant_full_block_fused_plain(x, wqkv8, qkv_scale, b_qkv, wout8, out_scale,
+                                 b_out, ln1_scale, ln1_bias, w1_8, w1_scale,
+                                 b1, w2_8, w2_scale, b2, ln2_scale, ln2_bias,
+                                 heads: int, *, mlp_chunks: int = 1,
+                                 act: str = "quick_gelu",
+                                 images_per_program: int = 1):
+    """Plain version of ``quant_full_block_fused`` (same signature)."""
+    _check_act(act)
+    _check_chunks(w1_8, mlp_chunks)
+    return _k14(_PLAIN, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out,
+                ln1_scale, ln1_bias, w1_8, w1_scale, b1, w2_8, w2_scale, b2,
+                ln2_scale, ln2_bias, heads, mlp_chunks, act)
+
+
+def quant_full_block_fused(x, wqkv8, qkv_scale, b_qkv, wout8, out_scale,
+                           b_out, ln1_scale, ln1_bias, w1_8, w1_scale, b1,
+                           w2_8, w2_scale, b2, ln2_scale, ln2_bias,
+                           heads: int, *, mlp_chunks: int = 1,
+                           act: str = "quick_gelu",
+                           images_per_program: int = 1):
+    """x [B, S, W] -> one whole int8 transformer block (K14), output in x's
+    dtype: K12 with the mid-block residual y1 kept in fp32, then LN2 ->
+    quantize -> int8 c_fc -> act -> the hidden row requantized per
+    ``mlp_chunks`` slice (each slice its own row scale) -> int8 c_proj,
+    out = (y1 + b2) + the chunk partials in order.  ``images_per_program``
+    was the TPU kernel's grid tiling (the math is invariant to it): accepted
+    and ignored."""
+    _check_act(act)
+    _check_chunks(w1_8, mlp_chunks)
+    if not x.is_cuda:
+        return quant_full_block_fused_plain(
+            x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out, ln1_scale,
+            ln1_bias, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln2_scale,
+            ln2_bias, heads, mlp_chunks=mlp_chunks, act=act)
+    out = _k14(_KERNELS, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out,
+               ln1_scale, ln1_bias, w1_8, w1_scale, b1, w2_8, w2_scale, b2,
+               ln2_scale, ln2_bias, heads, mlp_chunks, act)
+    quant_full_block_fused.launches += 1
+    return out
+
+
 def regroup_attn_weights(wqkv8, qkv_scale, b_qkv, wout8, heads: int,
                          n_groups: int):
     """[W, 3W] packed q|k|v (+ scales/bias) and [W, W] out-proj -> the
@@ -447,7 +633,8 @@ def regroup_attn_weights(wqkv8, qkv_scale, b_qkv, wout8, heads: int,
 
 
 COUNTED = (row_quant, int8_gemm, quant_matmul_fused, quant_matmul_fused_qout,
-           quant_matmul_q8in, quant_attn_block_split)
+           quant_matmul_q8in, quant_attn_block_split, quant_attn_block_fused,
+           quant_mlp_block_fused, quant_full_block_fused)
 for _fn in COUNTED:
     _fn.launches = 0
 

@@ -9,8 +9,8 @@
   system's default backbone, with its 0.5/0.5 pixel stats and its text
   head) take the same path.  ``quantize="int8"`` serves SigLIP towers
   through the int8 kernels (``models/quant_siglip``: K8 patchify, then K13,
-  K9 and K10 per block); int8 for CLIP ViT towers waits for
-  ``quant_full_block_fused`` (K14) and the ViT int8 pieces (K11, K12).
+  K9 and K10 per block) and CLIP ViT towers through ``models/quant_vit``
+  (K8 patchify, then the merged int8 block K14 per block).
 * :class:`DynamicBatcher` — request threads submit single decoded images; a
   collector thread coalesces them into padded batches of the smallest
   bucket that holds them, and a fetch thread waits on each batch's result,
@@ -66,7 +66,7 @@ class ClassifierEngine:
         self.device = resolve_device(device)
         if lora:
             raise NotImplementedError("LoRA merging (train/lora.py) is not "
-                                      "ported yet")
+                                      "ported yet: ROADMAP A10")
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         del lora_alpha
@@ -86,12 +86,12 @@ class ClassifierEngine:
         self.bundle = load(model, dtype=self._compute_dtype,
                            device=self.device)
         cfg = self.bundle.config
-        if quantize == "int8" and not isinstance(cfg, SigLIPConfig):
+        if quantize == "int8" and not (isinstance(cfg, SigLIPConfig)
+                                       or cfg.is_vit):
             raise NotImplementedError(
-                "quantize='int8' serves SigLIP towers only: the CLIP ViT int8 "
-                "tower waits for quant_full_block_fused (K14), "
-                "quant_attn_block_fused (K12) and quant_mlp_block_fused "
-                "(K11), ROADMAP A11")
+                "quantize='int8' serves SigLIP and CLIP ViT towers: the "
+                "ConvNeXt and ResNet int8 towers wait for their ports "
+                "(ROADMAP A2, A11)")
         self.resolution = resolution or cfg.image_resolution
         if self.resolution != cfg.image_resolution:
             raise ValueError(
@@ -107,12 +107,27 @@ class ClassifierEngine:
                                context_length=cfg.context_length,
                                tokenize_fn=self.bundle.tokenize_fn)
         self._text_weights = head["text_weights"]
-        self._packed = self._qparams = None
-        if quantize == "int8":
-            from .models.quant_siglip import quantize_siglip_params
+        self._packed = self._qparams = self._encode_int8 = None
+        # the int8 weights from the fp32 parameters, once, into the kernels'
+        # layout; the int8 encodes take no dtype, as the JAX engine calls
+        # them (serving.py:201-203, 232-234): they compute in bf16 even where
+        # the engine's compute dtype is fp32 (on the CPU).  The closures hold
+        # no reference to the engine, which would keep a dropped engine's
+        # weights alive until a garbage collection.
+        net = self.bundle.model
+        if quantize == "int8" and isinstance(cfg, SigLIPConfig):
+            from .models.quant_siglip import (quantize_siglip_params,
+                                              siglip_encode_int8)
 
-            # from the fp32 parameters, once, into the kernels' layout
-            self._qparams = quantize_siglip_params(self.bundle.model, cfg)
+            qp = self._qparams = quantize_siglip_params(net, cfg)
+            self._encode_int8 = lambda x: siglip_encode_int8(
+                qp, net, x, cfg, project=True)[1]
+        elif quantize == "int8":
+            from .models.quant_vit import quantize_vit_params, vit_encode_int8
+
+            qp = self._qparams = quantize_vit_params(net, cfg)
+            self._encode_int8 = lambda x: vit_encode_int8(
+                qp, x, cfg, project=True)[1]
         elif self.device.type == "cuda":
             from .models.fast_vit import pack_fastest
 
@@ -132,14 +147,8 @@ class ClassifierEngine:
         mean, std = normalize_stats_for(cfg)
         x = eval_transform(images_u8, self.resolution,
                            dtype=self._compute_dtype, mean=mean, std=std)
-        if self._qparams is not None:
-            from .models.quant_siglip import siglip_encode_int8
-
-            # no dtype, as the JAX engine calls it (serving.py:201-203): the
-            # int8 encode computes in bf16 even where the engine's compute
-            # dtype is fp32 (on the CPU)
-            _, feats = siglip_encode_int8(self._qparams, self.bundle.model,
-                                          x, cfg, project=True)
+        if self._encode_int8 is not None:
+            feats = self._encode_int8(x)
         else:
             _, feats = encode_image_fastest(self.bundle.model, x, cfg,
                                             project=True, packed=self._packed)

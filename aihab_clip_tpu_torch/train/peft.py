@@ -10,10 +10,12 @@
     are the text head, ``peft.py:98-105``), so at ``unlocked_text_layers=1``
     only ``text.ln_final`` trains; the port keeps that;
   * a train step: the device-side augmentation (``ops/fast_warp``), the
-    image encode (for SigLIP with a frozen prefix ``siglip_encode_hybrid``:
+    image encode (with a frozen prefix: for SigLIP ``siglip_encode_hybrid``,
     K5/K4 for the prefix, or with ``prefix_quant`` the int8 kernels
     K13/K9/K10, the canonical blocks with the fused attention kernel K6
-    forward and backward for the rest), fp32 L2 normalisation,
+    forward and backward for the rest; for a CLIP ViT ``vit_encode_hybrid``,
+    K1 for the prefix, or with ``prefix_quant`` the int8 block K14, the
+    canonical blocks for the rest), fp32 L2 normalisation,
     the in-step text-head recompute when ``tune_text``, masked CE of
     ``100 * f @ T`` (``logit_scale`` is ignored, as in the reference), then
     Adam (optax's defaults: betas 0.9/0.999, eps 1e-8) over fp32 master
@@ -135,13 +137,14 @@ class PEFTConfig:
     compute_dtype: Any = torch.float32
     val_interval: int = 0
     # frozen-prefix fused forward: the bottom N frozen visual blocks run
-    # through K5/K4 in the train step.  -1 = auto (``peft_fused_prefix_len``),
-    # 0 = off (canonical modules), > 0 = explicit block count
+    # through the forward-only block kernels in the train step (SigLIP
+    # K5/K4, CLIP ViT K1).  -1 = auto (``peft_fused_prefix_len``), 0 = off
+    # (canonical modules), > 0 = explicit block count
     fused_prefix: int = -1
-    # int8 frozen prefix (SigLIP, with fused_prefix > 0): the prefix blocks
-    # run the int8 kernels K13 -> K9 -> K10 on weights quantized once per
-    # run; opt-in (``finetune.fused_prefix_quant``), the suffix then trains
-    # on int8-noise features
+    # int8 frozen prefix (with fused_prefix > 0): the prefix blocks run the
+    # int8 kernels (SigLIP K13 -> K9 -> K10, CLIP ViT K14) on weights
+    # quantized once per run; opt-in (``finetune.fused_prefix_quant``), the
+    # suffix then trains on int8-noise features
     prefix_quant: bool = False
     # options of the JAX finetune that raise here until their slice
     device_dataset: Any = False
@@ -151,22 +154,19 @@ class PEFTConfig:
 
 # the ROADMAP item that brings each option of the JAX finetune not ported yet
 _UNPORTED = {
-    "lora_rank": "LoRA adapters (train/lora.py), ROADMAP A8",
-    "prefix_quant": "the CLIP ViT int8 prefix (quant_full_block_fused, "
-                    "K14), ROADMAP A11",
-    "scan_blocks": "the scanned encode (siglip_encode_scan), ROADMAP A8",
-    "device_dataset": "the epoch scan / chunked regimes, ROADMAP A8",
-    "mesh": "parallelism, ROADMAP A14",
-    "fsdp": "parallelism, ROADMAP A14",
-    "resume_from": "checkpointing, ROADMAP A8",
-    "checkpoint_fn": "checkpointing, ROADMAP A8",
-    "profile_dir": "profiling (utils/profiling.py), ROADMAP A8",
+    "lora_rank": "LoRA adapters (train/lora.py), ROADMAP A10",
+    "scan_blocks": "the scanned encode (siglip_encode_scan), ROADMAP A10",
+    "device_dataset": "the epoch scan / chunked regimes, ROADMAP A10",
+    "mesh": "parallelism, ROADMAP A13",
+    "fsdp": "parallelism, ROADMAP A13",
+    "resume_from": "checkpointing, ROADMAP A10",
+    "checkpoint_fn": "checkpointing, ROADMAP A10",
+    "profile_dir": "profiling (utils/profiling.py), ROADMAP A10",
 }
 
 
-def _check_unported(cfg: PEFTConfig, siglip: bool, **options) -> None:
+def _check_unported(cfg: PEFTConfig, **options) -> None:
     requested = dict(options, lora_rank=cfg.lora_rank > 0,
-                     prefix_quant=cfg.prefix_quant and not siglip,
                      scan_blocks=cfg.scan_blocks,
                      device_dataset=cfg.device_dataset)
     for name, value in requested.items():
@@ -180,7 +180,7 @@ def peft_fused_prefix_len(config, unlocked_groups: int, device) -> int:
     and run through the forward-only kernels (``fast_vit.py:624-671``): 0
     off the card (JAX: off the TPU) and for SigLIP towers of width <= 1024
     (a wash on the TPU); otherwise L + 1 - unlocked_groups, clipped to
-    [0, L].  SO400M at ``unlocked_groups=11``: 17."""
+    [0, L].  At ``unlocked_groups=11``: SO400M 17, ViT-B/16 2."""
     if resolve_device(device).type != "cuda" or not config.is_vit:
         return 0
     if isinstance(config, SigLIPConfig) and config.vision_width <= 1024:
@@ -190,54 +190,62 @@ def peft_fused_prefix_len(config, unlocked_groups: int, device) -> int:
 
 
 def _pack_prefix(model, cfg: PEFTConfig):
-    """The hybrid prefix's K5/K4 weight pack, built once per run (the
-    frozen weights never change); None with the int8 prefix."""
+    """The hybrid prefix's weight pack (SigLIP: K5/K4, CLIP ViT: K1) for the
+    bottom ``fused_prefix`` blocks, built once per run (the frozen weights
+    never change); None with the int8 prefix."""
     if cfg.fused_prefix <= 0 or cfg.prefix_quant:
         return None
-    from ..models.fast_siglip import pack_siglip_fast_params
+    if isinstance(model.config, SigLIPConfig):
+        from ..models.fast_siglip import pack_siglip_fast_params
 
-    return pack_siglip_fast_params(model, model.config, cfg.compute_dtype,
-                                   stop=cfg.fused_prefix, hybrid=True)
+        return pack_siglip_fast_params(model, model.config, cfg.compute_dtype,
+                                       stop=cfg.fused_prefix, hybrid=True)
+    from ..models.fast_vit import pack_fastest
+
+    return pack_fastest(model, model.config, cfg.compute_dtype,
+                        stop=cfg.fused_prefix)
 
 
 def _quantize_prefix(model, cfg: PEFTConfig):
-    """The int8 frozen prefix (``peft.py:273-299``): {resblocks_i:
-    ``quantize_siglip_block``} for the bottom ``fused_prefix`` blocks, with
-    the hybrid head grouping, quantized once per run; None when the int8
-    prefix is off."""
+    """The int8 frozen prefix (``peft.py:273-299``): {resblocks_i: qblock}
+    for the bottom ``fused_prefix`` blocks, quantized once per run
+    (SigLIP: ``quantize_siglip_block`` with the hybrid head grouping; CLIP
+    ViT: ``quantize_vit_block``); None when the int8 prefix is off."""
     if cfg.fused_prefix <= 0 or not cfg.prefix_quant:
         return None
-    from ..models.fast_siglip import siglip_attn_groups
-    from ..models.quant_siglip import quantize_siglip_block
-
-    n_groups = siglip_attn_groups(model.config, hybrid=True)
     blocks = model.visual.transformer.resblocks
-    return {f"resblocks_{i}": quantize_siglip_block(
-        blocks[i], model.config.vision_heads, n_groups)
-        for i in range(cfg.fused_prefix)}
+    if isinstance(model.config, SigLIPConfig):
+        from ..models.fast_siglip import siglip_attn_groups
+        from ..models.quant_siglip import quantize_siglip_block
+
+        n_groups = siglip_attn_groups(model.config, hybrid=True)
+        return {f"resblocks_{i}": quantize_siglip_block(
+            blocks[i], model.config.vision_heads, n_groups)
+            for i in range(cfg.fused_prefix)}
+    from ..models.quant_vit import quantize_vit_block
+
+    return {f"resblocks_{i}": quantize_vit_block(blocks[i])
+            for i in range(cfg.fused_prefix)}
 
 
 def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
     """The train step's image encode: the frozen-prefix hybrid when
-    ``fused_prefix`` > 0 (SigLIP), the canonical module otherwise.
-    ``pprefix`` is the run's prefix (``_pack_prefix``, or
-    ``_quantize_prefix`` with ``prefix_quant``), built here when absent."""
-    if cfg.fused_prefix > 0:
-        if not isinstance(model.config, SigLIPConfig):
-            raise NotImplementedError(
-                "the CLIP ViT fused prefix (vit_encode_hybrid over K1) is not "
-                "ported: ROADMAP A8; pass fused_prefix=0")
-        from ..models.fast_siglip import siglip_encode_hybrid
-
-        if cfg.prefix_quant:
-            return siglip_encode_hybrid(
-                model, x, model.config, cfg.fused_prefix, project=True,
-                dtype=cfg.compute_dtype,
-                qprefix=pprefix or _quantize_prefix(model, cfg))
-        return siglip_encode_hybrid(model, x, model.config, cfg.fused_prefix,
-                                    project=True, dtype=cfg.compute_dtype,
-                                    packed_prefix=pprefix)
-    return model.encode_image(x, project=True)
+    ``fused_prefix`` > 0 (``siglip_encode_hybrid`` or ``vit_encode_hybrid``),
+    the canonical module otherwise.  ``pprefix`` is the run's prefix
+    (``_pack_prefix``, or ``_quantize_prefix`` with ``prefix_quant``), built
+    here when absent."""
+    if cfg.fused_prefix <= 0:
+        return model.encode_image(x, project=True)
+    if isinstance(model.config, SigLIPConfig):
+        from ..models.fast_siglip import siglip_encode_hybrid as hybrid
+    else:
+        from ..models.fast_vit import vit_encode_hybrid as hybrid
+    if cfg.prefix_quant:
+        return hybrid(model, x, model.config, cfg.fused_prefix, project=True,
+                      dtype=cfg.compute_dtype,
+                      qprefix=pprefix or _quantize_prefix(model, cfg))
+    return hybrid(model, x, model.config, cfg.fused_prefix, project=True,
+                  dtype=cfg.compute_dtype, packed_prefix=pprefix)
 
 
 def _build_loss_fn(model, cfg: PEFTConfig,
@@ -321,8 +329,7 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     one unless ``device="cpu"``), where the model must already live.
     Returns {val, test, params, tracker, report, mask}: ``params`` are the
     trained parameters by name (the model's own tensors)."""
-    _check_unported(cfg, isinstance(model.config, SigLIPConfig),
-                    profile_dir=profile_dir, checkpoint_fn=checkpoint_fn,
+    _check_unported(cfg, profile_dir=profile_dir, checkpoint_fn=checkpoint_fn,
                     resume_from=resume_from, mesh=mesh, fsdp=fsdp)
     dev = resolve_device(device)
     on = model.logit_scale.device
@@ -332,7 +339,7 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     ccfg = model.config
     if not ccfg.is_vit:
         raise NotImplementedError("PEFT of ResNet and ConvNeXt towers is not "
-                                  "ported: ROADMAP A8")
+                                  "ported: ROADMAP A11, A2")
     mask = build_lock_mask(model, ccfg.vision_layers, ccfg.transformer_layers,
                            unlocked_groups=unlocked_groups,
                            tune_text=cfg.tune_text,

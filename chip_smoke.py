@@ -25,6 +25,22 @@ Phases (any failure raises and the exit code is non-zero):
      attention), each against its plain version and beside
      ``torch._int_mm``; then K8's LN/act/residual options and a ragged K13
      (S=577 in a 592 pad) at small shapes, compared only;
+     3e: the CLIP ViT int8 kernels at ViT-B/16 shapes (quick_gelu): K12, K11,
+     K14 (mlp_chunks 1 and 2, gelu_poly, and ViT-B/32's S=50) and the pieces
+     K14 adds (the residual-first c_proj GEMM, the attention at head_dim 64
+     with fp32 output and P normalised before its cast), the GEMMs beside
+     ``torch._int_mm``;
+     5c: ``ClassifierEngine("random:ViT-B/16", quantize="int8")`` answers the
+     same requests: per batch 1 K8 and 12 K14, no K1; features against the
+     same encode with every kernel plain and against the fp32 tower; top-1
+     agreement with the bf16 engine; the ``merge_blocks="off"`` encode (12
+     K12, 12 K11); the batch-64 split; images/s beside the bf16 engine's;
+     6c: the ViT-B/16 PEFT step on the int8 engine's seeded weights
+     (``configs/base.yaml`` + ``cs.yaml``: batch 16 at 224 from 439x439,
+     unlocked_groups 11, tune_text, the default ``fused_prefix``, which
+     resolves to 2 blocks): against plain kernels and the fp32 tower, 2 K1
+     per step; with ``prefix_quant`` 2 K14 per step, against the bf16-prefix
+     step; step times; ``finetune`` 2 steps + test;
   5. SigLIP path — ``ClassifierEngine("random:ViT-SO400M-16-SigLIP2-384",
      batch_size=64)`` answers >= 96 single 384x384 requests through
      ``DynamicBatcher``, every block through ``attn_block_split`` (K5) and
@@ -88,6 +104,9 @@ JAX_ATT = "aihab_clip_tpu/ops/attention.py"
 # unlocked_layers 1 -> a frozen prefix of 27 + 1 - 11 = 17 blocks
 PEFT_B, PEFT_DECODE, PEFT_LR, PEFT_UNLOCKED, PEFT_PREFIX = 16, 439, 5e-5, 11, 17
 PEFT_SPLITS = (128, 16, 32)      # train (8 steps), val, test
+# the same fine-tune on the offline fallback tower (configs/base.yaml:48),
+# ViT-B/16 at 224: a frozen prefix of 12 + 1 - 11 = 2 blocks
+VIT_PEFT_PREFIX, VIT_PEFT_SPLITS = 2, (32, 0, 16)  # train (2 steps), test
 # tolerances against the plain version on the same inputs, as (rel L2,
 # max|d| / max|ref|): both round to bf16 at the same points, so they differ
 # where an fp32 sum lands on the other side of a bf16 rounding boundary
@@ -98,12 +117,24 @@ PEFT_SPLITS = (128, 16, 32)      # train (8 steps), val, test
 # before its cast.  The attention backward also forms its row term as
 # rowsum(dO * O) over the bf16 output, where the plain version sums dp * p
 # (measured: 1.5e-3 rel L2 on dq and dk at SO400M shapes on an H100, PERF.md).
+# The CLIP ViT int8 blocks: K12 and K14 within 5e-3 rel L2 (K13 measured
+# 1.55e-3: the attention's 1/sum on the rows, then requantize flips), K11
+# within 1e-3, which allows K9-style code flips of the LN quantize.
 TOL = {"kernel": (2e-3, 0.02), "attention": (5e-3, 0.02),
-       "attention_bwd": (5e-3, 0.02), "block": (1e-2, 0.04)}
+       "attention_bwd": (5e-3, 0.02), "block": (1e-2, 0.04),
+       "int8_block": (5e-3, 0.04), "int8_mlp": (1e-3, 0.04)}
 COS_MIN = 0.999
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
 STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
+# the ViT-B/16 step (2 kernel blocks, then 10 bf16 blocks under autograd):
+# over 8 data draws (tools/step_spread.py on an H100, PERF.md) its loss sat
+# 8.4e-5 to 2.9e-3 from the plain-kernel step, as far as from the fp32 one
+# (7.5e-5 to 3.0e-3): the suffix's bf16 roundings set the loss's spread, so
+# the loss limit is twice the largest reading, and the gradient cosine,
+# 0.99998 against plain and 0.9995 against fp32, is the gate that tells a
+# kernel's step from a differently rounded one
+VIT_STEP_GATES = {"plain": (6e-3, 0.9999), "fp32": (1e-2, 0.99)}
 # the int8-prefix step against the bf16-prefix step: the suffix trains on
 # int8-noise features
 INT8_STEP_GATE = (5e-2, 0.9)
@@ -376,6 +407,9 @@ def main() -> None:
 
     # ---- 3d. the int8 kernels (K8, K9, K10, K13) at SO400M shapes
     int8_kernel_cases(rnd, vec, run_cases, compare)
+
+    # ---- 3e. the CLIP ViT int8 kernels (K12, K11, K14) at ViT-B/16 shapes
+    vit_int8_kernel_cases(rnd, vec, run_cases)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -448,15 +482,15 @@ def main() -> None:
         check(cos_off.min().item() >= COS_MIN, "merge_blocks='off' cosine")
     del ref
 
-    # where the time goes at batch 64 (CUDA events)
-    with torch.inference_mode():
-        t_pre = timed(lambda: eval_transform(batch, 224, dtype=torch.bfloat16), 10)
-        t_enc = timed(lambda: encode_image_fastest(
-            engine.bundle.model, xb, cfg, project=True, packed=engine._packed), 5)
-        t_all = timed(lambda: engine.classify(batch), 5)
-    print(f"[path] batch 64 device time: classify {t_all:.3f} ms = eval_transform "
-          f"{t_pre:.3f} + encode {t_enc:.3f} + head/rest "
-          f"{t_all - t_pre - t_enc:.3f}")
+    # where the time goes at batch 64 (CUDA events, stages of one run)
+    split, t_all = classify_split(engine, batch, [
+        ("encode", lambda x: encode_image_fastest(
+            engine.bundle.model, x, cfg, project=True,
+            packed=engine._packed)[1])])
+    print(f"[path] batch 64 device time: classify {t_all:.3f} ms; its stages "
+          f"in one run {sum(split.values()):.3f} = eval_transform "
+          f"{split['eval_transform']:.3f} + encode {split['encode']:.3f} + "
+          f"head {split['head']:.3f}")
 
     # end-to-end classify_batch images/s (host clock, result on the host)
     rates = {}
@@ -473,14 +507,25 @@ def main() -> None:
 
     phase("vit path")
 
+    # ---- 5c. the int8 ViT-B/16 path: engine + dynamic batcher
+    (counts["vit_int8"], counts["vit_int8_off"], rates["vit_b16_int8_64"],
+     vit_int8_figures, engine) = vit_int8_path(bk, images, probs,
+                                               rates["vit_b16_64"])
+    phase("vit int8 path")
+
+    # ---- 6c. the ViT-B/16 PEFT path on the int8 engine's weights
+    vit_train = vit_peft_path(engine.bundle.model, bk)
+    del engine
+    torch.cuda.empty_cache()
+    phase("vit peft path")
+
     # ---- 5. the SigLIP path: engine + dynamic batcher
-    counts["siglip"], rates["siglip_so400m_64"], engine = siglip_path(
-        bk, timed)
+    counts["siglip"], rates["siglip_so400m_64"], engine = siglip_path(bk)
     phase("siglip path")
 
     # ---- 5b. the int8 SigLIP path: engine + dynamic batcher
     counts["siglip_int8"], rates["siglip_so400m_int8_64"], int8_figures = \
-        siglip_int8_path(bk, timed, engine, rates["siglip_so400m_64"])
+        siglip_int8_path(bk, engine, rates["siglip_so400m_64"])
     phase("siglip int8 path")
 
     # ---- 6. the SigLIP PEFT path on the engine's weights
@@ -492,6 +537,8 @@ def main() -> None:
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
+             "vit_int8": "ViT-B/16 int8 engine + DynamicBatcher",
+             "vit_int8_off": "ViT-B/16 int8 merge_blocks='off' encode",
              "siglip": "SigLIP SO400M engine + DynamicBatcher",
              "siglip_int8": "SigLIP SO400M int8 engine + DynamicBatcher",
              "siglip_peft": f"SigLIP SO400M finetune ({PEFT_SPLITS[0] // PEFT_B}"
@@ -503,7 +550,8 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
-                      "int8": int8_figures, "train": train}))
+                      "int8": int8_figures, "vit_int8": vit_int8_figures,
+                      "train": train, "vit_train": vit_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -519,6 +567,59 @@ def images_per_s(engine, bs: int, dim: int, n: int = 10) -> float:
     for _ in range(n):
         engine.classify_batch(u8)
     return n * bs / (time.perf_counter() - t0)
+
+
+def staged_ms(x, stages, iters=5):
+    """CUDA-event ms of each stage of one chained run (each stage takes the
+    previous stage's output), the median over ``iters`` runs after one
+    warm-up run; returns ({stage: ms}, the last run's output).  The stages
+    of a run are timed in that run, so their sum is its time."""
+    import torch
+
+    runs = []
+    for i in range(iters + 1):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(stages) + 1)]
+        y = x
+        events[0].record()
+        for event, (_, fn) in zip(events[1:], stages):
+            y = fn(y)
+            event.record()
+        torch.cuda.synchronize()
+        if i:
+            runs.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    return ({name: statistics.median(r[j] for r in runs)
+             for j, (name, _) in enumerate(stages)}, y)
+
+
+def classify_split(engine, batch, stages, iters=5):
+    """``engine.classify(batch)`` as timed stages: ``stages`` from the
+    normalised images to the features, then classify's own head (L2
+    normalise, cosine logits against the text head, softmax); checks the
+    chain gives classify's probabilities.  Returns ({stage: ms}, classify
+    ms on its own, timed the same way)."""
+    import torch
+
+    from aihab_clip_tpu_torch.ops.preprocess import (eval_transform,
+                                                     normalize_stats_for)
+
+    mean, std = normalize_stats_for(engine.bundle.config)
+
+    def head(feats):
+        f = feats.float()
+        f = f / f.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        return torch.softmax(100.0 * f @ engine._text_weights, dim=-1)
+
+    with torch.inference_mode():
+        split, probs = staged_ms(batch, [
+            ("eval_transform", lambda b: eval_transform(
+                b, engine.resolution, dtype=torch.bfloat16, mean=mean,
+                std=std)),
+            *stages, ("head", head)], iters)
+        total, ref = staged_ms(batch, [("classify", engine.classify)], iters)
+    err = (probs - ref).abs().max().item()
+    check(err <= 1e-6, f"the timed stages differ from classify by {err:.3g}")
+    return split, total["classify"]
 
 
 def siglip_kernel_cases(bk, rnd, vec, run_cases) -> None:
@@ -791,14 +892,505 @@ def int8_kernel_cases(rnd, vec, run_cases, compare) -> None:
                                             seq_len=577)[:, :577], "block")
 
 
-def siglip_path(bk, timed):
+def vit_int8_kernel_cases(rnd, vec, run_cases) -> None:
+    """3e. The CLIP ViT int8 kernels at ViT-B/16 shapes, batch 64 (S=197,
+    W=768, 12 heads of 64, hidden 3072, quick_gelu): K12 and K11 (the
+    ``merge_blocks="off"`` halves), K14 with one and two MLP chunks, with
+    gelu_poly and at ViT-B/32's S=50, each against its plain version; and
+    the pieces K14 runs at these shapes: its four GEMMs (each timed beside
+    ``torch._int_mm`` at its shape, the GEMM core only), the attention at
+    head_dim 64 with fp32 output, and the requantize of the attention row."""
+    import torch
+
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    m, d = B * S, W // HEADS
+    f32 = torch.float32
+
+    def weight(k, n):
+        w8, ws = quantize_weight(rnd(k, n, scale=k ** -0.5, dtype=f32))
+        return qm.int8_weight(w8), ws
+
+    x = rnd(B, S, W)
+    x2 = x.reshape(m, W)
+    wq, sq = weight(W, 3 * W)
+    wo, so = weight(W, W)
+    w1, s1 = weight(W, HIDDEN)
+    w2, s2 = weight(HIDDEN, W)
+    ln1, ln2 = (vec(W, one=True), vec(W)), (vec(W, one=True), vec(W))
+    attn = (wq, sq, vec(3 * W), wo, so, vec(W), *ln1)
+    mlp = (w1, s1, vec(HIDDEN), w2, s2, vec(W))
+    k14 = (*attn, *mlp, *ln2, HEADS)
+    # the pieces' inputs, as K14 makes them
+    x8, sx = qm.row_quant(x2, *ln1)
+    qkv = qm.int8_gemm(x8, sx, wq.t(), sq, attn[2], q_scale=d ** -0.5,
+                       q_width=W).reshape(B, S, 3 * W)
+    att = bk.attention(qkv, HEADS, q_scaled=True, out_dtype=f32,
+                       normalize_p=True)
+    a8, sa = qm.row_quant(att.reshape(m, W))
+    y1 = qm.int8_gemm(a8, sa, wo.t(), so, attn[5], residual=x2, out_dtype=f32)
+    l8, sl = qm.row_quant(y1, *ln2)
+    h = qm.int8_gemm(l8, sl, w1.t(), s1, mlp[2], act="quick_gelu",
+                     out_dtype=f32)
+    h8, hs = qm.row_quant(h)
+    x50 = rnd(B, 50, W)
+    mm_in = {kk: torch.randint(-127, 128, (m, kk), dtype=torch.int8,
+                               device=x.device) for kk in (W, HIDDEN)}
+    int_mm = torch._int_mm
+    f_qkv, f_out, f_fc = 2 * m * W * 3 * W, 2 * m * W * W, 2 * m * W * HIDDEN
+    f_att = 4 * B * HEADS * S * S * d
+    w_bytes = 4 * W * W + 2 * W * HIDDEN + 8 * (5 * W + HIDDEN) + 16 * W
+    k12_ops, k11_ops = f_qkv + f_out, 2 * f_fc
+    print(f"[kernels] CLIP ViT int8 at ViT-B/16 shapes: B={B} S={S} W={W} "
+          f"{HEADS}x{d} hidden {HIDDEN}; per block K14 {(k12_ops + k11_ops) / 1e9:.1f}"
+          f" GOP int8 + {f_att / 1e9:.1f} GFLOP bf16 attention")
+
+    def full(xx, **kw):
+        return (lambda: qm.quant_full_block_fused(xx, *k14, **kw),
+                lambda: qm.quant_full_block_fused_plain(xx, *k14, **kw))
+
+    run_cases([
+        ("quant_attn_block_fused", f"{JAX_QM}:490", "int8_block",
+         lambda: qm.quant_attn_block_fused(x, *attn, HEADS),
+         lambda: qm.quant_attn_block_fused_plain(x, *attn, HEADS), None,
+         (f_att, k12_ops), 4 * m * W + 4 * W * W + 40 * W,
+         qm.quant_attn_block_fused, "vit_int8_off", SRC_Q),
+        ("quant_mlp_block_fused", f"{JAX_QM}:238", "int8_mlp",
+         lambda: qm.quant_mlp_block_fused(x2, *mlp, *ln2),
+         lambda: qm.quant_mlp_block_fused_plain(x2, *mlp, *ln2), None,
+         (0, k11_ops), 4 * m * W + 2 * W * HIDDEN + 8 * (HIDDEN + 3 * W),
+         qm.quant_mlp_block_fused, "vit_int8_off", SRC_Q),
+        ("quant_full_block_fused", f"{JAX_QM}:794", "int8_block", *full(x),
+         None, (f_att, k12_ops + k11_ops), 4 * m * W + w_bytes,
+         qm.quant_full_block_fused, "vit_int8", SRC_Q),
+        ("quant_full_block_fused[mlp_chunks=2]", f"{JAX_QM}:794",
+         "int8_block", *full(x, mlp_chunks=2), None,
+         (f_att, k12_ops + k11_ops), 4 * m * W + w_bytes,
+         qm.quant_full_block_fused, "vit_int8", SRC_Q),
+        ("quant_full_block_fused[gelu_poly]", f"{JAX_QM}:794", "int8_block",
+         *full(x, act="gelu_poly"), None, (f_att, k12_ops + k11_ops),
+         4 * m * W + w_bytes, qm.quant_full_block_fused, "vit_int8", SRC_Q),
+        ("quant_full_block_fused[ViT-B/32, S=50]", f"{JAX_QM}:794",
+         "int8_block", *full(x50), None,
+         (4 * B * HEADS * 50 * 50 * d, (k12_ops + k11_ops) * 50 // S),
+         4 * B * 50 * W + w_bytes, qm.quant_full_block_fused, "vit_int8",
+         SRC_Q),
+        ("int8_gemm[ViT-B/16 qkv, q-scale]", f"{JAX_QM}:731", "kernel",
+         lambda: qm.int8_gemm(x8, sx, wq.t(), sq, attn[2], q_scale=d ** -0.5,
+                              q_width=W),
+         lambda: qm.int8_gemm_plain(x8, sx, wq.t(), sq, attn[2],
+                                    q_scale=d ** -0.5, q_width=W),
+         lambda: int_mm(mm_in[W], wq), (0, f_qkv),
+         m * W + 4 * m + 3 * W * W + 24 * W + 2 * m * 3 * W, qm.int8_gemm,
+         "vit_int8", SRC_Q),
+        ("attention[hd64, one group, q-scaled, fp32 out, P normalised]",
+         f"{JAX_QM}:743", "attention",
+         lambda: bk.attention(qkv, HEADS, q_scaled=True, out_dtype=f32,
+                              normalize_p=True),
+         lambda: bk.attention_plain(qkv, HEADS, q_scaled=True,
+                                    normalize_p=True, out_dtype=f32),
+         None, f_att, 2 * m * 3 * W + 4 * m * W, bk.attention, "vit_int8"),
+        ("row_quant[requantize the fp32 attention row, 768]", f"{JAX_QM}:761",
+         "codes", lambda: qm.row_quant(att.reshape(m, W)),
+         lambda: qm.row_quant_plain(att.reshape(m, W)), None, 0,
+         4 * m * W + m * W + 4 * m, qm.row_quant, "vit_int8", SRC_Q),
+        ("int8_gemm[ViT-B/16 out-proj, fp32 y1 + x]", f"{JAX_QM}:764",
+         "kernel",
+         lambda: qm.int8_gemm(a8, sa, wo.t(), so, attn[5], residual=x2,
+                              out_dtype=f32),
+         lambda: qm.int8_gemm_plain(a8, sa, wo.t(), so, attn[5], residual=x2,
+                                    out_dtype=f32),
+         lambda: int_mm(mm_in[W], wo), (0, f_out),
+         m * W + 4 * m + W * W + 8 * W + 2 * m * W + 4 * m * W, qm.int8_gemm,
+         "vit_int8", SRC_Q),
+        ("int8_gemm[ViT-B/16 c_fc, quick_gelu, fp32 out]", f"{JAX_QM}:781",
+         "kernel",
+         lambda: qm.int8_gemm(l8, sl, w1.t(), s1, mlp[2], act="quick_gelu",
+                              out_dtype=f32),
+         lambda: qm.int8_gemm_plain(l8, sl, w1.t(), s1, mlp[2],
+                                    act="quick_gelu", out_dtype=f32),
+         lambda: int_mm(mm_in[W], w1), (0, f_fc),
+         m * W + 4 * m + W * HIDDEN + 8 * HIDDEN + 4 * m * HIDDEN,
+         qm.int8_gemm, "vit_int8", SRC_Q),
+        ("int8_gemm[ViT-B/16 c_proj, residual-first]", f"{JAX_QM}:779",
+         "kernel",
+         lambda: qm.int8_gemm(h8, hs, w2.t(), s2, mlp[5], residual=y1,
+                              out_dtype=torch.bfloat16, residual_first=True),
+         lambda: qm.int8_gemm_plain(h8, hs, w2.t(), s2, mlp[5], residual=y1,
+                                    out_dtype=torch.bfloat16,
+                                    residual_first=True),
+         lambda: int_mm(mm_in[HIDDEN], w2), (0, f_fc),
+         m * HIDDEN + 4 * m + HIDDEN * W + 8 * W + 4 * m * W + 2 * m * W,
+         qm.int8_gemm, "vit_int8", SRC_Q),
+    ])
+    print(f"[kernels] ViT-B/16 int8 bound per block at batch {B}: K14 "
+          f"{1e3 * ((k12_ops + k11_ops) / PEAK_INT8_OPS + f_att / PEAK_FLOPS):.4f}"
+          f" ms, K12 {1e3 * (k12_ops / PEAK_INT8_OPS + f_att / PEAK_FLOPS):.4f}"
+          f" ms, K11 {1e3 * k11_ops / PEAK_INT8_OPS:.4f} ms")
+    del x, x2, x8, qkv, att, a8, y1, l8, h, h8, x50, mm_in
+
+
+def vit_int8_path(bk, images, bf16_probs, bf16_rate):
+    """5c. ClassifierEngine("random:ViT-B/16", quantize="int8") +
+    DynamicBatcher on the same seeded weights and requests as the bf16
+    engine; returns the launch counts of the batcher run and of the
+    ``merge_blocks="off"`` encode, images/s at batch 64, the path's figures
+    and the engine."""
+    import torch
+
+    from aihab_clip_tpu_torch.models import quant_vit as qv
+    from aihab_clip_tpu_torch.models.fast_vit import _ln
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.preprocess import eval_transform
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    engine = ClassifierEngine(model="random:ViT-B/16", batch_size=64,
+                              quantize="int8", device="cuda")
+    engine.warmup()
+    cfg, qp = engine.bundle.config, engine._qparams
+    print(f"[vit int8] random:ViT-B/16 quantize='int8': built + warm in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    def counts():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+
+    reset()
+    batcher = DynamicBatcher(engine, max_wait_ms=5.0)
+    batcher.start()
+    t0 = time.perf_counter()
+    futures = [batcher.submit(img) for img in images]
+    probs = np.stack([f.result(timeout=600) for f in futures])
+    wall = time.perf_counter() - t0
+    batcher.stop()
+    run = counts()
+    n = batcher.stats.batches
+    print(f"[vit int8] {len(futures)} requests answered in {wall:.3f}s over "
+          f"{n} batches; launches {run}")
+    check(probs.shape == (len(images), 20), f"probs shape {probs.shape}")
+    check(bool(np.isfinite(probs).all()), "non-finite probabilities")
+    check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)), "rows not softmax")
+    layers = cfg.vision_layers
+    want = {"quant_matmul_fused": n, "quant_full_block_fused": layers * n,
+            "quant_attn_block_fused": 0, "quant_mlp_block_fused": 0,
+            "attention": layers * n, "row_quant": (1 + 4 * layers) * n,
+            "int8_gemm": (1 + 4 * layers) * n, "full_block_fused": 0,
+            "ln_gemm": 0, "gemm_residual": 0}
+    for key, v in want.items():
+        check(run[key] == v, f"{key} launched {run[key]} times for {n} "
+              f"batches (want {v})")
+
+    ref_tower = copy.copy(engine.bundle.model.visual)
+    ref_tower.dtype = torch.float32
+    batch = torch.from_numpy(images[:B]).to(dev)
+    figures = {}
+    with torch.inference_mode():
+        xb = eval_transform(batch, 224, dtype=torch.bfloat16)
+        feats = qv.vit_encode_int8(qp, xb, cfg, project=True)[1].float()
+        with plain_int8_kernels():
+            plain = qv.vit_encode_int8(qp, xb, cfg, project=True)[1].float()
+        ref_feats = ref_tower(eval_transform(batch, 224), project=True)[1]
+        for name, other in (("plain", plain), ("fp32", ref_feats)):
+            cos = torch.nn.functional.cosine_similarity(feats, other, dim=-1)
+            figures[f"cos_{name}_min"] = cos.min().item()
+            print(f"[vit int8] features vs {'the same encode with every kernel plain' if name == 'plain' else 'the fp32 canonical tower'} "
+                  f"({B} images): cosine min {cos.min().item():.6f} mean "
+                  f"{cos.mean().item():.6f} (limit {INT8_COS[name]})")
+            check(cos.min().item() >= INT8_COS[name], f"int8 ViT cosine vs "
+                  f"{name}")
+        ref_probs = torch.softmax(100.0 * torch.nn.functional.normalize(
+            ref_feats, dim=-1) @ engine._text_weights, -1).cpu().numpy()
+        figures["top1_vs_bf16"] = float(
+            (bf16_probs.argmax(-1) == probs.argmax(-1)).mean())
+        figures["top1_vs_fp32"] = float(
+            (ref_probs.argmax(-1) == probs[:B].argmax(-1)).mean())
+        print(f"[vit int8] top-1 agreement with the bf16 engine: "
+              f"{figures['top1_vs_bf16']:.4f} over {len(images)}, max|dprob| "
+              f"{np.abs(bf16_probs - probs).max():.4g}; with the fp32 "
+              f"canonical tower {figures['top1_vs_fp32']:.4f} over {B}")
+
+        # the two-kernel halves (K12 + K11) as a path of its own
+        reset()
+        off = qv.vit_encode_int8(qp, xb, cfg, project=True,
+                                 merge_blocks="off")[1].float()
+        torch.cuda.synchronize()
+        run_off = counts()
+        cos_off = torch.nn.functional.cosine_similarity(off, ref_feats, dim=-1)
+        cos_k14 = torch.nn.functional.cosine_similarity(off, feats, dim=-1)
+        figures["cos_off_fp32_min"] = cos_off.min().item()
+        print(f"[vit int8] merge_blocks='off' launches {run_off}; cosine min "
+              f"{cos_off.min().item():.6f} vs the fp32 tower (limit "
+              f"{INT8_COS['fp32']}), {cos_k14.min().item():.6f} vs K14")
+        check(run_off["quant_attn_block_fused"] == layers
+              and run_off["quant_mlp_block_fused"] == layers
+              and run_off["quant_full_block_fused"] == 0
+              and run_off["quant_matmul_fused"] == 1, "K12/K11 counts")
+        check(cos_off.min().item() >= INT8_COS["fp32"], "merge_blocks='off' "
+              "int8 cosine")
+
+    # where the time goes at batch 64 (CUDA events, stages of one run)
+    split, t_all = classify_split(engine, batch, [
+        ("k8", lambda x: qv.vit_patchify_int8(qp, x, cfg)),
+        ("blocks", lambda t: qv.apply_int8_vit_blocks(
+            qp["transformer"], t, cfg, start=0, stop=layers)),
+        ("ln_post_proj", lambda t: _ln(
+            t[:, 0, :], qp["ln_post"]["scale"], qp["ln_post"]["bias"])
+            @ qp["proj"].to(t.dtype))])
+    figures.update(classify_ms=t_all, **{f"{k}_ms": v for k, v in
+                                         split.items()})
+    print(f"[vit int8] batch 64 device time: classify {t_all:.3f} ms; its "
+          f"stages in one run {sum(split.values()):.3f} = eval_transform "
+          f"{split['eval_transform']:.3f} + K8 patchify (+ cls, positions, "
+          f"ln_pre) {split['k8']:.3f} + {layers} blocks "
+          f"{split['blocks']:.3f} + ln_post/proj {split['ln_post_proj']:.3f}"
+          f" + head {split['head']:.3f}")
+    rate = images_per_s(engine, 64, 224)
+    print(f"[vit int8] classify_batch end-to-end at batch 64: {rate:.1f} "
+          f"images/s (bf16 engine {bf16_rate:.1f}, same run)")
+    del batch, xb, ref_tower
+    return run, run_off, rate, figures, engine
+
+
+def synthetic_dataset(rng, n: int, dim: int):
+    """n random uint8 [dim, dim, 3] images with random labels of 20 classes
+    (the labels drawn first)."""
+    from aihab_clip_tpu_torch.data import ImageArrayDataset
+
+    labels = rng.integers(0, 20, n)
+    return ImageArrayDataset(
+        images=rng.integers(0, 256, (n, dim, dim, 3), dtype=np.uint8),
+        labels=labels, l2_labels=np.zeros(n, np.int64),
+        poly_labels=np.full(n, -1, np.int64), plot_word_labels=[""] * n,
+        poly_word_labels=[""] * n,
+        file_names=[f"synthetic_{i}.jpg" for i in range(n)],
+        plot_idx=list(range(n)), image_sources=["synthetic"] * n)
+
+
+def step_grads_fn(model, trainable, tokens, imgs, labs, valid):
+    """``step_grads(cfg, prefix) -> (loss, flattened trainable gradient)``
+    of one train step's loss on one batch (augmentation of step 0)."""
+    import torch
+
+    from aihab_clip_tpu_torch.train.peft import _build_loss_fn, step_generator
+
+    def step_grads(c, pp):
+        loss_fn = _build_loss_fn(model, c, None, tokens)
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(imgs, labs, valid, step_generator(SEED, 0, 0), pp)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).float().flatten()
+                          for _, p in trainable])
+        return loss.item(), grad
+
+    return step_grads
+
+
+def check_step(tag, name, got, ref, gate):
+    """A train step's (loss, gradient) against a reference step's: loss
+    relative |d| and gradient cosine within ``gate``; returns the figures."""
+    import torch
+
+    (loss_k, g_k), (loss_r, g_r) = got, ref
+    rel = abs(loss_k - loss_r) / abs(loss_r)
+    cos = torch.nn.functional.cosine_similarity(g_k, g_r, dim=0).item()
+    lim_rel, lim_cos = gate
+    print(f"[{tag}] train step vs {name}: loss {loss_k:.6f} vs {loss_r:.6f}, "
+          f"rel |d| {rel:.3e} (limit {lim_rel:g}); gradient cosine {cos:.6f} "
+          f"(limit {lim_cos:g}), |g| {g_k.norm().item():.4g} vs "
+          f"{g_r.norm().item():.4g}")
+    check(rel <= lim_rel and cos >= lim_cos, f"{tag} train step vs {name}")
+    return dict(loss=loss_r, loss_rel=rel, grad_cos=cos)
+
+
+def timed_steps(step, imgs, labs, valid, pp, epoch, reset=None):
+    """CUDA-event ms of 5 train steps after 2 warm-up ones (``reset()``
+    just before the first timed one)."""
+    import torch
+
+    from aihab_clip_tpu_torch.train.peft import step_generator
+
+    times = []
+    for i in range(7):
+        if i == 2 and reset is not None:
+            reset()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step(imgs, labs, valid, step_generator(SEED, epoch, i), PEFT_LR, pp)
+        e1.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(e0.elapsed_time(e1))
+    return times
+
+
+def vit_peft_path(model, bk):
+    """6c. The default fine-tune on the offline fallback tower, ViT-B/16 at
+    224 (``configs/base.yaml`` + ``cs.yaml``: batch 16 from 439x439 uint8,
+    random crop + rotation, tune_text, unlocked_groups 11, unlocked_layers
+    1, lr_v 5e-5, bf16 over fp32 Adam), with the default ``fused_prefix``:
+    one train step against plain kernels and against the fp32 canonical
+    tower, 2 K1 per step; the ``prefix_quant`` step (2 K14) against the
+    bf16-prefix step; both steps' device times; then ``finetune`` itself
+    with ``fused_prefix=-1``.  Trains ``model`` in place; returns the
+    figures (the ``finetune`` run's launches are checked here)."""
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.data import SplitView
+    from aihab_clip_tpu_torch.models import build_text_head, fast_vit
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.train.peft import (
+        PEFTConfig, _pack_prefix, _quantize_prefix, build_lock_mask,
+        finetune, make_train_step, peft_fused_prefix_len)
+
+    dev = torch.device("cuda")
+    mcfg = model.config
+    layers = mcfg.vision_layers
+
+    def counts():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+
+    n_prefix = peft_fused_prefix_len(mcfg, PEFT_UNLOCKED, dev)
+    check(n_prefix == VIT_PEFT_PREFIX, f"ViT fused prefix {n_prefix}")
+    prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+    tokens = build_text_head(model, prompts, 20, tpc)["prompt_tokens"]
+    cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                     lr=PEFT_LR, epochs=1, crop_mode="random", rotation=True,
+                     tune_text=True, num_templates=tpc,
+                     compute_dtype=torch.bfloat16)
+    mask = build_lock_mask(model, layers, mcfg.transformer_layers,
+                           unlocked_groups=PEFT_UNLOCKED, tune_text=True,
+                           unlocked_text_layers=1)
+    trainable = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    print(f"[vit peft] {len(trainable)} trainable leaves, "
+          f"{sum(p.numel() for _, p in trainable):,} parameters; fused prefix "
+          f"{n_prefix} (default fused_prefix), suffix {layers - n_prefix} "
+          "blocks")
+
+    n_all = sum(VIT_PEFT_SPLITS)
+    ds = synthetic_dataset(np.random.default_rng(SEED + 3), n_all,
+                           PEFT_DECODE)
+    n_tr, _, n_te = VIT_PEFT_SPLITS
+    train_view = SplitView(ds, np.arange(n_tr), PEFT_B, shuffle=True,
+                           seed=SEED)
+    test_view = SplitView(ds, np.arange(n_tr, n_all), PEFT_B)
+    batch = next(train_view.batches(0))
+    imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
+        batch.images, batch.labels, batch.valid))
+    step_grads = step_grads_fn(model, trainable, tokens, imgs, labs, valid)
+
+    cfg_p = dataclasses.replace(cfg, fused_prefix=n_prefix)
+    pprefix = _pack_prefix(model, cfg_p)
+    check(len(pprefix["blocks"]) == n_prefix, "the K1 prefix pack")
+    reset()
+    kern = step_grads(cfg_p, pprefix)
+    per_step = counts()
+    print(f"[vit peft] launches in one step: {per_step}")
+    check(per_step["full_block_fused"] == n_prefix
+          and per_step["quant_full_block_fused"] == 0, "K1 launches per step")
+    with mock.patch.object(fast_vit, "full_block_fused",
+                           bk.full_block_fused_plain):
+        reset()
+        plain = step_grads(cfg_p, pprefix)
+        check(not any(counts().values()), f"plain step launched {counts()}")
+    vis_dt, txt_dt = model.visual.dtype, model.text.dtype
+    model.visual.dtype = model.text.dtype = torch.float32
+    try:
+        fp32 = step_grads(dataclasses.replace(
+            cfg, compute_dtype=torch.float32, fused_prefix=0), None)
+    finally:
+        model.visual.dtype, model.text.dtype = vis_dt, txt_dt
+    gates = {name: check_step("vit peft", name, kern, ref,
+                              VIT_STEP_GATES[name])
+             for name, ref in (("plain", plain), ("fp32", fp32))}
+
+    cfg8 = dataclasses.replace(cfg_p, prefix_quant=True)
+    qprefix = _quantize_prefix(model, cfg8)
+    reset()
+    int8 = step_grads(cfg8, qprefix)
+    per_step_q = counts()
+    print(f"[vit peft int8] launches in one prefix_quant step: {per_step_q}")
+    check(per_step_q["quant_full_block_fused"] == n_prefix
+          and per_step_q["full_block_fused"] == 0, "K14 launches per step")
+    gates["int8_prefix"] = check_step("vit peft int8", "the bf16-prefix step",
+                                      int8, kern, INT8_STEP_GATE)
+    model.zero_grad(set_to_none=True)
+    del kern, plain, fp32, int8
+
+    # the steps' device times (CUDA events), after warm-up
+    step_ms = {}
+    torch.cuda.reset_peak_memory_stats()
+    for label, c, pp in (("bf16 prefix", cfg_p, pprefix),
+                         ("int8 prefix", cfg8, qprefix)):
+        _, step = make_train_step(model, c, None, tokens)
+        times = step_ms[label] = timed_steps(step, imgs, labs, valid, pp, 1)
+        print(f"[vit peft] {label} train step at batch {PEFT_B}: median "
+              f"{statistics.median(times):.3f} ms over {len(times)} steps ("
+              f"{', '.join(f'{t:.2f}' for t in times)})")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the train path: finetune with the default fused_prefix, then the test
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset()
+    t0 = time.perf_counter()
+    out = finetune(model, train_view, None, test_view, cfg,
+                   prompt_tokens=tokens, unlocked_groups=PEFT_UNLOCKED,
+                   unlocked_text_layers=1, seed=SEED, verbose=False,
+                   device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = counts()
+    steps, eval_batches = n_tr // PEFT_B, n_te // PEFT_B
+    print(f"[vit peft] finetune (fused_prefix=-1): {steps} steps + "
+          f"{eval_batches} test batches in {wall:.2f}s; launches {run_counts}")
+    check(run_counts["full_block_fused"] == n_prefix * steps
+          + layers * eval_batches, "K1 launches in finetune")
+    frozen_changed = [n for n, p in model.named_parameters()
+                      if not mask[n] and not torch.equal(before[n], p)]
+    moved = [n for n, _ in trainable
+             if not torch.equal(before[n], out["params"][n])]
+    check(not frozen_changed, f"frozen leaves changed: {frozen_changed[:5]}")
+    check(len(moved) > 0, "no trainable leaf moved")
+    test = out["test"]
+    check(int(test["cm"].sum()) == n_te and np.isfinite(test["loss"]),
+          "ViT finetune test")
+    print(f"[vit peft] {len(moved)} of {len(trainable)} trainable leaves "
+          f"moved; test loss {test['loss']:.4f} top1 {test['top1']:.4f}; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB")
+    train = dict(step_ms=statistics.median(step_ms["bf16 prefix"]),
+                 step_ms_all=step_ms["bf16 prefix"],
+                 int8_prefix_step_ms=statistics.median(step_ms["int8 prefix"]),
+                 int8_prefix_step_ms_all=step_ms["int8 prefix"],
+                 peak_gib=peak / 2 ** 30, step_checks=gates, finetune_s=wall,
+                 test_loss=test["loss"])
+    del before
+    return train
+
+
+def siglip_path(bk):
     """ClassifierEngine + DynamicBatcher on random SO400M weights; returns
     the launch counts of the batcher run, images/s at batch 64 and the
     engine."""
     import torch
 
     from aihab_clip_tpu_torch.models.fast_siglip import (
-        _apply_fused_siglip_blocks, _siglip_embed)
+        _apply_fused_siglip_blocks, _map_pool, _siglip_embed)
     from aihab_clip_tpu_torch.models.fast_vit import encode_image_fastest
     from aihab_clip_tpu_torch.ops.preprocess import (eval_transform,
                                                      normalize_stats_for)
@@ -872,18 +1464,18 @@ def siglip_path(bk, timed):
               f"agreement over {n_ref}, max|dprob| "
               f"{np.abs(ref_probs - probs[:n_ref]).max():.4g}")
 
-        # where the time goes at batch 64 (CUDA events)
-        model, packed = engine.bundle.model, engine._packed
-        tokens = _siglip_embed(packed, xb, cfg)
-        t_pre = timed(lambda: eval_transform(batch, res, dtype=torch.bfloat16,
-                                             mean=mean, std=std), 10)
-        t_blocks = timed(lambda: _apply_fused_siglip_blocks(
-            packed, tokens, cfg, start=0, stop=cfg.vision_layers), 3)
-        t_all = timed(lambda: engine.classify(batch), 3)
-    print(f"[siglip] batch 64 device time: classify {t_all:.3f} ms = "
-          f"eval_transform {t_pre:.3f} + {cfg.vision_layers} blocks "
-          f"{t_blocks:.3f} + patchify/MAP head/rest "
-          f"{t_all - t_pre - t_blocks:.3f}")
+    # where the time goes at batch 64 (CUDA events, stages of one run)
+    model, packed = engine.bundle.model, engine._packed
+    split, t_all = classify_split(engine, batch, [
+        ("patchify", lambda x: _siglip_embed(packed, x, cfg)),
+        ("blocks", lambda t: _apply_fused_siglip_blocks(
+            packed, t, cfg, start=0, stop=cfg.vision_layers)),
+        ("map_head", lambda t: _map_pool(model, t))], iters=3)
+    print(f"[siglip] batch 64 device time: classify {t_all:.3f} ms; its "
+          f"stages in one run {sum(split.values()):.3f} = eval_transform "
+          f"{split['eval_transform']:.3f} + patchify {split['patchify']:.3f}"
+          f" + {cfg.vision_layers} blocks {split['blocks']:.3f} + MAP head "
+          f"{split['map_head']:.3f} + head {split['head']:.3f}")
     rate = images_per_s(engine, 64, dim, n=5)
     print(f"[siglip] classify_batch end-to-end at batch 64: {rate:.1f} "
           f"images/s")
@@ -892,22 +1484,27 @@ def siglip_path(bk, timed):
 
 @contextlib.contextmanager
 def plain_int8_kernels():
-    """Every kernel of the int8 SigLIP encode swapped for its plain
+    """Every kernel of the int8 SigLIP and ViT encodes swapped for its plain
     version."""
     from unittest import mock
 
     from aihab_clip_tpu_torch.models import quant_siglip as qs
+    from aihab_clip_tpu_torch.models import quant_vit as qv
     from aihab_clip_tpu_torch.ops import quant_matmul as qm
 
-    with mock.patch.multiple(
-            qs, quant_matmul_fused=qm.quant_matmul_fused_plain,
-            quant_attn_block_split=qm.quant_attn_block_split_plain,
-            quant_matmul_fused_qout=qm.quant_matmul_fused_qout_plain,
-            quant_matmul_q8in=qm.quant_matmul_q8in_plain):
+    plain = {name: getattr(qm, name + "_plain") for name in (
+        "quant_matmul_fused", "quant_attn_block_split",
+        "quant_matmul_fused_qout", "quant_matmul_q8in",
+        "quant_full_block_fused", "quant_attn_block_fused",
+        "quant_mlp_block_fused")}
+    with contextlib.ExitStack() as stack:
+        for module in (qs, qv):
+            stack.enter_context(mock.patch.multiple(module, **{
+                k: v for k, v in plain.items() if hasattr(module, k)}))
         yield
 
 
-def siglip_int8_path(bk, timed, bf16_engine, bf16_rate):
+def siglip_int8_path(bk, bf16_engine, bf16_rate):
     """ClassifierEngine(quantize="int8") + DynamicBatcher on the same seeded
     SO400M weights as the bf16 engine (a second draw: the engine takes a
     model name, as JAX's does); returns the launch counts of the batcher
@@ -1005,26 +1602,24 @@ def siglip_int8_path(bk, timed, bf16_engine, bf16_rate):
               f"{np.abs(bf16_probs - probs).max():.4g}; with the fp32 "
               f"canonical tower {figures['top1_vs_fp32']:.4f} over {n_ref}")
 
-        # where the time goes at batch 64 (CUDA events)
-        tokens = qs.siglip_patchify_int8(qp, xb, cfg)
-        t_pre = timed(lambda: eval_transform(batch, res, dtype=torch.bfloat16,
-                                             mean=mean, std=std), 10)
-        t_k8 = timed(lambda: qs.siglip_patchify_int8(qp, xb, cfg), 10)
-        t_blocks = timed(lambda: qs.apply_int8_siglip_blocks(
-            qp["transformer"], tokens, cfg, start=0, stop=cfg.vision_layers),
-            3)
-        t_all = timed(lambda: engine.classify(batch), 3)
-    figures.update(classify_ms=t_all, eval_transform_ms=t_pre, k8_ms=t_k8,
-                   blocks_ms=t_blocks,
-                   head_rest_ms=t_all - t_pre - t_k8 - t_blocks)
-    print(f"[int8] batch 64 device time: classify {t_all:.3f} ms = "
-          f"eval_transform {t_pre:.3f} + K8 patchify {t_k8:.3f} + "
-          f"{cfg.vision_layers} blocks {t_blocks:.3f} + MAP head/rest "
-          f"{t_all - t_pre - t_k8 - t_blocks:.3f}")
+    # where the time goes at batch 64 (CUDA events, stages of one run)
+    model = engine.bundle.model
+    split, t_all = classify_split(engine, batch, [
+        ("k8", lambda x: qs.siglip_patchify_int8(qp, x, cfg)),
+        ("blocks", lambda t: qs.apply_int8_siglip_blocks(
+            qp["transformer"], t, cfg, start=0, stop=cfg.vision_layers)),
+        ("map_head", lambda t: qs._map_pool(model, t))], iters=3)
+    figures.update(classify_ms=t_all, **{f"{k}_ms": v for k, v in
+                                         split.items()})
+    print(f"[int8] batch 64 device time: classify {t_all:.3f} ms; its stages "
+          f"in one run {sum(split.values()):.3f} = eval_transform "
+          f"{split['eval_transform']:.3f} + K8 patchify {split['k8']:.3f} + "
+          f"{cfg.vision_layers} blocks {split['blocks']:.3f} + MAP head "
+          f"{split['map_head']:.3f} + head {split['head']:.3f}")
     rate = images_per_s(engine, 64, dim, n=5)
     print(f"[int8] classify_batch end-to-end at batch 64: {rate:.1f} "
           f"images/s (bf16 engine {bf16_rate:.1f}, same run)")
-    del engine, batch, xb, tokens, ref_tower
+    del engine, model, batch, xb, ref_tower
     torch.cuda.empty_cache()
     return run, rate, figures
 
@@ -1134,7 +1729,7 @@ def peft_path(engine, bk):
     counts of the ``finetune`` run and the train figures."""
     import torch
 
-    from aihab_clip_tpu_torch.data import ImageArrayDataset, SplitView
+    from aihab_clip_tpu_torch.data import SplitView
     from aihab_clip_tpu_torch.models import build_text_head, fast_siglip
     from aihab_clip_tpu_torch.models.text_head import compute_text_weights
     from aihab_clip_tpu_torch.ops import attention as att
@@ -1144,9 +1739,8 @@ def peft_path(engine, bk):
     from aihab_clip_tpu_torch.train import evaluate, masked_ce_metrics
     from aihab_clip_tpu_torch.ops import quant_matmul as qm
     from aihab_clip_tpu_torch.train.peft import (
-        PEFTConfig, _build_loss_fn, _pack_prefix, _quantize_prefix,
-        build_lock_mask, finetune, make_train_step, peft_fused_prefix_len,
-        step_generator)
+        PEFTConfig, _pack_prefix, _quantize_prefix, build_lock_mask,
+        finetune, make_train_step, peft_fused_prefix_len, step_generator)
 
     dev = torch.device("cuda")
     model, mcfg = engine.bundle.model, engine.bundle.config
@@ -1185,17 +1779,9 @@ def peft_path(engine, bk):
     check(text_train == ["text.ln_final.bias", "text.ln_final.weight"],
           "only text/ln_final trains at unlocked_layers=1 (the head quirk)")
 
-    rng = np.random.default_rng(SEED + 2)
     n_all = sum(PEFT_SPLITS)
-    labels = rng.integers(0, 20, n_all)
-    ds = ImageArrayDataset(
-        images=rng.integers(0, 256, (n_all, PEFT_DECODE, PEFT_DECODE, 3),
-                            dtype=np.uint8),
-        labels=labels, l2_labels=np.zeros(n_all, np.int64),
-        poly_labels=np.full(n_all, -1, np.int64),
-        plot_word_labels=[""] * n_all, poly_word_labels=[""] * n_all,
-        file_names=[f"synthetic_{i}.jpg" for i in range(n_all)],
-        plot_idx=list(range(n_all)), image_sources=["synthetic"] * n_all)
+    ds = synthetic_dataset(np.random.default_rng(SEED + 2), n_all,
+                           PEFT_DECODE)
     n_tr, n_val, n_te = PEFT_SPLITS
     train_view = SplitView(ds, np.arange(n_tr), PEFT_B, shuffle=True,
                            seed=SEED)
@@ -1207,20 +1793,10 @@ def peft_path(engine, bk):
     imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
         batch.images, batch.labels, batch.valid))
     pprefix = _pack_prefix(model, cfg)
-
-    def step_grads(c, pp):
-        loss_fn = _build_loss_fn(model, c, None, tokens)
-        model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(imgs, labs, valid, step_generator(SEED, 0, 0), pp)
-        loss.backward()
-        torch.cuda.synchronize()
-        grad = torch.cat([(p.grad if p.grad is not None
-                           else torch.zeros_like(p)).float().flatten()
-                          for _, p in trainable])
-        return loss.item(), grad
+    step_grads = step_grads_fn(model, trainable, tokens, imgs, labs, valid)
 
     reset()
-    loss_k, g_k = step_grads(cfg, pprefix)
+    kern = step_grads(cfg, pprefix)
     per_step = counts()
     print(f"[peft] launches in one step: {per_step}")
     want = {"attn_block_split": PEFT_PREFIX, "mlp_block_split": PEFT_PREFIX,
@@ -1231,33 +1807,24 @@ def peft_path(engine, bk):
               f"step, want {n}")
     with plain_kernels():
         reset()
-        loss_p, g_p = step_grads(cfg, pprefix)
+        plain = step_grads(cfg, pprefix)
         check(not any(counts().values()), f"plain step launched {counts()}")
     vis_dt, txt_dt = model.visual.dtype, model.text.dtype
     model.visual.dtype = model.text.dtype = torch.float32
     try:
-        loss_f, g_f = step_grads(dataclasses.replace(
+        fp32 = step_grads(dataclasses.replace(
             cfg, compute_dtype=torch.float32, fused_prefix=0), None)
     finally:
         model.visual.dtype, model.text.dtype = vis_dt, txt_dt
     model.zero_grad(set_to_none=True)
-    gates = {}
-    for name, loss_r, g_r in (("plain", loss_p, g_p), ("fp32", loss_f, g_f)):
-        rel = abs(loss_k - loss_r) / abs(loss_r)
-        cos = torch.nn.functional.cosine_similarity(g_k, g_r, dim=0).item()
-        lim_rel, lim_cos = STEP_GATES[name]
-        gates[name] = dict(loss=loss_r, loss_rel=rel, grad_cos=cos)
-        print(f"[peft] train step vs {name}: loss {loss_k:.6f} vs "
-              f"{loss_r:.6f}, rel |d| {rel:.3e} (limit {lim_rel:g}); gradient "
-              f"cosine {cos:.6f} (limit {lim_cos:g}), |g| {g_k.norm().item():.4g}"
-              f" vs {g_r.norm().item():.4g}")
-        check(rel <= lim_rel and cos >= lim_cos, f"train step vs {name}")
+    gates = {name: check_step("peft", name, kern, ref, STEP_GATES[name])
+             for name, ref in (("plain", plain), ("fp32", fp32))}
 
     # -- 6b. the same step with the int8 frozen prefix (prefix_quant)
     cfg8 = dataclasses.replace(cfg, prefix_quant=True)
     qprefix = _quantize_prefix(model, cfg8)
     reset()
-    loss_q, g_q = step_grads(cfg8, qprefix)
+    int8 = step_grads(cfg8, qprefix)
     per_step_q = counts()
     print(f"[peft int8] launches in one prefix_quant step: {per_step_q}")
     want_q = {"quant_attn_block_split": PEFT_PREFIX,
@@ -1269,32 +1836,14 @@ def peft_path(engine, bk):
     for key, n in want_q.items():
         check(per_step_q[key] == n, f"{key}: {per_step_q[key]} launches in "
               f"one prefix_quant step, want {n}")
-    rel = abs(loss_q - loss_k) / abs(loss_k)
-    cos = torch.nn.functional.cosine_similarity(g_q, g_k, dim=0).item()
-    lim_rel, lim_cos = INT8_STEP_GATE
-    gates["int8_prefix"] = dict(loss=loss_q, loss_rel=rel, grad_cos=cos)
-    print(f"[peft int8] prefix_quant step vs the bf16-prefix step: loss "
-          f"{loss_q:.6f} vs {loss_k:.6f}, rel |d| {rel:.3e} (limit "
-          f"{lim_rel:g}); gradient cosine {cos:.6f} (limit {lim_cos:g}), |g| "
-          f"{g_q.norm().item():.4g} vs {g_k.norm().item():.4g}")
-    check(rel <= lim_rel and cos >= lim_cos, "prefix_quant step vs bf16")
-    del g_k, g_p, g_f, g_q
+    gates["int8_prefix"] = check_step("peft int8", "the bf16-prefix step",
+                                      int8, kern, INT8_STEP_GATE)
+    del kern, plain, fp32, int8
 
     # -- the step's device time (CUDA events), after warm-up
     opt, step = make_train_step(model, cfg, None, tokens)
     torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for i in range(7):
-        if i == 2:
-            reset()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        step(imgs, labs, valid, step_generator(SEED, 1, i), PEFT_LR, pprefix)
-        e1.record()
-        torch.cuda.synchronize()
-        if i >= 2:
-            step_ms.append(e0.elapsed_time(e1))
+    step_ms = timed_steps(step, imgs, labs, valid, pprefix, 1, reset=reset)
     peak = torch.cuda.max_memory_allocated()
     for key, n in want.items():
         check(counts()[key] == n * len(step_ms), f"{key} over the timed steps")
@@ -1302,16 +1851,7 @@ def peft_path(engine, bk):
 
     # the prefix_quant step's device time, the same way
     _, step8 = make_train_step(model, cfg8, None, tokens)
-    q_ms = []
-    for i in range(7):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        step8(imgs, labs, valid, step_generator(SEED, 3, i), PEFT_LR, qprefix)
-        e1.record()
-        torch.cuda.synchronize()
-        if i >= 2:
-            q_ms.append(e0.elapsed_time(e1))
+    q_ms = timed_steps(step8, imgs, labs, valid, qprefix, 3)
     print(f"[peft int8] prefix_quant train step at batch {PEFT_B}: median "
           f"{statistics.median(q_ms):.3f} ms over {len(q_ms)} steps ("
           f"{', '.join(f'{t:.2f}' for t in q_ms)}); bf16 prefix {ms:.3f} ms")

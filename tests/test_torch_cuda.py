@@ -407,3 +407,150 @@ def test_cuda_int8_siglip_encode_matches_plain():
         assert counts[key] == cfg.vision_layers, (key, counts)
     cos = torch.nn.functional.cosine_similarity(fast, plain, dim=-1)
     assert cos.min().item() >= 0.995
+
+
+@pytest.mark.gpu
+def test_cuda_vit_int8_kernels_match_plain():
+    """The CLIP ViT int8 kernels against their plain versions on the card:
+    the residual-first int8_gemm bit for bit (one and two groups, bf16 and
+    fp32 out), the attention with P normalised before its cast, K12 at
+    head_dim 64 over one head group (S=77, and 81 real tokens in a 96 pad),
+    K11, and K14 with one and two MLP chunks and with gelu_poly; each
+    wrapper counts one launch.  K12 and K14 are held at
+    K13's card tolerance (1e-2 rel L2): at these few rows a handful of int8
+    code flips decide the figure (K14 measured 6.4e-3 in bf16 on an H100
+    while its attention applied the 1/sum to the output rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(9)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def close(out, ref, rel):
+        torch.cuda.synchronize()
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        err = ((out - ref).norm() / ref.norm()).item()
+        assert err <= rel, err
+
+    def weight(k, n):
+        w8, ws = quantize_weight(rnd(k, n, scale=k ** -0.5))
+        return qm.int8_weight(w8), ws
+
+    heads, w, hidden = 2, 128, 512
+    h8, hs = qm.row_quant(rnd(300, hidden, scale=2.0), group=hidden // 2)
+    w2, s2 = weight(hidden, w)
+    b2, y1 = rnd(w, scale=0.1), rnd(300, w)
+    for groups in (1, 2):
+        a8, sa = (h8, hs) if groups == 2 else qm.row_quant(h8.float())
+        for odt in (torch.bfloat16, torch.float32):
+            got = qm.int8_gemm(a8, sa, w2.t(), s2, b2, residual=y1,
+                               out_dtype=odt, groups=groups,
+                               residual_first=True)
+            want = qm.int8_gemm_plain(a8, sa, w2.t(), s2, b2, residual=y1,
+                                      out_dtype=odt, groups=groups,
+                                      residual_first=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (groups, odt)
+
+    qkv = rnd(3, 77, 3 * w, dtype=torch.bfloat16)
+    for seq_len in (77, 70):
+        close(bk.attention(qkv, heads, seq_len, out_dtype=torch.float32,
+                           normalize_p=True)[:, :seq_len],
+              bk.attention_plain(qkv, heads, seq_len, out_dtype=torch.float32,
+                                 normalize_p=True)[:, :seq_len], 5e-3)
+    with pytest.raises(ValueError, match="normalize_p"):
+        bk.attention(qkv, heads, normalize_p=True)
+
+    wq, sq = weight(w, 3 * w)
+    wo, so = weight(w, w)
+    w1, s1 = weight(w, hidden)
+    ln1 = (1 + rnd(w, scale=0.1), rnd(w, scale=0.1))
+    ln2 = (1 + rnd(w, scale=0.1), rnd(w, scale=0.1))
+    attn = (wq, sq, rnd(3 * w, scale=0.1), wo, so, rnd(w, scale=0.1), *ln1)
+    mlp = (w1, s1, rnd(hidden, scale=0.1), w2, s2, b2)
+    for dt in (torch.bfloat16, torch.float32):
+        for s_len, kw in ((77, {}), (96, dict(padded_io=True, seq_len=81))):
+            x = rnd(3, s_len, w, dtype=dt)
+            qm.reset_launch_counts()
+            out = qm.quant_attn_block_fused(x, *attn, heads, **kw)
+            assert qm.launch_counts()["quant_attn_block_fused"] == 1
+            valid = slice(0, kw.get("seq_len", s_len))
+            close(out[:, valid], qm.quant_attn_block_fused_plain(
+                x, *attn, heads, **kw)[:, valid], 1e-2)
+        x2 = rnd(300, w, scale=2.0, dtype=dt)
+        close(qm.quant_mlp_block_fused(x2, *mlp, *ln2),
+              qm.quant_mlp_block_fused_plain(x2, *mlp, *ln2), 1e-3)
+        x = rnd(3, 50, w, dtype=dt)
+        for chunks, act in ((1, "quick_gelu"), (2, "quick_gelu"),
+                            (1, "gelu_poly")):
+            qm.reset_launch_counts()
+            out = qm.quant_full_block_fused(x, *attn, *mlp, *ln2, heads,
+                                            mlp_chunks=chunks, act=act)
+            counts = qm.launch_counts()
+            assert counts["quant_full_block_fused"] == 1
+            assert counts["row_quant"] == counts["int8_gemm"] == 4
+            close(out, qm.quant_full_block_fused_plain(
+                x, *attn, *mlp, *ln2, heads, mlp_chunks=chunks, act=act),
+                1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unlocked,prefix_quant", [(1, False), (11, False),
+                                                   (11, True)])
+def test_cuda_vit_b16_finetune_default_prefix(unlocked, prefix_quant):
+    """A ViT-B/16 fine-tune with the default ``fused_prefix`` (-1) on the
+    card, the configuration that once crashed: the frozen prefix is
+    L + 1 - unlocked_groups blocks (12 at unlocked_groups 1, 2 at 11) and
+    runs through K1 (or K14 with ``prefix_quant``) in every step; frozen
+    leaves stay untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data import ImageArrayDataset, SplitView
+    from aihab_clip_tpu_torch.models import load
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.train.peft import PEFTConfig, finetune
+
+    model = load("random:ViT-B/16", device="cuda", seed=10).model
+    n = 12
+    rng = np.random.default_rng(11)
+    ds = ImageArrayDataset(
+        images=rng.integers(0, 256, (n, 240, 240, 3), dtype=np.uint8),
+        labels=rng.integers(0, 20, n), l2_labels=np.zeros(n, np.int64),
+        poly_labels=np.full(n, -1, np.int64), plot_word_labels=[""] * n,
+        poly_word_labels=[""] * n, file_names=[""] * n,
+        plot_idx=list(range(n)), image_sources=[""] * n)
+    weights = torch.nn.functional.normalize(
+        torch.randn(512, 20, generator=torch.Generator().manual_seed(12)),
+        dim=0).cuda()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    bk.reset_launch_counts()
+    qm.reset_launch_counts()
+    out = finetune(model, SplitView(ds, np.arange(8), 4, shuffle=True), None,
+                   SplitView(ds, np.arange(8, n), 4),
+                   PEFTConfig(resolution=224, num_classes=20, lr=1e-3,
+                              epochs=1, compute_dtype=torch.bfloat16,
+                              prefix_quant=prefix_quant),
+                   text_weights=weights, unlocked_groups=unlocked,
+                   verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    prefix = 12 + 1 - unlocked
+    # 2 steps of the prefix, then 1 test batch through the 12 K1 blocks
+    k14 = qm.launch_counts()["quant_full_block_fused"]
+    assert k14 == (2 * prefix if prefix_quant else 0)
+    assert bk.launch_counts()["full_block_fused"] == \
+        (0 if prefix_quant else 2 * prefix) + 12
+    assert np.isfinite(out["test"]["loss"]) and out["test"]["cm"].sum() == 4
+    moved = 0
+    for name, trainable in out["mask"].items():
+        same = torch.equal(before[name], out["params"][name])
+        assert same or trainable, name
+        moved += not same
+    assert moved > 0

@@ -65,8 +65,10 @@ def test_entry_points_refuse_missing_card():
 def test_unported_options_raise():
     from aihab_clip_tpu_torch.serving import ClassifierEngine
 
-    # int8 serves SigLIP; the CLIP ViT int8 tower waits for K14
-    with pytest.raises(NotImplementedError, match="K14"):
-        ClassifierEngine(model="random:Tiny", quantize="int8", device="cpu")
+    # int8 serves CLIP ViT towers too (K8 + K14), from weights quantized once
+    engine = ClassifierEngine(model="random:Tiny", quantize="int8",
+                              device="cpu", verbose=False)
+    assert engine._packed is None
+    assert len(engine._qparams["transformer"]) == 2
     with pytest.raises(NotImplementedError, match="LoRA"):
         ClassifierEngine(model="random:Tiny", lora="x.npz", device="cpu")

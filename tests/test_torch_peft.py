@@ -282,15 +282,14 @@ def test_fused_prefix_length_matches_jax_on_the_accelerator(monkeypatch):
 
 
 @pytest.mark.parametrize("change,kwargs", [
-    ({"lora_rank": 4}, {}), ({"prefix_quant": True}, {}),
+    ({"lora_rank": 4}, {}),
     ({"scan_blocks": True}, {}), ({"device_dataset": "chunked"}, {}),
     ({}, {"mesh": object()}),
     ({}, {"fsdp": True}), ({}, {"resume_from": "ckpt"}),
     ({}, {"checkpoint_fn": print}), ({}, {"profile_dir": "trace"}),
 ])
-def test_unported_options_raise(siglip_tiny, clip_tiny, change, kwargs):
-    # the int8 prefix is ported for SigLIP; a CLIP ViT's waits for K14
-    model = clip_tiny[1] if "prefix_quant" in change else siglip_tiny[2]
+def test_unported_options_raise(siglip_tiny, change, kwargs):
+    model = siglip_tiny[2]
     ds = _dataset(ImageArrayDataset, n=8)
     cfg = peft.PEFTConfig(resolution=32, num_classes=20, lr=1e-3, epochs=1,
                           **change)
@@ -321,7 +320,12 @@ def test_finetune_argument_checks(siglip_tiny, clip_tiny):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             peft.finetune(model, view, None, None, cfg,
                           text_weights=torch.zeros(64, 20), verbose=False)
+    # a CLIP ViT's fused prefix runs vit_encode_hybrid (K1 over a pack of
+    # the prefix blocks), on the CPU through the plain versions
     _, clip = clip_tiny
-    with pytest.raises(NotImplementedError, match="vit_encode_hybrid"):
-        peft._encode_projected(clip, dataclasses.replace(cfg, fused_prefix=1),
-                               torch.zeros(1, 24, 24, 3))
+    ccfg = dataclasses.replace(cfg, fused_prefix=1)
+    assert len(peft._pack_prefix(clip, ccfg)["blocks"]) == 1
+    with torch.no_grad():
+        pre, proj = peft._encode_projected(clip, ccfg,
+                                           torch.zeros(1, 24, 24, 3))
+    assert pre.shape == (1, 64) and proj.shape == (1, 32)

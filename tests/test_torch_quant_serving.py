@@ -76,9 +76,12 @@ def test_int8_engine_matches_jax(engines):
 
 
 def test_int8_engine_options():
-    with pytest.raises(NotImplementedError, match="K14"):
-        ClassifierEngine(model="random:Tiny", quantize="int8", device="cpu",
-                         verbose=False)
+    # a CLIP ViT tower is served in int8 too (models/quant_vit.py)
+    tiny = ClassifierEngine(model="random:Tiny", quantize="int8", device="cpu",
+                            verbose=False)
+    assert set(tiny._qparams["transformer"]["resblocks_0"]) == {
+        "attn/in_proj", "attn/out_proj", "mlp/c_fc", "mlp/c_proj", "ln_1",
+        "ln_2"}
     with pytest.raises(ValueError, match="unknown quantize mode"):
         ClassifierEngine(model="random:SigLIP-Tiny", quantize="int4",
                          device="cpu", verbose=False)
@@ -133,13 +136,20 @@ def test_prefix_quant_loss_matches_jax(siglip_tiny):  # noqa: F811
 
 
 def test_prefix_quant_needs_siglip_for_now(siglip_tiny):  # noqa: F811
-    """``prefix_quant`` with a CLIP ViT model still raises (K14); with
-    SigLIP it passes the option check."""
+    """``prefix_quant`` passes the option check for SigLIP and, since the
+    CLIP ViT int8 prefix (K14) is ported, for a CLIP ViT too: its
+    ``_quantize_prefix`` holds ``quantize_vit_block`` dicts (the CLIP loss:
+    ``tests/test_torch_quant_vit.py``)."""
+    from aihab_clip_tpu_torch.models import load
+
     _, _, model = siglip_tiny
     cfg = peft.PEFTConfig(resolution=32, num_classes=20, lr=1e-3, epochs=1,
                           prefix_quant=True)
-    peft._check_unported(cfg, True)
-    with pytest.raises(NotImplementedError, match="K14"):
-        peft._check_unported(cfg, False)
+    peft._check_unported(cfg)
     assert peft._quantize_prefix(model, dataclasses.replace(
         cfg, fused_prefix=0)) is None
+    clip = load("random:Tiny", device="cpu").model
+    qprefix = peft._quantize_prefix(clip, dataclasses.replace(
+        cfg, fused_prefix=2))
+    assert list(qprefix) == ["resblocks_0", "resblocks_1"]
+    assert "attn/in_proj" in qprefix["resblocks_0"]
