@@ -13,6 +13,11 @@
 //       c_fc's columns of c -> gemm_residual over c_proj's rows of c, whose
 //       residual is x (chunk 0, + b_proj) or the previous partial, stored in
 //       x's dtype (or fp32) as the TPU kernel stores it between chunks;
+//   convnext_mlp_block (:688, :742/:752) = per hidden chunk c: ln_gemm (LN eps
+//       1e-6 over the dwconv output y, gelu_poly) over fc1's columns of c ->
+//       gemm_residual over fc2's rows of c with the per-column gamma epilogue:
+//       chunk 0 stores res + (p_0 + b2) * gamma, chunk c > 0 acc + p_c * gamma,
+//       in y's dtype (the residual is the block input, not y);
 // and of aihab_clip_tpu/ops/attention.py:
 //   _pallas_attention (:91, :113), fused_attention's forward (K6) = attention
 //       over separate q, k, v, storing the row log-sum-exp for the backward
@@ -38,6 +43,14 @@
 // kernels run at other widths: head_dim 72 is a template instance of the
 // attention kernel with its contraction zero-padded to 80, and the 2152-wide
 // MLP chunks take the GEMM's ragged N and K edges.
+//
+// At ConvNeXt base_w (batch 64, 256 px) every convnext_mlp_block launch is
+// 16 M C^2 = 68.7 GFLOP (M C^2 is the same in every stage: M = 262,144 rows
+// of C = 128 at stage 0, 4,096 of 1,024 at stage 3), 0.069 ms of operations;
+// stage 0 also moves at least 201 MB of y, res and out (0.060 ms).  The split
+// design writes the bf16 hidden h [M, 4C] through device memory (268 MB each
+// way at stage 0), which the TPU kernel kept in VMEM.  Since the GEMM streams
+// its weight tiles, the whole hidden width runs in one chunk.
 //
 // Interface: plain C functions, loaded with ctypes.  Each launches on the
 // stream it is given, allocates nothing and returns cudaGetLastError().
@@ -91,8 +104,9 @@ ln_stats_kernel(const TA* __restrict__ A, float2* __restrict__ stats, int M, int
 // ---------------------------------------------------------------------------
 // GEMM: Y[M,N] = epilogue(prologue(A)[M,K] @ W[K,N] + bias), W's rows ldw apart
 //   prologue (LN):  A -> (A - mean) * rstd * ln_s + ln_b per row, cast to bf16
-//   epilogue:       act(...), * q_scale on the q columns, then + R (RES) in
-//                   fp32, stored as TO
+//   epilogue:       act(...), * q_scale on the q columns, * gamma[n] (a
+//                   per-column scale, when gamma is non-null), then + R (RES)
+//                   in fp32, stored as TO
 // Block tile 128x128, k-step 32, 8 warps of 64x32 (4x2 WMMA fragments).
 // The weight tile streams through a 3-stage cp.async ring; the A tile is
 // read into registers one k-step before it is needed and normalised into
@@ -115,7 +129,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
             const bf16* __restrict__ W, const float* __restrict__ bias,
-            const TR* __restrict__ R, TO* __restrict__ Y, int M, int N, int K,
+            const float* __restrict__ gamma, const TR* __restrict__ R,
+            TO* __restrict__ Y, int M, int N, int K,
             int ldw, int act, float q_scale, int q_cols, int group_cols) {
   constexpr bool RAW_A = !LN && std::is_same<TA, bf16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -272,6 +287,12 @@ gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) out[jj] *= q_scale;
         }
+        if (gamma) {
+          float g[8];
+          load8(gamma + gn, g);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) out[jj] *= g[jj];
+        }
         if constexpr (RES) {
           float res[8];
           load8(R + static_cast<size_t>(gr) * N + gn, res);
@@ -287,22 +308,22 @@ gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
 
 template <typename TA, bool LN, bool RES, typename TR, typename TO>
 int launch_gemm(const void* a, const float2* stats, const float* ln_s, const float* ln_b,
-                const void* w, const float* bias, const void* r, void* y, int M, int N,
-                int K, int ldw, int act, float q_scale, int q_cols, int group_cols,
-                cudaStream_t stream) {
+                const void* w, const float* bias, const float* gamma, const void* r,
+                void* y, int M, int N, int K, int ldw, int act, float q_scale, int q_cols,
+                int group_cols, cudaStream_t stream) {
   auto kernel = gemm_kernel<TA, LN, RES, TR, TO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kernel<<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      static_cast<const TA*>(a), stats, ln_s, ln_b, static_cast<const bf16*>(w), bias,
+      static_cast<const TA*>(a), stats, ln_s, ln_b, static_cast<const bf16*>(w), bias, gamma,
       static_cast<const TR*>(r), static_cast<TO*>(y), M, N, K, ldw, act, q_scale, q_cols,
       group_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TA>
+template <typename TA, typename TO>
 int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float* ln_b,
                    const void* w, const float* bias, void* y, int M, int N, int K,
                    int ldw, int act, float eps, float q_scale, int q_cols,
@@ -312,9 +333,35 @@ int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float*
                         stream>>>(static_cast<const TA*>(x), stats, M, K, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_gemm<TA, true, false, bf16, bf16>(x, stats, ln_s, ln_b, w, bias, nullptr,
-                                                  y, M, N, K, ldw, act, q_scale, q_cols,
-                                                  group_cols, stream);
+  return launch_gemm<TA, true, false, bf16, TO>(x, stats, ln_s, ln_b, w, bias, nullptr,
+                                                nullptr, y, M, N, K, ldw, act, q_scale,
+                                                q_cols, group_cols, stream);
+}
+
+// ---------------------------------------------------------------------------
+// act_pass: y[i] = act(t[i]) [+ r[i]] over the fp32 output t of a GEMM run
+// without its activation, for the gelu_poly forms the GEMM epilogues leave
+// out (act 4-6, common.cuh).  The sum is the fused epilogue's, act(acc + b)
+// then + r, so the result is the same.  Bytes-bound, one value a thread.
+// ---------------------------------------------------------------------------
+
+template <typename TR, typename TO>
+__global__ void act_pass_kernel(const float* __restrict__ t, int act, const TR* __restrict__ r,
+                                TO* __restrict__ y, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    float v = gelu_other_f32(t[i], act);
+    if (r != nullptr) v = __fadd_rn(v, to_f32(r[i]));
+    store1(y + i, v);
+  }
+}
+
+template <typename TR, typename TO>
+int launch_act_pass(const float* t, int act, const void* r, void* y, int n,
+                    cudaStream_t stream) {
+  const int blocks = (n + 255) / 256 < 65536 ? (n + 255) / 256 : 65536;
+  act_pass_kernel<TR, TO><<<blocks, 256, 0, stream>>>(t, act, static_cast<const TR*>(r),
+                                                      static_cast<TO*>(y), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -533,39 +580,65 @@ int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, f
 
 extern "C" {
 
-// y[M,N] (bf16) = act(LN(x)[M,K] @ w[K,N] + bias), times q_scale on the
-// columns n with n % group_cols < q_cols; x is bf16 or fp32; w's rows are ldw
-// apart; stats is an [M] float2 scratch for the row statistics.
+// y[M,N] (bf16, or fp32 with y_is_f32) = act(LN(x)[M,K] @ w[K,N] + bias),
+// times q_scale on the columns n with n % group_cols < q_cols; x is bf16 or
+// fp32; w's rows are ldw apart; stats is an [M] float2 scratch for the row
+// statistics.
 int aihab_ln_gemm(const void* x, int x_is_f32, const float* ln_s, const float* ln_b,
-                  const void* w, int ldw, const float* bias, void* y, void* stats, int M,
-                  int N, int K, int act, float eps, float q_scale, int q_cols,
-                  int group_cols, void* stream) {
+                  const void* w, int ldw, const float* bias, void* y, int y_is_f32,
+                  void* stats, int M, int N, int K, int act, float eps, float q_scale,
+                  int q_cols, int group_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* st = static_cast<float2*>(stats);
+  if (act > ACT_GELU_SIG5) return static_cast<int>(cudaErrorInvalidValue);  // act_pass's
+  if (x_is_f32 && y_is_f32)
+    return launch_ln_gemm<float, float>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act,
+                                        eps, q_scale, q_cols, group_cols, s);
   if (x_is_f32)
-    return launch_ln_gemm<float>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act, eps,
-                                 q_scale, q_cols, group_cols, s);
-  return launch_ln_gemm<bf16>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act, eps,
-                              q_scale, q_cols, group_cols, s);
+    return launch_ln_gemm<float, bf16>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act,
+                                       eps, q_scale, q_cols, group_cols, s);
+  if (y_is_f32)
+    return launch_ln_gemm<bf16, float>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act,
+                                       eps, q_scale, q_cols, group_cols, s);
+  return launch_ln_gemm<bf16, bf16>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act, eps,
+                                    q_scale, q_cols, group_cols, s);
 }
 
-// y[M,N] = a[M,K] @ w[K,N] + bias + r[M,N]; a, w bf16 (w's rows ldw apart);
-// bias may be null (no bias); r and y bf16 or fp32.
+// y[i] = act(t[i]) [+ r[i]] over n fp32 values t, act one of the gelu_poly
+// forms 4-6 (common.cuh); r (may be null) and y bf16 or fp32.
+int aihab_act_pass(const float* t, int act, const void* r, int r_is_f32, void* y,
+                   int y_is_f32, int n, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act < ACT_GELU_SIG9 || act > ACT_GELU_CHEB)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (r_is_f32 && y_is_f32) return launch_act_pass<float, float>(t, act, r, y, n, s);
+  if (r_is_f32) return launch_act_pass<float, bf16>(t, act, r, y, n, s);
+  if (y_is_f32) return launch_act_pass<bf16, float>(t, act, r, y, n, s);
+  return launch_act_pass<bf16, bf16>(t, act, r, y, n, s);
+}
+
+// y[M,N] = (a[M,K] @ w[K,N] + bias) * gamma + r[M,N]; a, w bf16 (w's rows
+// ldw apart); bias may be null (no bias), gamma [N] may be null (no scale);
+// r and y bf16 or fp32.
 int aihab_gemm_residual(const void* a, const void* w, int ldw, const float* bias,
-                        const void* r, int r_is_f32, void* y, int y_is_f32, int M, int N,
-                        int K, void* stream) {
+                        const float* gamma, const void* r, int r_is_f32, void* y,
+                        int y_is_f32, int M, int N, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (r_is_f32 && y_is_f32)
     return launch_gemm<bf16, false, true, float, float>(
-        a, nullptr, nullptr, nullptr, w, bias, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1, s);
+        a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0,
+        1, s);
   if (r_is_f32)
     return launch_gemm<bf16, false, true, float, bf16>(
-        a, nullptr, nullptr, nullptr, w, bias, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1, s);
+        a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0,
+        1, s);
   if (y_is_f32)
     return launch_gemm<bf16, false, true, bf16, float>(
-        a, nullptr, nullptr, nullptr, w, bias, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1, s);
+        a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0,
+        1, s);
   return launch_gemm<bf16, false, true, bf16, bf16>(
-      a, nullptr, nullptr, nullptr, w, bias, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1, s);
+      a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1,
+      s);
 }
 
 // out[B,S,heads*D] (bf16, or fp32 with out_f32) = masked multi-head attention

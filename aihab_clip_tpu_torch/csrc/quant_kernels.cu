@@ -20,7 +20,12 @@
 //   quant_full_block_fused  (K14, :794, :817) = K12 with the mid-block residual
 //       y1 stored in fp32 -> row_quant + LN2 -> int8_gemm (act, fp32 h) ->
 //       row_quant per mlp_chunks slice of h -> int8_gemm in the residual-first
-//       mode, out = (y1 + b2) + part_0 + part_1 ... (:779-790).
+//       mode, out = (y1 + b2) + part_0 + part_1 ... (:779-790);
+//   quant_convnext_mlp_block (K15, :319, :341) = K11's chain with ConvNeXt's
+//       quirks: row_quant + LN (eps 1e-6) of the dwconv output y -> int8_gemm
+//       (gelu_poly, fp32 h) -> row_quant of the whole hidden row -> int8_gemm
+//       with the gamma epilogue, out = res + (part + b2) * gamma (:314-316),
+//       the residual being the block input, not y.
 // The Pallas programs keep a whole weight matrix (SO400M's c_fc: 5 MB int8)
 // resident in VMEM and quantize, multiply and requantize one row tile in one
 // program.  An SM has 227 KB, so the chain is cut at its GEMMs: a row's codes
@@ -42,7 +47,11 @@
 // bytes, which a fused design removes later).  At ViT-B/16, batch 64 (M =
 // 12,608, W = 768, hidden 3072) K14 is 178.5 GOP of int8 GEMM plus 7.6 GFLOP
 // of bf16 attention (0.098 ms), K12 59.5 GOP (0.038 ms) and K11 119 GOP
-// (0.060 ms), all bound by operations.  K13's groups are 144 columns
+// (0.060 ms), all bound by operations.  At ConvNeXt base_w (batch 64, 256 px)
+// every K15 launch is 68.7 GOP (0.035 ms at the int8 rate); at stage 0 (M =
+// 262,144 rows of C = 128) its y, res and out alone move 201 MB (0.060 ms), so
+// it is bound by bytes there, and its fp32 hidden row (4C wide) crosses device
+// memory once each way (1.07 GB).  K13's groups are 144 columns
 // wide, no multiple of the 32-byte k-step: row_quant pads each group's codes
 // with zeros to 160, the out-proj weight is padded the same way, and the GEMM
 // dequantizes its int32 sum at each group boundary with the group's row scale.
@@ -64,9 +73,6 @@
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -132,7 +138,8 @@ row_quant_kernel(const T* __restrict__ x, int M, int K, int KG, int KGP,
 // K is G groups of K / G columns (G = 1: one group); group g's int32 sum is
 // dequantized with its own row scale: part_g = float(acc_g) * (sa[m, g] * ws[n]).
 //   G == 1: y = act(part_0 + bias); y *= q_scale on the q columns (n with
-//           n % group_cols < q_cols); y += R (if given); stored as TO.
+//           n % group_cols < q_cols); y *= gamma[n] (if given); y += R (if
+//           given); stored as TO.
 //   G > 1:  y = (part_0 + bias) + R, then y += part_g for g = 1 .. G-1 in order
 //           (quant_matmul.py:609-615); stored as TO.
 //   RES_FIRST (any G >= 1, R fp32): y = (R + bias) + part_0, then y += part_g
@@ -140,6 +147,8 @@ row_quant_kernel(const T* __restrict__ x, int M, int K, int KG, int KGP,
 // Block tile 128x128, k-step 32, 8 warps of 64x32 (4x4 m16n8k32 tiles); both
 // operand tiles stream through a 4-stage cp.async ring into shared rows of 48
 // bytes (32 + 16 of padding, which keeps ldmatrix free of bank conflicts).
+// Two blocks share an SM, so a thread has at most 128 registers: at 132 (the
+// gamma epilogue's, unbounded) one block fits and the GEMM ran ~2x slower.
 // ---------------------------------------------------------------------------
 
 constexpr int QBM = 128, QBN = 128, QBK = 32, QSTAGES = 4, QTHREADS = 256;
@@ -170,10 +179,11 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
 }
 
 template <bool GROUPED, bool RES_FIRST, typename TR, typename TO>
-__global__ void __launch_bounds__(QTHREADS, 1)
+__global__ void __launch_bounds__(QTHREADS, 2)
 int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
                  const int8_t* __restrict__ B, const float* __restrict__ ws,
-                 const float* __restrict__ bias, const TR* __restrict__ R, TO* __restrict__ Y,
+                 const float* __restrict__ bias, const float* __restrict__ gamma,
+                 const TR* __restrict__ R, TO* __restrict__ Y,
                  int M, int N, int K, int G, int act, float q_scale, int q_cols,
                  int group_cols) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -308,6 +318,7 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
           if constexpr (!GROUPED) {
             y = act_f32(y, act);
             if (q_cols > 0 && col % group_cols < q_cols) y = __fmul_rn(y, q_scale);
+            if (gamma != nullptr) y = __fmul_rn(y, gamma[col + e]);
             if (R != nullptr)
               y = __fadd_rn(y, to_f32(R[static_cast<size_t>(row) * N + col + e]));
           }
@@ -320,15 +331,16 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
 
 template <bool GROUPED, bool RES_FIRST, typename TR, typename TO>
 int launch_int8_gemm(const void* a, const float* sa, const void* w, const float* ws,
-                     const float* bias, const void* r, void* y, int M, int N, int K, int G,
-                     int act, float q_scale, int q_cols, int group_cols, cudaStream_t stream) {
+                     const float* bias, const float* gamma, const void* r, void* y, int M,
+                     int N, int K, int G, int act, float q_scale, int q_cols, int group_cols,
+                     cudaStream_t stream) {
   auto kernel = int8_gemm_kernel<GROUPED, RES_FIRST, TR, TO>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QGEMM_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + QBN - 1) / QBN, (M + QBM - 1) / QBM);
   kernel<<<grid, QTHREADS, QGEMM_SMEM, stream>>>(
-      static_cast<const int8_t*>(a), sa, static_cast<const int8_t*>(w), ws, bias,
+      static_cast<const int8_t*>(a), sa, static_cast<const int8_t*>(w), ws, bias, gamma,
       static_cast<const TR*>(r), static_cast<TO*>(y), M, N, K, G, act, q_scale, q_cols,
       group_cols);
   return static_cast<int>(cudaGetLastError());
@@ -361,40 +373,49 @@ int aihab_row_quant(const void* x, int x_f32, int M, int K, int KG, int KGP,
 
 // y[M, N] = epilogue(a[M, K] . w[N, K]^T) (int8, K-major), dequantized with
 // the row scales sa[M, groups] and column scales ws[N], + bias[N]; r (may be
-// null) and y bf16 or fp32.  groups > 1: r and y share one dtype, act is none
-// and q_cols is 0 (the wrappers check).  res_first (groups >= 1): r fp32 is
-// added to the bias before the first partial; act none, q_cols 0.
+// null) and y bf16 or fp32.  gamma[N] (may be null; groups 1 and not
+// res_first only) scales each column before the residual: y = r + (part +
+// bias) * gamma.  act is none, quick_gelu, gelu_tanh or gelu_poly's sig5
+// form (the other forms run in block_kernels.cu's act_pass after a GEMM with
+// no activation).  groups > 1: r and y share one dtype, act is none and q_cols
+// is 0 (the wrappers check).  res_first (groups >= 1): r fp32 is added to the
+// bias before the first partial; act none, q_cols 0.
 int aihab_int8_gemm(const void* a, const float* sa, const void* w, const float* ws,
-                    const float* bias, const void* r, int r_f32, void* y, int y_f32, int M,
-                    int N, int K, int groups, int res_first, int act, float q_scale,
-                    int q_cols, int group_cols, void* stream) {
+                    const float* bias, const float* gamma, const void* r, int r_f32, void* y,
+                    int y_f32, int M, int N, int K, int groups, int res_first, int act,
+                    float q_scale, int q_cols, int group_cols, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (((res_first || groups > 1) && gamma != nullptr) || act > ACT_GELU_SIG5)
+    return static_cast<int>(cudaErrorInvalidValue);  // act 4-6 run in act_pass
   if (res_first) {
     if (!r_f32) return static_cast<int>(cudaErrorInvalidValue);
     if (y_f32)
-      return launch_int8_gemm<true, true, float, float>(a, sa, w, ws, bias, r, y, M, N, K,
-                                                        groups, ACT_NONE, 1.f, 0, 1, s);
-    return launch_int8_gemm<true, true, float, bf16>(a, sa, w, ws, bias, r, y, M, N, K,
-                                                     groups, ACT_NONE, 1.f, 0, 1, s);
+      return launch_int8_gemm<true, true, float, float>(a, sa, w, ws, bias, nullptr, r, y, M,
+                                                        N, K, groups, ACT_NONE, 1.f, 0, 1, s);
+    return launch_int8_gemm<true, true, float, bf16>(a, sa, w, ws, bias, nullptr, r, y, M, N,
+                                                     K, groups, ACT_NONE, 1.f, 0, 1, s);
   }
   if (groups > 1) {
     if (y_f32)
-      return launch_int8_gemm<true, false, float, float>(a, sa, w, ws, bias, r, y, M, N, K,
-                                                         groups, ACT_NONE, 1.f, 0, 1, s);
-    return launch_int8_gemm<true, false, bf16, bf16>(a, sa, w, ws, bias, r, y, M, N, K,
-                                                     groups, ACT_NONE, 1.f, 0, 1, s);
+      return launch_int8_gemm<true, false, float, float>(a, sa, w, ws, bias, nullptr, r, y, M,
+                                                         N, K, groups, ACT_NONE, 1.f, 0, 1, s);
+    return launch_int8_gemm<true, false, bf16, bf16>(a, sa, w, ws, bias, nullptr, r, y, M, N,
+                                                     K, groups, ACT_NONE, 1.f, 0, 1, s);
   }
   if (r_f32 && y_f32)
-    return launch_int8_gemm<false, false, float, float>(a, sa, w, ws, bias, r, y, M, N, K, 1,
-                                                        act, q_scale, q_cols, group_cols, s);
+    return launch_int8_gemm<false, false, float, float>(a, sa, w, ws, bias, gamma, r, y, M, N,
+                                                        K, 1, act, q_scale, q_cols,
+                                                        group_cols, s);
   if (r_f32)
-    return launch_int8_gemm<false, false, float, bf16>(a, sa, w, ws, bias, r, y, M, N, K, 1,
-                                                       act, q_scale, q_cols, group_cols, s);
+    return launch_int8_gemm<false, false, float, bf16>(a, sa, w, ws, bias, gamma, r, y, M, N,
+                                                       K, 1, act, q_scale, q_cols,
+                                                       group_cols, s);
   if (y_f32)
-    return launch_int8_gemm<false, false, bf16, float>(a, sa, w, ws, bias, r, y, M, N, K, 1,
-                                                       act, q_scale, q_cols, group_cols, s);
-  return launch_int8_gemm<false, false, bf16, bf16>(a, sa, w, ws, bias, r, y, M, N, K, 1,
-                                                    act, q_scale, q_cols, group_cols, s);
+    return launch_int8_gemm<false, false, bf16, float>(a, sa, w, ws, bias, gamma, r, y, M, N,
+                                                       K, 1, act, q_scale, q_cols,
+                                                       group_cols, s);
+  return launch_int8_gemm<false, false, bf16, bf16>(a, sa, w, ws, bias, gamma, r, y, M, N, K,
+                                                    1, act, q_scale, q_cols, group_cols, s);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 """Combined CLIP model (counterpart of ``aihab_clip_tpu/models/clip.py``).
 
 ``CLIPConfig`` is re-declared with the JAX package's field names, so a
-config JSON written by either package loads in the other.  This slice
-builds CLIP ViT towers only; ``CLIP_ARCHS`` holds the ViT rows of the JAX
-table plus the ``Tiny`` development architecture.
+config JSON written by either package loads in the other.  ``CLIPModel``
+builds CLIP ViT and ConvNeXt towers (``vision_tower="convnext"``; the
+ModifiedResNet waits for its port); ``CLIP_ARCHS`` holds the ViT rows of the
+JAX table, the ``Tiny`` and ``TinyConvNeXt`` development architectures and,
+once ``models/zoo`` is imported, the LAION ConvNeXt tag grid.
 
   * ``encode_image(images)``               -> pre-projection features
   * ``encode_image(images, project=True)`` -> (pre, projected)
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from .convnext import ConvNeXtVisionTower
 from .text import TextTransformer
 from .vit import VisionTransformer
 
@@ -62,6 +65,13 @@ class CLIPConfig:
             return self.vision_width // 64
         return self.vision_width * 32 // 64
 
+    @property
+    def vision_preproj_dim(self) -> int:
+        """Width of the pre-projection image feature."""
+        if self.tower == "convnext":
+            return self.vision_width * (2 ** (len(self.vision_layers) - 1))
+        return self.vision_width if self.is_vit else self.vision_width * 32
+
 
 # The ViT rows of the OpenAI CLIP zoo (public shape facts) + a dev arch.
 CLIP_ARCHS: Dict[str, CLIPConfig] = {
@@ -70,6 +80,9 @@ CLIP_ARCHS: Dict[str, CLIPConfig] = {
     "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "Tiny": CLIPConfig(32, 32, 2, 64, 8, 77, 49408, 64, 1, 2),
+    # tiny ConvNeXt for tests (width 16 -> pre-projection dim 128)
+    "TinyConvNeXt": CLIPConfig(32, 32, (1, 1, 1, 1), 16, None, 77, 49408,
+                               64, 1, 2, act="gelu", vision_tower="convnext"),
 }
 
 
@@ -79,16 +92,21 @@ class CLIPModel(nn.Module):
 
     def __init__(self, config: CLIPConfig, dtype=torch.float32):
         super().__init__()
-        if config.tower != "vit":
-            raise NotImplementedError(
-                f"{config.tower!r} vision towers are not ported yet "
-                "(ModifiedResNet / ConvNeXt)")
         self.config = config
         cfg = config
-        self.visual = VisionTransformer(
-            cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
-            cfg.vision_layers, cfg.vision_heads, cfg.embed_dim,
-            mlp_dim=cfg.vision_mlp_dim, act=cfg.act, dtype=dtype)
+        if cfg.tower == "convnext":
+            self.visual = ConvNeXtVisionTower(
+                cfg.vision_layers, cfg.vision_width, cfg.embed_dim,
+                proj=cfg.vision_proj, dtype=dtype)
+        elif cfg.tower == "vit":
+            self.visual = VisionTransformer(
+                cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
+                cfg.vision_layers, cfg.vision_heads, cfg.embed_dim,
+                mlp_dim=cfg.vision_mlp_dim, act=cfg.act, dtype=dtype)
+        else:
+            raise NotImplementedError(
+                f"{cfg.tower!r} (ModifiedResNet) vision towers are not ported "
+                "yet: ROADMAP A11")
         self.text = TextTransformer(
             cfg.context_length, cfg.vocab_size, cfg.transformer_width,
             cfg.transformer_layers, cfg.transformer_heads, cfg.embed_dim,

@@ -5,11 +5,15 @@ Input is the flat ``{"a/b/c": ndarray}`` form that ``save_params_npz``
 ``tests/golden/*_params.npz`` hold.  Layout facts:
 
   * flax Dense ``kernel`` [in, out]  -> torch ``weight`` [out, in]
-  * flax Conv ``kernel`` HWIO        -> torch ``weight`` OIHW
+  * flax Conv ``kernel`` HWIO        -> torch ``weight`` OIHW (every 4-D
+    kernel: ViT's ``conv1``, ConvNeXt's ``stem_conv`` [4, 4, 3, C],
+    ``down_conv_<s>`` [2, 2, C, 2C] and ``dwconv`` [7, 7, 1, C] -> [C, 1,
+    7, 7])
   * ``attn/in_proj/{kernel,bias}``   -> ``attn.in_proj_{weight,bias}``
   * LayerNorm ``scale``              -> ``weight``
   * ``resblocks_<i>``                -> ``resblocks.<i>``
   * ``text/token_embedding``         -> ``text.token_embedding.weight``
+  * every other leaf keeps its path (ConvNeXt's ``stage<s>_block<b>/gamma``)
 
 The same rules carry a SigLIP tree into ``SigLIPModel``: its separate
 ``attn/{q,k,v,out}_proj`` and ``text/head`` Dense kernels, the conv1 bias,
@@ -56,11 +60,11 @@ def _convert_key(key: str, v: np.ndarray):
     parts = [p.replace("resblocks_", "resblocks.") if p.startswith(
         "resblocks_") else p for p in key.split("/")]
     leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
-    if (parent, leaf) == ("conv1", "kernel"):
-        return ".".join(parts[:-1] + ["weight"]), v.transpose(3, 2, 0, 1)
     if parent == "in_proj":
         name = "in_proj_weight" if leaf == "kernel" else "in_proj_bias"
         return ".".join(parts[:-2] + [name]), v.T if leaf == "kernel" else v
+    if leaf == "kernel" and v.ndim == 4:
+        return ".".join(parts[:-1] + ["weight"]), v.transpose(3, 2, 0, 1)
     if leaf == "kernel":
         return ".".join(parts[:-1] + ["weight"]), v.T
     if leaf == "scale":
@@ -71,8 +75,9 @@ def _convert_key(key: str, v: np.ndarray):
 
 
 def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax-layout CLIP ViT or SigLIP params (nested or ``/``-flat) -> a
-    state dict for ``CLIPModel`` or ``SigLIPModel.load_state_dict``."""
+    """Flax-layout CLIP (ViT or ConvNeXt) or SigLIP params (nested or
+    ``/``-flat) -> a state dict for ``CLIPModel`` or
+    ``SigLIPModel.load_state_dict``."""
     sd = {}
     for key, v in flatten_params(params).items():
         name, arr = _convert_key(key, v)

@@ -1,7 +1,7 @@
 """Fast ViT encode: the CLIP vision tower over the Hopper block kernels
 (counterpart of ``aihab_clip_tpu/models/fast_vit.py``).  SigLIP towers
-dispatch to ``fast_siglip`` from ``pack_fastest`` and
-``encode_image_fastest``.
+dispatch to ``fast_siglip`` and ConvNeXt towers to ``fast_convnext`` from
+``pack_fastest`` and ``encode_image_fastest``.
 
 ``pack_fastest`` lays the tower's weights out once, at load, in the
 kernels' layout (GEMM weights [in, out] contiguous in the compute dtype, LN
@@ -28,8 +28,10 @@ import torch
 from ..ops.block_kernel import (ACTS, attn_block_fused, full_block_fused,
                                 mlp_block_fused)
 from .clip import CLIPConfig
+from .fast_convnext import convnext_encode_fused, pack_convnext
 from .fast_siglip import pack_siglip_fast_params, siglip_encode_fast
 from .siglip import SigLIPConfig
+
 
 def _ln(x, scale, bias, eps=1e-5):
     y = torch.nn.functional.layer_norm(x.float(), scale.shape, scale, bias, eps)
@@ -38,12 +40,14 @@ def _ln(x, scale, bias, eps=1e-5):
 
 def pack_fastest(model, config, dtype=torch.bfloat16, *,
                  stop: Optional[int] = None):
-    """Weights of a CLIP ViT or SigLIP tower in the kernels' layout, on the
-    model's device, for blocks [0, stop) (default all; the PEFT hybrid packs
-    its frozen CLIP prefix).  Built once at load (or once per training
-    run); ``None`` for towers without a fast path."""
+    """Weights of a CLIP ViT, ConvNeXt or SigLIP tower in the kernels'
+    layout, on the model's device, for blocks [0, stop) (default all; the
+    PEFT hybrid packs its frozen CLIP prefix).  Built once at load (or once
+    per training run); ``None`` for towers without a fast path."""
     if isinstance(config, SigLIPConfig):
         return pack_siglip_fast_params(model, config, dtype, stop=stop)
+    if isinstance(config, CLIPConfig) and config.tower == "convnext":
+        return pack_convnext(model, config, dtype, stop=stop)
     if not (isinstance(config, CLIPConfig) and config.is_vit):
         return None
     vp = model.visual
@@ -152,11 +156,12 @@ def vit_encode_block_fused(packed, images: torch.Tensor, config: CLIPConfig,
 
 def encode_image_fastest(model, x: torch.Tensor, config, *,
                          project: bool = False, packed=None):
-    """The fastest image encode for where ``x`` lives: CLIP ViT and SigLIP
-    towers on the card take the block kernels (``packed`` from
+    """The fastest image encode for where ``x`` lives: CLIP ViT, ConvNeXt
+    and SigLIP towers on the card take the block kernels (``packed`` from
     ``pack_fastest``, required there); the CPU runs the canonical module."""
     on_card = x.is_cuda and (isinstance(config, SigLIPConfig) or (
-        isinstance(config, CLIPConfig) and config.is_vit))
+        isinstance(config, CLIPConfig)
+        and (config.is_vit or config.tower == "convnext")))
     if not on_card:
         return model.encode_image(x, project=project)
     if packed is None:
@@ -165,6 +170,8 @@ def encode_image_fastest(model, x: torch.Tensor, config, *,
     if isinstance(config, SigLIPConfig):
         return siglip_encode_fast(model, x, config, project=project,
                                   packed=packed)
+    if config.tower == "convnext":
+        return convnext_encode_fused(packed, x, config, project=project)
     return vit_encode_block_fused(packed, x, config, project=project)
 
 

@@ -7,7 +7,9 @@
      any other SigLIP name raises ``SigLIPAssetsMissingError``, because
      reading a local HF snapshot waits for a snapshot in the repository;
   2. ``random:<ARCH>`` -> CLIP parameters drawn from a seeded
-     ``torch.Generator`` (development / benchmarks without weights);
+     ``torch.Generator`` (development / benchmarks without weights); the
+     LAION ConvNeXt tags (``random:convnext_base_w`` ...) resolve too
+     (``zoo.py:32-34``);
   3. the converted cache ``<cache_root>/converted/<safe>.npz`` plus
      ``.config.json`` — the JAX package's naming (``zoo.py:344-366``) and
      layout, carried over by ``convert.flax_params_to_state_dict``, so a
@@ -28,8 +30,17 @@ import torch
 from ..backend import resolve_device
 from .clip import CLIP_ARCHS, CLIPConfig, CLIPModel
 from .convert import flax_params_to_state_dict, load_params_npz
+from .convnext import register_convnext_archs
+from .layers import LayerNorm
 from .siglip import (SIGLIP_ARCHS, SigLIPConfig, SigLIPModel,
                      init_siglip_random_, siglip_config_for_name)
+
+register_convnext_archs()  # 'random:convnext_*' resolves via CLIP_ARCHS
+
+# the std of a random ConvNeXt layer scale gamma: JAX initialises it to 1e-6,
+# which makes every random block an identity to bf16 precision; at 0.1 each
+# block's MLP branch moves the residual stream
+CONVNEXT_GAMMA_STD = 0.1
 
 
 def default_cache_root() -> Path:
@@ -123,16 +134,22 @@ def _load_config(path: Path) -> CLIPConfig:
 @torch.no_grad()
 def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
     """Draw every parameter from ``generator``: normal weights at
-    1/sqrt(fan_in), zero biases, unit LayerNorm scales, and the CLIP
-    embedding scales (class/positional/projection 1/sqrt(width), token
-    0.02, text positional 0.01)."""
+    1/sqrt(fan_in), zero biases, unit LayerNorm scales, the CLIP embedding
+    scales (class/positional/projection 1/sqrt(width), token 0.02, text
+    positional 0.01) and ConvNeXt's layer scales ``gamma`` normal at
+    ``CONVNEXT_GAMMA_STD`` (0.1, not JAX's constant 1e-6)."""
     vis_scale = model.config.vision_width ** -0.5
+    ln_params = {f"{mn}.{pn}" for mn, m in model.named_modules()
+                 if isinstance(m, LayerNorm)
+                 for pn, _ in m.named_parameters(recurse=False)}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name == "logit_scale":
             p.fill_(torch.log(torch.tensor(1 / 0.07)).item())
-        elif ".ln_" in name:
+        elif name in ln_params:
             p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "gamma":
+            p.normal_(0.0, CONVNEXT_GAMMA_STD, generator=generator)
         elif leaf in ("bias", "in_proj_bias"):
             p.zero_()
         elif name == "text.token_embedding.weight":
@@ -151,8 +168,9 @@ def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
 def load(name: str, dtype=torch.float32, device="cuda", seed: int = 0,
          cache_dir: Optional[str] = None,
          random_cfg: Optional[Any] = None) -> CLIPBundle:
-    """Load a CLIP ViT or a SigLIP model as a ``CLIPBundle`` on ``device``
-    (default the card; raises without one unless ``device="cpu"``).
+    """Load a CLIP (ViT or ConvNeXt) or a SigLIP model as a ``CLIPBundle``
+    on ``device`` (default the card; raises without one unless
+    ``device="cpu"``).
     Parameters are fp32; the towers compute in ``dtype``.  ``random_cfg``
     (a ``CLIPConfig`` or ``SigLIPConfig``) shapes a ``random:`` model."""
     dev = resolve_device(device)

@@ -8,10 +8,11 @@ keyed by the hash of its source and the shared header, so an edited source
 is never served a stale build.  Nothing is compiled at import: the first
 kernel launch builds.
 
-  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5; K6 fwd;
-                         K13's attention core, fp32 output)
+  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5, K7; K6
+                         fwd; K13's attention core, fp32 output), act_pass
+                         (the gelu_poly forms past the GEMM epilogues)
   fused_attention_bwd.cu fused_attention's backward (K6b)
-  quant_kernels.cu       row_quant, int8_gemm (K8-K14)
+  quant_kernels.cu       row_quant, int8_gemm (K8-K15)
 """
 
 from __future__ import annotations
@@ -35,10 +36,11 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's argument types (every one returns a CUDA error code)
 _ARGTYPES = {
     "block_kernels": {
-        "aihab_ln_gemm": [_p, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i,
-                          _f, _f, _i, _i, _p],
-        "aihab_gemm_residual": [_p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _i,
-                                _p],
+        "aihab_ln_gemm": [_p, _i, _p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _i,
+                          _i, _f, _f, _i, _i, _p],
+        "aihab_act_pass": [_p, _i, _p, _i, _p, _i, _i, _p],
+        "aihab_gemm_residual": [_p, _p, _i, _p, _p, _p, _i, _p, _i, _i, _i,
+                                _i, _p],
         "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _i, _p],
         "aihab_fused_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
                                       _p],
@@ -49,8 +51,8 @@ _ARGTYPES = {
     },
     "quant_kernels": {
         "aihab_row_quant": [_p, _i, _i, _i, _i, _i, _p, _p, _f, _p, _p, _p],
-        "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i, _i,
-                            _i, _i, _f, _i, _i, _p],
+        "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i,
+                            _i, _i, _i, _f, _i, _i, _p],
     },
 }
 

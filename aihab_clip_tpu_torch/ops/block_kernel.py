@@ -7,6 +7,7 @@ Ports of ``aihab_clip_tpu/ops/block_kernel.py`` (Pallas, TPU):
   * ``mlp_block_fused``  (K3)                 x -> x + c_proj(act(c_fc(LN2 x)))
   * ``attn_block_split`` (K5, SigLIP's path)  K2 over head groups
   * ``mlp_block_split``  (K4, SigLIP's path)  K3 with the hidden dim in chunks
+  * ``convnext_mlp_block`` (K7, ConvNeXt)     res + gamma * fc2(act(fc1(LN y)))
 
 On the TPU each is one program per image (or row tile) with its weights
 resident in VMEM.  On the H100 each is a composition of three hand-written
@@ -17,7 +18,7 @@ the bound):
                        [* q-scale on the q columns]
   * ``attention``      masked multi-head softmax(q k^T / sqrt(d)) v,
                        head_dim 64 or 72, packed or head-grouped qkv
-  * ``gemm_residual``  bf16 GEMM -> bias + residual
+  * ``gemm_residual``  bf16 GEMM -> bias [* per-column gamma] + residual
 
 K1 = ln_gemm(LN1, W_qkv) -> attention -> gemm_residual(W_out, +x) ->
 ln_gemm(LN2, W_fc, act) -> gemm_residual(W_proj, +y1); K2 and K3 are its
@@ -35,7 +36,14 @@ partials.  K4 = per hidden chunk, ln_gemm over that chunk's c_fc columns and
 gemm_residual over its c_proj rows, the running partial crossing each chunk
 boundary in x's dtype (fp32 with ``f32_partial``), as the TPU kernel stores
 it; the chunks are column and row slices of the whole weights, read in
-place through the GEMM's row stride.
+place through the GEMM's row stride.  K7 is K4's recipe over ConvNeXt's
+rows: ln_gemm (LN eps 1e-6 of the dwconv output y, gelu_poly) and
+gemm_residual with the gamma epilogue onto the block input, chunk 0 storing
+res + (p_0 + b2) * gamma and chunk c > 0 acc + p_c * gamma, in y's dtype.
+
+``gelu_poly`` is JAX's ``gelu_fast_f32``: the form that ``AIHAB_ERF_IMPL``
+names (``sig5`` by default, ``sig``, ``rational`` or ``cheb``), read at each
+call and validated as in JAX; the wrappers pass the kernels that form's code.
 
 Every wrapper runs its plain PyTorch version when handed CPU tensors and
 launches its kernels (or raises) for CUDA tensors — there is no fallback.
@@ -49,6 +57,7 @@ the kernels round.
 from __future__ import annotations
 
 import math
+import os
 from functools import partial
 from types import SimpleNamespace
 
@@ -57,16 +66,75 @@ import torch
 from ._build import launch
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu_poly": 3}
+# the kernels' code of each gelu_poly form (csrc/common.cuh), by the
+# AIHAB_ERF_IMPL value that names it
+GELU_FORMS = {"sig5": 3, "sig": 4, "rational": 5, "cheb": 6}
 # the attention kernel's head widths: CLIP ViT-B/L/H (64), SigLIP SO400M (72)
 HEAD_DIMS = (64, 72)
 
-# deg-5 sigmoid-poly exact-GELU fit (block_kernel.py:439, the JAX default)
+# exact GELU as h * sigmoid(odd poly): the deg-9 fit (block_kernel.py:428)
+# and the deg-5 one (:439, the JAX default)
+_GELU_SIG_COEF = (1.5956563, 0.07293758, -2.4972331e-4, -6.1162005e-5,
+                  2.2381639e-6)
 _GELU_SIG5_COEF = (1.5953873, 0.07364605, -6.3791875e-4)
+# erf as x * a deg-14 polynomial in u = 2 x^2 / B^2 - 1 (block_kernel.py:365)
+_ERF_CHEB_B = 3.6
+_ERF_CHEB_COEF = (
+    0.0005088007148386333, -0.0011450745066218335, 0.0009553941424598827,
+    -0.0023067730846365714, 0.006732319810367243, -0.012240412571535311,
+    0.01987247702073693, -0.03221640230820943, 0.048739224765080275,
+    -0.0681169523377421, 0.08974328889946132, -0.11378428952616813,
+    0.14381484871790284, -0.19549081076627062, 0.3927120878848258,
+)
 
 
 # ---------------------------------------------------------------------------
 # plain versions (PyTorch)
 # ---------------------------------------------------------------------------
+
+
+def erf_impl() -> str:
+    """The gelu_poly form ``AIHAB_ERF_IMPL`` names (block_kernel.py:388):
+    ``sig5`` when unset; a value that names no form raises."""
+    impl = os.environ.get("AIHAB_ERF_IMPL", "sig5")
+    if impl not in GELU_FORMS:
+        raise ValueError(f"AIHAB_ERF_IMPL={impl!r} is not one of "
+                         f"{tuple(GELU_FORMS)}")
+    return impl
+
+
+def _erf_rational(x):
+    """erf by Abramowitz & Stegun 7.1.26 (block_kernel.py:345)."""
+    t = 1.0 / (1.0 + 0.3275911 * x.abs())
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return torch.sign(x) * (1.0 - poly * torch.exp(-x * x))
+
+
+def _erf_cheb(x):
+    """erf as an odd polynomial, sign(x) past B (block_kernel.py:375)."""
+    ax = x.abs().clamp(max=_ERF_CHEB_B)
+    u = ax * ax * (2.0 / (_ERF_CHEB_B * _ERF_CHEB_B)) - 1.0
+    p = _ERF_CHEB_COEF[0]
+    for c in _ERF_CHEB_COEF[1:]:
+        p = p * u + c
+    return torch.where(x.abs() < _ERF_CHEB_B, x * p, torch.sign(x))
+
+
+def gelu_fast_f32(h: torch.Tensor) -> torch.Tensor:
+    """gelu_poly: exact GELU in the form ``erf_impl()`` names
+    (block_kernel.py:458)."""
+    impl = erf_impl()
+    if impl in ("sig", "sig5"):
+        hc = h.clamp(-7.5, 7.5)
+        u = hc * hc
+        coef = _GELU_SIG5_COEF if impl == "sig5" else _GELU_SIG_COEF
+        p = coef[-1]
+        for c in coef[-2::-1]:
+            p = c + u * p
+        return h * torch.sigmoid(hc * p)
+    erf = _erf_cheb if impl == "cheb" else _erf_rational
+    return 0.5 * h * (1.0 + erf(h * 0.7071067811865476))
 
 
 def act_f32(h: torch.Tensor, act: str) -> torch.Tensor:
@@ -78,11 +146,32 @@ def act_f32(h: torch.Tensor, act: str) -> torch.Tensor:
     if act == "gelu_tanh":
         return torch.nn.functional.gelu(h, approximate="tanh")
     if act == "gelu_poly":
-        hc = h.clamp(-7.5, 7.5)
-        u = hc * hc
-        c1, c3, c5 = _GELU_SIG5_COEF
-        return h * torch.sigmoid(hc * (c1 + u * (c3 + u * c5)))
+        return gelu_fast_f32(h)
     raise ValueError(f"unknown activation {act!r}")
+
+
+def act_code(act: str) -> int:
+    """The kernels' code of ``act``; gelu_poly's is its current form's."""
+    return GELU_FORMS[erf_impl()] if act == "gelu_poly" else ACTS[act]
+
+
+def _in_epilogue(code: int) -> bool:
+    """Whether the GEMM epilogues apply activation ``code`` themselves: the
+    gelu_poly forms past sig5 run in ``act_pass`` after the GEMM."""
+    return code <= GELU_FORMS["sig5"]
+
+
+def act_pass(t, code: int, residual=None, *, out_dtype):
+    """act(t) [+ residual] for an activation the GEMM epilogues leave out
+    (``_in_epilogue``), over the fp32 output ``t`` of a GEMM run without it:
+    the fused order, act(acc + bias) then + residual.  Kernel ``act_pass``;
+    the wrappers of the GEMMs call it."""
+    y = torch.empty(t.shape, dtype=out_dtype, device=t.device)
+    launch("aihab_act_pass", t.device, t.data_ptr(), code,
+           None if residual is None else residual.data_ptr(),
+           int(residual is not None and residual.dtype == torch.float32),
+           y.data_ptr(), int(out_dtype == torch.float32), t.numel())
+    return y
 
 
 def _ln_f32(x, scale, bias, eps=1e-5):
@@ -112,12 +201,19 @@ def ln_gemm_plain(x, ln_scale, ln_bias, w, bias, *, act="none", eps=1e-5,
     return h.to(w.dtype)
 
 
-def gemm_residual_plain(a, w, bias, residual, *, out_dtype=None):
-    """a @ w [+ bias] + residual, summed in fp32, stored as ``out_dtype``."""
-    out = _mm(a, w) + residual.float()
+def gemm_residual_plain(a, w, bias, residual, *, out_dtype=None, gamma=None):
+    """a @ w [+ bias] + residual, summed in fp32, stored as ``out_dtype``;
+    with ``gamma`` [N], residual + (a @ w [+ bias]) * gamma."""
+    if gamma is None:
+        out = _mm(a, w) + residual.float()
+        if bias is not None:
+            out = out + bias.float()
+        return out.to(out_dtype or residual.dtype)
+    out = _mm(a, w)
     if bias is not None:
         out = out + bias.float()
-    return out.to(out_dtype or residual.dtype)
+    return (residual.float() + out * gamma.float()).to(out_dtype
+                                                       or residual.dtype)
 
 
 def _split_qkv(qkv, heads, group_heads):
@@ -223,27 +319,38 @@ def ln_gemm(x, ln_scale, ln_bias, w, bias, *, act="none", eps=1e-5,
     dev = x.device
     _check("x", x, (torch.bfloat16, torch.float32), (m, k), dev)
     ldw = _check_weight(w, k, n, dev)
+    code = act_code(act)
+    fused = _in_epilogue(code)
+    if not fused and q_width:
+        raise ValueError("the q-scale epilogue takes no gelu_poly form "
+                         "past sig5")
     ln_scale = _vec_f32(ln_scale, k, dev, "ln_scale")
     ln_bias = _vec_f32(ln_bias, k, dev, "ln_bias")
     bias = _vec_f32(bias, n, dev, "bias")
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((m, n), dtype=torch.bfloat16 if fused else torch.float32,
+                    device=dev)
     stats = torch.empty((m, 2), dtype=torch.float32, device=dev)  # mean, rstd
     launch("aihab_ln_gemm", dev, x.data_ptr(), int(x.dtype == torch.float32),
            ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), ldw,
-           bias.data_ptr(), y.data_ptr(), stats.data_ptr(), m, n, k,
-           ACTS[act], eps, q_scale, q_width, max(3 * q_width, 1))
+           bias.data_ptr(), y.data_ptr(), int(not fused), stats.data_ptr(), m,
+           n, k, code if fused else 0, eps, q_scale, q_width,
+           max(3 * q_width, 1))
+    if not fused:
+        y = act_pass(y, code, out_dtype=torch.bfloat16)
     ln_gemm.launches += 1
     return y
 
 
-def gemm_residual(a, w, bias, residual, *, out_dtype=None):
+def gemm_residual(a, w, bias, residual, *, out_dtype=None, gamma=None):
     """a [M, K] bf16 @ w [K, N] bf16 + bias (or none) + residual [M, N]
     (bf16 or fp32) -> [M, N] in ``out_dtype`` (default: the residual's
-    dtype).  ``w`` may be a column slice of a wider matrix.  Kernel
+    dtype); with ``gamma`` [N] (ConvNeXt's layer scale) residual + (a @ w +
+    bias) * gamma.  ``w`` may be a column slice of a wider matrix.  Kernel
     ``gemm_residual``; plain version on CPU tensors."""
     out_dtype = out_dtype or residual.dtype
     if not a.is_cuda:
-        return gemm_residual_plain(a, w, bias, residual, out_dtype=out_dtype)
+        return gemm_residual_plain(a, w, bias, residual, out_dtype=out_dtype,
+                                   gamma=gamma)
     m, k = a.shape
     n = w.shape[1]
     if k % 8 or n % 8:
@@ -256,9 +363,11 @@ def gemm_residual(a, w, bias, residual, *, out_dtype=None):
     ldw = _check_weight(w, k, n, dev)
     _check("residual", residual, (torch.bfloat16, torch.float32), (m, n), dev)
     bias_ptr = None if bias is None else _vec_f32(bias, n, dev, "bias")
+    gamma = None if gamma is None else _vec_f32(gamma, n, dev, "gamma")
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     launch("aihab_gemm_residual", dev, a.data_ptr(), w.data_ptr(), ldw,
            None if bias_ptr is None else bias_ptr.data_ptr(),
+           None if gamma is None else gamma.data_ptr(),
            residual.data_ptr(), int(residual.dtype == torch.float32),
            y.data_ptr(), int(out_dtype == torch.float32), m, n, k)
     gemm_residual.launches += 1
@@ -586,9 +695,68 @@ def mlp_block_split(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj,
     return out
 
 
+def _convnext_mlp(ops, y, residual, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
+                  n_chunks, act, ln_eps):
+    ch = w1.shape[1] // n_chunks
+    acc = residual
+    for c in range(n_chunks):
+        cols = slice(c * ch, (c + 1) * ch)
+        h = ops.ln_gemm(y, ln_scale, ln_bias, w1[:, cols], b1[cols], act=act,
+                        eps=ln_eps)
+        acc = ops.gemm_residual(h, w2[cols], b2 if c == 0 else None, acc,
+                                out_dtype=y.dtype, gamma=gamma)
+    return acc
+
+
+def _convnext_chunks(w1, n_chunks, act) -> int:
+    """``n_chunks`` 0 (auto) -> 1: the TPU rule split the hidden dim to fit
+    a weight pair in VMEM (block_kernel.py:708-712), while these GEMMs
+    stream weight tiles through shared memory."""
+    _check_act(act)
+    n_chunks = n_chunks or 1
+    if n_chunks < 1 or w1.shape[1] % n_chunks:
+        raise ValueError(f"n_chunks {n_chunks} does not divide hidden "
+                         f"{w1.shape[1]}")
+    return n_chunks
+
+
+def convnext_mlp_block_plain(y, residual, ln_scale, ln_bias, w1, b1, w2, b2,
+                             gamma, *, act: str = "gelu_poly",
+                             ln_eps: float = 1e-6, tile_m: int = 0,
+                             n_chunks: int = 0):
+    """Plain version of ``convnext_mlp_block`` (same signature)."""
+    del tile_m
+    n_chunks = _convnext_chunks(w1, n_chunks, act)
+    return _convnext_mlp(_PLAIN, y, residual, ln_scale, ln_bias, w1, b1, w2,
+                         b2, gamma, n_chunks, act, ln_eps)
+
+
+def convnext_mlp_block(y, residual, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
+                       *, act: str = "gelu_poly", ln_eps: float = 1e-6,
+                       tile_m: int = 0, n_chunks: int = 0):
+    """The ConvNeXt block past its depthwise conv (K7): ``residual + gamma *
+    fc2(act(fc1(LN(y))))`` over [M, C] rows, y the dwconv output and
+    ``residual`` the block input, output in y's dtype.  ``w1`` [C, H] and
+    ``w2`` [H, C] in y's dtype (bf16 on the card); LN, b1, b2 and gamma
+    fp32.  The hidden h is rounded to y's dtype before fc2, and with
+    ``n_chunks`` > 1 the hidden dim runs in chunks whose running sum crosses
+    each boundary in y's dtype (chunk 0: res + (p_0 + b2) * gamma; chunk
+    c: acc + p_c * gamma).  ``n_chunks`` 0 (auto) is one chunk here;
+    ``tile_m`` was the TPU kernel's row tile: accepted and ignored."""
+    if not y.is_cuda:
+        return convnext_mlp_block_plain(y, residual, ln_scale, ln_bias, w1,
+                                        b1, w2, b2, gamma, act=act,
+                                        ln_eps=ln_eps, n_chunks=n_chunks)
+    n_chunks = _convnext_chunks(w1, n_chunks, act)
+    out = _convnext_mlp(_KERNELS, y, residual, ln_scale, ln_bias, w1, b1, w2,
+                        b2, gamma, n_chunks, act, ln_eps)
+    convnext_mlp_block.launches += 1
+    return out
+
+
 COUNTED = (ln_gemm, attention, gemm_residual, full_block_fused,
            attn_block_fused, mlp_block_fused, attn_block_split,
-           mlp_block_split)
+           mlp_block_split, convnext_mlp_block)
 for _fn in COUNTED:
     _fn.launches = 0
 

@@ -20,6 +20,10 @@
                                       fp32, then K11 over y1 with the hidden
                                       row requantized per chunk and
                                       out = (y1 + b2) + the chunk partials
+  * ``quant_convnext_mlp_block`` (K15) K11 with ConvNeXt's quirks: LN eps
+                                      1e-6 of the dwconv output y, gelu_poly,
+                                      out = res + (part + b2) * gamma onto
+                                      the block input
 
 On the TPU each is one Pallas program per row tile (K13: per image and head
 group) with its int8 weights resident in VMEM.  On the H100 each is a
@@ -29,7 +33,8 @@ header gives the design and the bound):
   * ``row_quant``  optional fp32 LN, then per row (or per head group of a
                    row) s = max(amax, 1e-12) * (1/127) and the int8 codes
   * ``int8_gemm``  int8 x int8 -> int32 on the tensor cores, dequant
-                   acc * (s_x * s_w) + bias, act, q-scale, residual; or with
+                   acc * (s_x * s_w) + bias, act, q-scale, per-column
+                   gamma, residual; or with
                    a dequant per group of K, summed in group order onto
                    part_0 + bias + residual, or (residual-first) onto
                    residual + bias
@@ -46,7 +51,8 @@ multiple of 32 -> int8_gemm with a dequant per group.  K12 = K13's chain with
 one group.  K11 = K9 -> K10.  K14 = K12's chain with an fp32 out-proj output
 (y1) -> row_quant(LN2) -> int8_gemm (act, fp32 h) -> row_quant per hidden
 chunk -> int8_gemm residual-first, so its fp32 sum runs in the TPU kernel's
-order, (y1 + b2) + part_0 + part_1 ...
+order, (y1 + b2) + part_0 + part_1 ...  K15 = K11's chain with LN eps 1e-6
+on y and the gamma epilogue in its second GEMM onto the block input.
 
 Layouts.  The public functions keep the JAX signatures and layouts: ``w8``
 [K, N] with ``w_scale`` [N]; K13's ``wqkv8_g`` [G, W, 3gD] and ``wout8_g``
@@ -74,7 +80,7 @@ import torch
 
 from . import block_kernel as bk
 from ._build import launch
-from .block_kernel import ACTS, _check, _ln_f32, _vec_f32, act_f32
+from .block_kernel import ACTS, _check, _ln_f32, _vec_f32, act_code, act_f32
 from .quant import int_matmul
 
 # the int8 GEMM's k-step in bytes: a grouped K is padded to a multiple of it
@@ -185,7 +191,7 @@ def row_quant(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
 
 def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
                     out_dtype=torch.bfloat16, q_scale=1.0, q_width=0,
-                    groups=1, residual_first=False):
+                    groups=1, residual_first=False, gamma=None):
     """Plain version of ``int8_gemm`` (same signature)."""
     m, k = a8.shape
     kg = k // groups
@@ -208,6 +214,8 @@ def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
             is_q = torch.arange(y.shape[-1], device=y.device) % (3 * q_width) \
                 < q_width
             y = torch.where(is_q, y * q_scale, y)
+        if gamma is not None:
+            y = y * gamma.float()
         if residual is not None:
             y = y + residual.float()
     return y.to(out_dtype)
@@ -215,12 +223,13 @@ def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
 
 def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
               out_dtype=torch.bfloat16, q_scale=1.0, q_width=0, groups=1,
-              residual_first=False):
+              residual_first=False, gamma=None):
     """a8 [M, K] int8 (row scales ``sa`` [M, groups]) times ``wt`` [N, K]
     int8 (K-major, column scales ``ws`` [N]) -> [M, N] in ``out_dtype``.
 
     groups = 1: act(acc * (sa * ws) + bias), the q columns of each head group
-    (``q_width`` wide, groups 3 q_width wide) times ``q_scale``, + residual.
+    (``q_width`` wide, groups 3 q_width wide) times ``q_scale``, times
+    ``gamma`` [N] (K15's layer scale), + residual.
     groups > 1: K is ``groups`` equal spans; span g's int32 sum is
     dequantized with ``sa[:, g]``, and the partials sum in fp32 as
     (part_0 + bias) + residual + part_1 + ... (K13's out-proj).
@@ -230,7 +239,8 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
         return int8_gemm_plain(a8, sa, wt, ws, bias, act=act,
                                residual=residual, out_dtype=out_dtype,
                                q_scale=q_scale, q_width=q_width,
-                               groups=groups, residual_first=residual_first)
+                               groups=groups, residual_first=residual_first,
+                               gamma=gamma)
     m, k = a8.shape
     n = wt.shape[0]
     if k % 16 or n % 8 or q_width % 2:
@@ -248,6 +258,14 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
         raise ValueError("grouped int8_gemm needs spans that are multiples of "
                          f"{GEMM_BK}, no activation or q-scale, and a "
                          "residual of the output's dtype")
+    if gamma is not None and (groups > 1 or residual_first):
+        raise ValueError("the gamma epilogue takes one group, not "
+                         "residual-first")
+    code = act_code(act)
+    fused = bk._in_epilogue(code)
+    if not fused and (q_width or gamma is not None):
+        raise ValueError("the q-scale and gamma epilogues take no gelu_poly "
+                         "form past sig5")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype} not bf16/fp32")
     dev = a8.device
@@ -258,17 +276,26 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
         raise ValueError(f"sa must hold {m} x {groups} scales on {dev}")
     ws = _vec_f32(ws, n, dev, "ws")
     bias = _vec_f32(bias, n, dev, "bias")
+    if gamma is not None:
+        gamma = _vec_f32(gamma, n, dev, "gamma")
     if residual is not None:
         _check("residual", residual, (torch.bfloat16, torch.float32), (m, n),
                dev)
-    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    # a gelu_poly form past sig5: the GEMM stores act-free fp32, act_pass
+    # applies the activation and adds the residual
+    r_gemm = residual if fused else None
+    y = torch.empty((m, n), dtype=out_dtype if fused else torch.float32,
+                    device=dev)
     launch("aihab_int8_gemm", dev, a8.data_ptr(), sa.data_ptr(),
            wt.data_ptr(), ws.data_ptr(), bias.data_ptr(),
-           None if residual is None else residual.data_ptr(),
-           int(residual is not None and residual.dtype == torch.float32),
-           y.data_ptr(), int(out_dtype == torch.float32), m, n, k, groups,
-           int(residual_first), ACTS[act], q_scale, q_width,
+           None if gamma is None else gamma.data_ptr(),
+           None if r_gemm is None else r_gemm.data_ptr(),
+           int(r_gemm is not None and r_gemm.dtype == torch.float32),
+           y.data_ptr(), int(y.dtype == torch.float32), m, n, k, groups,
+           int(residual_first), code if fused else 0, q_scale, q_width,
            max(3 * q_width, 1))
+    if not fused:
+        y = bk.act_pass(y, code, residual, out_dtype=out_dtype)
     int8_gemm.launches += 1
     return y
 
@@ -341,6 +368,16 @@ def _k11(ops, x, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln_scale, ln_bias,
          act, ln_eps):
     h8, hs = _k9(ops, x, w1_8, w1_scale, b1, ln_scale, ln_bias, act, ln_eps)
     return _k10(ops, h8, hs, w2_8, w2_scale, b2, x)
+
+
+def _k15(ops, y, residual, ln_scale, ln_bias, w1_8, w1_scale, b1, w2_8,
+         w2_scale, b2, gamma, act, ln_eps):
+    x8, sx = ops.row_quant(y, ln_scale, ln_bias, eps=ln_eps)
+    h = ops.int8_gemm(x8, sx, _kmajor(w1_8), w1_scale, b1, act=act,
+                      out_dtype=torch.float32)
+    h8, hs = ops.row_quant(h)
+    return ops.int8_gemm(h8, hs, _kmajor(w2_8), w2_scale, b2,
+                         residual=residual, out_dtype=y.dtype, gamma=gamma)
 
 
 def _k14(ops, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out, ln1_scale,
@@ -613,6 +650,38 @@ def quant_full_block_fused(x, wqkv8, qkv_scale, b_qkv, wout8, out_scale,
     return out
 
 
+def quant_convnext_mlp_block_plain(y, residual, ln_scale, ln_bias, w1_8,
+                                   w1_scale, b1, w2_8, w2_scale, b2, gamma, *,
+                                   act: str = "gelu_poly",
+                                   ln_eps: float = 1e-6, tile_m: int = 0):
+    """Plain version of ``quant_convnext_mlp_block`` (same signature)."""
+    _check_act(act)
+    return _k15(_PLAIN, y, residual, ln_scale, ln_bias, w1_8, w1_scale, b1,
+                w2_8, w2_scale, b2, gamma, act, ln_eps)
+
+
+def quant_convnext_mlp_block(y, residual, ln_scale, ln_bias, w1_8, w1_scale,
+                             b1, w2_8, w2_scale, b2, gamma, *,
+                             act: str = "gelu_poly", ln_eps: float = 1e-6,
+                             tile_m: int = 0):
+    """``residual + gamma * int8_fc2(requant(act(int8_fc1(quant(LN(y))))))``
+    over [M, C] rows (K15), output in y's dtype: y the dwconv output,
+    ``residual`` the block input, ``w1_8`` [C, H] and ``w2_8`` [H, C] int8
+    with fp32 column scales, LN (eps ``ln_eps``), b1, b2 and gamma fp32.
+    The fp32 hidden row is requantized whole; fc2 sums res + (part + b2) *
+    gamma in fp32.  ``tile_m`` was the TPU kernel's row tile: accepted and
+    ignored."""
+    _check_act(act)
+    if not y.is_cuda:
+        return quant_convnext_mlp_block_plain(
+            y, residual, ln_scale, ln_bias, w1_8, w1_scale, b1, w2_8,
+            w2_scale, b2, gamma, act=act, ln_eps=ln_eps)
+    out = _k15(_KERNELS, y, residual, ln_scale, ln_bias, w1_8, w1_scale, b1,
+               w2_8, w2_scale, b2, gamma, act, ln_eps)
+    quant_convnext_mlp_block.launches += 1
+    return out
+
+
 def regroup_attn_weights(wqkv8, qkv_scale, b_qkv, wout8, heads: int,
                          n_groups: int):
     """[W, 3W] packed q|k|v (+ scales/bias) and [W, W] out-proj -> the
@@ -634,7 +703,8 @@ def regroup_attn_weights(wqkv8, qkv_scale, b_qkv, wout8, heads: int,
 
 COUNTED = (row_quant, int8_gemm, quant_matmul_fused, quant_matmul_fused_qout,
            quant_matmul_q8in, quant_attn_block_split, quant_attn_block_fused,
-           quant_mlp_block_fused, quant_full_block_fused)
+           quant_mlp_block_fused, quant_full_block_fused,
+           quant_convnext_mlp_block)
 for _fn in COUNTED:
     _fn.launches = 0
 

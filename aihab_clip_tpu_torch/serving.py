@@ -7,10 +7,13 @@
   for the device (the Hopper block kernels on the card) and the logits.
   CLIP ViT towers and SigLIP (``random:ViT-SO400M-16-SigLIP2-384``, the
   system's default backbone, with its 0.5/0.5 pixel stats and its text
-  head) take the same path.  ``quantize="int8"`` serves SigLIP towers
-  through the int8 kernels (``models/quant_siglip``: K8 patchify, then K13,
-  K9 and K10 per block) and CLIP ViT towers through ``models/quant_vit``
-  (K8 patchify, then the merged int8 block K14 per block).
+  head) take the same path, and so do ConvNeXt-CLIP towers
+  (``random:convnext_base_w``: K7 per block, ``models/fast_convnext``).
+  ``quantize="int8"`` serves SigLIP towers through the int8 kernels
+  (``models/quant_siglip``: K8 patchify, then K13, K9 and K10 per block),
+  CLIP ViT towers through ``models/quant_vit`` (K8 patchify, then the
+  merged int8 block K14 per block) and ConvNeXt towers through K15 per
+  block (the convs in the compute dtype).
 * :class:`DynamicBatcher` — request threads submit single decoded images; a
   collector thread coalesces them into padded batches of the smallest
   bucket that holds them, and a fetch thread waits on each batch's result,
@@ -87,11 +90,11 @@ class ClassifierEngine:
                            device=self.device)
         cfg = self.bundle.config
         if quantize == "int8" and not (isinstance(cfg, SigLIPConfig)
-                                       or cfg.is_vit):
+                                       or cfg.is_vit
+                                       or cfg.tower == "convnext"):
             raise NotImplementedError(
-                "quantize='int8' serves SigLIP and CLIP ViT towers: the "
-                "ConvNeXt and ResNet int8 towers wait for their ports "
-                "(ROADMAP A2, A11)")
+                "quantize='int8' serves SigLIP, CLIP ViT and ConvNeXt towers: "
+                "the ResNet int8 tower waits for its port (ROADMAP A11)")
         self.resolution = resolution or cfg.image_resolution
         if self.resolution != cfg.image_resolution:
             raise ValueError(
@@ -109,10 +112,12 @@ class ClassifierEngine:
         self._text_weights = head["text_weights"]
         self._packed = self._qparams = self._encode_int8 = None
         # the int8 weights from the fp32 parameters, once, into the kernels'
-        # layout; the int8 encodes take no dtype, as the JAX engine calls
-        # them (serving.py:201-203, 232-234): they compute in bf16 even where
-        # the engine's compute dtype is fp32 (on the CPU).  The closures hold
-        # no reference to the engine, which would keep a dropped engine's
+        # layout; the SigLIP and ViT int8 encodes take no dtype, as the JAX
+        # engine calls them (serving.py:201-203, 232-234): they compute in
+        # bf16 even where the engine's compute dtype is fp32 (on the CPU).
+        # The ConvNeXt one computes its convs in the engine's compute dtype,
+        # as JAX's does (serving.py:204-223).  The closures hold no
+        # reference to the engine, which would keep a dropped engine's
         # weights alive until a garbage collection.
         net = self.bundle.model
         if quantize == "int8" and isinstance(cfg, SigLIPConfig):
@@ -122,6 +127,16 @@ class ClassifierEngine:
             qp = self._qparams = quantize_siglip_params(net, cfg)
             self._encode_int8 = lambda x: siglip_encode_int8(
                 qp, net, x, cfg, project=True)[1]
+        elif quantize == "int8" and cfg.tower == "convnext":
+            from .models.fast_convnext import (convnext_encode_fused,
+                                               pack_convnext,
+                                               quantize_convnext_mlp)
+
+            pk = self._packed = pack_convnext(net, cfg, self._compute_dtype,
+                                              mlp=False)
+            qp = self._qparams = quantize_convnext_mlp(net, cfg)
+            self._encode_int8 = lambda x: convnext_encode_fused(
+                pk, x, cfg, project=True, qmlp=qp)[1]
         elif quantize == "int8":
             from .models.quant_vit import quantize_vit_params, vit_encode_int8
 

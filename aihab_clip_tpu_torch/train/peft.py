@@ -1,20 +1,24 @@
-"""PEFT: partial-unfreeze fine-tuning of a CLIP or SigLIP tower
-(counterpart of ``aihab_clip_tpu/train/peft.py:54-475, 561-1076``).
+"""PEFT: partial-unfreeze fine-tuning of a CLIP (ViT or ConvNeXt) or SigLIP
+tower (counterpart of ``aihab_clip_tpu/train/peft.py:54-475, 561-1076``).
 
   * freezing follows open_clip's ``lock_image_tower(unlocked_groups)`` /
-    ``lock_text_tower(unlocked_layers)``: groups are [stem] + resblocks +
-    [head] and the last n unlock.  ``build_lock_mask`` maps the port's
-    parameter names to that mask and sets ``requires_grad``, so autograd
-    builds no graph below the earliest trainable layer.  SigLIP's text
-    ``head`` Dense counts as group 0 (only ``ln_final``/``text_projection``
-    are the text head, ``peft.py:98-105``), so at ``unlocked_text_layers=1``
-    only ``text.ln_final`` trains; the port keeps that;
+    ``lock_text_tower(unlocked_layers)``: groups are [stem] + resblocks (a
+    ConvNeXt's blocks in depth order, each stage's downsample with its first
+    block) + [head] and the last n unlock.  ``build_lock_mask`` maps the
+    port's parameter names to that mask and sets ``requires_grad``, so
+    autograd builds no graph below the earliest trainable layer.  SigLIP's
+    text ``head`` Dense counts as group 0 (only ``ln_final``/
+    ``text_projection`` are the text head, ``peft.py:98-105``), so at
+    ``unlocked_text_layers=1`` only ``text.ln_final`` trains; the port
+    keeps that;
   * a train step: the device-side augmentation (``ops/fast_warp``), the
     image encode (with a frozen prefix: for SigLIP ``siglip_encode_hybrid``,
     K5/K4 for the prefix, or with ``prefix_quant`` the int8 kernels
     K13/K9/K10, the canonical blocks with the fused attention kernel K6
     forward and backward for the rest; for a CLIP ViT ``vit_encode_hybrid``,
     K1 for the prefix, or with ``prefix_quant`` the int8 block K14, the
+    canonical blocks for the rest; for a ConvNeXt ``convnext_encode_hybrid``,
+    K7 for the prefix, with or without ``prefix_quant`` as in JAX, the
     canonical blocks for the rest), fp32 L2 normalisation,
     the in-step text-head recompute when ``tune_text``, masked CE of
     ``100 * f @ T`` (``logit_scale`` is ignored, as in the reference), then
@@ -62,6 +66,31 @@ def _vit_group_of(path: Tuple[str, ...], num_layers: int) -> int:
     return 0
 
 
+def _convnext_group_of(path: Tuple[str, ...], depths: Tuple[int, ...]) -> int:
+    """Group of a ConvNeXt-tower parameter (``peft.py:80-95``): 0 = stem,
+    1..sum(depths) = blocks in depth order (a stage's downsample belongs to
+    its first block's group), the last = head (head_norm + projection)."""
+    name = path[0]
+    if name.startswith("stage"):                 # stage<s>_block<b>
+        s, b = name[len("stage"):].split("_block")
+        return 1 + sum(depths[:int(s)]) + int(b)
+    if name.startswith(("down_norm_", "down_conv_")):
+        return 1 + sum(depths[:int(name.rsplit("_", 1)[-1])])
+    if name.startswith("head_"):
+        return 1 + sum(depths)
+    return 0                                     # stem_conv / stem_norm
+
+
+def _is_convnext(config) -> bool:
+    return getattr(config, "tower", "vit") == "convnext"
+
+
+def _visual_blocks(config) -> int:
+    """L: the tower's block count (a ConvNeXt's over all its stages)."""
+    return (sum(config.vision_layers) if _is_convnext(config)
+            else config.vision_layers)
+
+
 def _text_group_of(path: Tuple[str, ...], num_layers: int) -> int:
     """0 = embeddings (and SigLIP's ``head`` Dense), 1..L = resblocks, L+1
     = head (ln_final, text_projection)."""
@@ -72,23 +101,31 @@ def _text_group_of(path: Tuple[str, ...], num_layers: int) -> int:
     return 0
 
 
-def build_lock_mask(model: torch.nn.Module, vision_layers: int,
+def build_lock_mask(model: torch.nn.Module, vision_layers,
                     text_layers: int, unlocked_groups: int = 0,
                     tune_text: bool = False,
                     unlocked_text_layers: int = 0) -> Dict[str, bool]:
-    """{parameter name: trainable} for a ViT-family model, and each
-    parameter's ``requires_grad`` set to match.  ``unlocked_groups``
-    unlocks the last n visual groups (0 = vision frozen);
-    ``unlocked_text_layers`` the last n text groups when ``tune_text``
-    (the text tower is frozen otherwise); ``logit_scale``/``logit_bias``
-    stay frozen (the loss does not use them)."""
-    n_vis, n_txt = vision_layers + 2, text_layers + 2
+    """{parameter name: trainable} for a ViT-family or ConvNeXt model
+    (``vision_layers`` its stage depths), and each parameter's
+    ``requires_grad`` set to match.  ``unlocked_groups`` unlocks the last n
+    visual groups (0 = vision frozen); ``unlocked_text_layers`` the last n
+    text groups when ``tune_text`` (the text tower is frozen otherwise);
+    ``logit_scale``/``logit_bias`` stay frozen (the loss does not use
+    them)."""
+    convnext = _is_convnext(model.config)
+    if convnext:
+        depths = tuple(vision_layers)
+        n_vis = sum(depths) + 2
+    else:
+        n_vis = vision_layers + 2
+    n_txt = text_layers + 2
     mask = {}
     for name, param in model.named_parameters():
         top, *path = name.split(".")
         if top == "visual":
-            trainable = _vit_group_of(tuple(path), vision_layers) >= \
-                n_vis - unlocked_groups
+            group = (_convnext_group_of(tuple(path), depths) if convnext
+                     else _vit_group_of(tuple(path), vision_layers))
+            trainable = group >= n_vis - unlocked_groups
         elif top == "text":
             trainable = tune_text and _text_group_of(
                 tuple(path), text_layers) >= n_txt - unlocked_text_layers
@@ -138,13 +175,15 @@ class PEFTConfig:
     val_interval: int = 0
     # frozen-prefix fused forward: the bottom N frozen visual blocks run
     # through the forward-only block kernels in the train step (SigLIP
-    # K5/K4, CLIP ViT K1).  -1 = auto (``peft_fused_prefix_len``), 0 = off
-    # (canonical modules), > 0 = explicit block count
+    # K5/K4, CLIP ViT K1, ConvNeXt K7).  -1 = auto
+    # (``peft_fused_prefix_len``), 0 = off (canonical modules), > 0 =
+    # explicit block count
     fused_prefix: int = -1
     # int8 frozen prefix (with fused_prefix > 0): the prefix blocks run the
     # int8 kernels (SigLIP K13 -> K9 -> K10, CLIP ViT K14) on weights
     # quantized once per run; opt-in (``finetune.fused_prefix_quant``), the
-    # suffix then trains on int8-noise features
+    # suffix then trains on int8-noise features.  A ConvNeXt has no int8
+    # prefix (``peft.py:280-281``): its bf16 prefix runs
     prefix_quant: bool = False
     # options of the JAX finetune that raise here until their slice
     device_dataset: Any = False
@@ -180,20 +219,24 @@ def peft_fused_prefix_len(config, unlocked_groups: int, device) -> int:
     and run through the forward-only kernels (``fast_vit.py:624-671``): 0
     off the card (JAX: off the TPU) and for SigLIP towers of width <= 1024
     (a wash on the TPU); otherwise L + 1 - unlocked_groups, clipped to
-    [0, L].  At ``unlocked_groups=11``: SO400M 17, ViT-B/16 2."""
-    if resolve_device(device).type != "cuda" or not config.is_vit:
+    [0, L], L the block count (a ConvNeXt's over all stages).  At
+    ``unlocked_groups=11``: SO400M 17, ViT-B/16 2, ConvNeXt base_w 26."""
+    if resolve_device(device).type != "cuda" or not (
+            config.is_vit or _is_convnext(config)):
         return 0
     if isinstance(config, SigLIPConfig) and config.vision_width <= 1024:
         return 0
-    layers = config.vision_layers
+    layers = _visual_blocks(config)
     return max(0, min(layers, layers + 1 - unlocked_groups))
 
 
 def _pack_prefix(model, cfg: PEFTConfig):
-    """The hybrid prefix's weight pack (SigLIP: K5/K4, CLIP ViT: K1) for the
-    bottom ``fused_prefix`` blocks, built once per run (the frozen weights
-    never change); None with the int8 prefix."""
-    if cfg.fused_prefix <= 0 or cfg.prefix_quant:
+    """The hybrid prefix's weight pack (SigLIP: K5/K4, CLIP ViT: K1,
+    ConvNeXt: K7) for the bottom ``fused_prefix`` blocks, built once per run
+    (the frozen weights never change); None with the int8 prefix, which a
+    ConvNeXt does not have."""
+    if cfg.fused_prefix <= 0 or (cfg.prefix_quant
+                                 and not _is_convnext(model.config)):
         return None
     if isinstance(model.config, SigLIPConfig):
         from ..models.fast_siglip import pack_siglip_fast_params
@@ -210,8 +253,10 @@ def _quantize_prefix(model, cfg: PEFTConfig):
     """The int8 frozen prefix (``peft.py:273-299``): {resblocks_i: qblock}
     for the bottom ``fused_prefix`` blocks, quantized once per run
     (SigLIP: ``quantize_siglip_block`` with the hybrid head grouping; CLIP
-    ViT: ``quantize_vit_block``); None when the int8 prefix is off."""
-    if cfg.fused_prefix <= 0 or not cfg.prefix_quant:
+    ViT: ``quantize_vit_block``); None when the int8 prefix is off, and for
+    a ConvNeXt, whose bf16 prefix runs (``peft.py:280-281``)."""
+    if (cfg.fused_prefix <= 0 or not cfg.prefix_quant
+            or _is_convnext(model.config)):
         return None
     blocks = model.visual.transformer.resblocks
     if isinstance(model.config, SigLIPConfig):
@@ -230,12 +275,19 @@ def _quantize_prefix(model, cfg: PEFTConfig):
 
 def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
     """The train step's image encode: the frozen-prefix hybrid when
-    ``fused_prefix`` > 0 (``siglip_encode_hybrid`` or ``vit_encode_hybrid``),
-    the canonical module otherwise.  ``pprefix`` is the run's prefix
-    (``_pack_prefix``, or ``_quantize_prefix`` with ``prefix_quant``), built
-    here when absent."""
+    ``fused_prefix`` > 0 (``siglip_encode_hybrid``, ``vit_encode_hybrid``
+    or ``convnext_encode_hybrid``), the canonical module otherwise.
+    ``pprefix`` is the run's prefix (``_pack_prefix``, or
+    ``_quantize_prefix`` with ``prefix_quant``), built here when absent."""
     if cfg.fused_prefix <= 0:
         return model.encode_image(x, project=True)
+    if _is_convnext(model.config):
+        from ..models.fast_convnext import convnext_encode_hybrid
+
+        return convnext_encode_hybrid(model, x, model.config,
+                                      cfg.fused_prefix, project=True,
+                                      dtype=cfg.compute_dtype,
+                                      packed_prefix=pprefix)
     if isinstance(model.config, SigLIPConfig):
         from ..models.fast_siglip import siglip_encode_hybrid as hybrid
     else:
@@ -337,9 +389,10 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         raise ValueError(f"the model is on {on}, not on {dev}")
     dev = on
     ccfg = model.config
-    if not ccfg.is_vit:
-        raise NotImplementedError("PEFT of ResNet and ConvNeXt towers is not "
-                                  "ported: ROADMAP A11, A2")
+    if not (ccfg.is_vit or _is_convnext(ccfg)):
+        raise NotImplementedError("PEFT of ResNet towers is not ported: "
+                                  "ROADMAP A11")
+    n_blocks = _visual_blocks(ccfg)
     mask = build_lock_mask(model, ccfg.vision_layers, ccfg.transformer_layers,
                            unlocked_groups=unlocked_groups,
                            tune_text=cfg.tune_text,
@@ -347,14 +400,17 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     if cfg.fused_prefix < 0:
         cfg = dataclasses.replace(cfg, fused_prefix=peft_fused_prefix_len(
             ccfg, unlocked_groups, dev))
+        int8 = cfg.prefix_quant and not _is_convnext(ccfg)
         if verbose and cfg.fused_prefix:
             print(f"[peft] fused frozen-prefix forward: bottom "
-                  f"{cfg.fused_prefix}/{ccfg.vision_layers} visual blocks "
-                  f"run the forward-only {'int8 ' if cfg.prefix_quant else ''}"
-                  "block kernels")
+                  f"{cfg.fused_prefix}/{n_blocks} visual blocks run the "
+                  f"forward-only {'int8 ' if int8 else ''}block kernels"
+                  + (" (prefix_quant: a ConvNeXt has no int8 prefix, the "
+                     "bf16 prefix runs, as in JAX)"
+                     if cfg.prefix_quant and not int8 else ""))
     elif cfg.fused_prefix > 0:
         # every prefix block must be frozen: no gradient reaches it
-        max_prefix = max(0, ccfg.vision_layers + 1 - unlocked_groups)
+        max_prefix = max(0, n_blocks + 1 - unlocked_groups)
         if cfg.fused_prefix > max_prefix:
             raise ValueError(
                 f"finetune.fused_prefix={cfg.fused_prefix} exceeds the frozen "
@@ -374,8 +430,7 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
 
     opt, step = make_train_step(model, cfg, text_weights, prompt_tokens)
     # the frozen prefix's weights, packed (or quantized) once per run
-    pprefix = (_quantize_prefix(model, cfg) if cfg.prefix_quant
-               else _pack_prefix(model, cfg))
+    pprefix = _quantize_prefix(model, cfg) or _pack_prefix(model, cfg)
 
     def current_text_weights():
         if cfg.tune_text:

@@ -66,6 +66,23 @@ Phases (any failure raises and the exit code is non-zero):
      ``train.peft.finetune`` over 128 train / 16 val / 32 test images (8
      steps, val + test through ``siglip_encode_fast``), frozen leaves
      bit-identical, trained leaves moved;
+     3f: K7 ``convnext_mlp_block`` and K15 ``quant_convnext_mlp_block`` at the
+     four ConvNeXt base_w stage shapes (batch 64: M = 262,144 rows of C = 128
+     down to 4,096 of 1,024), held against their plain versions on the
+     branch out - residual; K7 with ``n_chunks=2`` at stage 3 and once per
+     gelu_poly form at stage 0; the depthwise conv's ms and
+     ``torch._int_mm`` at K15's GEMMs beside them;
+     5d: ``ClassifierEngine("random:convnext_base_w")``, bf16 and int8 (a
+     second draw of the seeded weights), answering 96 single 256x256
+     requests through ``DynamicBatcher``: 36 K7 per batch, or 36 K15 and no
+     K7; features against the fp32 tower and (int8) the all-plain encode;
+     the features' spread; the batch-64 split (stem, per stage downsample,
+     dwconv and K7 or K15, head); images/s;
+     6d: the default fine-tune on the bf16 engine's ConvNeXt base_w weights
+     (batch 16 at 256 from 439x439, unlocked_groups 11 -> a 26-block prefix,
+     tune_text): one step against plain kernels and the fp32 tower, 26 K7
+     per step, the ``prefix_quant`` step on the same bf16 prefix; step
+     time; ``finetune`` 2 steps + test;
   7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
@@ -107,6 +124,13 @@ PEFT_SPLITS = (128, 16, 32)      # train (8 steps), val, test
 # the same fine-tune on the offline fallback tower (configs/base.yaml:48),
 # ViT-B/16 at 224: a frozen prefix of 12 + 1 - 11 = 2 blocks
 VIT_PEFT_PREFIX, VIT_PEFT_SPLITS = 2, (32, 0, 16)  # train (2 steps), test
+# ConvNeXt-CLIP base_w (LAION convnext_base_w, models/convnext.py
+# _CONVNEXT_GRID): 256 px, stage widths 128-1024, depths (3, 3, 27, 3); the
+# same fine-tune at unlocked_groups 11 freezes a prefix of 36 + 1 - 11 = 26
+# blocks; 32 train images (2 steps), 16 test
+CX_MODEL, CX_RES, CX_DEPTHS = "random:convnext_base_w", 256, (3, 3, 27, 3)
+CX_WIDTHS, CX_REQUESTS = (128, 256, 512, 1024), 96
+CX_PEFT_PREFIX, CX_PEFT_SPLITS = 26, (32, 0, 16)
 # tolerances against the plain version on the same inputs, as (rel L2,
 # max|d| / max|ref|): both round to bf16 at the same points, so they differ
 # where an fp32 sum lands on the other side of a bf16 rounding boundary
@@ -268,12 +292,20 @@ def main() -> None:
 
     def run_cases(cases):
         """Each case: (name, replaces, tolerance kind, kernel fn, plain fn,
-        library fn or None, flops, bytes, launch counter, path[, source])."""
+        library fn or None, flops, bytes, launch counter, path[, source]).
+        A tolerance kind (kind, residual) compares the branch out - residual
+        of both versions.  Returns the rows it adds."""
+        added = []
         for (name, replaces, kind_, fn, plain, lib, flops, nbytes, counter,
              path, *src) in cases:
             if kind_ == "codes":
                 err, rel, lim = compare_codes(name, fn(), plain())
                 tol_rel = 1.0 - CODES_MIN_EQUAL
+            elif isinstance(kind_, tuple):
+                kind_, res = kind_
+                err, rel, lim = compare(f"{name} branch", fn().float() - res,
+                                        plain().float() - res, kind_)
+                tol_rel = TOL[kind_][0]
             else:
                 err, rel, lim = compare(name, fn(), plain(), kind_)
                 tol_rel = TOL[kind_][0]
@@ -293,7 +325,9 @@ def main() -> None:
                              tol_rel_l2=tol_rel, ms=ms,
                              tflops=ops / ms / 1e9, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+            added.append(rows[-1])
             torch.cuda.empty_cache()
+        return added
 
     m = B * S
     x = rnd(B, S, W)
@@ -410,6 +444,9 @@ def main() -> None:
 
     # ---- 3e. the CLIP ViT int8 kernels (K12, K11, K14) at ViT-B/16 shapes
     vit_int8_kernel_cases(rnd, vec, run_cases)
+
+    # ---- 3f. K7 and K15 at the four ConvNeXt base_w stage shapes
+    convnext_kernel_cases(rnd, vec, run_cases, compare, timed)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -534,6 +571,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("peft path")
 
+    # ---- 5d. the ConvNeXt base_w bf16 and int8 engines + dynamic batcher
+    cx_counts, cx_rates, cx_figures, engine = convnext_path(bk)
+    counts.update(cx_counts)
+    rates.update(cx_rates)
+    phase("convnext paths")
+
+    # ---- 6d. the ConvNeXt base_w PEFT step and finetune on its weights
+    cx_train = convnext_peft_path(engine.bundle.model, bk)
+    del engine
+    torch.cuda.empty_cache()
+    phase("convnext peft path")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -542,7 +591,9 @@ def main() -> None:
              "siglip": "SigLIP SO400M engine + DynamicBatcher",
              "siglip_int8": "SigLIP SO400M int8 engine + DynamicBatcher",
              "siglip_peft": f"SigLIP SO400M finetune ({PEFT_SPLITS[0] // PEFT_B}"
-                            " steps + val/test)"}
+                            " steps + val/test)",
+             "convnext": "ConvNeXt base_w engine + DynamicBatcher",
+             "convnext_int8": "ConvNeXt base_w int8 engine + DynamicBatcher"}
     for row in rows:
         counter = row.pop("counter").__name__
         row["launches"] = counts[row["path"]][counter]
@@ -551,7 +602,8 @@ def main() -> None:
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
                       "int8": int8_figures, "vit_int8": vit_int8_figures,
-                      "train": train, "vit_train": vit_train}))
+                      "convnext": cx_figures, "train": train,
+                      "vit_train": vit_train, "convnext_train": cx_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -572,8 +624,9 @@ def images_per_s(engine, bs: int, dim: int, n: int = 10) -> float:
 def staged_ms(x, stages, iters=5):
     """CUDA-event ms of each stage of one chained run (each stage takes the
     previous stage's output), the median over ``iters`` runs after one
-    warm-up run; returns ({stage: ms}, the last run's output).  The stages
-    of a run are timed in that run, so their sum is its time."""
+    warm-up run, stages of one name summed within a run; returns ({stage:
+    ms}, the last run's output).  The stages of a run are timed in that run,
+    so their sum is its time."""
     import torch
 
     runs = []
@@ -587,9 +640,12 @@ def staged_ms(x, stages, iters=5):
             event.record()
         torch.cuda.synchronize()
         if i:
-            runs.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
-    return ({name: statistics.median(r[j] for r in runs)
-             for j, (name, _) in enumerate(stages)}, y)
+            run = {}
+            for (name, _), a, b in zip(stages, events, events[1:]):
+                run[name] = run.get(name, 0.0) + a.elapsed_time(b)
+            runs.append(run)
+    return {name: statistics.median(r[name] for r in runs)
+            for name in runs[0]}, y
 
 
 def classify_split(engine, batch, stages, iters=5):
@@ -1484,10 +1540,11 @@ def siglip_path(bk):
 
 @contextlib.contextmanager
 def plain_int8_kernels():
-    """Every kernel of the int8 SigLIP and ViT encodes swapped for its plain
-    version."""
+    """Every kernel of the int8 SigLIP, ViT and ConvNeXt encodes swapped for
+    its plain version."""
     from unittest import mock
 
+    from aihab_clip_tpu_torch.models import fast_convnext as fc
     from aihab_clip_tpu_torch.models import quant_siglip as qs
     from aihab_clip_tpu_torch.models import quant_vit as qv
     from aihab_clip_tpu_torch.ops import quant_matmul as qm
@@ -1496,9 +1553,9 @@ def plain_int8_kernels():
         "quant_matmul_fused", "quant_attn_block_split",
         "quant_matmul_fused_qout", "quant_matmul_q8in",
         "quant_full_block_fused", "quant_attn_block_fused",
-        "quant_mlp_block_fused")}
+        "quant_mlp_block_fused", "quant_convnext_mlp_block")}
     with contextlib.ExitStack() as stack:
-        for module in (qs, qv):
+        for module in (qs, qv, fc):
             stack.enter_context(mock.patch.multiple(module, **{
                 k: v for k, v in plain.items() if hasattr(module, k)}))
         yield
@@ -1979,6 +2036,421 @@ def peft_path(engine, bk):
                  moved_leaves=len(moved), frozen_leaves=len(mask) - len(trainable))
     del before
     return run_counts, train
+
+
+def convnext_kernel_cases(rnd, vec, run_cases, compare, timed) -> None:
+    """3f. K7 and K15 at the four ConvNeXt base_w stage shapes, batch 64
+    (M = 64 * (64 / 2^s)^2 rows of C = 128 * 2^s), each against its plain
+    version on the branch out - residual (the residual dominates the
+    output); K7 also with ``n_chunks=2`` at stage 3 and once per gelu_poly
+    form at stage 0; beside each stage the depthwise 7x7 conv and
+    ``torch._int_mm`` at K15's two GEMM shapes."""
+    import os
+
+    import torch
+
+    from aihab_clip_tpu_torch.models.convnext import conv_nhwc
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    int_mm = torch._int_mm
+    print(f"[kernels] ConvNeXt base_w stage shapes at batch {B}: every K7 and "
+          f"K15 launch is 16 M C^2 = {16 * B * 64 * 64 * 128 ** 2 / 1e9:.1f} "
+          "G(FL)OP")
+    for s, c in enumerate(CX_WIDTHS):
+        sp = CX_RES // 4 // 2 ** s
+        m = B * sp * sp
+        y, res = rnd(m, c), rnd(m, c)
+        ln = (vec(c, one=True), vec(c))
+        w1 = rnd(c, 4 * c, scale=c ** -0.5, dtype=f32)
+        w2 = rnd(4 * c, c, scale=(4 * c) ** -0.5, dtype=f32)
+        b1, b2, gamma = vec(4 * c), vec(c), vec(c, scale=0.3)
+        k7 = (y, res, *ln, w1.to(bf16), b1, w2.to(bf16), b2, gamma)
+        (w1_8, s1), (w2_8, s2) = quantize_weight(w1), quantize_weight(w2)
+        w1_8, w2_8 = qm.int8_weight(w1_8), qm.int8_weight(w2_8)
+        k15 = (y, res, *ln, w1_8, s1, b1, w2_8, s2, b2, gamma)
+        ops = 16 * m * c * c
+        vec_bytes = 4 * 9 * c          # LN, b1, b2, gamma; fp32
+        act_bytes = 3 * 2 * m * c      # y and res read, out written; bf16
+        shape = f"stage {s}: M={m} C={c}"
+        cases = [
+            (f"convnext_mlp_block[{shape}]", f"{JAX_BK}:688", ("block", res),
+             lambda: bk.convnext_mlp_block(*k7),
+             lambda: bk.convnext_mlp_block_plain(*k7), None, ops,
+             act_bytes + 2 * 8 * c * c + vec_bytes, bk.convnext_mlp_block,
+             "convnext"),
+            (f"quant_convnext_mlp_block[{shape}]", f"{JAX_QM}:319",
+             ("int8_mlp", res), lambda: qm.quant_convnext_mlp_block(*k15),
+             lambda: qm.quant_convnext_mlp_block_plain(*k15), None, (0, ops),
+             act_bytes + 8 * c * c + 4 * 5 * c + vec_bytes,
+             qm.quant_convnext_mlp_block, "convnext_int8", SRC_Q)]
+        if s == len(CX_WIDTHS) - 1:
+            cases.append(
+                (f"convnext_mlp_block[{shape}, n_chunks=2]", f"{JAX_BK}:752",
+                 ("block", res), lambda: bk.convnext_mlp_block(*k7, n_chunks=2),
+                 lambda: bk.convnext_mlp_block_plain(*k7, n_chunks=2), None,
+                 ops, act_bytes + 2 * 8 * c * c + vec_bytes,
+                 bk.convnext_mlp_block, "convnext"))
+        k7_row, k15_row, *_ = run_cases(cases)
+        x4 = y.reshape(B, sp, sp, c)
+        dw = rnd(c, 1, 7, 7, scale=1 / 7).contiguous(
+            memory_format=torch.channels_last)
+        dwb = rnd(c, scale=0.1)
+        dw_ms = timed(lambda: conv_nhwc(x4, dw, dwb, padding=3, groups=c))
+        a8 = torch.randint(-127, 128, (m, c), dtype=torch.int8,
+                           device=y.device)
+        h8 = torch.randint(-127, 128, (m, 4 * c), dtype=torch.int8,
+                           device=y.device)
+        mm = [timed(lambda: int_mm(a8, w1_8)), timed(lambda: int_mm(h8, w2_8))]
+        print(f"[kernels] {shape}: depthwise 7x7 (grouped conv on the "
+              f"channels-last view) {dw_ms:.4f} ms beside K7 "
+              f"{k7_row['ms']:.4f} ms and K15 {k15_row['ms']:.4f} ms; "
+              f"torch._int_mm at K15's GEMMs fc1 {mm[0]:.4f} + fc2 "
+              f"{mm[1]:.4f} ms")
+        k15_row["int_mm_ms"] = mm
+        k7_row["dwconv_ms"] = k15_row["dwconv_ms"] = dw_ms
+        if s == 0:
+            old = os.environ.get("AIHAB_ERF_IMPL")
+            try:
+                for form in bk.GELU_FORMS:
+                    os.environ["AIHAB_ERF_IMPL"] = form
+                    compare(f"convnext_mlp_block[{shape}, gelu_poly {form}] "
+                            "branch", bk.convnext_mlp_block(*k7).float() - res,
+                            bk.convnext_mlp_block_plain(*k7).float() - res,
+                            "block")
+                    print(f"[kernels] convnext_mlp_block[{shape}, gelu_poly "
+                          f"{form}]: {timed(lambda: bk.convnext_mlp_block(*k7)):.4f}"
+                          " ms")
+            finally:
+                if old is None:
+                    os.environ.pop("AIHAB_ERF_IMPL", None)
+                else:
+                    os.environ["AIHAB_ERF_IMPL"] = old
+        del y, res, x4, a8, h8, k7, k15
+        torch.cuda.empty_cache()
+    print(f"[kernels] ConvNeXt base_w bound per batch of {B}: 36 K7 "
+          f"{36 * 1e3 * 16 * B * 64 * 64 * 128 ** 2 / PEAK_FLOPS:.3f} ms by "
+          "operations")
+
+
+def convnext_stages(packed, config, qmlp=None):
+    """``classify_split`` stages of the ConvNeXt encode: the stem, then per
+    stage its downsample, each block's depthwise conv and its K7 (or K15
+    with ``qmlp``), each stage's parts summed under one name; the pooled
+    head_norm and projection."""
+    from aihab_clip_tpu_torch.models import fast_convnext as fc
+    from aihab_clip_tpu_torch.models.convnext import conv_nhwc, stage_blocks
+    from aihab_clip_tpu_torch.ops.block_kernel import convnext_mlp_block
+    from aihab_clip_tpu_torch.ops.quant_matmul import quant_convnext_mlp_block
+
+    def down(x, s):
+        dn = packed["down"][s]
+        return conv_nhwc(fc._ln_f32(x, *dn["ln"]), *dn["conv"], stride=2)
+
+    def dwconv(x, k):
+        return x, conv_nhwc(x, *packed["blocks"][k]["dw"], padding=3,
+                            groups=x.shape[-1])
+
+    def mlp(xy, s, b, k):
+        x, y = xy
+        n, h, w, c = x.shape
+        blk = packed["blocks"][k]
+        rows = (y.reshape(-1, c), x.reshape(-1, c), *blk["ln"])
+        if qmlp is None:
+            out = convnext_mlp_block(*rows, blk["w1"], blk["b1"], blk["w2"],
+                                     blk["b2"], blk["gamma"])
+        else:
+            q = qmlp[f"stage{s}_block{b}"]
+            out = quant_convnext_mlp_block(
+                *rows, q["fc1"]["w8"], q["fc1"]["scale"], blk["b1"],
+                q["fc2"]["w8"], q["fc2"]["scale"], blk["b2"], blk["gamma"])
+        return out.reshape(n, h, w, c)
+
+    kernel = "K7" if qmlp is None else "K15"
+    stages = [("stem", lambda x: fc._stem(packed, x))]
+    for s, b, k in stage_blocks(config.vision_layers, 0,
+                                sum(config.vision_layers)):
+        if s and b == 0:
+            stages.append((f"stage {s} downsample",
+                           lambda x, s=s: down(x, s)))
+        stages.append((f"stage {s} dwconv", lambda x, k=k: dwconv(x, k)))
+        stages.append((f"stage {s} {kernel}",
+                       lambda xy, s=s, b=b, k=k: mlp(xy, s, b, k)))
+    stages.append(("head (pool, head_norm, proj)",
+                   lambda x: fc._head(packed, x, project=True)[1]))
+    return stages
+
+
+def convnext_path(bk):
+    """5d. ``ClassifierEngine("random:convnext_base_w")``, bf16 and
+    ``quantize="int8"`` (a second draw of the same seeded weights), each
+    answering the same single-image requests through ``DynamicBatcher``:
+    per batch 36 K7, or 36 K15 and no K7; features against the fp32 tower
+    (TF32 off) and, for int8, against the same encode with every kernel
+    plain; the spread of the batch's features; the batch-64 split; images/s.
+    Returns ({path: launch counts}, {rate: images/s}, figures, the bf16
+    engine)."""
+    import torch
+
+    from aihab_clip_tpu_torch.models.fast_vit import encode_image_fastest
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.preprocess import eval_transform
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
+
+    dev = torch.device("cuda")
+    layers = sum(CX_DEPTHS)
+
+    def counts():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    images = np.random.default_rng(SEED + 4).integers(
+        0, 256, (CX_REQUESTS, CX_RES, CX_RES, 3), dtype=np.uint8)
+    batch = torch.from_numpy(images[:B]).to(dev)
+    run_counts, rates, figures, engines = {}, {}, {}, {}
+    for path, quantize in (("convnext", "none"), ("convnext_int8", "int8")):
+        t0 = time.perf_counter()
+        engine = engines[path] = ClassifierEngine(
+            model=CX_MODEL, batch_size=64, quantize=quantize, device="cuda")
+        engine.warmup()
+        cfg = engine.bundle.config
+        check((cfg.vision_layers, cfg.vision_width, cfg.image_resolution,
+               engine.decode_dim) == (CX_DEPTHS, 128, CX_RES, CX_RES),
+              f"config {cfg}")
+        print(f"[{path}] {CX_MODEL} quantize={quantize!r}: built + warm in "
+              f"{time.perf_counter() - t0:.1f}s")
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+        batcher = DynamicBatcher(engine, max_wait_ms=5.0)
+        batcher.start()
+        t0 = time.perf_counter()
+        futures = [batcher.submit(img) for img in images]
+        probs = np.stack([f.result(timeout=600) for f in futures])
+        wall = time.perf_counter() - t0
+        batcher.stop()
+        run = run_counts[path] = counts()
+        n = batcher.stats.batches
+        print(f"[{path}] {len(futures)} requests answered in {wall:.3f}s over "
+              f"{n} batches; launches {run}")
+        check(probs.shape == (CX_REQUESTS, 20), f"probs shape {probs.shape}")
+        check(bool(np.isfinite(probs).all()), "non-finite probabilities")
+        check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)),
+              "rows not softmax")
+        k15 = quantize == "int8"
+        want = {"convnext_mlp_block": 0 if k15 else layers * n,
+                "ln_gemm": 0 if k15 else layers * n,
+                "gemm_residual": 0 if k15 else layers * n,
+                "quant_convnext_mlp_block": layers * n if k15 else 0,
+                "row_quant": 2 * layers * n if k15 else 0,
+                "int8_gemm": 2 * layers * n if k15 else 0,
+                "full_block_fused": 0, "quant_full_block_fused": 0}
+        for key, v in want.items():
+            check(run[key] == v, f"{path}: {key} launched {run[key]} times "
+                  f"for {n} batches (want {v})")
+        figures[f"{path}_probs"] = probs
+
+    eng, eng8 = engines["convnext"], engines["convnext_int8"]
+    model, cfg = eng.bundle.model, eng.bundle.config
+    check(torch.equal(model.visual.stem_conv.weight,
+                      eng8.bundle.model.visual.stem_conv.weight),
+          "the int8 engine's draw of the seeded weights differs")
+    ref_tower = copy.copy(model.visual)
+    ref_tower.dtype = torch.float32
+    with torch.inference_mode():
+        xb = eval_transform(batch, CX_RES, dtype=torch.bfloat16)
+        ref_feats = ref_tower(eval_transform(batch, CX_RES), project=True)[1]
+        feats = encode_image_fastest(model, xb, cfg, project=True,
+                                     packed=eng._packed)[1].float()
+        feats8 = eng8._encode_int8(xb).float()
+        with plain_int8_kernels():
+            plain8 = eng8._encode_int8(xb).float()
+        f = torch.nn.functional.normalize(ref_feats, dim=-1)
+        spread = ((f @ f.T).sum() - B) / (B * B - B)
+        figures["feature_spread"] = spread.item()
+        print(f"[convnext] mean pairwise cosine of the fp32 tower's {B} "
+              f"features {spread.item():.4f} (a collapsed random tower "
+              "would read ~1)")
+        for name, got, other, lim in (
+                ("bf16 K7 vs the fp32 tower", feats, ref_feats, COS_MIN),
+                ("int8 K15 vs the same encode with every kernel plain",
+                 feats8, plain8, INT8_COS["plain"]),
+                ("int8 K15 vs the fp32 tower", feats8, ref_feats,
+                 INT8_COS["fp32"])):
+            cos = torch.nn.functional.cosine_similarity(got, other, dim=-1)
+            figures[name] = cos.min().item()
+            print(f"[convnext] features, {name} ({B} images): cosine min "
+                  f"{cos.min().item():.6f} mean {cos.mean().item():.6f} "
+                  f"(limit {lim})")
+            check(cos.min().item() >= lim, f"ConvNeXt cosine, {name}")
+    p, p8 = figures.pop("convnext_probs"), figures.pop("convnext_int8_probs")
+    figures["top1_int8_vs_bf16"] = float((p.argmax(-1) == p8.argmax(-1)).mean())
+    print(f"[convnext int8] top-1 agreement with the bf16 engine: "
+          f"{figures['top1_int8_vs_bf16']:.4f} over {CX_REQUESTS}, max|dprob| "
+          f"{np.abs(p - p8).max():.4g}")
+
+    for path, engine in engines.items():
+        qmlp = engine._qparams if path == "convnext_int8" else None
+        split, t_all = classify_split(
+            engine, batch, convnext_stages(engine._packed, cfg, qmlp),
+            iters=3)
+        figures[f"{path}_classify_ms"] = t_all
+        figures[f"{path}_split_ms"] = split
+        print(f"[{path}] batch 64 device time: classify {t_all:.3f} ms; its "
+              f"stages in one run {sum(split.values()):.3f} = " + " + ".join(
+                  f"{k} {v:.3f}" for k, v in split.items()))
+        rates[f"{CX_MODEL.split(':')[1]}{'_int8' if qmlp else ''}_64"] = \
+            rate = images_per_s(engine, 64, CX_RES, n=5)
+        print(f"[{path}] classify_batch end-to-end at batch 64: {rate:.1f} "
+              f"images/s")
+    del engines, eng8, ref_tower, batch, xb
+    torch.cuda.empty_cache()
+    return run_counts, rates, figures, eng
+
+
+def convnext_peft_path(model, bk):
+    """6d. The default fine-tune on ConvNeXt base_w at 256 (``configs/
+    base.yaml`` + ``cs.yaml``: batch 16 from 439x439 uint8, random crop +
+    rotation, tune_text, unlocked_groups 11, unlocked_layers 1, lr_v 5e-5,
+    bf16 over fp32 Adam) with the default ``fused_prefix`` (26 blocks): one
+    train step against plain kernels and against the fp32 tower (TF32 off),
+    26 K7 per step; the ``prefix_quant`` step runs the same bf16 prefix, as
+    in JAX; the step's device time; then ``finetune`` itself.  Trains
+    ``model`` in place; returns the figures."""
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.data import SplitView
+    from aihab_clip_tpu_torch.models import build_text_head
+    from aihab_clip_tpu_torch.models import fast_convnext as fc
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.train.peft import (
+        PEFTConfig, _pack_prefix, _quantize_prefix, build_lock_mask,
+        finetune, make_train_step, peft_fused_prefix_len)
+
+    dev = torch.device("cuda")
+    mcfg = model.config
+    layers = sum(mcfg.vision_layers)
+
+    def counts():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+
+    n_prefix = peft_fused_prefix_len(mcfg, PEFT_UNLOCKED, dev)
+    check(n_prefix == CX_PEFT_PREFIX, f"ConvNeXt fused prefix {n_prefix}")
+    prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+    tokens = build_text_head(model, prompts, 20, tpc)["prompt_tokens"]
+    cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                     lr=PEFT_LR, epochs=1, crop_mode="random", rotation=True,
+                     tune_text=True, num_templates=tpc,
+                     compute_dtype=torch.bfloat16)
+    mask = build_lock_mask(model, mcfg.vision_layers, mcfg.transformer_layers,
+                           unlocked_groups=PEFT_UNLOCKED, tune_text=True,
+                           unlocked_text_layers=1)
+    trainable = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    print(f"[convnext peft] {len(trainable)} trainable leaves, "
+          f"{sum(p.numel() for _, p in trainable):,} parameters; fused prefix "
+          f"{n_prefix} (default fused_prefix), suffix {layers - n_prefix} "
+          "blocks")
+
+    n_all = sum(CX_PEFT_SPLITS)
+    ds = synthetic_dataset(np.random.default_rng(SEED + 5), n_all,
+                           PEFT_DECODE)
+    n_tr, _, n_te = CX_PEFT_SPLITS
+    train_view = SplitView(ds, np.arange(n_tr), PEFT_B, shuffle=True,
+                           seed=SEED)
+    test_view = SplitView(ds, np.arange(n_tr, n_all), PEFT_B)
+    batch = next(train_view.batches(0))
+    imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
+        batch.images, batch.labels, batch.valid))
+    step_grads = step_grads_fn(model, trainable, tokens, imgs, labs, valid)
+
+    cfg_p = dataclasses.replace(cfg, fused_prefix=n_prefix)
+    pprefix = _pack_prefix(model, cfg_p)
+    check(len(pprefix["blocks"]) == n_prefix, "the K7 prefix pack")
+    reset()
+    kern = step_grads(cfg_p, pprefix)
+    per_step = counts()
+    print(f"[convnext peft] launches in one step: {per_step}")
+    check(per_step["convnext_mlp_block"] == n_prefix
+          and per_step["quant_convnext_mlp_block"] == 0, "K7 launches per step")
+    with mock.patch.object(fc, "convnext_mlp_block",
+                           bk.convnext_mlp_block_plain):
+        reset()
+        plain = step_grads(cfg_p, pprefix)
+        check(not any(counts().values()), f"plain step launched {counts()}")
+    vis_dt, txt_dt = model.visual.dtype, model.text.dtype
+    model.visual.dtype = model.text.dtype = torch.float32
+    try:
+        fp32 = step_grads(dataclasses.replace(
+            cfg, compute_dtype=torch.float32, fused_prefix=0), None)
+    finally:
+        model.visual.dtype, model.text.dtype = vis_dt, txt_dt
+    gates = {name: check_step("convnext peft", name, kern, ref,
+                              STEP_GATES[name])
+             for name, ref in (("plain", plain), ("fp32", fp32))}
+
+    # prefix_quant: no int8 ConvNeXt prefix (JAX peft.py:280-281), the bf16
+    # prefix runs
+    cfg8 = dataclasses.replace(cfg_p, prefix_quant=True)
+    check(_quantize_prefix(model, cfg8) is None
+          and len(_pack_prefix(model, cfg8)["blocks"]) == n_prefix,
+          "prefix_quant packs the bf16 prefix")
+    reset()
+    same = step_grads(cfg8, _pack_prefix(model, cfg8))
+    per_step_q = counts()
+    print(f"[convnext peft] launches in one prefix_quant step: {per_step_q}")
+    check(per_step_q["convnext_mlp_block"] == n_prefix
+          and per_step_q["quant_convnext_mlp_block"] == 0,
+          "prefix_quant runs the bf16 K7 prefix")
+    gates["prefix_quant"] = check_step("convnext peft", "the prefix_quant "
+                                       "step", same, kern, STEP_GATES["plain"])
+    model.zero_grad(set_to_none=True)
+    del kern, plain, fp32, same
+
+    torch.cuda.reset_peak_memory_stats()
+    _, step = make_train_step(model, cfg_p, None, tokens)
+    times = timed_steps(step, imgs, labs, valid, pprefix, 1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[convnext peft] train step at batch {PEFT_B}: median "
+          f"{statistics.median(times):.3f} ms over {len(times)} steps ("
+          f"{', '.join(f'{t:.2f}' for t in times)}), peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset()
+    t0 = time.perf_counter()
+    out = finetune(model, train_view, None, test_view, cfg,
+                   prompt_tokens=tokens, unlocked_groups=PEFT_UNLOCKED,
+                   unlocked_text_layers=1, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = counts()
+    steps, eval_batches = n_tr // PEFT_B, n_te // PEFT_B
+    print(f"[convnext peft] finetune (fused_prefix=-1): {steps} steps + "
+          f"{eval_batches} test batches in {wall:.2f}s; launches {run_counts}")
+    check(run_counts["convnext_mlp_block"] == n_prefix * steps
+          + layers * eval_batches, "K7 launches in finetune")
+    frozen_changed = [n for n, p in model.named_parameters()
+                      if not mask[n] and not torch.equal(before[n], p)]
+    moved = [n for n, _ in trainable
+             if not torch.equal(before[n], out["params"][n])]
+    check(not frozen_changed, f"frozen leaves changed: {frozen_changed[:5]}")
+    check(len(moved) > 0, "no trainable leaf moved")
+    test = out["test"]
+    check(int(test["cm"].sum()) == n_te and np.isfinite(test["loss"]),
+          "ConvNeXt finetune test")
+    print(f"[convnext peft] {len(moved)} of {len(trainable)} trainable "
+          f"leaves moved; test loss {test['loss']:.4f} top1 "
+          f"{test['top1']:.4f}")
+    return dict(step_ms=statistics.median(times), step_ms_all=times,
+                peak_gib=peak / 2 ** 30, step_checks=gates, finetune_s=wall,
+                test_loss=test["loss"])
 
 
 if __name__ == "__main__":

@@ -554,3 +554,160 @@ def test_cuda_vit_b16_finetune_default_prefix(unlocked, prefix_quant):
         assert same or trainable, name
         moved += not same
     assert moved > 0
+
+
+@pytest.mark.gpu
+def test_cuda_convnext_kernels_match_plain():
+    """K7 (one and two hidden chunks) and K15 against their plain versions
+    on the card for each gelu_poly form (the forms past sig5 through
+    ``act_pass`` after the GEMM), held on the branch out - residual, which
+    the residual would otherwise dominate: K7 at 1e-2 rel L2 (K3 and K4's
+    gate), K15 at 1e-3 (K11's); each wrapper counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(13)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def branch(out, ref, res, rel):
+        torch.cuda.synchronize()
+        out, ref = out.float() - res.float(), ref.float() - res.float()
+        assert torch.isfinite(out).all()
+        err = ((out - ref).norm() / ref.norm()).item()
+        assert err <= rel, err
+
+    m, c = 300, 256
+    y, res = rnd(m, c, scale=2.0, dtype=torch.bfloat16), rnd(
+        m, c, dtype=torch.bfloat16)
+    ln = (1 + rnd(c, scale=0.1), rnd(c, scale=0.1))
+    w1, w2 = rnd(c, 4 * c, scale=c ** -0.5), rnd(4 * c, c,
+                                                 scale=(4 * c) ** -0.5)
+    b1, b2, gamma = rnd(4 * c, scale=0.1), rnd(c, scale=0.1), rnd(c,
+                                                                scale=0.3)
+    args = (y, res, *ln, w1.bfloat16(), b1, w2.bfloat16(), b2, gamma)
+    old = os.environ.get("AIHAB_ERF_IMPL")
+    try:
+        for form in ("sig5", "sig", "rational", "cheb"):
+            os.environ["AIHAB_ERF_IMPL"] = form
+            for n_chunks in (1, 2):
+                bk.reset_launch_counts()
+                out = bk.convnext_mlp_block(*args, n_chunks=n_chunks)
+                assert bk.launch_counts()["convnext_mlp_block"] == 1
+                assert bk.launch_counts()["ln_gemm"] == n_chunks
+                branch(out, bk.convnext_mlp_block_plain(
+                    *args, n_chunks=n_chunks), res, 1e-2)
+    finally:
+        if old is None:
+            os.environ.pop("AIHAB_ERF_IMPL", None)
+        else:
+            os.environ["AIHAB_ERF_IMPL"] = old
+    (w1_8, s1), (w2_8, s2) = quantize_weight(w1), quantize_weight(w2)
+    qargs = (*ln, qm.int8_weight(w1_8), s1, b1, qm.int8_weight(w2_8), s2, b2,
+             gamma)
+    try:
+        for form, dt in (("sig5", torch.bfloat16), ("sig5", torch.float32),
+                         ("sig", torch.bfloat16), ("rational", torch.float32),
+                         ("cheb", torch.bfloat16)):
+            os.environ["AIHAB_ERF_IMPL"] = form
+            qm.reset_launch_counts()
+            out = qm.quant_convnext_mlp_block(y.to(dt), res.to(dt), *qargs)
+            counts = qm.launch_counts()
+            assert counts["quant_convnext_mlp_block"] == 1
+            assert counts["row_quant"] == counts["int8_gemm"] == 2
+            branch(out, qm.quant_convnext_mlp_block_plain(
+                y.to(dt), res.to(dt), *qargs), res, 1e-3)
+    finally:
+        if old is None:
+            os.environ.pop("AIHAB_ERF_IMPL", None)
+        else:
+            os.environ["AIHAB_ERF_IMPL"] = old
+
+
+@pytest.mark.gpu
+def test_cuda_convnext_base_w_engines():
+    """``random:convnext_base_w`` served at full size on the card: the bf16
+    engine runs 36 K7 per batch, the int8 engine 36 K15 and no K7; both
+    give probabilities, and their features agree at cosine >= 0.99."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.serving import ClassifierEngine
+
+    imgs = np.random.default_rng(14).integers(0, 256, (8, 256, 256, 3),
+                                              dtype=np.uint8)
+    probs = {}
+    for quantize in ("none", "int8"):
+        engine = ClassifierEngine(model="random:convnext_base_w",
+                                  batch_size=8, buckets=1, flat=True,
+                                  quantize=quantize, verbose=False)
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+        probs[quantize] = engine.classify_batch(imgs)
+        k7 = bk.launch_counts()["convnext_mlp_block"]
+        k15 = qm.launch_counts()["quant_convnext_mlp_block"]
+        assert (k7, k15) == ((36, 0) if quantize == "none" else (0, 36))
+        assert probs[quantize].shape == (8, 20)
+        assert np.isfinite(probs[quantize]).all()
+        del engine
+        torch.cuda.empty_cache()
+    assert np.abs(probs["none"] - probs["int8"]).max() <= 0.2
+
+
+@pytest.mark.gpu
+def test_cuda_convnext_finetune_default_prefix():
+    """A ConvNeXt fine-tune with the default ``fused_prefix`` on the card (a
+    narrow base_w: widths 32-256, depths (3, 3, 27, 3)): the frozen prefix
+    is L + 1 - unlocked_groups = 26 blocks through K7 in every step, the
+    test batch through all 36; frozen leaves stay untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data import ImageArrayDataset, SplitView
+    from aihab_clip_tpu_torch.models import CLIP_ARCHS, load
+    from aihab_clip_tpu_torch.train.peft import PEFTConfig, finetune
+
+    cfg = dataclasses.replace(CLIP_ARCHS["convnext_base_w"], vision_width=32,
+                              embed_dim=64, transformer_width=64,
+                              transformer_heads=1, transformer_layers=2)
+    model = load("random:base_w-narrow", device="cuda", random_cfg=cfg,
+                 seed=15).model
+    n = 12
+    rng = np.random.default_rng(16)
+    ds = ImageArrayDataset(
+        images=rng.integers(0, 256, (n, 272, 272, 3), dtype=np.uint8),
+        labels=rng.integers(0, 20, n), l2_labels=np.zeros(n, np.int64),
+        poly_labels=np.full(n, -1, np.int64), plot_word_labels=[""] * n,
+        poly_word_labels=[""] * n, file_names=[""] * n,
+        plot_idx=list(range(n)), image_sources=[""] * n)
+    weights = torch.nn.functional.normalize(
+        torch.randn(64, 20, generator=torch.Generator().manual_seed(17)),
+        dim=0).cuda()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    bk.reset_launch_counts()
+    out = finetune(model, SplitView(ds, np.arange(8), 4, shuffle=True), None,
+                   SplitView(ds, np.arange(8, n), 4),
+                   PEFTConfig(resolution=256, num_classes=20, lr=1e-3,
+                              epochs=1, rotation=True,
+                              compute_dtype=torch.bfloat16),
+                   text_weights=weights, unlocked_groups=11, verbose=False,
+                   device="cuda")
+    torch.cuda.synchronize()
+    # 2 steps x 26 prefix blocks + 1 test batch x 36 blocks
+    assert bk.launch_counts()["convnext_mlp_block"] == 2 * 26 + 36
+    assert np.isfinite(out["test"]["loss"]) and out["test"]["cm"].sum() == 4
+    moved = 0
+    for name, trainable in out["mask"].items():
+        same = torch.equal(before[name], out["params"][name])
+        assert same or trainable, name
+        moved += not same
+    assert moved > 0
