@@ -18,6 +18,14 @@
 //       gemm_residual over fc2's rows of c with the per-column gamma epilogue:
 //       chunk 0 stores res + (p_0 + b2) * gamma, chunk c > 0 acc + p_c * gamma,
 //       in y's dtype (the residual is the block input, not y);
+//   mlp_block_train  (:213; forward :239, backward :287) = K3's chain with the
+//       c_fc pre-activation h_pre stored beside h (EPI_PRE), and a backward
+//       of three launches: dy @ W_proj^T with the quick_gelu' epilogue
+//       (EPI_DGELU) -> dh_pre, dh_pre @ W_fc^T -> dln (fp32), ln_bwd_kernel
+//       -> dx = dy + LN_bwd(dln) and dln in bf16;
+// and of aihab_clip_tpu/ops/fused_linear.py:
+//   ln_matmul (:299; :159, :188) = ln_gemm, matmul_residual (:326; :227,
+//       :255) = gemm_residual, over the same instances;
 // and of aihab_clip_tpu/ops/attention.py:
 //   _pallas_attention (:91, :113), fused_attention's forward (K6) = attention
 //       over separate q, k, v, storing the row log-sum-exp for the backward
@@ -51,6 +59,15 @@
 // design writes the bf16 hidden h [M, 4C] through device memory (268 MB each
 // way at stage 0), which the TPU kernel kept in VMEM.  Since the GEMM streams
 // its weight tiles, the whole hidden width runs in one chunk.
+//
+// The train MLP (K17) at ViT-B/16 batch 16 (M = 3,152 rows): 29.8 GFLOP
+// forward and 29.8 GFLOP for the backward's dx chain, 0.030 ms each at 989
+// TFLOP/s; the weight gradients are cuBLAS products over the emitted h_pre,
+// dh_pre and dln, as the TPU kernel left them to XLA.  The backward's row
+// kernel needs the full-row means of the LN backward over W, so it cannot sit
+// in a 128-column GEMM tile: it is a pass of its own, one warp per row.
+// W_proj^T [W, H] and W_fc^T [H, W] are torch's c_proj.weight and
+// c_fc.weight as they are stored, so the backward GEMMs read them row-major.
 //
 // Interface: plain C functions, loaded with ctypes.  Each launches on the
 // stream it is given, allocates nothing and returns cudaGetLastError().
@@ -107,6 +124,10 @@ ln_stats_kernel(const TA* __restrict__ A, float2* __restrict__ stats, int M, int
 //   epilogue:       act(...), * q_scale on the q columns, * gamma[n] (a
 //                   per-column scale, when gamma is non-null), then + R (RES)
 //                   in fp32, stored as TO
+//   EPI_PRE:        also store the pre-activation acc + bias, as bf16, to Y2
+//                   (K17's forward: h_pre for the backward)
+//   EPI_DGELU:      Y = acc * quick_gelu'(R) with R the bf16 pre-activation
+//                   (K17's backward: dh_pre); no bias, act or residual
 // Block tile 128x128, k-step 32, 8 warps of 64x32 (4x2 WMMA fragments).
 // The weight tile streams through a 3-stage cp.async ring; the A tile is
 // read into registers one k-step before it is needed and normalised into
@@ -124,13 +145,21 @@ static_assert(GEMM_THREADS % (BK / 8) == 0, "a thread keeps one A column slice")
 constexpr int GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2 +
                           (GEMM_THREADS / 32) * 16 * E_LD * 4 + BM * 8;
 
-template <typename TA, bool LN, bool RES, typename TR, typename TO>
+enum Epi { EPI_STD = 0, EPI_PRE = 1, EPI_DGELU = 2 };
+
+// d/dh of h * sigmoid(1.702 h) (block_kernel.py:_quick_gelu_grad_f32)
+__device__ __forceinline__ float quick_gelu_grad(float h) {
+  const float s = 1.0f / (1.0f + expf(-1.702f * h));
+  return s * (1.0f + 1.702f * h * (1.0f - s));
+}
+
+template <typename TA, bool LN, bool RES, typename TR, typename TO, int EPI = EPI_STD>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
             const bf16* __restrict__ W, const float* __restrict__ bias,
             const float* __restrict__ gamma, const TR* __restrict__ R,
-            TO* __restrict__ Y, int M, int N, int K,
+            TO* __restrict__ Y, bf16* __restrict__ Y2, int M, int N, int K,
             int ldw, int act, float q_scale, int q_cols, int group_cols) {
   constexpr bool RAW_A = !LN && std::is_same<TA, bf16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -275,29 +304,40 @@ gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
       const int gr = m0 + wm * 64 + i * 16 + er, gn = n0 + wn * 32 + j * 16 + ec;
       if (gr < M && gn < N) {
         float out[8];
-        if (bias) {
-          load8(bias + gn, out);
+        if constexpr (EPI == EPI_DGELU) {
+          float hp[8];
+          load8(R + static_cast<size_t>(gr) * N + gn, hp);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            out[jj] = es[er * E_LD + ec + jj] * quick_gelu_grad(hp[jj]);
         } else {
+          if (bias) {
+            load8(bias + gn, out);
+          } else {
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) out[jj] = 0.f;
-        }
+            for (int jj = 0; jj < 8; ++jj) out[jj] = 0.f;
+          }
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) out[jj] = act_f32(es[er * E_LD + ec + jj] + out[jj], act);
-        if (qcol[j]) {
+          for (int jj = 0; jj < 8; ++jj) out[jj] += es[er * E_LD + ec + jj];
+          if constexpr (EPI == EPI_PRE) store8(Y2 + static_cast<size_t>(gr) * N + gn, out);
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) out[jj] *= q_scale;
-        }
-        if (gamma) {
-          float g[8];
-          load8(gamma + gn, g);
+          for (int jj = 0; jj < 8; ++jj) out[jj] = act_f32(out[jj], act);
+          if (qcol[j]) {
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) out[jj] *= g[jj];
-        }
-        if constexpr (RES) {
-          float res[8];
-          load8(R + static_cast<size_t>(gr) * N + gn, res);
+            for (int jj = 0; jj < 8; ++jj) out[jj] *= q_scale;
+          }
+          if (gamma) {
+            float g[8];
+            load8(gamma + gn, g);
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) out[jj] += res[jj];
+            for (int jj = 0; jj < 8; ++jj) out[jj] *= g[jj];
+          }
+          if constexpr (RES) {
+            float res[8];
+            load8(R + static_cast<size_t>(gr) * N + gn, res);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) out[jj] += res[jj];
+          }
         }
         store8(Y + static_cast<size_t>(gr) * N + gn, out);
       }
@@ -306,36 +346,95 @@ gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
   }
 }
 
-template <typename TA, bool LN, bool RES, typename TR, typename TO>
+template <typename TA, bool LN, bool RES, typename TR, typename TO, int EPI = EPI_STD>
 int launch_gemm(const void* a, const float2* stats, const float* ln_s, const float* ln_b,
                 const void* w, const float* bias, const float* gamma, const void* r,
                 void* y, int M, int N, int K, int ldw, int act, float q_scale, int q_cols,
-                int group_cols, cudaStream_t stream) {
-  auto kernel = gemm_kernel<TA, LN, RES, TR, TO>;
+                int group_cols, cudaStream_t stream, void* y2 = nullptr) {
+  auto kernel = gemm_kernel<TA, LN, RES, TR, TO, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kernel<<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
       static_cast<const TA*>(a), stats, ln_s, ln_b, static_cast<const bf16*>(w), bias, gamma,
-      static_cast<const TR*>(r), static_cast<TO*>(y), M, N, K, ldw, act, q_scale, q_cols,
-      group_cols);
+      static_cast<const TR*>(r), static_cast<TO*>(y), static_cast<bf16*>(y2), M, N, K, ldw,
+      act, q_scale, q_cols, group_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TA, typename TO>
+template <typename TA, typename TO, int EPI = EPI_STD>
 int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float* ln_b,
                    const void* w, const float* bias, void* y, int M, int N, int K,
                    int ldw, int act, float eps, float q_scale, int q_cols,
-                   int group_cols, cudaStream_t stream) {
+                   int group_cols, cudaStream_t stream, void* y2 = nullptr) {
   const int rows_per_block = STATS_THREADS / 32;
   ln_stats_kernel<TA><<<(M + rows_per_block - 1) / rows_per_block, STATS_THREADS, 0,
                         stream>>>(static_cast<const TA*>(x), stats, M, K, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_gemm<TA, true, false, bf16, TO>(x, stats, ln_s, ln_b, w, bias, nullptr,
-                                                nullptr, y, M, N, K, ldw, act, q_scale,
-                                                q_cols, group_cols, stream);
+  return launch_gemm<TA, true, false, bf16, TO, EPI>(x, stats, ln_s, ln_b, w, bias, nullptr,
+                                                     nullptr, y, M, N, K, ldw, act, q_scale,
+                                                     q_cols, group_cols, stream, y2);
+}
+
+// ---------------------------------------------------------------------------
+// LN backward of K17 (block_kernel.py:200-210), one warp per row of x [M, K]:
+//   xhat = (x - mean) * rstd (two-pass fp32 statistics, eps), dxhat = dln * g,
+//   dx = dy + (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd,
+// stored bf16, and dln (the fp32 output of the dh_pre @ W_fc^T GEMM) stored
+// again in bf16 for the LN-parameter gradients, as the TPU kernel emits it.
+// The row sums need the whole row, which a 128-column GEMM tile does not
+// hold.  Bytes-bound: four reads of a row (L1-resident after the first).
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(STATS_THREADS)
+ln_bwd_kernel(const bf16* __restrict__ X, const bf16* __restrict__ DY,
+              const float* __restrict__ DLN, const float* __restrict__ gamma,
+              bf16* __restrict__ DX, bf16* __restrict__ DLN16, int M, int K, float eps) {
+  const int r = blockIdx.x * (STATS_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= M) return;
+  const size_t off = static_cast<size_t>(r) * K;
+  float v[8], d[8], g[8], s = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    load8(X + off + k, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += v[j];
+  }
+  const float mean = warp_sum(s) / K;
+  float q = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    load8(X + off + k, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q += (v[j] - mean) * (v[j] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(q) / K + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    load8(X + off + k, v);
+    load8(DLN + off + k, d);
+    load8(gamma + k, g);
+    store8(DLN16 + off + k, d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float dxh = d[j] * g[j];
+      s1 += dxh;
+      s2 += dxh * ((v[j] - mean) * rstd);
+    }
+  }
+  const float m1 = warp_sum(s1) / K, m2 = warp_sum(s2) / K;
+  for (int k = lane * 8; k < K; k += 256) {
+    float dy[8], o[8];
+    load8(X + off + k, v);
+    load8(DLN + off + k, d);
+    load8(gamma + k, g);
+    load8(DY + off + k, dy);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o[j] = dy[j] + (d[j] * g[j] - m1 - ((v[j] - mean) * rstd) * m2) * rstd;
+    store8(DX + off + k, o);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -639,6 +738,47 @@ int aihab_gemm_residual(const void* a, const void* w, int ldw, const float* bias
   return launch_gemm<bf16, false, true, bf16, bf16>(
       a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1,
       s);
+}
+
+// K17's forward: h_pre = LN(x) @ w_fc + b_fc (bf16), h = quick_gelu of the
+// same fp32 value (bf16), y = h @ w_proj + b_proj + x (bf16); x [M,W] bf16,
+// w_fc [W,H] and w_proj [H,W] bf16 row-major, LN eps 1e-5 (the TPU kernel's);
+// h [M,H] and stats [M] float2 are scratch.
+int aihab_mlp_train_fwd(const void* x, const float* ln_s, const float* ln_b, const void* w_fc,
+                        const float* b_fc, const void* w_proj, const float* b_proj, void* y,
+                        void* h_pre, void* h, void* stats, int M, int W, int H, float eps,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_ln_gemm<bf16, bf16, EPI_PRE>(
+      x, static_cast<float2*>(stats), ln_s, ln_b, w_fc, b_fc, h, M, H, W, H, ACT_QUICK_GELU,
+      eps, 1.f, 0, 1, s, h_pre);
+  if (err != 0) return err;
+  return launch_gemm<bf16, false, true, bf16, bf16>(h, nullptr, nullptr, nullptr, w_proj, b_proj,
+                                                    nullptr, x, y, M, W, H, W, ACT_NONE, 1.f, 0,
+                                                    1, s);
+}
+
+// K17's backward dx chain: dh_pre = (dy @ w_proj_t) * quick_gelu'(h_pre),
+// dln = dh_pre @ w_fc_t (fp32 scratch [M,W]), dx = dy + LN_bwd(dln; x, ln_s)
+// and dln16 = dln in bf16.  w_proj_t [W,H] and w_fc_t [H,W] row-major bf16
+// (torch's c_proj.weight and c_fc.weight); x, dy [M,W], h_pre [M,H] bf16.
+int aihab_mlp_train_bwd(const void* x, const void* h_pre, const void* dy, const float* ln_s,
+                        const void* w_fc_t, const void* w_proj_t, void* dx, void* dh_pre,
+                        void* dln, void* dln16, int M, int W, int H, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = launch_gemm<bf16, false, false, bf16, bf16, EPI_DGELU>(
+      dy, nullptr, nullptr, nullptr, w_proj_t, nullptr, nullptr, h_pre, dh_pre, M, H, W, H,
+      ACT_NONE, 1.f, 0, 1, s);
+  if (err != 0) return err;
+  err = launch_gemm<bf16, false, false, bf16, float>(dh_pre, nullptr, nullptr, nullptr, w_fc_t,
+                                                     nullptr, nullptr, nullptr, dln, M, W, H, W,
+                                                     ACT_NONE, 1.f, 0, 1, s);
+  if (err != 0) return err;
+  const int rows_per_block = STATS_THREADS / 32;
+  ln_bwd_kernel<<<(M + rows_per_block - 1) / rows_per_block, STATS_THREADS, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const float*>(dln),
+      ln_s, static_cast<bf16*>(dx), static_cast<bf16*>(dln16), M, W, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[B,S,heads*D] (bf16, or fp32 with out_f32) = masked multi-head attention

@@ -4,8 +4,9 @@
 config JSON written by either package loads in the other.  ``CLIPModel``
 builds CLIP ViT and ConvNeXt towers (``vision_tower="convnext"``; the
 ModifiedResNet waits for its port); ``CLIP_ARCHS`` holds the ViT rows of the
-JAX table, the ``Tiny`` and ``TinyConvNeXt`` development architectures and,
-once ``models/zoo`` is imported, the LAION ConvNeXt tag grid.
+JAX table, open_clip's exact-gelu ``ViT-B-16``, the ``Tiny`` and
+``TinyConvNeXt`` development architectures and, once ``models/zoo`` is
+imported, the LAION ConvNeXt tag grid.
 
   * ``encode_image(images)``               -> pre-projection features
   * ``encode_image(images, project=True)`` -> (pre, projected)
@@ -77,6 +78,10 @@ class CLIPConfig:
 CLIP_ARCHS: Dict[str, CLIPConfig] = {
     "ViT-B/32": CLIPConfig(512, 224, 12, 768, 32, 77, 49408, 512, 8, 12),
     "ViT-B/16": CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12),
+    # open_clip's config of the same shape: LAION-trained towers use exact
+    # GELU (QuickGELU only under a "-quickgelu" tag)
+    "ViT-B-16": CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12,
+                           act="gelu"),
     "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "Tiny": CLIPConfig(32, 32, 2, 64, 8, 77, 49408, 64, 1, 2),

@@ -12,21 +12,34 @@ them to XLA; every block GEMM and the attention run in the hand-written
 kernels of ``ops/block_kernel.py`` when the pack lives on the card, and in
 their plain versions on the CPU.
 
+``vit_encode_fast`` is JAX's per-op encode over the same pack: per block
+``ln_matmul`` (LN1 + qkv), the plain attention, ``matmul_residual``
+(out-proj + x), ``ln_matmul`` (LN2 + c_fc + act) and ``matmul_residual``
+(c_proj + x), the K16 kernels of ``ops/fused_linear.py``.  The block
+stack's per-op MLP (``_apply_fused_blocks`` with ``mlp_whole`` off, which
+``AIHAB_NO_GELU_POLY=1`` selects for exact-``gelu`` towers) runs the same
+pair after K2.
+
 ``vit_encode_hybrid`` is the PEFT train step's encode: the frozen bottom
 ``n_prefix`` blocks through K1 over a pack of those blocks (or, with
 ``qprefix``, the int8 block K14 of ``quant_vit``) without a graph, then the
 trainable blocks as the canonical ``ResidualAttentionBlock`` modules under
-autograd.
+autograd.  ``vit_encode_train`` is JAX's differentiable tower with the MLP
+half through K17 (``ops/block_kernel.mlp_block_train``) forward and
+backward; ``use_fused_train_encode`` is its gate.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
 
+from ..ops.attention import dot_product_attention
 from ..ops.block_kernel import (ACTS, attn_block_fused, full_block_fused,
-                                mlp_block_fused)
+                                mlp_block_fused, mlp_block_train)
+from ..ops.fused_linear import ln_matmul, matmul_residual
 from .clip import CLIPConfig
 from .fast_convnext import convnext_encode_fused, pack_convnext
 from .fast_siglip import pack_siglip_fast_params, siglip_encode_fast
@@ -101,8 +114,14 @@ def _fused_block_plan(config: CLIPConfig, merge_blocks: str = "auto"):
     the merged block (K1), which keeps the mid-block residual in fp32.
     ``merge_blocks="off"`` runs the two-kernel halves (K2 + K3) instead,
     rounding that residual to the compute dtype between them, as the TPU
-    path does.  Exact-erf ``gelu`` towers use the kernels' ``gelu_poly``."""
-    act = "gelu_poly" if config.act == "gelu" else config.act
+    path does.  Exact-erf ``gelu`` towers use the kernels' ``gelu_poly``,
+    unless ``AIHAB_NO_GELU_POLY`` is set (read at each call, as in JAX,
+    ``fast_vit.py:429-440``): then the activation stays ``gelu``, which no
+    block kernel computes, and each block runs K2 and the per-op MLP
+    (``ln_matmul`` with exact gelu, ``matmul_residual``)."""
+    gelu_poly = (config.act == "gelu"
+                 and not os.environ.get("AIHAB_NO_GELU_POLY"))
+    act = "gelu_poly" if gelu_poly else config.act
     kernel_act_ok = act in ACTS and act != "none"
     return dict(merge=kernel_act_ok and merge_blocks != "off",
                 attn_split=False, mlp_whole=kernel_act_ok, mlp_chunks=0,
@@ -111,15 +130,14 @@ def _fused_block_plan(config: CLIPConfig, merge_blocks: str = "auto"):
 
 
 def _apply_fused_blocks(packed, x, plan, *, start: int, stop: int):
-    """Run blocks [start, stop) through the block kernels."""
+    """Run blocks [start, stop) through the block kernels: K1, or K2 then
+    K3 (``mlp_whole``) or the per-op pair ``ln_matmul`` ->
+    ``matmul_residual`` (K16)."""
     if plan["attn_split"] or plan["mlp_chunks"]:
         raise NotImplementedError(
             "the H100 plan splits no CLIP block: head-group attention "
             "(attn_block_split, K5) and the chunked MLP (mlp_block_split, "
             "K4) serve SigLIP's fast encode (models/fast_siglip.py)")
-    if not plan["mlp_whole"]:
-        raise NotImplementedError(
-            "per-op ln_matmul / matmul_residual (K16) is not ported")
     heads, act = plan["heads"], plan["act"]
     b, s, w = x.shape
     for blk in packed["blocks"][start:stop]:
@@ -130,11 +148,50 @@ def _apply_fused_blocks(packed, x, plan, *, start: int, stop: int):
         x = attn_block_fused(x, blk["ln1_scale"], blk["ln1_bias"],
                              blk["w_qkv"], blk["b_qkv"], blk["w_out"],
                              blk["b_out"], heads)
-        x = mlp_block_fused(x.reshape(b * s, w), blk["ln2_scale"],
-                            blk["ln2_bias"], blk["w_fc"], blk["b_fc"],
-                            blk["w_proj"], blk["b_proj"],
-                            act=act).reshape(b, s, w)
+        x2 = x.reshape(b * s, w)
+        if plan["mlp_whole"]:
+            x2 = mlp_block_fused(x2, blk["ln2_scale"], blk["ln2_bias"],
+                                 blk["w_fc"], blk["b_fc"], blk["w_proj"],
+                                 blk["b_proj"], act=act)
+        else:
+            hdn = ln_matmul(x2, blk["ln2_scale"], blk["ln2_bias"],
+                            blk["w_fc"], blk["b_fc"], act)
+            x2 = matmul_residual(hdn, blk["w_proj"], blk["b_proj"], x2)
+        x = x2.reshape(b, s, w)
     return x
+
+
+def vit_encode_fast(packed, images: torch.Tensor, config: CLIPConfig, *,
+                    project: bool = False):
+    """images [B, H, W, 3] normalized NHWC -> pre-projection CLS features
+    (or ``(pre, projected)``) through the per-op kernels (``fast_vit.py:93``):
+    per block ``ln_matmul`` -> plain attention (JAX's ``_xla_attention``,
+    outside Pallas there too) -> ``matmul_residual`` -> ``ln_matmul`` with
+    the tower's activation (exact ``gelu`` plain, as JAX dispatches it) ->
+    ``matmul_residual``; 2 + 2 K16 launches per block.  ``packed`` from
+    ``pack_fastest``."""
+    x = _per_op_blocks(packed, _vit_embed(packed, images, config), config)
+    pre = _ln(x[:, 0, :], *packed["ln_post"])
+    if not project:
+        return pre
+    return pre, pre @ packed["proj"]
+
+
+def _per_op_blocks(packed, x, config: CLIPConfig):
+    """``vit_encode_fast``'s block stack over tokens x [B, S, W]."""
+    b, s, w = x.shape
+    heads = config.vision_heads
+    x2 = x.reshape(b * s, w)
+    for blk in packed["blocks"][:config.vision_layers]:
+        qkv = ln_matmul(x2, blk["ln1_scale"], blk["ln1_bias"], blk["w_qkv"],
+                        blk["b_qkv"])
+        q, k, v = qkv.reshape(b, s, 3 * w).chunk(3, dim=-1)
+        attn = dot_product_attention(q, k, v, heads).reshape(b * s, w)
+        x2 = matmul_residual(attn, blk["w_out"], blk["b_out"], x2)
+        hdn = ln_matmul(x2, blk["ln2_scale"], blk["ln2_bias"], blk["w_fc"],
+                        blk["b_fc"], config.act)
+        x2 = matmul_residual(hdn, blk["w_proj"], blk["b_proj"], x2)
+    return x2.reshape(b, s, w)
 
 
 def vit_encode_block_fused(packed, images: torch.Tensor, config: CLIPConfig,
@@ -175,6 +232,14 @@ def encode_image_fastest(model, x: torch.Tensor, config, *,
     return vit_encode_block_fused(packed, x, config, project=project)
 
 
+def _stem(vp, dtype):
+    """The canonical tower's stem weights in ``dtype``, differentiable."""
+    return dict(dtype=dtype, patch_kernel=vp.patch_kernel().to(dtype),
+                class_embedding=vp.class_embedding.to(dtype),
+                positional_embedding=vp.positional_embedding.to(dtype),
+                ln_pre=(vp.ln_pre.weight, vp.ln_pre.bias))
+
+
 def vit_encode_hybrid(model, images: torch.Tensor, config: CLIPConfig,
                       n_prefix: int, *, project: bool = False,
                       dtype=torch.bfloat16,
@@ -195,11 +260,7 @@ def vit_encode_hybrid(model, images: torch.Tensor, config: CLIPConfig,
     if n_prefix > 0 and qprefix is None and packed_prefix is None:
         packed_prefix = pack_fastest(model, config, dtype, stop=n_prefix)
     # the stem's weights in dtype: the pack's, or the canonical tower's
-    stem = packed_prefix or dict(
-        dtype=dtype, patch_kernel=vp.patch_kernel().to(dtype),
-        class_embedding=vp.class_embedding.to(dtype),
-        positional_embedding=vp.positional_embedding.to(dtype),
-        ln_pre=(vp.ln_pre.weight, vp.ln_pre.bias))
+    stem = packed_prefix or _stem(vp, dtype)
     if n_prefix > 0:
         with torch.no_grad():
             x = _vit_embed(stem, images, config)
@@ -220,3 +281,54 @@ def vit_encode_hybrid(model, images: torch.Tensor, config: CLIPConfig,
     if not project:
         return pre
     return pre, pre @ vp.proj.to(pre.dtype)
+
+
+def vit_encode_train(model, images: torch.Tensor, config: CLIPConfig, *,
+                     project: bool = False, dtype=torch.bfloat16):
+    """The differentiable fast encode (``fast_vit.py:344-392``), every
+    parameter of ``model``'s visual tower trainable: the stem, then per
+    block the attention half as plain torch ops under autograd (JAX leaves
+    it to XLA) and the MLP half through ``mlp_block_train`` (K17: one
+    forward and one backward launch per block), then ``ln_post(CLS)`` and
+    ``proj``, in ``dtype``.  The MLP is QuickGELU whatever ``config.act``
+    says, as in JAX (``:378``)."""
+    vp = model.visual
+    x = _vit_embed(_stem(vp, dtype), images, config)
+    b, s, w = x.shape
+    heads = config.vision_heads
+    for blk in vp.transformer.resblocks:
+        att, mlp = blk.attn, blk.mlp
+        ln1 = _ln(x, blk.ln_1.weight, blk.ln_1.bias)
+        qkv = ln1 @ att.in_proj_weight.to(dtype).t() \
+            + att.in_proj_bias.to(dtype)
+        out = dot_product_attention(*qkv.chunk(3, dim=-1), heads) \
+            @ att.out_proj.weight.to(dtype).t()
+        x = x + out + att.out_proj.bias.to(dtype)
+        x = mlp_block_train(
+            x.reshape(b * s, w), blk.ln_2.weight, blk.ln_2.bias,
+            mlp.c_fc.weight.to(dtype).t(), mlp.c_fc.bias,
+            mlp.c_proj.weight.to(dtype).t(), mlp.c_proj.bias,
+        ).reshape(b, s, w)
+    pre = _ln(x[:, 0, :], vp.ln_post.weight, vp.ln_post.bias)
+    if not project:
+        return pre
+    return pre, pre @ vp.proj.to(pre.dtype)
+
+
+def _on_card(model) -> bool:
+    return next(model.parameters()).is_cuda
+
+
+def use_fused_train_encode(model, config, mesh=None,
+                           dtype=torch.bfloat16) -> bool:
+    """Dispatch gate of ``vit_encode_train`` (``fast_vit.py:395-407``): no
+    mesh, a CLIP ViT, its parameters on the card (JAX: the TPU) and the
+    bf16 compute dtype K17 stores.  JAX also bounded the MLP weight pair by
+    a VMEM budget, because its kernel held both matrices resident; K17's
+    GEMMs stream weight tiles through shared memory, so no width is
+    refused."""
+    if mesh is not None or dtype != torch.bfloat16:
+        return False
+    if not (isinstance(config, CLIPConfig) and config.is_vit):
+        return False
+    return _on_card(model)

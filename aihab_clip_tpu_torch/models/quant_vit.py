@@ -23,6 +23,7 @@ the JAX package's names and shapes.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -85,8 +86,12 @@ def quantize_vit_params(model, config: CLIPConfig) -> Dict:
 
 def _kernel_act(config) -> str:
     """The kernels' activation for this tower (``quant_vit.py:94-105``):
-    exact ``gelu`` runs as ``gelu_poly``, JAX's default form."""
-    return "gelu_poly" if config.act == "gelu" else config.act
+    exact ``gelu`` runs as ``gelu_poly``, JAX's default form, unless
+    ``AIHAB_NO_GELU_POLY`` is set (read at each call): then it stays
+    ``gelu``, which JAX sends to its XLA route."""
+    if config.act == "gelu" and not os.environ.get("AIHAB_NO_GELU_POLY"):
+        return "gelu_poly"
+    return config.act
 
 
 def int8_block_plan(config: CLIPConfig, merge_blocks: str = "auto") -> Dict:
@@ -104,8 +109,14 @@ def int8_block_plan(config: CLIPConfig, merge_blocks: str = "auto") -> Dict:
     ``mlp_chunks`` slices) are reached only through an explicit plan."""
     if merge_blocks not in ("auto", "off"):
         raise ValueError(f"merge_blocks {merge_blocks!r} not 'auto'/'off'")
+    act = _kernel_act(config)
+    if act == "gelu":
+        raise NotImplementedError(
+            "exact gelu under AIHAB_NO_GELU_POLY: JAX's int8 encode takes "
+            "its XLA route (impl='xla', quant_vit.py:300-306), which is not "
+            "ported; only the kernel path ('pallas') is (ROADMAP A15)")
     return dict(merge=merge_blocks != "off", attn_groups=0, mlp="whole",
-                mlp_chunks=1, act=_kernel_act(config))
+                mlp_chunks=1, act=act)
 
 
 def _chained_int8_mlp(x2, fc, pr, ln, *, act: str, n_ch: int):
@@ -206,10 +217,10 @@ def vit_encode_int8(qparams: Dict, images: torch.Tensor, config: CLIPConfig,
         raise NotImplementedError(
             f"vit_encode_int8 impl={impl!r}: only the kernel path ('pallas') "
             "is ported; CPU tensors run its plain versions")
+    plan = int8_block_plan(config, merge_blocks)
     x = vit_patchify_int8(qparams, images, config, dtype)
     x = apply_int8_vit_blocks(qparams["transformer"], x, config, start=0,
-                              stop=config.vision_layers,
-                              plan=int8_block_plan(config, merge_blocks))
+                              stop=config.vision_layers, plan=plan)
     pre = _ln(x[:, 0, :], qparams["ln_post"]["scale"],
               qparams["ln_post"]["bias"])
     if not project:

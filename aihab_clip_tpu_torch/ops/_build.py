@@ -8,11 +8,13 @@ keyed by the hash of its source and the shared header, so an edited source
 is never served a stale build.  Nothing is compiled at import: the first
 kernel launch builds.
 
-  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5, K7; K6
-                         fwd; K13's attention core, fp32 output), act_pass
-                         (the gelu_poly forms past the GEMM epilogues)
+  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5, K7, K16;
+                         K6 fwd; K13's attention core, fp32 output), act_pass
+                         (the gelu_poly forms past the GEMM epilogues), the
+                         train MLP's forward and backward (K17)
   fused_attention_bwd.cu fused_attention's backward (K6b)
   quant_kernels.cu       row_quant, int8_gemm (K8-K15)
+  preprocess.cu          normalize_u8 (K18)
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("block_kernels", "fused_attention_bwd", "quant_kernels")
+SOURCES = ("block_kernels", "fused_attention_bwd", "quant_kernels",
+           "preprocess")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 # each C entry point's argument types (every one returns a CUDA error code)
 _ARGTYPES = {
     "block_kernels": {
@@ -44,6 +48,8 @@ _ARGTYPES = {
         "aihab_attention": [_p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _i, _p],
         "aihab_fused_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
                                       _p],
+        "aihab_mlp_train_fwd": [_p] * 11 + [_i, _i, _i, _f, _p],
+        "aihab_mlp_train_bwd": [_p] * 10 + [_i, _i, _i, _f, _p],
     },
     "fused_attention_bwd": {
         "aihab_fused_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
@@ -53,6 +59,9 @@ _ARGTYPES = {
         "aihab_row_quant": [_p, _i, _i, _i, _i, _i, _p, _p, _f, _p, _p, _p],
         "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i,
                             _i, _i, _i, _f, _i, _i, _p],
+    },
+    "preprocess": {
+        "aihab_normalize_u8": [_p, _p, _i, _ll, _f, _f, _f, _f, _f, _f, _p],
     },
 }
 

@@ -8,6 +8,8 @@ Ports of ``aihab_clip_tpu/ops/block_kernel.py`` (Pallas, TPU):
   * ``attn_block_split`` (K5, SigLIP's path)  K2 over head groups
   * ``mlp_block_split``  (K4, SigLIP's path)  K3 with the hidden dim in chunks
   * ``convnext_mlp_block`` (K7, ConvNeXt)     res + gamma * fc2(act(fc1(LN y)))
+  * ``mlp_block_train``  (K17, differentiable)  K3 with QuickGELU, forward
+                         and backward, as a ``torch.autograd.Function``
 
 On the TPU each is one program per image (or row tile) with its weights
 resident in VMEM.  On the H100 each is a composition of three hand-written
@@ -40,6 +42,16 @@ place through the GEMM's row stride.  K7 is K4's recipe over ConvNeXt's
 rows: ln_gemm (LN eps 1e-6 of the dwconv output y, gelu_poly) and
 gemm_residual with the gamma epilogue onto the block input, chunk 0 storing
 res + (p_0 + b2) * gamma and chunk c > 0 acc + p_c * gamma, in y's dtype.
+
+K17's forward is K3's chain with ``ln_gemm`` also storing the c_fc
+pre-activation h_pre (bf16) beside h = quick_gelu of the same fp32 value;
+its backward is the TPU kernel's dx chain in three launches: ``dy @
+W_proj^T`` with a quick_gelu' epilogue storing dh_pre, ``dh_pre @ W_fc^T``
+storing dln in fp32, and a row kernel for dx = dy + LN_bwd(dln), which also
+stores dln in bf16.  The weight, bias and LN-parameter gradients are
+``torch.matmul`` and sums over the emitted tensors, as JAX leaves them to
+XLA (``block_kernel.py:319-338``), with JAX's roundings: dgamma and dbeta
+from the bf16 dln, dW_proj from h recomputed from the bf16 h_pre.
 
 ``gelu_poly`` is JAX's ``gelu_fast_f32``: the form that ``AIHAB_ERF_IMPL``
 names (``sig5`` by default, ``sig``, ``rational`` or ``cheb``), read at each
@@ -754,9 +766,183 @@ def convnext_mlp_block(y, residual, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K17: the differentiable MLP block (QuickGELU only, as in JAX)
+# ---------------------------------------------------------------------------
+
+
+def _quick_gelu_grad(h):
+    """d/dh of h * sigmoid(1.702 h) on fp32 ``h``
+    (``block_kernel.py:_quick_gelu_grad_f32``)."""
+    s = torch.sigmoid(1.702 * h)
+    return s * (1.0 + 1.702 * h * (1.0 - s))
+
+
+def _xhat(x, eps=1e-5):
+    """(x - mean) * rstd and rstd of fp32 rows, two-pass statistics."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    return (xf - mean) * rstd, rstd
+
+
+def mlp_block_train_fwd_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj,
+                              b_proj):
+    """Plain version of ``mlp_block_train_fwd`` (``_mlp_fwd_train_kernel``):
+    (y, h_pre) in x's dtype; h is quick_gelu of the fp32 pre-activation,
+    rounded to x's dtype before c_proj."""
+    h_pre = _mm(_ln_f32(x, ln_scale, ln_bias).to(x.dtype), w_fc) \
+        + b_fc.float()
+    h = act_f32(h_pre, "quick_gelu").to(x.dtype)
+    y = (_mm(h, w_proj) + b_proj.float()) + x.float()
+    return y.to(x.dtype), h_pre.to(x.dtype)
+
+
+def mlp_block_train_bwd_plain(x, h_pre, dy, ln_scale, w_fc, w_proj):
+    """Plain version of ``mlp_block_train_bwd`` (``_mlp_bwd_train_kernel``):
+    (dx, dh_pre, dln) in x's dtype; dln's fp32 value feeds dx."""
+    dh_pre = _mm(dy, w_proj.t()) * _quick_gelu_grad(h_pre.float())
+    dln = _mm(dh_pre.to(x.dtype), w_fc.t())
+    xhat, rstd = _xhat(x)
+    dxhat = dln * ln_scale.float()
+    dx = (dxhat - dxhat.mean(-1, keepdim=True)
+          - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * rstd
+    return ((dy.float() + dx).to(x.dtype), dh_pre.to(x.dtype),
+            dln.to(x.dtype))
+
+
+def _train_shapes(x, w_fc, w_proj):
+    m, w = x.shape
+    hidden = w_fc.shape[1]
+    if w % 8 or hidden % 8:
+        raise ValueError(f"mlp_block_train's kernels need W and the hidden "
+                         f"width multiples of 8, got {w}, {hidden}")
+    if tuple(w_proj.shape) != (hidden, w):
+        raise ValueError(f"w_proj has shape {tuple(w_proj.shape)}, expected "
+                         f"{(hidden, w)}")
+    return m, w, hidden
+
+
+def mlp_block_train_fwd(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
+    """K17's forward: x [M, W] -> (y = x + c_proj(quick_gelu(c_fc(LN x))),
+    h_pre = c_fc(LN x)), both bf16.  ``w_fc`` [W, H] and ``w_proj`` [H, W]
+    (JAX's layout; a transposed view of torch's weights is copied once into
+    it).  Kernel ``mlp_train_fwd`` (``ln_gemm`` storing h_pre beside h, then
+    ``gemm_residual``); plain version on CPU tensors."""
+    if not x.is_cuda:
+        return mlp_block_train_fwd_plain(x, ln_scale, ln_bias, w_fc, b_fc,
+                                         w_proj, b_proj)
+    m, w, hidden = _train_shapes(x, w_fc, w_proj)
+    dev = x.device
+    _check("x", x, torch.bfloat16, (m, w), dev)
+    w_fc, w_proj = w_fc.contiguous(), w_proj.contiguous()
+    _check_weight(w_fc, w, hidden, dev)
+    _check_weight(w_proj, hidden, w, dev)
+    args = [_vec_f32(t, n, dev, name) for t, n, name in (
+        (ln_scale, w, "ln_scale"), (ln_bias, w, "ln_bias"),
+        (b_fc, hidden, "b_fc"), (b_proj, w, "b_proj"))]
+    y = torch.empty((m, w), dtype=torch.bfloat16, device=dev)
+    h_pre = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
+    h = torch.empty_like(h_pre)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
+    launch("aihab_mlp_train_fwd", dev, x.data_ptr(), args[0].data_ptr(),
+           args[1].data_ptr(), w_fc.data_ptr(), args[2].data_ptr(),
+           w_proj.data_ptr(), args[3].data_ptr(), y.data_ptr(),
+           h_pre.data_ptr(), h.data_ptr(), stats.data_ptr(), m, w, hidden,
+           1e-5)
+    mlp_block_train_fwd.launches += 1
+    return y, h_pre
+
+
+def mlp_block_train_bwd(x, h_pre, dy, ln_scale, w_fc, w_proj):
+    """K17's backward dx chain: (dx, dh_pre, dln), bf16, for x, dy [M, W]
+    and h_pre [M, H] bf16.  It reads ``w_proj.t()`` and ``w_fc.t()``
+    row-major: torch's ``c_proj.weight`` and ``c_fc.weight`` as stored, so
+    the transposed views ``vit_encode_train`` passes cost no copy.  Kernel
+    ``mlp_train_bwd``; plain version on CPU tensors."""
+    if not x.is_cuda:
+        return mlp_block_train_bwd_plain(x, h_pre, dy, ln_scale, w_fc,
+                                         w_proj)
+    m, w, hidden = _train_shapes(x, w_fc, w_proj)
+    dev = x.device
+    for name, t, shape in (("x", x, (m, w)), ("dy", dy, (m, w)),
+                           ("h_pre", h_pre, (m, hidden))):
+        _check(name, t, torch.bfloat16, shape, dev)
+    w_fc_t, w_proj_t = w_fc.t().contiguous(), w_proj.t().contiguous()
+    _check_weight(w_fc_t, hidden, w, dev)
+    _check_weight(w_proj_t, w, hidden, dev)
+    ln_scale = _vec_f32(ln_scale, w, dev, "ln_scale")
+    dx = torch.empty((m, w), dtype=torch.bfloat16, device=dev)
+    dh_pre = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
+    dln = torch.empty((m, w), dtype=torch.float32, device=dev)
+    dln16 = torch.empty((m, w), dtype=torch.bfloat16, device=dev)
+    launch("aihab_mlp_train_bwd", dev, x.data_ptr(), h_pre.data_ptr(),
+           dy.data_ptr(), ln_scale.data_ptr(), w_fc_t.data_ptr(),
+           w_proj_t.data_ptr(), dx.data_ptr(), dh_pre.data_ptr(),
+           dln.data_ptr(), dln16.data_ptr(), m, w, hidden, 1e-5)
+    mlp_block_train_bwd.launches += 1
+    return dx, dh_pre, dln16
+
+
+_TRAIN_KERNELS = SimpleNamespace(fwd=mlp_block_train_fwd,
+                                 bwd=mlp_block_train_bwd)
+_TRAIN_PLAIN = SimpleNamespace(fwd=mlp_block_train_fwd_plain,
+                               bwd=mlp_block_train_bwd_plain)
+
+
+class _MLPBlockTrain(torch.autograd.Function):
+    """JAX's ``_mlp_block_train`` custom VJP (``block_kernel.py:225-342``)
+    over the forward and backward in ``ops``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj, ops):
+        y, h_pre = ops.fwd(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj)
+        ctx.save_for_backward(x, ln_scale, ln_bias, w_fc, b_fc, w_proj,
+                              b_proj, h_pre)
+        ctx.ops = ops
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj, h_pre = \
+            ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx, dh_pre, dln = ctx.ops.bwd(x, h_pre, dy, ln_scale, w_fc, w_proj)
+        # the parameter gradients over the emitted tensors (:320-338)
+        xhat, _ = _xhat(x)
+        ln2 = xhat * ln_scale.float() + ln_bias.float()
+        dln = dln.float()
+        h = act_f32(h_pre.float(), "quick_gelu").to(x.dtype)
+        return (dx, (dln * xhat).sum(0).to(ln_scale.dtype),
+                dln.sum(0).to(ln_bias.dtype),
+                (ln2.to(x.dtype).t() @ dh_pre).to(w_fc.dtype),
+                dh_pre.float().sum(0).to(b_fc.dtype),
+                (h.t() @ dy).to(w_proj.dtype),
+                dy.float().sum(0).to(b_proj.dtype), None)
+
+
+def mlp_block_train(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
+    """Differentiable x + c_proj(QuickGELU(c_fc(LN(x)))) over x [M, W]
+    (K17): the forward through ``mlp_block_train_fwd``, the backward's dx
+    chain through ``mlp_block_train_bwd`` and the parameter gradients as
+    plain products and sums over what they emit.  QuickGELU whatever the
+    tower's activation, as in JAX; LN eps 1e-5; ``w_fc`` [W, H], ``w_proj``
+    [H, W]."""
+    return _MLPBlockTrain.apply(x, ln_scale, ln_bias, w_fc, b_fc, w_proj,
+                                b_proj, _TRAIN_KERNELS)
+
+
+def mlp_block_train_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
+    """``mlp_block_train`` over the plain forward and backward, on any
+    device (same signature)."""
+    return _MLPBlockTrain.apply(x, ln_scale, ln_bias, w_fc, b_fc, w_proj,
+                                b_proj, _TRAIN_PLAIN)
+
+
 COUNTED = (ln_gemm, attention, gemm_residual, full_block_fused,
            attn_block_fused, mlp_block_fused, attn_block_split,
-           mlp_block_split, convnext_mlp_block)
+           mlp_block_split, convnext_mlp_block, mlp_block_train_fwd,
+           mlp_block_train_bwd)
 for _fn in COUNTED:
     _fn.launches = 0
 

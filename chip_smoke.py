@@ -5,8 +5,9 @@
 
 Phases (any failure raises and the exit code is non-zero):
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — compile ``aihab_clip_tpu_torch/csrc/block_kernels.cu`` into
-     ``build/`` and print nvcc's seconds and ptxas register/smem report;
+  2. build   — compile every source of ``aihab_clip_tpu_torch/csrc/`` into
+     ``build/`` (one nvcc each, started together) and print nvcc's seconds
+     and ptxas's register/smem report;
   3. kernels — every block kernel at ViT-B/16 shapes (B=64, S=197, W=768,
      12 heads, hidden 3072, bf16) and at SigLIP SO400M shapes (B=64, S=576,
      W=1152, 16 heads of 72, hidden 4304 in two 2152-wide chunks, bf16)
@@ -83,6 +84,23 @@ Phases (any failure raises and the exit code is non-zero):
      tune_text): one step against plain kernels and the fp32 tower, 26 K7
      per step, the ``prefix_quant`` step on the same bf16 prefix; step
      time; ``finetune`` 2 steps + test;
+     3g: K16 (``ops/fused_linear.py``) at ViT-B/16 batch-64 shapes:
+     ``ln_matmul`` at qkv and at c_fc with quick_gelu, gelu_tanh and
+     gelu_poly, ``matmul_residual`` at out-proj and c_proj beside cuBLAS
+     ``addmm``; K17 ``mlp_block_train`` forward and backward at M = 16 x
+     197; K18 ``normalize_u8_pallas`` at 64 x 224^2 x 3, bit for bit;
+     5e: path (a) on the bf16 engine's pack: uint8 -> K18 ->
+     ``vit_encode_fast`` (24 ``ln_matmul`` + 24 ``matmul_residual`` per
+     batch) against the all-plain run and the fp32 tower, its split
+     (normalize, embed, blocks, head) and images/s beside K1's; then
+     ``ClassifierEngine("random:ViT-B-16")`` (exact gelu) under
+     ``AIHAB_NO_GELU_POLY=1``: 96 requests, per block K2 + plain
+     ``ln_matmul(gelu)`` + K16 ``matmul_residual``, against plain kernels;
+     6e: path (b), ``vit_encode_train`` at batch 16 on the 6c weights, every
+     visual parameter trainable: 12 K17 forward and 12 backward launches,
+     loss and per-parameter gradient cosine against the K17-plain step and
+     the fp32 tower (``TRAIN_GATES``), fwd+bwd ms beside the canonical bf16
+     module's;
   7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
@@ -116,6 +134,14 @@ SRC_Q = "aihab_clip_tpu_torch/csrc/quant_kernels.cu"
 JAX_QM = "aihab_clip_tpu/ops/quant_matmul.py"
 JAX_BK = "aihab_clip_tpu/ops/block_kernel.py"
 JAX_ATT = "aihab_clip_tpu/ops/attention.py"
+JAX_FL = "aihab_clip_tpu/ops/fused_linear.py"
+JAX_PP = "aihab_clip_tpu/ops/pallas_preprocess.py"
+SRC_PP = "aihab_clip_tpu_torch/csrc/preprocess.cu"
+# path (a)'s opt-out engine: open_clip's ViT-B-16 (exact gelu) under
+# AIHAB_NO_GELU_POLY=1, answering 96 single 224x224 requests
+GELU_MODEL, GELU_REQUESTS = "random:ViT-B-16", 96
+# path (b): vit_encode_train at the default fine-tune's batch
+TRAIN_B = 16
 # the default fine-tune (configs/base.yaml finetune + cs.yaml data): batch
 # 16 at 384 from 439x439 uint8, lr_v 5e-5, unlocked_groups 11, text
 # unlocked_layers 1 -> a frozen prefix of 27 + 1 - 11 = 17 blocks
@@ -144,9 +170,11 @@ CX_PEFT_PREFIX, CX_PEFT_SPLITS = 26, (32, 0, 16)
 # The CLIP ViT int8 blocks: K12 and K14 within 5e-3 rel L2 (K13 measured
 # 1.55e-3: the attention's 1/sum on the rows, then requantize flips), K11
 # within 1e-3, which allows K9-style code flips of the LN quantize.
+# K18 rounds its product and sum apart, as its plain version does: exact.
 TOL = {"kernel": (2e-3, 0.02), "attention": (5e-3, 0.02),
        "attention_bwd": (5e-3, 0.02), "block": (1e-2, 0.04),
-       "int8_block": (5e-3, 0.04), "int8_mlp": (1e-3, 0.04)}
+       "int8_block": (5e-3, 0.04), "int8_mlp": (1e-3, 0.04),
+       "exact": (0.0, 0.0)}
 COS_MIN = 0.999
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
@@ -162,6 +190,13 @@ VIT_STEP_GATES = {"plain": (6e-3, 0.9999), "fp32": (1e-2, 0.99)}
 # the int8-prefix step against the bf16-prefix step: the suffix trains on
 # int8-noise features
 INT8_STEP_GATE = (5e-2, 0.9)
+# path (b), vit_encode_train's fwd + bwd at batch 16: loss relative |d| and
+# the least per-parameter gradient cosine against the same step with K17
+# plain and against the fp32 canonical tower.  Read on an H100 (PERF.md):
+# 1.6e-5 / 0.999981 against plain, 3.7e-5 / 0.999958 against fp32; the
+# loss limits stay STEP_GATES', the cosine limits sit at 5x and 24x the
+# readings' distance from 1
+TRAIN_GATES = {"plain": (1e-3, 0.9999), "fp32": (1e-2, 0.999)}
 # int8 serving: per-image feature cosine against the same encode with every
 # kernel plain (the JAX gate against its int8 reference) and against the
 # fp32 canonical tower (tests/test_quant.py:66,262)
@@ -447,6 +482,9 @@ def main() -> None:
 
     # ---- 3f. K7 and K15 at the four ConvNeXt base_w stage shapes
     convnext_kernel_cases(rnd, vec, run_cases, compare, timed)
+
+    # ---- 3g. K16 at ViT-B/16 shapes, K17 at the train batch, K18
+    vit_fast_kernel_cases(rnd, vec, run_cases, compare)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -539,10 +577,18 @@ def main() -> None:
         print(f"[path] classify_batch end-to-end at batch {bs}: "
               f"{rates[f'vit_b16_{bs}']:.1f} images/s ({smi})")
         del eng
-    del engine, batch, xb
+    del batch, xb
     torch.cuda.empty_cache()
-
     phase("vit path")
+
+    # ---- 5e. path (a): uint8 -> K18 -> vit_encode_fast (K16); the opt-out
+    # gelu engine
+    (counts["vit_fast"], counts["vit_nogelupoly"], fast_rates,
+     fast_figures) = vit_fast_path(engine, images)
+    rates.update(fast_rates)
+    del engine
+    torch.cuda.empty_cache()
+    phase("vit fast path")
 
     # ---- 5c. the int8 ViT-B/16 path: engine + dynamic batcher
     (counts["vit_int8"], counts["vit_int8_off"], rates["vit_b16_int8_64"],
@@ -552,9 +598,13 @@ def main() -> None:
 
     # ---- 6c. the ViT-B/16 PEFT path on the int8 engine's weights
     vit_train = vit_peft_path(engine.bundle.model, bk)
+    phase("vit peft path")
+
+    # ---- 6e. path (b): vit_encode_train (K17) on the same weights
+    counts["vit_train"], fast_train = vit_train_path(engine.bundle.model)
     del engine
     torch.cuda.empty_cache()
-    phase("vit peft path")
+    phase("vit train path")
 
     # ---- 5. the SigLIP path: engine + dynamic batcher
     counts["siglip"], rates["siglip_so400m_64"], engine = siglip_path(bk)
@@ -593,7 +643,9 @@ def main() -> None:
              "siglip_peft": f"SigLIP SO400M finetune ({PEFT_SPLITS[0] // PEFT_B}"
                             " steps + val/test)",
              "convnext": "ConvNeXt base_w engine + DynamicBatcher",
-             "convnext_int8": "ConvNeXt base_w int8 engine + DynamicBatcher"}
+             "convnext_int8": "ConvNeXt base_w int8 engine + DynamicBatcher",
+             "vit_fast": "ViT-B/16 uint8 -> normalize_u8 -> vit_encode_fast",
+             "vit_train": f"ViT-B/16 vit_encode_train step (batch {TRAIN_B})"}
     for row in rows:
         counter = row.pop("counter").__name__
         row["launches"] = counts[row["path"]][counter]
@@ -603,9 +655,352 @@ def main() -> None:
     print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
                       "int8": int8_figures, "vit_int8": vit_int8_figures,
                       "convnext": cx_figures, "train": train,
-                      "vit_train": vit_train, "convnext_train": cx_train}))
+                      "vit_train": vit_train, "convnext_train": cx_train,
+                      "vit_fast": fast_figures,
+                      "vit_encode_train": fast_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def vit_fast_kernel_cases(rnd, vec, run_cases, compare) -> None:
+    """3g. K16 at ViT-B/16 batch-64 shapes (``ln_matmul`` at qkv and at c_fc
+    with each kernel activation, ``matmul_residual`` at out-proj and c_proj,
+    beside cuBLAS ``addmm`` with the residual as its input), K17's forward
+    and backward at the train batch (M = 16 x 197) on the branches y - x and
+    dx - dy, with h_pre, dh_pre and dln compared too, and K18 at 64 x 224^2
+    x 3, bit for bit; each against its plain version."""
+    import torch
+
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import fused_linear as fl
+    from aihab_clip_tpu_torch.ops import pallas_preprocess as pp
+
+    m, mt = B * S, TRAIN_B * S
+    x2, attn = rnd(m, W), rnd(m, W)
+    ln = (vec(W, one=True), vec(W))
+    w_qkv, b_qkv = rnd(W, 3 * W, scale=W ** -0.5), vec(3 * W)
+    w_out, b_out = rnd(W, W, scale=W ** -0.5), vec(W)
+    w_fc, b_fc = rnd(W, HIDDEN, scale=W ** -0.5), vec(HIDDEN)
+    w_proj, b_proj = rnd(HIDDEN, W, scale=HIDDEN ** -0.5), vec(W)
+    h = fl.ln_matmul(x2, *ln, w_fc, b_fc, "quick_gelu")
+    b_fc_bytes = 2 * m * W + 2 * W * HIDDEN + 2 * m * HIDDEN
+    cases = [("ln_matmul[qkv]", f"{JAX_FL}:299", "kernel",
+              lambda: fl.ln_matmul(x2, *ln, w_qkv, b_qkv),
+              lambda: fl.ln_matmul_plain(x2, *ln, w_qkv, b_qkv), None,
+              2 * m * W * 3 * W, 2 * m * W + 2 * W * 3 * W + 2 * m * 3 * W,
+              fl.ln_matmul, "vit_fast")]
+    for act in ("quick_gelu", "gelu_tanh", "gelu_poly"):
+        cases.append((
+            f"ln_matmul[c_fc, {act}]", f"{JAX_FL}:299", "kernel",
+            lambda act=act: fl.ln_matmul(x2, *ln, w_fc, b_fc, act),
+            lambda act=act: fl.ln_matmul_plain(x2, *ln, w_fc, b_fc, act),
+            None, 2 * m * W * HIDDEN, b_fc_bytes, fl.ln_matmul, "vit_fast"))
+    cases += [
+        ("matmul_residual[out_proj]", f"{JAX_FL}:326", "kernel",
+         lambda: fl.matmul_residual(attn, w_out, b_out, x2),
+         lambda: fl.matmul_residual_plain(attn, w_out, b_out, x2),
+         lambda: torch.addmm(x2, attn, w_out), 2 * m * W * W,
+         6 * m * W + 2 * W * W, fl.matmul_residual, "vit_fast"),
+        ("matmul_residual[c_proj]", f"{JAX_FL}:326", "kernel",
+         lambda: fl.matmul_residual(h, w_proj, b_proj, x2),
+         lambda: fl.matmul_residual_plain(h, w_proj, b_proj, x2),
+         lambda: torch.addmm(x2, h, w_proj), 2 * m * HIDDEN * W,
+         2 * m * HIDDEN + 2 * HIDDEN * W + 4 * m * W, fl.matmul_residual,
+         "vit_fast")]
+
+    xt, dy = rnd(mt, W), rnd(mt, W)
+    targs = (xt, vec(W, one=True), vec(W), w_fc, b_fc, w_proj, b_proj)
+    _, hp = bk.mlp_block_train_fwd_plain(*targs)
+    bargs = (xt, hp, dy, targs[1], w_fc, w_proj)
+    f_k17, w_pair = 4 * mt * W * HIDDEN, 2 * 2 * W * HIDDEN
+    cases += [
+        ("mlp_block_train[fwd]", f"{JAX_BK}:239", ("block", xt),
+         lambda: bk.mlp_block_train_fwd(*targs)[0],
+         lambda: bk.mlp_block_train_fwd_plain(*targs)[0], None, f_k17,
+         4 * mt * W + 2 * mt * HIDDEN + w_pair, bk.mlp_block_train_fwd,
+         "vit_train"),
+        ("mlp_block_train[bwd]", f"{JAX_BK}:287", ("block", dy),
+         lambda: bk.mlp_block_train_bwd(*bargs)[0],
+         lambda: bk.mlp_block_train_bwd_plain(*bargs)[0], None, f_k17,
+         8 * mt * W + 4 * mt * HIDDEN + w_pair, bk.mlp_block_train_bwd,
+         "vit_train")]
+
+    u8 = torch.randint(0, 256, (B, 224, 224, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(SEED + 8)
+                       ).to(x2.device)
+    cases.append(("normalize_u8_pallas", f"{JAX_PP}:79", "exact",
+                  lambda: pp.normalize_u8_pallas(u8),
+                  lambda: pp.normalize_u8_pallas_plain(u8), None, 0,
+                  3 * u8.numel(), pp.normalize_u8_pallas, "vit_fast", SRC_PP))
+    run_cases(cases)
+    compare("mlp_block_train[fwd] h_pre", bk.mlp_block_train_fwd(*targs)[1],
+            hp, "kernel")
+    for name, got, ref in zip(("dh_pre", "dln"),
+                              bk.mlp_block_train_bwd(*bargs)[1:],
+                              bk.mlp_block_train_bwd_plain(*bargs)[1:]):
+        compare(f"mlp_block_train[bwd] {name}", got, ref, "kernel")
+
+
+def vit_fast_path(engine, images):
+    """5e. Path (a) on the bf16 ViT-B/16 engine's pack: uint8 [64, 224, 224,
+    3] -> ``normalize_u8(use_pallas=True)`` (K18) -> ``vit_encode_fast`` (24
+    ``ln_matmul`` + 24 ``matmul_residual``) -> ``ln_post(CLS)`` -> ``proj``;
+    features against the all-plain run and the fp32 canonical tower on the
+    same normalization in fp32; K18 bit for bit; the batch's split and
+    images/s (CUDA events) beside the K1 encode's.  Then
+    ``ClassifierEngine("random:ViT-B-16")`` (exact gelu) under
+    ``AIHAB_NO_GELU_POLY=1``, set only around it: 96 requests through
+    ``DynamicBatcher``, per block K2 + ``ln_matmul(gelu)`` (plain, as JAX) +
+    ``matmul_residual`` (K16); features and probabilities against the same
+    engine with plain kernels; images/s.  Returns (path (a)'s launches, the
+    opt-out engine's, images/s, figures)."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.models import fast_vit
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import fused_linear as fl
+    from aihab_clip_tpu_torch.ops import pallas_preprocess as pp
+    from aihab_clip_tpu_torch.ops.preprocess import eval_transform
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
+
+    dev = torch.device("cuda")
+    cfg, packed, model = engine.bundle.config, engine._packed, \
+        engine.bundle.model
+    u8 = torch.from_numpy(images[:B]).to(dev)
+    cos = torch.nn.functional.cosine_similarity
+
+    def counts():
+        return {**bk.launch_counts(), **fl.launch_counts(),
+                **pp.launch_counts()}
+
+    def reset():
+        for mod in (bk, fl, pp):
+            mod.reset_launch_counts()
+
+    def encode(u):
+        return fast_vit.vit_encode_fast(packed, pp.normalize_u8(
+            u, use_pallas=True), cfg, project=True)[1]
+
+    figures = {}
+    with torch.inference_mode():
+        reset()
+        feats = encode(u8).float()
+        torch.cuda.synchronize()
+        run = counts()
+        print(f"[vit fast] launches in one batch: {run}")
+        check(run["normalize_u8_pallas"] == 1 and run["ln_matmul"] == 24
+              and run["matmul_residual"] == 24 and run["ln_gemm"] == 24
+              and run["gemm_residual"] == 24 and run["full_block_fused"] == 0,
+              "path (a) launches per batch")
+        x = pp.normalize_u8(u8, use_pallas=True)
+        check(torch.equal(x, pp.normalize_u8_pallas_plain(u8)),
+              "K18 is not bit for bit its plain version")
+        with mock.patch.multiple(fast_vit, ln_matmul=fl.ln_matmul_plain,
+                                 matmul_residual=fl.matmul_residual_plain):
+            plain = fast_vit.vit_encode_fast(
+                packed, pp.normalize_u8_pallas_plain(u8), cfg,
+                project=True)[1].float()
+        vis_dt = model.visual.dtype
+        model.visual.dtype = torch.float32
+        try:
+            ref = model.encode_image(pp.normalize_u8_pallas_plain(
+                u8, dtype=torch.float32), project=True)[1]
+        finally:
+            model.visual.dtype = vis_dt
+        c_plain, c_ref = cos(feats, plain, dim=-1), cos(feats, ref, dim=-1)
+        print(f"[vit fast] features vs all-plain run: cosine min "
+              f"{c_plain.min().item():.6f}; vs fp32 canonical tower: min "
+              f"{c_ref.min().item():.6f} mean {c_ref.mean().item():.6f}")
+        check(c_plain.min().item() >= COS_MIN, "path (a) vs all-plain")
+        check(c_ref.min().item() >= COS_MIN, "path (a) vs fp32")
+        figures.update(cos_plain_min=c_plain.min().item(),
+                       cos_fp32_min=c_ref.min().item(), k18_exact=True)
+
+        def head(t):
+            return fast_vit._ln(t[:, 0, :], *packed["ln_post"]) \
+                @ packed["proj"]
+
+        split, y = staged_ms(u8, [
+            ("normalize", lambda u: pp.normalize_u8(u, use_pallas=True)),
+            ("embed", lambda t: fast_vit._vit_embed(packed, t, cfg)),
+            ("blocks", lambda t: fast_vit._per_op_blocks(packed, t, cfg)),
+            ("head", head)])
+        check(torch.equal(y.float(), feats), "the staged run differs")
+        whole = {**staged_ms(u8, [("fast", encode)])[0],
+                 **staged_ms(u8, [("k1", lambda u: (
+                     fast_vit.vit_encode_block_fused(packed, pp.normalize_u8(
+                         u, use_pallas=True), cfg, project=True)[1]))])[0]}
+        rate = 1e3 * B / whole["fast"]
+        print(f"[vit fast] batch {B} device time, uint8 -> features: "
+              f"{whole['fast']:.3f} ms ({rate:.1f} images/s); its stages "
+              f"{sum(split.values()):.3f} = normalize "
+              f"{split['normalize']:.3f} + embed {split['embed']:.3f} + "
+              f"blocks {split['blocks']:.3f} + head {split['head']:.3f}; "
+              f"the same from K18 through K1: {whole['k1']:.3f} ms")
+        figures.update(split_ms=split, encode_ms=whole["fast"],
+                       k1_encode_ms=whole["k1"])
+
+    rates = {"vit_b16_fast_64": rate}
+    with mock.patch.dict(os.environ, {"AIHAB_NO_GELU_POLY": "1"}):
+        eng = ClassifierEngine(model=GELU_MODEL, batch_size=B, device="cuda",
+                               verbose=False)
+        eng.warmup()
+        reset()
+        batcher = DynamicBatcher(eng, max_wait_ms=5.0)
+        batcher.start()
+        futures = [batcher.submit(img) for img in images[:GELU_REQUESTS]]
+        probs = np.stack([f.result(timeout=600) for f in futures])
+        batcher.stop()
+        off, nb = counts(), batcher.stats.batches
+        print(f"[vit gelu opt-out] {GELU_REQUESTS} requests over {nb} "
+              f"batches; launches {off}")
+        check(probs.shape == (GELU_REQUESTS, 20)
+              and bool(np.isfinite(probs).all())
+              and bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)),
+              "opt-out engine probabilities")
+        check(off["attn_block_fused"] == 12 * nb
+              and off["matmul_residual"] == 12 * nb and off["ln_matmul"] == 0
+              and off["full_block_fused"] == off["mlp_block_fused"] == 0,
+              "opt-out engine launches")
+        gcfg = eng.bundle.config
+        with torch.inference_mode():
+            xb = eval_transform(u8, 224, dtype=torch.bfloat16)
+
+            def feats_and_probs():
+                return (fast_vit.encode_image_fastest(
+                    eng.bundle.model, xb, gcfg, project=True,
+                    packed=eng._packed)[1].float(), eng.classify(u8))
+
+            g_k, p_k = feats_and_probs()
+            with mock.patch.multiple(
+                    fast_vit, attn_block_fused=bk.attn_block_fused_plain,
+                    matmul_residual=fl.matmul_residual_plain):
+                g_p, p_p = feats_and_probs()
+        c = cos(g_k, g_p, dim=-1)
+        dprob = (p_k - p_p).abs().max().item()
+        agree = (p_k.argmax(-1) == p_p.argmax(-1)).float().mean().item()
+        print(f"[vit gelu opt-out] vs the same engine with plain kernels: "
+              f"feature cosine min {c.min().item():.6f}; max|dprob| "
+              f"{dprob:.4g}; top-1 agreement {agree:.4f}")
+        check(c.min().item() >= COS_MIN, "opt-out engine vs plain kernels")
+        rates["vit_b16_gelu_optout_64"] = images_per_s(eng, B, 224)
+        print(f"[vit gelu opt-out] classify_batch end-to-end at batch {B}: "
+              f"{rates['vit_b16_gelu_optout_64']:.1f} images/s")
+        figures.update(optout_cos_min=c.min().item(), optout_dprob=dprob,
+                       optout_top1=agree)
+    del eng
+    return run, off, rates, figures
+
+
+def vit_train_path(model):
+    """6e. Path (b): ``vit_encode_train`` on ViT-B/16 at batch 16, every
+    visual parameter trainable: one forward and one backward of a
+    projected-feature loss (cross-entropy of 100 x cosine logits against a
+    random 20-class head) through 12 blocks, the attention half under
+    autograd and the MLP half through K17 (12 + 12 launches); loss and
+    per-parameter gradient cosine against the same step with K17 plain and
+    against the fp32 canonical tower (``TRAIN_GATES``); its fwd+bwd ms
+    beside the canonical bf16 module's.  Returns (its launches, figures)."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from aihab_clip_tpu_torch.models import fast_vit
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops.preprocess import normalize
+
+    dev = torch.device("cuda")
+    cfg = model.config
+    rng = np.random.default_rng(SEED + 5)
+    u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_B, 224, 224, 3),
+                                       dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 20, TRAIN_B)).to(dev)
+    tw = F.normalize(torch.from_numpy(rng.standard_normal(
+        (cfg.embed_dim, 20)).astype(np.float32)), dim=0).to(dev)
+    x32 = normalize(u8, dtype=torch.float32)
+    xb = x32.to(torch.bfloat16)
+    params = list(model.visual.named_parameters())
+    for _, p in params:
+        p.requires_grad_(True)
+
+    def loss_of(f):
+        return F.cross_entropy(100.0 * F.normalize(f.float(), dim=-1) @ tw,
+                               labels)
+
+    def fast():
+        return fast_vit.vit_encode_train(model, xb, cfg, project=True)[1]
+
+    def canonical():
+        return model.encode_image(xb, project=True)[1]
+
+    def step(encode):
+        model.zero_grad(set_to_none=True)
+        loss = loss_of(encode())
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), [p.grad.float().flatten() for _, p in params]
+
+    bk.reset_launch_counts()
+    kern = step(fast)
+    run = bk.launch_counts()
+    print(f"[vit train] launches in one fwd+bwd: {run}")
+    check(run["mlp_block_train_fwd"] == 12 and run["mlp_block_train_bwd"] == 12,
+          "K17 launches per step")
+    with mock.patch.object(fast_vit, "mlp_block_train",
+                           bk.mlp_block_train_plain):
+        bk.reset_launch_counts()
+        plain = step(fast)
+        check(not any(bk.launch_counts().values()), "plain step launched")
+    vis_dt = model.visual.dtype
+    model.visual.dtype = torch.float32
+    try:
+        fp32 = step(lambda: model.encode_image(x32, project=True)[1])
+    finally:
+        model.visual.dtype = vis_dt
+    figures = {}
+    for name, ref in (("plain", plain), ("fp32", fp32)):
+        rel = abs(kern[0] - ref[0]) / abs(ref[0])
+        per = torch.stack([F.cosine_similarity(a, b, dim=0)
+                           for a, b in zip(kern[1], ref[1])])
+        worst = params[int(per.argmin())][0]
+        whole = F.cosine_similarity(torch.cat(kern[1]), torch.cat(ref[1]),
+                                    dim=0).item()
+        lim_rel, lim_cos = TRAIN_GATES[name]
+        print(f"[vit train] vs {name}: loss {kern[0]:.6f} vs {ref[0]:.6f}, "
+              f"rel |d| {rel:.3e} (limit {lim_rel:g}); per-parameter "
+              f"gradient cosine min {per.min().item():.6f} at {worst} (limit "
+              f"{lim_cos:g}), whole {whole:.6f}")
+        check(rel <= lim_rel and per.min().item() >= lim_cos,
+              f"vit_encode_train step vs {name}")
+        figures[name] = dict(loss_rel=rel, grad_cos_min=per.min().item(),
+                             grad_cos=whole)
+
+    times = {"vit_encode_train": [], "canonical": []}
+    for _ in range(2):
+        for label, encode in (("vit_encode_train", fast),
+                              ("canonical", canonical)):
+            for i in range(4):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                model.zero_grad(set_to_none=True)
+                e0.record()
+                loss_of(encode()).backward()
+                e1.record()
+                torch.cuda.synchronize()
+                if i >= 1:
+                    times[label].append(e0.elapsed_time(e1))
+    model.zero_grad(set_to_none=True)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[vit train] fwd+bwd at batch {TRAIN_B}, median of "
+          f"{len(times['canonical'])} in two turns: vit_encode_train "
+          f"{med['vit_encode_train']:.3f} ms, canonical bf16 module "
+          f"{med['canonical']:.3f} ms")
+    figures.update(step_ms=med, step_ms_all=times)
+    return run, figures
 
 
 def images_per_s(engine, bs: int, dim: int, n: int = 10) -> float:

@@ -711,3 +711,189 @@ def test_cuda_convnext_finetune_default_prefix():
         assert same or trainable, name
         moved += not same
     assert moved > 0
+
+
+@pytest.mark.gpu
+def test_cuda_fused_linear_matches_plain():
+    """K16 on the card: ``ln_matmul`` at every kernel activation (eps 1e-5
+    and 1e-6) and ``matmul_residual`` (bf16 and fp32 residual) against their
+    plain versions, a ragged N padded and sliced; exact gelu launches
+    nothing; fp32 operands and a ragged K raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import fused_linear as fl
+
+    g = torch.Generator().manual_seed(20)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def close(out, ref, rel=2e-3):
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        assert ((out - ref).norm() / ref.norm()).item() <= rel
+
+    x = rnd(197, 128)
+    ls, lb = 1 + rnd(128, scale=0.1, dtype=torch.float32), \
+        rnd(128, scale=0.1, dtype=torch.float32)
+    fl.reset_launch_counts()
+    for n in (384, 100):
+        w, b = rnd(128, n, scale=128 ** -0.5), rnd(n, scale=0.1,
+                                                  dtype=torch.float32)
+        for act in (None, "quick_gelu", "gelu_tanh", "gelu_poly"):
+            for eps in (1e-5, 1e-6):
+                close(fl.ln_matmul(x, ls, lb, w, b, act, eps),
+                      fl.ln_matmul_plain(x, ls, lb, w, b, act, eps))
+        h = rnd(197, 128, scale=2.0)
+        for res in (rnd(197, n), rnd(197, n, dtype=torch.float32)):
+            close(fl.matmul_residual(h, w, b, res),
+                  fl.matmul_residual_plain(h, w, b, res))
+    assert fl.launch_counts() == {"ln_matmul": 16, "matmul_residual": 4}
+    out = fl.ln_matmul(x, ls, lb, w, b, "gelu")
+    assert fl.launch_counts()["ln_matmul"] == 16
+    assert torch.equal(out, fl._ln_matmul_xla(x, ls, lb, w, b, "gelu"))
+    with pytest.raises(TypeError, match="bf16"):
+        fl.ln_matmul(x.float(), ls, lb, w.float(), b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fl.matmul_residual(rnd(4, 12), rnd(12, 8), b[:8], rnd(4, 8))
+
+
+@pytest.mark.gpu
+def test_cuda_normalize_u8_is_bit_exact():
+    """K18 on the card equals its plain version bit for bit, in bf16 and
+    fp32, with a ragged tail (17 x 13 x 3 is no multiple of 16);
+    ``normalize_u8(use_pallas=True)`` launches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import pallas_preprocess as pp
+
+    g = torch.Generator().manual_seed(21)
+    pp.reset_launch_counts()
+    for shape in ((2, 224, 224, 3), (1, 17, 13, 3)):
+        u8 = torch.randint(0, 256, shape, generator=g,
+                           dtype=torch.uint8).cuda()
+        for dt in (torch.bfloat16, torch.float32):
+            out = pp.normalize_u8_pallas(u8, dtype=dt)
+            torch.cuda.synchronize()
+            assert torch.equal(out, pp.normalize_u8_pallas_plain(u8,
+                                                                 dtype=dt))
+    assert torch.equal(pp.normalize_u8(u8, use_pallas=True),
+                       pp.normalize_u8_pallas_plain(u8))
+    assert pp.launch_counts() == {"normalize_u8_pallas": 5}
+
+
+@pytest.mark.gpu
+def test_cuda_mlp_block_train_matches_plain():
+    """K17 on the card: the forward's (y, h_pre) and the backward's (dx,
+    dh_pre, dln) against their plain versions, and the autograd Function's
+    seven gradients against the plain Function's; one launch each way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator().manual_seed(22)
+    dev = torch.device("cuda")
+    m, w, hidden = 300, 128, 512
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    args = [rnd(m, w), 1 + rnd(w, scale=0.1, dtype=torch.float32),
+            rnd(w, scale=0.1, dtype=torch.float32),
+            rnd(w, hidden, scale=w ** -0.5),
+            rnd(hidden, scale=0.1, dtype=torch.float32),
+            rnd(hidden, w, scale=hidden ** -0.5),
+            rnd(w, scale=0.1, dtype=torch.float32)]
+
+    def close(out, ref, rel):
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        assert ((out - ref).norm() / ref.norm()).item() <= rel
+
+    bk.reset_launch_counts()
+    fwd, fwd_ref = bk.mlp_block_train_fwd(*args), \
+        bk.mlp_block_train_fwd_plain(*args)
+    dy = rnd(m, w)
+    bwd = bk.mlp_block_train_bwd(args[0], fwd_ref[1], dy, args[1], args[3],
+                                 args[5])
+    bwd_ref = bk.mlp_block_train_bwd_plain(args[0], fwd_ref[1], dy, args[1],
+                                           args[3], args[5])
+    torch.cuda.synchronize()
+    for out, ref in zip(fwd + bwd, fwd_ref + bwd_ref):
+        close(out, ref, 5e-3)
+    grads = []
+    for fn in (bk.mlp_block_train, bk.mlp_block_train_plain):
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        (fn(*ins).float() * dy.float()).sum().backward()
+        grads.append([t.grad for t in ins])
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        close(got, ref, 1e-2)
+    assert bk.launch_counts()["mlp_block_train_fwd"] == 2
+    assert bk.launch_counts()["mlp_block_train_bwd"] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_vit_paths_run_the_new_kernels():
+    """Path (a) at a small size: uint8 -> K18 -> ``vit_encode_fast`` (2 + 2
+    K16 per block) against the same encode with every kernel plain, and the
+    opt-out block stack of a gelu tower (K2 + plain exact-gelu ``ln_matmul``
+    + K16 ``matmul_residual``); path (b): ``vit_encode_train`` with one K17
+    forward and backward per block, its gradients against the plain K17."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    from unittest import mock
+
+    from aihab_clip_tpu_torch.models import CLIP_ARCHS, fast_vit, load
+    from aihab_clip_tpu_torch.ops import fused_linear as fl
+    from aihab_clip_tpu_torch.ops import pallas_preprocess as pp
+
+    cfg = dataclasses.replace(CLIP_ARCHS["ViT-B/16"], image_resolution=64,
+                              vision_layers=2)
+    model = load("random:vitb16-small", device="cuda", random_cfg=cfg,
+                 seed=23).model
+    packed = fast_vit.pack_fastest(model, cfg, torch.bfloat16)
+    u8 = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(24)).cuda()
+    fl.reset_launch_counts()
+    pp.reset_launch_counts()
+    with torch.no_grad():
+        x = pp.normalize_u8(u8, use_pallas=True)
+        feats = fast_vit.vit_encode_fast(packed, x, cfg, project=True)[1]
+        with mock.patch.multiple(fast_vit, ln_matmul=fl.ln_matmul_plain,
+                                 matmul_residual=fl.matmul_residual_plain):
+            plain = fast_vit.vit_encode_fast(packed, x, cfg,
+                                             project=True)[1]
+    assert fl.launch_counts() == {"ln_matmul": 4, "matmul_residual": 4}
+    assert pp.launch_counts() == {"normalize_u8_pallas": 1}
+    cos = torch.nn.functional.cosine_similarity(feats.float(), plain.float())
+    assert cos.min().item() >= 0.999
+
+    gcfg = dataclasses.replace(cfg, act="gelu")
+    bk.reset_launch_counts()
+    fl.reset_launch_counts()
+    with mock.patch.dict(os.environ, {"AIHAB_NO_GELU_POLY": "1"}), \
+            torch.no_grad():
+        off = fast_vit.vit_encode_block_fused(packed, x, gcfg)
+    assert torch.isfinite(off.float()).all()
+    assert bk.launch_counts()["attn_block_fused"] == 2
+    assert bk.launch_counts()["full_block_fused"] == 0
+    assert fl.launch_counts() == {"ln_matmul": 0, "matmul_residual": 2}
+
+    grads = []
+    for fn in (bk.mlp_block_train, bk.mlp_block_train_plain):
+        bk.reset_launch_counts()
+        model.zero_grad(set_to_none=True)
+        with mock.patch.object(fast_vit, "mlp_block_train", fn):
+            _, f = fast_vit.vit_encode_train(model, x, cfg, project=True)
+        f.float().square().sum().backward()
+        grads.append(torch.cat([p.grad.float().flatten() for p in
+                                model.visual.parameters()]))
+        counts = bk.launch_counts()
+        n = 2 if fn is bk.mlp_block_train else 0
+        assert counts["mlp_block_train_fwd"] == counts[
+            "mlp_block_train_bwd"] == n
+    cos = torch.nn.functional.cosine_similarity(*grads, dim=0).item()
+    assert cos >= 0.999

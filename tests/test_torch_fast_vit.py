@@ -1,6 +1,9 @@
 """The port's fused ViT encode against the JAX fused encode (Pallas in
 interpret mode) on carried weights, on the merged and the two-kernel
-paths, plus the dispatch plan and the weight pack."""
+paths, plus the dispatch plan and the weight pack; the per-op encode
+``vit_encode_fast`` (K16) against JAX's for quick_gelu and gelu towers; and
+the ``AIHAB_NO_GELU_POLY`` opt-out (``tests/test_fast_vit.py:438-505``) in
+the plan, the block stack and the int8 route."""
 
 import dataclasses
 
@@ -13,11 +16,14 @@ import jax.numpy as jnp
 from aihab_clip_tpu.models import CLIPConfig as JaxConfig
 from aihab_clip_tpu.models import load as jax_load
 from aihab_clip_tpu.models.convert import save_params_npz
+from aihab_clip_tpu.models import fast_vit as jax_fast_vit
 from aihab_clip_tpu.models.fast_vit import \
     vit_encode_block_fused as jax_encode
+from aihab_clip_tpu.models.quant_vit import _kernel_act as jax_kernel_act
 
 from aihab_clip_tpu_torch.models import CLIP_ARCHS, CLIPConfig, CLIPModel
 from aihab_clip_tpu_torch.models import fast_vit
+from aihab_clip_tpu_torch.models import quant_vit as qv
 from aihab_clip_tpu_torch.models.convert import (flax_params_to_state_dict,
                                                  load_params_npz)
 
@@ -93,16 +99,124 @@ def test_plan_from_h100_facts():
 
 
 def test_unported_branches_raise(carried):
-    _, model, cfg, x = carried
+    """K5 and K4 stay SigLIP's; the per-op MLP branch (``mlp_whole`` off,
+    K16) runs and matches JAX's ``_apply_fused_blocks`` on the same plan."""
+    bundle, model, cfg, x = carried
     packed = fast_vit.pack_fastest(model, cfg, torch.float32)
     xt = torch.zeros(1, 5, cfg.vision_width)
     plan = fast_vit._fused_block_plan(cfg)
-    for key, val, name in (("attn_split", True, "K5"),
-                           ("mlp_whole", False, "K16")):
-        with pytest.raises(NotImplementedError, match=name):
-            fast_vit._apply_fused_blocks(packed, xt, {**plan, key: val},
-                                         start=0, stop=1)
+    with pytest.raises(NotImplementedError, match="K5"):
+        fast_vit._apply_fused_blocks(packed, xt, {**plan, "attn_split": True},
+                                     start=0, stop=1)
     with pytest.raises(NotImplementedError, match="K4"):
         fast_vit._apply_fused_blocks(
             packed, xt, {**plan, "mlp_whole": False, "mlp_chunks": 2},
             start=0, stop=1)
+    tokens = np.random.default_rng(1).standard_normal(
+        (2, 17, cfg.vision_width)).astype(np.float32)
+    jplan = {**jax_fast_vit._fused_block_plan(bundle.config, jnp.float32),
+             "merge": False, "mlp_whole": False, "mlp_chunks": 0}
+    ref = jax_fast_vit._apply_fused_blocks(
+        bundle.params["visual"], jnp.asarray(tokens), bundle.config,
+        jnp.float32, start=0, stop=2, plan=jplan, interpret=True)
+    with torch.no_grad():
+        got = fast_vit._apply_fused_blocks(
+            packed, torch.from_numpy(tokens),
+            {**plan, "merge": False, "mlp_whole": False}, start=0, stop=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_vit_encode_fast_matches_jax(carried, act):
+    """The per-op encode (2 ln_matmul + 2 matmul_residual per block, plain
+    attention) against JAX's ``vit_encode_fast`` at 5e-5/1e-4; a gelu tower
+    differs from a quick_gelu one (``tests/test_fast_vit.py:387-410``)."""
+    bundle, model, cfg, x = carried
+    jcfg = dataclasses.replace(bundle.config, act=act)
+    pcfg = dataclasses.replace(cfg, act=act)
+    ref_pre, ref_post = jax_fast_vit.vit_encode_fast(
+        bundle.params, jnp.asarray(x), jcfg, project=True, dtype=jnp.float32)
+    packed = fast_vit.pack_fastest(model, pcfg, torch.float32)
+    with torch.no_grad():
+        pre, post = fast_vit.vit_encode_fast(packed, torch.from_numpy(x),
+                                             pcfg, project=True)
+        other = fast_vit.vit_encode_fast(
+            packed, torch.from_numpy(x), dataclasses.replace(
+                cfg, act="gelu" if act == "quick_gelu" else "quick_gelu"))
+    np.testing.assert_allclose(pre.numpy(), np.asarray(ref_pre), atol=5e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(post.numpy(), np.asarray(ref_post), atol=5e-5,
+                               rtol=1e-4)
+    assert (pre - other).abs().max().item() > 1e-4
+
+
+def _gelu_configs():
+    """The wide gelu tower of ``tests/test_fast_vit.py:444`` in both
+    packages, and the open_clip ViT-B-16."""
+    wide = dict(embed_dim=512, image_resolution=224, vision_layers=32,
+                vision_width=1280, vision_patch_size=14, context_length=77,
+                vocab_size=49408, transformer_width=1024,
+                transformer_heads=16, transformer_layers=24, act="gelu")
+    vitb = dataclasses.asdict(CLIP_ARCHS["ViT-B-16"])
+    return [(CLIPConfig(**c), JaxConfig(**c)) for c in (wide, vitb)]
+
+
+def test_gelu_plan_honours_the_opt_out(monkeypatch):
+    """C2: ``AIHAB_NO_GELU_POLY``, read at each call, keeps exact gelu and
+    turns the kernel MLP off, with JAX's plan's fields
+    (``tests/test_fast_vit.py:438-470``)."""
+    for cfg, jcfg in _gelu_configs():
+        assert fast_vit._fused_block_plan(cfg)["act"] == "gelu_poly"
+        assert fast_vit._fused_block_plan(cfg)["merge"]
+        monkeypatch.setenv("AIHAB_NO_GELU_POLY", "1")
+        plan = fast_vit._fused_block_plan(cfg)
+        ref = jax_fast_vit._fused_block_plan(jcfg, jnp.bfloat16)
+        for key in ("act", "merge", "mlp_whole", "mlp_chunks", "heads",
+                    "width"):
+            assert plan[key] == ref[key], key
+        assert plan["act"] == "gelu" and not plan["mlp_whole"]
+        monkeypatch.delenv("AIHAB_NO_GELU_POLY")
+    qcfg = dataclasses.replace(_gelu_configs()[0][0], act="quick_gelu")
+    monkeypatch.setenv("AIHAB_NO_GELU_POLY", "1")
+    qplan = fast_vit._fused_block_plan(qcfg)
+    assert qplan["act"] == "quick_gelu" and qplan["merge"]
+
+
+def test_block_fused_encode_under_the_opt_out_matches_jax(carried,
+                                                          monkeypatch):
+    """A gelu tower under ``AIHAB_NO_GELU_POLY=1``: K2 + ``ln_matmul``
+    (exact gelu, plain) + ``matmul_residual`` per block, against JAX's
+    interpret-mode encode under the same variable; it differs from the
+    gelu_poly encode by no more than the gelu_poly error."""
+    bundle, model, cfg, x = carried
+    jcfg = dataclasses.replace(bundle.config, act="gelu")
+    pcfg = dataclasses.replace(cfg, act="gelu")
+    packed = fast_vit.pack_fastest(model, pcfg, torch.float32)
+    with torch.no_grad():
+        poly = fast_vit.vit_encode_block_fused(packed, torch.from_numpy(x),
+                                               pcfg)
+    monkeypatch.setenv("AIHAB_NO_GELU_POLY", "1")
+    ref = jax_encode(bundle.params, jnp.asarray(x), jcfg, dtype=jnp.float32,
+                     interpret=True)
+    with torch.no_grad():
+        got = fast_vit.vit_encode_block_fused(packed, torch.from_numpy(x),
+                                              pcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-4,
+                               rtol=5e-4)
+    assert 0 < (got - poly).abs().max().item() < 1e-3
+
+
+def test_int8_act_honours_the_opt_out(monkeypatch):
+    """C2 in the int8 route (``tests/test_fast_vit.py:493-505``): exact gelu
+    under the opt-out is JAX's XLA route, which is not ported and raises."""
+    cfg, jcfg = _gelu_configs()[1]
+    assert qv._kernel_act(cfg) == jax_kernel_act(jcfg) == "gelu_poly"
+    monkeypatch.setenv("AIHAB_NO_GELU_POLY", "1")
+    assert qv._kernel_act(cfg) == jax_kernel_act(jcfg) == "gelu"
+    with pytest.raises(NotImplementedError, match="xla"):
+        qv.int8_block_plan(cfg)
+    with pytest.raises(NotImplementedError, match="xla"):
+        qv.vit_encode_int8({}, torch.zeros(1, 224, 224, 3), cfg)
+    assert qv._kernel_act(dataclasses.replace(cfg, act="quick_gelu")) == \
+        "quick_gelu"
