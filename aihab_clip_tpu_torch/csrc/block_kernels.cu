@@ -40,17 +40,18 @@
 // Bound.  At ViT-B/16 (S=197, W=768, H=3072) a block costs 2.9 GFLOP per image
 // against ~0.6 MB of activations per image plus 14 MB of weights per launch, so
 // at batch >= 64 every launch is compute-bound (989 TFLOP/s bf16 dense on an
-// H100 SXM).  The design answer here is a simple one that is right: bf16
-// tensor cores through WMMA (mma.sync 16x16x16, fp32 accumulation), 128x128
-// GEMM tiles with the weight tile in a 3-stage cp.async ring and the A tile
-// (LN applied) prefetched through registers, capped at 128 registers so two
-// GEMM blocks share an SM; no wgmma and no TMA.  The measured gap to the
-// bound is in PERF.md; closing it is later work.
+// H100 SXM).  The design answer is Hopper's: every bf16 GEMM is one persistent
+// TMA + wgmma kernel (a producer warp keeping an mbarrier ring of k-steps in
+// flight, two consumer warpgroups on 128 x 128 tiles, an epilogue that reads
+// the accumulators through a shared-memory scratch and stores 16-byte rows),
+// LN runs as a row pass that writes LN(x) in bf16 ahead of it, and the
+// attention is a one-pass flash kernel on wgmma with P in registers.  The
+// measured gap to the bound is in PERF.md.
 //
 // At SigLIP SO400M (S=576, W=1152, 16 heads of 72, hidden 4304) the same
 // kernels run at other widths: head_dim 72 is a template instance of the
-// attention kernel with its contraction zero-padded to 80, and the 2152-wide
-// MLP chunks take the GEMM's ragged N and K edges.
+// attention kernels with the contraction zero-padded to 80, and the 2152-wide
+// MLP chunks take the GEMM's ragged N and K edges (TMA's zero fill).
 //
 // At ConvNeXt base_w (batch 64, 256 px) every convnext_mlp_block launch is
 // 16 M C^2 = 68.7 GFLOP (M C^2 is the same in every stage: M = 262,144 rows
@@ -74,78 +75,187 @@
 // Preconditions the Python wrappers check: K and N multiples of 8, every
 // pointer 16-byte aligned, row-major tensors (a weight may be a column slice
 // of a wider matrix: its row stride ldw, a multiple of 8, is an argument),
-// head_dim 64 or 72.  The qkv layout is grouped: head h of group h / g sits at
+// head_dim 64 or 72; these are also every TMA precondition (16-byte aligned
+// bases and row strides).  The qkv layout is grouped: head h of group h / g sits at
 // columns (h / g) * 3gD + {0, gD, 2gD} + (h % g) * D for q, k and v, which
 // with g = heads is the packed q | k | v of CLIP's in_proj.  The q-scale
 // epilogue multiplies columns n with n % group_cols < q_cols by q_scale.
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// LN statistics: stats[r] = (mean, rsqrt(var + eps)) of row r, two-pass fp32
-// (block_kernel.py:33), one warp per row.  A pre-pass of ln_gemm, so the
-// GEMM's blocks do not each re-read their rows to normalise them.
+// LN rows: xn[r] = bf16((x[r] - mean) * rstd * ln_s + ln_b), the statistics
+// two-pass fp32 (block_kernel.py:33), up to a warp per row (fewer lanes for
+// K < 256).  ln_gemm's prologue: the LN is applied in fp32 and rounded to
+// bf16 once, the plain version's rounding point, and the GEMM then reads
+// bf16 A by TMA.  (Applied inside the GEMM, by each consumer on its stage or
+// on wgmma's register-A fragments, it ran slower on an H100 than this pass,
+// which moves M x K x (4 or 2, + 2) bytes.)
 // ---------------------------------------------------------------------------
 
 constexpr int STATS_THREADS = 256;
+constexpr int LN_REG_CHUNKS = 5;  // rows of up to 5 x 8 values a lane stay in registers
 
+// lpr lanes (a power of two <= 32) per row; rows past M only join the
+// shuffles.  A row of up to LN_REG_CHUNKS x 8 values a lane is read once
+// and kept in registers; a longer one is read three times.
 template <typename TA>
 __global__ void __launch_bounds__(STATS_THREADS)
-ln_stats_kernel(const TA* __restrict__ A, float2* __restrict__ stats, int M, int K,
-                float eps) {
-  const int r = blockIdx.x * (STATS_THREADS / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= M) return;
-  const TA* row = A + static_cast<size_t>(r) * K;
+ln_rows_kernel(const TA* __restrict__ A, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, bf16* __restrict__ xn, int M, int K, float eps,
+               int lpr) {
+  const int lane = threadIdx.x & 31, sub = lane & (lpr - 1);
+  const int r = (blockIdx.x * (STATS_THREADS / 32) + (threadIdx.x >> 5)) * (32 / lpr) + lane / lpr;
+  const bool valid = r < M;
+  const TA* row = A + static_cast<size_t>(valid ? r : 0) * K;
+  auto group_sum = [&](float v) {
+    for (int o = lpr / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
+  bf16* out = xn + static_cast<size_t>(r) * K;
+  if (K <= LN_REG_CHUNKS * lpr * 8) {  // the row in registers: one read
+    float x[LN_REG_CHUNKS][8], s = 0.f, q = 0.f;
+#pragma unroll
+    for (int c = 0; c < LN_REG_CHUNKS; ++c) {
+      const int k = (c * lpr + sub) * 8;
+      if (valid && k < K) {
+        load8(row + k, x[c]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += x[c][j];
+      }
+    }
+    const float mean = group_sum(s) / K;
+#pragma unroll
+    for (int c = 0; c < LN_REG_CHUNKS; ++c)
+      if (valid && (c * lpr + sub) * 8 < K) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) q += (x[c][j] - mean) * (x[c][j] - mean);
+      }
+    const float rstd = rsqrtf(group_sum(q) / K + eps);
+#pragma unroll
+    for (int c = 0; c < LN_REG_CHUNKS; ++c) {
+      const int k = (c * lpr + sub) * 8;
+      if (valid && k < K) {
+        float g[8], b[8];
+        load8(ln_s + k, g);
+        load8(ln_b + k, b);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) x[c][j] = (x[c][j] - mean) * rstd * g[j] + b[j];
+        store8(out + k, x[c]);
+      }
+    }
+    return;
+  }
   float v[8], s = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
+  for (int k = sub * 8; valid && k < K; k += lpr * 8) {
     load8(row + k, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) s += v[j];
   }
-  const float mean = warp_sum(s) / K;
+  const float mean = group_sum(s) / K;
   float q = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
+  for (int k = sub * 8; valid && k < K; k += lpr * 8) {
     load8(row + k, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) q += (v[j] - mean) * (v[j] - mean);
   }
-  q = warp_sum(q);
-  if (lane == 0) stats[r] = make_float2(mean, rsqrtf(q / K + eps));
+  const float rstd = rsqrtf(group_sum(q) / K + eps);
+  for (int k = sub * 8; valid && k < K; k += lpr * 8) {
+    float g[8], b[8];
+    load8(row + k, v);
+    load8(ln_s + k, g);
+    load8(ln_b + k, b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = (v[j] - mean) * rstd * g[j] + b[j];
+    store8(out + k, v);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: Y[M,N] = epilogue(prologue(A)[M,K] @ W[K,N] + bias), W's rows ldw apart
-//   prologue (LN):  A -> (A - mean) * rstd * ln_s + ln_b per row, cast to bf16
+// GEMM: Y[M,N] = epilogue(A[M,K] @ W[K,N] + bias), A and W bf16, W's rows
+// ldw apart
 //   epilogue:       act(...), * q_scale on the q columns, * gamma[n] (a
-//                   per-column scale, when gamma is non-null), then + R (RES)
-//                   in fp32, stored as TO
+//                   per-column scale, when gamma is non-null), then + R (when
+//                   R is non-null) in fp32, stored bf16 or fp32
 //   EPI_PRE:        also store the pre-activation acc + bias, as bf16, to Y2
 //                   (K17's forward: h_pre for the backward)
 //   EPI_DGELU:      Y = acc * quick_gelu'(R) with R the bf16 pre-activation
 //                   (K17's backward: dh_pre); no bias, act or residual
-// Block tile 128x128, k-step 32, 8 warps of 64x32 (4x2 WMMA fragments).
-// The weight tile streams through a 3-stage cp.async ring; the A tile is
-// read into registers one k-step before it is needed and normalised into
-// shared memory after that step's products, so both loads overlap compute.
+// (ln_gemm is ln_rows_kernel, then this GEMM on its bf16 output.)
+// Replaces the function of JAX ops/fused_linear.py::ln_matmul (:299) and
+// ::matmul_residual (:326) and the GEMMs of ops/block_kernel.py's blocks.
+// TMA + wgmma, warp-specialised and persistent.  A block of two consumer
+// warpgroups and a producer warp on one SM; the producer's first thread
+// keeps a ring of k-steps (64 deep; 5 stages, 4 with a residual) in
+// flight, per stage one TMA box of A ([128][64]) and two of W ([64 k][64
+// n], N contiguous), all 128B-swizzled.  W is MN-major for wgmma (the
+// transpose bit), so weights stay as stored.  The consumers share each 128
+// x 128 output tile, 64 rows each: m64n128k16 wgmmas from shared memory
+// (both operands by descriptor), one k-step's products in flight while the
+// next is issued, and a stage released (an mbarrier arrival per thread)
+// once the products that read it are done.  The block walks output tiles
+// (blockIdx.x, + gridDim.x, ...) with the ring running across tiles, so the
+// next tile's loads overlap this tile's epilogue.  The epilogue stages each
+// warp's accumulators (16 rows x 64 columns at a time) through a scratch of
+// its own and applies bias, act, q-scale, gamma and residual 8 columns a
+// lane, with 16- or 32-byte loads and stores along rows; the tile's bias
+// and gamma, and its residual rows (or K17's h_pre; all 128 columns in
+// bf16, the first 64 in fp32), come by cp.async into blocks of the warp's
+// own at the start of the tile, so they land during the main loop.  Ragged
+// M, N and K edges are TMA's zero fill and the epilogue's masks.  Output
+// and residual dtypes and the epilogue mode are runtime switches, resolved
+// once a chunk, so one instance serves every caller.  At 288 threads ptxas
+// allots 168 registers a thread (warps are allocated in fours).  Bound:
+// operations at ViT-B/16's shapes; the epilogue, not overlapped with the
+// tensor cores, and the ring's waits on L2 keep it from them (PERF.md).
+// Tried on an H100 and not kept: 128 x 192 tiles (full waves at N = 768,
+// but they spilled and gained nothing); stores of column pairs straight
+// from the accumulators (slower than the staged 16-byte rows); ping-pong
+// consumers on whole tiles (they spilled at 168 registers); a fourth
+// warpgroup running the epilogue (slower with an activation); LN applied
+// inside the GEMM (slower than the row pass).
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, GEMM_THREADS = 256;
-constexpr int A_LD = BK + 8;  // bf16 elements; the pad staggers banks
-constexpr int B_LD = BN + 8;
-constexpr int E_LD = 16 + 4;  // fp32 epilogue scratch, one fragment per warp
-constexpr int A_STAGE = BM * A_LD, B_STAGE = BK * B_LD;
-constexpr int A_VECS = BM * BK / 8 / GEMM_THREADS;  // 8-element vectors per thread
-constexpr int B_VECS = BK * BN / 8 / GEMM_THREADS;
-static_assert(GEMM_THREADS % (BK / 8) == 0, "a thread keeps one A column slice");
-constexpr int GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2 +
-                          (GEMM_THREADS / 32) * 16 * E_LD * 4 + BM * 8;
+constexpr int GBM = 128, GBN = 128, GBK = 64, GEMM_THREADS = 288;
+constexpr int GEMM_SMEM_MAX = 232448;  // an H100 block's dynamic shared memory
+constexpr int A_BYTES = GBM * GBK * 2, B_BOX = GBK * 128;  // B: one [64 k][64 n] box
+constexpr int STAGE = A_BYTES + 2 * B_BOX, MAX_STAGES = 6;
+constexpr int E_LD = 72;  // fp32 epilogue scratch row (64 + 8: no bank conflicts)
+// past the ring, per consumer warp: the scratch [16][E_LD] fp32; the tile's
+// bias and gamma, [128] fp32 each; with a residual, its staging block of 16
+// rows x 256 bytes (the tile's 128 bf16 columns, or 64 fp32 at a time)
+constexpr int E_WARP = 16 * E_LD * 4, BG_WARP = 1024, R_WARP = 16 * 256;
+constexpr int E_BYTES = 8 * (E_WARP + BG_WARP), R_BYTES = 8 * R_WARP;
+
+// the ring's depth: as many stages as fit beside the epilogue's blocks (5
+// without a residual, 4 with one; a scratch of 8 rows, for a stage more,
+// ran 5-20% slower on an H100)
+inline int gemm_stages(bool residual) {
+  const int fit = (GEMM_SMEM_MAX - 1024 - 2 * MAX_STAGES * 8 - E_BYTES -
+                   (residual ? R_BYTES : 0)) / STAGE;
+  return fit < MAX_STAGES ? fit : MAX_STAGES;
+}
+inline int gemm_smem(int stages, bool residual) {
+  return 1024 + stages * STAGE + E_BYTES + (residual ? R_BYTES : 0) + 2 * MAX_STAGES * 8;
+}
+static_assert(E_BYTES % 1024 == 0 && R_BYTES % 1024 == 0, "shared memory layout");
 
 enum Epi { EPI_STD = 0, EPI_PRE = 1, EPI_DGELU = 2 };
+
+// what the GEMM does past the product (see above); r null: no residual
+struct GemmEpi {
+  const float* bias;   // [N] or null
+  const float* gamma;  // [N] or null
+  const void* r;       // [M, N] residual (or EPI_DGELU's h_pre), bf16 or fp32
+  void* y;             // [M, N] bf16 or fp32
+  bf16* y2;            // EPI_PRE's [M, N] pre-activation
+  int mode, act, r_f32, y_f32;
+  float q_scale;
+  int q_cols, group_cols;
+};
 
 // d/dh of h * sigmoid(1.702 h) (block_kernel.py:_quick_gelu_grad_f32)
 __device__ __forceinline__ float quick_gelu_grad(float h) {
@@ -153,229 +263,337 @@ __device__ __forceinline__ float quick_gelu_grad(float h) {
   return s * (1.0f + 1.702f * h * (1.0f - s));
 }
 
-template <typename TA, bool LN, bool RES, typename TR, typename TO, int EPI = EPI_STD>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_kernel(const TA* __restrict__ A, const float2* __restrict__ stats,
-            const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-            const bf16* __restrict__ W, const float* __restrict__ bias,
-            const float* __restrict__ gamma, const TR* __restrict__ R,
-            TO* __restrict__ Y, bf16* __restrict__ Y2, int M, int N, int K,
-            int ldw, int act, float q_scale, int q_cols, int group_cols) {
-  constexpr bool RAW_A = !LN && std::is_same<TA, bf16>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
-  float* Es = reinterpret_cast<float*>(Bs + STAGES * B_STAGE);
-  float2* row_stats = reinterpret_cast<float2*>(Es + (GEMM_THREADS / 32) * 16 * E_LD);
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = (K + BK - 1) / BK;
-
-  if constexpr (LN) {
-    for (int r = tid; r < BM; r += GEMM_THREADS)
-      row_stats[r] = m0 + r < M ? stats[m0 + r] : make_float2(0.f, 0.f);
-    __syncthreads();
+// The GEMM epilogue's activations: block_kernel.py::_act_f32's forms with
+// the fast exponential, reciprocal and tanh (each within a few fp32 ulp, far
+// inside the bf16 rounding that follows); act_f32's exact forms slowed the
+// epilogue on an H100.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float act_fast(float h, int act) {
+  if (act == ACT_QUICK_GELU) return __fdividef(h, 1.0f + __expf(-1.702f * h));
+  if (act == ACT_GELU_TANH) {
+    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * h * (1.0f + tanh_approx(k * (h + 0.044715f * h * h * h)));
   }
-
-  uint4 araw[A_VECS];
-  float aval[A_VECS][8];
-  auto load_a = [&](int kt) {  // global -> registers
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS;
-      const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-      const int gr = m0 + r, gk = kt * BK + c;
-      const bool ok = gr < M && gk < K;
-      const TA* src = A + static_cast<size_t>(gr) * K + gk;
-      if constexpr (RAW_A) {
-        araw[i] = ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-      } else {
-        if (ok) {
-          load8(src, aval[i]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) aval[i][j] = 0.f;
-        }
-      }
-    }
-  };
-  auto store_a = [&](int kt, int stage) {  // registers -> shared, LN applied
-    // a thread's column slice c is the same for all its vectors and k-steps
-    const int c = (tid % (BK / 8)) * 8, gk = kt * BK + c;
-    float g[8], be[8];
-    if constexpr (LN) {
-      if (gk < K) {
-        load8(ln_s + gk, g);
-        load8(ln_b + gk, be);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int r = (tid + i * GEMM_THREADS) / (BK / 8);
-      bf16* dst = As + stage * A_STAGE + r * A_LD + c;
-      if constexpr (RAW_A) {
-        *reinterpret_cast<uint4*>(dst) = araw[i];
-      } else {
-        if constexpr (LN) {
-          if (m0 + r < M && gk < K) {  // padding stays zero
-            const float2 st = row_stats[r];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) aval[i][j] = (aval[i][j] - st.x) * st.y * g[j] + be[j];
-          }
-        }
-        store8(dst, aval[i]);
-      }
-    }
-  };
-  auto load_b = [&](int kt, int stage) {  // global -> shared, asynchronous
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS;
-      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-      const int gk = kt * BK + r, gn = n0 + c;
-      const bool ok = gk < K && gn < N;
-      cp_async16(Bs + stage * B_STAGE + r * B_LD + c,
-                 ok ? W + static_cast<size_t>(gk) * ldw + gn : W, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) {
-      load_a(s);
-      store_a(s, s);
-      load_b(s, s);
-    }
-    cp_async_commit();
+  if (act == ACT_GELU_SIG5) {
+    const float hc = fminf(fmaxf(h, -7.5f), 7.5f);
+    const float u = hc * hc;
+    const float f = hc * (1.5953873f + u * (0.07364605f + u * -6.3791875e-4f));
+    return __fdividef(h, 1.0f + __expf(-f));
   }
-  if (STAGES - 1 < nk) load_a(STAGES - 1);
+  return h;
+}
 
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile rows wm*64, cols wn*32
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+// residual_fetch starts the copies of a warp's 16 residual rows (or h_pre)
+// at rows r0.., 256 bytes a row from column n0 (128 bf16 columns, the whole
+// tile, or 64 fp32), into its staging rows rb 256 bytes apart, 16 bytes a
+// copy with the lanes along each row; rows past M load zeros.  The
+// epilogue waits for them (cp.async.wait and a warp barrier).
+__device__ __forceinline__ void residual_fetch(const GemmEpi& e, unsigned char* rb, int lane,
+                                               int r0, int n0, int M, int N) {
+  if (e.r == nullptr) return;
+  const int esz = e.mode != EPI_DGELU && e.r_f32 ? 4 : 2;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt is in shared memory; stage (kt-1) % STAGES is free
-    const int nt = kt + STAGES - 1;
-    if (nt < nk) load_b(nt, nt % STAGES);
-    cp_async_commit();
-    const bf16* a_s = As + (kt % STAGES) * A_STAGE + wm * 64 * A_LD;
-    const bf16* b_s = Bs + (kt % STAGES) * B_STAGE + wn * 32;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(a[i], a_s + i * 16 * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], b_s + kk * B_LD + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    if (nt < nk) {
-      store_a(nt, nt % STAGES);
-      if (nt + 1 < nk) load_a(nt + 1);
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int f = i * 32 + lane, rr = f >> 4, col = n0 + (f & 15) * (16 / esz);
+    if (col >= N) continue;  // N is a multiple of 8: a copy is in or out
+    const bool ok = r0 + rr < M;
+    cp_async16(rb + rr * 256 + (f & 15) * 16,
+               static_cast<const unsigned char*>(e.r) +
+                   (static_cast<size_t>(ok ? r0 + rr : 0) * N + col) * esz,
+               ok);
   }
+}
 
-  // epilogue, one 16x16 fragment at a time through the warp's scratch:
-  // lane -> row lane/2, columns (lane%2)*8 .. +8
-  float* es = Es + warp * 16 * E_LD;
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-  // a lane's two 8-column vectors (j = 0, 1) are the same for every i, and
-  // an 8-column vector never straddles a q block: test each once, here
-  bool qcol[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    qcol[j] = q_cols > 0 && (n0 + wn * 32 + j * 16 + ec) % group_cols < q_cols;
-#pragma unroll
+// The epilogue's lane map over a warp's [16][64] block at rows r0..,
+// columns n0..: lane l takes 8 columns (l % 8) * 8 of rows l / 8 + {0, 4,
+// 8, 12}.
+// the warp's [16][64] block from its scratch es (the accumulators) and
+// staging rb (the residual), 8 columns a lane: 16- or 32-byte loads and
+// stores along rows.  ACT, the residual's type RT (0 none, 1 bf16, 2 fp32),
+// the output's and the mode are compile-time, so the row loop has no
+// per-element branch (switched at run time inside it, the epilogue was
+// slower on an H100).
+template <int ACT, int RT, bool YF32, int MODE>
+__device__ __forceinline__ void epilogue_rows(const GemmEpi& e, const float* es,
+                                              const unsigned char* rb, int lane, int r0,
+                                              int gn, int M, int N, const float* bv,
+                                              const float* gv, bool qcol) {
+  const bool gamma = e.gamma != nullptr;
+  const float q = qcol ? e.q_scale : 1.f;
+#pragma unroll 2  // two rows' loads in flight (4 spilled; 1 was slower)
   for (int i = 0; i < 4; ++i) {
+    const int rr = i * 4 + (lane >> 3), gr = r0 + rr;
+    if (gr >= M) break;
+    const size_t off = static_cast<size_t>(gr) * N + gn;
+    float x[8], r[8];
+    load8(es + rr * E_LD + (lane & 7) * 8, x);
+    if constexpr (RT == 1)
+      load8(reinterpret_cast<const bf16*>(rb + rr * 256 + (lane & 7) * 16), r);
+    if constexpr (RT == 2)
+      load8(reinterpret_cast<const float*>(rb + rr * 256 + (lane & 7) * 32), r);
+    if constexpr (MODE == EPI_DGELU) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(es, acc[i][j], E_LD, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + i * 16 + er, gn = n0 + wn * 32 + j * 16 + ec;
-      if (gr < M && gn < N) {
-        float out[8];
-        if constexpr (EPI == EPI_DGELU) {
-          float hp[8];
-          load8(R + static_cast<size_t>(gr) * N + gn, hp);
+      for (int j = 0; j < 8; ++j) x[j] *= quick_gelu_grad(r[j]);
+    } else {
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            out[jj] = es[er * E_LD + ec + jj] * quick_gelu_grad(hp[jj]);
-        } else {
-          if (bias) {
-            load8(bias + gn, out);
-          } else {
+      for (int j = 0; j < 8; ++j) x[j] = bv[j] + x[j];
+      if constexpr (MODE == EPI_PRE) store8(e.y2 + off, x);
 #pragma unroll
-            for (int jj = 0; jj < 8; ++jj) out[jj] = 0.f;
-          }
+      for (int j = 0; j < 8; ++j) x[j] = act_fast(x[j], ACT) * q;
+      if (gamma) {
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) out[jj] += es[er * E_LD + ec + jj];
-          if constexpr (EPI == EPI_PRE) store8(Y2 + static_cast<size_t>(gr) * N + gn, out);
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) out[jj] = act_f32(out[jj], act);
-          if (qcol[j]) {
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) out[jj] *= q_scale;
-          }
-          if (gamma) {
-            float g[8];
-            load8(gamma + gn, g);
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) out[jj] *= g[jj];
-          }
-          if constexpr (RES) {
-            float res[8];
-            load8(R + static_cast<size_t>(gr) * N + gn, res);
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) out[jj] += res[jj];
-          }
-        }
-        store8(Y + static_cast<size_t>(gr) * N + gn, out);
+        for (int j = 0; j < 8; ++j) x[j] *= gv[j];
       }
+      if constexpr (RT != 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) x[j] += r[j];
+      }
+    }
+    if constexpr (YF32) store8(static_cast<float*>(e.y) + off, x);
+    else store8(static_cast<bf16*>(e.y) + off, x);
+  }
+}
+
+template <int ACT, bool YF32>
+__device__ __forceinline__ void epilogue_act(const GemmEpi& e, const float* es,
+                                             const unsigned char* rb, int lane, int r0, int gn,
+                                             int M, int N, const float* bv, const float* gv,
+                                             bool qcol) {
+  if (e.r == nullptr)
+    epilogue_rows<ACT, 0, YF32, EPI_STD>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+  else if (e.r_f32)
+    epilogue_rows<ACT, 2, YF32, EPI_STD>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+  else
+    epilogue_rows<ACT, 1, YF32, EPI_STD>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+}
+
+template <bool YF32>
+__device__ __forceinline__ void epilogue_act_of(const GemmEpi& e, const float* es,
+                                                const unsigned char* rb, int lane, int r0,
+                                                int gn, int M, int N, const float* bv,
+                                                const float* gv, bool qcol) {
+  switch (e.act) {
+    case ACT_QUICK_GELU:
+      epilogue_act<ACT_QUICK_GELU, YF32>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+      break;
+    case ACT_GELU_TANH:
+      epilogue_act<ACT_GELU_TANH, YF32>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+      break;
+    case ACT_GELU_SIG5:
+      epilogue_act<ACT_GELU_SIG5, YF32>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+      break;
+    default:
+      epilogue_act<ACT_NONE, YF32>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+  }
+}
+
+// (bg: the chunk's bias, its gamma GBN floats on)
+__device__ __forceinline__ void epilogue_chunk(const GemmEpi& e, const float* es,
+                                               const float* bg, const unsigned char* rb,
+                                               int lane, int r0, int n0, int M, int N) {
+  cp_async_wait<0>();  // this lane's residual rows have landed
+  __syncwarp();        // and the warp's copies of the tile's bias and gamma
+  const int gn = n0 + (lane & 7) * 8;
+  if (gn >= N) return;  // N is a multiple of 8: 8 columns are in or out
+  float bv[8], gv[8];
+  if (e.mode != EPI_DGELU && e.bias) {
+    load8(bg + (lane & 7) * 8, bv);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bv[i] = 0.f;
+  }
+  if (e.gamma) load8(bg + GBN + (lane & 7) * 8, gv);
+  const bool qcol = e.q_cols > 0 && gn % e.group_cols < e.q_cols;
+  if (e.mode == EPI_DGELU) {
+    epilogue_rows<ACT_NONE, 1, false, EPI_DGELU>(e, es, rb, lane, r0, gn, M, N, bv, gv,
+                                                 qcol);
+  } else if (e.mode == EPI_PRE) {
+    epilogue_rows<ACT_QUICK_GELU, 0, false, EPI_PRE>(e, es, rb, lane, r0, gn, M, N, bv, gv,
+                                                     qcol);
+  } else if (e.y_f32) {
+    epilogue_act_of<true>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+  } else {
+    epilogue_act_of<false>(e, es, rb, lane, r0, gn, M, N, bv, gv, qcol);
+  }
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+            const GemmEpi e, int M, int N, int K, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* past_ring = smem + stages * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(past_ring + E_BYTES + (e.r ? R_BYTES : 0));
+  uint64_t* empty = full + MAX_STAGES;
+
+  const int tiles_n = (N + GBN - 1) / GBN;
+  const int n_tiles = ((M + GBM - 1) / GBM) * tiles_n;
+  const int nk = (K + GBK - 1) / GBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread reads every stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  if (wg == 2) {  // the producer warp
+    if (t != 0) return;
+    int s = 0, phase = 0;  // the ring position and the parity of its pass
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * GBM, n0 = (tile % tiles_n) * GBN;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], STAGE);
+        unsigned char* a = smem + s * STAGE;
+        tma_load_2d(a, &map_a, &full[s], kt * GBK, m0);
+        tma_load_2d(a + A_BYTES, &map_w, &full[s], n0, kt * GBK);
+        tma_load_2d(a + A_BYTES + B_BOX, &map_w, &full[s], n0 + 64, kt * GBK);
+        if (++s == stages) s = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer wg: rows wg * 64 .. + 64 of each tile
+  const int warp = t >> 5, lane = t & 31, c2 = (lane & 3) * 2, w8 = threadIdx.x >> 5;
+  float* es = reinterpret_cast<float*>(past_ring + w8 * E_WARP);
+  float* bg = reinterpret_cast<float*>(past_ring + 8 * E_WARP + w8 * BG_WARP);
+  unsigned char* rb = past_ring + E_BYTES + w8 * R_WARP;  // with a residual only
+  float acc[GBN / 2];
+#pragma unroll
+  for (int i = 0; i < GBN / 2; ++i) acc[i] = 0.f;
+  int s = 0, phase = 0, prev = 0;  // the ring position, its pass's parity, the last one
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * GBM, n0 = (tile % tiles_n) * GBN;
+    const int r0 = m0 + wg * 64 + warp * 16;  // the warp's 16 rows
+    __syncwarp();  // the warp's lanes are done reading the last tile's bias and gamma
+    residual_fetch(e, rb, lane, r0, n0, M, N);  // lands during the main loop
+    {  // the tile's bias and gamma, 16 bytes a lane (columns past N: zeros)
+      const bool in = n0 + lane * 4 < N;
+      if (e.bias && e.mode != EPI_DGELU)
+        cp_async16(bg + lane * 4, in ? e.bias + n0 + lane * 4 : e.bias, in);
+      if (e.gamma) cp_async16(bg + GBN + lane * 4, in ? e.gamma + n0 + lane * 4 : e.gamma, in);
+    }
+    cp_async_commit();
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&full[s], phase);
+      const unsigned char* a = smem + s * STAGE + wg * 64 * 128;
+      const unsigned char* b = smem + s * STAGE + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<GBN, 1>(acc, smem_desc(a + kk * 32, 16, 1024, SW_128B),
+                         smem_desc(b + kk * 2048, B_BOX, 1024, SW_128B), kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-step's products are done
+      if (kt > 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == stages) s = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[prev]);
+
+    // epilogue, 64 columns at a time: the warp's [16][64] block of the
+    // accumulators (rows lane/4 + {0, 8}, columns 8 jj + c2 + {0, 1}) into
+    // its scratch, then out along rows
+#pragma unroll
+    for (int c = 0; c < GBN / 64; ++c) {
+      __syncwarp();  // the warp's lanes are done reading the scratch
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(es + ((lane >> 2) + 8 * hh) * E_LD + jj * 8 + c2) =
+              make_float2(acc[(8 * c + jj) * 4 + 2 * hh], acc[(8 * c + jj) * 4 + 2 * hh + 1]);
       __syncwarp();
+      const bool f32r = e.mode != EPI_DGELU && e.r_f32;  // staged 64 columns at a time
+      epilogue_chunk(e, es, bg + c * 64, f32r ? rb : rb + c * 128, lane, r0, n0 + c * 64, M, N);
+      if (f32r && c + 1 < GBN / 64) {  // the next 64 fp32 columns of the residual
+        __syncwarp();                    // once every lane has read this chunk's
+        residual_fetch(e, rb, lane, r0, n0 + (c + 1) * 64, M, N);
+        cp_async_commit();
+      }
     }
   }
 }
 
-template <typename TA, bool LN, bool RES, typename TR, typename TO, int EPI = EPI_STD>
-int launch_gemm(const void* a, const float2* stats, const float* ln_s, const float* ln_b,
-                const void* w, const float* bias, const float* gamma, const void* r,
-                void* y, int M, int N, int K, int ldw, int act, float q_scale, int q_cols,
-                int group_cols, cudaStream_t stream, void* y2 = nullptr) {
-  auto kernel = gemm_kernel<TA, LN, RES, TR, TO, EPI>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      static_cast<const TA*>(a), stats, ln_s, ln_b, static_cast<const bf16*>(w), bias, gamma,
-      static_cast<const TR*>(r), static_cast<TO*>(y), static_cast<bf16*>(y2), M, N, K, ldw,
-      act, q_scale, q_cols, group_cols);
+// A bf16 [M, K] row-major, W bf16 [K, N] with rows ldw apart
+int launch_gemm(const void* a, const void* w, int M, int N, int K, int ldw, const GemmEpi& e,
+                cudaStream_t stream) {
+  if (M < 1 || N < 8 || K < 8) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_w;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t a_stride[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t a_box[2] = {GBK, GBM};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t w_stride[1] = {static_cast<uint64_t>(ldw) * 2};
+  const uint32_t w_box[2] = {64, GBK};
+  int err = make_tensor_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_dims, a_stride,
+                            a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_tensor_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, w_dims, w_stride,
+                          w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const int stages = gemm_stages(e.r != nullptr), smem = gemm_smem(stages, e.r != nullptr);
+  // the kernel's shared-memory limit, raised once a device to the most any
+  // launch takes (set at every launch, its host time showed beside the
+  // shortest GEMMs)
+  static bool raised[64] = {};
+  int device = 0;
+  cudaError_t ce = cudaGetDevice(&device);
+  if (ce == cudaSuccess && (device >= 64 || !raised[device])) {
+    const int most = gemm_smem(gemm_stages(true), true) > gemm_smem(gemm_stages(false), false)
+                         ? gemm_smem(gemm_stages(true), true)
+                         : gemm_smem(gemm_stages(false), false);
+    ce = cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (ce == cudaSuccess && device < 64) raised[device] = true;
+  }
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const int tiles = ((M + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  gemm_kernel<<<grid, GEMM_THREADS, smem, stream>>>(map_a, map_w, e, M, N, K, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TA, typename TO, int EPI = EPI_STD>
-int launch_ln_gemm(const void* x, float2* stats, const float* ln_s, const float* ln_b,
-                   const void* w, const float* bias, void* y, int M, int N, int K,
-                   int ldw, int act, float eps, float q_scale, int q_cols,
-                   int group_cols, cudaStream_t stream, void* y2 = nullptr) {
-  const int rows_per_block = STATS_THREADS / 32;
-  ln_stats_kernel<TA><<<(M + rows_per_block - 1) / rows_per_block, STATS_THREADS, 0,
-                        stream>>>(static_cast<const TA*>(x), stats, M, K, eps);
+inline GemmEpi gemm_epi(const float* bias, const float* gamma, const void* r, int r_f32,
+                        void* y, int y_f32, int mode = EPI_STD, int act = ACT_NONE,
+                        float q_scale = 1.f, int q_cols = 0, int group_cols = 1,
+                        void* y2 = nullptr) {
+  return GemmEpi{bias, gamma, r, y, static_cast<bf16*>(y2), mode, act, r_f32, y_f32,
+                 q_scale, q_cols, group_cols};
+}
+
+// LN(x) into the bf16 scratch xn [M, K], then the GEMM on it
+int launch_ln_gemm(const void* x, int x_f32, void* xn, const float* ln_s, const float* ln_b,
+                   const void* w, int M, int N, int K, int ldw, float eps, const GemmEpi& e,
+                   cudaStream_t stream) {
+  int lpr = 32;  // lanes per row: all of a warp's 8-column slices busy
+  while (lpr > 1 && lpr * 8 > K) lpr /= 2;
+  const int rows_per_block = STATS_THREADS / 32 * (32 / lpr);
+  const int blocks = (M + rows_per_block - 1) / rows_per_block;
+  bf16* out = static_cast<bf16*>(xn);
+  if (x_f32)
+    ln_rows_kernel<float><<<blocks, STATS_THREADS, 0, stream>>>(static_cast<const float*>(x),
+                                                                ln_s, ln_b, out, M, K, eps, lpr);
+  else
+    ln_rows_kernel<bf16><<<blocks, STATS_THREADS, 0, stream>>>(static_cast<const bf16*>(x),
+                                                               ln_s, ln_b, out, M, K, eps, lpr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_gemm<TA, true, false, bf16, TO, EPI>(x, stats, ln_s, ln_b, w, bias, nullptr,
-                                                     nullptr, y, M, N, K, ldw, act, q_scale,
-                                                     q_cols, group_cols, stream, y2);
+  return launch_gemm(xn, w, M, N, K, ldw, e, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -464,23 +682,25 @@ int launch_act_pass(const float* t, int act, const void* r, void* y, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Attention: out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys < seq_len) v
-// One block per (64-query tile, head, image); 4 warps of 16 query rows.  Keys
-// stream through shared memory 64 at a time with an fp32 online softmax, so
-// no [S, S] tensor exists anywhere; P is cast to bf16 before the PV product
-// (block_kernel.py:993-998, :815) and the 1/sum is applied to the output rows.
-// Each lane owns one query row's half (HDP/2 output dims) in registers.  D=64
-// is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).  The
-// output is bf16, or fp32 (TO) for the int8 blocks of quant_kernels.cu (K12,
-// K13, K14).  NORM_P (fp32 only; K12 and K14) follows their TPU kernels'
-// rounding points (quant_matmul.py:472-478): a first pass over the keys takes
-// the row max m and sum l, and the second casts P = exp(s - m) / l to bf16
-// before the PV product, whose sum is the output unscaled.  The int8
-// requantize that reads this output turns a difference in P's rounding into
-// code flips, which K14's next requantizes multiply (at ViT-B/16: 6.8e-3 rel
-// L2 against its plain version with the 1/sum on the output rows, 2.0e-3
-// with NORM_P).  The first pass recomputes q k^T: K13 keeps the one-pass form
-// (its attention at SO400M: 1.58 ms, 2.36 ms with NORM_P).
+// Attention with fp32 output, the int8 blocks' (K12, K13, K14 of
+// quant_kernels.cu): out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys <
+// seq_len) v.  (The bf16-output calls, K1, K2, K5 and K6f, run
+// flash_attention_kernel below.)  One block per (64-query tile, head,
+// image); 4 warps of 16 query rows on WMMA.  Keys stream through shared
+// memory 64 at a time with an fp32 online softmax, so no [S, S] tensor
+// exists anywhere; P is cast to bf16 before the PV product
+// (block_kernel.py:993-998, :815) and the 1/sum is applied to the output
+// rows.  Each lane owns one query row's half (HDP/2 output dims) in
+// registers.  D=64 is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles
+// 80 wide).  NORM_P (K12 and K14) follows their TPU kernels' rounding points
+// (quant_matmul.py:472-478): a first pass over the keys takes the row max m
+// and sum l, and the second casts P = exp(s - m) / l to bf16 before the PV
+// product, whose sum is the output unscaled.  The int8 requantize that reads
+// this output turns a difference in P's rounding into code flips, which
+// K14's next requantizes multiply (at ViT-B/16: 6.8e-3 rel L2 against its
+// plain version with the 1/sum on the output rows, 2.0e-3 with NORM_P).
+// The first pass recomputes q k^T: K13 keeps the one-pass form (its
+// attention at SO400M: 1.58 ms, 2.36 ms with NORM_P).
 // Operands: q, k and v of head h start at column (h / g) * group_stride +
 // (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
 // of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
@@ -488,16 +708,14 @@ int launch_act_pass(const float* t, int act, const void* r, void* y, int n,
 // [B, S, W] tensors (ops/attention.py:91, K6) are ld = W, g = heads.
 // scale is 1/sqrt(D) on the fp32 scores (CLIP, K6) or 1 when ln_gemm's
 // epilogue has already scaled q before rounding it, as attn_block_split does.
-// With lse non-null each valid row also stores its fp32 log-sum-exp
-// m + log(l) (of the scaled scores) at lse[(b * heads + h) * S + q], which
-// the backward kernels (fused_attention_bwd.cu) rebuild P from.
+// (Both attention kernels take these operands.)
 // ---------------------------------------------------------------------------
 
-template <int HD, typename TO, bool NORM_P>
+template <int HD, bool NORM_P>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
-                 const bf16* __restrict__ vp, TO* __restrict__ out,
-                 float* __restrict__ lse, int S, int seq_len, int heads,
+                 const bf16* __restrict__ vp, float* __restrict__ out, int S, int seq_len,
+                 int heads,
                  int group_heads, int ld, int group_stride, float scale) {
   using T = AttnTile<HD>;
   constexpr int HDP = T::HDP, T_LD = T::T_LD, S_LD = T::S_LD, HALF = T::HALF;
@@ -508,7 +726,6 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   float* Ss_all = reinterpret_cast<float*>(Vs + T::TILE);
   bf16* Ps_all = reinterpret_cast<bf16*>(Ss_all + 4 * 16 * S_LD);
 
-  static_assert(!NORM_P || std::is_same<TO, float>::value, "NORM_P is fp32 only");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
   const int W = heads * HD;
@@ -637,41 +854,304 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     const float inv = NORM_P ? 1.f : 1.f / l_run;
 #pragma unroll
     for (int c = 0; c < HALF; ++c) o[c] *= inv;
-    TO* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
+    float* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
 #pragma unroll
     for (int c = 0; c < HALF; c += 8)
       if (half * HALF + c < HD) store8(dst + c, o + c);
-    if (lse != nullptr && half == 0)
-      lse[(static_cast<size_t>(b) * heads + h) * S + q] = m_run + logf(l_run);
   }
 }
 
-template <int HD, typename TO, bool NORM_P>
-int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
-                     int B, int S, int seq_len, int heads, int group_heads, int ld,
-                     int group_stride, float scale, cudaStream_t stream) {
-  auto kernel = attention_kernel<HD, TO, NORM_P>;
+template <int HD, bool NORM_P>
+int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, int B, int S,
+                     int seq_len, int heads, int group_heads, int ld, int group_stride,
+                     float scale, cudaStream_t stream) {
+  auto kernel = attention_kernel<HD, NORM_P>;
   constexpr int smem = 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + AQ - 1) / AQ, heads, B);
-  kernel<<<grid, ATT_THREADS, smem, stream>>>(q, k, v, static_cast<TO*>(out), lse, S,
-                                              seq_len, heads, group_heads, ld,
-                                              group_stride, scale);
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(q, k, v, static_cast<float*>(out), S, seq_len,
+                                              heads, group_heads, ld, group_stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TO, bool NORM_P = false>
-int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse,
-                       int B, int S, int seq_len, int heads, int group_heads, int head_dim,
-                       int ld, int group_stride, float scale, cudaStream_t stream) {
+template <bool NORM_P>
+int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, int B, int S,
+                       int seq_len, int heads, int group_heads, int head_dim, int ld,
+                       int group_stride, float scale, cudaStream_t stream) {
   if (head_dim == 64)
-    return launch_attention<64, TO, NORM_P>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
-                                    ld, group_stride, scale, stream);
+    return launch_attention<64, NORM_P>(q, k, v, out, B, S, seq_len, heads, group_heads, ld,
+                                        group_stride, scale, stream);
   if (head_dim == 72)
-    return launch_attention<72, TO, NORM_P>(q, k, v, out, lse, B, S, seq_len, heads, group_heads,
-                                    ld, group_stride, scale, stream);
+    return launch_attention<72, NORM_P>(q, k, v, out, B, S, seq_len, heads, group_heads, ld,
+                                        group_stride, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Flash attention, bf16 output (K6f, and the attention of K1, K2 and K5):
+// out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys < seq_len) v, one pass
+// over the keys with an fp32 online softmax.  One block of one warpgroup
+// per (64-query tile, head, image).  Thread 0 brings the Q tile once and
+// the K and V tiles (64 keys) by TMA into a two-stage mbarrier ring, the
+// next tile loading while this one computes.  Q, K and V are addressed by
+// 5-D tensor maps {d, head in group, group, row, image}, so a tile that
+// runs past an image's S rows (or past D) loads zeros instead of the next
+// image's rows.  S = Q K^T is a wgmma from shared memory (K-major, no
+// transpose: a [keys][D] tile is B's K-major layout); the softmax runs on
+// the accumulator registers (a row's 64 scores sit in the 4 threads of a
+// quad: 16 each, reduced with two shuffles); P is rounded to bf16 in
+// registers and is the register-A operand of O += P V, with V's [keys][D]
+// tile MN-major (the transpose bit), so neither the scores nor P V touch
+// shared memory.  D = 64 (CLIP) is one 128B-swizzled box per tile; D = 72
+// (SigLIP), whose 144-byte rows fit no swizzle mode, is a 64-column
+// 128B-swizzled box plus a 16-column 32B-swizzled box at column 64 whose
+// columns 72-79 are TMA's zero fill: Q K^T contracts 64 + 16 columns and
+// P V writes an n64 and an n16 product, of which columns 72-79 are dropped.
+// Numerics are those of the WMMA kernel this replaced (attention_kernel
+// above keeps them): fp32 scores times scale, keys >= seq_len at -1e30, the
+// row max and sum online in fp32 over unrounded P, P cast to bf16 before P
+// V, 1/l on the output rows.  With lse non-null each valid row also stores
+// its fp32 log-sum-exp m + log(l) of the scaled scores at lse[(b * heads +
+// h) * S + q], which the backward kernels (fused_attention_bwd.cu) rebuild P
+// from.  Bound: bytes at SigLIP shapes (q, k, v and out cross
+// device memory once; K and V re-read from L2 per query tile).
+// ---------------------------------------------------------------------------
+
+constexpr int FQ = 64, FKV = 64, FLASH_THREADS = 128;
+
+template <int HD>
+struct FlashCfg {
+  static constexpr bool TAIL = HD > 64;
+  static constexpr int MAIN = FQ * 128, TAIL_BYTES = TAIL ? FQ * 32 : 0;  // per tile
+  // main boxes 1024-aligned first: Q, K0, V0, K1, V1; then their tails
+  static constexpr int Q_MAIN = 0, KV_MAIN = MAIN;  // K stage s at KV_MAIN + 2s MAIN, V + MAIN
+  static constexpr int TAILS = 5 * MAIN;
+  static constexpr int Q_TAIL = TAILS, KV_TAIL = TAILS + TAIL_BYTES;
+  static constexpr int BARS = TAILS + 5 * TAIL_BYTES;
+  static constexpr int SMEM = 1024 + BARS + 3 * 8;
+  static constexpr unsigned Q_TX = MAIN + TAIL_BYTES, KV_TX = 2 * (MAIN + TAIL_BYTES);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(FLASH_THREADS, 3)
+flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_qt,
+                       const __grid_constant__ CUtensorMap map_kt,
+                       const __grid_constant__ CUtensorMap map_vt, bf16* __restrict__ out,
+                       float* __restrict__ lse, int S, int seq_len, int heads,
+                       int group_heads, float scale) {
+  using C = FlashCfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BARS);
+  uint64_t* full = qbar + 1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
+  const int hg = h % group_heads, grp = h / group_heads;
+  const int n_tiles = (seq_len + FKV - 1) / FKV;
+
+  auto k_main = [&](int s) { return smem + C::KV_MAIN + 2 * s * C::MAIN; };
+  auto v_main = [&](int s) { return smem + C::KV_MAIN + (2 * s + 1) * C::MAIN; };
+  auto k_tail = [&](int s) { return smem + C::KV_TAIL + 2 * s * C::TAIL_BYTES; };
+  auto v_tail = [&](int s) { return smem + C::KV_TAIL + (2 * s + 1) * C::TAIL_BYTES; };
+  auto load_kv = [&](int t) {
+    const int s = t & 1;
+    mbar_expect_tx(&full[s], C::KV_TX);
+    tma_load_5d(k_main(s), &map_k, &full[s], 0, hg, grp, t * FKV, b);
+    tma_load_5d(v_main(s), &map_v, &full[s], 0, hg, grp, t * FKV, b);
+    if constexpr (C::TAIL) {
+      tma_load_5d(k_tail(s), &map_kt, &full[s], 64, hg, grp, t * FKV, b);
+      tma_load_5d(v_tail(s), &map_vt, &full[s], 64, hg, grp, t * FKV, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, C::Q_TX);
+    tma_load_5d(smem + C::Q_MAIN, &map_q, qbar, 0, hg, grp, q0, b);
+    if constexpr (C::TAIL) tma_load_5d(smem + C::Q_TAIL, &map_qt, qbar, 64, hg, grp, q0, b);
+    load_kv(0);
+    if (n_tiles > 1) load_kv(1);
+  }
+  __syncthreads();
+
+  const int c2 = (lane & 3) * 2;
+  float o[32], ot[8];  // P V columns 0-63 and (D = 72) 64-79
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+  float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    mbar_wait(&full[s], (t >> 1) & 1);
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_MAIN + kk * 32, 16, 1024, SW_128B),
+                      smem_desc(k_main(s) + kk * 32, 16, 1024, SW_128B), kk > 0);
+    if constexpr (C::TAIL)
+      wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_TAIL, 16, 256, SW_32B),
+                      smem_desc(k_tail(s), 16, 256, SW_32B), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax over this thread's rows (h2 = 0: registers 4j, 4j+1;
+    // h2 = 1: 4j+2, 4j+3) and keys t*64 + 8j + c2 + {0, 1}
+    float alpha[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mx = -1e30f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = sc[j * 4 + h2 * 2 + e];
+          v = (t * FKV + j * 8 + c2 + e < seq_len) ? v * scale : -1e30f;
+          mx = fmaxf(mx, v);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[h2], mx);
+      alpha[h2] = expf(m_run[h2] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = sc[j * 4 + h2 * 2 + e];
+          v = expf(v - m_new);
+          sum += v;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[h2] = l_run[h2] * alpha[h2] + sum;
+      m_run[h2] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j * 4] *= alpha[0];
+      o[j * 4 + 1] *= alpha[0];
+      o[j * 4 + 2] *= alpha[1];
+      o[j * 4 + 3] *= alpha[1];
+    }
+    if constexpr (C::TAIL) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        ot[j * 4] *= alpha[0];
+        ot[j * 4 + 1] *= alpha[0];
+        ot[j * 4 + 2] *= alpha[1];
+        ot[j * 4 + 3] *= alpha[1];
+      }
+    }
+    // P in bf16 as register-A fragments: keys 16kk .. 16kk + 15
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pf[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<64, 1>(o, pf[kk], smem_desc(v_main(s) + kk * 2048, C::MAIN, 1024, SW_128B), 1);
+      if constexpr (C::TAIL)
+        wgmma_rs<16, 1>(ot, pf[kk], smem_desc(v_tail(s) + kk * 512, C::TAIL_BYTES, 256, SW_32B),
+                        1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(ot);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && t + 2 < n_tiles) load_kv(t + 2);
+  }
+
+  const int W = heads * HD;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int q = q0 + warp * 16 + (lane >> 2) + 8 * h2;
+    if (q >= S) continue;
+    const float inv = 1.f / l_run[h2];
+    bf16* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store2(dst + j * 8 + c2, o[j * 4 + h2 * 2] * inv, o[j * 4 + h2 * 2 + 1] * inv);
+    if constexpr (C::TAIL)  // columns 64-71 (j = 0); 72-79 are padding
+      store2(dst + 64 + c2, ot[h2 * 2] * inv, ot[h2 * 2 + 1] * inv);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<size_t>(b) * heads + h) * S + q] = m_run[h2] + logf(l_run[h2]);
+  }
+}
+
+// the 5-D map {d, head in group, group, row, image} of one operand of
+// rows `ld` apart, box [64 rows][width columns] at 128B (width 64) or 32B
+// (width 16) swizzle
+inline int flash_map(CUtensorMap* map, const bf16* base, int head_dim, int group_heads,
+                     int groups, int S, int B, int ld, int group_stride, uint32_t width) {
+  const uint64_t dims[5] = {static_cast<uint64_t>(head_dim), static_cast<uint64_t>(group_heads),
+                            static_cast<uint64_t>(groups), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t row = static_cast<uint64_t>(ld) * 2;
+  const uint64_t strides[4] = {static_cast<uint64_t>(head_dim) * 2,
+                               group_stride > 0 ? static_cast<uint64_t>(group_stride) * 2 : row,
+                               row, row * S};
+  const uint32_t box[5] = {width, 1, 1, FQ, 1};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, base, dims, strides, box,
+                         width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+template <int HD>
+int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B,
+                 int S, int seq_len, int heads, int group_heads, int ld, int group_stride,
+                 float scale, cudaStream_t stream) {
+  using C = FlashCfg<HD>;
+  const int groups = heads / group_heads;
+  CUtensorMap maps[6];  // q, k, v, then their tails (D = 72; unread at D = 64)
+  const bf16* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    int err = flash_map(&maps[i], bases[i], HD, group_heads, groups, S, B, ld, group_stride, 64);
+    if (err == 0 && C::TAIL)
+      err = flash_map(&maps[3 + i], bases[i], HD, group_heads, groups, S, B, ld, group_stride,
+                      16);
+    if (err != 0) return err;
+    if (!C::TAIL) maps[3 + i] = maps[i];
+  }
+  auto kernel = flash_attention_kernel<HD>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((S + FQ - 1) / FQ, heads, B);
+  kernel<<<grid, FLASH_THREADS, C::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                                   maps[5], out, lse, S, seq_len, heads,
+                                                   group_heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int flash_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse, int B,
+                   int S, int seq_len, int heads, int group_heads, int head_dim, int ld,
+                   int group_stride, float scale, cudaStream_t stream) {
+  if (seq_len < 1 || seq_len > S || group_heads < 1 || heads % group_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 64)
+    return launch_flash<64>(q, k, v, static_cast<bf16*>(out), lse, B, S, seq_len, heads,
+                            group_heads, ld, group_stride, scale, stream);
+  if (head_dim == 72)
+    return launch_flash<72>(q, k, v, static_cast<bf16*>(out), lse, B, S, seq_len, heads,
+                            group_heads, ld, group_stride, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -681,26 +1161,16 @@ extern "C" {
 
 // y[M,N] (bf16, or fp32 with y_is_f32) = act(LN(x)[M,K] @ w[K,N] + bias),
 // times q_scale on the columns n with n % group_cols < q_cols; x is bf16 or
-// fp32; w's rows are ldw apart; stats is an [M] float2 scratch for the row
-// statistics.
+// fp32; w's rows are ldw apart; xn is an [M,K] bf16 scratch for LN(x).
 int aihab_ln_gemm(const void* x, int x_is_f32, const float* ln_s, const float* ln_b,
-                  const void* w, int ldw, const float* bias, void* y, int y_is_f32,
-                  void* stats, int M, int N, int K, int act, float eps, float q_scale,
-                  int q_cols, int group_cols, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float2* st = static_cast<float2*>(stats);
+                  const void* w, int ldw, const float* bias, void* y, int y_is_f32, void* xn,
+                  int M, int N, int K, int act, float eps, float q_scale, int q_cols,
+                  int group_cols, void* stream) {
   if (act > ACT_GELU_SIG5) return static_cast<int>(cudaErrorInvalidValue);  // act_pass's
-  if (x_is_f32 && y_is_f32)
-    return launch_ln_gemm<float, float>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act,
-                                        eps, q_scale, q_cols, group_cols, s);
-  if (x_is_f32)
-    return launch_ln_gemm<float, bf16>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act,
-                                       eps, q_scale, q_cols, group_cols, s);
-  if (y_is_f32)
-    return launch_ln_gemm<bf16, float>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act,
-                                       eps, q_scale, q_cols, group_cols, s);
-  return launch_ln_gemm<bf16, bf16>(x, st, ln_s, ln_b, w, bias, y, M, N, K, ldw, act, eps,
-                                    q_scale, q_cols, group_cols, s);
+  return launch_ln_gemm(x, x_is_f32, xn, ln_s, ln_b, w, M, N, K, ldw, eps,
+                        gemm_epi(bias, nullptr, nullptr, 0, y, y_is_f32, EPI_STD, act, q_scale,
+                                 q_cols, group_cols),
+                        static_cast<cudaStream_t>(stream));
 }
 
 // y[i] = act(t[i]) [+ r[i]] over n fp32 values t, act one of the gelu_poly
@@ -722,40 +1192,24 @@ int aihab_act_pass(const float* t, int act, const void* r, int r_is_f32, void* y
 int aihab_gemm_residual(const void* a, const void* w, int ldw, const float* bias,
                         const float* gamma, const void* r, int r_is_f32, void* y,
                         int y_is_f32, int M, int N, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r_is_f32 && y_is_f32)
-    return launch_gemm<bf16, false, true, float, float>(
-        a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0,
-        1, s);
-  if (r_is_f32)
-    return launch_gemm<bf16, false, true, float, bf16>(
-        a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0,
-        1, s);
-  if (y_is_f32)
-    return launch_gemm<bf16, false, true, bf16, float>(
-        a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0,
-        1, s);
-  return launch_gemm<bf16, false, true, bf16, bf16>(
-      a, nullptr, nullptr, nullptr, w, bias, gamma, r, y, M, N, K, ldw, ACT_NONE, 1.f, 0, 1,
-      s);
+  return launch_gemm(a, w, M, N, K, ldw, gemm_epi(bias, gamma, r, r_is_f32, y, y_is_f32),
+                     static_cast<cudaStream_t>(stream));
 }
 
 // K17's forward: h_pre = LN(x) @ w_fc + b_fc (bf16), h = quick_gelu of the
 // same fp32 value (bf16), y = h @ w_proj + b_proj + x (bf16); x [M,W] bf16,
 // w_fc [W,H] and w_proj [H,W] bf16 row-major, LN eps 1e-5 (the TPU kernel's);
-// h [M,H] and stats [M] float2 are scratch.
+// h [M,H] and xn [M,W] (LN(x), bf16) are scratch.
 int aihab_mlp_train_fwd(const void* x, const float* ln_s, const float* ln_b, const void* w_fc,
                         const float* b_fc, const void* w_proj, const float* b_proj, void* y,
-                        void* h_pre, void* h, void* stats, int M, int W, int H, float eps,
+                        void* h_pre, void* h, void* xn, int M, int W, int H, float eps,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_ln_gemm<bf16, bf16, EPI_PRE>(
-      x, static_cast<float2*>(stats), ln_s, ln_b, w_fc, b_fc, h, M, H, W, H, ACT_QUICK_GELU,
-      eps, 1.f, 0, 1, s, h_pre);
+  const int err = launch_ln_gemm(
+      x, 0, xn, ln_s, ln_b, w_fc, M, H, W, H, eps,
+      gemm_epi(b_fc, nullptr, nullptr, 0, h, 0, EPI_PRE, ACT_QUICK_GELU, 1.f, 0, 1, h_pre), s);
   if (err != 0) return err;
-  return launch_gemm<bf16, false, true, bf16, bf16>(h, nullptr, nullptr, nullptr, w_proj, b_proj,
-                                                    nullptr, x, y, M, W, H, W, ACT_NONE, 1.f, 0,
-                                                    1, s);
+  return launch_gemm(h, w_proj, M, W, H, W, gemm_epi(b_proj, nullptr, x, 0, y, 0), s);
 }
 
 // K17's backward dx chain: dh_pre = (dy @ w_proj_t) * quick_gelu'(h_pre),
@@ -766,13 +1220,11 @@ int aihab_mlp_train_bwd(const void* x, const void* h_pre, const void* dy, const 
                         const void* w_fc_t, const void* w_proj_t, void* dx, void* dh_pre,
                         void* dln, void* dln16, int M, int W, int H, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = launch_gemm<bf16, false, false, bf16, bf16, EPI_DGELU>(
-      dy, nullptr, nullptr, nullptr, w_proj_t, nullptr, nullptr, h_pre, dh_pre, M, H, W, H,
-      ACT_NONE, 1.f, 0, 1, s);
+  int err = launch_gemm(dy, w_proj_t, M, H, W, H,
+                        gemm_epi(nullptr, nullptr, h_pre, 0, dh_pre, 0, EPI_DGELU), s);
   if (err != 0) return err;
-  err = launch_gemm<bf16, false, false, bf16, float>(dh_pre, nullptr, nullptr, nullptr, w_fc_t,
-                                                     nullptr, nullptr, nullptr, dln, M, W, H, W,
-                                                     ACT_NONE, 1.f, 0, 1, s);
+  err = launch_gemm(dh_pre, w_fc_t, M, W, H, W, gemm_epi(nullptr, nullptr, nullptr, 0, dln, 1),
+                    s);
   if (err != 0) return err;
   const int rows_per_block = STATS_THREADS / 32;
   ln_bwd_kernel<<<(M + rows_per_block - 1) / rows_per_block, STATS_THREADS, 0, s>>>(
@@ -793,17 +1245,12 @@ int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int h
   const int gw = group_heads * head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (norm_p && !out_f32) return static_cast<int>(cudaErrorInvalidValue);
-  if (norm_p)
-    return attention_dispatch<float, true>(base, base + gw, base + 2 * gw, out, nullptr, B,
-                                           S, seq_len, heads, group_heads, head_dim,
-                                           3 * heads * head_dim, 3 * gw, scale, s);
   if (out_f32)
-    return attention_dispatch<float>(base, base + gw, base + 2 * gw, out, nullptr, B, S,
-                                     seq_len, heads, group_heads, head_dim,
-                                     3 * heads * head_dim, 3 * gw, scale, s);
-  return attention_dispatch<bf16>(base, base + gw, base + 2 * gw, out, nullptr, B, S,
-                                  seq_len, heads, group_heads, head_dim,
-                                  3 * heads * head_dim, 3 * gw, scale, s);
+    return (norm_p ? attention_dispatch<true> : attention_dispatch<false>)(
+        base, base + gw, base + 2 * gw, out, B, S, seq_len, heads, group_heads, head_dim,
+        3 * heads * head_dim, 3 * gw, scale, s);
+  return flash_dispatch(base, base + gw, base + 2 * gw, out, nullptr, B, S, seq_len, heads,
+                        group_heads, head_dim, 3 * heads * head_dim, 3 * gw, scale, s);
 }
 
 // fused_attention's forward (K6): out = softmax(scale * q k^T) v over
@@ -812,10 +1259,43 @@ int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int h
 int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void* out,
                               void* lse, int B, int S, int heads, int head_dim, float scale,
                               void* stream) {
-  return attention_dispatch<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                  static_cast<const bf16*>(v), out, static_cast<float*>(lse),
-                                  B, S, S, heads, heads, head_dim, heads * head_dim, 0, scale,
-                                  static_cast<cudaStream_t>(stream));
+  return flash_dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), out, static_cast<float*>(lse), B, S, S,
+                        heads, heads, head_dim, heads * head_dim, 0, scale,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The launch plans of the TMA + wgmma kernels, for reports.  GEMM [M, N]
+// (with or without a residual): out = {ring stages, shared bytes a block,
+// output tiles, blocks, registers a thread, local (spill) bytes a thread}.
+// Flash attention at (B, S, heads, head_dim): out = {K/V stages, shared
+// bytes a block, blocks (query tiles x heads x images), the same, registers,
+// local bytes}.
+int aihab_gemm_plan(int M, int N, int residual, int* out) {
+  const int stages = gemm_stages(residual != 0);
+  const int tiles = ((M + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, gemm_kernel);
+  out[0] = stages;
+  out[1] = gemm_smem(stages, residual != 0);
+  out[2] = tiles;
+  out[3] = tiles < sm_count() ? tiles : sm_count();
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
+}
+
+int aihab_flash_plan(int B, int S, int heads, int head_dim, int* out) {
+  if (head_dim != 64 && head_dim != 72) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, head_dim == 64 ? flash_attention_kernel<64> : flash_attention_kernel<72>);
+  out[0] = 2;
+  out[1] = head_dim == 64 ? FlashCfg<64>::SMEM : FlashCfg<72>::SMEM;
+  out[2] = out[3] = ((S + FQ - 1) / FQ) * heads * B;
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

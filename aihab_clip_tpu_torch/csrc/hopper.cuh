@@ -1,0 +1,296 @@
+// Hopper (sm_90a) building blocks for the TMA + wgmma kernels of
+// block_kernels.cu: mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and the wgmma instructions, and the host-side encoding of TMA
+// tensor maps.
+//
+// TMA: one thread asks for a box of a tensor (described by a CUtensorMap
+// made on the host by cuTensorMapEncodeTiled) to be copied into shared
+// memory; the copy completes on an mbarrier, which counts the bytes.  Boxes
+// that reach past the tensor's bounds are zero-filled, so ragged edges need
+// no masked loads.  The encoder is a driver-API function: it is fetched
+// through the runtime (cudaGetDriverEntryPoint), so the libraries link
+// against cudart alone.
+//
+// wgmma: a warpgroup (4 consecutive warps) multiplies a 64-row A tile (in
+// shared memory, or in registers) by a B tile in shared memory, k16 at a
+// time, accumulating fp32 in registers; it runs asynchronously until
+// wgmma.wait_group.  Shared-memory operands are named by a 64-bit
+// descriptor: start address, the leading and stride byte offsets and the
+// swizzle mode, which must be the one TMA wrote the tile with.  Canonical
+// layouts (bf16, 8 elements = 16 bytes = one "chunk"):
+//   K-major, 128B swizzle: rows of 64 elements (128 bytes) 128 bytes apart;
+//       SBO = 1024 (the next 8 rows); a k16 step advances the start by 32
+//       bytes inside the swizzle row.
+//   K-major, 32B swizzle: rows of 16 elements (32 bytes); SBO = 256.
+//   MN-major (trans-b), 128B swizzle: a [k][64] box, rows (k) 128 bytes
+//       apart; SBO = 1024 (the next 8 k), LBO = the byte distance to the
+//       next 64-wide box along N; a k16 step advances 16 rows (2048 bytes).
+//   MN-major, 32B swizzle: a [k][16] box, SBO = 256, a k16 step 512 bytes.
+// Accumulator layout of m64nN (per warpgroup): warp w holds rows 16w +
+// lane/4 (registers 4j, 4j+1) and 16w + lane/4 + 8 (4j+2, 4j+3) at columns
+// 8j + 2 (lane % 4) + {0, 1}.  A register-A fragment (m64k16) holds the
+// same rows at columns 2 (lane % 4) + {0, 1} (a0: row r, a1: row r + 8) and
+// + 8 (a2, a3), two bf16 per register, so an m64nN accumulator becomes the
+// A operand of the next product without leaving registers.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrive once and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// spin until the phase of parity `parity` has completed (a fresh barrier
+// counts parity 1 as completed).  A wait that outlasts ~2^35 cycles (10-20
+// s: a lost TMA transaction, a byte count that never completes) traps, so
+// the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// ---- TMA tile loads (global -> shared, completing on an mbarrier) -----------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+enum Swizzle { SW_128B = 1, SW_32B = 3 };  // the descriptor's layout codes the kernels use
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              int swizzle) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(swizzle) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma wait or fence (the asm statements of the products do not
+// tell it when the asynchronous writes land)
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// m64nNk16, bf16 in, fp32 accumulators d (N/2 a thread), D = A B (scale_d
+// 0) or D += A B; A from shared memory (wgmma_ss) or registers (wgmma_rs),
+// B from shared memory, TB = 1 for an MN-major ("transposed") B
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "the widths the kernels use");
+  if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, scale_d);
+  else wgmma_ss_n128<TB>(d, da, db, scale_d);
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 64, "the widths the kernels use");
+  if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, db, scale_d);
+  else wgmma_rs_n64<TB>(d, a, db, scale_d);
+}
+
+// ---- host: TMA tensor maps ----------------------------------------------------
+
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*,
+                                         const cuuint32_t*, const cuuint32_t*,
+                                         CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  static TensorMapEncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a tiled map of a rank-`rank` tensor at `base`: dims innermost first,
+// byte strides of dims 1.. (multiples of 16), the box copied per load;
+// out-of-bounds elements load as zeros.  Returns 0 or a CUDA error code.
+inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                           const void* base, const uint64_t* dims, const uint64_t* strides,
+                           const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int sm_count() {
+  static int n = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
+
+}  // namespace

@@ -4,14 +4,20 @@ Each source compiles with ``nvcc`` into a shared library of its own with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds, and the sources build in parallel (one ``nvcc`` each, all
 started together).  A library lands in ``<checkout>/build/`` under a name
-keyed by the hash of its source and the shared header, so an edited source
-is never served a stale build.  Nothing is compiled at import: the first
-kernel launch builds.
+keyed by the hash of its source and of every header in ``csrc/``
+(``common.cuh``; ``hopper.cuh``, the TMA, mbarrier and wgmma helpers), so
+an edited source or header is never served a stale build.  Nothing is
+compiled at import: the first kernel launch builds.  The TMA tensor maps
+are encoded on the host through the runtime's driver entry point, so the
+libraries link against cudart alone.
 
-  block_kernels.cu       ln_gemm, gemm_residual, attention (K1-K5, K7, K16;
-                         K6 fwd; K13's attention core, fp32 output), act_pass
-                         (the gelu_poly forms past the GEMM epilogues), the
-                         train MLP's forward and backward (K17)
+  block_kernels.cu       the TMA + wgmma GEMM behind ln_gemm (after an LN row
+                         pass) and gemm_residual (K1-K5, K7, K16, K17), the
+                         TMA + wgmma flash attention (bf16 output: K1, K2,
+                         K5, K6 fwd) and the WMMA attention with fp32 output
+                         (K12-K14's core), act_pass (the gelu_poly forms past
+                         the GEMM epilogues), the train MLP's backward row
+                         kernel (K17)
   fused_attention_bwd.cu fused_attention's backward (K6b)
   quant_kernels.cu       row_quant, int8_gemm (K8-K15)
   preprocess.cu          normalize_u8 (K18)
@@ -50,6 +56,8 @@ _ARGTYPES = {
                                       _p],
         "aihab_mlp_train_fwd": [_p] * 11 + [_i, _i, _i, _f, _p],
         "aihab_mlp_train_bwd": [_p] * 10 + [_i, _i, _i, _f, _p],
+        "aihab_gemm_plan": [_i, _i, _i, _p],
+        "aihab_flash_plan": [_i, _i, _i, _i, _p],
     },
     "fused_attention_bwd": {
         "aihab_fused_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
@@ -84,9 +92,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes() + \
-        (_CSRC / "common.cuh").read_bytes()
-    return BUILD_DIR / f"{name}-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    """The library of source ``name``, keyed by the hash of the source and
+    of every header in ``csrc/`` (any of which it may include)."""
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
@@ -135,12 +146,16 @@ def library(name: str = "block_kernels") -> ctypes.CDLL:
 
 def launch(fn: str, device, *args) -> None:
     """Call the C entry point ``fn`` with ``args`` and the current stream of
-    ``device``; raise on the CUDA error code it returns."""
+    ``device``, with ``device`` current; raise on the CUDA error code it
+    returns."""
     import torch
 
     lib = library(_SOURCE_OF[fn])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args, stream)  # (the device switch costs µs)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

@@ -5,10 +5,10 @@
 two hand-written CUDA kernels, for q/k/v [B, S, W] with the heads packed in W
 (the JAX layout, so nothing is transposed):
 
-  * forward (``_pallas_attention`` :91, pallas_call :113): the online-softmax
-    attention kernel of ``csrc/block_kernels.cu`` reading the three separate
-    tensors, fp32 scores scaled by 1/sqrt(d), and storing each row's fp32
-    log-sum-exp for the backward;
+  * forward (``_pallas_attention`` :91, pallas_call :113): the TMA + wgmma
+    flash kernel of ``csrc/block_kernels.cu`` (``flash_attention_kernel``)
+    reading the three separate tensors, fp32 scores scaled by 1/sqrt(d), P
+    in registers, and storing each row's fp32 log-sum-exp for the backward;
   * backward (``_pallas_attention_bwd`` :204, pallas_call :226):
     ``csrc/fused_attention_bwd.cu``, a dq kernel (which also forms the row
     term) and a dk/dv kernel that rebuild P from the log-sum-exp.

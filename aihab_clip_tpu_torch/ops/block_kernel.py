@@ -16,11 +16,16 @@ resident in VMEM.  On the H100 each is a composition of three hand-written
 CUDA kernels (``csrc/block_kernels.cu``, whose header gives the design and
 the bound):
 
-  * ``ln_gemm``        fp32 LN prologue -> bf16 GEMM -> bias [+ act]
-                       [* q-scale on the q columns]
+  * ``ln_gemm``        fp32 LN row pass (LN(x) stored in bf16) -> bf16
+                       GEMM -> bias [+ act] [* q-scale on the q columns]
   * ``attention``      masked multi-head softmax(q k^T / sqrt(d)) v,
-                       head_dim 64 or 72, packed or head-grouped qkv
+                       head_dim 64 or 72, packed or head-grouped qkv (bf16
+                       output: the flash kernel; fp32 output, K12-K14's:
+                       the WMMA kernel)
   * ``gemm_residual``  bf16 GEMM -> bias [* per-column gamma] + residual
+
+Both GEMMs are the one TMA + wgmma kernel (``gemm_kernel``), and the bf16
+attention the TMA + wgmma ``flash_attention_kernel``.
 
 K1 = ln_gemm(LN1, W_qkv) -> attention -> gemm_residual(W_out, +x) ->
 ln_gemm(LN2, W_fc, act) -> gemm_residual(W_proj, +y1); K2 and K3 are its
@@ -341,10 +346,10 @@ def ln_gemm(x, ln_scale, ln_bias, w, bias, *, act="none", eps=1e-5,
     bias = _vec_f32(bias, n, dev, "bias")
     y = torch.empty((m, n), dtype=torch.bfloat16 if fused else torch.float32,
                     device=dev)
-    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)  # mean, rstd
+    xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev)  # LN(x), bf16
     launch("aihab_ln_gemm", dev, x.data_ptr(), int(x.dtype == torch.float32),
            ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), ldw,
-           bias.data_ptr(), y.data_ptr(), int(not fused), stats.data_ptr(), m,
+           bias.data_ptr(), y.data_ptr(), int(not fused), xn.data_ptr(), m,
            n, k, code if fused else 0, eps, q_scale, q_width,
            max(3 * q_width, 1))
     if not fused:
@@ -844,11 +849,11 @@ def mlp_block_train_fwd(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     y = torch.empty((m, w), dtype=torch.bfloat16, device=dev)
     h_pre = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
     h = torch.empty_like(h_pre)
-    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
+    xn = torch.empty((m, w), dtype=torch.bfloat16, device=dev)  # LN(x), bf16
     launch("aihab_mlp_train_fwd", dev, x.data_ptr(), args[0].data_ptr(),
            args[1].data_ptr(), w_fc.data_ptr(), args[2].data_ptr(),
            w_proj.data_ptr(), args[3].data_ptr(), y.data_ptr(),
-           h_pre.data_ptr(), h.data_ptr(), stats.data_ptr(), m, w, hidden,
+           h_pre.data_ptr(), h.data_ptr(), xn.data_ptr(), m, w, hidden,
            1e-5)
     mlp_block_train_fwd.launches += 1
     return y, h_pre

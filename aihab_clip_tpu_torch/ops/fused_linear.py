@@ -165,18 +165,29 @@ class _MatmulResidual(torch.autograd.Function):
         return _vjp(_matmul_residual_xla, ctx.saved_tensors, g)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def ln_matmul(x, ln_scale, ln_bias, w, b, activation=None, eps=1e-5):
     """act(LN(x) @ w + b) over x [M, K], w [K, N], in x's dtype (K16).
     Kernel ``ln_gemm`` on CUDA tensors; exact ``gelu`` takes the plain
     formulation everywhere, as JAX's dispatch does; the plain version on
-    CPU tensors.  Gradients through the XLA formulation."""
+    CPU tensors.  Gradients through the XLA formulation (the autograd
+    Function only where one is needed: its host time showed beside the
+    shortest kernels)."""
+    if not _needs_grad(x, ln_scale, ln_bias, w, b):
+        return _ln_matmul_fwd(x, ln_scale, ln_bias, w, b, activation, eps)
     return _LnMatmul.apply(x, ln_scale, ln_bias, w, b, activation, eps)
 
 
 def matmul_residual(x, w, b, res):
     """x @ w + b + res over x [M, K], w [K, N], res [M, N], in x's dtype
     (K16).  Kernel ``gemm_residual`` on CUDA tensors, the plain version on
-    CPU tensors.  Gradients through the XLA formulation."""
+    CPU tensors.  Gradients through the XLA formulation (the autograd
+    Function only where one is needed)."""
+    if not _needs_grad(x, w, b, res):
+        return _matmul_residual_fwd(x, w, b, res)
     return _MatmulResidual.apply(x, w, b, res)
 
 

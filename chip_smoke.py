@@ -7,7 +7,9 @@ Phases (any failure raises and the exit code is non-zero):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every source of ``aihab_clip_tpu_torch/csrc/`` into
      ``build/`` (one nvcc each, started together) and print nvcc's seconds
-     and ptxas's register/smem report;
+     and ptxas's register/smem report; then the launch plans of the TMA +
+     wgmma GEMM and flash attention at the paths' shapes (registers, local
+     bytes, shared bytes a block, ring stages, tiles and waves);
   3. kernels — every block kernel at ViT-B/16 shapes (B=64, S=197, W=768,
      12 heads, hidden 3072, bf16) and at SigLIP SO400M shapes (B=64, S=576,
      W=1152, 16 heads of 72, hidden 4304 in two 2152-wide chunks, bf16)
@@ -257,6 +259,7 @@ def main() -> None:
         for line in info["ptxas"].splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry")):
                 print(f"[build] {line.strip()}")
+    kernel_plans(_build)
     phase("build")
 
     # ---- 3. kernels at ViT-B/16 shapes
@@ -660,6 +663,35 @@ def main() -> None:
                       "vit_encode_train": fast_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def kernel_plans(build) -> None:
+    """Registers, local bytes, shared bytes a block and grid (tiles, waves)
+    of the TMA + wgmma GEMM and flash attention at the paths' shapes."""
+    import ctypes
+
+    lib = build.library()
+    out = (ctypes.c_int * 6)()
+    gemms = {"ViT-B/16 qkv": (B * S, 3 * W, 0), "c_fc": (B * S, HIDDEN, 0),
+             "out-proj": (B * S, W, 1), "c_proj": (B * S, W, 1),
+             "SO400M c_fc chunk": (B * SL_S, SL_HIDDEN // SL_CHUNKS, 0),
+             "K17 c_fc (M = 16 x 197)": (TRAIN_B * S, HIDDEN, 0),
+             "ConvNeXt stage 0 fc1": (B * 64 * 64, 512, 0),
+             "ConvNeXt stage 3 fc2": (B * 8 * 8, 1024, 1)}
+    for label, (m, n, res) in gemms.items():
+        check(lib.aihab_gemm_plan(m, n, res, out) == 0, "gemm plan")
+        print(f"[plan] gemm_kernel {label} [{m} x {n}]: {out[4]} registers, "
+              f"{out[5]} local bytes, {out[1]} shared bytes/block, ring of "
+              f"{out[0]} stages, {out[2]} tiles on {out[3]} blocks "
+              f"({out[2] / out[3]:.2f} waves)")
+    for label, (b, s, heads, d) in {
+            "ViT-B/16": (B, S, HEADS, W // HEADS),
+            "SO400M": (B, SL_S, SL_HEADS, SL_W // SL_HEADS),
+            "K6f (B = 16)": (PEFT_B, SL_S, SL_HEADS, SL_W // SL_HEADS)}.items():
+        check(lib.aihab_flash_plan(b, s, heads, d, out) == 0, "flash plan")
+        print(f"[plan] flash_attention_kernel<{d}> {label}: {out[4]} "
+              f"registers, {out[5]} local bytes, {out[1]} shared bytes/block, "
+              f"{out[2]} blocks of 128 threads")
 
 
 def vit_fast_kernel_cases(rnd, vec, run_cases, compare) -> None:

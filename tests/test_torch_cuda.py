@@ -897,3 +897,170 @@ def test_cuda_vit_paths_run_the_new_kernels():
             "mlp_block_train_bwd"] == n
     cos = torch.nn.functional.cosine_similarity(*grads, dim=0).item()
     assert cos >= 0.999
+
+
+# chip_smoke.py's tolerances: (rel L2, max|d| / max|ref|)
+TOL_KERNEL, TOL_ATTENTION = (2e-3, 0.02), (5e-3, 0.02)
+
+
+def _assert_close(out, ref, tol, base=None):
+    """out against ref (both minus base, when given) within tol."""
+    torch.cuda.synchronize()
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    if base is not None:
+        out, ref = out - base.float(), ref - base.float()
+    d = (out - ref).abs()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    assert rel <= tol[0], rel
+    assert d.max().item() <= tol[1] * ref.abs().max().item()
+
+
+# every instance of the TMA + wgmma GEMM (csrc/block_kernels.cu gemm_kernel)
+# at ragged edges: M off the 128-row tile, N = 8 x odd, K off the 64-deep
+# k-step, column slices of wider weights (ldw != N)
+GEMM_CASES = [
+    # (name, M, K, N, options)
+    ("ln bf16 none", 200, 136, 200, dict(kind="ln")),
+    ("ln fp32 A", 77, 128, 520, dict(kind="ln", x_f32=True)),
+    ("ln quick_gelu", 300, 768, 3 * 8 * 17, dict(kind="ln", act="quick_gelu")),
+    ("ln gelu_tanh", 131, 1152, 264, dict(kind="ln", act="gelu_tanh")),
+    ("ln gelu_poly", 260, 128, 512, dict(kind="ln", act="gelu_poly",
+                                         eps=1e-6)),
+    ("ln gelu_poly act_pass", 70, 128, 136, dict(kind="ln", act="gelu_poly",
+                                                 erf="rational")),
+    ("ln fp32 Y", 129, 64, 104, dict(kind="ln", y_f32=True)),
+    ("ln q-scale groups", 197, 192, 3 * 2 * 96, dict(kind="ln", q_width=96)),
+    ("ln column slice", 150, 256, 2152 // 8 * 8, dict(kind="ln", slice=True)),
+    ("res bf16", 200, 136, 200, dict(kind="res")),
+    ("res fp32 R, fp32 Y", 333, 2152, 1152, dict(kind="res", r_f32=True,
+                                                 y_f32=True)),
+    ("res fp32 R, bf16 Y", 12608 // 8, 3072, 768, dict(kind="res",
+                                                      r_f32=True)),
+    ("res gamma, no bias", 262, 512, 128, dict(kind="res", gamma=True,
+                                               bias=False)),
+    ("res column slice", 99, 72, 88, dict(kind="res", slice=True)),
+    ("res K = 128 (ConvNeXt stage 0)", 4096 + 40, 128, 512,
+     dict(kind="res", gamma=True)),
+    ("train EPI_PRE + EPI_DGELU", 3152 // 4 + 3, 768, 3072, dict(kind="train")),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMM_CASES, ids=[c[0] for c in GEMM_CASES])
+def test_cuda_wgmma_gemm_matches_plain(case, monkeypatch):
+    """Each instance of the TMA + wgmma GEMM against its plain version:
+    ln_gemm (bf16 or fp32 A, bf16 or fp32 Y, each act, the q-scale of head
+    groups), gemm_residual (bf16 or fp32 residual and output, gamma, no
+    bias), K17's EPI_PRE forward and EPI_DGELU backward, at ragged M, N and
+    K and on column slices of wider weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    name, m, k, n, opt = case
+    g = torch.Generator().manual_seed(len(name))
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def weight(rows, cols):
+        if opt.get("slice"):  # columns 8.. of a matrix 24 wider
+            return rnd(rows, cols + 24, scale=rows ** -0.5)[:, 8:8 + cols]
+        return rnd(rows, cols, scale=rows ** -0.5)
+
+    if opt.get("erf"):
+        monkeypatch.setenv("AIHAB_ERF_IMPL", opt["erf"])
+    if opt["kind"] == "ln":
+        x = rnd(m, k, dtype=torch.float32 if opt.get("x_f32") else
+                torch.bfloat16)
+        args = (x, 1 + rnd(k, scale=0.1, dtype=torch.float32),
+                rnd(k, scale=0.1, dtype=torch.float32), weight(k, n),
+                rnd(n, scale=0.1, dtype=torch.float32))
+        kw = dict(act=opt.get("act", "none"), eps=opt.get("eps", 1e-5))
+        if opt.get("q_width"):
+            kw.update(q_scale=0.125, q_width=opt["q_width"])
+        got, ref = bk.ln_gemm(*args, **kw), bk.ln_gemm_plain(*args, **kw)
+        if opt.get("y_f32"):  # the fp32-output instance, as act_pass reads it
+            got = bk.gemm_residual(bk._ln_f32(x, *args[1:3]).to(
+                torch.bfloat16), args[3], args[4], torch.zeros(
+                m, n, device=dev), out_dtype=torch.float32)
+            ref = bk.gemm_residual_plain(bk._ln_f32(x, *args[1:3]).to(
+                torch.bfloat16), args[3], args[4], torch.zeros(
+                m, n, device=dev), out_dtype=torch.float32)
+        _assert_close(got, ref, TOL_KERNEL)
+    elif opt["kind"] == "res":
+        a = rnd(m, k)
+        w = weight(k, n)
+        bias = rnd(n, scale=0.1, dtype=torch.float32) if opt.get(
+            "bias", True) else None
+        res = rnd(m, n, dtype=torch.float32 if opt.get("r_f32") else
+                  torch.bfloat16)
+        gamma = rnd(n, scale=0.1, dtype=torch.float32) if opt.get(
+            "gamma") else None
+        odt = torch.float32 if opt.get("y_f32") else torch.bfloat16
+        got = bk.gemm_residual(a, w, bias, res, out_dtype=odt, gamma=gamma)
+        ref = bk.gemm_residual_plain(a, w, bias, res, out_dtype=odt,
+                                     gamma=gamma)
+        # the branch out - residual, which the residual would dominate
+        _assert_close(got, ref, TOL_KERNEL, base=res)
+    else:  # K17: EPI_PRE stores h_pre beside h; EPI_DGELU reads it back
+        w, hidden = k, n
+        x = rnd(m, w)
+        p = (1 + rnd(w, scale=0.1, dtype=torch.float32),
+             rnd(w, scale=0.1, dtype=torch.float32), weight(w, hidden),
+             rnd(hidden, scale=0.1, dtype=torch.float32),
+             rnd(hidden, w, scale=hidden ** -0.5),
+             rnd(w, scale=0.1, dtype=torch.float32))
+        y, h_pre = bk.mlp_block_train_fwd(x, *p)
+        y_ref, h_pre_ref = bk.mlp_block_train_fwd_plain(x, *p)
+        _assert_close(y, y_ref, TOL_KERNEL, base=x)
+        _assert_close(h_pre, h_pre_ref, TOL_KERNEL)
+        dy = rnd(m, w)
+        for got, ref in zip(
+                bk.mlp_block_train_bwd(x, h_pre_ref, dy, p[0], p[2], p[4]),
+                bk.mlp_block_train_bwd_plain(x, h_pre_ref, dy, p[0], p[2],
+                                             p[4])):
+            _assert_close(got, ref, TOL_KERNEL)
+
+
+# the TMA + wgmma flash attention (flash_attention_kernel) at both head
+# widths, full and ragged S, masked keys, grouped and separate layouts
+FLASH_CASES = [
+    # (B, S, heads, head_dim, group_heads, seq_len)
+    (2, 197, 12, 64, None, None),
+    (2, 197, 12, 64, None, 150),
+    (2, 576, 16, 72, 2, None),
+    (1, 577, 16, 72, 2, 500),
+    (2, 577, 4, 64, 4, None),
+    (1, 576, 16, 72, None, 576),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,heads,d,group_heads,seq_len", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(b, s, heads, d, group_heads,
+                                            seq_len):
+    """The flash attention against the plain versions: the grouped qkv
+    layout of K1, K2 and K5 (bk.attention, keys >= seq_len masked), and K6's
+    separate q, k, v with the row log-sum-exp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import attention as att
+
+    g = torch.Generator().manual_seed(s + d)
+    dev = torch.device("cuda")
+    qkv = (torch.randn(b, s, 3 * heads * d, generator=g) * 2).to(
+        dev, torch.bfloat16)
+    bk.reset_launch_counts()
+    got = bk.attention(qkv, heads, seq_len, group_heads=group_heads)
+    assert bk.launch_counts()["attention"] == 1
+    _assert_close(got, bk.attention_plain(qkv, heads, seq_len,
+                                          group_heads=group_heads),
+                  TOL_ATTENTION)
+    q, k, v = (torch.randn(b, s, heads * d, generator=g).to(
+        dev, torch.bfloat16) for _ in range(3))
+    out, lse = att.fused_attention_fwd(q, k, v, heads)
+    _assert_close(out, att.fused_attention_plain(q, k, v, heads),
+                  TOL_ATTENTION)
+    _, scores = att._probs(q, k, heads, None)
+    _assert_close(lse, torch.logsumexp(scores, -1), (1e-5, 1e-5))
