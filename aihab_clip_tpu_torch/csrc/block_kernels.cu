@@ -263,10 +263,6 @@ __device__ __forceinline__ float quick_gelu_grad(float h) {
   return s * (1.0f + 1.702f * h * (1.0f - s));
 }
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // The GEMM epilogue's activations: block_kernel.py::_act_f32's forms with
 // the fast exponential, reciprocal and tanh (each within a few fp32 ulp, far
 // inside the bf16 rounding that follows); act_f32's exact forms slowed the
@@ -429,8 +425,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
             const GemmEpi e, int M, int N, int K, int stages) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* smem = smem_1024(smem_raw);
   unsigned char* past_ring = smem + stages * STAGE;
   uint64_t* full = reinterpret_cast<uint64_t*>(past_ring + E_BYTES + (e.r ? R_BYTES : 0));
   uint64_t* empty = full + MAX_STAGES;
@@ -682,41 +677,39 @@ int launch_act_pass(const float* t, int act, const void* r, void* y, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Attention with fp32 output, the int8 blocks' (K12, K13, K14 of
-// quant_kernels.cu): out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys <
-// seq_len) v.  (The bf16-output calls, K1, K2, K5 and K6f, run
-// flash_attention_kernel below.)  One block per (64-query tile, head,
-// image); 4 warps of 16 query rows on WMMA.  Keys stream through shared
-// memory 64 at a time with an fp32 online softmax, so no [S, S] tensor
-// exists anywhere; P is cast to bf16 before the PV product
-// (block_kernel.py:993-998, :815) and the 1/sum is applied to the output
-// rows.  Each lane owns one query row's half (HDP/2 output dims) in
-// registers.  D=64 is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles
-// 80 wide).  NORM_P (K12 and K14) follows their TPU kernels' rounding points
+// Attention with fp32 output and P normalised before its bf16 cast, K12's and
+// K14's (quant_kernels.cu): out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T,
+// keys < seq_len) v, following their TPU kernels' rounding points
 // (quant_matmul.py:472-478): a first pass over the keys takes the row max m
 // and sum l, and the second casts P = exp(s - m) / l to bf16 before the PV
-// product, whose sum is the output unscaled.  The int8 requantize that reads
-// this output turns a difference in P's rounding into code flips, which
+// product, whose fp32 sum is the output unscaled.  The int8 requantize that
+// reads this output turns a difference in P's rounding into code flips, which
 // K14's next requantizes multiply (at ViT-B/16: 6.8e-3 rel L2 against its
-// plain version with the 1/sum on the output rows, 2.0e-3 with NORM_P).
-// The first pass recomputes q k^T: K13 keeps the one-pass form (its
-// attention at SO400M: 1.58 ms, 2.36 ms with NORM_P).
+// plain version with the 1/sum on the output rows, 2.0e-3 normalised).  Every
+// other attention, K13's fp32-output one included (the one-pass form: P cast
+// unnormalised, 1/l on the output rows), runs flash_attention_kernel below;
+// this kernel needs P's final normaliser before its cast, which a one-pass
+// kernel does not have, and stays WMMA (ROADMAP Queue D).  One block per
+// (64-query tile, head, image); 4 warps of 16 query rows on WMMA; keys stream
+// through shared memory 64 at a time, so no [S, S] tensor exists anywhere.
+// Each lane owns one query row's half (HDP/2 output dims) in registers.
+// D=64 is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).
 // Operands: q, k and v of head h start at column (h / g) * group_stride +
 // (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
 // of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
 // v = qkv + 2gD, ld = 3W, group_stride = 3gD; fused_attention's separate
 // [B, S, W] tensors (ops/attention.py:91, K6) are ld = W, g = heads.
-// scale is 1/sqrt(D) on the fp32 scores (CLIP, K6) or 1 when ln_gemm's
-// epilogue has already scaled q before rounding it, as attn_block_split does.
-// (Both attention kernels take these operands.)
+// scale is 1/sqrt(D) on the fp32 scores (CLIP, K6) or 1 when a GEMM
+// epilogue has already scaled q before rounding it, as attn_block_split
+// and the int8 blocks do.  (Both attention kernels take these operands.)
 // ---------------------------------------------------------------------------
 
-template <int HD, bool NORM_P>
+template <int HD>
 __global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
-                 const bf16* __restrict__ vp, float* __restrict__ out, int S, int seq_len,
-                 int heads,
-                 int group_heads, int ld, int group_stride, float scale) {
+attention_norm_p_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
+                        const bf16* __restrict__ vp, float* __restrict__ out, int S,
+                        int seq_len, int heads, int group_heads, int ld, int group_stride,
+                        float scale) {
   using T = AttnTile<HD>;
   constexpr int HDP = T::HDP, T_LD = T::T_LD, S_LD = T::S_LD, HALF = T::HALF;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -781,34 +774,21 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     }
     return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
   };
-  // the online update of the row max m_run and sum l_run by one tile; returns
-  // the factor that rescales what was summed before it
-  auto online = [&](const float* sv, float mx) {
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < AKV / 2; ++c) {
-      const float p = expf(sv[c] - m_new);
-      sum += p;
-      if constexpr (!NORM_P) prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    return alpha;
-  };
 
   const int n_tiles = (seq_len + AKV - 1) / AKV;
-  if constexpr (NORM_P) {  // first pass: the row max and sum over every key
-    for (int t = 0; t < n_tiles; ++t) {
-      __syncthreads();  // every warp is done with the previous K tile
-      load_tile<HD>(Ks, kb, t * AKV, seq_len, ld, tid);
-      __syncthreads();
-      float sv[AKV / 2];
-      online(sv, tile_scores(t * AKV, sv));
-      __syncwarp();
-    }
+  for (int t = 0; t < n_tiles; ++t) {  // first pass: the row max and sum
+    __syncthreads();                    // every warp is done with the previous K tile
+    load_tile<HD>(Ks, kb, t * AKV, seq_len, ld, tid);
+    __syncthreads();
+    float sv[AKV / 2];
+    const float m_new = fmaxf(m_run, tile_scores(t * AKV, sv));
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < AKV / 2; ++c) sum += expf(sv[c] - m_new);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    l_run = l_run * expf(m_run - m_new) + sum;
+    m_run = m_new;
+    __syncwarp();
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * AKV;
@@ -818,15 +798,10 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     __syncthreads();
 
     float sv[AKV / 2];
-    const float mx = tile_scores(k0, sv);
-    float alpha = 1.f;
-    if constexpr (NORM_P) {
+    tile_scores(k0, sv);
 #pragma unroll
-      for (int c = 0; c < AKV / 2; ++c)
-        prow[c] = __float2bfloat16(__fdiv_rn(expf(sv[c] - m_run), l_run));
-    } else {
-      alpha = online(sv, mx);
-    }
+    for (int c = 0; c < AKV / 2; ++c)
+      prow[c] = __float2bfloat16(__fdiv_rn(expf(sv[c] - m_run), l_run));
     __syncwarp();
 
 #pragma unroll
@@ -845,15 +820,12 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     }
     __syncwarp();
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) o[c] = o[c] * alpha + orow[c];
+    for (int c = 0; c < HALF; ++c) o[c] += orow[c];
     __syncwarp();
   }
 
   const int q = q0 + warp * 16 + row;
   if (q < S) {
-    const float inv = NORM_P ? 1.f : 1.f / l_run;
-#pragma unroll
-    for (int c = 0; c < HALF; ++c) o[c] *= inv;
     float* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
 #pragma unroll
     for (int c = 0; c < HALF; c += 8)
@@ -861,11 +833,11 @@ attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   }
 }
 
-template <int HD, bool NORM_P>
-int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, int B, int S,
-                     int seq_len, int heads, int group_heads, int ld, int group_stride,
-                     float scale, cudaStream_t stream) {
-  auto kernel = attention_kernel<HD, NORM_P>;
+template <int HD>
+int launch_attention_norm_p(const bf16* q, const bf16* k, const bf16* v, void* out, int B,
+                            int S, int seq_len, int heads, int group_heads, int ld,
+                            int group_stride, float scale, cudaStream_t stream) {
+  auto kernel = attention_norm_p_kernel<HD>;
   constexpr int smem = 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -876,30 +848,17 @@ int launch_attention(const bf16* q, const bf16* k, const bf16* v, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool NORM_P>
-int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, int B, int S,
-                       int seq_len, int heads, int group_heads, int head_dim, int ld,
-                       int group_stride, float scale, cudaStream_t stream) {
-  if (head_dim == 64)
-    return launch_attention<64, NORM_P>(q, k, v, out, B, S, seq_len, heads, group_heads, ld,
-                                        group_stride, scale, stream);
-  if (head_dim == 72)
-    return launch_attention<72, NORM_P>(q, k, v, out, B, S, seq_len, heads, group_heads, ld,
-                                        group_stride, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // ---------------------------------------------------------------------------
-// Flash attention, bf16 output (K6f, and the attention of K1, K2 and K5):
-// out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys < seq_len) v, one pass
-// over the keys with an fp32 online softmax.  One block of one warpgroup
-// per (64-query tile, head, image).  Thread 0 brings the Q tile once and
-// the K and V tiles (64 keys) by TMA into a two-stage mbarrier ring, the
-// next tile loading while this one computes.  Q, K and V are addressed by
-// 5-D tensor maps {d, head in group, group, row, image}, so a tile that
-// runs past an image's S rows (or past D) loads zeros instead of the next
-// image's rows.  S = Q K^T is a wgmma from shared memory (K-major, no
-// transpose: a [keys][D] tile is B's K-major layout); the softmax runs on
+// Flash attention (K6f, the attention of K1, K2 and K5, and K13's fp32-output
+// grouped one): out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys <
+// seq_len) v, one pass over the keys with an fp32 online softmax.  One block
+// of one warpgroup per (64-query tile, head, image).  Thread 0 brings the Q
+// tile once and the K and V tiles (64 keys) by TMA into a two-stage mbarrier
+// ring, the next tile loading while this one computes.  Q, K and V are
+// addressed by 5-D tensor maps {d, head in group, group, row, image}, so a
+// tile that runs past an image's S rows (or past D) loads zeros instead of
+// the next image's rows.  S = Q K^T is a wgmma from shared memory (K-major,
+// no transpose: a [keys][D] tile is B's K-major layout); the softmax runs on
 // the accumulator registers (a row's 64 scores sit in the 4 threads of a
 // quad: 16 each, reduced with two shuffles); P is rounded to bf16 in
 // registers and is the register-A operand of O += P V, with V's [keys][D]
@@ -909,14 +868,15 @@ int attention_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, i
 // 128B-swizzled box plus a 16-column 32B-swizzled box at column 64 whose
 // columns 72-79 are TMA's zero fill: Q K^T contracts 64 + 16 columns and
 // P V writes an n64 and an n16 product, of which columns 72-79 are dropped.
-// Numerics are those of the WMMA kernel this replaced (attention_kernel
-// above keeps them): fp32 scores times scale, keys >= seq_len at -1e30, the
-// row max and sum online in fp32 over unrounded P, P cast to bf16 before P
-// V, 1/l on the output rows.  With lse non-null each valid row also stores
+// Numerics: fp32 scores times scale, keys >= seq_len at -1e30, the row max
+// and sum online in fp32 over unrounded P, P cast to bf16 before P V, 1/l on
+// the output rows, stored as TO: bf16, or fp32 for K13, whose grouped
+// requantize reads the P V product unrounded (its TPU kernel's one-pass
+// form, quant_matmul.py:586).  With lse non-null each valid row also stores
 // its fp32 log-sum-exp m + log(l) of the scaled scores at lse[(b * heads +
 // h) * S + q], which the backward kernels (fused_attention_bwd.cu) rebuild P
-// from.  Bound: bytes at SigLIP shapes (q, k, v and out cross
-// device memory once; K and V re-read from L2 per query tile).
+// from.  Bound: bytes at SigLIP shapes (q, k, v and out cross device memory
+// once; K and V re-read from L2 per query tile).
 // ---------------------------------------------------------------------------
 
 constexpr int FQ = 64, FKV = 64, FLASH_THREADS = 128;
@@ -934,20 +894,19 @@ struct FlashCfg {
   static constexpr unsigned Q_TX = MAIN + TAIL_BYTES, KV_TX = 2 * (MAIN + TAIL_BYTES);
 };
 
-template <int HD>
+template <int HD, typename TO>
 __global__ void __launch_bounds__(FLASH_THREADS, 3)
 flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        const __grid_constant__ CUtensorMap map_qt,
                        const __grid_constant__ CUtensorMap map_kt,
-                       const __grid_constant__ CUtensorMap map_vt, bf16* __restrict__ out,
+                       const __grid_constant__ CUtensorMap map_vt, TO* __restrict__ out,
                        float* __restrict__ lse, int S, int seq_len, int heads,
                        int group_heads, float scale) {
   using C = FlashCfg<HD>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* smem = smem_1024(smem_raw);
   uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* full = qbar + 1;
 
@@ -1086,7 +1045,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     const int q = q0 + warp * 16 + (lane >> 2) + 8 * h2;
     if (q >= S) continue;
     const float inv = 1.f / l_run[h2];
-    bf16* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD;
+    TO* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       store2(dst + j * 8 + c2, o[j * 4 + h2 * 2] * inv, o[j * 4 + h2 * 2 + 1] * inv);
@@ -1097,25 +1056,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// the 5-D map {d, head in group, group, row, image} of one operand of
-// rows `ld` apart, box [64 rows][width columns] at 128B (width 64) or 32B
-// (width 16) swizzle
-inline int flash_map(CUtensorMap* map, const bf16* base, int head_dim, int group_heads,
-                     int groups, int S, int B, int ld, int group_stride, uint32_t width) {
-  const uint64_t dims[5] = {static_cast<uint64_t>(head_dim), static_cast<uint64_t>(group_heads),
-                            static_cast<uint64_t>(groups), static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(B)};
-  const uint64_t row = static_cast<uint64_t>(ld) * 2;
-  const uint64_t strides[4] = {static_cast<uint64_t>(head_dim) * 2,
-                               group_stride > 0 ? static_cast<uint64_t>(group_stride) * 2 : row,
-                               row, row * S};
-  const uint32_t box[5] = {width, 1, 1, FQ, 1};
-  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, base, dims, strides, box,
-                         width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
-}
-
-template <int HD>
-int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B,
+template <int HD, typename TO>
+int launch_flash(const bf16* q, const bf16* k, const bf16* v, TO* out, float* lse, int B,
                  int S, int seq_len, int heads, int group_heads, int ld, int group_stride,
                  float scale, cudaStream_t stream) {
   using C = FlashCfg<HD>;
@@ -1123,14 +1065,15 @@ int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* 
   CUtensorMap maps[6];  // q, k, v, then their tails (D = 72; unread at D = 64)
   const bf16* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    int err = flash_map(&maps[i], bases[i], HD, group_heads, groups, S, B, ld, group_stride, 64);
+    int err = head_map(&maps[i], bases[i], HD, group_heads, groups, S, B, ld, group_stride, 64,
+                       FQ);
     if (err == 0 && C::TAIL)
-      err = flash_map(&maps[3 + i], bases[i], HD, group_heads, groups, S, B, ld, group_stride,
-                      16);
+      err = head_map(&maps[3 + i], bases[i], HD, group_heads, groups, S, B, ld, group_stride,
+                     16, FQ);
     if (err != 0) return err;
     if (!C::TAIL) maps[3 + i] = maps[i];
   }
-  auto kernel = flash_attention_kernel<HD>;
+  auto kernel = flash_attention_kernel<HD, TO>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1141,17 +1084,25 @@ int launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-int flash_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, float* lse, int B,
-                   int S, int seq_len, int heads, int group_heads, int head_dim, int ld,
-                   int group_stride, float scale, cudaStream_t stream) {
-  if (seq_len < 1 || seq_len > S || group_heads < 1 || heads % group_heads)
+// out bf16, or fp32 with out_f32 (then lse must be null)
+int flash_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, int out_f32,
+                   float* lse, int B, int S, int seq_len, int heads, int group_heads,
+                   int head_dim, int ld, int group_stride, float scale, cudaStream_t stream) {
+  if (seq_len < 1 || seq_len > S || group_heads < 1 || heads % group_heads ||
+      (out_f32 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  float* of = static_cast<float*>(out);
+  bf16* ob = static_cast<bf16*>(out);
   if (head_dim == 64)
-    return launch_flash<64>(q, k, v, static_cast<bf16*>(out), lse, B, S, seq_len, heads,
-                            group_heads, ld, group_stride, scale, stream);
+    return out_f32 ? launch_flash<64>(q, k, v, of, lse, B, S, seq_len, heads, group_heads, ld,
+                                      group_stride, scale, stream)
+                   : launch_flash<64>(q, k, v, ob, lse, B, S, seq_len, heads, group_heads, ld,
+                                      group_stride, scale, stream);
   if (head_dim == 72)
-    return launch_flash<72>(q, k, v, static_cast<bf16*>(out), lse, B, S, seq_len, heads,
-                            group_heads, ld, group_stride, scale, stream);
+    return out_f32 ? launch_flash<72>(q, k, v, of, lse, B, S, seq_len, heads, group_heads, ld,
+                                      group_stride, scale, stream)
+                   : launch_flash<72>(q, k, v, ob, lse, B, S, seq_len, heads, group_heads, ld,
+                                      group_stride, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1237,20 +1188,26 @@ int aihab_mlp_train_bwd(const void* x, const void* h_pre, const void* dy, const 
 // over qkv[B,S,3*heads*D] in the grouped layout (group_heads heads per group);
 // D is 64 or 72.  The fp32 output is the int8 blocks' (K12, K13, K14), whose
 // requantize reads the PV product unrounded, as the TPU kernels do; norm_p
-// (fp32 only) normalises P before its bf16 cast, as they do.
+// (fp32 only; K12, K14) normalises P before its bf16 cast, as they do, on
+// the WMMA kernel; every other call runs the flash kernel.
 int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int heads,
                     int group_heads, int head_dim, float scale, int out_f32, int norm_p,
                     void* stream) {
   const bf16* base = static_cast<const bf16*>(qkv);
-  const int gw = group_heads * head_dim;
+  const int gw = group_heads * head_dim, ld = 3 * heads * head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (norm_p && !out_f32) return static_cast<int>(cudaErrorInvalidValue);
-  if (out_f32)
-    return (norm_p ? attention_dispatch<true> : attention_dispatch<false>)(
-        base, base + gw, base + 2 * gw, out, B, S, seq_len, heads, group_heads, head_dim,
-        3 * heads * head_dim, 3 * gw, scale, s);
-  return flash_dispatch(base, base + gw, base + 2 * gw, out, nullptr, B, S, seq_len, heads,
-                        group_heads, head_dim, 3 * heads * head_dim, 3 * gw, scale, s);
+  if (norm_p) {
+    if (head_dim == 64)
+      return launch_attention_norm_p<64>(base, base + gw, base + 2 * gw, out, B, S, seq_len,
+                                         heads, group_heads, ld, 3 * gw, scale, s);
+    if (head_dim == 72)
+      return launch_attention_norm_p<72>(base, base + gw, base + 2 * gw, out, B, S, seq_len,
+                                         heads, group_heads, ld, 3 * gw, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return flash_dispatch(base, base + gw, base + 2 * gw, out, out_f32, nullptr, B, S, seq_len,
+                        heads, group_heads, head_dim, ld, 3 * gw, scale, s);
 }
 
 // fused_attention's forward (K6): out = softmax(scale * q k^T) v over
@@ -1260,7 +1217,7 @@ int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void*
                               void* lse, int B, int S, int heads, int head_dim, float scale,
                               void* stream) {
   return flash_dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                        static_cast<const bf16*>(v), out, static_cast<float*>(lse), B, S, S,
+                        static_cast<const bf16*>(v), out, 0, static_cast<float*>(lse), B, S, S,
                         heads, heads, head_dim, heads * head_dim, 0, scale,
                         static_cast<cudaStream_t>(stream));
 }
@@ -1289,7 +1246,8 @@ int aihab_flash_plan(int B, int S, int heads, int head_dim, int* out) {
   if (head_dim != 64 && head_dim != 72) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(
-      &attr, head_dim == 64 ? flash_attention_kernel<64> : flash_attention_kernel<72>);
+      &attr,
+      head_dim == 64 ? flash_attention_kernel<64, bf16> : flash_attention_kernel<72, bf16>);
   out[0] = 2;
   out[1] = head_dim == 64 ? FlashCfg<64>::SMEM : FlashCfg<72>::SMEM;
   out[2] = out[3] = ((S + FQ - 1) / FQ) * heads * B;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the TMA + wgmma kernels of
-// block_kernels.cu: mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma instructions, and the host-side encoding of TMA
-// tensor maps.
+// block_kernels.cu, fused_attention_bwd.cu and quant_kernels.cu: mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors and the wgmma instructions
+// (bf16 with fp32 accumulators, int8 with int32 ones), and the host-side
+// encoding of TMA tensor maps (the attention kernels' 5-D head maps).
 //
 // TMA: one thread asks for a box of a tensor (described by a CUtensorMap
 // made on the host by cuTensorMapEncodeTiled) to be copied into shared
@@ -26,6 +27,10 @@
 //       apart; SBO = 1024 (the next 8 k), LBO = the byte distance to the
 //       next 64-wide box along N; a k16 step advances 16 rows (2048 bytes).
 //   MN-major, 32B swizzle: a [k][16] box, SBO = 256, a k16 step 512 bytes.
+// int8 (s8 x s8 -> s32, both operands K-major: int8 wgmma has no transpose
+// bit) contracts k32 = 32 bytes per instruction, so its K-major descriptors
+// are the bf16 ones byte for byte (128B swizzle: SBO 1024, a k32 step 32
+// bytes; 32B swizzle: SBO 256).
 // Accumulator layout of m64nN (per warpgroup): warp w holds rows 16w +
 // lane/4 (registers 4j, 4j+1) and 16w + lane/4 + 8 (4j+2, 4j+3) at columns
 // 8j + 2 (lane % 4) + {0, 1}.  A register-A fragment (m64k16) holds the
@@ -98,6 +103,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3, int c4) {
   asm volatile(
@@ -137,6 +151,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -241,6 +260,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n64<TB>(d, a, db, scale_d);
 }
 
+// m64n128k32, s8 x s8 -> s32 accumulators d (64 a thread), D = A B (scale_d
+// 0) or D += A B, both operands K-major from shared memory (exact integer
+// sums)
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ---- host: TMA tensor maps ----------------------------------------------------
 
 typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -281,6 +328,34 @@ inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The attention kernels' 5-D map {d, head in group, group, row, image} of
+// one bf16 operand whose rows are `ld` elements apart (head h of group g at
+// column g * group_stride + h * head_dim; group_stride 0: one group), box
+// [rows][width columns] at 128B (width 64) or 32B (width 16) swizzle.  A box
+// past D, past S or past an image's rows loads zeros, never the next head's
+// or image's values.
+inline int head_map(CUtensorMap* map, const void* base, int head_dim, int group_heads,
+                    int groups, int S, int B, int ld, int group_stride, uint32_t width,
+                    uint32_t rows) {
+  const uint64_t dims[5] = {static_cast<uint64_t>(head_dim), static_cast<uint64_t>(group_heads),
+                            static_cast<uint64_t>(groups), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t row = static_cast<uint64_t>(ld) * 2;
+  const uint64_t strides[4] = {static_cast<uint64_t>(head_dim) * 2,
+                               group_stride > 0 ? static_cast<uint64_t>(group_stride) * 2 : row,
+                               row, row * S};
+  const uint32_t box[5] = {width, 1, 1, rows, 1};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, base, dims, strides, box,
+                         width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// the base of a kernel's dynamic shared memory rounded up to 1024 bytes
+// (128B-swizzled boxes need it; the kernels ask for 1024 bytes more)
+__device__ __forceinline__ unsigned char* smem_1024(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
 }
 
 inline int sm_count() {

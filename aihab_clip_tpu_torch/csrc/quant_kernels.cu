@@ -35,10 +35,11 @@
 // (M = 36,864 rows, W = 1152, hidden 4304): K9 and K10 are 365.6 GOP each
 // (0.185 ms at the int8 rate) and compute-bound; K13 is 391.4 GOP of int8 GEMM
 // plus 97.8 GFLOP of bf16 attention (0.297 ms); K8, the patchify (K = 768),
-// moves 142 MB (0.042 ms, bytes-bound).  The design is the simple one that is
-// right: int8 tensor cores through mma.sync.m16n8k32 (exact int32
-// accumulation), 128x128x32 block tiles fed by ldmatrix from a 4-stage
-// cp.async ring, 8 warps of 64x32; no wgmma and no TMA.  Hopper's int8 MMA
+// moves 142 MB (0.042 ms, bytes-bound).  The design is Hopper's: one
+// persistent TMA + wgmma GEMM (int8_gemm_kernel below: a producer warp
+// keeping an mbarrier ring of 128-byte k-steps in flight, two consumer
+// warpgroups on m64n128k32 s8 wgmma with exact int32 accumulators), the
+// fp32 epilogue applied from the accumulator registers.  Hopper's int8 MMA
 // takes no transposed operand, so both operands are K-major: every weight is
 // laid out once, at quantize time, as [N, K].  The row quantization is its own
 // bytes-bound pass, one warp per row.  K9's requantize needs the whole
@@ -52,9 +53,12 @@
 // 262,144 rows of C = 128) its y, res and out alone move 201 MB (0.060 ms), so
 // it is bound by bytes there, and its fp32 hidden row (4C wide) crosses device
 // memory once each way (1.07 GB).  K13's groups are 144 columns
-// wide, no multiple of the 32-byte k-step: row_quant pads each group's codes
-// with zeros to 160, the out-proj weight is padded the same way, and the GEMM
-// dequantizes its int32 sum at each group boundary with the group's row scale.
+// wide: row_quant pads each group's codes with zeros to 160 (a multiple of
+// 32), the out-proj weight is padded the same way, and the GEMM dequantizes
+// its int32 sum at each group boundary with the group's row scale.  A
+// 160-byte group is no 128B-swizzle box: the GEMM reads it as a 128-byte box
+// and a 32-byte (32B-swizzled) one, 5 k32 products with no padding beyond
+// the 16 zero codes row_quant writes.
 //
 // Numerics: the rounding points of the TPU kernels.  LN and all scales in
 // fp32; s = max(amax, 1e-12) * (1/127); codes = clip(rint(x / s), -127, 127)
@@ -66,20 +70,15 @@
 // stream it is given, allocates nothing and returns cudaGetLastError().
 // Preconditions the Python wrappers check: int8 operands row-major with K a
 // multiple of 16 and every pointer 16-byte aligned, N a multiple of 8, the
-// group span K / G a multiple of 32 when G > 1.
+// group span K / G a multiple of 32 when G > 1 (also the TMA preconditions:
+// 16-byte aligned bases and row and group strides).
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // ---------------------------------------------------------------------------
 // row_quant: per row r of x [M, K] (bf16 or fp32), an optional fp32 LN over
@@ -135,8 +134,9 @@ row_quant_kernel(const T* __restrict__ x, int M, int K, int KG, int KGP,
 
 // ---------------------------------------------------------------------------
 // int8_gemm: Y[M, N] = epilogue(A[M, K] . B[N, K]^T), A and B int8, K-major.
-// K is G groups of K / G columns (G = 1: one group); group g's int32 sum is
-// dequantized with its own row scale: part_g = float(acc_g) * (sa[m, g] * ws[n]).
+// K is G groups of P = K / G columns (G = 1: one group); group g's int32 sum
+// is dequantized with its own row scale: part_g = float(acc_g) * (sa[m, g] *
+// ws[n]).
 //   G == 1: y = act(part_0 + bias); y *= q_scale on the q columns (n with
 //           n % group_cols < q_cols); y *= gamma[n] (if given); y += R (if
 //           given); stored as TO.
@@ -144,189 +144,341 @@ row_quant_kernel(const T* __restrict__ x, int M, int K, int KG, int KGP,
 //           (quant_matmul.py:609-615); stored as TO.
 //   RES_FIRST (any G >= 1, R fp32): y = (R + bias) + part_0, then y += part_g
 //           in order (K14's c_proj, quant_matmul.py:779-790); stored as TO.
-// Block tile 128x128, k-step 32, 8 warps of 64x32 (4x4 m16n8k32 tiles); both
-// operand tiles stream through a 4-stage cp.async ring into shared rows of 48
-// bytes (32 + 16 of padding, which keeps ldmatrix free of bank conflicts).
-// Two blocks share an SM, so a thread has at most 128 registers: at 132 (the
-// gamma epilogue's, unbounded) one block fits and the GEMM ran ~2x slower.
+// TMA + wgmma, warp-specialised and persistent, the shape of block_kernels.cu's
+// gemm_kernel: a block of two consumer warpgroups and a producer warp on one
+// SM.  The producer's first thread keeps a ring of k-steps in flight (6
+// stages, 4 with a residual), per step one TMA box of A ([128 rows][128
+// bytes]) and one of B ([128 n][128 bytes]), both K-major and 128B-swizzled,
+// through 3-D maps {byte in group, group, row} whose bounds are the group's
+// P bytes: a box that runs past P (or past M or N) loads zeros, never the
+// next group's codes.  A group is P / 128 such steps, then its rest: one
+// 32-byte step (32B-swizzled boxes of the same maps' 32-byte twins) when the
+// rest is at most 32 bytes, as K13's 160-byte groups leave, else one more
+// 128-byte step.  The consumers share each 128 x 128 output tile, 64 rows
+// each: four m64n128k32 wgmmas per 128-byte step (one per 32-byte step),
+// exact int32 sums in 64 registers a thread, one step's products in flight
+// while the next is issued, a stage released (an mbarrier arrival per
+// thread) once the products that read it are done.  At a group's end (G > 1)
+// the consumer waits for its products and folds the group's dequantized
+// partial into 64 fp32 registers; the next group's first product starts the
+// int32 sum anew.  The block walks output tiles (blockIdx.x, + gridDim.x,
+// ...) with the ring running across tiles, so the next tile's loads overlap
+// this tile's epilogue.  The epilogue's operands (the tile's ws, bias, gamma
+// and residual rows) come by cp.async into per-warp shared blocks issued at
+// the tile's start, so they land during the main loop; the epilogue then
+// works on the accumulator registers (a thread's rows lane / 4 + {0, 8} of
+// its warp's 16, column pairs 8 j + 2 (lane % 4)) with every fp32 operation
+// of the mma.sync kernel this replaced, in its order and with __fmul_rn /
+// __fadd_rn: since the int32 sums are exact, the output is that kernel's bit
+// for bit (and its plain version's wherever no activation is applied).
+// Ragged M, N and K edges are TMA's zero fill and the store masks.
+// Bound: operations at SO400M's shapes (qkv 293.6 GOP, 0.148 ms at 1,979
+// TOPS); the epilogue is not overlapped with the tensor cores, and with an
+// exact transcendental activation (tanhf, expf and an IEEE division per
+// value) it takes as long as the main loop (PERF.md).
 // ---------------------------------------------------------------------------
 
-constexpr int QBM = 128, QBN = 128, QBK = 32, QSTAGES = 4, QTHREADS = 256;
-constexpr int QPITCH = QBK + 16;                     // bytes per shared row
-constexpr int Q_STAGE = QBM * QPITCH;                // bytes of one operand stage
-constexpr int QGEMM_SMEM = QSTAGES * 2 * Q_STAGE;   // 48 KB
-static_assert(QBM == QBN, "the A and B stages share one size");
-static_assert(QBM * QBK / 16 == QTHREADS, "one 16-byte copy per thread per operand");
+constexpr int QBM = 128, QBN = 128, QBK = 128, QTAIL = 32, Q_THREADS = 288;
+constexpr int Q_MAX_STAGES = 6, QGEMM_SMEM_MAX = 232448;  // an H100 block's shared memory
+constexpr int QA_BYTES = QBM * QBK, Q_STAGE = QA_BYTES + QBN * QBK;  // 32 KB a stage
+constexpr unsigned Q_MAIN_TX = Q_STAGE, Q_TAIL_TX = (QBM + QBN) * QTAIL;
+// past the ring, per consumer warp: the tile's ws, bias and gamma ([128]
+// fp32 each); with a residual, its 16 rows of the tile (128 columns of TR,
+// rows 16 bytes more apart than their width, against bank conflicts)
+constexpr int QV_WARP = 3 * QBN * 4, QR_WARP = 16 * (QBN * 4 + 16);
+constexpr int QV_BYTES = 8 * QV_WARP, QR_BYTES = 8 * QR_WARP;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// the ring's depth: as many stages as fit beside the epilogue's blocks (6
+// without a residual, 4 with one)
+inline int q_stages(bool residual) {
+  const int fit = (QGEMM_SMEM_MAX - 1024 - 2 * Q_MAX_STAGES * 8 - QV_BYTES -
+                   (residual ? QR_BYTES : 0)) / Q_STAGE;
+  return fit < Q_MAX_STAGES ? fit : Q_MAX_STAGES;
+}
+inline int q_smem(int stages, bool residual) {
+  return 1024 + stages * Q_STAGE + QV_BYTES + (residual ? QR_BYTES : 0) + 2 * Q_MAX_STAGES * 8;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
+// a compile-time constant as a value (the epilogue's activation and group
+// place)
+template <int V>
+struct Tag {
+  static constexpr int value = V;
+};
+
+// two adjacent values of shared memory as floats
+__device__ __forceinline__ void load2(const float* p, float (&v)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+}
+__device__ __forceinline__ void load2(const bf16* p, float (&v)[2]) {
+  const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(p);
+  v[0] = __low2float(t);
+  v[1] = __high2float(t);
 }
 
-// c[0..3] += A(16x32, row) . B(32x8, col), s8 x s8 -> s32
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// the k-steps of a group of P bytes: P / 128 of 128 bytes, then the rest: a
+// 32-byte step (tail 1) when it is at most 32 bytes, else one more of 128
+__host__ __device__ inline void group_steps(int P, int& n_main, int& tail) {
+  const int rest = P % QBK;
+  n_main = P / QBK + (rest > QTAIL ? 1 : 0);
+  tail = rest > 0 && rest <= QTAIL ? 1 : 0;
 }
 
 template <bool GROUPED, bool RES_FIRST, typename TR, typename TO>
-__global__ void __launch_bounds__(QTHREADS, 2)
-int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
-                 const int8_t* __restrict__ B, const float* __restrict__ ws,
-                 const float* __restrict__ bias, const float* __restrict__ gamma,
-                 const TR* __restrict__ R, TO* __restrict__ Y,
-                 int M, int N, int K, int G, int act, float q_scale, int q_cols,
-                 int group_cols) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* As = smem;
-  unsigned char* Bs = smem + QSTAGES * Q_STAGE;
+__global__ void __launch_bounds__(Q_THREADS, 1)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_at,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const __grid_constant__ CUtensorMap map_bt, const float* __restrict__ sa,
+                 const float* __restrict__ ws, const float* __restrict__ bias,
+                 const float* __restrict__ gamma, const TR* __restrict__ R,
+                 TO* __restrict__ Y, int M, int N, int G, int P, int act, float q_scale,
+                 int q_cols, int group_cols, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  unsigned char* past_ring = smem + stages * Q_STAGE;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(past_ring + QV_BYTES + (R != nullptr ? QR_BYTES : 0));
+  uint64_t* empty = full + Q_MAX_STAGES;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * QBM, n0 = blockIdx.x * QBN;
-  const int nk = (K + QBK - 1) / QBK;
-  const int kt_per_group = K / G / QBK;  // used when GROUPED
+  int n_main, tail;
+  group_steps(P, n_main, tail);
+  const int steps = n_main + tail;  // per group
+  const int tiles_n = (N + QBN - 1) / QBN;
+  const int n_tiles = ((M + QBM - 1) / QBM) * tiles_n;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread reads every stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  auto load_stage = [&](int kt, int stage) {  // one 16-byte copy per operand
-    const int r = tid >> 1, c = (tid & 1) * 16, gk = kt * QBK + c;
-    const bool oka = m0 + r < M && gk < K, okb = n0 + r < N && gk < K;
-    cp_async16(As + stage * Q_STAGE + r * QPITCH + c,
-               oka ? A + static_cast<size_t>(m0 + r) * K + gk : A, oka);
-    cp_async16(Bs + stage * Q_STAGE + r * QPITCH + c,
-               okb ? B + static_cast<size_t>(n0 + r) * K + gk : B, okb);
-  };
-
-#pragma unroll
-  for (int s = 0; s < QSTAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+  // the warpgroup index, broadcast so that ptxas knows it is warp-uniform
+  // (a branch on threadIdx.x >> 7 itself is a divergent path to it, and
+  // wgmmas on one are serialized, C7520)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0), t = threadIdx.x & 127;
+  if (wg == 2) {  // the producer warp
+    if (t != 0) return;
+    int s = 0, phase = 0;  // the ring position and the parity of its pass
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * QBM, n0 = (tile % tiles_n) * QBN;
+      for (int g = 0; g < G; ++g)
+        for (int i = 0; i < steps; ++i) {
+          mbar_wait(&empty[s], phase ^ 1);
+          unsigned char* st = smem + s * Q_STAGE;
+          const bool main = i < n_main;
+          mbar_expect_tx(&full[s], main ? Q_MAIN_TX : Q_TAIL_TX);
+          tma_load_3d(st, main ? &map_a : &map_at, &full[s], i * QBK, g, m0);
+          tma_load_3d(st + QA_BYTES, main ? &map_b : &map_bt, &full[s], i * QBK, g, n0);
+          if (++s == stages) s = 0, phase ^= 1;
+        }
+    }
+    return;
   }
 
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64, columns wn*32
-  const int gid = lane >> 2, tig = lane & 3;
-  // ldmatrix lane addresses: A matrices (rows 0-7 | 8-15) x (k 0-15 | 16-31);
-  // B matrices (n 0-7, k 0-15), (n 0-7, k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31)
-  const int a_off = (wm * 64 + (lane & 15)) * QPITCH + (lane >> 4) * 16;
-  const int b_off = (wn * 32 + ((lane >> 4) << 3) + (lane & 7)) * QPITCH + ((lane >> 3) & 1) * 16;
+  // consumer wg: rows wg * 64 .. + 64 of each tile, warp w8's 16 of them
+  const int warp = t >> 5, lane = t & 31, c2 = (lane & 3) * 2, w8 = wg * 4 + warp;
+  float* vec = reinterpret_cast<float*>(past_ring + w8 * QV_WARP);  // ws | bias | gamma
+  unsigned char* rst = past_ring + QV_BYTES + w8 * QR_WARP;        // residual rows
+  constexpr int RSZ = sizeof(TR), RP = QBN * RSZ + 16;             // a staged row's bytes
+  // the epilogue's column blocks of 8 a chunk (the grouped instance keeps
+  // its fp32 partial sums in 64 more registers)
+  constexpr int EPI_J = GROUPED ? 2 : 4;
+  int acc[QBN / 2];
+#pragma unroll
+  for (int i = 0; i < QBN / 2; ++i) acc[i] = 0;
+  float yv[GROUPED ? QBN / 2 : 1];
+  int s = 0, phase = 0, prev = 0;  // the ring position, its pass's parity, the last one
 
-  float wsv[4][2], bv[4][2];
+  // the tile's epilogue operands, by cp.async into the warp's blocks at the
+  // tile's start (they land during the main loop): ws, bias, gamma at
+  // columns n0.. (past N: zeros), the residual's rows rw.. (past M: zeros)
+  auto fetch = [&](int rw, int n0) {
+    const int col = n0 + lane * 4;
+    const bool in = col < N;  // N is a multiple of 8: 4 columns are in or out
+    cp_async16(vec + lane * 4, in ? ws + col : ws, in);
+    cp_async16(vec + QBN + lane * 4, in ? bias + col : bias, in);
+    if (gamma != nullptr) cp_async16(vec + 2 * QBN + lane * 4, in ? gamma + col : gamma, in);
+    if (R != nullptr) {
+      constexpr int CPR = QBN * RSZ / 16;  // 16-byte copies a row
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n0 + wn * 32 + ni * 8 + tig * 2 + e;
-      wsv[ni][e] = col < N ? ws[col] : 0.f;
-      bv[ni][e] = col < N ? bias[col] : 0.f;
+      for (int f = lane; f < 16 * CPR; f += 32) {
+        const int rr = f / CPR, cc = (f % CPR) * (16 / RSZ);
+        const bool ok = rw + rr < M && n0 + cc < N;
+        cp_async16(rst + rr * RP + cc * RSZ,
+                   ok ? R + static_cast<size_t>(rw + rr) * N + n0 + cc : R, ok);
+      }
     }
+    cp_async_commit();
+  };
 
-  int acc[4][4][4];
-  float yv[4][4][4];
+  // part = float(acc) * (sa[row, g] * ws[col]) for this thread's 64 values
+  // (register 4 j + 2 h + e: row r0 + 8 h, column n0 + 8 j + c2 + e, staged
+  // row lr + 8 h and column 8 j + c2 + e): the first group's starts y, a
+  // later one's is added to y (GROUPED); at the last group y is finished
+  // and stored.  Which group (FIRST, LAST) and the activation are
+  // compile-time constants, so each instance is straight-line code over all
+  // 64 values: rows past M and columns past N are computed on the staged
+  // zeros and only their stores are skipped (the epilogue is bound by its
+  // instructions; per element at run time, the activation's untaken
+  // transcendental paths ran under predication at 5x the main loop's time
+  // on an H100).  EPI_J column blocks at a time, the chunk's accumulators
+  // are read into floats first, outside every thread-dependent branch (read
+  // inside one, they made ptxas serialize the main loop's wgmmas, C7520).
+  // Every operand but the row scales sr (loaded at the group's start) comes
+  // from the warp's staged blocks.
+  auto dequant = [&](int r0, int n0, const float (&sr)[2], auto act_tag, auto first_tag,
+                     auto last_tag) {
+    constexpr int ACT = decltype(act_tag)::value;
+    constexpr bool FIRST = decltype(first_tag)::value, LAST = decltype(last_tag)::value;
+    const bool with_r = R != nullptr && (!GROUPED || FIRST);
+    const int lr = lane >> 2;  // the thread's first staged row
+    // bit j: columns n0 + 8 j + c2 (+ 1) are q columns (col % group_cols <
+    // q_cols; col is even and group_cols = 3 q_width is even, so col + 1 is
+    // in col's group), from one division a tile
+    unsigned qmask = 0;
+    if (!GROUPED && q_cols > 0) {
+      int pos = (n0 + c2) % group_cols;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+      for (int j = 0; j < QBN / 8; ++j) {
+        if (pos < q_cols) qmask |= 1u << j;
+        for (pos += 8; pos >= group_cols;) pos -= group_cols;
+      }
+    }
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int jb = 0; jb < QBN / 8; jb += EPI_J) {
+      float fa[2][EPI_J][2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  // yv (+)= float(acc) * (sa[row, g] * ws[col]); acc = 0.  Element e of a
-  // fragment: row gid + (e / 2) * 8, column tig * 2 + e % 2.
-  auto dequant = [&](int g) {
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mi * 16 + gid + h * 8;
-        const float sr = row < M ? sa[static_cast<size_t>(row) * G + g] : 0.f;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int jj = 0; jj < EPI_J; ++jj)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            int& a = acc[mi][ni][h * 2 + e];
-            float& y = yv[mi][ni][h * 2 + e];
-            const float part = __fmul_rn(__int2float_rn(a), __fmul_rn(sr, wsv[ni][e]));
-            if (g == 0) {
-              const int col = n0 + wn * 32 + ni * 8 + tig * 2 + e;
-              const bool has_r = GROUPED && R != nullptr && row < M && col < N;
-              const float r = has_r ? to_f32(R[static_cast<size_t>(row) * N + col]) : 0.f;
-              if (RES_FIRST) {
-                y = __fadd_rn(__fadd_rn(r, bv[ni][e]), part);
-              } else {
-                y = __fadd_rn(part, bv[ni][e]);
-                if (has_r) y = __fadd_rn(y, r);
-              }
-            } else {
-              y = __fadd_rn(y, part);
-            }
-            a = 0;
+            fa[h][jj][e] = __int2float_rn(acc[4 * (jb + jj) + 2 * h + e]);
+            asm volatile("" : "+f"(fa[h][jj][e]));
           }
+#pragma unroll
+      for (int jj = 0; jj < EPI_J; ++jj) {
+        const int j = jb + jj, lc = 8 * j + c2;
+        float wv[2], bv[2] = {0.f, 0.f}, gv[2] = {1.f, 1.f};
+        load2(vec + lc, wv);
+        if (FIRST) load2(vec + QBN + lc, bv);
+        if (!GROUPED && gamma != nullptr) load2(vec + 2 * QBN + lc, gv);
+        const bool qcol = (qmask >> j) & 1u;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float rv[2] = {0.f, 0.f}, o[2];
+          if (with_r) load2(reinterpret_cast<const TR*>(rst + (lr + 8 * h) * RP) + lc, rv);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const float part = __fmul_rn(fa[h][jj][e], __fmul_rn(sr[h], wv[e]));
+            float y;
+            if constexpr (!FIRST) {
+              y = __fadd_rn(yv[GROUPED ? i : 0], part);
+            } else if constexpr (RES_FIRST) {
+              y = __fadd_rn(__fadd_rn(rv[e], bv[e]), part);
+            } else {
+              y = __fadd_rn(part, bv[e]);
+              if (GROUPED && with_r) y = __fadd_rn(y, rv[e]);
+            }
+            if constexpr (!GROUPED) {  // act, q-scale, gamma, residual
+              y = act_f32(y, ACT);
+              if (qcol) y = __fmul_rn(y, q_scale);
+              if (gamma != nullptr) y = __fmul_rn(y, gv[e]);
+              if (with_r) y = __fadd_rn(y, rv[e]);
+            }
+            if constexpr (GROUPED && !LAST) yv[i] = y;
+            o[e] = y;
+          }
+          const int row = r0 + 8 * h, col = n0 + lc;
+          // N is a multiple of 8: col + 1 < N too
+          if (LAST && row < M && col < N)
+            store2(Y + static_cast<size_t>(row) * N + col, o[0], o[1]);
+        }
       }
+    }
+  };
+  // the epilogue of group g: its instance for the group's place and the
+  // launch's activation
+  auto epilogue = [&](int g, int r0, int n0, const float (&sr)[2]) {
+    cp_async_wait<0>();  // this lane's staged operands have landed
+    __syncwarp();        // and the warp's
+    if constexpr (GROUPED) {
+      if (G == 1) dequant(r0, n0, sr, Tag<ACT_NONE>{}, Tag<1>{}, Tag<1>{});
+      else if (g == 0) dequant(r0, n0, sr, Tag<ACT_NONE>{}, Tag<1>{}, Tag<0>{});
+      else if (g + 1 == G) dequant(r0, n0, sr, Tag<ACT_NONE>{}, Tag<0>{}, Tag<1>{});
+      else dequant(r0, n0, sr, Tag<ACT_NONE>{}, Tag<0>{}, Tag<0>{});
+    } else {
+      switch (act) {
+        case ACT_QUICK_GELU:
+          dequant(r0, n0, sr, Tag<ACT_QUICK_GELU>{}, Tag<1>{}, Tag<1>{});
+          break;
+        case ACT_GELU_TANH:
+          dequant(r0, n0, sr, Tag<ACT_GELU_TANH>{}, Tag<1>{}, Tag<1>{});
+          break;
+        case ACT_GELU_SIG5:
+          dequant(r0, n0, sr, Tag<ACT_GELU_SIG5>{}, Tag<1>{}, Tag<1>{});
+          break;
+        default: dequant(r0, n0, sr, Tag<ACT_NONE>{}, Tag<1>{}, Tag<1>{});
+      }
+    }
   };
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<QSTAGES - 2>();
-    __syncthreads();  // tile kt is in shared memory; stage (kt-1) % QSTAGES is free
-    const int nt = kt + QSTAGES - 1;
-    if (nt < nk) load_stage(nt, nt % QSTAGES);
-    cp_async_commit();
-    const unsigned a_base = smem_u32(As + (kt % QSTAGES) * Q_STAGE) + a_off;
-    const unsigned b_base = smem_u32(Bs + (kt % QSTAGES) * Q_STAGE) + b_off;
-    unsigned af[4][4], bfr[4][2];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * QBM, n0 = (tile % tiles_n) * QBN;
+    const int rw = m0 + wg * 64 + warp * 16, r0 = rw + (lane >> 2);  // rows r0, r0 + 8
+    __syncwarp();  // the warp's lanes are done reading the last tile's blocks
+    fetch(rw, n0);
+    for (int g = 0; g < G; ++g) {
+      float sr[2];  // the group's row scales, loaded before its main loop
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) ldmatrix_x4(a_base + mi * 16 * QPITCH, af[mi]);
+      for (int h = 0; h < 2; ++h)
+        sr[h] = r0 + 8 * h < M ? __ldg(sa + static_cast<size_t>(r0 + 8 * h) * G + g) : 0.f;
+      for (int i = 0; i < steps; ++i) {
+        mbar_wait(&full[s], phase);
+        const unsigned char* st = smem + s * Q_STAGE;
+        wgmma_fence();
+        if (i < n_main) {
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      unsigned r[4];
-      ldmatrix_x4(b_base + p * 16 * QPITCH, r);
-      bfr[2 * p][0] = r[0];
-      bfr[2 * p][1] = r[1];
-      bfr[2 * p + 1][0] = r[2];
-      bfr[2 * p + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni]);
-    if constexpr (GROUPED) {
-      if ((kt + 1) % kt_per_group == 0) dequant((kt + 1) / kt_per_group - 1);
-    }
-  }
-  cp_async_wait<0>();
-  if constexpr (!GROUPED) dequant(0);
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + gid + h * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + tig * 2;
-        if (col >= N) continue;  // N is even: col + 1 < N too
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float y = yv[mi][ni][h * 2 + e];
-          if constexpr (!GROUPED) {
-            y = act_f32(y, act);
-            if (q_cols > 0 && col % group_cols < q_cols) y = __fmul_rn(y, q_scale);
-            if (gamma != nullptr) y = __fmul_rn(y, gamma[col + e]);
-            if (R != nullptr)
-              y = __fadd_rn(y, to_f32(R[static_cast<size_t>(row) * N + col + e]));
-          }
-          o[e] = y;
+          for (int kk = 0; kk < QBK / 32; ++kk)
+            wgmma_s8_n128(acc, smem_desc(st + wg * 64 * QBK + kk * 32, 16, 1024, SW_128B),
+                          smem_desc(st + QA_BYTES + kk * 32, 16, 1024, SW_128B),
+                          i > 0 || kk > 0);
+        } else {
+          wgmma_s8_n128(acc, smem_desc(st + wg * 64 * QTAIL, 16, 256, SW_32B),
+                        smem_desc(st + QA_BYTES, 16, 256, SW_32B), i > 0);
         }
-        store2(Y + static_cast<size_t>(row) * N + col, o[0], o[1]);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous k-step's products are done
+        if (g > 0 || i > 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == stages) s = 0, phase ^= 1;
+      }
+      if (GROUPED || g + 1 == G) {  // the group's sum is done: dequantize it
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (g + 1 == G) mbar_arrive(&empty[prev]);  // the tile's last stage
+        epilogue(g, r0, n0, sr);
       }
     }
+  }
+}
+
+// the 3-D map {byte in group, group, row} of an int8 [rows, G * P] operand,
+// box [128 rows][width bytes] at 128B (width 128) or 32B (width 32) swizzle
+inline int int8_map(CUtensorMap* map, const void* base, int rows, int G, int P, uint32_t width) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(P), static_cast<uint64_t>(G),
+                            static_cast<uint64_t>(rows)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(P),
+                               static_cast<uint64_t>(G) * static_cast<uint64_t>(P)};
+  const uint32_t box[3] = {width, 1, static_cast<uint32_t>(QBM)};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, base, dims, strides, box,
+                         width == QBK ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 template <bool GROUPED, bool RES_FIRST, typename TR, typename TO>
@@ -334,15 +486,28 @@ int launch_int8_gemm(const void* a, const float* sa, const void* w, const float*
                      const float* bias, const float* gamma, const void* r, void* y, int M,
                      int N, int K, int G, int act, float q_scale, int q_cols, int group_cols,
                      cudaStream_t stream) {
+  if (M < 1 || N < 8 || K < 16 || G < 1 || K % G) return static_cast<int>(cudaErrorInvalidValue);
+  const int P = K / G;
+  CUtensorMap maps[4];  // A, its 32-byte twin, B, its twin
+  int err = int8_map(&maps[0], a, M, G, P, QBK);
+  if (err == 0) err = int8_map(&maps[1], a, M, G, P, QTAIL);
+  if (err == 0) err = int8_map(&maps[2], w, N, G, P, QBK);
+  if (err == 0) err = int8_map(&maps[3], w, N, G, P, QTAIL);
+  if (err != 0) return err;
   auto kernel = int8_gemm_kernel<GROUPED, RES_FIRST, TR, TO>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QGEMM_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + QBN - 1) / QBN, (M + QBM - 1) / QBM);
-  kernel<<<grid, QTHREADS, QGEMM_SMEM, stream>>>(
-      static_cast<const int8_t*>(a), sa, static_cast<const int8_t*>(w), ws, bias, gamma,
-      static_cast<const TR*>(r), static_cast<TO*>(y), M, N, K, G, act, q_scale, q_cols,
-      group_cols);
+  const bool residual = r != nullptr;
+  const int stages = q_stages(residual), smem = q_smem(stages, residual);
+  const int most = q_smem(q_stages(true), true) > q_smem(q_stages(false), false)
+                       ? q_smem(q_stages(true), true)
+                       : q_smem(q_stages(false), false);
+  const cudaError_t ce =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const int tiles = ((M + QBM - 1) / QBM) * ((N + QBN - 1) / QBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  kernel<<<grid, Q_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], sa, ws, bias, gamma, static_cast<const TR*>(r),
+      static_cast<TO*>(y), M, N, G, P, act, q_scale, q_cols, group_cols, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,6 +581,30 @@ int aihab_int8_gemm(const void* a, const float* sa, const void* w, const float* 
                                                        group_cols, s);
   return launch_int8_gemm<false, false, bf16, bf16>(a, sa, w, ws, bias, gamma, r, y, M, N, K,
                                                     1, act, q_scale, q_cols, group_cols, s);
+}
+
+// The launch plan of int8_gemm at [M, N] over K in `groups` groups (the
+// grouped instance when groups > 1), with or without a residual, for
+// reports: out = {ring stages, shared bytes a block, output tiles, blocks,
+// registers a thread, local (spill) bytes a thread, k-steps a tile, of them
+// 32-byte ones}.
+int aihab_int8_gemm_plan(int M, int N, int K, int groups, int residual, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, groups > 1 ? int8_gemm_kernel<true, false, bf16, bf16>
+                        : int8_gemm_kernel<false, false, bf16, bf16>);
+  int n_main, tail;
+  group_steps(K / groups, n_main, tail);
+  const int tiles = ((M + QBM - 1) / QBM) * ((N + QBN - 1) / QBN);
+  out[0] = q_stages(residual != 0);
+  out[1] = q_smem(q_stages(residual != 0), residual != 0);
+  out[2] = tiles;
+  out[3] = tiles < sm_count() ? tiles : sm_count();
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  out[6] = groups * (n_main + tail);
+  out[7] = groups * tail;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -13,13 +13,14 @@ libraries link against cudart alone.
 
   block_kernels.cu       the TMA + wgmma GEMM behind ln_gemm (after an LN row
                          pass) and gemm_residual (K1-K5, K7, K16, K17), the
-                         TMA + wgmma flash attention (bf16 output: K1, K2,
-                         K5, K6 fwd) and the WMMA attention with fp32 output
-                         (K12-K14's core), act_pass (the gelu_poly forms past
-                         the GEMM epilogues), the train MLP's backward row
-                         kernel (K17)
-  fused_attention_bwd.cu fused_attention's backward (K6b)
-  quant_kernels.cu       row_quant, int8_gemm (K8-K15)
+                         TMA + wgmma flash attention (K1, K2, K5, K6 fwd in
+                         bf16; K13's grouped attention in fp32) and the WMMA
+                         normalised-P attention with fp32 output (K12, K14),
+                         act_pass (the gelu_poly forms past the GEMM
+                         epilogues), the train MLP's backward row kernel (K17)
+  fused_attention_bwd.cu fused_attention's backward (K6b): TMA + wgmma dq and
+                         dk/dv kernels
+  quant_kernels.cu       row_quant, the TMA + wgmma int8_gemm (K8-K15)
   preprocess.cu          normalize_u8 (K18)
 """
 
@@ -62,11 +63,13 @@ _ARGTYPES = {
     "fused_attention_bwd": {
         "aihab_fused_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
                                       _i, _i, _i, _i, _f, _p],
+        "aihab_fused_attention_bwd_plan": [_i, _i, _i, _i, _p],
     },
     "quant_kernels": {
         "aihab_row_quant": [_p, _i, _i, _i, _i, _i, _p, _p, _f, _p, _p, _p],
         "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i,
                             _i, _i, _i, _f, _i, _i, _p],
+        "aihab_int8_gemm_plan": [_i, _i, _i, _i, _i, _p],
     },
     "preprocess": {
         "aihab_normalize_u8": [_p, _p, _i, _ll, _f, _f, _f, _f, _f, _f, _p],

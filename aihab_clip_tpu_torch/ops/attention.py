@@ -11,7 +11,8 @@ two hand-written CUDA kernels, for q/k/v [B, S, W] with the heads packed in W
     in registers, and storing each row's fp32 log-sum-exp for the backward;
   * backward (``_pallas_attention_bwd`` :204, pallas_call :226):
     ``csrc/fused_attention_bwd.cu``, a dq kernel (which also forms the row
-    term) and a dk/dv kernel that rebuild P from the log-sum-exp.
+    term) and a dk/dv kernel, TMA + wgmma like the forward, that rebuild P
+    from the log-sum-exp in registers.
 
 Both take head_dim 64 or 72, bf16, non-causal.  ``attention()`` dispatches as
 the JAX package does (:304-338): the kernel for non-causal sequences of

@@ -32,15 +32,16 @@ header gives the design and the bound):
 
   * ``row_quant``  optional fp32 LN, then per row (or per head group of a
                    row) s = max(amax, 1e-12) * (1/127) and the int8 codes
-  * ``int8_gemm``  int8 x int8 -> int32 on the tensor cores, dequant
-                   acc * (s_x * s_w) + bias, act, q-scale, per-column
-                   gamma, residual; or with
+  * ``int8_gemm``  int8 x int8 -> int32 on the tensor cores (TMA + wgmma),
+                   dequant acc * (s_x * s_w) + bias, act, q-scale,
+                   per-column gamma, residual; or with
                    a dequant per group of K, summed in group order onto
                    part_0 + bias + residual, or (residual-first) onto
                    residual + bias
   * ``attention``  (``ops/block_kernel.py``) the bf16 attention core over
-                   the grouped qkv, q pre-scaled, fp32 output (for K12 and
-                   K14 with P normalised before its bf16 cast)
+                   the grouped qkv, q pre-scaled, fp32 output: K13's on the
+                   flash kernel (1/sum on the output rows), K12's and K14's
+                   with P normalised before its bf16 cast
 
 K8 = row_quant -> int8_gemm.  K9 = row_quant(LN) -> int8_gemm (fp32 y) ->
 row_quant(y): the requantize needs a whole row, which no GEMM tile holds.
@@ -83,7 +84,9 @@ from ._build import launch
 from .block_kernel import ACTS, _check, _ln_f32, _vec_f32, act_code, act_f32
 from .quant import int_matmul
 
-# the int8 GEMM's k-step in bytes: a grouped K is padded to a multiple of it
+# a grouped K's span is padded to a multiple of 32 bytes: the int8 GEMM reads
+# a span as 128-byte k-steps and a rest of at most 32 bytes as one 32-byte
+# step (K13's 144-wide groups: 160 = 128 + 32)
 GEMM_BK = 32
 
 

@@ -4,6 +4,8 @@ changed or added header rebuilds it, and another source's edit does not."""
 
 import shutil
 
+import pytest
+
 from aihab_clip_tpu_torch.ops import _build
 
 
@@ -38,3 +40,35 @@ def test_every_entry_point_has_its_source():
                "aihab_fused_attention_fwd", "aihab_gemm_plan",
                "aihab_flash_plan"):
         assert _build._SOURCE_OF[fn] == "block_kernels"
+    for fn in ("aihab_fused_attention_bwd", "aihab_fused_attention_bwd_plan"):
+        assert _build._SOURCE_OF[fn] == "fused_attention_bwd"
+    for fn in ("aihab_row_quant", "aihab_int8_gemm", "aihab_int8_gemm_plan"):
+        assert _build._SOURCE_OF[fn] == "quant_kernels"
+
+
+def test_plan_entry_points_take_an_output_pointer():
+    """The plan functions fill an int array: their last argument is a
+    pointer, the ones before it ints (the shape, groups, residual)."""
+    plans = {"aihab_gemm_plan": 3, "aihab_flash_plan": 4,
+             "aihab_fused_attention_bwd_plan": 4, "aihab_int8_gemm_plan": 5}
+    for fn, n_ints in plans.items():
+        args = _build._ARGTYPES[_build._SOURCE_OF[fn]][fn]
+        assert args == [_build._i] * n_ints + [_build._p], fn
+
+
+@pytest.mark.parametrize("source", ["block_kernels", "fused_attention_bwd",
+                                    "quant_kernels"])
+def test_tma_sources_include_and_key_the_hopper_header(source, tmp_path,
+                                                       monkeypatch):
+    """The TMA + wgmma sources include hopper.cuh, and an edit of it gives
+    each of them a new library name (a stale build is never served)."""
+    text = (_build._CSRC / f"{source}.cu").read_text()
+    assert '#include "hopper.cuh"' in text
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    before = _build._library_path(source)
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _build._library_path(source) != before

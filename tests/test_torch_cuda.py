@@ -1064,3 +1064,154 @@ def test_cuda_flash_attention_matches_plain(b, s, heads, d, group_heads,
                   TOL_ATTENTION)
     _, scores = att._probs(q, k, heads, None)
     _assert_close(lse, torch.logsumexp(scores, -1), (1e-5, 1e-5))
+
+
+# K6b (csrc/fused_attention_bwd.cu, TMA + wgmma) at both head widths, at
+# S of one ragged tile, nine full tiles and nine plus one row
+BWD_CASES = [(d, s) for d in (64, 72) for s in (197, 576, 577)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,s", BWD_CASES)
+def test_cuda_fused_attention_bwd_wgmma(d, s):
+    """The backward kernels against ``fused_attention_bwd_plain(out=)`` (the
+    kernels' row term, rowsum(dO * O)) within the attention tolerance; the
+    need_dq / need_dkdv subsets equal the full call's outputs; two runs are
+    bit-identical (each output is written by one block, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import attention as att
+
+    heads = 4
+    g = torch.Generator().manual_seed(d * 1000 + s)
+    q, k, v, dout = (torch.randn(2, s, heads * d, generator=g).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    out, lse = att.fused_attention_fwd(q, k, v, heads)
+    att.reset_launch_counts()
+    grads = att.fused_attention_bwd(q, k, v, out, lse, dout, heads)
+    assert att.launch_counts()["fused_attention_bwd"] == 1
+    refs = att.fused_attention_bwd_plain(q, k, v, dout, heads, out=out)
+    for got, ref in zip(grads, refs):
+        _assert_close(got, ref, TOL_ATTENTION)
+    again = att.fused_attention_bwd(q, k, v, out, lse, dout, heads)
+    only_q = att.fused_attention_bwd(q, k, v, out, lse, dout, heads,
+                                     need_dkdv=False)
+    only_kv = att.fused_attention_bwd(q, k, v, out, lse, dout, heads,
+                                      need_dq=False)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    assert only_q[1] is None and only_q[2] is None
+    assert torch.equal(only_q[0], grads[0])
+    assert only_kv[0] is None
+    assert torch.equal(only_kv[1], grads[1])
+    assert torch.equal(only_kv[2], grads[2])
+
+
+# the flash kernel's fp32 output (K13's grouped attention): q pre-scaled,
+# keys at or past seq_len masked
+FLASH_F32_CASES = [
+    # (B, S, heads, head_dim, group_heads, seq_len)
+    (2, 576, 16, 72, 2, None),
+    (1, 592, 16, 72, 2, 577),
+    (2, 197, 12, 64, None, 150),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,heads,d,group_heads,seq_len", FLASH_F32_CASES)
+def test_cuda_flash_attention_fp32_out(b, s, heads, d, group_heads, seq_len):
+    """``attention(out_dtype=fp32, q_scaled=True)`` (the flash kernel's fp32
+    store) against the plain grouped attention with the same one-pass
+    rounding (P cast unnormalised, 1/sum on the rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator().manual_seed(s * d)
+    qkv = (torch.randn(b, s, 3 * heads * d, generator=g) * 0.5).to(
+        "cuda", torch.bfloat16)
+    bk.reset_launch_counts()
+    got = bk.attention(qkv, heads, seq_len, group_heads=group_heads,
+                       q_scaled=True, out_dtype=torch.float32)
+    assert bk.launch_counts()["attention"] == 1 and got.dtype == torch.float32
+    ref = bk.attention_plain(qkv, heads, seq_len, group_heads=group_heads,
+                             q_scaled=True, out_dtype=torch.float32)
+    _assert_close(got, ref, TOL_ATTENTION)
+
+
+# the TMA + wgmma int8 GEMM (csrc/quant_kernels.cu int8_gemm_kernel) in every
+# mode at ragged M (off the 128-row tile) and N (8 x odd)
+INT8_CASES = [
+    # (name, M, K, N, options)
+    ("none bf16", 300, 256, 352, {}),
+    ("none fp32, K ragged by 16", 129, 272, 136, dict(out=torch.float32)),
+    ("bf16 residual", 300, 1152, 344, dict(res=torch.bfloat16)),
+    ("fp32 residual, fp32 out", 77, 768, 200,
+     dict(res=torch.float32, out=torch.float32)),
+    ("q-scale", 197, 256, 3 * 2 * 96, dict(q_width=96)),
+    ("gamma + bf16 residual", 260, 512, 128,
+     dict(gamma=True, res=torch.bfloat16)),
+    ("2 groups of 144 padded to 160", 300, 320, 288,
+     dict(groups=2, res=torch.bfloat16)),
+    ("8 groups of 144 padded to 160, fp32", 130, 1280, 1152,
+     dict(groups=8, res=torch.float32, out=torch.float32)),
+    ("residual-first", 197, 768, 264, dict(res_first=True)),
+    ("residual-first, 2 groups of 384", 150, 768, 136,
+     dict(res_first=True, groups=2, out=torch.float32)),
+    ("quick_gelu", 300, 256, 352, dict(act="quick_gelu")),
+    ("gelu_tanh fp32", 131, 1152, 264, dict(act="gelu_tanh",
+                                            out=torch.float32)),
+    ("gelu_poly + residual", 70, 512, 136,
+     dict(act="gelu_poly", res=torch.bfloat16)),
+    ("gelu_poly rational (act_pass)", 70, 128, 136,
+     dict(act="gelu_poly", erf="rational", out=torch.float32)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", INT8_CASES, ids=[c[0] for c in INT8_CASES])
+def test_cuda_int8_gemm_wgmma(case, monkeypatch):
+    """Each mode of the int8 GEMM against ``int8_gemm_plain``: bit for bit
+    where the epilogue has no activation (the int32 sums are exact and every
+    fp32 step is the plain version's, in its order); with an activation
+    within the fp32 ulps of its transcendental (bf16: one rounding step);
+    and every launch deterministic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    name, m, k, n, opt = case
+    g = torch.Generator().manual_seed(len(name) + m)
+    dev = torch.device("cuda")
+    if opt.get("erf"):
+        monkeypatch.setenv("AIHAB_ERF_IMPL", opt["erf"])
+    groups = opt.get("groups", 1)
+    a8, wt = (torch.randint(-127, 128, shape, generator=g,
+                            dtype=torch.int8).to(dev)
+              for shape in ((m, k), (n, k)))
+    sa = (torch.rand(m, groups, generator=g) * 0.02 + 1e-3).to(dev)
+    ws = (torch.rand(n, generator=g) * 0.02 + 1e-3).to(dev)
+    bias = (torch.randn(n, generator=g) * 0.1).to(dev)
+    kw = dict(act=opt.get("act", "none"), out_dtype=opt.get("out",
+                                                            torch.bfloat16),
+              groups=groups, residual_first=opt.get("res_first", False))
+    if opt.get("res") is not None or kw["residual_first"]:
+        rdt = torch.float32 if kw["residual_first"] else opt["res"]
+        kw["residual"] = torch.randn(m, n, generator=g).to(dev, rdt)
+    if opt.get("gamma"):
+        kw["gamma"] = (torch.randn(n, generator=g) * 0.1).to(dev)
+    if opt.get("q_width"):
+        kw.update(q_scale=0.125, q_width=opt["q_width"])
+    qm.reset_launch_counts()
+    got = qm.int8_gemm(a8, sa, wt, ws, bias, **kw)
+    again = qm.int8_gemm(a8, sa, wt, ws, bias, **kw)
+    assert qm.launch_counts()["int8_gemm"] == 2
+    ref = qm.int8_gemm_plain(a8, sa, wt, ws, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == (m, n)
+    assert torch.equal(got, again)
+    if kw["act"] == "none":
+        assert torch.equal(got, ref)
+    else:
+        ulp = 2.0 ** -8 if got.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), ref.float(), rtol=ulp,
+                                   atol=1e-5)
