@@ -51,7 +51,12 @@
 // At SigLIP SO400M (S=576, W=1152, 16 heads of 72, hidden 4304) the same
 // kernels run at other widths: head_dim 72 is a template instance of the
 // attention kernels with the contraction zero-padded to 80, and the 2152-wide
-// MLP chunks take the GEMM's ragged N and K edges (TMA's zero fill).
+// MLP chunks take the GEMM's ragged N and K edges (TMA's zero fill).  The
+// LAION ViT-g/14 and ViT-bigG/14 towers (S=257; W=1408, 16 heads of 88,
+// hidden 6144; W=1664, 16 heads of 104, hidden 8192) take head_dim 88 and
+// 104 the same way: instances padded to 96 and 112 (the flash kernel's
+// Q K^T, the WMMA tiles) or 128 (bigG's P V).  At batch 64 a bigG block is
+// 1.29 TFLOP (1.30 ms at 989 TFLOP/s), 28 GFLOP of it attention.
 //
 // At ConvNeXt base_w (batch 64, 256 px) every convnext_mlp_block launch is
 // 16 M C^2 = 68.7 GFLOP (M C^2 is the same in every stage: M = 262,144 rows
@@ -75,11 +80,13 @@
 // Preconditions the Python wrappers check: K and N multiples of 8, every
 // pointer 16-byte aligned, row-major tensors (a weight may be a column slice
 // of a wider matrix: its row stride ldw, a multiple of 8, is an argument),
-// head_dim 64 or 72; these are also every TMA precondition (16-byte aligned
+// head_dim 64, 72, 88 or 104; these are also every TMA precondition (16-byte aligned
 // bases and row strides).  The qkv layout is grouped: head h of group h / g sits at
 // columns (h / g) * 3gD + {0, gD, 2gD} + (h % g) * D for q, k and v, which
 // with g = heads is the packed q | k | v of CLIP's in_proj.  The q-scale
 // epilogue multiplies columns n with n % group_cols < q_cols by q_scale.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -693,7 +700,8 @@ int launch_act_pass(const float* t, int act, const void* r, void* y, int n,
 // (64-query tile, head, image); 4 warps of 16 query rows on WMMA; keys stream
 // through shared memory 64 at a time, so no [S, S] tensor exists anywhere.
 // Each lane owns one query row's half (HDP/2 output dims) in registers.
-// D=64 is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide).
+// D=64 is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide),
+// D=88 and 104 ViT-g's and ViT-bigG's (tiles 96 and 112 wide).
 // Operands: q, k and v of head h start at column (h / g) * group_stride +
 // (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
 // of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
@@ -863,11 +871,16 @@ int launch_attention_norm_p(const bf16* q, const bf16* k, const bf16* v, void* o
 // quad: 16 each, reduced with two shuffles); P is rounded to bf16 in
 // registers and is the register-A operand of O += P V, with V's [keys][D]
 // tile MN-major (the transpose bit), so neither the scores nor P V touch
-// shared memory.  D = 64 (CLIP) is one 128B-swizzled box per tile; D = 72
-// (SigLIP), whose 144-byte rows fit no swizzle mode, is a 64-column
-// 128B-swizzled box plus a 16-column 32B-swizzled box at column 64 whose
-// columns 72-79 are TMA's zero fill: Q K^T contracts 64 + 16 columns and
-// P V writes an n64 and an n16 product, of which columns 72-79 are dropped.
+// shared memory.  D = 64 (CLIP ViT-B/L/H) is one 128B-swizzled box per
+// tile.  D = 72 (SigLIP), 88 (ViT-g) and 104 (ViT-bigG), whose 144-, 176-
+// and 208-byte rows fit no swizzle mode, are a 64-column 128B-swizzled box
+// plus one tail box at column 64, TW = 16, 32 or 64 columns wide at the
+// swizzle of its row bytes (32B, 64B, 128B), whose columns past D are TMA's
+// zero fill: Q K^T contracts 64 columns and then the tail's k16 steps up to
+// D rounded to 16 (80, 96, 112), and P V writes an n64 and an nTW product,
+// of which the columns past D are dropped.  One tail box, not a 32 + 16
+// pair at D = 104, keeps one code path; it costs D = 104 24 zero columns
+// of P V (128 against 104) and none of Q K^T.
 // Numerics: fp32 scores times scale, keys >= seq_len at -1e30, the row max
 // and sum online in fp32 over unrounded P, P cast to bf16 before P V, 1/l on
 // the output rows, stored as TO: bf16, or fp32 for K13, whose grouped
@@ -883,8 +896,16 @@ constexpr int FQ = 64, FKV = 64, FLASH_THREADS = 128;
 
 template <int HD>
 struct FlashCfg {
-  static constexpr bool TAIL = HD > 64;
-  static constexpr int MAIN = FQ * 128, TAIL_BYTES = TAIL ? FQ * 32 : 0;  // per tile
+  static_assert(HD == 64 || HD == 72 || HD == 88 || HD == 104, "the head dims built");
+  // the tail box past column 64: its width, its k16 steps of Q K^T, its
+  // swizzle and the stride of its 8-row core groups
+  static constexpr int TW = HD <= 64 ? 0 : HD <= 80 ? 16 : HD <= 96 ? 32 : 64;
+  static constexpr bool TAIL = TW > 0;
+  static constexpr int TK = (HD - 64 + 15) / 16;
+  static constexpr int TSW = TW == 64 ? SW_128B : TW == 32 ? SW_64B : SW_32B;
+  static constexpr int T_SBO = 8 * TW * 2;
+  static constexpr int OT = TAIL ? TW / 2 : 8;  // tail accumulators a thread
+  static constexpr int MAIN = FQ * 128, TAIL_BYTES = FQ * TW * 2;  // per tile
   // main boxes 1024-aligned first: Q, K0, V0, K1, V1; then their tails
   static constexpr int Q_MAIN = 0, KV_MAIN = MAIN;  // K stage s at KV_MAIN + 2s MAIN, V + MAIN
   static constexpr int TAILS = 5 * MAIN;
@@ -944,11 +965,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   const int c2 = (lane & 3) * 2;
-  float o[32], ot[8];  // P V columns 0-63 and (D = 72) 64-79
+  float o[32], ot[C::OT];  // P V columns 0-63 and (D > 64) 64 .. 64 + TW - 1
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+  for (int i = 0; i < C::OT; ++i) ot[i] = 0.f;
   float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.f, 0.f};
   mbar_wait(qbar, 0);
 
@@ -961,9 +982,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_MAIN + kk * 32, 16, 1024, SW_128B),
                       smem_desc(k_main(s) + kk * 32, 16, 1024, SW_128B), kk > 0);
-    if constexpr (C::TAIL)
-      wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_TAIL, 16, 256, SW_32B),
-                      smem_desc(k_tail(s), 16, 256, SW_32B), 1);
+    if constexpr (C::TAIL) {
+#pragma unroll
+      for (int kk = 0; kk < C::TK; ++kk)
+        wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_TAIL + kk * 32, 16, C::T_SBO, C::TSW),
+                        smem_desc(k_tail(s) + kk * 32, 16, C::T_SBO, C::TSW), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -1009,7 +1033,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     if constexpr (C::TAIL) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < C::TW / 8; ++j) {
         ot[j * 4] *= alpha[0];
         ot[j * 4 + 1] *= alpha[0];
         ot[j * 4 + 2] *= alpha[1];
@@ -1028,8 +1052,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < 4; ++kk) {
       wgmma_rs<64, 1>(o, pf[kk], smem_desc(v_main(s) + kk * 2048, C::MAIN, 1024, SW_128B), 1);
       if constexpr (C::TAIL)
-        wgmma_rs<16, 1>(ot, pf[kk], smem_desc(v_tail(s) + kk * 512, C::TAIL_BYTES, 256, SW_32B),
-                        1);
+        wgmma_rs<C::TW, 1>(ot, pf[kk],
+                           smem_desc(v_tail(s) + kk * 32 * C::TW, C::TAIL_BYTES, C::T_SBO, C::TSW),
+                           1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1049,8 +1074,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       store2(dst + j * 8 + c2, o[j * 4 + h2 * 2] * inv, o[j * 4 + h2 * 2 + 1] * inv);
-    if constexpr (C::TAIL)  // columns 64-71 (j = 0); 72-79 are padding
-      store2(dst + 64 + c2, ot[h2 * 2] * inv, ot[h2 * 2 + 1] * inv);
+    if constexpr (C::TAIL)  // columns 64 .. D - 1; the rest of the tail is padding
+#pragma unroll
+      for (int j = 0; j < (HD - 64) / 8; ++j)
+        store2(dst + 64 + j * 8 + c2, ot[j * 4 + h2 * 2] * inv, ot[j * 4 + h2 * 2 + 1] * inv);
     if (lse != nullptr && (lane & 3) == 0)
       lse[(static_cast<size_t>(b) * heads + h) * S + q] = m_run[h2] + logf(l_run[h2]);
   }
@@ -1062,14 +1089,14 @@ int launch_flash(const bf16* q, const bf16* k, const bf16* v, TO* out, float* ls
                  float scale, cudaStream_t stream) {
   using C = FlashCfg<HD>;
   const int groups = heads / group_heads;
-  CUtensorMap maps[6];  // q, k, v, then their tails (D = 72; unread at D = 64)
+  CUtensorMap maps[6];  // q, k, v, then their tails (D > 64; unread at D = 64)
   const bf16* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     int err = head_map(&maps[i], bases[i], HD, group_heads, groups, S, B, ld, group_stride, 64,
                        FQ);
     if (err == 0 && C::TAIL)
       err = head_map(&maps[3 + i], bases[i], HD, group_heads, groups, S, B, ld, group_stride,
-                     16, FQ);
+                     C::TW, FQ);
     if (err != 0) return err;
     if (!C::TAIL) maps[3 + i] = maps[i];
   }
@@ -1084,6 +1111,19 @@ int launch_flash(const bf16* q, const bf16* k, const bf16* v, TO* out, float* ls
   return static_cast<int>(cudaGetLastError());
 }
 
+// f(std::integral_constant<int, D>()) for D = head_dim, one of the head
+// widths the attention kernels are built for (ops/block_kernel.HEAD_DIMS)
+template <typename F>
+int with_head_dim(int head_dim, F f) {
+  switch (head_dim) {
+    case 64: return f(std::integral_constant<int, 64>());
+    case 72: return f(std::integral_constant<int, 72>());
+    case 88: return f(std::integral_constant<int, 88>());
+    case 104: return f(std::integral_constant<int, 104>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // out bf16, or fp32 with out_f32 (then lse must be null)
 int flash_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, int out_f32,
                    float* lse, int B, int S, int seq_len, int heads, int group_heads,
@@ -1091,19 +1131,13 @@ int flash_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, int o
   if (seq_len < 1 || seq_len > S || group_heads < 1 || heads % group_heads ||
       (out_f32 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* of = static_cast<float*>(out);
-  bf16* ob = static_cast<bf16*>(out);
-  if (head_dim == 64)
-    return out_f32 ? launch_flash<64>(q, k, v, of, lse, B, S, seq_len, heads, group_heads, ld,
-                                      group_stride, scale, stream)
-                   : launch_flash<64>(q, k, v, ob, lse, B, S, seq_len, heads, group_heads, ld,
-                                      group_stride, scale, stream);
-  if (head_dim == 72)
-    return out_f32 ? launch_flash<72>(q, k, v, of, lse, B, S, seq_len, heads, group_heads, ld,
-                                      group_stride, scale, stream)
-                   : launch_flash<72>(q, k, v, ob, lse, B, S, seq_len, heads, group_heads, ld,
-                                      group_stride, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return out_f32 ? launch_flash<HD>(q, k, v, static_cast<float*>(out), lse, B, S, seq_len,
+                                      heads, group_heads, ld, group_stride, scale, stream)
+                   : launch_flash<HD>(q, k, v, static_cast<bf16*>(out), lse, B, S, seq_len,
+                                      heads, group_heads, ld, group_stride, scale, stream);
+  });
 }
 
 }  // namespace
@@ -1186,7 +1220,7 @@ int aihab_mlp_train_bwd(const void* x, const void* h_pre, const void* dy, const 
 
 // out[B,S,heads*D] (bf16, or fp32 with out_f32) = masked multi-head attention
 // over qkv[B,S,3*heads*D] in the grouped layout (group_heads heads per group);
-// D is 64 or 72.  The fp32 output is the int8 blocks' (K12, K13, K14), whose
+// D is 64, 72, 88 or 104.  The fp32 output is the int8 blocks' (K12, K13, K14), whose
 // requantize reads the PV product unrounded, as the TPU kernels do; norm_p
 // (fp32 only; K12, K14) normalises P before its bf16 cast, as they do, on
 // the WMMA kernel; every other call runs the flash kernel.
@@ -1197,22 +1231,20 @@ int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int h
   const int gw = group_heads * head_dim, ld = 3 * heads * head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (norm_p && !out_f32) return static_cast<int>(cudaErrorInvalidValue);
-  if (norm_p) {
-    if (head_dim == 64)
-      return launch_attention_norm_p<64>(base, base + gw, base + 2 * gw, out, B, S, seq_len,
-                                         heads, group_heads, ld, 3 * gw, scale, s);
-    if (head_dim == 72)
-      return launch_attention_norm_p<72>(base, base + gw, base + 2 * gw, out, B, S, seq_len,
-                                         heads, group_heads, ld, 3 * gw, scale, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (norm_p)
+    return with_head_dim(head_dim, [&](auto hd) {
+      return launch_attention_norm_p<decltype(hd)::value>(base, base + gw, base + 2 * gw, out,
+                                                          B, S, seq_len, heads, group_heads, ld,
+                                                          3 * gw, scale, s);
+    });
   return flash_dispatch(base, base + gw, base + 2 * gw, out, out_f32, nullptr, B, S, seq_len,
                         heads, group_heads, head_dim, ld, 3 * gw, scale, s);
 }
 
 // fused_attention's forward (K6): out = softmax(scale * q k^T) v over
 // separate q, k, v [B,S,heads*D] bf16 (heads packed in the last dim), and the
-// fp32 row log-sum-exp lse[B,heads,S] when lse is non-null; D is 64 or 72.
+// fp32 row log-sum-exp lse[B,heads,S] when lse is non-null; D is 64, 72,
+// 88 or 104 (ops/attention.py takes 64 and 72, the dims its backward has).
 int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void* out,
                               void* lse, int B, int S, int heads, int head_dim, float scale,
                               void* stream) {
@@ -1222,12 +1254,13 @@ int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void*
                         static_cast<cudaStream_t>(stream));
 }
 
-// The launch plans of the TMA + wgmma kernels, for reports.  GEMM [M, N]
-// (with or without a residual): out = {ring stages, shared bytes a block,
-// output tiles, blocks, registers a thread, local (spill) bytes a thread}.
-// Flash attention at (B, S, heads, head_dim): out = {K/V stages, shared
-// bytes a block, blocks (query tiles x heads x images), the same, registers,
-// local bytes}.
+// The launch plans of the kernels, for reports.  GEMM [M, N] (with or
+// without a residual): out = {ring stages, shared bytes a block, output
+// tiles, blocks, registers a thread, local (spill) bytes a thread}.
+// Attention at (B, S, heads, head_dim), kind 0 the flash kernel with bf16
+// output, 1 with fp32 output, 2 the normalised-P kernel: out = {K/V stages,
+// shared bytes a block, blocks (query tiles x heads x images), the same,
+// registers, local bytes}.
 int aihab_gemm_plan(int M, int N, int residual, int* out) {
   const int stages = gemm_stages(residual != 0);
   const int tiles = ((M + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
@@ -1242,18 +1275,22 @@ int aihab_gemm_plan(int M, int N, int residual, int* out) {
   return static_cast<int>(err);
 }
 
-int aihab_flash_plan(int B, int S, int heads, int head_dim, int* out) {
-  if (head_dim != 64 && head_dim != 72) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &attr,
-      head_dim == 64 ? flash_attention_kernel<64, bf16> : flash_attention_kernel<72, bf16>);
-  out[0] = 2;
-  out[1] = head_dim == 64 ? FlashCfg<64>::SMEM : FlashCfg<72>::SMEM;
-  out[2] = out[3] = ((S + FQ - 1) / FQ) * heads * B;
-  out[4] = attr.numRegs;
-  out[5] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(err);
+int aihab_flash_plan(int B, int S, int heads, int head_dim, int kind, int* out) {
+  if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return with_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &attr, kind == 0   ? (const void*)flash_attention_kernel<HD, bf16>
+               : kind == 1 ? (const void*)flash_attention_kernel<HD, float>
+                           : (const void*)attention_norm_p_kernel<HD>);
+    out[0] = kind == 2 ? 1 : 2;
+    out[1] = kind == 2 ? 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH : FlashCfg<HD>::SMEM;
+    out[2] = out[3] = ((S + FQ - 1) / FQ) * heads * B;
+    out[4] = attr.numRegs;
+    out[5] = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(err);
+  });
 }
 
 }  // extern "C"

@@ -22,10 +22,13 @@
 //   K-major, 128B swizzle: rows of 64 elements (128 bytes) 128 bytes apart;
 //       SBO = 1024 (the next 8 rows); a k16 step advances the start by 32
 //       bytes inside the swizzle row.
+//   K-major, 64B swizzle: rows of 32 elements (64 bytes); SBO = 512; a k16
+//       step advances the start by 32 bytes.
 //   K-major, 32B swizzle: rows of 16 elements (32 bytes); SBO = 256.
 //   MN-major (trans-b), 128B swizzle: a [k][64] box, rows (k) 128 bytes
 //       apart; SBO = 1024 (the next 8 k), LBO = the byte distance to the
 //       next 64-wide box along N; a k16 step advances 16 rows (2048 bytes).
+//   MN-major, 64B swizzle: a [k][32] box, SBO = 512, a k16 step 1024 bytes.
 //   MN-major, 32B swizzle: a [k][16] box, SBO = 256, a k16 step 512 bytes.
 // int8 (s8 x s8 -> s32, both operands K-major: int8 wgmma has no transpose
 // bit) contracts k32 = 32 bytes per instruction, so its K-major descriptors
@@ -124,7 +127,8 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
 
 // ---- wgmma ------------------------------------------------------------------
 
-enum Swizzle { SW_128B = 1, SW_32B = 3 };  // the descriptor's layout codes the kernels use
+// the descriptor's layout codes the kernels use
+enum Swizzle { SW_128B = 1, SW_64B = 2, SW_32B = 3 };
 
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
                                               int swizzle) {
@@ -226,6 +230,20 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -255,8 +273,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 64, "the widths the kernels use");
+  static_assert(N == 16 || N == 32 || N == 64, "the widths the kernels use");
   if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
   else wgmma_rs_n64<TB>(d, a, db, scale_d);
 }
 
@@ -333,9 +352,9 @@ inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
 // The attention kernels' 5-D map {d, head in group, group, row, image} of
 // one bf16 operand whose rows are `ld` elements apart (head h of group g at
 // column g * group_stride + h * head_dim; group_stride 0: one group), box
-// [rows][width columns] at 128B (width 64) or 32B (width 16) swizzle.  A box
-// past D, past S or past an image's rows loads zeros, never the next head's
-// or image's values.
+// [rows][width columns] at the swizzle of the box's row bytes: 128B (width
+// 64), 64B (width 32) or 32B (width 16).  A box past D, past S or past an
+// image's rows loads zeros, never the next head's or image's values.
 inline int head_map(CUtensorMap* map, const void* base, int head_dim, int group_heads,
                     int groups, int S, int B, int ld, int group_stride, uint32_t width,
                     uint32_t rows) {
@@ -348,7 +367,9 @@ inline int head_map(CUtensorMap* map, const void* base, int head_dim, int group_
                                row, row * S};
   const uint32_t box[5] = {width, 1, 1, rows, 1};
   return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, base, dims, strides, box,
-                         width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+                         width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                       : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // the base of a kernel's dynamic shared memory rounded up to 1024 bytes

@@ -4,9 +4,11 @@
 config JSON written by either package loads in the other.  ``CLIPModel``
 builds CLIP ViT and ConvNeXt towers (``vision_tower="convnext"``; the
 ModifiedResNet waits for its port); ``CLIP_ARCHS`` holds the ViT rows of the
-JAX table, open_clip's exact-gelu ``ViT-B-16``, the ``Tiny`` and
-``TinyConvNeXt`` development architectures and, once ``models/zoo`` is
-imported, the LAION ConvNeXt tag grid.
+JAX table (the OpenAI towers and the LAION ViT-H/14, ViT-g/14 and
+ViT-bigG/14), the ``Tiny`` and ``TinyConvNeXt`` development architectures
+and, once ``models/zoo`` is imported, the LAION ConvNeXt tag grid.  The
+zoo maps open_clip's dashed names (``ViT-B-16``, ``ViT-bigG-14``) onto these
+keys, as JAX's does.
 
   * ``encode_image(images)``               -> pre-projection features
   * ``encode_image(images, project=True)`` -> (pre, projected)
@@ -78,13 +80,21 @@ class CLIPConfig:
 CLIP_ARCHS: Dict[str, CLIPConfig] = {
     "ViT-B/32": CLIPConfig(512, 224, 12, 768, 32, 77, 49408, 512, 8, 12),
     "ViT-B/16": CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12),
-    # open_clip's config of the same shape: LAION-trained towers use exact
-    # GELU (QuickGELU only under a "-quickgelu" tag)
-    "ViT-B-16": CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12,
-                           act="gelu"),
     "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "Tiny": CLIPConfig(32, 32, 2, 64, 8, 77, 49408, 64, 1, 2),
+    # the LAION-trained open_clip towers (JAX clip.py:111-119), exact GELU
+    # as open_clip builds them: ViT-H/14 keeps 20 heads of 64; ViT-g/14
+    # (16 heads of 88) and ViT-bigG/14 (16 of 104) override the head count
+    # and carry MLPs of 4.36x and 4.92x their widths
+    "ViT-H/14": CLIPConfig(1024, 224, 32, 1280, 14, 77, 49408, 1024, 16, 24,
+                           act="gelu"),
+    "ViT-g/14": CLIPConfig(1024, 224, 40, 1408, 14, 77, 49408, 1024, 16, 24,
+                           vision_mlp_dim=6144, vision_heads_override=16,
+                           act="gelu"),
+    "ViT-bigG/14": CLIPConfig(1280, 224, 48, 1664, 14, 77, 49408, 1280, 20,
+                              32, vision_mlp_dim=8192,
+                              vision_heads_override=16, act="gelu"),
     # tiny ConvNeXt for tests (width 16 -> pre-projection dim 128)
     "TinyConvNeXt": CLIPConfig(32, 32, (1, 1, 1, 1), 16, None, 77, 49408,
                                64, 1, 2, act="gelu", vision_tower="convnext"),

@@ -6,7 +6,10 @@ dispatch to ``fast_siglip`` and ConvNeXt towers to ``fast_convnext`` from
 ``pack_fastest`` lays the tower's weights out once, at load, in the
 kernels' layout (GEMM weights [in, out] contiguous in the compute dtype, LN
 and bias vectors fp32); ``vit_encode_block_fused`` runs patchify + the
-block stack + ``ln_post(CLS)`` + ``proj`` over that pack.  The patch-embed
+block stack + ``ln_post(CLS)`` + ``proj`` over that pack: K1 per block by
+the H100 plan, or K2 + K3 with ``merge_blocks="off"``.  JAX's TPU route for
+the wide towers (ViT-H/g/bigG), K5 over head groups + K4 over hidden
+chunks, is a ``split_block_plan`` for ``_apply_fused_blocks``.  The patch-embed
 and projection products stay ``torch.matmul``, as the JAX package left
 them to XLA; every block GEMM and the attention run in the hand-written
 kernels of ``ops/block_kernel.py`` when the pack lives on the card, and in
@@ -37,8 +40,10 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.attention import dot_product_attention
-from ..ops.block_kernel import (ACTS, attn_block_fused, full_block_fused,
-                                mlp_block_fused, mlp_block_train)
+from ..ops.block_kernel import (ACTS, attn_block_fused, attn_block_split,
+                                full_block_fused, mlp_block_fused,
+                                mlp_block_split, mlp_block_train,
+                                regroup_attn_weights_f)
 from ..ops.fused_linear import ln_matmul, matmul_residual
 from .clip import CLIPConfig
 from .fast_convnext import convnext_encode_fused, pack_convnext
@@ -114,7 +119,8 @@ def _fused_block_plan(config: CLIPConfig, merge_blocks: str = "auto"):
     the merged block (K1), which keeps the mid-block residual in fp32.
     ``merge_blocks="off"`` runs the two-kernel halves (K2 + K3) instead,
     rounding that residual to the compute dtype between them, as the TPU
-    path does.  Exact-erf ``gelu`` towers use the kernels' ``gelu_poly``,
+    path does.  JAX's split route (K5 + K4) is reached only through
+    ``split_block_plan``.  Exact-erf ``gelu`` towers use the kernels' ``gelu_poly``,
     unless ``AIHAB_NO_GELU_POLY`` is set (read at each call, as in JAX,
     ``fast_vit.py:429-440``): then the activation stays ``gelu``, which no
     block kernel computes, and each block runs K2 and the per-op MLP
@@ -129,15 +135,33 @@ def _fused_block_plan(config: CLIPConfig, merge_blocks: str = "auto"):
                 width=config.vision_width, act=act)
 
 
+def split_block_plan(config: CLIPConfig, n_groups: int, mlp_chunks: int):
+    """JAX's split route for a CLIP tower (``fast_vit.py:410-481``): per
+    block K5 (``attn_block_split``) over ``n_groups`` head groups, then K4
+    (``mlp_block_split``) over ``mlp_chunks`` hidden chunks.  JAX's TPU plan
+    takes it where a block's weights overflow its VMEM budgets (ViT-H/14,
+    ViT-g/14, ViT-bigG/14 at 8-10 groups and 3-8 chunks); the H100 plan
+    never does, so it is an explicit plan, for parity and A/B."""
+    heads = config.vision_heads
+    hidden = config.vision_mlp_dim or 4 * config.vision_width
+    if n_groups < 1 or heads % n_groups or mlp_chunks < 1 \
+            or hidden % mlp_chunks:
+        raise ValueError(f"{n_groups} groups of {heads} heads or "
+                         f"{mlp_chunks} chunks of {hidden} do not divide")
+    plan = _fused_block_plan(config, "off")
+    if not plan["mlp_whole"]:
+        raise NotImplementedError("K4 computes no exact gelu: "
+                                  "AIHAB_NO_GELU_POLY is set")
+    return dict(plan, attn_split=True, n_groups=n_groups, mlp_whole=False,
+                mlp_chunks=mlp_chunks)
+
+
 def _apply_fused_blocks(packed, x, plan, *, start: int, stop: int):
-    """Run blocks [start, stop) through the block kernels: K1, or K2 then
-    K3 (``mlp_whole``) or the per-op pair ``ln_matmul`` ->
-    ``matmul_residual`` (K16)."""
-    if plan["attn_split"] or plan["mlp_chunks"]:
-        raise NotImplementedError(
-            "the H100 plan splits no CLIP block: head-group attention "
-            "(attn_block_split, K5) and the chunked MLP (mlp_block_split, "
-            "K4) serve SigLIP's fast encode (models/fast_siglip.py)")
+    """Run blocks [start, stop) through the block kernels: K1, or K2 (K5
+    with ``attn_split``, over head groups regrouped at each call, as JAX
+    does) then K3 (``mlp_whole``), K4 (``mlp_chunks``) or the per-op pair
+    ``ln_matmul`` -> ``matmul_residual`` (K16).  Unlike JAX's two-kernel
+    route, no padding of S to 16: the kernels mask their ragged edges."""
     heads, act = plan["heads"], plan["act"]
     b, s, w = x.shape
     for blk in packed["blocks"][start:stop]:
@@ -145,14 +169,27 @@ def _apply_fused_blocks(packed, x, plan, *, start: int, stop: int):
             x = full_block_fused(x, **blk, heads=heads,
                                  mlp_chunks=plan["full_chunks"], act=act)
             continue
-        x = attn_block_fused(x, blk["ln1_scale"], blk["ln1_bias"],
-                             blk["w_qkv"], blk["b_qkv"], blk["w_out"],
-                             blk["b_out"], heads)
+        if plan["attn_split"]:
+            wg, bg, og = regroup_attn_weights_f(
+                blk["w_qkv"], blk["b_qkv"], blk["w_out"], heads,
+                plan["n_groups"])
+            x = attn_block_split(x, wg, bg, og, blk["b_out"],
+                                 blk["ln1_scale"], blk["ln1_bias"], heads,
+                                 plan["n_groups"])
+        else:
+            x = attn_block_fused(x, blk["ln1_scale"], blk["ln1_bias"],
+                                 blk["w_qkv"], blk["b_qkv"], blk["w_out"],
+                                 blk["b_out"], heads)
         x2 = x.reshape(b * s, w)
         if plan["mlp_whole"]:
             x2 = mlp_block_fused(x2, blk["ln2_scale"], blk["ln2_bias"],
                                  blk["w_fc"], blk["b_fc"], blk["w_proj"],
                                  blk["b_proj"], act=act)
+        elif plan["mlp_chunks"]:
+            x2 = mlp_block_split(x2, blk["ln2_scale"], blk["ln2_bias"],
+                                 blk["w_fc"], blk["b_fc"], blk["w_proj"],
+                                 blk["b_proj"], n_chunks=plan["mlp_chunks"],
+                                 act=act)
         else:
             hdn = ln_matmul(x2, blk["ln2_scale"], blk["ln2_bias"],
                             blk["w_fc"], blk["b_fc"], act)

@@ -9,7 +9,10 @@ or gelu MLP, LN eps 1e-5, CLS token + ``ln_post`` + ``proj``):
     embedding and ``ln_pre`` in the compute dtype;
   * per block the merged int8 block ``quant_full_block_fused`` (K14), or
     with ``merge_blocks="off"`` its two halves ``quant_attn_block_fused``
-    (K12) and ``quant_mlp_block_fused`` (K11);
+    (K12) and ``quant_mlp_block_fused`` (K11); ``apply_int8_vit_blocks``
+    over a ``split_int8_plan`` runs JAX's route for the wide towers: K12 or
+    the head-group split ``quant_attn_block_split`` (K13), then the chained
+    ``quant_matmul_fused_qout`` -> ``quant_matmul_q8in`` (K9 -> K10);
   * ``ln_post(CLS)`` and ``proj`` in the compute dtype (one token: plain
     PyTorch, as the JAX package left it to XLA).
 
@@ -119,6 +122,23 @@ def int8_block_plan(config: CLIPConfig, merge_blocks: str = "auto") -> Dict:
                 mlp_chunks=1, act=act)
 
 
+def split_int8_plan(config: CLIPConfig, attn_groups: int,
+                    mlp_chunks: int) -> Dict:
+    """JAX's two-kernel int8 route (``quant_vit.py:165-215, 266-290``): per
+    block K13 over ``attn_groups`` head groups (0: K12, every head in one),
+    then the chained K9 -> K10 MLP over ``mlp_chunks`` hidden slices.  JAX's
+    TPU gates take it for ViT-H/14 (K12, 1 slice), ViT-g/14 and ViT-bigG/14
+    (8 groups, 2 slices); the H100 plan never does."""
+    heads = config.vision_heads
+    hidden = config.vision_mlp_dim or 4 * config.vision_width
+    if attn_groups < 0 or (attn_groups and heads % attn_groups) \
+            or mlp_chunks < 1 or hidden % mlp_chunks:
+        raise ValueError(f"{attn_groups} groups of {heads} heads or "
+                         f"{mlp_chunks} slices of {hidden} do not divide")
+    return dict(int8_block_plan(config, "off"), attn_groups=attn_groups,
+                mlp="chained", mlp_chunks=mlp_chunks)
+
+
 def _chained_int8_mlp(x2, fc, pr, ln, *, act: str, n_ch: int):
     """The chained K9 -> K10 MLP over ``n_ch`` hidden slices, the c_proj
     bias added once (``quant_vit.py:108-139``)."""
@@ -189,7 +209,8 @@ def apply_int8_vit_blocks(qblocks: Dict, x: torch.Tensor, config: CLIPConfig,
 def vit_patchify_int8(qparams: Dict, images: torch.Tensor,
                       config: CLIPConfig, dtype=torch.bfloat16):
     """images [B, H, W, 3] -> tokens [B, S, W] in ``dtype``: im2col + K8 (no
-    bias), the class token, the positional embedding and ``ln_pre``."""
+    bias; at patch 14, K = 588 in a 592-wide padding), the class token, the
+    positional embedding and ``ln_pre``."""
     p = config.vision_patch_size
     x = images.to(dtype)
     b, h, w, c = x.shape

@@ -1,6 +1,9 @@
 """Model zoo (counterpart of ``aihab_clip_tpu/models/zoo.py``).
 
-``load(name)`` resolves, in order:
+``load(name)`` first maps open_clip's dashed ViT names onto the table's
+keys (``_normalize_openclip_name``, JAX ``zoo.py:369-382``: ``ViT-B-16`` ->
+``ViT-B/16``, ``ViT-L-14-336`` -> ``ViT-L/14@336px``, ``ViT-bigG-14`` ->
+``ViT-bigG/14``), then resolves, in order:
   1. SigLIP names (``zoo.py:82-214``: ``random:``, ``hf-hub:`` and
      registry forms, any ``ViT-{B,L,SO400M}-<p>-SigLIP[2][-<res>]`` tag):
      ``random:`` draws a ``SigLIPModel`` from a seeded ``torch.Generator``;
@@ -22,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 from pathlib import Path
 from typing import Any, Callable, Optional, Tuple
 
@@ -131,6 +135,22 @@ def _load_config(path: Path) -> CLIPConfig:
     return CLIPConfig(**d)
 
 
+def _normalize_openclip_name(name: str) -> str:
+    """An open_clip dashed ViT name (``ViT-B-16``, ``ViT-L-14-336``, with or
+    without a ``random:`` prefix) -> the table's OpenAI-style key
+    (``ViT-B/16``, ``ViT-L/14@336px``), only where that key exists; any
+    other name unchanged (JAX ``zoo.py:369-382``)."""
+    prefix, _, arch = name.rpartition(":")
+    m = re.fullmatch(r"(ViT-[A-Za-z]+)-(\d+)(?:-(\d+))?(?:px)?", arch)
+    if m:
+        mapped = f"{m.group(1)}/{m.group(2)}"
+        if m.group(3):
+            mapped += f"@{m.group(3)}px"
+        if mapped in CLIP_ARCHS:
+            return f"{prefix}:{mapped}" if prefix else mapped
+    return name
+
+
 @torch.no_grad()
 def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
     """Draw every parameter from ``generator``: normal weights at
@@ -174,6 +194,7 @@ def load(name: str, dtype=torch.float32, device="cuda", seed: int = 0,
     Parameters are fp32; the towers compute in ``dtype``.  ``random_cfg``
     (a ``CLIPConfig`` or ``SigLIPConfig``) shapes a ``random:`` model."""
     dev = resolve_device(device)
+    name = _normalize_openclip_name(name)
     cache_root = Path(cache_dir) if cache_dir else default_cache_root()
 
     if isinstance(random_cfg, SigLIPConfig) or (random_cfg is None

@@ -14,7 +14,8 @@ libraries link against cudart alone.
   block_kernels.cu       the TMA + wgmma GEMM behind ln_gemm (after an LN row
                          pass) and gemm_residual (K1-K5, K7, K16, K17), the
                          TMA + wgmma flash attention (K1, K2, K5, K6 fwd in
-                         bf16; K13's grouped attention in fp32) and the WMMA
+                         bf16; K13's grouped attention in fp32; head_dim 64,
+                         72, 88, 104) and the WMMA
                          normalised-P attention with fp32 output (K12, K14),
                          act_pass (the gelu_poly forms past the GEMM
                          epilogues), the train MLP's backward row kernel (K17)
@@ -58,7 +59,7 @@ _ARGTYPES = {
         "aihab_mlp_train_fwd": [_p] * 11 + [_i, _i, _i, _f, _p],
         "aihab_mlp_train_bwd": [_p] * 10 + [_i, _i, _i, _f, _p],
         "aihab_gemm_plan": [_i, _i, _i, _p],
-        "aihab_flash_plan": [_i, _i, _i, _i, _p],
+        "aihab_flash_plan": [_i, _i, _i, _i, _i, _p],
     },
     "fused_attention_bwd": {
         "aihab_fused_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,

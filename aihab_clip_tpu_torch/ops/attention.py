@@ -38,7 +38,8 @@ import torch
 
 from ._build import launch
 
-# the kernels' head widths
+# K6's head widths: those of its backward kernels (the forward's flash
+# kernel also takes ViT-g's 88 and ViT-bigG's 104, ops/block_kernel.py)
 HEAD_DIMS = (64, 72)
 # the JAX dispatch window (attention.py:281, :321): below it XLA was faster
 # on the TPU; above it the TPU kernel's [S, S] scores overflow VMEM

@@ -19,9 +19,10 @@ the bound):
   * ``ln_gemm``        fp32 LN row pass (LN(x) stored in bf16) -> bf16
                        GEMM -> bias [+ act] [* q-scale on the q columns]
   * ``attention``      masked multi-head softmax(q k^T / sqrt(d)) v,
-                       head_dim 64 or 72, packed or head-grouped qkv (bf16
-                       output: the flash kernel; fp32 output, K12-K14's:
-                       the WMMA kernel)
+                       head_dim in ``HEAD_DIMS``, packed or head-grouped
+                       qkv (the flash kernel, bf16 or fp32 output; with P
+                       normalised before its cast, K12's and K14's: the
+                       WMMA kernel)
   * ``gemm_residual``  bf16 GEMM -> bias [* per-column gamma] + residual
 
 Both GEMMs are the one TMA + wgmma kernel (``gemm_kernel``), and the bf16
@@ -86,8 +87,9 @@ ACTS = {"none": 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu_poly": 3}
 # the kernels' code of each gelu_poly form (csrc/common.cuh), by the
 # AIHAB_ERF_IMPL value that names it
 GELU_FORMS = {"sig5": 3, "sig": 4, "rational": 5, "cheb": 6}
-# the attention kernel's head widths: CLIP ViT-B/L/H (64), SigLIP SO400M (72)
-HEAD_DIMS = (64, 72)
+# the attention kernels' head widths: CLIP ViT-B/L/H (64), SigLIP SO400M
+# (72), the LAION ViT-g/14 (88) and ViT-bigG/14 (104)
+HEAD_DIMS = (64, 72, 88, 104)
 
 # exact GELU as h * sigmoid(odd poly): the deg-9 fit (block_kernel.py:428)
 # and the deg-5 one (:439, the JAX default)
@@ -404,8 +406,8 @@ def attention(qkv, heads: int, seq_len: int | None = None, *,
     (default all: CLIP's packed q | k | v), each group's columns q_g | k_g
     | v_g.  ``q_scaled``: q already holds q / sqrt(d), rounded; otherwise
     the kernel scales the fp32 scores (exactly the plain version's
-    rounded q / sqrt(d) when d = 64).  Kernel ``attention`` (head_dim 64 or
-    72); plain version ``attention_plain`` on CPU tensors."""
+    rounded q / sqrt(d) when d = 64).  Kernel ``attention`` (head_dim in
+    ``HEAD_DIMS``); plain version ``attention_plain`` on CPU tensors."""
     if not qkv.is_cuda:
         return attention_plain(qkv, heads, seq_len, group_heads=group_heads,
                                q_scaled=q_scaled, out_dtype=out_dtype,

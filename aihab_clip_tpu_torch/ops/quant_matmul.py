@@ -94,21 +94,53 @@ def _group_pad(width: int) -> int:
     return -(-width // GEMM_BK) * GEMM_BK
 
 
+# the int8 GEMM's K is a multiple of 16 (TMA row strides are multiples of 16
+# bytes).  A weight whose K is not (the im2col of a patch-14 tower, 14 * 14 *
+# 3 = 588) is stored with zero columns up to the next multiple (592), and
+# K8's activation codes with zeros there too (row_quant's group_pad): the
+# scales are the max over the K real values, so the int32 sums, and K8's
+# output, are those of the unpadded product.
+GEMM_K_ALIGN = 16
+
+
+def _k_pad(k: int) -> int:
+    return -(-k // GEMM_K_ALIGN) * GEMM_K_ALIGN
+
+
 # ---------------------------------------------------------------------------
 # weight layouts
 # ---------------------------------------------------------------------------
 
 
 def int8_weight(w8: torch.Tensor) -> torch.Tensor:
-    """[K, N] int8 -> the same values as a [K, N] view of K-major ([N, K]
-    row-major) storage, which the kernels read in place."""
-    return w8.t().contiguous().t()
+    """[K, N] int8 -> the same values as a [K, N] view of K-major storage
+    ([N, Kp] row-major, Kp = K rounded up to 16, zero columns past K), which
+    the kernels read in place."""
+    k, n = w8.shape
+    kp = _k_pad(k)
+    if kp == k:
+        return w8.t().contiguous().t()
+    store = torch.zeros(n, kp, dtype=w8.dtype, device=w8.device)
+    store[:, :k] = w8.t()
+    return store[:, :k].t()
 
 
-def _kmajor(w8: torch.Tensor) -> torch.Tensor:
-    """The [N, K] row-major operand behind a [K, N] weight (a copy unless
-    ``w8`` is an ``int8_weight`` view)."""
-    return w8.t().contiguous()
+def _kmajor(w8: torch.Tensor, pad_k: bool = False) -> torch.Tensor:
+    """The [N, K] row-major operand behind a [K, N] weight (a view of
+    ``int8_weight`` storage or of a column slice of it, else a copy).  With
+    ``pad_k``, [N, Kp], Kp = K rounded up to 16: a view of storage whose
+    rows are Kp apart, or a copy with zero columns past K.  A view's columns
+    past K may hold another weight's values (a K-slice of a wider weight),
+    so only a caller whose codes are zero past K passes ``pad_k``: K8."""
+    k, n = w8.shape
+    kp = _k_pad(k) if pad_k else k
+    if w8.stride() == (1, kp):
+        return torch.as_strided(w8, (n, kp), (kp, 1))
+    if kp == k:
+        return w8.t().contiguous()
+    out = torch.zeros(n, kp, dtype=w8.dtype, device=w8.device)
+    out[:, :k] = w8.t()
+    return out
 
 
 def int8_attn_weights(wqkv8_g: torch.Tensor, wout8_g: torch.Tensor):
@@ -321,9 +353,10 @@ def _check_act(act):
 
 
 def _k8(ops, x, w8, w_scale, bias, act, residual, ln_scale, ln_bias, ln_eps):
-    x8, sx = ops.row_quant(x, ln_scale, ln_bias, eps=ln_eps)
-    return ops.int8_gemm(x8, sx, _kmajor(w8), w_scale, bias, act=act,
-                         residual=residual, out_dtype=x.dtype)
+    x8, sx = ops.row_quant(x, ln_scale, ln_bias, eps=ln_eps,
+                           group_pad=_k_pad(x.shape[-1]))
+    return ops.int8_gemm(x8, sx, _kmajor(w8, pad_k=True), w_scale, bias,
+                         act=act, residual=residual, out_dtype=x.dtype)
 
 
 def _k9(ops, x, w8, w_scale, bias, ln_scale, ln_bias, act, ln_eps):
@@ -442,7 +475,8 @@ def quant_matmul_fused(x, w8, w_scale, bias, act: str = "none",
     x [M, K] bf16/fp32, w8 [K, N] int8, w_scale [N] fp32, bias [N] fp32;
     ``ln_scale``/``ln_bias`` add an fp32 LayerNorm over K before the
     quantize; ``act`` one of none, quick_gelu, gelu_tanh, gelu_poly.  Output
-    in x's dtype."""
+    in x's dtype.  Any K: past a multiple of 16 both operands carry zero
+    columns into the GEMM (``GEMM_K_ALIGN``)."""
     _check_act(act)
     if not x.is_cuda:
         return quant_matmul_fused_plain(x, w8, w_scale, bias, act, residual,

@@ -97,15 +97,29 @@ Phases (any failure raises and the exit code is non-zero):
      5e: path (a) on the bf16 engine's pack: uint8 -> K18 ->
      ``vit_encode_fast`` (24 ``ln_matmul`` + 24 ``matmul_residual`` per
      batch) against the all-plain run and the fp32 tower, its split
-     (normalize, embed, blocks, head) and images/s beside K1's; then
-     ``ClassifierEngine("random:ViT-B-16")`` (exact gelu) under
-     ``AIHAB_NO_GELU_POLY=1``: 96 requests, per block K2 + plain
-     ``ln_matmul(gelu)`` + K16 ``matmul_residual``, against plain kernels;
+     (normalize, embed, blocks, head) and images/s beside K1's;
      6e: path (b), ``vit_encode_train`` at batch 16 on the 6c weights, every
      visual parameter trainable: 12 K17 forward and 12 backward launches,
      loss and per-parameter gradient cosine against the K17-plain step and
      the fp32 tower (``TRAIN_GATES``), fwd+bwd ms beside the canonical bf16
      module's;
+     3h: the LAION towers' kernels at ViT-g/14 and ViT-bigG/14 shapes (B=64,
+     S=257, 16 heads of 88 and 104): the attention in its four forms (packed
+     bf16, grouped bf16 and fp32, P normalised) beside SDPA, K1, K5 + K4 and
+     K13 + K9 -> K10 on JAX's routes (``JAX_ROUTES``), K14, and K8 at the
+     patch-14 K = 588 (bit for bit); the ``[plan]`` lines of the new
+     attention instances, which must not spill;
+     5f: ``ClassifierEngine`` of ViT-H/14 (bf16), ViT-g/14 and ViT-bigG/14
+     (bf16 and int8) at full size, the bf16 engines by their open_clip names
+     (``random:ViT-bigG-14``), each answering 96 requests through
+     ``DynamicBatcher``: 32/40/48 K1, or 1 K8 + 40/48 K14, per batch;
+     features against the fp32 tower (and, int8, against plain kernels);
+     JAX's routes for ViT-g and ViT-bigG (K5 + K4; K13 + K9 -> K10) with
+     their launches and their cosine against the default route; the
+     batch-64 split and images/s; each tower's load seconds; the ViT-H/14
+     engine again under ``AIHAB_NO_GELU_POLY=1`` (the exact-gelu opt-out):
+     96 requests, per block K2 + plain ``ln_matmul(gelu)`` + K16
+     ``matmul_residual``, against plain kernels;
   7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
@@ -142,9 +156,24 @@ JAX_ATT = "aihab_clip_tpu/ops/attention.py"
 JAX_FL = "aihab_clip_tpu/ops/fused_linear.py"
 JAX_PP = "aihab_clip_tpu/ops/pallas_preprocess.py"
 SRC_PP = "aihab_clip_tpu_torch/csrc/preprocess.cu"
-# path (a)'s opt-out engine: open_clip's ViT-B-16 (exact gelu) under
-# AIHAB_NO_GELU_POLY=1, answering 96 single 224x224 requests
-GELU_MODEL, GELU_REQUESTS = "random:ViT-B-16", 96
+# 5f: the LAION towers (models/clip.py), full width and depth, 224 px, patch
+# 14 (S = 257), exact gelu run as gelu_poly (and the ViT-H/14 engine once
+# more under AIHAB_NO_GELU_POLY=1, the exact-gelu opt-out); each engine
+# answers LARGE_REQUESTS single requests; the fp32 reference encodes LARGE_REF_B
+# images.  JAX_ROUTES: JAX's TPU routes for them (its VMEM gates,
+# fast_vit.py:410-481, quant_vit.py:165-215, 266-290): bf16 K5 over `groups`
+# head groups then K4 over `chunks` hidden chunks; int8 K13 over
+# `int8_groups` groups (0: K12) then the chained K9 -> K10 over
+# `int8_chunks` slices (tests/test_torch_large_vit.py holds these against
+# JAX's own plan and gates)
+LARGE_MODELS = {"ViT-H/14": "ViT-H-14", "ViT-g/14": "ViT-g-14",
+                "ViT-bigG/14": "ViT-bigG-14"}
+LARGE_REQUESTS, LARGE_REF_B, LARGE_S = 96, 16, 257
+LARGE_TAGS = {"ViT-H/14": "vith", "ViT-g/14": "vitg", "ViT-bigG/14": "vitbigg"}
+JAX_ROUTES = {
+    "ViT-H/14": dict(groups=10, chunks=4, int8_groups=0, int8_chunks=1),
+    "ViT-g/14": dict(groups=8, chunks=3, int8_groups=8, int8_chunks=2),
+    "ViT-bigG/14": dict(groups=8, chunks=8, int8_groups=8, int8_chunks=2)}
 # path (b): vit_encode_train at the default fine-tune's batch
 TRAIN_B = 16
 # the default fine-tune (configs/base.yaml finetune + cs.yaml data): batch
@@ -494,6 +523,9 @@ def main() -> None:
 
     # ---- 3g. K16 at ViT-B/16 shapes, K17 at the train batch, K18
     vit_fast_kernel_cases(rnd, vec, run_cases, compare)
+
+    # ---- 3h. the LAION towers' kernels at ViT-g/14 and ViT-bigG/14 shapes
+    large_vit_kernel_cases(rnd, vec, run_cases)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -590,10 +622,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("vit path")
 
-    # ---- 5e. path (a): uint8 -> K18 -> vit_encode_fast (K16); the opt-out
-    # gelu engine
-    (counts["vit_fast"], counts["vit_nogelupoly"], fast_rates,
-     fast_figures) = vit_fast_path(engine, images)
+    # ---- 5e. path (a): uint8 -> K18 -> vit_encode_fast (K16)
+    counts["vit_fast"], fast_rates, fast_figures = vit_fast_path(engine,
+                                                                 images)
     rates.update(fast_rates)
     del engine
     torch.cuda.empty_cache()
@@ -642,6 +673,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("convnext peft path")
 
+    # ---- 5f. the LAION ViT-H/14, ViT-g/14 and ViT-bigG/14 engines
+    large_counts, large_rates, large_figures = large_vit_paths(bk)
+    counts.update(large_counts)
+    rates.update(large_rates)
+    phase("large vit paths")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -655,6 +692,12 @@ def main() -> None:
              "convnext_int8": "ConvNeXt base_w int8 engine + DynamicBatcher",
              "vit_fast": "ViT-B/16 uint8 -> normalize_u8 -> vit_encode_fast",
              "vit_train": f"ViT-B/16 vit_encode_train step (batch {TRAIN_B})"}
+    for arch, tag in LARGE_TAGS.items():
+        names.update({tag: f"{arch} engine + DynamicBatcher",
+                      tag + "_jax": f"{arch} JAX's route (K5 + K4) encode",
+                      tag + "_int8": f"{arch} int8 engine + DynamicBatcher",
+                      tag + "_int8_jax": f"{arch} JAX's int8 route (K13 + "
+                                         "K9 -> K10) encode"})
     for row in rows:
         counter = row.pop("counter").__name__
         row["launches"] = counts[row["path"]][counter]
@@ -666,7 +709,8 @@ def main() -> None:
                       "convnext": cx_figures, "train": train,
                       "vit_train": vit_train, "convnext_train": cx_train,
                       "vit_fast": fast_figures,
-                      "vit_encode_train": fast_train, "int8_core": int8_core}))
+                      "vit_encode_train": fast_train, "int8_core": int8_core,
+                      "large_vit": large_figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -685,7 +729,10 @@ def kernel_plans(build) -> None:
              "SO400M c_fc chunk": (B * SL_S, SL_HIDDEN // SL_CHUNKS, 0),
              "K17 c_fc (M = 16 x 197)": (TRAIN_B * S, HIDDEN, 0),
              "ConvNeXt stage 0 fc1": (B * 64 * 64, 512, 0),
-             "ConvNeXt stage 3 fc2": (B * 8 * 8, 1024, 1)}
+             "ConvNeXt stage 3 fc2": (B * 8 * 8, 1024, 1),
+             "ViT-bigG/14 qkv": (B * LARGE_S, 3 * 1664, 0),
+             "ViT-bigG/14 c_fc": (B * LARGE_S, 8192, 0),
+             "ViT-bigG/14 c_proj": (B * LARGE_S, 1664, 1)}
     for label, (m, n, res) in gemms.items():
         check(lib.aihab_gemm_plan(m, n, res, out) == 0, "gemm plan")
         print(f"[plan] gemm_kernel {label} [{m} x {n}]: {out[4]} registers, "
@@ -696,10 +743,24 @@ def kernel_plans(build) -> None:
             "ViT-B/16": (B, S, HEADS, W // HEADS),
             "SO400M": (B, SL_S, SL_HEADS, SL_W // SL_HEADS),
             "K6f (B = 16)": (PEFT_B, SL_S, SL_HEADS, SL_W // SL_HEADS)}.items():
-        check(lib.aihab_flash_plan(b, s, heads, d, out) == 0, "flash plan")
+        check(lib.aihab_flash_plan(b, s, heads, d, 0, out) == 0, "flash plan")
         print(f"[plan] flash_attention_kernel<{d}> {label}: {out[4]} "
               f"registers, {out[5]} local bytes, {out[1]} shared bytes/block, "
               f"{out[2]} blocks of 128 threads")
+    # the instances at ViT-g/14's and ViT-bigG/14's head widths (B = 64, S =
+    # 257, 16 heads): the flash kernel with bf16 and fp32 output, and the
+    # WMMA normalised-P kernel
+    for d in (88, 104):
+        for kind, label in ((0, "flash_attention_kernel<{}, bf16>"),
+                            (1, "flash_attention_kernel<{}, float>"),
+                            (2, "attention_norm_p_kernel<{}>")):
+            check(lib.aihab_flash_plan(B, LARGE_S, 16, d, kind, out) == 0,
+                  "attention plan")
+            print(f"[plan] {label.format(d)} (B = {B}, S = {LARGE_S}, 16 "
+                  f"heads): {out[4]} registers, {out[5]} local bytes, "
+                  f"{out[1]} shared bytes/block, {out[2]} blocks of 128 "
+                  f"threads")
+            check(out[5] == 0, f"{label.format(d)} spills")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bwd = (ctypes.c_int * 12)()
     for s in (SL_S, SL_S + 1):
@@ -721,7 +782,13 @@ def kernel_plans(build) -> None:
             "SO400M c_fc": (m_sl, SL_HIDDEN, SL_W, 1, 0),
             "SO400M c_proj + x": (m_sl, SL_W, SL_HIDDEN, 1, 1),
             "ViT-B/16 qkv": (B * S, 3 * W, W, 1, 0),
-            "ConvNeXt stage 0 fc1": (B * 64 * 64, 512, 128, 1, 0)}.items():
+            "ConvNeXt stage 0 fc1": (B * 64 * 64, 512, 128, 1, 0),
+            "ViT-bigG/14 patch 14, K 588 in 592": (B * 256, 1664, 592, 1, 0),
+            "ViT-g/14 out-proj, 8 groups of 176 padded to 192":
+                (B * LARGE_S, 1408, 8 * 192, 8, 1),
+            "ViT-bigG/14 out-proj, 8 groups of 208 padded to 224":
+                (B * LARGE_S, 1664, 8 * 224, 8, 1),
+            "ViT-bigG/14 c_fc": (B * LARGE_S, 8192, 1664, 1, 0)}.items():
         check(build.library("quant_kernels").aihab_int8_gemm_plan(
             m, n, k, groups, res, q8) == 0, "int8 plan")
         print(f"[plan] int8_gemm_kernel {label} [{m} x {n}, K {k}]: {q8[4]} "
@@ -817,14 +884,8 @@ def vit_fast_path(engine, images):
     ``ln_matmul`` + 24 ``matmul_residual``) -> ``ln_post(CLS)`` -> ``proj``;
     features against the all-plain run and the fp32 canonical tower on the
     same normalization in fp32; K18 bit for bit; the batch's split and
-    images/s (CUDA events) beside the K1 encode's.  Then
-    ``ClassifierEngine("random:ViT-B-16")`` (exact gelu) under
-    ``AIHAB_NO_GELU_POLY=1``, set only around it: 96 requests through
-    ``DynamicBatcher``, per block K2 + ``ln_matmul(gelu)`` (plain, as JAX) +
-    ``matmul_residual`` (K16); features and probabilities against the same
-    engine with plain kernels; images/s.  Returns (path (a)'s launches, the
-    opt-out engine's, images/s, figures)."""
-    import os
+    images/s (CUDA events) beside the K1 encode's.  Returns (path (a)'s
+    launches, images/s, figures)."""
     from unittest import mock
 
     import torch
@@ -833,8 +894,6 @@ def vit_fast_path(engine, images):
     from aihab_clip_tpu_torch.ops import block_kernel as bk
     from aihab_clip_tpu_torch.ops import fused_linear as fl
     from aihab_clip_tpu_torch.ops import pallas_preprocess as pp
-    from aihab_clip_tpu_torch.ops.preprocess import eval_transform
-    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
 
     dev = torch.device("cuda")
     cfg, packed, model = engine.bundle.config, engine._packed, \
@@ -913,56 +972,7 @@ def vit_fast_path(engine, images):
         figures.update(split_ms=split, encode_ms=whole["fast"],
                        k1_encode_ms=whole["k1"])
 
-    rates = {"vit_b16_fast_64": rate}
-    with mock.patch.dict(os.environ, {"AIHAB_NO_GELU_POLY": "1"}):
-        eng = ClassifierEngine(model=GELU_MODEL, batch_size=B, device="cuda",
-                               verbose=False)
-        eng.warmup()
-        reset()
-        batcher = DynamicBatcher(eng, max_wait_ms=5.0)
-        batcher.start()
-        futures = [batcher.submit(img) for img in images[:GELU_REQUESTS]]
-        probs = np.stack([f.result(timeout=600) for f in futures])
-        batcher.stop()
-        off, nb = counts(), batcher.stats.batches
-        print(f"[vit gelu opt-out] {GELU_REQUESTS} requests over {nb} "
-              f"batches; launches {off}")
-        check(probs.shape == (GELU_REQUESTS, 20)
-              and bool(np.isfinite(probs).all())
-              and bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)),
-              "opt-out engine probabilities")
-        check(off["attn_block_fused"] == 12 * nb
-              and off["matmul_residual"] == 12 * nb and off["ln_matmul"] == 0
-              and off["full_block_fused"] == off["mlp_block_fused"] == 0,
-              "opt-out engine launches")
-        gcfg = eng.bundle.config
-        with torch.inference_mode():
-            xb = eval_transform(u8, 224, dtype=torch.bfloat16)
-
-            def feats_and_probs():
-                return (fast_vit.encode_image_fastest(
-                    eng.bundle.model, xb, gcfg, project=True,
-                    packed=eng._packed)[1].float(), eng.classify(u8))
-
-            g_k, p_k = feats_and_probs()
-            with mock.patch.multiple(
-                    fast_vit, attn_block_fused=bk.attn_block_fused_plain,
-                    matmul_residual=fl.matmul_residual_plain):
-                g_p, p_p = feats_and_probs()
-        c = cos(g_k, g_p, dim=-1)
-        dprob = (p_k - p_p).abs().max().item()
-        agree = (p_k.argmax(-1) == p_p.argmax(-1)).float().mean().item()
-        print(f"[vit gelu opt-out] vs the same engine with plain kernels: "
-              f"feature cosine min {c.min().item():.6f}; max|dprob| "
-              f"{dprob:.4g}; top-1 agreement {agree:.4f}")
-        check(c.min().item() >= COS_MIN, "opt-out engine vs plain kernels")
-        rates["vit_b16_gelu_optout_64"] = images_per_s(eng, B, 224)
-        print(f"[vit gelu opt-out] classify_batch end-to-end at batch {B}: "
-              f"{rates['vit_b16_gelu_optout_64']:.1f} images/s")
-        figures.update(optout_cos_min=c.min().item(), optout_dprob=dprob,
-                       optout_top1=agree)
-    del eng
-    return run, off, rates, figures
+    return run, {"vit_b16_fast_64": rate}, figures
 
 
 def vit_train_path(model):
@@ -2947,6 +2957,480 @@ def convnext_peft_path(model, bk):
     return dict(step_ms=statistics.median(times), step_ms_all=times,
                 peak_gib=peak / 2 ** 30, step_checks=gates, finetune_s=wall,
                 test_loss=test["loss"])
+
+
+def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
+    """3h. The kernels of the LAION towers' paths at ViT-g/14's and
+    ViT-bigG/14's shapes, batch 64, S = 257 (W = 1408 and 1664, 16 heads of
+    88 and 104, hidden 6144 and 8192, gelu_poly), each against its plain
+    version: the attention in its four forms (packed bf16 as K1 runs it;
+    grouped and q-scaled as K5 runs it, in bf16, and as K13 runs it, in
+    fp32; P normalised as K12 and K14 run it), each beside SDPA at its
+    shape; K1; JAX's bf16 route K5 + K4 (``JAX_ROUTES``); K14; JAX's int8
+    route K13 + one slice of the chained K9 -> K10; and K8 over the patch-14
+    im2col (K = 588, padded to 592), bit for bit."""
+    import torch
+
+    from aihab_clip_tpu_torch.models.clip import CLIP_ARCHS
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    f32 = torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def weight(k, n):
+        w8, ws = quantize_weight(rnd(k, n, scale=k ** -0.5, dtype=f32))
+        return qm.int8_weight(w8), ws
+
+    for arch in ("ViT-g/14", "ViT-bigG/14"):
+        cfg, route = CLIP_ARCHS[arch], JAX_ROUTES[arch]
+        tag = LARGE_TAGS[arch]
+        w, heads, hid = cfg.vision_width, cfg.vision_heads, cfg.vision_mlp_dim
+        d, s = w // heads, LARGE_S
+        m = B * s
+        groups, chunks = route["groups"], route["chunks"]
+        igroups, ich = route["int8_groups"], route["int8_chunks"]
+        check(igroups == groups, "K5 and K13 share the grouped qkv here")
+        x = rnd(B, s, w)
+        x2 = x.reshape(m, w)
+        ln1, ln2 = (vec(w, one=True), vec(w)), (vec(w, one=True), vec(w))
+        p = dict(ln1_scale=ln1[0], ln1_bias=ln1[1],
+                 w_qkv=rnd(w, 3 * w, scale=w ** -0.5), b_qkv=vec(3 * w),
+                 w_out=rnd(w, w, scale=w ** -0.5), b_out=vec(w),
+                 ln2_scale=ln2[0], ln2_bias=ln2[1],
+                 w_fc=rnd(w, hid, scale=w ** -0.5), b_fc=vec(hid),
+                 w_proj=rnd(hid, w, scale=hid ** -0.5), b_proj=vec(w))
+        wg, bg, og = bk.regroup_attn_weights_f(p["w_qkv"], p["b_qkv"],
+                                               p["w_out"], heads, groups)
+        wg_flat = wg.permute(1, 0, 2).reshape(w, -1).contiguous()
+        # the attention's inputs as each route's qkv GEMM makes them
+        qkv = bk.ln_gemm(x2, *ln1, p["w_qkv"], p["b_qkv"]).reshape(B, s, -1)
+        qkv_g = bk.ln_gemm(x2, *ln1, wg_flat, bg.reshape(-1),
+                           q_scale=d ** -0.5, q_width=w // groups).reshape(
+                               B, s, -1)
+        qkv_s = bk.ln_gemm(x2, *ln1, p["w_qkv"], p["b_qkv"], q_scale=d ** -0.5,
+                           q_width=w).reshape(B, s, -1)
+        sq, sk, sv = (t.reshape(B, s, heads, d).transpose(1, 2)
+                      for t in qkv.split(w, -1))
+        wq8, sq8 = weight(w, 3 * w)
+        wo8, so8 = weight(w, w)
+        w18, s18 = weight(w, hid)
+        w28, s28 = weight(hid, w)
+        attn8 = (wq8, sq8, vec(3 * w), wo8, so8, vec(w), *ln1)
+        mlp8 = (w18, s18, vec(hid), w28, s28, vec(w))
+        k14 = (*attn8, *mlp8, *ln2, heads)
+        rg = qm.regroup_attn_weights(wq8, sq8, attn8[2], wo8, heads, igroups)
+        wg8, og8 = qm.int8_attn_weights(rg[0], rg[3])
+        k13 = (wg8, rg[1], rg[2], og8, so8, attn8[5], *ln1, heads, igroups)
+        sl = slice(0, hid // ich)
+        k9 = (w18[:, sl], s18[sl], mlp8[2][sl], *ln2)
+        h8, hs = qm.quant_matmul_fused_qout(x2, *k9, act="gelu_poly")
+        k10 = (h8, hs, w28[sl], s28, mlp8[5], x2)
+        kp = 14 * 14 * 3
+        patches = rnd(B * 256, kp)
+        wp8, sp = weight(kp, w)
+        bp = torch.zeros(w, device=x.device)
+        f_att = 4 * B * heads * s * s * d
+        f_qkv, f_out, f_mlp = 2 * m * w * 3 * w, 2 * m * w * w, 4 * m * w * hid
+        att_bytes = 2 * m * 3 * w + 2 * m * w
+        print(f"[kernels] {arch}: B={B} S={s} W={w} {heads}x{d} hidden "
+              f"{hid}; per block {(f_qkv + f_out + f_mlp + f_att) / 1e9:.1f} "
+              f"GFLOP, {f_att / 1e9:.1f} of them attention; JAX's routes: K5 "
+              f"over {groups} groups + K4 over {chunks} chunks, K13 over "
+              f"{igroups} groups + K9 -> K10 over {ich} slices")
+
+        def att_case(label, replaces, q, path, lib, **kw):
+            return (f"attention[{arch} hd{d}, {label}]", replaces,
+                    "attention", lambda: bk.attention(q, heads, **kw),
+                    lambda: bk.attention_plain(q, heads, **kw), lib, f_att,
+                    att_bytes + (2 * m * w if kw.get("out_dtype") else 0),
+                    bk.attention, path)
+
+        def sdpa_call():
+            return sdpa(sq, sk, sv)
+
+        run_cases([
+            att_case("packed, bf16 out", f"{JAX_BK}:896", qkv, tag,
+                     sdpa_call),
+            att_case(f"{groups} groups, q-scaled, bf16 out", f"{JAX_BK}:861",
+                     qkv_g, tag + "_jax", sdpa_call, group_heads=heads // groups,
+                     q_scaled=True),
+            att_case(f"{igroups} groups, q-scaled, fp32 out",
+                     f"{JAX_QM}:590", qkv_g, tag + "_int8_jax", sdpa_call,
+                     group_heads=heads // igroups, q_scaled=True,
+                     out_dtype=f32),
+            att_case("one group, q-scaled, fp32 out, P normalised",
+                     f"{JAX_QM}:748", qkv_s, tag + "_int8", sdpa_call,
+                     q_scaled=True, out_dtype=f32, normalize_p=True),
+            (f"full_block_fused[{arch}]", f"{JAX_BK}:1056", "block",
+             lambda: bk.full_block_fused(x, **p, heads=heads, act="gelu_poly"),
+             lambda: bk.full_block_fused_plain(x, **p, heads=heads,
+                                               act="gelu_poly"),
+             None, f_qkv + f_out + f_mlp + f_att,
+             4 * m * w + 2 * (4 * w * w + 2 * w * hid), bk.full_block_fused,
+             tag),
+            (f"attn_block_split[{arch}, {groups} groups]", f"{JAX_BK}:834",
+             "block",
+             lambda: bk.attn_block_split(x, wg, bg, og, p["b_out"], *ln1,
+                                         heads, groups),
+             lambda: bk.attn_block_split_plain(x, wg, bg, og, p["b_out"],
+                                               *ln1, heads, groups),
+             None, f_qkv + f_out + f_att, 4 * m * w + 2 * 4 * w * w,
+             bk.attn_block_split, tag + "_jax"),
+            (f"mlp_block_split[{arch}, {chunks} chunks]", f"{JAX_BK}:525",
+             "block",
+             lambda: bk.mlp_block_split(x2, *ln2, p["w_fc"], p["b_fc"],
+                                        p["w_proj"], p["b_proj"],
+                                        n_chunks=chunks, act="gelu_poly"),
+             lambda: bk.mlp_block_split_plain(x2, *ln2, p["w_fc"], p["b_fc"],
+                                              p["w_proj"], p["b_proj"],
+                                              n_chunks=chunks,
+                                              act="gelu_poly"),
+             None, f_mlp, 4 * m * w + 2 * 2 * w * hid, bk.mlp_block_split,
+             tag + "_jax"),
+            (f"quant_full_block_fused[{arch}]", f"{JAX_QM}:794", "int8_block",
+             lambda: qm.quant_full_block_fused(x, *k14, act="gelu_poly"),
+             lambda: qm.quant_full_block_fused_plain(x, *k14,
+                                                     act="gelu_poly"),
+             None, (f_att, f_qkv + f_out + f_mlp),
+             4 * m * w + 4 * w * w + 2 * w * hid + 8 * (5 * w + hid),
+             qm.quant_full_block_fused, tag + "_int8", SRC_Q),
+            (f"quant_attn_block_split[{arch}, {igroups} groups]",
+             f"{JAX_QM}:622", "int8_block",
+             lambda: qm.quant_attn_block_split(x, *k13),
+             lambda: qm.quant_attn_block_split_plain(x, *k13), None,
+             (f_att, f_qkv + f_out), 4 * m * w + 4 * w * w + 20 * w,
+             qm.quant_attn_block_split, tag + "_int8_jax", SRC_Q),
+            (f"quant_matmul_fused_qout[{arch} c_fc, 1 of {ich} slices]",
+             f"{JAX_QM}:130", "codes",
+             lambda: qm.quant_matmul_fused_qout(x2, *k9, act="gelu_poly"),
+             lambda: qm.quant_matmul_fused_qout_plain(x2, *k9,
+                                                      act="gelu_poly"),
+             None, (0, f_mlp // 2 // ich),
+             2 * m * w + w * hid // ich + 8 * (w + hid // ich)
+             + m * hid // ich + 4 * m, qm.quant_matmul_fused_qout,
+             tag + "_int8_jax", SRC_Q),
+            (f"quant_matmul_q8in[{arch} c_proj, 1 of {ich} slices]",
+             f"{JAX_QM}:165", "kernel",
+             lambda: qm.quant_matmul_q8in(*k10),
+             lambda: qm.quant_matmul_q8in_plain(*k10), None,
+             (0, f_mlp // 2 // ich),
+             m * hid // ich + 4 * m + hid // ich * w + 8 * w + 4 * m * w,
+             qm.quant_matmul_q8in, tag + "_int8_jax", SRC_Q),
+            (f"quant_matmul_fused[{arch} patch 14, K 588 in 592]",
+             f"{JAX_QM}:376", "exact",
+             lambda: qm.quant_matmul_fused(patches, wp8, sp, bp),
+             lambda: qm.quant_matmul_fused_plain(patches, wp8, sp, bp), None,
+             (0, 2 * B * 256 * kp * w),
+             2 * B * 256 * kp + kp * w + 8 * w + 2 * B * 256 * w,
+             qm.quant_matmul_fused, tag + "_int8", SRC_Q),
+        ])
+        k1_ms = 1e3 * (f_qkv + f_out + f_mlp + f_att) / PEAK_FLOPS
+        k14_ms = 1e3 * ((f_qkv + f_out + f_mlp) / PEAK_INT8_OPS
+                        + f_att / PEAK_FLOPS)
+        print(f"[kernels] {arch} bound per block at batch {B}: K1 "
+              f"{k1_ms:.4f} ms, {cfg.vision_layers} blocks "
+              f"{cfg.vision_layers * k1_ms:.3f} ms; K14 {k14_ms:.4f} ms")
+        del x, x2, qkv, qkv_g, qkv_s, sq, sk, sv, h8, patches, p, wg, og
+        torch.cuda.empty_cache()
+
+
+def large_vit_paths(bk):
+    """5f. The LAION towers at full size (random weights from seed 0):
+    ViT-H/14 bf16, ViT-g/14 and ViT-bigG/14 bf16 and int8, each engine
+    answering ``LARGE_REQUESTS`` single 224x224 requests through
+    ``DynamicBatcher`` (the bf16 engines by their open_clip names).  Per
+    engine: its launches per batch (bf16: one K1 a block; int8: one K8 and
+    one K14 a block), its features against the fp32 tower (the same
+    parameters computing in fp32, ``LARGE_REF_B`` images) and, int8, against
+    the same encode with every kernel plain; the batch-64 split; images/s.
+    ViT-g and ViT-bigG also run JAX's routes (``JAX_ROUTES``: K5 + K4, and
+    K13 + the chained K9 -> K10, composed from the encode's stages over
+    ``split_block_plan`` / ``split_int8_plan``) with their launches and
+    their cosine against the default route.  The ViT-H/14 bf16 engine also
+    serves under ``AIHAB_NO_GELU_POLY=1``, set only around it: the same
+    requests, per block K2 + ``ln_matmul(gelu)`` (plain, as JAX) + K16
+    ``matmul_residual``; features and probabilities against the same encode
+    with plain kernels; images/s.  Each tower is freed before the next one
+    loads.  Returns ({path: launch counts}, {rate: images/s}, figures)."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    import aihab_clip_tpu_torch.models as models
+    from aihab_clip_tpu_torch.models import fast_vit
+    from aihab_clip_tpu_torch.models import quant_vit as qv
+    from aihab_clip_tpu_torch.models.fast_vit import _ln
+    from aihab_clip_tpu_torch.ops import fused_linear as fl
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.preprocess import eval_transform
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
+
+    dev = torch.device("cuda")
+    cos = torch.nn.functional.cosine_similarity
+    images = np.random.default_rng(SEED + 5).integers(
+        0, 256, (LARGE_REQUESTS, 224, 224, 3), dtype=np.uint8)
+    batch = torch.from_numpy(images[:B]).to(dev)
+    counts, rates, figures = {}, {}, {}
+
+    def launches():
+        return {**bk.launch_counts(), **qm.launch_counts(),
+                **fl.launch_counts()}
+
+    def reset():
+        for mod in (bk, qm, fl):
+            mod.reset_launch_counts()
+
+    def split_encode(packed, t, cfg, plan):
+        """JAX's bf16 route: embed, K5 + K4 per block, ln_post(CLS), proj."""
+        x = fast_vit._apply_fused_blocks(
+            packed, fast_vit._vit_embed(packed, t, cfg), plan, start=0,
+            stop=cfg.vision_layers)
+        return _ln(x[:, 0, :], *packed["ln_post"]) @ packed["proj"]
+
+    def split_encode_int8(qp, t, cfg, plan):
+        """JAX's int8 route: K8, K13 + K9 -> K10 per block, ln_post(CLS),
+        proj."""
+        x = qv.apply_int8_vit_blocks(
+            qp["transformer"], qv.vit_patchify_int8(qp, t, cfg), cfg,
+            start=0, stop=cfg.vision_layers, plan=plan)
+        pre = _ln(x[:, 0, :], qp["ln_post"]["scale"], qp["ln_post"]["bias"])
+        return pre @ qp["proj"].to(pre.dtype)
+
+    def gelu_optout(eng, arch, fig):
+        """The exact-gelu opt-out on a gelu tower's bf16 engine."""
+        cfg, layers = eng.bundle.config, eng.bundle.config.vision_layers
+        tag = f"{arch} bf16 under AIHAB_NO_GELU_POLY=1"
+        with mock.patch.dict(os.environ, {"AIHAB_NO_GELU_POLY": "1"}):
+            eng.warmup()
+            run, n, _ = serve(eng, tag)
+            check(run["attn_block_fused"] == layers * n
+                  and run["matmul_residual"] == layers * n
+                  and run["ln_matmul"] == 0
+                  and run["full_block_fused"] == run["mlp_block_fused"] == 0,
+                  f"{tag}: launches")
+            with torch.inference_mode():
+                xb = eval_transform(batch, 224, dtype=torch.bfloat16)
+
+                def feats_and_probs():
+                    return (fast_vit.vit_encode_block_fused(
+                        eng._packed, xb, cfg, project=True)[1].float(),
+                        eng.classify(batch))
+
+                g_k, p_k = feats_and_probs()
+                with mock.patch.multiple(
+                        fast_vit, attn_block_fused=bk.attn_block_fused_plain,
+                        matmul_residual=fl.matmul_residual_plain):
+                    g_p, p_p = feats_and_probs()
+            dprob = (p_k - p_p).abs().max().item()
+            agree = (p_k.argmax(-1) == p_p.argmax(-1)).float().mean().item()
+            fig["optout_cos_min"] = gate(tag, "plain kernels", g_k, g_p,
+                                         COS_MIN)
+            rate = images_per_s(eng, B, 224)
+        print(f"[large] {tag}: max|dprob| vs plain kernels {dprob:.4g}; "
+              f"top-1 agreement {agree:.4f}; classify_batch at batch {B}: "
+              f"{rate:.1f} images/s")
+        fig.update(optout_dprob=dprob, optout_top1=agree)
+        return run, rate
+
+    def build(name, **kw):
+        """The engine and the seconds its ``load`` took (the random weights
+        are drawn on the host)."""
+        seconds = []
+        real = models.load
+
+        def timed_load(*a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        t0 = time.perf_counter()
+        with mock.patch.object(models, "load", timed_load):
+            eng = ClassifierEngine(model=name, batch_size=B, device="cuda",
+                                   verbose=False, **kw)
+        eng.warmup()
+        print(f"[large] {name}{' int8' if kw else ''}: load {seconds[0]:.1f}s"
+              f" (random weights drawn on the host), engine built + warm in "
+              f"{time.perf_counter() - t0:.1f}s")
+        return eng, seconds[0]
+
+    def serve(eng, tag):
+        reset()
+        batcher = DynamicBatcher(eng, max_wait_ms=5.0)
+        batcher.start()
+        t0 = time.perf_counter()
+        futures = [batcher.submit(img) for img in images]
+        probs = np.stack([f.result(timeout=900) for f in futures])
+        wall = time.perf_counter() - t0
+        batcher.stop()
+        run, n = launches(), batcher.stats.batches
+        print(f"[large] {tag}: {len(futures)} requests in {wall:.3f}s over "
+              f"{n} batches; launches {run}")
+        check(probs.shape == (LARGE_REQUESTS, 20)
+              and bool(np.isfinite(probs).all())
+              and bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)),
+              f"{tag} probabilities")
+        return run, n, probs
+
+    def fp32_feats(model):
+        tower = copy.copy(model.visual)
+        tower.dtype = torch.float32
+        with torch.inference_mode():
+            return tower(eval_transform(batch[:LARGE_REF_B], 224),
+                         project=True)[1]
+
+    def gate(tag, name, feats, ref, limit):
+        c = cos(feats[:ref.shape[0]].float(), ref.float(), dim=-1)
+        print(f"[large] {tag} features vs {name}: cosine min "
+              f"{c.min().item():.6f} mean {c.mean().item():.6f} (limit "
+              f"{limit})")
+        check(c.min().item() >= limit, f"{tag} cosine vs {name}")
+        return c.min().item()
+
+    for arch, dashed in LARGE_MODELS.items():
+        tag = LARGE_TAGS[arch]
+        fig = figures[tag] = {}
+        # ---- bf16, by the open_clip name
+        eng, fig["load_s"] = build(f"random:{dashed}")
+        cfg, packed = eng.bundle.config, eng._packed
+        layers = cfg.vision_layers
+        check(eng.bundle.name == f"random:{arch}", "dashed name resolution")
+        run, n, probs = serve(eng, f"{arch} bf16 ({dashed})")
+        counts[tag] = run
+        for key in ("full_block_fused", "attention"):
+            check(run[key] == layers * n, f"{arch}: {key} launched {run[key]}"
+                  f" times for {n} batches (want {layers} each)")
+        check(run["attn_block_split"] == run["mlp_block_split"] == 0,
+              f"{arch}: split kernels on the default route")
+        ref = fp32_feats(eng.bundle.model)
+        with torch.inference_mode():
+            xb = eval_transform(batch, 224, dtype=torch.bfloat16)
+            feats = fast_vit.vit_encode_block_fused(packed, xb, cfg,
+                                                    project=True)[1]
+            fig["cos_fp32_min"] = gate(f"{arch} bf16", "the fp32 tower",
+                                       feats, ref, COS_MIN)
+            if arch != "ViT-H/14":
+                route = JAX_ROUTES[arch]
+                plan = fast_vit.split_block_plan(cfg, route["groups"],
+                                                 route["chunks"])
+                reset()
+                jax_feats = split_encode(packed, xb, cfg, plan)
+                torch.cuda.synchronize()
+                jrun = counts[tag + "_jax"] = launches()
+                print(f"[large] {arch} JAX's route (K5 over {route['groups']}"
+                      f" groups, K4 over {route['chunks']} chunks): launches "
+                      f"{jrun}")
+                check(jrun["attn_block_split"] == layers
+                      and jrun["mlp_block_split"] == layers
+                      and jrun["full_block_fused"] == 0,
+                      f"{arch} JAX route launches")
+                fig["jax_cos_default_min"] = gate(
+                    f"{arch} JAX route", "the default route (K1)", jax_feats,
+                    feats, COS_MIN)
+                fig["jax_cos_fp32_min"] = gate(f"{arch} JAX route",
+                                               "the fp32 tower", jax_feats,
+                                               ref, COS_MIN)
+                split, _ = staged_ms(xb, [("k5_k4", lambda t: (
+                    split_encode(packed, t, cfg, plan)))])
+                fig["jax_encode_ms"] = split["k5_k4"]
+        split, t_all = classify_split(eng, batch, [
+            ("encode", lambda x: fast_vit.vit_encode_block_fused(
+                packed, x, cfg, project=True)[1])])
+        fig.update(classify_ms=t_all, encode_ms=split["encode"])
+        rates[f"{tag}_64"] = images_per_s(eng, B, 224)
+        jax_ms = (f"; JAX's route encode {fig['jax_encode_ms']:.3f} ms"
+                  if "jax_encode_ms" in fig else "")
+        print(f"[large] {arch} bf16 batch {B} device time: classify "
+              f"{t_all:.3f} ms = eval_transform {split['eval_transform']:.3f}"
+              f" + encode ({layers} K1) {split['encode']:.3f} + head "
+              f"{split['head']:.3f}{jax_ms}; classify_batch "
+              f"{rates[f'{tag}_64']:.1f} images/s")
+        if arch == "ViT-H/14":
+            counts[tag + "_nogelupoly"], rates[f"{tag}_gelu_optout_64"] = \
+                gelu_optout(eng, arch, fig)
+        del eng, packed, feats, xb
+        torch.cuda.empty_cache()
+        if arch == "ViT-H/14":
+            continue
+
+        # ---- int8, by the table's name
+        eng, fig["int8_load_s"] = build(f"random:{arch}", quantize="int8")
+        qp = eng._qparams
+        run, n, probs8 = serve(eng, f"{arch} int8")
+        counts[tag + "_int8"] = run
+        want = {"quant_matmul_fused": n, "quant_full_block_fused": layers * n,
+                "quant_attn_block_split": 0, "quant_matmul_fused_qout": 0,
+                "full_block_fused": 0}
+        for key, v in want.items():
+            check(run[key] == v, f"{arch} int8: {key} launched {run[key]} "
+                  f"times for {n} batches (want {v})")
+        fig["top1_vs_bf16"] = float((probs8.argmax(-1)
+                                     == probs.argmax(-1)).mean())
+        with torch.inference_mode():
+            xb = eval_transform(batch, 224, dtype=torch.bfloat16)
+            feats8 = qv.vit_encode_int8(qp, xb, cfg, project=True)[1]
+            with plain_int8_kernels():
+                plain = qv.vit_encode_int8(qp, xb, cfg, project=True)[1]
+            fig["int8_cos_plain_min"] = gate(f"{arch} int8",
+                                             "all-plain kernels", feats8,
+                                             plain, INT8_COS["plain"])
+            fig["int8_cos_fp32_min"] = gate(f"{arch} int8", "the fp32 tower",
+                                            feats8, ref, INT8_COS["fp32"])
+            route = JAX_ROUTES[arch]
+            iplan = qv.split_int8_plan(cfg, route["int8_groups"],
+                                       route["int8_chunks"])
+            reset()
+            jax8 = split_encode_int8(qp, xb, cfg, iplan)
+            torch.cuda.synchronize()
+            jrun = counts[tag + "_int8_jax"] = launches()
+            ich = route["int8_chunks"]
+            print(f"[large] {arch} JAX's int8 route (K13 over "
+                  f"{route['int8_groups']} groups, K9 -> K10 over {ich} "
+                  f"slices): launches {jrun}")
+            check(jrun["quant_attn_block_split"] == layers
+                  and jrun["quant_matmul_fused_qout"] == layers * ich
+                  and jrun["quant_matmul_q8in"] == layers * ich
+                  and jrun["quant_matmul_fused"] == 1
+                  and jrun["quant_full_block_fused"] == 0,
+                  f"{arch} JAX int8 route launches")
+            fig["int8_jax_cos_default_min"] = gate(
+                f"{arch} JAX int8 route", "the default int8 route (K14)",
+                jax8, feats8, INT8_COS["fp32"])
+            fig["int8_jax_cos_fp32_min"] = gate(
+                f"{arch} JAX int8 route", "the fp32 tower", jax8, ref,
+                INT8_COS["fp32"])
+        split, t_all = classify_split(eng, batch, [
+            ("k8", lambda x: qv.vit_patchify_int8(qp, x, cfg)),
+            ("blocks", lambda t: qv.apply_int8_vit_blocks(
+                qp["transformer"], t, cfg, start=0, stop=layers)),
+            ("ln_post_proj", lambda t: _ln(
+                t[:, 0, :], qp["ln_post"]["scale"], qp["ln_post"]["bias"])
+                @ qp["proj"].to(t.dtype))])
+        with torch.inference_mode():
+            jsplit, _ = staged_ms(xb, [("k13_k9_k10", lambda t: (
+                split_encode_int8(qp, t, cfg, iplan)))])
+        fig.update(int8_classify_ms=t_all, int8_k8_ms=split["k8"],
+                   int8_blocks_ms=split["blocks"],
+                   int8_jax_encode_ms=jsplit["k13_k9_k10"])
+        rates[f"{tag}_int8_64"] = images_per_s(eng, B, 224)
+        print(f"[large] {arch} int8 batch {B} device time: classify "
+              f"{t_all:.3f} ms = eval_transform {split['eval_transform']:.3f}"
+              f" + K8 {split['k8']:.3f} + {layers} K14 {split['blocks']:.3f} "
+              f"+ ln_post/proj {split['ln_post_proj']:.3f} + head "
+              f"{split['head']:.3f}; JAX's int8 route encode "
+              f"{jsplit['k13_k9_k10']:.3f} ms; classify_batch "
+              f"{rates[f'{tag}_int8_64']:.1f} images/s (bf16 "
+              f"{rates[f'{tag}_64']:.1f}); top-1 agreement with bf16 "
+              f"{fig['top1_vs_bf16']:.4f}")
+        del eng, qp, xb, feats8, plain, jax8, ref
+        torch.cuda.empty_cache()
+    del batch
+    torch.cuda.empty_cache()
+    return counts, rates, figures
 
 
 if __name__ == "__main__":

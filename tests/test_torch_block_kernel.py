@@ -286,3 +286,53 @@ def test_split_argument_checks():
     bk.mlp_block_split(*_t(args), n_chunks=2)
     _port_split_attn(*_split_attn_inputs(14, 72), 2, 2, torch.float32)
     assert all(v == 0 for v in bk.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 and K5 at the head widths of ViT-g/14 (88) and ViT-bigG/14 (104)
+
+# each width's MLP in its tower's ratio (6144 / 1408, 8192 / 1664)
+WIDE_HIDDEN = {88: 768, 104: 1024}
+
+
+def _wide_inputs(seed, head_dim, heads=2, s=S):
+    rng = np.random.default_rng(seed)
+    w, hidden = heads * head_dim, WIDE_HIDDEN[head_dim]
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = n(B, s, w)
+    params = [1 + n(w, scale=0.1), n(w, scale=0.1),
+              n(w, 3 * w, scale=w ** -0.5), n(3 * w, scale=0.1),
+              n(w, w, scale=w ** -0.5), n(w, scale=0.1),
+              1 + n(w, scale=0.1), n(w, scale=0.1),
+              n(w, hidden, scale=w ** -0.5), n(hidden, scale=0.1),
+              n(hidden, w, scale=hidden ** -0.5), n(w, scale=0.1)]
+    return x, params
+
+
+@pytest.mark.parametrize("kernel", ["full", "attn", "split"])
+@pytest.mark.parametrize("head_dim", [88, 104])
+def test_blocks_at_wide_head_dims_match_pallas(head_dim, kernel):
+    """K1 (gelu_poly, as the LAION towers run it), K2 and K5 (2 groups of
+    one head) over 2 heads of 88 or 104 at S = 17, in fp32, against the
+    Pallas kernels in interpret mode at the fp32 block tolerance."""
+    heads = 2
+    if kernel == "split":
+        args = _split_attn_inputs(31, head_dim, heads=heads)
+        ref = _jax_split_attn(*args, heads, 2, jnp.float32)
+        out = _port_split_attn(*args, heads, 2, torch.float32).numpy()
+    else:
+        x, params = _wide_inputs(30, head_dim, heads)
+        if kernel == "full":
+            ref = jax_bk.full_block_fused(jnp.asarray(x), *_j(params), heads,
+                                          act="gelu_poly", interpret=True)
+            out = bk.full_block_fused(torch.from_numpy(x), *_t(params),
+                                      heads, act="gelu_poly").numpy()
+        else:
+            ref = jax_bk.attn_block_fused(jnp.asarray(x), *_j(params[:6]),
+                                          heads, interpret=True)
+            out = bk.attn_block_fused(torch.from_numpy(x), *_t(params[:6]),
+                                      heads).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=2e-4, rtol=2e-4)

@@ -48,8 +48,8 @@ def test_every_entry_point_has_its_source():
 
 def test_plan_entry_points_take_an_output_pointer():
     """The plan functions fill an int array: their last argument is a
-    pointer, the ones before it ints (the shape, groups, residual)."""
-    plans = {"aihab_gemm_plan": 3, "aihab_flash_plan": 4,
+    pointer, the ones before it ints (the shape, groups, residual, kind)."""
+    plans = {"aihab_gemm_plan": 3, "aihab_flash_plan": 5,
              "aihab_fused_attention_bwd_plan": 4, "aihab_int8_gemm_plan": 5}
     for fn, n_ints in plans.items():
         args = _build._ARGTYPES[_build._SOURCE_OF[fn]][fn]

@@ -1215,3 +1215,91 @@ def test_cuda_int8_gemm_wgmma(case, monkeypatch):
         ulp = 2.0 ** -8 if got.dtype == torch.bfloat16 else 1e-5
         torch.testing.assert_close(got.float(), ref.float(), rtol=ulp,
                                    atol=1e-5)
+
+
+# the attention kernels at ViT-g/14's (88) and ViT-bigG/14's (104) head
+# widths: the flash kernel with bf16 output (K1, K2, K5) and with fp32 output
+# over a pre-scaled q (K13), and the WMMA normalised-P kernel (K12, K14), at
+# the towers' S = 257 and at 577, keys past seq_len masked, in the packed and
+# the grouped qkv layouts
+WIDE_CASES = [
+    # (B, S, heads, head_dim, group_heads, seq_len)
+    (2, 257, 16, 88, None, None),
+    (2, 257, 16, 104, 2, None),
+    (2, 257, 16, 88, 2, 250),
+    (3, 257, 2, 104, None, 200),
+    (1, 577, 4, 88, 2, 500),
+    (1, 577, 4, 104, None, 450),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,heads,d,group_heads,seq_len", WIDE_CASES)
+def test_cuda_attention_at_wide_head_dims(b, s, heads, d, group_heads,
+                                          seq_len):
+    """Each of the three forms against its plain version within the
+    attention tolerance, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator().manual_seed(s + d + heads)
+    qkv = (torch.randn(b, s, 3 * heads * d, generator=g) * 2).to(
+        "cuda", torch.bfloat16)
+    kw = dict(group_heads=group_heads)
+    bk.reset_launch_counts()
+    _assert_close(bk.attention(qkv, heads, seq_len, **kw),
+                  bk.attention_plain(qkv, heads, seq_len, **kw),
+                  TOL_ATTENTION)
+    scaled = qkv * 0.25
+    for norm_p in (False, True):
+        kw.update(q_scaled=True, out_dtype=torch.float32, normalize_p=norm_p)
+        got = bk.attention(scaled, heads, seq_len, **kw)
+        assert got.dtype == torch.float32
+        _assert_close(got, bk.attention_plain(scaled, heads, seq_len, **kw),
+                      TOL_ATTENTION)
+    assert bk.launch_counts()["attention"] == 3
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refuses_other_head_dims():
+    """A head width the kernels do not build raises before any launch, as
+    does K6 past its backward's widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import attention as att
+
+    bk.reset_launch_counts()
+    for d in (32, 80, 96, 128):
+        qkv = torch.zeros(1, 64, 3 * 2 * d, device="cuda",
+                          dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            bk.attention(qkv, 2)
+    assert bk.launch_counts()["attention"] == 0
+    q = torch.zeros(1, 576, 2 * 88, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        att.fused_attention_fwd(q, q, q, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1024, 1664])
+def test_cuda_k8_at_patch_14(width):
+    """C4: K8 over the patch-14 im2col (K = 14 * 14 * 3 = 588, padded to 592
+    in both operands) at ViT-L/14's and ViT-bigG/14's widths, batch 64
+    (16,384 patch rows): bit for bit with its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(width)
+    k = 14 * 14 * 3
+    x = torch.randn(64 * 256, k, generator=g).to("cuda", torch.bfloat16)
+    w8, ws = quantize_weight((torch.randn(k, width, generator=g)
+                              * k ** -0.5).cuda())
+    wv = qm.int8_weight(w8)
+    bias = torch.zeros(width, device="cuda")
+    qm.reset_launch_counts()
+    got = qm.quant_matmul_fused(x, wv, ws, bias)
+    assert qm.launch_counts()["quant_matmul_fused"] == 1
+    ref = qm.quant_matmul_fused_plain(x, wv, ws, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (64 * 256, width) and torch.equal(got, ref)

@@ -99,23 +99,33 @@ def test_plan_from_h100_facts():
 
 
 def test_unported_branches_raise(carried):
-    """K5 and K4 stay SigLIP's; the per-op MLP branch (``mlp_whole`` off,
-    K16) runs and matches JAX's ``_apply_fused_blocks`` on the same plan."""
+    """JAX's split branches, ported: K5 over head groups (``attn_split``)
+    (one group of both heads, and two groups of one head) and K4 over
+    hidden chunks (``mlp_chunks``), each against JAX's
+    ``_apply_fused_blocks`` on the same plan at the fp32 block tolerance
+    (2e-4; JAX pads S to 16 there, the port does not); the per-op MLP
+    branch (``mlp_whole`` off, K16) runs and matches JAX's too."""
     bundle, model, cfg, x = carried
     packed = fast_vit.pack_fastest(model, cfg, torch.float32)
-    xt = torch.zeros(1, 5, cfg.vision_width)
     plan = fast_vit._fused_block_plan(cfg)
-    with pytest.raises(NotImplementedError, match="K5"):
-        fast_vit._apply_fused_blocks(packed, xt, {**plan, "attn_split": True},
-                                     start=0, stop=1)
-    with pytest.raises(NotImplementedError, match="K4"):
-        fast_vit._apply_fused_blocks(
-            packed, xt, {**plan, "mlp_whole": False, "mlp_chunks": 2},
-            start=0, stop=1)
     tokens = np.random.default_rng(1).standard_normal(
         (2, 17, cfg.vision_width)).astype(np.float32)
-    jplan = {**jax_fast_vit._fused_block_plan(bundle.config, jnp.float32),
-             "merge": False, "mlp_whole": False, "mlp_chunks": 0}
+    jbase = jax_fast_vit._fused_block_plan(bundle.config, jnp.float32)
+    assert plan["heads"] == 2
+    for split in ({"attn_split": True, "n_groups": 1},
+                  {"attn_split": True, "n_groups": 2},
+                  {"mlp_whole": False, "mlp_chunks": 2}):
+        ref = jax_fast_vit._apply_fused_blocks(
+            bundle.params["visual"], jnp.asarray(tokens), bundle.config,
+            jnp.float32, start=0, stop=2,
+            plan={**jbase, "merge": False, **split}, interpret=True)
+        with torch.no_grad():
+            got = fast_vit._apply_fused_blocks(
+                packed, torch.from_numpy(tokens),
+                {**plan, "merge": False, **split}, start=0, stop=2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4,
+                                   rtol=2e-4)
+    jplan = {**jbase, "merge": False, "mlp_whole": False, "mlp_chunks": 0}
     ref = jax_fast_vit._apply_fused_blocks(
         bundle.params["visual"], jnp.asarray(tokens), bundle.config,
         jnp.float32, start=0, stop=2, plan=jplan, interpret=True)
@@ -153,12 +163,14 @@ def test_vit_encode_fast_matches_jax(carried, act):
 
 def _gelu_configs():
     """The wide gelu tower of ``tests/test_fast_vit.py:444`` in both
-    packages, and the open_clip ViT-B-16."""
+    packages, and ViT-B/16 with exact gelu (open_clip's ViT-B-16 shape;
+    the zoo maps that name onto the QuickGELU ViT-B/16, as JAX's does)."""
     wide = dict(embed_dim=512, image_resolution=224, vision_layers=32,
                 vision_width=1280, vision_patch_size=14, context_length=77,
                 vocab_size=49408, transformer_width=1024,
                 transformer_heads=16, transformer_layers=24, act="gelu")
-    vitb = dataclasses.asdict(CLIP_ARCHS["ViT-B-16"])
+    vitb = dataclasses.asdict(dataclasses.replace(CLIP_ARCHS["ViT-B/16"],
+                                                  act="gelu"))
     return [(CLIPConfig(**c), JaxConfig(**c)) for c in (wide, vitb)]
 
 

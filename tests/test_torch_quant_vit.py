@@ -175,6 +175,60 @@ def test_quant_full_block_fused_plain_matches_pallas(s, act, mlp_chunks,
     _close_kernel(out, ref, dtype)
 
 
+@pytest.mark.parametrize("kernel", ["K12", "K13", "K14"])
+@pytest.mark.parametrize("head_dim", [88, 104])
+def test_int8_blocks_at_wide_head_dims_match_pallas(head_dim, kernel):
+    """K12, K13 (2 groups of 2 heads: 176- and 208-wide groups padded to
+    192 and 224) and K14 (gelu_poly, MLP in the tower's ratio) over heads of
+    ViT-g/14's 88 and ViT-bigG/14's 104 at S = 17, in fp32, against the
+    Pallas kernels in interpret mode: K12 and K14 within ``_close_kernel``
+    (measured max|d| <= 7.2e-7); K13 at the tower gates, as
+    ``test_int8_tower_plans`` holds it.  K13 rounds q, k, v and P to bf16
+    whatever x's dtype (its TPU kernel's casts, ``quant_matmul.py:586``),
+    so where torch's and XLA's fp32 score sums differ in their last bit a
+    P lands on the other side of a bf16 rounding and the requantized
+    attention moves by a code (measured at 88: 3 of 34 rows, max|d|
+    1.56e-3; at 104 none)."""
+    n = _rng(40 + head_dim)
+    heads = 4 if kernel == "K13" else 2
+    w = heads * head_dim
+    x = n(2, 17, w)
+    args = _block_args(41, w, {88: 768, 104: 1024}[head_dim] * w // (
+        2 * head_dim))
+    if kernel == "K12":
+        ref = jax_qm.quant_attn_block_fused(
+            jnp.asarray(x), *(jnp.asarray(a) for a in args[:8]), heads,
+            interpret=True)
+        out = qm.quant_attn_block_fused(torch.from_numpy(x), *_t(*args[:8]),
+                                        heads)
+    elif kernel == "K14":
+        ref = jax_qm.quant_full_block_fused(
+            jnp.asarray(x), *(jnp.asarray(a) for a in args), heads,
+            act="gelu_poly", interpret=True)
+        out = qm.quant_full_block_fused(torch.from_numpy(x), *_t(*args),
+                                        heads, act="gelu_poly")
+    else:
+        jw = [jnp.asarray(a) for a in args[:8]]
+        jg = jax_qm.regroup_attn_weights(jw[0], jw[1], jw[2], jw[3], heads, 2)
+        ref = jax_qm.quant_attn_block_split(
+            jnp.asarray(x), *jg, jw[4], jw[5], jw[6], jw[7], heads, 2,
+            interpret=True)
+        tw = _t(*args[:8])
+        wg, sg, bg, og = qm.regroup_attn_weights(tw[0], tw[1], tw[2], tw[3],
+                                                 heads, 2)
+        wg, og = qm.int8_attn_weights(wg, og)
+        assert qm._out_operand(og).shape == (w, 2 * qm._group_pad(
+            2 * head_dim))
+        out = qm.quant_attn_block_split(torch.from_numpy(x), wg, sg, bg, og,
+                                        tw[4], tw[5], tw[6], tw[7], heads, 2)
+        assert out.shape == x.shape
+        _close_tower(out.reshape(-1, w).numpy(),
+                     np.asarray(ref).reshape(-1, w))
+        return
+    assert out.shape == x.shape
+    _close_kernel(out, ref, "float32")
+
+
 def test_quant_full_block_fused_images_per_program():
     """The TPU kernel's images per program (1, 2, 8) give one output in JAX,
     and the port, which ignores it, gives that output too."""
