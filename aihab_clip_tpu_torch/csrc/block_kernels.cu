@@ -55,7 +55,7 @@
 // LAION ViT-g/14 and ViT-bigG/14 towers (S=257; W=1408, 16 heads of 88,
 // hidden 6144; W=1664, 16 heads of 104, hidden 8192) take head_dim 88 and
 // 104 the same way: instances padded to 96 and 112 (the flash kernel's
-// Q K^T, the WMMA tiles) or 128 (bigG's P V).  At batch 64 a bigG block is
+// Q K^T) or 128 (bigG's P V).  At batch 64 a bigG block is
 // 1.29 TFLOP (1.30 ms at 989 TFLOP/s), 28 GFLOP of it attention.
 //
 // At ConvNeXt base_w (batch 64, 256 px) every convnext_mlp_block launch is
@@ -684,182 +684,10 @@ int launch_act_pass(const float* t, int act, const void* r, void* y, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Attention with fp32 output and P normalised before its bf16 cast, K12's and
-// K14's (quant_kernels.cu): out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T,
-// keys < seq_len) v, following their TPU kernels' rounding points
-// (quant_matmul.py:472-478): a first pass over the keys takes the row max m
-// and sum l, and the second casts P = exp(s - m) / l to bf16 before the PV
-// product, whose fp32 sum is the output unscaled.  The int8 requantize that
-// reads this output turns a difference in P's rounding into code flips, which
-// K14's next requantizes multiply (at ViT-B/16: 6.8e-3 rel L2 against its
-// plain version with the 1/sum on the output rows, 2.0e-3 normalised).  Every
-// other attention, K13's fp32-output one included (the one-pass form: P cast
-// unnormalised, 1/l on the output rows), runs flash_attention_kernel below;
-// this kernel needs P's final normaliser before its cast, which a one-pass
-// kernel does not have, and stays WMMA (ROADMAP Queue D).  One block per
-// (64-query tile, head, image); 4 warps of 16 query rows on WMMA; keys stream
-// through shared memory 64 at a time, so no [S, S] tensor exists anywhere.
-// Each lane owns one query row's half (HDP/2 output dims) in registers.
-// D=64 is the instance CLIP runs (HDP = D), D=72 SigLIP's (tiles 80 wide),
-// D=88 and 104 ViT-g's and ViT-bigG's (tiles 96 and 112 wide).
-// Operands: q, k and v of head h start at column (h / g) * group_stride +
-// (h % g) * D of rows `ld` apart, image b S rows further on.  The qkv buffer
-// of the block kernels (grouped layout above) is q = qkv, k = qkv + gD,
-// v = qkv + 2gD, ld = 3W, group_stride = 3gD; fused_attention's separate
-// [B, S, W] tensors (ops/attention.py:91, K6) are ld = W, g = heads.
-// scale is 1/sqrt(D) on the fp32 scores (CLIP, K6) or 1 when a GEMM
-// epilogue has already scaled q before rounding it, as attn_block_split
-// and the int8 blocks do.  (Both attention kernels take these operands.)
-// ---------------------------------------------------------------------------
-
-template <int HD>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_norm_p_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
-                        const bf16* __restrict__ vp, float* __restrict__ out, int S,
-                        int seq_len, int heads, int group_heads, int ld, int group_stride,
-                        float scale) {
-  using T = AttnTile<HD>;
-  constexpr int HDP = T::HDP, T_LD = T::T_LD, S_LD = T::S_LD, HALF = T::HALF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + T::TILE;
-  bf16* Vs = Ks + T::TILE;
-  float* Ss_all = reinterpret_cast<float*>(Vs + T::TILE);
-  bf16* Ps_all = reinterpret_cast<bf16*>(Ss_all + 4 * 16 * S_LD);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int W = heads * HD;
-  const size_t head_off = static_cast<size_t>(b) * S * ld +
-                          (h / group_heads) * group_stride + (h % group_heads) * HD;
-  const bf16* qb = qp + head_off;
-  const bf16* kb = kp + head_off;
-  const bf16* vb = vp + head_off;
-  float* Ss = Ss_all + warp * 16 * S_LD;
-  bf16* Ps = Ps_all + warp * 16 * P_LD;
-
-  zero_pad_columns<HD>(Qs, tid);
-  zero_pad_columns<HD>(Ks, tid);
-  zero_pad_columns<HD>(Vs, tid);
-  load_tile<HD>(Qs, qb, q0, S, ld, tid);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HDP / 16];
-#pragma unroll
-  for (int d = 0; d < HDP / 16; ++d)
-    wmma::load_matrix_sync(qf[d], Qs + warp * 16 * T_LD + d * 16, T_LD);
-
-  const int row = lane >> 1, half = lane & 1;
-  float o[HALF];
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) o[c] = 0.f;
-  float m_run = -1e30f, l_run = 0.f;
-  float* srow = Ss + row * S_LD + half * (AKV / 2);  // this lane's score columns
-  float* orow = Ss + row * S_LD + half * HALF;       // this lane's PV columns
-  bf16* prow = Ps + row * P_LD + half * (AKV / 2);
-
-  // the scaled, masked scores of the K tile at key k0 (in shared memory) for
-  // this lane's columns into sv; returns the row's max over the tile
-  auto tile_scores = [&](int k0, float* sv) {
-#pragma unroll
-    for (int j = 0; j < AKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int d = 0; d < HDP / 16; ++d) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + j * 16 * T_LD + d * 16, T_LD);
-        wmma::mma_sync(sf, qf[d], kf, sf);
-      }
-      wmma::store_matrix_sync(Ss + j * 16, sf, S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-    float mx = -1e30f;
-#pragma unroll
-    for (int c = 0; c < AKV / 2; ++c) {
-      const float s = (k0 + half * (AKV / 2) + c < seq_len) ? srow[c] * scale : -1e30f;
-      sv[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  };
-
-  const int n_tiles = (seq_len + AKV - 1) / AKV;
-  for (int t = 0; t < n_tiles; ++t) {  // first pass: the row max and sum
-    __syncthreads();                    // every warp is done with the previous K tile
-    load_tile<HD>(Ks, kb, t * AKV, seq_len, ld, tid);
-    __syncthreads();
-    float sv[AKV / 2];
-    const float m_new = fmaxf(m_run, tile_scores(t * AKV, sv));
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < AKV / 2; ++c) sum += expf(sv[c] - m_new);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * expf(m_run - m_new) + sum;
-    m_run = m_new;
-    __syncwarp();
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * AKV;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<HD>(Ks, kb, k0, seq_len, ld, tid);  // masked keys load as zeros
-    load_tile<HD>(Vs, vb, k0, seq_len, ld, tid);
-    __syncthreads();
-
-    float sv[AKV / 2];
-    tile_scores(k0, sv);
-#pragma unroll
-    for (int c = 0; c < AKV / 2; ++c)
-      prow[c] = __float2bfloat16(__fdiv_rn(expf(sv[c] - m_run), l_run));
-    __syncwarp();
-
-#pragma unroll
-    for (int j = 0; j < HDP / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < AKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Ps + kk * 16, P_LD);
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * T_LD + j * 16, T_LD);
-        wmma::mma_sync(of, pf, vf, of);
-      }
-      wmma::store_matrix_sync(Ss + j * 16, of, S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < HALF; ++c) o[c] += orow[c];
-    __syncwarp();
-  }
-
-  const int q = q0 + warp * 16 + row;
-  if (q < S) {
-    float* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD + half * HALF;
-#pragma unroll
-    for (int c = 0; c < HALF; c += 8)
-      if (half * HALF + c < HD) store8(dst + c, o + c);
-  }
-}
-
-template <int HD>
-int launch_attention_norm_p(const bf16* q, const bf16* k, const bf16* v, void* out, int B,
-                            int S, int seq_len, int heads, int group_heads, int ld,
-                            int group_stride, float scale, cudaStream_t stream) {
-  auto kernel = attention_norm_p_kernel<HD>;
-  constexpr int smem = 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + AQ - 1) / AQ, heads, B);
-  kernel<<<grid, ATT_THREADS, smem, stream>>>(q, k, v, static_cast<float*>(out), S, seq_len,
-                                              heads, group_heads, ld, group_stride, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Flash attention (K6f, the attention of K1, K2 and K5, and K13's fp32-output
-// grouped one): out[b, q, h*D:(h+1)*D] = softmax(scale * q k^T, keys <
-// seq_len) v, one pass over the keys with an fp32 online softmax.  One block
+// Flash attention (K6f, the attention of K1, K2 and K5, K13's fp32-output
+// grouped one, and with NORM_P K12's and K14's): out[b, q, h*D:(h+1)*D] =
+// softmax(scale * q k^T, keys < seq_len) v, one pass over the keys with an
+// fp32 online softmax (two with NORM_P, below).  One block
 // of one warpgroup per (64-query tile, head, image).  Thread 0 brings the Q
 // tile once and the K and V tiles (64 keys) by TMA into a two-stage mbarrier
 // ring, the next tile loading while this one computes.  Q, K and V are
@@ -890,6 +718,18 @@ int launch_attention_norm_p(const bf16* q, const bf16* k, const bf16* v, void* o
 // h) * S + q], which the backward kernels (fused_attention_bwd.cu) rebuild P
 // from.  Bound: bytes at SigLIP shapes (q, k, v and out cross device memory
 // once; K and V re-read from L2 per query tile).
+// NORM_P (fp32 output, no lse): K12's and K14's TPU kernels cast P to bf16
+// normalised, P = exp(s - m) / l with the row's final max m and sum l
+// (quant_matmul.py:750-757), and the int8 requantize that reads this output
+// turns a difference in P's rounding into code flips, which K14's later
+// requantizes multiply (at ViT-B/16: 6.8e-3 rel L2 against its plain version
+// with the 1/l on the output rows, 2.0e-3 normalised).  A one-pass kernel has
+// no final m and l before its casts, so the ring runs over the keys twice,
+// as K6b rebuilds P from the log-sum-exp: sweep 1 loads K alone and keeps
+// only the running (m, l) of Q K^T; sweep 2 loads K and V, recomputes the
+// scores, forms P = exp(s - m) / l in registers (the division by div_rn,
+// common.cuh), casts it to bf16 and sums P V on wgmma with no rescale and
+// no 1/l on the rows.  K crosses L2 twice.
 // ---------------------------------------------------------------------------
 
 constexpr int FQ = 64, FKV = 64, FLASH_THREADS = 128;
@@ -915,7 +755,7 @@ struct FlashCfg {
   static constexpr unsigned Q_TX = MAIN + TAIL_BYTES, KV_TX = 2 * (MAIN + TAIL_BYTES);
 };
 
-template <int HD, typename TO>
+template <int HD, typename TO, bool NORM_P>
 __global__ void __launch_bounds__(FLASH_THREADS, 3)
 flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -935,6 +775,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
   const int hg = h % group_heads, grp = h / group_heads;
   const int n_tiles = (seq_len + FKV - 1) / FKV;
+  // the ring's loads: the key tiles once, or with NORM_P twice (K alone,
+  // then K and V)
+  const int n_loads = NORM_P ? 2 * n_tiles : n_tiles;
 
   auto k_main = [&](int s) { return smem + C::KV_MAIN + 2 * s * C::MAIN; };
   auto v_main = [&](int s) { return smem + C::KV_MAIN + (2 * s + 1) * C::MAIN; };
@@ -942,6 +785,15 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   auto v_tail = [&](int s) { return smem + C::KV_TAIL + (2 * s + 1) * C::TAIL_BYTES; };
   auto load_kv = [&](int t) {
     const int s = t & 1;
+    if constexpr (NORM_P) {
+      if (t < n_tiles) {  // sweep 1: K alone
+        mbar_expect_tx(&full[s], C::KV_TX / 2);
+        tma_load_5d(k_main(s), &map_k, &full[s], 0, hg, grp, t * FKV, b);
+        if constexpr (C::TAIL) tma_load_5d(k_tail(s), &map_kt, &full[s], 64, hg, grp, t * FKV, b);
+        return;
+      }
+      t -= n_tiles;
+    }
     mbar_expect_tx(&full[s], C::KV_TX);
     tma_load_5d(k_main(s), &map_k, &full[s], 0, hg, grp, t * FKV, b);
     tma_load_5d(v_main(s), &map_v, &full[s], 0, hg, grp, t * FKV, b);
@@ -960,7 +812,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     tma_load_5d(smem + C::Q_MAIN, &map_q, qbar, 0, hg, grp, q0, b);
     if constexpr (C::TAIL) tma_load_5d(smem + C::Q_TAIL, &map_qt, qbar, 64, hg, grp, q0, b);
     load_kv(0);
-    if (n_tiles > 1) load_kv(1);
+    if (n_loads > 1) load_kv(1);
   }
   __syncthreads();
 
@@ -973,9 +825,60 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.f, 0.f};
   mbar_wait(qbar, 0);
 
+  if constexpr (NORM_P) {  // sweep 1: the row max and sum of the scores
+    // (Q K^T and the mask as in the main loop below, whose code, and SASS,
+    // the flag-off instances keep as it was)
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t & 1;
+      mbar_wait(&full[s], (t >> 1) & 1);
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_MAIN + kk * 32, 16, 1024, SW_128B),
+                        smem_desc(k_main(s) + kk * 32, 16, 1024, SW_128B), kk > 0);
+      if constexpr (C::TAIL) {
+#pragma unroll
+        for (int kk = 0; kk < C::TK; ++kk)
+          wgmma_ss<64, 0>(sc, smem_desc(smem + C::Q_TAIL + kk * 32, 16, C::T_SBO, C::TSW),
+                          smem_desc(k_tail(s) + kk * 32, 16, C::T_SBO, C::TSW), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float mx = -1e30f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[j * 4 + h2 * 2 + e];
+            v = (t * FKV + j * 8 + c2 + e < seq_len) ? v * scale : -1e30f;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h2], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sum += expf(sc[j * 4 + h2 * 2 + e] - m_new);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[h2] = l_run[h2] * expf(m_run[h2] - m_new) + sum;
+        m_run[h2] = m_new;
+      }
+      __syncthreads();  // every warp is done with stage s
+      if (tid == 0 && t + 2 < n_loads) load_kv(t + 2);
+    }
+  }
+
   for (int t = 0; t < n_tiles; ++t) {
-    const int s = t & 1;
-    mbar_wait(&full[s], (t >> 1) & 1);
+    const int it = NORM_P ? n_tiles + t : t;  // the ring's load index
+    const int s = it & 1;
+    mbar_wait(&full[s], (it >> 1) & 1);
     float sc[32];
     wgmma_fence();
 #pragma unroll
@@ -994,50 +897,63 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // online softmax over this thread's rows (h2 = 0: registers 4j, 4j+1;
     // h2 = 1: 4j+2, 4j+3) and keys t*64 + 8j + c2 + {0, 1}
-    float alpha[2];
+    if constexpr (NORM_P) {  // P = exp(s - m) / l at the row's final m, l
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      float mx = -1e30f;
+      for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = sc[j * 4 + h2 * 2 + e];
-          v = (t * FKV + j * 8 + c2 + e < seq_len) ? v * scale : -1e30f;
-          mx = fmaxf(mx, v);
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[j * 4 + h2 * 2 + e];
+            v = (t * FKV + j * 8 + c2 + e < seq_len) ? v * scale : -1e30f;
+            v = div_rn(expf(v - m_run[h2]), l_run[h2]);
+          }
+    } else {
+      float alpha[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float mx = -1e30f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[j * 4 + h2 * 2 + e];
+            v = (t * FKV + j * 8 + c2 + e < seq_len) ? v * scale : -1e30f;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h2], mx);
+        alpha[h2] = expf(m_run[h2] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[j * 4 + h2 * 2 + e];
+            v = expf(v - m_new);
+            sum += v;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[h2] = l_run[h2] * alpha[h2] + sum;
+        m_run[h2] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[j * 4] *= alpha[0];
+        o[j * 4 + 1] *= alpha[0];
+        o[j * 4 + 2] *= alpha[1];
+        o[j * 4 + 3] *= alpha[1];
+      }
+      if constexpr (C::TAIL) {
+#pragma unroll
+        for (int j = 0; j < C::TW / 8; ++j) {
+          ot[j * 4] *= alpha[0];
+          ot[j * 4 + 1] *= alpha[0];
+          ot[j * 4 + 2] *= alpha[1];
+          ot[j * 4 + 3] *= alpha[1];
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[h2], mx);
-      alpha[h2] = expf(m_run[h2] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = sc[j * 4 + h2 * 2 + e];
-          v = expf(v - m_new);
-          sum += v;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[h2] = l_run[h2] * alpha[h2] + sum;
-      m_run[h2] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j * 4] *= alpha[0];
-      o[j * 4 + 1] *= alpha[0];
-      o[j * 4 + 2] *= alpha[1];
-      o[j * 4 + 3] *= alpha[1];
-    }
-    if constexpr (C::TAIL) {
-#pragma unroll
-      for (int j = 0; j < C::TW / 8; ++j) {
-        ot[j * 4] *= alpha[0];
-        ot[j * 4 + 1] *= alpha[0];
-        ot[j * 4 + 2] *= alpha[1];
-        ot[j * 4 + 3] *= alpha[1];
       }
     }
     // P in bf16 as register-A fragments: keys 16kk .. 16kk + 15
@@ -1061,7 +977,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_regs(o);
     fence_regs(ot);
     __syncthreads();  // every warp is done with stage s
-    if (tid == 0 && t + 2 < n_tiles) load_kv(t + 2);
+    if (tid == 0 && it + 2 < n_loads) load_kv(it + 2);
   }
 
   const int W = heads * HD;
@@ -1069,7 +985,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int h2 = 0; h2 < 2; ++h2) {
     const int q = q0 + warp * 16 + (lane >> 2) + 8 * h2;
     if (q >= S) continue;
-    const float inv = 1.f / l_run[h2];
+    const float inv = NORM_P ? 1.f : 1.f / l_run[h2];  // NORM_P: P summed to 1
     TO* dst = out + (static_cast<size_t>(b) * S + q) * W + h * HD;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -1083,7 +999,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int HD, typename TO>
+template <int HD, typename TO, bool NORM_P>
 int launch_flash(const bf16* q, const bf16* k, const bf16* v, TO* out, float* lse, int B,
                  int S, int seq_len, int heads, int group_heads, int ld, int group_stride,
                  float scale, cudaStream_t stream) {
@@ -1100,7 +1016,7 @@ int launch_flash(const bf16* q, const bf16* k, const bf16* v, TO* out, float* ls
     if (err != 0) return err;
     if (!C::TAIL) maps[3 + i] = maps[i];
   }
-  auto kernel = flash_attention_kernel<HD, TO>;
+  auto kernel = flash_attention_kernel<HD, TO, NORM_P>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1124,19 +1040,26 @@ int with_head_dim(int head_dim, F f) {
   }
 }
 
-// out bf16, or fp32 with out_f32 (then lse must be null)
+// out bf16, or fp32 with out_f32 (then lse must be null); norm_p (fp32
+// only) normalises P before its cast
 int flash_dispatch(const bf16* q, const bf16* k, const bf16* v, void* out, int out_f32,
-                   float* lse, int B, int S, int seq_len, int heads, int group_heads,
-                   int head_dim, int ld, int group_stride, float scale, cudaStream_t stream) {
+                   int norm_p, float* lse, int B, int S, int seq_len, int heads,
+                   int group_heads, int head_dim, int ld, int group_stride, float scale,
+                   cudaStream_t stream) {
   if (seq_len < 1 || seq_len > S || group_heads < 1 || heads % group_heads ||
-      (out_f32 && lse != nullptr))
+      (out_f32 && lse != nullptr) || (norm_p && !out_f32))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    return out_f32 ? launch_flash<HD>(q, k, v, static_cast<float*>(out), lse, B, S, seq_len,
-                                      heads, group_heads, ld, group_stride, scale, stream)
-                   : launch_flash<HD>(q, k, v, static_cast<bf16*>(out), lse, B, S, seq_len,
-                                      heads, group_heads, ld, group_stride, scale, stream);
+    float* out32 = static_cast<float*>(out);
+    if (norm_p)
+      return launch_flash<HD, float, true>(q, k, v, out32, lse, B, S, seq_len, heads,
+                                           group_heads, ld, group_stride, scale, stream);
+    return out_f32 ? launch_flash<HD, float, false>(q, k, v, out32, lse, B, S, seq_len, heads,
+                                                    group_heads, ld, group_stride, scale, stream)
+                   : launch_flash<HD, bf16, false>(q, k, v, static_cast<bf16*>(out), lse, B, S,
+                                                   seq_len, heads, group_heads, ld,
+                                                   group_stride, scale, stream);
   });
 }
 
@@ -1222,23 +1145,16 @@ int aihab_mlp_train_bwd(const void* x, const void* h_pre, const void* dy, const 
 // over qkv[B,S,3*heads*D] in the grouped layout (group_heads heads per group);
 // D is 64, 72, 88 or 104.  The fp32 output is the int8 blocks' (K12, K13, K14), whose
 // requantize reads the PV product unrounded, as the TPU kernels do; norm_p
-// (fp32 only; K12, K14) normalises P before its bf16 cast, as they do, on
-// the WMMA kernel; every other call runs the flash kernel.
+// (fp32 only; K12, K14) normalises P before its bf16 cast, as they do (the
+// flash kernel's NORM_P instance).
 int aihab_attention(const void* qkv, void* out, int B, int S, int seq_len, int heads,
                     int group_heads, int head_dim, float scale, int out_f32, int norm_p,
                     void* stream) {
   const bf16* base = static_cast<const bf16*>(qkv);
   const int gw = group_heads * head_dim, ld = 3 * heads * head_dim;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (norm_p && !out_f32) return static_cast<int>(cudaErrorInvalidValue);
-  if (norm_p)
-    return with_head_dim(head_dim, [&](auto hd) {
-      return launch_attention_norm_p<decltype(hd)::value>(base, base + gw, base + 2 * gw, out,
-                                                          B, S, seq_len, heads, group_heads, ld,
-                                                          3 * gw, scale, s);
-    });
-  return flash_dispatch(base, base + gw, base + 2 * gw, out, out_f32, nullptr, B, S, seq_len,
-                        heads, group_heads, head_dim, ld, 3 * gw, scale, s);
+  return flash_dispatch(base, base + gw, base + 2 * gw, out, out_f32, norm_p, nullptr, B, S,
+                        seq_len, heads, group_heads, head_dim, ld, 3 * gw, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // fused_attention's forward (K6): out = softmax(scale * q k^T) v over
@@ -1249,7 +1165,7 @@ int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void*
                               void* lse, int B, int S, int heads, int head_dim, float scale,
                               void* stream) {
   return flash_dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                        static_cast<const bf16*>(v), out, 0, static_cast<float*>(lse), B, S, S,
+                        static_cast<const bf16*>(v), out, 0, 0, static_cast<float*>(lse), B, S, S,
                         heads, heads, head_dim, heads * head_dim, 0, scale,
                         static_cast<cudaStream_t>(stream));
 }
@@ -1258,7 +1174,7 @@ int aihab_fused_attention_fwd(const void* q, const void* k, const void* v, void*
 // without a residual): out = {ring stages, shared bytes a block, output
 // tiles, blocks, registers a thread, local (spill) bytes a thread}.
 // Attention at (B, S, heads, head_dim), kind 0 the flash kernel with bf16
-// output, 1 with fp32 output, 2 the normalised-P kernel: out = {K/V stages,
+// output, 1 with fp32 output, 2 its normalised-P instance: out = {K/V stages,
 // shared bytes a block, blocks (query tiles x heads x images), the same,
 // registers, local bytes}.
 int aihab_gemm_plan(int M, int N, int residual, int* out) {
@@ -1281,11 +1197,11 @@ int aihab_flash_plan(int B, int S, int heads, int head_dim, int kind, int* out) 
     constexpr int HD = decltype(hd)::value;
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(
-        &attr, kind == 0   ? (const void*)flash_attention_kernel<HD, bf16>
-               : kind == 1 ? (const void*)flash_attention_kernel<HD, float>
-                           : (const void*)attention_norm_p_kernel<HD>);
-    out[0] = kind == 2 ? 1 : 2;
-    out[1] = kind == 2 ? 3 * AttnTile<HD>::TILE * 2 + AttnTile<HD>::SCRATCH : FlashCfg<HD>::SMEM;
+        &attr, kind == 0   ? (const void*)flash_attention_kernel<HD, bf16, false>
+               : kind == 1 ? (const void*)flash_attention_kernel<HD, float, false>
+                           : (const void*)flash_attention_kernel<HD, float, true>);
+    out[0] = 2;
+    out[1] = FlashCfg<HD>::SMEM;
     out[2] = out[3] = ((S + FQ - 1) / FQ) * heads * B;
     out[4] = attr.numRegs;
     out[5] = static_cast<int>(attr.localSizeBytes);

@@ -14,14 +14,14 @@ libraries link against cudart alone.
   block_kernels.cu       the TMA + wgmma GEMM behind ln_gemm (after an LN row
                          pass) and gemm_residual (K1-K5, K7, K16, K17), the
                          TMA + wgmma flash attention (K1, K2, K5, K6 fwd in
-                         bf16; K13's grouped attention in fp32; head_dim 64,
-                         72, 88, 104) and the WMMA
-                         normalised-P attention with fp32 output (K12, K14),
-                         act_pass (the gelu_poly forms past the GEMM
+                         bf16; K13's grouped attention in fp32; K12's and
+                         K14's with P normalised, in fp32; head_dim 64, 72,
+                         88, 104), act_pass (the gelu_poly forms past the GEMM
                          epilogues), the train MLP's backward row kernel (K17)
   fused_attention_bwd.cu fused_attention's backward (K6b): TMA + wgmma dq and
                          dk/dv kernels
-  quant_kernels.cu       row_quant, the TMA + wgmma int8_gemm (K8-K15)
+  quant_kernels.cu       row_quant, the TMA + wgmma int8_gemm (K8-K15; its
+                         quantized output for K9, K11, K14, K15)
   preprocess.cu          normalize_u8 (K18)
 """
 
@@ -70,6 +70,8 @@ _ARGTYPES = {
         "aihab_row_quant": [_p, _i, _i, _i, _i, _i, _p, _p, _f, _p, _p, _p],
         "aihab_int8_gemm": [_p, _p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i,
                             _i, _i, _i, _f, _i, _i, _p],
+        "aihab_int8_gemm_qout": [_p] * 5 + [_i] * 4 + [_p] * 3 + [_i] * 3
+                                + [_p],
         "aihab_int8_gemm_plan": [_i, _i, _i, _i, _i, _p],
     },
     "preprocess": {

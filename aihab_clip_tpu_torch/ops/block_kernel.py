@@ -21,8 +21,8 @@ the bound):
   * ``attention``      masked multi-head softmax(q k^T / sqrt(d)) v,
                        head_dim in ``HEAD_DIMS``, packed or head-grouped
                        qkv (the flash kernel, bf16 or fp32 output; with P
-                       normalised before its cast, K12's and K14's: the
-                       WMMA kernel)
+                       normalised before its cast, K12's and K14's, in two
+                       sweeps over the keys)
   * ``gemm_residual``  bf16 GEMM -> bias [* per-column gamma] + residual
 
 Both GEMMs are the one TMA + wgmma kernel (``gemm_kernel``), and the bf16

@@ -37,21 +37,27 @@ header gives the design and the bound):
                    per-column gamma, residual; or with
                    a dequant per group of K, summed in group order onto
                    part_0 + bias + residual, or (residual-first) onto
-                   residual + bias
+                   residual + bias; or y = act(dequant + bias) requantized
+                   in the same launch (``out_dtype=torch.int8``: codes and
+                   row scales, per whole row or per hidden chunk)
   * ``attention``  (``ops/block_kernel.py``) the bf16 attention core over
-                   the grouped qkv, q pre-scaled, fp32 output: K13's on the
-                   flash kernel (1/sum on the output rows), K12's and K14's
-                   with P normalised before its bf16 cast
+                   the grouped qkv, q pre-scaled, fp32 output, on the flash
+                   kernel: K13's with the 1/sum on the output rows, K12's
+                   and K14's with P normalised before its bf16 cast
 
-K8 = row_quant -> int8_gemm.  K9 = row_quant(LN) -> int8_gemm (fp32 y) ->
-row_quant(y): the requantize needs a whole row, which no GEMM tile holds.
+K8 = row_quant -> int8_gemm.  K9 = row_quant(LN) -> int8_gemm with the
+quantized output: the requantize needs a whole row, which no GEMM tile
+holds, so each block keeps its fp32 y tile in shared memory, folds the
+tile's |y| into the row maxima in device memory by atomicMax, counts the
+tile in its 128-row panel's counter, and quantizes the tile after its next
+main loop, once the panel's count is complete.
 K10 = int8_gemm.  K13 = row_quant(LN) -> int8_gemm (bf16 qkv, q * 1/sqrt(d)
 in fp32 before the rounding, as the TPU kernel rounds it) -> attention (fp32)
 -> row_quant per head group, each group's codes padded with zeros to a
 multiple of 32 -> int8_gemm with a dequant per group.  K12 = K13's chain with
 one group.  K11 = K9 -> K10.  K14 = K12's chain with an fp32 out-proj output
-(y1) -> row_quant(LN2) -> int8_gemm (act, fp32 h) -> row_quant per hidden
-chunk -> int8_gemm residual-first, so its fp32 sum runs in the TPU kernel's
+(y1) -> row_quant(LN2) -> int8_gemm (act, h requantized per hidden chunk)
+-> int8_gemm residual-first, so its fp32 sum runs in the TPU kernel's
 order, (y1 + b2) + part_0 + part_1 ...  K15 = K11's chain with LN eps 1e-6
 on y and the gamma epilogue in its second GEMM onto the block input.
 
@@ -88,6 +94,9 @@ from .quant import int_matmul
 # a span as 128-byte k-steps and a rest of at most 32 bytes as one 32-byte
 # step (K13's 144-wide groups: 160 = 128 + 32)
 GEMM_BK = 32
+# the int8 GEMM's output tile is GEMM_BM x GEMM_BM (its quantized output
+# counts the tiles of each panel of GEMM_BM rows)
+GEMM_BM = 128
 
 
 def _group_pad(width: int) -> int:
@@ -195,13 +204,27 @@ def row_quant_plain(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
     return q.reshape(m, -1), s
 
 
+# an H100 block's shared memory, which holds row_quant's row
+SMEM_MAX = 232448
+
+
+def row_quant_bytes(k: int, elem: int, ln: bool) -> int:
+    """The shared memory ``row_quant``'s kernel takes for a row of ``k``
+    values of ``elem`` bytes: the row, and with LN its fp32 LN values, each
+    rounded up to 16 bytes."""
+    return -(-k * elem // 16) * 16 + (-(-k * 4 // 16) * 16 if ln else 0)
+
+
 def row_quant(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
               group_pad=0):
     """x [M, K] (bf16 or fp32) -> (codes [M, G*P] int8, scales [M, G] fp32):
     an optional fp32 LN over the row, then per group of ``group`` columns
     (default the whole row, G = 1) s = max(amax, 1e-12) * (1/127) and codes
     clip(round(v / s), -127, 127), each group's codes padded with zeros to
-    ``group_pad`` (P, default the group width).  Kernel ``row_quant``."""
+    ``group_pad`` (P, default the group width).  Kernel ``row_quant``, which
+    reads each row once into shared memory: on the card a row must fit in a
+    block's (``row_quant_bytes`` <= ``SMEM_MAX``: fp32 with LN up to 29,056
+    columns, fp32 alone 58,112) and a wider one raises."""
     if not x.is_cuda:
         return row_quant_plain(x, ln_scale, ln_bias, eps=eps, group=group,
                                group_pad=group_pad)
@@ -212,6 +235,12 @@ def row_quant(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
         raise ValueError(f"group {kg} does not divide the row width {k}")
     dev = x.device
     _check("x", x, (torch.bfloat16, torch.float32), (m, k), dev)
+    need = row_quant_bytes(k, x.element_size(), ln_scale is not None)
+    if need > SMEM_MAX:
+        raise ValueError(f"row_quant holds a row in shared memory: {k} "
+                         f"columns of {x.dtype}"
+                         f"{'' if ln_scale is None else ' with LN'} take "
+                         f"{need} bytes, past a block's {SMEM_MAX}")
     ln = ((None, None) if ln_scale is None else
           (_vec_f32(ln_scale, k, dev, "ln_scale"),
            _vec_f32(ln_bias, k, dev, "ln_bias")))
@@ -226,8 +255,15 @@ def row_quant(x, ln_scale=None, ln_bias=None, *, eps=1e-5, group=0,
 
 def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
                     out_dtype=torch.bfloat16, q_scale=1.0, q_width=0,
-                    groups=1, residual_first=False, gamma=None):
+                    groups=1, residual_first=False, gamma=None, out_group=0,
+                    out_group_pad=0):
     """Plain version of ``int8_gemm`` (same signature)."""
+    if out_dtype == torch.int8:
+        y = int8_gemm_plain(a8, sa, wt, ws, bias, act=act, residual=residual,
+                            out_dtype=torch.float32, q_scale=q_scale,
+                            q_width=q_width, groups=groups,
+                            residual_first=residual_first, gamma=gamma)
+        return row_quant_plain(y, group=out_group, group_pad=out_group_pad)
     m, k = a8.shape
     kg = k // groups
     sa = sa.reshape(m, groups).float()
@@ -258,7 +294,7 @@ def int8_gemm_plain(a8, sa, wt, ws, bias, *, act="none", residual=None,
 
 def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
               out_dtype=torch.bfloat16, q_scale=1.0, q_width=0, groups=1,
-              residual_first=False, gamma=None):
+              residual_first=False, gamma=None, out_group=0, out_group_pad=0):
     """a8 [M, K] int8 (row scales ``sa`` [M, groups]) times ``wt`` [N, K]
     int8 (K-major, column scales ``ws`` [N]) -> [M, N] in ``out_dtype``.
 
@@ -269,13 +305,37 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
     dequantized with ``sa[:, g]``, and the partials sum in fp32 as
     (part_0 + bias) + residual + part_1 + ... (K13's out-proj).
     ``residual_first`` (any groups, an fp32 residual): (residual + bias) +
-    part_0 + part_1 + ... (K14's c_proj).  Kernel ``int8_gemm``."""
+    part_0 + part_1 + ... (K14's c_proj).
+    ``out_dtype=torch.int8`` (one group, no residual, q-scale or gamma):
+    the fp32 y requantized, (codes [M, G * P] int8, scales [M, G] fp32) =
+    ``row_quant(y, group=out_group, group_pad=out_group_pad)``, G = N /
+    ``out_group`` (default the whole row), in the same launch (K9, K11,
+    K14's c_fc, K15); past N = 128 x the card's SMs, and for the gelu_poly
+    forms past sig5, in a second one.  Kernel ``int8_gemm``."""
     if not a8.is_cuda:
         return int8_gemm_plain(a8, sa, wt, ws, bias, act=act,
                                residual=residual, out_dtype=out_dtype,
                                q_scale=q_scale, q_width=q_width,
                                groups=groups, residual_first=residual_first,
-                               gamma=gamma)
+                               gamma=gamma, out_group=out_group,
+                               out_group_pad=out_group_pad)
+    if out_dtype == torch.int8:
+        if (groups > 1 or residual_first or residual is not None or q_width
+                or gamma is not None):
+            raise ValueError("the quantized output takes one group and no "
+                             "residual, q-scale or gamma")
+        if (not bk._in_epilogue(act_code(act))
+                or -(-wt.shape[0] // GEMM_BM) > _sm_count(a8.device)):
+            # a gelu_poly form past sig5 has no epilogue, and a row of more
+            # tiles than the card has SMs no launch of the quantized output:
+            # fp32 y (act_pass), then row_quant
+            y = int8_gemm(a8, sa, wt, ws, bias, act=act,
+                          out_dtype=torch.float32)
+            return row_quant(y, group=out_group, group_pad=out_group_pad)
+        out = _int8_gemm_qout(a8, sa, wt, ws, bias, act, out_group,
+                              out_group_pad)
+        int8_gemm.launches += 1
+        return out
     m, k = a8.shape
     n = wt.shape[0]
     if k % 16 or n % 8 or q_width % 2:
@@ -335,6 +395,52 @@ def int8_gemm(a8, sa, wt, ws, bias, *, act="none", residual=None,
     return y
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _int8_gemm_qout(a8, sa, wt, ws, bias, act, out_group, out_group_pad):
+    """``int8_gemm``'s quantized output on the card: one launch of the
+    int8 GEMM in its QOUT mode (``csrc/quant_kernels.cu``), which keeps each
+    y tile in shared memory and requantizes it once the row maxima of its
+    128-row panel are complete.  A block waits there for the panel's other
+    tiles, so N takes at most as many 128-column tiles as the card has SMs
+    (a panel's tiles on distinct blocks)."""
+    m, k = a8.shape
+    n = wt.shape[0]
+    kg = out_group or n
+    kp = max(out_group_pad, kg)
+    n_groups = n // kg
+    if k % 16 or n % 8 or n % kg or kg % 8 or kp % 8 or (
+            n_groups > 1 and kg < GEMM_BM):
+        raise ValueError(f"the quantized int8_gemm needs K a multiple of 16, "
+                         f"N of 8, groups of a multiple of 8 columns (at "
+                         f"least {GEMM_BM} when N has more than one) and a "
+                         f"pad to a multiple of 8; got K {k}, N {n}, group "
+                         f"{kg} padded to {kp}")
+    dev = a8.device
+    if -(-n // GEMM_BM) > _sm_count(dev):
+        raise ValueError(f"the quantized int8_gemm takes N up to {GEMM_BM} "
+                         f"x the card's {_sm_count(dev)} SMs (a panel's "
+                         f"tiles on distinct blocks); got N {n}")
+    _check("a8", a8, torch.int8, (m, k), dev)
+    _check("wt", wt, torch.int8, (n, k), dev)
+    sa = sa.to(dtype=torch.float32).contiguous()
+    if sa.numel() != m or sa.device != dev:
+        raise ValueError(f"sa must hold {m} scales on {dev}")
+    ws = _vec_f32(ws, n, dev, "ws")
+    bias = _vec_f32(bias, n, dev, "bias")
+    # the row maxima [M, G] and the per-panel tile counters, zero
+    ctl = torch.zeros(m * n_groups + -(-m // GEMM_BM), dtype=torch.int32,
+                      device=dev)
+    q = torch.empty((m, n_groups * kp), dtype=torch.int8, device=dev)
+    s = torch.empty((m, n_groups), dtype=torch.float32, device=dev)
+    launch("aihab_int8_gemm_qout", dev, a8.data_ptr(), sa.data_ptr(),
+           wt.data_ptr(), ws.data_ptr(), bias.data_ptr(), m, n, k, act_code(act),
+           ctl.data_ptr(), q.data_ptr(), s.data_ptr(), n_groups, kg, kp)
+    return q, s
+
+
 _PLAIN = SimpleNamespace(row_quant=row_quant_plain, int8_gemm=int8_gemm_plain,
                          attention=partial(bk.attention_plain,
                                            normalize_p=True))
@@ -361,9 +467,8 @@ def _k8(ops, x, w8, w_scale, bias, act, residual, ln_scale, ln_bias, ln_eps):
 
 def _k9(ops, x, w8, w_scale, bias, ln_scale, ln_bias, act, ln_eps):
     x8, sx = ops.row_quant(x, ln_scale, ln_bias, eps=ln_eps)
-    y = ops.int8_gemm(x8, sx, _kmajor(w8), w_scale, bias, act=act,
-                      out_dtype=torch.float32)
-    return ops.row_quant(y)
+    return ops.int8_gemm(x8, sx, _kmajor(w8), w_scale, bias, act=act,
+                         out_dtype=torch.int8)
 
 
 def _k10(ops, x8, x_scale, w8, w_scale, bias, residual):
@@ -409,9 +514,8 @@ def _k11(ops, x, w1_8, w1_scale, b1, w2_8, w2_scale, b2, ln_scale, ln_bias,
 def _k15(ops, y, residual, ln_scale, ln_bias, w1_8, w1_scale, b1, w2_8,
          w2_scale, b2, gamma, act, ln_eps):
     x8, sx = ops.row_quant(y, ln_scale, ln_bias, eps=ln_eps)
-    h = ops.int8_gemm(x8, sx, _kmajor(w1_8), w1_scale, b1, act=act,
-                      out_dtype=torch.float32)
-    h8, hs = ops.row_quant(h)
+    h8, hs = ops.int8_gemm(x8, sx, _kmajor(w1_8), w1_scale, b1, act=act,
+                           out_dtype=torch.int8)
     return ops.int8_gemm(h8, hs, _kmajor(w2_8), w2_scale, b2,
                          residual=residual, out_dtype=y.dtype, gamma=gamma)
 
@@ -423,10 +527,10 @@ def _k14(ops, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out, ln1_scale,
     y1 = _k12(ops, x, wqkv8, qkv_scale, b_qkv, wout8, out_scale, b_out,
               ln1_scale, ln1_bias, heads, s, torch.float32)
     l8, sl = ops.row_quant(y1, ln2_scale, ln2_bias)
-    h = ops.int8_gemm(l8, sl, _kmajor(w1_8), w1_scale, b1, act=act,
-                      out_dtype=torch.float32)
-    ch = h.shape[1] // mlp_chunks
-    h8, hs = ops.row_quant(h, group=ch, group_pad=_group_pad(ch))
+    ch = w1_8.shape[1] // mlp_chunks
+    h8, hs = ops.int8_gemm(l8, sl, _kmajor(w1_8), w1_scale, b1, act=act,
+                           out_dtype=torch.int8, out_group=ch,
+                           out_group_pad=_group_pad(ch))
     out = ops.int8_gemm(h8, hs, _out_operand(w2_8.reshape(mlp_chunks, ch, w)),
                         w2_scale, b2, residual=y1, out_dtype=x.dtype,
                         groups=mlp_chunks, residual_first=True)

@@ -28,14 +28,18 @@ Phases (any failure raises and the exit code is non-zero):
      8 groups, and their pieces (row_quant, int8_gemm, the fp32-output
      attention), each against its plain version and beside
      ``torch._int_mm``; the int8 GEMM core's TOPS at the qkv, out-proj and
-     c_fc shapes beside ``torch._int_mm``'s; then K8's LN/act/residual
-     options and a ragged K13 (S=577 in a 592 pad) at small shapes,
-     compared only;
+     c_fc shapes beside ``torch._int_mm``'s; the int8 GEMM's quantized
+     output at the c_fc shape (the requantize K9 takes from its epilogue)
+     against its plain version and, bit for bit, against the fp32 GEMM +
+     row_quant it replaced, both timed; the normalised-P attention at head_dim
+     72 (grouped), compared; then K8's LN/act/residual options and a ragged
+     K13 (S=577 in a 592 pad) at small shapes, compared only;
      3e: the CLIP ViT int8 kernels at ViT-B/16 shapes (quick_gelu): K12, K11,
      K14 (mlp_chunks 1 and 2, gelu_poly, and ViT-B/32's S=50) and the pieces
      K14 adds (the residual-first c_proj GEMM, the attention at head_dim 64
-     with fp32 output and P normalised before its cast), the GEMMs beside
-     ``torch._int_mm``;
+     with fp32 output and P normalised before its cast, the c_fc GEMM with
+     its hidden row requantized in one and in two chunks, also against the
+     fp32 GEMM + row_quant bit for bit), the GEMMs beside ``torch._int_mm``;
      5c: ``ClassifierEngine("random:ViT-B/16", quantize="int8")`` answers the
      same requests: per batch 1 K8 and 12 K14, no K1; features against the
      same encode with every kernel plain and against the fp32 tower; top-1
@@ -106,9 +110,10 @@ Phases (any failure raises and the exit code is non-zero):
      3h: the LAION towers' kernels at ViT-g/14 and ViT-bigG/14 shapes (B=64,
      S=257, 16 heads of 88 and 104): the attention in its four forms (packed
      bf16, grouped bf16 and fp32, P normalised) beside SDPA, K1, K5 + K4 and
-     K13 + K9 -> K10 on JAX's routes (``JAX_ROUTES``), K14, and K8 at the
-     patch-14 K = 588 (bit for bit); the ``[plan]`` lines of the new
-     attention instances, which must not spill;
+     K13 + K9 -> K10 on JAX's routes (``JAX_ROUTES``), K14 and its c_fc
+     GEMM's quantized output, and K8 at the patch-14 K = 588 (bit for bit);
+     the ``[plan]`` lines of the attention instances at head_dim 64-104
+     (the normalised-P instance at all four), which must not spill;
      5f: ``ClassifierEngine`` of ViT-H/14 (bf16), ViT-g/14 and ViT-bigG/14
      (bf16 and int8) at full size, the bf16 engines by their open_clip names
      (``random:ViT-bigG-14``), each answering 96 requests through
@@ -516,7 +521,7 @@ def main() -> None:
     int8_core = int8_kernel_cases(rnd, vec, run_cases, compare, timed)
 
     # ---- 3e. the CLIP ViT int8 kernels (K12, K11, K14) at ViT-B/16 shapes
-    vit_int8_kernel_cases(rnd, vec, run_cases)
+    int8_core.update(vit_int8_kernel_cases(rnd, vec, run_cases, timed))
 
     # ---- 3f. K7 and K15 at the four ConvNeXt base_w stage shapes
     convnext_kernel_cases(rnd, vec, run_cases, compare, timed)
@@ -748,15 +753,19 @@ def kernel_plans(build) -> None:
               f"registers, {out[5]} local bytes, {out[1]} shared bytes/block, "
               f"{out[2]} blocks of 128 threads")
     # the instances at ViT-g/14's and ViT-bigG/14's head widths (B = 64, S =
-    # 257, 16 heads): the flash kernel with bf16 and fp32 output, and the
-    # WMMA normalised-P kernel
-    for d in (88, 104):
-        for kind, label in ((0, "flash_attention_kernel<{}, bf16>"),
-                            (1, "flash_attention_kernel<{}, float>"),
-                            (2, "attention_norm_p_kernel<{}>")):
-            check(lib.aihab_flash_plan(B, LARGE_S, 16, d, kind, out) == 0,
+    # 257, 16 heads): the flash kernel with bf16 and fp32 output, and its
+    # normalised-P instance (NORM_P), which also runs at D 64 (K14 at
+    # ViT-B/16) and is built at D 72
+    for b, s, heads, d in ((B, S, HEADS, W // HEADS), (B, SL_S, SL_HEADS, 72),
+                           (B, LARGE_S, 16, 88), (B, LARGE_S, 16, 104)):
+        kinds = ((2, "flash_attention_kernel<{}, float, NORM_P>"),)
+        if d in (88, 104):
+            kinds = ((0, "flash_attention_kernel<{}, bf16>"),
+                     (1, "flash_attention_kernel<{}, float>")) + kinds
+        for kind, label in kinds:
+            check(lib.aihab_flash_plan(b, s, heads, d, kind, out) == 0,
                   "attention plan")
-            print(f"[plan] {label.format(d)} (B = {B}, S = {LARGE_S}, 16 "
+            print(f"[plan] {label.format(d)} (B = {b}, S = {s}, {heads} "
                   f"heads): {out[4]} registers, {out[5]} local bytes, "
                   f"{out[1]} shared bytes/block, {out[2]} blocks of 128 "
                   f"threads")
@@ -788,7 +797,9 @@ def kernel_plans(build) -> None:
                 (B * LARGE_S, 1408, 8 * 192, 8, 1),
             "ViT-bigG/14 out-proj, 8 groups of 208 padded to 224":
                 (B * LARGE_S, 1664, 8 * 224, 8, 1),
-            "ViT-bigG/14 c_fc": (B * LARGE_S, 8192, 1664, 1, 0)}.items():
+            "ViT-bigG/14 c_fc": (B * LARGE_S, 8192, 1664, 1, 0),
+            "SO400M c_fc, quantized output": (m_sl, SL_HIDDEN, SL_W, 1, 2),
+            "ViT-B/16 c_fc, quantized output": (B * S, HIDDEN, W, 1, 2)}.items():
         check(build.library("quant_kernels").aihab_int8_gemm_plan(
             m, n, k, groups, res, q8) == 0, "int8 plan")
         print(f"[plan] int8_gemm_kernel {label} [{m} x {n}, K {k}]: {q8[4]} "
@@ -1369,6 +1380,15 @@ def int8_kernel_cases(rnd, vec, run_cases, compare, timed) -> dict:
          lambda: int_mm(mm_in[w], wf8), (0, f_fc),
          m * w + 4 * m + w * hid + 8 * hid + 4 * m * hid, qm.int8_gemm,
          "siglip_int8", SRC_Q),
+        ("int8_gemm[c_fc, gelu_tanh, quantized out]", f"{JAX_QM}:109",
+         "codes",
+         lambda: qm.int8_gemm(x8, sx, wf8.t(), sf, bf, act="gelu_tanh",
+                              out_dtype=torch.int8),
+         lambda: qm.int8_gemm_plain(x8, sx, wf8.t(), sf, bf, act="gelu_tanh",
+                                    out_dtype=torch.int8),
+         lambda: int_mm(mm_in[w], wf8), (0, f_fc),
+         m * w + 4 * m + w * hid + 8 * hid + m * hid + 4 * m, qm.int8_gemm,
+         "siglip_int8", SRC_Q),
         ("int8_gemm[qkv groups, q-scale]", f"{JAX_QM}:576", "kernel",
          lambda: qm.int8_gemm(x8, sx, qm._qkv_operand(wg), sg.reshape(-1),
                               bg.reshape(-1), q_scale=1.0 / math.sqrt(d),
@@ -1396,10 +1416,26 @@ def int8_kernel_cases(rnd, vec, run_cases, compare, timed) -> dict:
          None, (0, f_out), m * w + 4 * m * groups + w * w + 8 * w
          + 2 * m * w + 2 * m * w, qm.int8_gemm, "siglip_int8", SRC_Q),
     ])
+    # the quantized output against the two launches it replaced, and the
+    # normalised-P attention at head_dim 72 over the grouped layout (the
+    # NORM_P instance runs at 64, 88 and 104 on the paths)
+    core = {"qout_c_fc": qout_against_two_launches(
+        "int8_gemm[SO400M c_fc, gelu_tanh]",
+        lambda: qm.int8_gemm(x8, sx, wf8.t(), sf, bf, act="gelu_tanh",
+                             out_dtype=torch.int8),
+        lambda: qm.row_quant(qm.int8_gemm(x8, sx, wf8.t(), sf, bf,
+                                          act="gelu_tanh",
+                                          out_dtype=torch.float32)), timed)}
+    compare("attention[hd72, 8 groups, q-scaled, fp32 out, P normalised]",
+            bk.attention(qkv, heads, group_heads=heads // groups,
+                         q_scaled=True, out_dtype=torch.float32,
+                         normalize_p=True),
+            bk.attention_plain(qkv, heads, group_heads=heads // groups,
+                               q_scaled=True, out_dtype=torch.float32,
+                               normalize_p=True), "attention")
     # the int8 GEMM core alone (no activation, bf16 out; the out-proj with
     # its 8 group partials and x) at the three SO400M shapes, beside
     # torch._int_mm's int32 product at the same shape
-    core = {}
     for label, a_, s_, w_, ws_, b_, kw, n_ in (
             ("qkv", x8, sx, qm._qkv_operand(wg), sg.reshape(-1),
              bg.reshape(-1), {}, 3 * w),
@@ -1445,7 +1481,26 @@ def int8_kernel_cases(rnd, vec, run_cases, compare, timed) -> dict:
     return core
 
 
-def vit_int8_kernel_cases(rnd, vec, run_cases) -> None:
+def qout_against_two_launches(label, one, two, timed) -> dict:
+    """The int8 GEMM's quantized output (one launch) against the fp32 GEMM
+    then row_quant (two launches, the composition it replaced), both
+    kernels on the same inputs: codes and scales equal bit for bit; both
+    timed."""
+    import torch
+
+    (q1, s1), (q2, s2) = one(), two()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(q1, q2) and torch.equal(s1, s2))
+    t1, t2 = timed(one), timed(two)
+    print(f"[kernels] {label}: quantized output {t1:.4f} ms, fp32 y + "
+          f"row_quant {t2:.4f} ms; codes and scales equal bit for bit: "
+          f"{same}")
+    check(same, f"{label}: the quantized output differs from fp32 y + "
+          "row_quant")
+    return dict(one_launch_ms=t1, two_launches_ms=t2)
+
+
+def vit_int8_kernel_cases(rnd, vec, run_cases, timed) -> dict:
     """3e. The CLIP ViT int8 kernels at ViT-B/16 shapes, batch 64 (S=197,
     W=768, 12 heads of 64, hidden 3072, quick_gelu): K12 and K11 (the
     ``merge_blocks="off"`` halves), K14 with one and two MLP chunks, with
@@ -1503,6 +1558,13 @@ def vit_int8_kernel_cases(rnd, vec, run_cases) -> None:
     def full(xx, **kw):
         return (lambda: qm.quant_full_block_fused(xx, *k14, **kw),
                 lambda: qm.quant_full_block_fused_plain(xx, *k14, **kw))
+
+    def chunked(n_ch):  # K14's c_fc over n_ch chunks, each its own scale
+        kw = dict(act="quick_gelu", out_dtype=torch.int8,
+                  out_group=HIDDEN // n_ch,
+                  out_group_pad=qm._group_pad(HIDDEN // n_ch))
+        return (lambda: qm.int8_gemm(l8, sl, w1.t(), s1, mlp[2], **kw),
+                lambda: qm.int8_gemm_plain(l8, sl, w1.t(), s1, mlp[2], **kw))
 
     run_cases([
         ("quant_attn_block_fused", f"{JAX_QM}:490", "int8_block",
@@ -1567,6 +1629,19 @@ def vit_int8_kernel_cases(rnd, vec, run_cases) -> None:
          lambda: int_mm(mm_in[W], w1), (0, f_fc),
          m * W + 4 * m + W * HIDDEN + 8 * HIDDEN + 4 * m * HIDDEN,
          qm.int8_gemm, "vit_int8", SRC_Q),
+        ("int8_gemm[ViT-B/16 c_fc, quick_gelu, quantized out]",
+         f"{JAX_QM}:781", "codes",
+         lambda: qm.int8_gemm(l8, sl, w1.t(), s1, mlp[2], act="quick_gelu",
+                              out_dtype=torch.int8),
+         lambda: qm.int8_gemm_plain(l8, sl, w1.t(), s1, mlp[2],
+                                    act="quick_gelu", out_dtype=torch.int8),
+         lambda: int_mm(mm_in[W], w1), (0, f_fc),
+         m * W + 4 * m + W * HIDDEN + 8 * HIDDEN + m * HIDDEN + 4 * m,
+         qm.int8_gemm, "vit_int8", SRC_Q),
+        ("int8_gemm[ViT-B/16 c_fc, quick_gelu, quantized out, 2 chunks]",
+         f"{JAX_QM}:781", "codes", *chunked(2), lambda: int_mm(mm_in[W], w1),
+         (0, f_fc), m * W + 4 * m + W * HIDDEN + 8 * HIDDEN + m * HIDDEN
+         + 8 * m, qm.int8_gemm, "vit_int8", SRC_Q),
         ("int8_gemm[ViT-B/16 c_proj, residual-first]", f"{JAX_QM}:779",
          "kernel",
          lambda: qm.int8_gemm(h8, hs, w2.t(), s2, mlp[5], residual=y1,
@@ -1582,7 +1657,18 @@ def vit_int8_kernel_cases(rnd, vec, run_cases) -> None:
           f"{1e3 * ((k12_ops + k11_ops) / PEAK_INT8_OPS + f_att / PEAK_FLOPS):.4f}"
           f" ms, K12 {1e3 * (k12_ops / PEAK_INT8_OPS + f_att / PEAK_FLOPS):.4f}"
           f" ms, K11 {1e3 * k11_ops / PEAK_INT8_OPS:.4f} ms")
+    figures = {}
+    for n_ch in (1, 2):
+        one, _ = chunked(n_ch)
+        figures[f"qout_vit_c_fc_{n_ch}"] = qout_against_two_launches(
+            f"int8_gemm[ViT-B/16 c_fc, quick_gelu, {n_ch} chunk(s)]", one,
+            lambda: qm.row_quant(
+                qm.int8_gemm(l8, sl, w1.t(), s1, mlp[2], act="quick_gelu",
+                             out_dtype=f32), group=HIDDEN // n_ch,
+                group_pad=qm._group_pad(HIDDEN // n_ch)),
+            timed)
     del x, x2, x8, qkv, att, a8, y1, l8, h, h8, x50, mm_in
+    return figures
 
 
 def vit_int8_path(bk, images, bf16_probs, bf16_rate):
@@ -1633,7 +1719,7 @@ def vit_int8_path(bk, images, bf16_probs, bf16_rate):
     layers = cfg.vision_layers
     want = {"quant_matmul_fused": n, "quant_full_block_fused": layers * n,
             "quant_attn_block_fused": 0, "quant_mlp_block_fused": 0,
-            "attention": layers * n, "row_quant": (1 + 4 * layers) * n,
+            "attention": layers * n, "row_quant": (1 + 3 * layers) * n,
             "int8_gemm": (1 + 4 * layers) * n, "full_block_fused": 0,
             "ln_gemm": 0, "gemm_residual": 0}
     for key, v in want.items():
@@ -2111,7 +2197,7 @@ def siglip_int8_path(bk, bf16_engine, bf16_rate):
     want = {"quant_matmul_fused": n, "quant_attn_block_split": SL_LAYERS * n,
             "quant_matmul_fused_qout": SL_LAYERS * n,
             "quant_matmul_q8in": SL_LAYERS * n, "attention": SL_LAYERS * n,
-            "row_quant": (1 + 4 * SL_LAYERS) * n,
+            "row_quant": (1 + 3 * SL_LAYERS) * n,
             "int8_gemm": (1 + 4 * SL_LAYERS) * n, "attn_block_split": 0,
             "mlp_block_split": 0, "ln_gemm": 0, "gemm_residual": 0}
     for key, v in want.items():
@@ -2748,7 +2834,7 @@ def convnext_path(bk):
                 "ln_gemm": 0 if k15 else layers * n,
                 "gemm_residual": 0 if k15 else layers * n,
                 "quant_convnext_mlp_block": layers * n if k15 else 0,
-                "row_quant": 2 * layers * n if k15 else 0,
+                "row_quant": layers * n if k15 else 0,
                 "int8_gemm": 2 * layers * n if k15 else 0,
                 "full_block_fused": 0, "quant_full_block_fused": 0}
         for key, v in want.items():
@@ -3027,6 +3113,8 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
         k9 = (w18[:, sl], s18[sl], mlp8[2][sl], *ln2)
         h8, hs = qm.quant_matmul_fused_qout(x2, *k9, act="gelu_poly")
         k10 = (h8, hs, w28[sl], s28, mlp8[5], x2)
+        l8, sl8 = qm.row_quant(x2, *ln2)   # K14's c_fc input, as LN2 makes it
+        c_fc = (l8, sl8, w18.t(), s18, mlp8[2])
         kp = 14 * 14 * 3
         patches = rnd(B * 256, kp)
         wp8, sp = weight(kp, w)
@@ -3096,6 +3184,14 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
              None, (f_att, f_qkv + f_out + f_mlp),
              4 * m * w + 4 * w * w + 2 * w * hid + 8 * (5 * w + hid),
              qm.quant_full_block_fused, tag + "_int8", SRC_Q),
+            (f"int8_gemm[{arch} c_fc, gelu_poly, quantized out]",
+             f"{JAX_QM}:781", "codes",
+             lambda: qm.int8_gemm(*c_fc, act="gelu_poly",
+                                  out_dtype=torch.int8),
+             lambda: qm.int8_gemm_plain(*c_fc, act="gelu_poly",
+                                        out_dtype=torch.int8),
+             None, (0, f_mlp // 2), m * w + 4 * m + w * hid + 8 * hid
+             + m * hid + 4 * m, qm.int8_gemm, tag + "_int8", SRC_Q),
             (f"quant_attn_block_split[{arch}, {igroups} groups]",
              f"{JAX_QM}:622", "int8_block",
              lambda: qm.quant_attn_block_split(x, *k13),
@@ -3132,7 +3228,8 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
         print(f"[kernels] {arch} bound per block at batch {B}: K1 "
               f"{k1_ms:.4f} ms, {cfg.vision_layers} blocks "
               f"{cfg.vision_layers * k1_ms:.3f} ms; K14 {k14_ms:.4f} ms")
-        del x, x2, qkv, qkv_g, qkv_s, sq, sk, sv, h8, patches, p, wg, og
+        del x, x2, qkv, qkv_g, qkv_s, sq, sk, sv, h8, patches, p, wg, og, l8
+        del c_fc
         torch.cuda.empty_cache()
 
 

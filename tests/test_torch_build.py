@@ -72,3 +72,34 @@ def test_tma_sources_include_and_key_the_hopper_header(source, tmp_path,
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("\n// edited\n")
     assert _build._library_path(source) != before
+
+
+def test_normalised_p_attention_is_a_flash_instance():
+    """K12's and K14's attention is the flash kernel's NORM_P instance, built
+    for every head width the dispatch takes; the WMMA kernel and its tile
+    helpers are gone from every source."""
+    block = (_build._CSRC / "block_kernels.cu").read_text()
+    assert "template <int HD, typename TO, bool NORM_P>" in block
+    assert "launch_flash<HD, float, true>" in block
+    assert "flash_attention_kernel<HD, float, true>" in block   # its plan
+    for d in (64, 72, 88, 104):
+        assert f"case {d}: return f(std::integral_constant<int, {d}>());" \
+            in block
+    for path in sorted(_build._CSRC.iterdir()):
+        text = path.read_text()
+        for gone in ("attention_norm_p_kernel", "AttnTile", "wmma::",
+                     "<mma.h>"):
+            assert gone not in text, (path.name, gone)
+
+
+def test_quantized_output_mode_is_built():
+    """The int8 GEMM's quantized output is an instance of the one kernel,
+    reached through its own entry point and reported by the plan."""
+    quant = (_build._CSRC / "quant_kernels.cu").read_text()
+    assert "typename TO, bool QOUT>" in quant
+    assert "launch_int8_gemm<false, false, bf16, float, true>" in quant
+    assert "int8_gemm_kernel<false, false, bf16, float, true>" in quant
+    assert "atomicMax(" in quant and "ld.acquire.gpu" in quant
+    assert _build._SOURCE_OF["aihab_int8_gemm_qout"] == "quant_kernels"
+    args = _build._ARGTYPES["quant_kernels"]["aihab_int8_gemm_qout"]
+    assert len(args) == 16 and args[-1] == _build._p

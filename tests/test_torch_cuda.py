@@ -494,7 +494,9 @@ def test_cuda_vit_int8_kernels_match_plain():
                                             mlp_chunks=chunks, act=act)
             counts = qm.launch_counts()
             assert counts["quant_full_block_fused"] == 1
-            assert counts["row_quant"] == counts["int8_gemm"] == 4
+            # LN1, the attention row and LN2; the hidden row requantizes in
+            # its c_fc GEMM
+            assert counts["row_quant"] == 3 and counts["int8_gemm"] == 4
             close(out, qm.quant_full_block_fused_plain(
                 x, *attn, *mlp, *ln2, heads, mlp_chunks=chunks, act=act),
                 1e-2)
@@ -620,7 +622,10 @@ def test_cuda_convnext_kernels_match_plain():
             out = qm.quant_convnext_mlp_block(y.to(dt), res.to(dt), *qargs)
             counts = qm.launch_counts()
             assert counts["quant_convnext_mlp_block"] == 1
-            assert counts["row_quant"] == counts["int8_gemm"] == 2
+            # sig5 requantizes the hidden row in fc1's epilogue; the other
+            # forms run fp32 fc1, act_pass and row_quant
+            assert counts["int8_gemm"] == 2
+            assert counts["row_quant"] == (1 if form == "sig5" else 2)
             branch(out, qm.quant_convnext_mlp_block_plain(
                 y.to(dt), res.to(dt), *qargs), res, 1e-3)
     finally:
@@ -1219,7 +1224,7 @@ def test_cuda_int8_gemm_wgmma(case, monkeypatch):
 
 # the attention kernels at ViT-g/14's (88) and ViT-bigG/14's (104) head
 # widths: the flash kernel with bf16 output (K1, K2, K5) and with fp32 output
-# over a pre-scaled q (K13), and the WMMA normalised-P kernel (K12, K14), at
+# over a pre-scaled q (K13), and its normalised-P instance (K12, K14), at
 # the towers' S = 257 and at 577, keys past seq_len masked, in the packed and
 # the grouped qkv layouts
 WIDE_CASES = [
@@ -1303,3 +1308,234 @@ def test_cuda_k8_at_patch_14(width):
     ref = qm.quant_matmul_fused_plain(x, wv, ws, bias)
     torch.cuda.synchronize()
     assert got.shape == (64 * 256, width) and torch.equal(got, ref)
+
+
+# the flash kernel's normalised-P instance (K12, K14: two sweeps over the
+# keys, P = exp(s - m) / l cast to bf16) at every head width it is built
+# for, packed and grouped, at the paths' S (ViT-B/32's 50, ViT-B/16's 197,
+# the LAION towers' 257, SO400M's 576/577), keys past seq_len masked
+NORM_P_CASES = [
+    # (B, S, heads, head_dim, group_heads, seq_len)
+    (2, 197, 12, 64, None, None),
+    (3, 50, 12, 64, None, 50),
+    (2, 197, 4, 64, 2, 150),
+    (1, 577, 16, 72, 2, None),
+    (2, 576, 4, 72, None, 500),
+    (2, 257, 16, 88, 2, None),
+    (2, 257, 4, 104, None, 257),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,heads,d,group_heads,seq_len", NORM_P_CASES)
+def test_cuda_attention_normalised_p(b, s, heads, d, group_heads, seq_len):
+    """The normalised-P instance against ``attention_plain(normalize_p=
+    True)`` within the attention tolerance, one launch, deterministic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator().manual_seed(b * s + d)
+    qkv = (torch.randn(b, s, 3 * heads * d, generator=g) * 0.5).to(
+        "cuda", torch.bfloat16)
+    kw = dict(group_heads=group_heads, q_scaled=True, out_dtype=torch.float32,
+              normalize_p=True)
+    bk.reset_launch_counts()
+    got = bk.attention(qkv, heads, seq_len, **kw)
+    assert bk.launch_counts()["attention"] == 1 and got.dtype == torch.float32
+    valid = slice(0, seq_len or s)
+    _assert_close(got[:, valid], bk.attention_plain(qkv, heads, seq_len,
+                                                    **kw)[:, valid],
+                  TOL_ATTENTION)
+    assert torch.equal(got, bk.attention(qkv, heads, seq_len, **kw))
+
+
+# the int8 GEMM's quantized output (QOUT: y requantized inside the
+# persistent launch, per whole row or per hidden chunk, each tile out of
+# shared memory once its panel's row maxima are complete) at ragged M and
+# N; the SO400M-wide case has 30 panels, each 34 tiles wide
+QOUT_CASES = [
+    # (name, M, K, N, act, group, group_pad, erf)
+    ("gelu_tanh, one group, N = 8 x 43", 300, 1152, 344, "gelu_tanh", 0, 0,
+     None),
+    ("gelu_tanh, SO400M width, 30 panels", 3800, 256, 4304, "gelu_tanh",
+     0, 0, None),
+    ("quick_gelu, 2 chunks of 1536", 197, 768, 3072, "quick_gelu", 1536,
+     1536, None),
+    ("quick_gelu, 2 chunks of 168 padded to 192", 130, 256, 336,
+     "quick_gelu", 168, 192, None),
+    ("gelu_poly, 3 chunks of 2048", 257, 1408, 6144, "gelu_poly", 2048,
+     2048, None),
+    ("none, ConvNeXt width", 1000, 128, 512, "none", 0, 0, None),
+    ("gelu_poly rational (act_pass + row_quant)", 70, 128, 136, "gelu_poly",
+     0, 0, "rational"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QOUT_CASES, ids=[c[0] for c in QOUT_CASES])
+def test_cuda_int8_gemm_quantized_output(case, monkeypatch):
+    """The quantized output equals the fp32 GEMM then row_quant on the card
+    bit for bit, agrees with ``int8_gemm_plain``'s quantized output (codes
+    within one, >= 99.9% equal; scales within the fp32 ulps of the
+    activation), counts one launch and is deterministic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    name, m, k, n, act, group, pad, erf = case
+    if erf:
+        monkeypatch.setenv("AIHAB_ERF_IMPL", erf)
+    g = torch.Generator().manual_seed(m + n)
+    dev = torch.device("cuda")
+    a8, wt = (torch.randint(-127, 128, shape, generator=g,
+                            dtype=torch.int8).to(dev)
+              for shape in ((m, k), (n, k)))
+    sa = (torch.rand(m, generator=g) * 0.02 + 1e-3).to(dev)
+    ws = (torch.rand(n, generator=g) * 0.02 + 1e-3).to(dev)
+    bias = (torch.randn(n, generator=g) * 0.1).to(dev)
+    kw = dict(act=act, out_dtype=torch.int8, out_group=group,
+              out_group_pad=pad)
+    qm.reset_launch_counts()
+    q, s = qm.int8_gemm(a8, sa, wt, ws, bias, **kw)
+    assert qm.launch_counts()["int8_gemm"] == 1
+    kg = group or n
+    assert q.shape == (m, n // kg * max(pad, kg)) and s.shape == (m, n // kg)
+    y = qm.int8_gemm(a8, sa, wt, ws, bias, act=act, out_dtype=torch.float32)
+    q2, s2 = qm.row_quant(y, group=group, group_pad=pad)
+    q3, s3 = qm.int8_gemm(a8, sa, wt, ws, bias, **kw)
+    ref_q, ref_s = qm.int8_gemm_plain(a8, sa, wt, ws, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    assert torch.equal(q, q3) and torch.equal(s, s3)
+    d = (q.int() - ref_q.int()).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    torch.testing.assert_close(s, ref_s, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_gemm_quantized_output_refusals():
+    """What the quantized output does not take raises before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    a8 = torch.zeros(64, 256, dtype=torch.int8, device=dev)
+    wt = torch.zeros(344, 256, dtype=torch.int8, device=dev)
+    sa, ws, b = (torch.ones(64, device=dev), torch.ones(344, device=dev),
+                 torch.zeros(344, device=dev))
+    qm.reset_launch_counts()
+    for kw in (dict(residual=torch.zeros(64, 344, device=dev)),
+               dict(gamma=torch.ones(344, device=dev)), dict(q_width=8),
+               dict(out_group=172), dict(out_group=43)):
+        with pytest.raises(ValueError):
+            qm.int8_gemm(a8, sa, wt, ws, b, out_dtype=torch.int8, **kw)
+    assert qm.launch_counts()["int8_gemm"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 8], ids=["as many tiles as SMs",
+                                               "8 columns more"])
+def test_cuda_int8_gemm_quantized_output_at_the_sm_limit(extra):
+    """A block of the quantized output waits for its panel's other tiles,
+    so a row takes at most one 128-column tile per SM: at the limit one
+    launch, bit for bit with the fp32 GEMM then row_quant; past it the
+    kernel's form refuses and ``int8_gemm`` takes those two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    m, k, n = 256, 128, 128 * qm._sm_count(dev) + extra
+    g = torch.Generator().manual_seed(n)
+    a8, wt = (torch.randint(-127, 128, shape, generator=g,
+                            dtype=torch.int8).to(dev)
+              for shape in ((m, k), (n, k)))
+    sa = (torch.rand(m, generator=g) * 0.02 + 1e-3).to(dev)
+    ws = (torch.rand(n, generator=g) * 0.02 + 1e-3).to(dev)
+    bias = (torch.randn(n, generator=g) * 0.1).to(dev)
+    qm.reset_launch_counts()
+    q, s = qm.int8_gemm(a8, sa, wt, ws, bias, act="gelu_tanh",
+                        out_dtype=torch.int8)
+    assert qm.launch_counts()["int8_gemm"] == 1
+    assert qm.launch_counts()["row_quant"] == (1 if extra else 0)
+    y = qm.int8_gemm(a8, sa, wt, ws, bias, act="gelu_tanh",
+                     out_dtype=torch.float32)
+    q2, s2 = qm.row_quant(y)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    if extra:
+        with pytest.raises(ValueError, match="SMs"):
+            qm._int8_gemm_qout(a8, sa, wt, ws, bias, "gelu_tanh", 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,dtype,ln,fits", [
+    (29056, torch.float32, True, True), (29060, torch.float32, True, False),
+    (58116, torch.float32, False, False)])
+def test_cuda_row_quant_width_limit(k, dtype, ln, fits):
+    """``row_quant`` holds a row in a block's shared memory: a row at the
+    limit quantizes as the plain version does, a wider one raises before a
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator().manual_seed(k)
+    dev = torch.device("cuda")
+    x = (torch.randn(4, k, generator=g) * 2).to(dev, dtype)
+    lnp = ((1 + 0.1 * torch.randn(k, generator=g)).to(dev),
+           (0.1 * torch.randn(k, generator=g)).to(dev)) if ln else ()
+    qm.reset_launch_counts()
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            qm.row_quant(x, *lnp)
+        assert qm.launch_counts()["row_quant"] == 0
+        return
+    q, s = qm.row_quant(x, *lnp)
+    ref_q, ref_s = qm.row_quant_plain(x, *lnp)
+    torch.cuda.synchronize()
+    d = (q.int() - ref_q.int()).abs()
+    assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    torch.testing.assert_close(s, ref_s, rtol=1e-5, atol=0)
+
+
+# row_quant, which reads each row once into shared memory, at the widths
+# the paths quantize: the patch-14 im2col (588 bf16, rows not 16-byte
+# aligned), ViT-B/16's and SO400M's rows, K13's groups padded to 160, a
+# 4,304-wide fp32 row and a row past 48 KB of shared memory
+ROW_QUANT_CASES = [
+    # (M, K, dtype, LN, group, group_pad)
+    (300, 588, torch.bfloat16, False, 0, 592),
+    (197, 768, torch.bfloat16, True, 0, 0),
+    (577, 1152, torch.float32, True, 144, 160),
+    (130, 4304, torch.float32, False, 0, 0),
+    (40, 13000, torch.float32, True, 0, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,dtype,ln,group,pad", ROW_QUANT_CASES)
+def test_cuda_row_quant_reads_rows_once(m, k, dtype, ln, group, pad):
+    """Without LN bit for bit with ``row_quant_plain``; with LN its codes
+    within one and >= 99.9% equal (the LN's fp32 sums run in another order
+    than the CPU's), its scales within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator().manual_seed(m + k)
+    dev = torch.device("cuda")
+    x = (torch.randn(m, k, generator=g) * 2).to(dev, dtype)
+    lnp = ((1 + 0.1 * torch.randn(k, generator=g)).to(dev),
+           (0.1 * torch.randn(k, generator=g)).to(dev)) if ln else ()
+    kw = dict(group=group, group_pad=pad)
+    q, s = qm.row_quant(x, *lnp, **kw)
+    ref_q, ref_s = qm.row_quant_plain(x, *lnp, **kw)
+    torch.cuda.synchronize()
+    assert q.shape == ref_q.shape and s.shape == ref_s.shape
+    if not ln:
+        assert torch.equal(q, ref_q) and torch.equal(s, ref_s)
+    else:
+        d = (q.int() - ref_q.int()).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+        torch.testing.assert_close(s, ref_s, rtol=1e-5, atol=0)
