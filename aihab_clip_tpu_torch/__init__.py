@@ -6,6 +6,14 @@ imports ``torch`` and ``numpy``, never ``jax`` nor anything of
 Module names mirror the JAX package so each counterpart is easy to find.
 
   backend       explicit device resolution (no silent CPU fallback)
+  config        two-layer YAML config (its own YAML reader), --opts overrides
+  runner        config -> model + text head -> loaders -> feature cache ->
+                ProLIP (openai backend) or PEFT (openclip); ``python -m
+                aihab_clip_tpu_torch`` is its CLI
+  data          CSV index, stratified-group splits, JPEG/PNG decode and a
+                JPEG encoder in numpy, bulk loader, loaders, synthetic CS tree
+  cache         the pre-projection feature cache and the embedding cache
+  utils         the run logger, projector checkpoints
   taxonomy      L3/L2 habitat label spaces (copy)
   templates     prompt ensembles (copy)
   tokenizer     byte-level CLIP BPE, pure Python
@@ -14,10 +22,11 @@ Module names mirror the JAX package so each counterpart is easy to find.
                 fast ViT and SigLIP encodes
   ops           eval preprocessing; the hand-written CUDA block kernels
   serving       ClassifierEngine + DynamicBatcher
+  train         PEFT finetune, ProLIP, evaluation
 
-Entry points (``models.zoo.load``, ``serving.ClassifierEngine``) run on the
-card by default (``device="cuda"``) and raise when none is present unless
-the caller passes ``device="cpu"``.
+Entry points (``models.zoo.load``, ``serving.ClassifierEngine``,
+``runner.run`` and the CLI) run on the card by default (``device="cuda"``)
+and raise when none is present unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,7 @@
 and the ``ImageArrayDataset`` of ``data/bulk_load.py:36-64``).
 
 The dataset is one [N, R, R, 3] uint8 array in RAM plus aligned metadata
-columns; image decoding and the bulk loader come with a later slice.
-Batches are fixed-shape: the trailing partial batch is padded and carries
+columns, as ``data/bulk_load.py`` builds it.  Batches are fixed-shape: the trailing partial batch is padded and carries
 a validity mask that the loss and metric code honour.  Shuffling is
 host-side with the JAX package's generator and seed
 (``RandomState((seed * 100003 + epoch) % 2**31)``), so both packages visit
@@ -47,6 +46,19 @@ class ImageArrayDataset:
             file_names=[self.file_names[i] for i in idx],
             plot_idx=[self.plot_idx[i] for i in idx],
             image_sources=[self.image_sources[i] for i in idx],
+        )
+
+    def concat(self, other: "ImageArrayDataset") -> "ImageArrayDataset":
+        return ImageArrayDataset(
+            images=np.concatenate([self.images, other.images], 0),
+            labels=np.concatenate([self.labels, other.labels], 0),
+            l2_labels=np.concatenate([self.l2_labels, other.l2_labels], 0),
+            poly_labels=np.concatenate([self.poly_labels, other.poly_labels], 0),
+            plot_word_labels=self.plot_word_labels + other.plot_word_labels,
+            poly_word_labels=self.poly_word_labels + other.poly_word_labels,
+            file_names=self.file_names + other.file_names,
+            plot_idx=self.plot_idx + other.plot_idx,
+            image_sources=self.image_sources + other.image_sources,
         )
 
     def metadata_row(self, i: int) -> dict:

@@ -1,7 +1,8 @@
 """Per-sample classification tracking (counterpart of
 ``aihab_clip_tpu/train/tracker.py``): each evaluated sample with its top-3
 predictions and probabilities and its metadata, split into misclassified
-and correctly classified records, exportable as DataFrames."""
+and correctly classified records, exportable as tables (lists of row
+dicts) for the run logger."""
 
 from __future__ import annotations
 
@@ -57,9 +58,7 @@ class ClassificationTracker:
                 self.accurate_classified.append(rec)
 
     @staticmethod
-    def _flatten(records: List[dict]):
-        import pandas as pd
-
+    def _flatten(records: List[dict]) -> List[dict]:
         rows = []
         for rec in records:
             row = {k: v for k, v in rec.items() if k != "top3_predictions"}
@@ -67,10 +66,10 @@ class ClassificationTracker:
                 row[f"top3_label_{j}"] = entry["label"]
                 row[f"top3_prob_{j}"] = entry["probability"]
             rows.append(row)
-        return pd.DataFrame(rows)
+        return rows
 
-    def to_dataframes(self):
-        """(misclassified_df, correct_df), None where empty."""
+    def to_tables(self):
+        """(misclassified rows, correct rows), None where empty."""
         mis = self._flatten(self.misclassified) if self.misclassified else None
         cor = (self._flatten(self.accurate_classified)
                if self.accurate_classified else None)
@@ -78,7 +77,7 @@ class ClassificationTracker:
 
     def save_classification(self, logger=None) -> None:
         """Log the tables through the experiment logger (``log_table``)."""
-        mis, cor = self.to_dataframes()
+        mis, cor = self.to_tables()
         if logger is not None:
             if mis is not None:
                 logger.log_table("Misclassifications", mis)

@@ -125,6 +125,17 @@ Phases (any failure raises and the exit code is non-zero):
      engine again under ``AIHAB_NO_GELU_POLY=1`` (the exact-gelu opt-out):
      96 requests, per block K2 + plain ``ln_matmul(gelu)`` + K16
      ``matmul_residual``, against plain kernels;
+  8. runner — the port's own entry point (``runner.run``, what ``python -m
+     aihab_clip_tpu_torch`` calls) on a synthetic CS tree in a temporary
+     directory (20 classes, 8 train and 3 test 64 px JPEGs each, written by
+     the port's encoder), ``configs/base.yaml`` + ``cs.yaml`` with
+     ``RUNNER_OPTS``: ProLIP on ViT-B/16 (3 cached views through K1, the
+     7x7 grid search, 5 epochs, the test split through K1) held against K1's
+     plain version in fp32, the CPU's projector, grid pick and accuracy, K1
+     launches = 12 x the batches encoded; then PEFT (2 epochs) with finite
+     losses and unchanged frozen leaves; host decode ms per photo, s for
+     one 12 MP JPEG and s per megapixel, build_loaders s, cache write and test encode images/s, grid
+     search and train_projector s, PEFT s per epoch;
   7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
@@ -215,6 +226,26 @@ TOL = {"kernel": (2e-3, 0.02), "attention": (5e-3, 0.02),
        "int8_block": (5e-3, 0.04), "int8_mlp": (1e-3, 0.04),
        "exact": (0.0, 0.0)}
 COS_MIN = 0.999
+# 8: the runner phase's tree (train and test photos per class, pixels), the
+# --opts over configs/base.yaml + cs.yaml (cs.yaml's valid_split 0.01 asks
+# for 100 folds, more than the tree's 60 survey plots: StratifiedGroupKFold
+# refuses that in both packages), the PEFT run's opts, the (height, width)
+# of the large synthetic JPEG timed whole and per megapixel, and the
+# projector's limit
+# against the CPU (both fp32: summation orders apart)
+RUNNER_TREE = (8, 3, 64)
+RUNNER_OPTS = ["data.decode_prescale", "False",
+               "data.preprocessing.resize", "256",
+               "data.data_split.valid_split", "0.2",
+               "clip_backend", "openai", "backbone", "random:ViT-B/16",
+               "save_features", "True", "aug_views", "3", "search_lr", "True",
+               "train_epoch", "5", "wandb_project", "None"]
+RUNNER_PEFT_OPTS = ["clip_backend", "openclip",
+                    "open_clip_model", "random:ViT-B/16", "train_epoch", "2",
+                    "save_features", "False", "wandb_project", "'smoke'"]
+RUNNER_LARGE_JPEG = (3000, 4000)   # a 12 MP survey photo, 4:3
+RUNNER_TIMED = 40   # photos timed for the host decode figures
+RUNNER_PROJ_REL = 1e-4
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
 STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
@@ -684,6 +715,10 @@ def main() -> None:
     rates.update(large_rates)
     phase("large vit paths")
 
+    # ---- 8. the port's own entry point: the runner, ProLIP and PEFT
+    runner = runner_path(bk, smi)
+    phase("runner path")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -708,6 +743,9 @@ def main() -> None:
         row["launches"] = counts[row["path"]][counter]
         row["path"] = names[row["path"]]
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
+        if counter == "full_block_fused":
+            row["runner_launches"] = (runner["prolip_k1_launches"]
+                                      + runner["peft_k1_launches"])
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
                       "int8": int8_figures, "vit_int8": vit_int8_figures,
@@ -715,7 +753,7 @@ def main() -> None:
                       "vit_train": vit_train, "convnext_train": cx_train,
                       "vit_fast": fast_figures,
                       "vit_encode_train": fast_train, "int8_core": int8_core,
-                      "large_vit": large_figures}))
+                      "large_vit": large_figures, "runner": runner}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -3528,6 +3566,263 @@ def large_vit_paths(bk):
     del batch
     torch.cuda.empty_cache()
     return counts, rates, figures
+
+
+# ---------------------------------------------------------------------------
+# 8. the port's own entry point: config -> CS data -> cache -> ProLIP / PEFT
+# ---------------------------------------------------------------------------
+
+
+def runner_path(bk, smi: str) -> dict:
+    """The port's runner (``aihab_clip_tpu_torch.runner.run``, what ``python
+    -m aihab_clip_tpu_torch`` calls) on a synthetic CS tree in a temporary
+    directory: all 20 classes, 8 train and 3 test 64 px JPEGs each, written
+    by the port's encoder; ``configs/base.yaml`` + ``cs.yaml`` through the
+    port's ``load_configs`` with ``RUNNER_OPTS``.  The ProLIP run (openai
+    backend, ViT-B/16 at full width, 3 cached views, the 7x7 grid search, 5
+    epochs) is gated: the cached view 0 against the same augmented batches
+    through K1's plain version in fp32 (cosine >= COS_MIN); K1 launches =
+    12 x the batches encoded; the projector against ``train_projector`` on
+    the CPU from the same cache arrays (rel L2 <= RUNNER_PROJ_REL) and the
+    same grid pick; the test accuracy recomputed on the CPU.  The PEFT run
+    (openclip backend, 2 epochs): finite losses, frozen leaves unchanged,
+    K1 launches = 2 per step + 12 per eval batch.  Returns the figures."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.cache import (feature_cache_dir,
+                                            read_preprojection_cache)
+    from aihab_clip_tpu_torch.cache.feature_cache import (
+        augmentation_settings, view_generator)
+    from aihab_clip_tpu_torch.config import load_configs
+    from aihab_clip_tpu_torch.data import SplitView, make_synthetic_cs_dataset
+    from aihab_clip_tpu_torch.data.decode import decode_image, decode_resize
+    from aihab_clip_tpu_torch.data.encode import encode_jpeg
+    from aihab_clip_tpu_torch.models import fast_vit, load
+    from aihab_clip_tpu_torch.ops.fast_warp import fast_train_transform
+    from aihab_clip_tpu_torch.ops.preprocess import normalize_stats_for
+    from aihab_clip_tpu_torch.runner import run
+    from aihab_clip_tpu_torch.taxonomy import CS_CLASSNAMES
+    from aihab_clip_tpu_torch.train.prolip import (ProjectorSpec, grid_search,
+                                                   projector_accuracy,
+                                                   train_projector)
+
+    here = Path(__file__).resolve().parent
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="aihab_runner_")
+    os.chdir(tmp)   # results_lr/, feat_cache_vis/, runs/ and the caches
+    figures = {"card": smi}
+    try:
+        t0 = time.perf_counter()
+        tree = make_synthetic_cs_dataset(
+            tmp, name="cs_synth", classes=CS_CLASSNAMES,
+            n_train_per_class=RUNNER_TREE[0], n_test_per_class=RUNNER_TREE[1],
+            image_size=RUNNER_TREE[2],
+            index_file_name="CS_Xplots_2019_23_NEW02OCT24.csv")
+        figures["tree_write_s"] = time.perf_counter() - t0
+        files = sorted(Path(tree["train_dir"]).glob("*.jpg"))[:RUNNER_TIMED]
+        blobs = [f.read_bytes() for f in files]
+        t0 = time.perf_counter()
+        for blob in blobs:
+            decode_image(blob)
+        figures["decode_ms_per_64px_photo"] = \
+            1e3 * (time.perf_counter() - t0) / len(blobs)
+        t0 = time.perf_counter()
+        for f in files:
+            decode_resize(str(f), 256)
+        figures["decode_resize256_ms_per_64px_photo"] = \
+            1e3 * (time.perf_counter() - t0) / len(files)
+        h, w = RUNNER_LARGE_JPEG
+        rng = np.random.default_rng(SEED)
+        coarse = rng.normal(128, 60, (-(-h // 16), -(-w // 16), 3))
+        big = np.clip(np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
+                      + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+        blob = encode_jpeg(big)
+        del coarse
+        t0 = time.perf_counter()
+        back = decode_image(blob)
+        dt = time.perf_counter() - t0
+        check(back.shape == big.shape and
+              np.abs(back.astype(int) - big).mean() < 8, "large JPEG decode")
+        del big, back
+        figures["decode_s_large_jpeg"] = dt
+        figures["decode_s_per_megapixel"] = dt / (h * w / 1e6)
+        figures["large_jpeg"] = f"{w}x{h}, {len(blob)} bytes"
+        print(f"[runner] host decode: {figures['decode_ms_per_64px_photo']:.3f}"
+              f" ms per 64 px photo ({figures['decode_resize256_ms_per_64px_photo']:.3f}"
+              f" with the resize to 256); {dt:.3f} s for one "
+              f"{w}x{h} JPEG ({len(blob)} bytes), "
+              f"{figures['decode_s_per_megapixel']:.3f} s per megapixel "
+              f"({smi})")
+
+        opts = ["data.dataset_paths", repr(tree["dataset_paths"])] + RUNNER_OPTS
+        cfg = load_configs(str(here / "configs/base.yaml"),
+                           str(here / "configs/cs.yaml"), opts)
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run(cfg, config_file="cs", device="cuda")
+        torch.cuda.synchronize()
+        figures["prolip_wall_s"] = time.perf_counter() - t0
+        launches = bk.launch_counts()
+        loaders, out = result["loaders"], result["prolip"]
+        timings = result["timings"]
+        views_n = int(cfg.aug_views)
+        batches = (views_n * len(loaders.train) + len(loaders.val)
+                   + len(loaders.test))
+        print(f"[runner] ProLIP run in {figures['prolip_wall_s']:.2f}s: train "
+              f"{loaders.train.num_samples}, val {loaders.val.num_samples}, "
+              f"test {loaders.test.num_samples}; {batches} batches encoded; "
+              f"launches {launches}")
+        check(launches["full_block_fused"] == 12 * batches,
+              f"runner K1 launches {launches['full_block_fused']} for "
+              f"{batches} batches (want 12 each)")
+        figures["prolip_k1_launches"] = launches["full_block_fused"]
+        figures["prolip_batches"] = batches
+
+        # the cached view 0 against K1's plain version in fp32, same pixels
+        bundle = result["bundle"]
+        model, config = bundle["model"], bundle["model"].config
+        views, labels = read_preprojection_cache(feature_cache_dir(cfg),
+                                                 views_n)
+        check(all(v.dtype == np.float16 and v.shape == (
+            loaders.train.num_samples, W) for v in views), "cache shapes")
+        pack32 = fast_vit.pack_fastest(model, config, torch.float32)
+        mean, std = normalize_stats_for(config)
+        aug = augmentation_settings(cfg)
+        cache_view = SplitView(loaders.train.dataset, loaders.train.indices,
+                               loaders.train.batch_size)
+        refs = []
+        with mock.patch.object(fast_vit, "full_block_fused",
+                               bk.full_block_fused_plain), \
+                torch.inference_mode():
+            for bi, batch in enumerate(cache_view.batches()):
+                x = fast_train_transform(
+                    torch.from_numpy(batch.images).cuda(),
+                    view_generator(int(cfg.seed), 0, bi),
+                    bundle["resolution"], dtype=torch.float32, mean=mean,
+                    std=std, **aug)
+                pre = fast_vit.vit_encode_block_fused(pack32, x, config)
+                refs.append(pre[torch.from_numpy(batch.valid).cuda()])
+        ref = torch.cat(refs).float()
+        got = torch.from_numpy(views[0]).cuda().float()
+        cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+        figures["view0_cos_min"] = cos.min().item()
+        print(f"[runner] cached view 0 vs K1 plain fp32 on the same "
+              f"augmented batches: cosine min {cos.min().item():.6f} mean "
+              f"{cos.mean().item():.6f} over {len(cos)} rows")
+        check(cos.min().item() >= COS_MIN, "cached view 0 cosine")
+        del pack32, refs, ref, got
+
+        # the projector and the grid pick against the CPU
+        epochs = int(cfg.train_epoch)
+        feat_bs = int(cfg.feat_batch_size or 0)
+        tw_cpu = bundle["text_weights"].float().cpu()
+        spec_cpu = ProjectorSpec.from_clip_model(model).to("cpu")
+        cpu_lr, cpu_lam, _, cpu_accs = grid_search(
+            views, labels, tw_cpu, spec_cpu, out["val_feats"],
+            out["val_labels"], epochs, verbose=False, device="cpu",
+            return_accs=True)
+        proj_cpu, _ = train_projector(views, labels, tw_cpu, spec_cpu,
+                                      out["lr"], out["lambda"], epochs,
+                                      feat_batch_size=feat_bs, verbose=False,
+                                      device="cpu")
+        w_card = out["projector"].weight.float().cpu()
+        rel = ((w_card - proj_cpu.weight).norm()
+               / proj_cpu.weight.norm()).item()
+        figures.update(lr=out["lr"], lam=out["lambda"], proj_rel_l2=rel,
+                       grid_max_abs_acc_diff=float(np.abs(
+                           np.asarray(out["grid_accs"]) - cpu_accs).max()))
+        print(f"[runner] grid pick card (lr {out['lr']}, lambda "
+              f"{out['lambda']}) vs CPU (lr {cpu_lr}, lambda {cpu_lam}); 49 "
+              f"val accuracies max|d| {figures['grid_max_abs_acc_diff']:.4g};"
+              f" projector rel L2 {rel:.3e} (limit {RUNNER_PROJ_REL:g})")
+        check((cpu_lr, cpu_lam) == (out["lr"], out["lambda"]),
+              "grid pick differs from the CPU's")
+        check(rel <= RUNNER_PROJ_REL, "projector differs from the CPU's")
+        acc_cpu = projector_accuracy(out["projector"].to("cpu"),
+                                     out["test_feats"], out["test_labels"],
+                                     tw_cpu)
+        print(f"[runner] test accuracy {out['acc']:.4f} (CPU recompute "
+              f"{acc_cpu:.4f}), loss {out['loss']}")
+        check(acc_cpu == out["acc"] and np.isfinite(out["loss"]),
+              "test accuracy recompute")
+        figures["test_acc"] = out["acc"]
+
+        figures.update({
+            "build_loaders_s": timings["build_loaders_s"],
+            "cache_write_images_per_s": timings["cache_write_images"]
+            / timings["cache_write_s"],
+            "grid_search_s": timings["grid_search_s"],
+            "train_projector_s": timings["train_projector_s"],
+            "test_encode_images_per_s": timings["test_images"]
+            / timings["test_encode_s"]})
+        print(f"[runner] build_loaders {figures['build_loaders_s']:.3f} s; "
+              f"cache write {figures['cache_write_images_per_s']:.1f} images/s"
+              f" over {views_n} views; grid search "
+              f"{figures['grid_search_s']:.3f} s (49 projectors per step); "
+              f"train_projector "
+              f"{figures['train_projector_s']:.4f} s; test encode "
+              f"{figures['test_encode_images_per_s']:.1f} images/s ({smi})")
+        del result, bundle, model, out, views
+        torch.cuda.empty_cache()
+
+        # PEFT through the same runner; per-epoch losses from the logger
+        cfg2 = load_configs(str(here / "configs/base.yaml"),
+                            str(here / "configs/cs.yaml"),
+                            opts + RUNNER_PEFT_OPTS)
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run(cfg2, config_file="cs", logger_mode="stdout",
+                     device="cuda")
+        torch.cuda.synchronize()
+        figures["peft_wall_s"] = time.perf_counter() - t0
+        launches = bk.launch_counts()
+        peft, loaders = result["peft"], result["loaders"]
+        epochs = int(cfg2.train_epoch)
+        steps = epochs * len(loaders.train)
+        evals = len(loaders.val) + 2 * len(loaders.test)  # val, test, cache
+        print(f"[runner] PEFT run in {figures['peft_wall_s']:.2f}s ({steps} "
+              f"steps); launches {launches}")
+        check(launches["full_block_fused"] == 2 * steps + 12 * evals,
+              f"PEFT K1 launches {launches['full_block_fused']} (want 2 per "
+              f"step + 12 per eval batch)")
+        # the run directory is named after the backbone, "/" and all (as in
+        # JAX), so the log sits one level deeper for random:ViT-B/16
+        logs = [json.loads(line) for p in Path("runs").rglob("log.jsonl")
+                for line in p.read_text().splitlines()]
+        losses = [r["train_loss"] for r in logs if "train_loss" in r]
+        losses += [peft["val"]["loss"], peft["test"]["loss"]]
+        check(len(losses) == epochs + 2 and all(np.isfinite(losses)),
+              f"PEFT losses {losses}")
+        fresh = dict(load(str(cfg2.open_clip_model), dtype=torch.bfloat16,
+                          device="cuda").model.named_parameters())
+        frozen = [n for n in fresh if not peft["mask"][n]]
+        changed = [n for n in frozen
+                   if not torch.equal(fresh[n], peft["params"][n])]
+        moved = [n for n, t in peft["mask"].items()
+                 if t and not torch.equal(fresh[n], peft["params"][n])]
+        print(f"[runner] PEFT losses {[round(x, 4) for x in losses]}; "
+              f"{len(frozen)} frozen leaves, {len(changed)} changed; "
+              f"{len(moved)} trainable leaves moved; test top1 "
+              f"{peft['test']['top1']:.4f}")
+        check(not changed, f"frozen leaves changed: {changed[:5]}")
+        check(len(moved) > 0, "no trainable leaf moved")
+        figures.update(peft_s_per_epoch=peft["seconds"] / epochs,
+                       peft_k1_launches=launches["full_block_fused"],
+                       peft_losses=losses)
+        print(f"[runner] PEFT {figures['peft_s_per_epoch']:.3f} s per epoch "
+              f"(finetune wall incl. the final val + test) ({smi})")
+        del result, peft, fresh
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return figures
 
 
 if __name__ == "__main__":

@@ -1539,3 +1539,72 @@ def test_cuda_row_quant_reads_rows_once(m, k, dtype, ln, group, pad):
         d = (q.int() - ref_q.int()).abs()
         assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
         torch.testing.assert_close(s, ref_s, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_runner_prolip_and_peft(tmp_path, monkeypatch):
+    """The port's runner on the card on random:Tiny (2 blocks, head_dim 64):
+    the ProLIP run encodes every cached view, the validation and the test
+    split through K1 (2 launches a batch), and its projector equals
+    ``train_projector`` on the CPU from the same cache (rel L2 <= 1e-4,
+    fp32 both); the PEFT run trains with a 1-block K1 prefix and leaves
+    its frozen leaves unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aihab_clip_tpu_torch.cache import (feature_cache_dir,
+                                            read_preprojection_cache)
+    from aihab_clip_tpu_torch.config import ConfigNode
+    from aihab_clip_tpu_torch.data import make_synthetic_cs_dataset
+    from aihab_clip_tpu_torch.models import load
+    from aihab_clip_tpu_torch.runner import run
+    from aihab_clip_tpu_torch.train.prolip import (ProjectorSpec,
+                                                   train_projector)
+
+    monkeypatch.chdir(tmp_path)
+    tree = make_synthetic_cs_dataset(tmp_path, n_train_per_class=5,
+                                     n_test_per_class=3, image_size=48)
+    cfg = ConfigNode({
+        "root_path": str(tmp_path), "dataset": "synth", "seed": 1, "shots": 0,
+        "clip_backend": "openai", "backbone": "random:Tiny",
+        "wandb_project": None, "train_epoch": 3, "lr_v": 1e-3,
+        "lambda_v": 0.1, "search_lr": True, "feat_batch_size": 0,
+        "save_features": True, "aug_views": 2,
+        "use_hierarchical_prompts": False, "use_descriptive_prompts": False,
+        "finetune": {"enabled": True, "unlocked_groups": 2,
+                     "unlocked_layers": 1, "cache_embeddings": False},
+        "data": {"dataset_paths": tree["dataset_paths"],
+                 "index_file_names": tree["index_file_names"],
+                 "batch_size": 8, "decode_prescale": False,
+                 "data_split": {"valid_split": 0.25, "split_seed": 42},
+                 "preprocessing": {"resize": 48, "resolution": 32,
+                                   "augmentations": {"random_crop": True,
+                                                     "rotation": True}}}})
+    bk.reset_launch_counts()
+    result = run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    loaders, out = result["loaders"], result["prolip"]
+    batches = 2 * len(loaders.train) + len(loaders.val) + len(loaders.test)
+    assert bk.launch_counts()["full_block_fused"] == 2 * batches
+    views, labels = read_preprojection_cache(feature_cache_dir(cfg), 2)
+    tw = result["bundle"]["text_weights"].float().cpu()
+    spec = ProjectorSpec.from_clip_model(result["bundle"]["model"]).to("cpu")
+    ref, _ = train_projector(views, labels, tw, spec, out["lr"],
+                             out["lambda"], 3, verbose=False, device="cpu")
+    w = out["projector"].weight.cpu()
+    assert ((w - ref.weight).norm() / ref.weight.norm()).item() <= 1e-4
+    assert 0.0 <= out["acc"] <= 100.0
+
+    peft_cfg = cfg.clone()
+    peft_cfg.clip_backend = "openclip"
+    peft_cfg.open_clip_model = "random:Tiny"
+    peft_cfg.use_model_preprocess = False
+    peft_cfg.train_epoch = 1
+    bk.reset_launch_counts()
+    res = run(peft_cfg, device="cuda")["peft"]
+    torch.cuda.synchronize()
+    assert bk.launch_counts()["full_block_fused"] > 0
+    assert torch.isfinite(torch.tensor(res["test"]["loss"]))
+    fresh = dict(load("random:Tiny", dtype=torch.bfloat16,
+                      device="cuda").model.named_parameters())
+    assert all(torch.equal(fresh[n], res["params"][n])
+               for n, t in res["mask"].items() if not t)

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: importing it pulls in no JAX, no flax and
-nothing of ``aihab_clip_tpu``; its entry points refuse a missing card."""
+"""The PyTorch port stands alone: importing it pulls in no JAX, no flax,
+nothing of ``aihab_clip_tpu``, and none of the host libraries the card's
+machine lacks (yaml, pandas, scikit-learn, cv2, PIL, optax, orbax, wandb,
+tensorstore); its entry points refuse a missing card."""
 
 import ast
 import pathlib
@@ -11,7 +13,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "aihab_clip_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "aihab_clip_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "aihab_clip_tpu", "yaml", "pandas",
+             "sklearn", "cv2", "PIL", "optax", "orbax", "wandb",
+             "tensorstore"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
