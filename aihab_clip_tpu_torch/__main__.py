@@ -6,9 +6,7 @@
 
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs on the CPU.  ``--opts`` takes the rest of the command line, so
-it comes last.  ``configs/cs.yaml`` asks for the DCT-domain decode
-prescale, which this package does not have (ROADMAP A9): pass ``--opts
-data.decode_prescale False`` for photos at least four times the resize.
+it comes last.
 """
 
 from __future__ import annotations

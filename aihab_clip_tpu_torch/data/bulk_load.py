@@ -2,13 +2,18 @@
 array held in RAM (counterpart of ``aihab_clip_tpu/data/bulk_load.py``).
 
 The files of a folder are taken in sorted order, the ``CORRUPT_IMAGES`` are
-skipped, unlabelled files are not decoded, and each image goes through
-``data/decode.decode_resize`` on a thread pool.  The loader emits RGB; with
-``channel_order='bgr'`` it reproduces the reference's swapped channels.  An
-optional on-disk cache of the decoded arrays (``decode_cache_dir``) has the
-JAX package's layout, but its key carries this package's decode rule
-(``decode.DECODE_RULE``), so a cache that the JAX package wrote with its
-own decoder is never read here, nor this package's there.
+skipped and unlabelled files are not decoded.  Files are read and decoded
+a chunk at a time through ``ops/jpeg.decode_blobs``: JPEGs by the fast
+decode (the C++ Huffman decode on the host, J1 and J2 on ``device``), with
+the JAX native path's DCT-domain prescale (``prescale_min = 2 *
+resize_dim``, JAX ``data/bulk_load.py:133-150``) when ``prescale`` is set;
+PNGs and BMPs by ``data/decode.py`` on a thread pool.  The loader emits
+RGB; with ``channel_order='bgr'`` it reproduces the reference's swapped
+channels.  An optional on-disk cache of the decoded arrays
+(``decode_cache_dir``) has the JAX package's layout, but its key carries
+this package's decode rule (``decode.DECODE_RULE``) and the prescale, so a
+cache that the JAX package wrote with its own decoder is never read here,
+nor this package's there.
 """
 
 from __future__ import annotations
@@ -23,20 +28,70 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..taxonomy import CORRUPT_IMAGES, convert_to_coarse_label
-from .decode import DECODE_RULE, decode_resize
+from .decode import DECODE_RULE
 from .index import LabelIndex
 from .pipeline import ImageArrayDataset
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+# files read and decoded together: bounds the raw bytes held at once and
+# the pinned coefficient staging (a 12 MP 4:2:0 photo is 18 M coefficients
+# at full scale)
+JPEG_CHUNK = 16
+
+
+def decode_files(paths: Sequence[str], resize_dim: int,
+                 channel_order: str = "rgb", prescale: bool = False,
+                 num_workers: int = 0,
+                 device=None) -> List[Optional[np.ndarray]]:
+    """Files -> one [resize_dim, resize_dim, 3] uint8 array in
+    ``channel_order`` each, or None for a file that is missing or no
+    readable image.  ``JPEG_CHUNK`` files at a time are read on a thread
+    pool and decoded by ``ops/jpeg.decode_blobs`` (JPEGs on ``device``,
+    the card by default), so one chunk's bytes is held at a time.  As in
+    the JAX loader, the prescale applies to the RGB route only: its BGR
+    route decodes at full scale (``cv2.imread``).  A file in a format this
+    package does not decode (A9b) raises ``NotImplementedError`` naming
+    it, as skipping it would change the split."""
+    import torch
+
+    from ..backend import resolve_device
+    from ..ops.jpeg import decode_blobs
+
+    device = resolve_device(device)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    workers = num_workers if num_workers > 0 else min(32, os.cpu_count() or 4)
+    prescale_min = 2 * resize_dim if prescale and channel_order == "rgb" \
+        else 0
+
+    def read(path):
+        try:
+            return Path(path).read_bytes()
+        except OSError:
+            return b""
+
+    out: List[Optional[np.ndarray]] = []
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for start in range(0, len(paths), JPEG_CHUNK):
+            chunk = paths[start:start + JPEG_CHUNK]
+            images, unsupported = decode_blobs(
+                list(pool.map(read, chunk)), resize_dim, prescale_min, device,
+                workers, stream, pool)
+            if unsupported:
+                i = min(unsupported)
+                raise NotImplementedError(f"{chunk[i]}: {unsupported[i]}")
+            out.extend(None if img is None else np.ascontiguousarray(
+                img[:, :, ::-1] if channel_order == "bgr" else img)
+                for img in images)
+    return out
 
 
 def load_folder(folder_path: str | Path, index_file_name: str,
                 resize_dim: int, channel_order: str = "rgb",
                 num_workers: int = 0, verbose: bool = False,
-                prescale: bool = False) -> ImageArrayDataset:
-    """Load every labelled, non-corrupt image in a folder into RAM.
-    ``prescale`` (the JAX native path's DCT-domain decode) raises where it
-    would change the pixels (``decode.decode_resize``)."""
+                prescale: bool = False, device=None) -> ImageArrayDataset:
+    """Load every labelled, non-corrupt image in a folder into RAM (JPEGs
+    through the fast decode on ``device``, the card by default;
+    ``prescale``: the JAX native path's DCT-domain decode)."""
     folder = Path(folder_path)
     index = LabelIndex(folder / index_file_name, verbose=verbose)
     image_files = sorted(
@@ -51,12 +106,8 @@ def load_folder(folder_path: str | Path, index_file_name: str,
         elif verbose:
             print(f"Image {f} not found or has no BH PLOT")
 
-    workers = num_workers if num_workers > 0 else min(32, os.cpu_count() or 4)
-    paths = [str(folder / f) for f, _ in todo]
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        decoded = list(pool.map(
-            lambda p: decode_resize(p, resize_dim, channel_order, prescale),
-            paths))
+    decoded = decode_files([str(folder / f) for f, _ in todo], resize_dim,
+                           channel_order, prescale, num_workers, device)
 
     images, labels, l2_labels, poly_labels = [], [], [], []
     plot_word_labels, poly_word_labels = [], []
@@ -92,10 +143,10 @@ def load_folder(folder_path: str | Path, index_file_name: str,
 
 def decode_cache_key(folder_paths: Sequence[str],
                      index_file_names: Sequence[str], resize_dim: int,
-                     channel_order: str) -> str:
+                     channel_order: str, prescale: bool = False) -> str:
     """The decoded-array cache key: the folders, their image listings and
-    index CSVs' (size, mtime), the resize, the channel order, and this
-    package's decode rule."""
+    index CSVs' (size, mtime), the resize, the channel order, this
+    package's decode rule and the prescale."""
     content = []
     for folder, idx_name in zip(folder_paths, index_file_names):
         fp = Path(folder)
@@ -107,21 +158,23 @@ def decode_cache_key(folder_paths: Sequence[str],
         content.append([st.st_size, st.st_mtime_ns] if st else None)
     return hashlib.sha1(json.dumps(
         [list(map(str, folder_paths)), list(index_file_names), resize_dim,
-         channel_order, DECODE_RULE, content]).encode()).hexdigest()[:16]
+         channel_order, DECODE_RULE, bool(prescale), content]).encode()
+    ).hexdigest()[:16]
 
 
 def load_folders(folder_paths: Sequence[str],
                  index_file_names: Sequence[str], resize_dim: int,
                  channel_order: str = "rgb", num_workers: int = 0,
                  cache_dir: Optional[str] = None, verbose: bool = False,
-                 prescale: bool = False) -> ImageArrayDataset:
-    """Load + merge several folders; optional decoded-array disk cache."""
+                 prescale: bool = False, device=None) -> ImageArrayDataset:
+    """Load + merge several folders (JPEGs decoded on ``device``, the card
+    by default); optional decoded-array disk cache."""
     if len(folder_paths) != len(index_file_names):
         raise ValueError("folder_paths and index_file_names length mismatch")
     cpath = None
     if cache_dir is not None:
         key = decode_cache_key(folder_paths, index_file_names, resize_dim,
-                               channel_order)
+                               channel_order, prescale)
         cpath = Path(cache_dir) / f"bulk_{key}"
         if (cpath / "images.npy").is_file():
             return _load_cache(cpath)
@@ -129,7 +182,8 @@ def load_folders(folder_paths: Sequence[str],
     ds: Optional[ImageArrayDataset] = None
     for folder, idx_name in zip(folder_paths, index_file_names):
         part = load_folder(folder, idx_name, resize_dim, channel_order,
-                           num_workers, verbose, prescale=prescale)
+                           num_workers, verbose, prescale=prescale,
+                           device=device)
         ds = part if ds is None else ds.concat(part)
     assert ds is not None
 

@@ -10,7 +10,7 @@ synthetic CS tree is written with this."""
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -163,6 +163,20 @@ def _h2v2_downsample(plane: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return (s + bias) >> 2
 
 
+def _downsample(plane: np.ndarray, fh: int, fv: int, out_h: int,
+                out_w: int) -> np.ndarray:
+    """A chroma plane averaged over fh x fv: libjpeg's ``h2v2_downsample``
+    and ``h2v1_downsample`` (bias 0, 1, 0, 1 ... along each row), else its
+    ``int_downsample`` (the mean, rounded)."""
+    if (fh, fv) == (2, 2):
+        return _h2v2_downsample(plane, out_h, out_w)
+    p = _pad_edge(plane, fv * out_h, fh * out_w)[:fv * out_h, :fh * out_w]
+    s = p.reshape(out_h, fv, out_w, fh).sum((1, 3))
+    if (fh, fv) == (2, 1):
+        return (s + (np.arange(out_w) % 2)[None, :]) >> 1
+    return (s + fh * fv // 2) // (fh * fv)
+
+
 class _BitWriter:
     def __init__(self):
         self.out = bytearray()
@@ -190,9 +204,13 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+def encode_jpeg(img: np.ndarray, quality: int = 95,
+                sampling: Tuple[int, int] = (2, 2)) -> bytes:
     """RGB [H, W, 3] uint8 (or [H, W] gray) -> baseline JPEG bytes, 4:2:0
-    for colour, as ``cv2.imwrite`` writes at its defaults."""
+    for colour, as ``cv2.imwrite`` writes at its defaults.  ``sampling``
+    gives the luma's (h, v) sampling factors over the chroma's (1, 1):
+    (2, 1) is 4:2:2, (1, 1) 4:4:4, (1, 2) 4:4:0 (valid baseline files; the
+    bytes are cv2's at 4:2:0 only)."""
     img = np.asarray(img, np.uint8)
     gray = img.ndim == 2
     height, width = img.shape[:2]
@@ -201,7 +219,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
         factors = [(1, 1)]
     else:
         planes = list(rgb_to_ycc(img))
-        factors = [(2, 2), (1, 1), (1, 1)]
+        factors = [tuple(sampling), (1, 1), (1, 1)]
     hmax = max(f[0] for f in factors)
     vmax = max(f[1] for f in factors)
     mcux = -(-width // (8 * hmax))
@@ -219,7 +237,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
         ch = -(-height * v // vmax)
         wb, hb = -(-cw // 8), -(-ch // 8)
         if (h, v) != (hmax, vmax):
-            plane = _h2v2_downsample(plane, ch, 8 * wb)
+            plane = _downsample(plane, hmax // h, vmax // v, ch, 8 * wb)
         plane = _pad_edge(plane, 8 * hb, 8 * wb)[:8 * hb, :8 * wb]
         blocks = plane.reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3) \
             .reshape(-1, 8, 8)

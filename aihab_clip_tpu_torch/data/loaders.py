@@ -41,7 +41,10 @@ def _subset_filter(ds: ImageArrayDataset, ids: List[int]) -> ImageArrayDataset:
     return ds.select(np.where(np.isin(ds.labels, ids))[0])
 
 
-def build_loaders(cfg, channel_order: Optional[str] = None) -> LoaderBundle:
+def build_loaders(cfg, channel_order: Optional[str] = None,
+                  device=None) -> LoaderBundle:
+    """The config's splits; JPEGs decode through the fast decode on
+    ``device`` (the runner's; the card by default)."""
     data_cfg = cfg["data"]
     resize = int(data_cfg["preprocessing"].get("resize", 256))
     channel_order = channel_order or str(data_cfg.get("channel_order", "rgb"))
@@ -60,7 +63,7 @@ def build_loaders(cfg, channel_order: Optional[str] = None) -> LoaderBundle:
     index_names = _as_list(data_cfg["index_file_names"])
     ds_tr = load_folders(train_paths, index_names, resize, channel_order,
                          num_workers, cache_dir, verbose=False,
-                         prescale=prescale)
+                         prescale=prescale, device=device)
 
     test_paths = _as_list(data_cfg.get("test_dataset_paths", None)) or \
         derive_test_paths(train_paths)
@@ -72,7 +75,7 @@ def build_loaders(cfg, channel_order: Optional[str] = None) -> LoaderBundle:
             f"test_index_file_names has {len(test_index)}.")
     ds_te = load_folders(test_paths, test_index, resize, channel_order,
                          num_workers, cache_dir, verbose=False,
-                         prescale=prescale)
+                         prescale=prescale, device=device)
 
     if use_subset:
         ds_tr = _subset_filter(ds_tr, subset_l3_ids)

@@ -23,6 +23,14 @@ libraries link against cudart alone.
   quant_kernels.cu       row_quant, the TMA + wgmma int8_gemm (K8-K15; its
                          quantized output for K9, K11, K14, K15)
   preprocess.cu          normalize_u8 (K18)
+  jpeg_pixels.cu         the fast JPEG decode's pixel stage: jpeg_idct (J1),
+                         jpeg_color_resize (J2)
+
+The host source ``jpeg_entropy.cpp`` (the fast JPEG decode's Huffman stage)
+compiles the same way with the host C++ compiler (``$CXX``, else ``c++``;
+``-O2``, no ``-march=native``, no ``-ffast-math``) and runs on the CPU too:
+``host_library`` builds it alone, without ``nvcc``.  A build that fails, or
+a compiler that is missing, raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -38,10 +46,12 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("block_kernels", "fused_attention_bwd", "quant_kernels",
-           "preprocess")
+           "preprocess", "jpeg_pixels")
+HOST_SOURCES = ("jpeg_entropy",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -77,6 +87,17 @@ _ARGTYPES = {
     "preprocess": {
         "aihab_normalize_u8": [_p, _p, _i, _ll, _f, _f, _f, _f, _f, _f, _p],
     },
+    "jpeg_pixels": {
+        "aihab_jpeg_idct": [_p, _p, _p, _p, _i, _ll, _p],
+        "aihab_jpeg_color_resize": [_p, _p, _p, _p, _p, _i, _i, _p],
+    },
+}
+# the host sources' entry points (no stream argument)
+_HOST_ARGTYPES = {
+    "jpeg_entropy": {
+        "aihab_jpeg_entropy": [_p, _p, _p, _p, _i, _p, _i, _p, _p, _i],
+        "aihab_jpeg_packed_size": [_i],
+    },
 }
 
 _SOURCE_OF = {fn: src for src, fns in _ARGTYPES.items() for fn in fns}
@@ -97,21 +118,42 @@ def _nvcc() -> str:
                        "are compiled on first use")
 
 
+def _cxx() -> str:
+    cand = os.environ.get("CXX") or "c++"
+    path = shutil.which(cand)
+    if path is None:
+        raise RuntimeError(f"host C++ compiler {cand!r} not found (set CXX); "
+                           "csrc/jpeg_entropy.cpp is compiled on first use")
+    return path
+
+
+def _source(name: str) -> Path:
+    return _CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _library_path(name: str) -> Path:
     """The library of source ``name``, keyed by the hash of the source and
-    of every header in ``csrc/`` (any of which it may include)."""
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
-        digest.update(header.name.encode() + header.read_bytes())
+    of every header in ``csrc/`` (any of which it may include); a host
+    source by its own text and flags."""
+    digest = hashlib.sha256(_source(name).read_bytes())
+    if name in HOST_SOURCES:
+        digest.update(" ".join(CXX_FLAGS).encode())
+    else:
+        for header in sorted(_CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile every source that has no library yet, all at once; return
-    {source name: library path}.  Records each build's seconds and ptxas's
-    register/shared-memory report in ``build_info``."""
+def build(names=SOURCES + HOST_SOURCES) -> dict:
+    """Compile every source of ``names`` that has no library yet, all at
+    once (``nvcc`` for the CUDA sources, the host compiler for the host
+    ones); return {source name: library path}.  Records each build's
+    seconds and the compiler's report (ptxas's registers and shared
+    memory) in ``build_info``.  Each library is written under a name of
+    its own process and renamed into place, so processes building at once
+    never load a half-written file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _library_path(name) for name in SOURCES}
+    paths = {name: _library_path(name) for name in names}
     procs = {}
     t0 = time.perf_counter()
     for name, out in paths.items():
@@ -119,34 +161,50 @@ def build() -> dict:
             build_info[name] = dict(seconds=None, ptxas="", path=str(out))
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = ([_cxx(), *CXX_FLAGS] if name in HOST_SOURCES
+               else [_nvcc(), *NVCC_FLAGS])
         procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            [*cmd, "-o", str(tmp), str(_source(name))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
+            failed.append(f"{_source(name).name} ({proc.returncode}):\n{err}")
             continue
         os.replace(tmp, paths[name])
         build_info[name] = dict(seconds=time.perf_counter() - t0, ptxas=err,
                                 path=str(paths[name]))
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return paths
 
 
+def _load(paths: dict) -> None:
+    for src, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        table = _HOST_ARGTYPES if src in HOST_SOURCES else _ARGTYPES
+        for fn, argtypes in table[src].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[src] = lib
+
+
 def library(name: str = "block_kernels") -> ctypes.CDLL:
-    """The loaded library of source ``name`` (every source is built on the
-    first call)."""
+    """The loaded library of source ``name`` (every source, the host ones
+    included, is built on the first call)."""
     with _lock:
-        if not _libs:
-            for src, path in build().items():
-                lib = ctypes.CDLL(str(path))
-                for fn, argtypes in _ARGTYPES[src].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                _libs[src] = lib
+        if any(src not in _libs for src in SOURCES):
+            _load(build())
+        return _libs[name]
+
+
+def host_library(name: str = "jpeg_entropy") -> ctypes.CDLL:
+    """The loaded library of host source ``name``, built alone (no
+    ``nvcc``): the CPU's path to it."""
+    with _lock:
+        if name not in _libs:
+            _load(build((name,)))
         return _libs[name]
 
 

@@ -469,7 +469,8 @@ def run_prolip(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
                 spec["dataset_paths"], spec["index_file_names"],
                 int(cfg["data"]["preprocessing"].get("resize", 256)),
                 channel_order=str(cfg["data"].get("channel_order", "rgb")),
-                prescale=bool(cfg["data"].get("decode_prescale", True)))
+                prescale=bool(cfg["data"].get("decode_prescale", True)),
+                device=dev)
             extra_views[name] = SplitView(ds_extra, np.arange(len(ds_extra)),
                                           int(cfg["data"]["batch_size"]))
         extra_results = evaluate_multi_testsets(
@@ -513,7 +514,7 @@ def run(cfg, inspect_only: bool = False, config_file: str = "cfg",
 
     bundle = init_clip_and_text_head(cfg, dev)
     t0 = time.perf_counter()
-    loaders = build_loaders(cfg)
+    loaders = build_loaders(cfg, device=dev)
     timings["build_loaders_s"] = time.perf_counter() - t0
     inspect(cfg, bundle, loaders)
 

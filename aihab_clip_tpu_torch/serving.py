@@ -1,5 +1,5 @@
-"""Persistent serving: classifier engine + dynamic batcher (counterpart of
-``aihab_clip_tpu/serving.py:91-563``).
+"""Persistent serving: classifier engine + dynamic batcher + HTTP server
+(counterpart of ``aihab_clip_tpu/serving.py``).
 
 * :class:`ClassifierEngine` — loads a model once, builds the CS
   prompt-ensemble text head, and classifies ``uint8 [B, D, D, 3]`` batches
@@ -14,29 +14,80 @@
   CLIP ViT towers through ``models/quant_vit`` (K8 patchify, then the
   merged int8 block K14 per block) and ConvNeXt towers through K15 per
   block (the convs in the compute dtype).
+  The engine also decodes: JPEG bytes through the fast decode
+  (``ops/jpeg.py``: the C++ Huffman decode on the request's thread, J1 and
+  J2 on the card on a stream of their own) with the JAX native path's
+  prescale (``prescale_min = 2 * decode_dim``), bit for bit with JAX's
+  ``native_decode_resize_mem`` (which, unlike ``cv2.imread`` and this
+  package, ignores a JPEG's EXIF orientation); PNG and BMP bytes through
+  ``data/decode.py`` (within one level of JAX's ``cv2`` path).
 * :class:`DynamicBatcher` — request threads submit single decoded images; a
   collector thread coalesces them into padded batches of the smallest
   bucket that holds them, and a fetch thread waits on each batch's result,
   so batch *i+1* collects and launches while batch *i* runs on the card.
-
-Image decoding and the HTTP front end come with a later slice.
+* :class:`PredictServer` — stdlib ``ThreadingHTTPServer``: ``POST
+  /predict`` (raw image bytes; JSON ``{"images_b64": [...]}``; or the
+  length-prefixed ``application/x-aihab-batch`` wire of
+  ``encode_binary_batch``), ``GET /healthz`` and ``GET /stats``; the same
+  routes, answers and error codes as JAX's.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
+import json
+import os
 import queue
+import struct
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import List, Optional
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .backend import resolve_device
 from .models.siglip import SigLIPConfig
+
+
+def _parse_binary_batch(body: bytes) -> List[bytes]:
+    """``application/x-aihab-batch`` framing -> blob list.
+
+    Layout: u32le N, then N u32le lengths, then the N blobs
+    concatenated.  ``encode_binary_batch`` is the client-side inverse.
+    """
+    if len(body) < 4:
+        raise ValueError("truncated header")
+    (n,) = struct.unpack_from("<I", body, 0)
+    if n == 0 or n > 1 << 20:
+        raise ValueError(f"implausible image count {n}")
+    header_end = 4 + 4 * n
+    if len(body) < header_end:
+        raise ValueError("truncated length table")
+    lengths = struct.unpack_from(f"<{n}I", body, 4)
+    total = sum(lengths)
+    if len(body) != header_end + total:
+        raise ValueError(
+            f"body size {len(body)} != header {header_end} + blobs {total}")
+    blobs, off = [], header_end
+    for ln in lengths:
+        blobs.append(body[off:off + ln])
+        off += ln
+    return blobs
+
+
+def encode_binary_batch(blobs: Sequence[bytes]) -> bytes:
+    """Client-side framing for ``POST /predict`` with
+    ``Content-Type: application/x-aihab-batch``."""
+    head = struct.pack("<I", len(blobs)) + struct.pack(
+        f"<{len(blobs)}I", *[len(b) for b in blobs])
+    return head + b"".join(blobs)
 
 
 class ClassifierEngine:
@@ -148,6 +199,10 @@ class ClassifierEngine:
 
             self._packed = pack_fastest(self.bundle.model, cfg,
                                         self._compute_dtype)
+        # the fast decode's CUDA stream, apart from the classify batches'
+        # (one for the engine: the caching allocator keeps memory per stream)
+        self._decode_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
         self._warm = False
 
     # -- runtime -----------------------------------------------------------
@@ -187,6 +242,54 @@ class ClassifierEngine:
     @property
     def warm(self) -> bool:
         return self._warm
+
+    # -- decoding ----------------------------------------------------------
+
+    def _decode(self, blobs: Sequence[bytes], prescale_min: int):
+        """Blobs -> (RGB uint8 [decode_dim, decode_dim, 3] or None each,
+        {index: reason} of those in a format this package does not decode):
+        ``ops/jpeg.decode_blobs`` on the engine's device and decode
+        stream."""
+        from .ops.jpeg import decode_blobs
+
+        return decode_blobs(blobs, self.decode_dim, prescale_min, self.device,
+                            stream=self._decode_stream)
+
+    def _prescale_min(self) -> int:
+        """The JAX native rule, 2 x decode_dim; ``AIHAB_SERVE_DECODE=cv2``
+        keeps the full scale, as JAX's cv2 route does."""
+        if os.environ.get("AIHAB_SERVE_DECODE") == "cv2":
+            return 0
+        return 2 * self.decode_dim
+
+    def decode_bytes(self, data: bytes) -> Optional[np.ndarray]:
+        """Encoded image bytes -> RGB uint8 [decode_dim, decode_dim, 3], or
+        None when they are no readable image."""
+        return self._decode([data], self._prescale_min())[0][0]
+
+    def decode_blobs(self, blobs: List[bytes]) -> List[Optional[np.ndarray]]:
+        """A request's image list, its JPEGs in one decode call: one
+        [D, D, 3] uint8 array (or None) per blob."""
+        return self._decode(blobs, self._prescale_min())[0]
+
+    def decode_request(self, blobs: List[bytes]):
+        """``decode_blobs`` and, beside it, {index: reason} for the blobs in
+        a format this package does not decode (A9b)."""
+        return self._decode(blobs, self._prescale_min())
+
+    def decode_files(self, paths: Sequence[str]) -> List[Optional[np.ndarray]]:
+        """Files at full scale (JAX's ``cv2.imread`` route), JPEGs in one
+        decode call; None for a file that is missing or no image."""
+        blobs = []
+        for p in paths:
+            try:
+                blobs.append(Path(p).read_bytes())
+            except OSError:
+                blobs.append(b"")
+        return self._decode(blobs, 0)[0]
+
+    def decode_file(self, path: str) -> Optional[np.ndarray]:
+        return self.decode_files([path])[0]
 
     def classify_dispatch(self, images_u8: np.ndarray) -> torch.Tensor:
         """Launch one padded batch; returns the probabilities as a device
@@ -373,3 +476,162 @@ class DynamicBatcher:
                 continue
             for i, (_, fut) in enumerate(items):
                 fut.set_result(probs[i])
+
+
+# ---------------------------------------------------------------------------
+# HTTP server
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """Routes: POST /predict, GET /healthz, GET /stats."""
+
+    server: "PredictServer"
+    protocol_version = "HTTP/1.1"
+
+    def _json(self, code: int, payload: dict) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):  # quiet unless verbose
+        if self.server.verbose:
+            super().log_message(fmt, *args)
+
+    def do_GET(self):  # noqa: N802 (stdlib handler naming)
+        srv = self.server
+        if self.path == "/healthz":
+            self._json(200, {
+                "status": "ok" if srv.engine.warm else "warming",
+                "model": srv.engine.model_name,
+                "quantize": srv.engine.quantize,
+                "batch_size": srv.engine.batch_size,
+                "resolution": srv.engine.resolution,
+            })
+        elif self.path == "/stats":
+            self._json(200, srv.stats.snapshot(srv.engine.batch_size))
+        else:
+            self._json(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):  # noqa: N802
+        if self.path != "/predict":
+            self._json(404, {"error": f"unknown path {self.path}"})
+            return
+        srv = self.server
+        t0 = time.perf_counter()
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(length)
+            ctype = (self.headers.get("Content-Type") or "").split(";")[0]
+            if ctype == "application/json":
+                try:
+                    payload = json.loads(body)
+                    blobs = [base64.b64decode(b, validate=True)
+                             for b in payload["images_b64"]]
+                except (json.JSONDecodeError, KeyError, TypeError,
+                        binascii.Error) as e:
+                    self._json(400, {"error": f"bad JSON request: {e}"})
+                    return
+            elif ctype == "application/x-aihab-batch":
+                try:
+                    blobs = _parse_binary_batch(body)
+                except ValueError as e:
+                    self._json(400, {"error": f"bad binary batch: {e}"})
+                    return
+            else:
+                blobs = [body]
+            if not blobs:
+                self._json(400, {"error": "no images in request"})
+                return
+            if len(blobs) > srv.max_request_images:
+                self._json(413, {"error":
+                                 f"too many images ({len(blobs)} > "
+                                 f"{srv.max_request_images})"})
+                return
+
+            images, unsupported = srv.engine.decode_request(blobs)
+            decoded, bad = [], []
+            for i, img in enumerate(images):
+                if img is None:
+                    bad.append(i)
+                else:
+                    decoded.append((i, img))
+            if bad:
+                with srv.stats._lock:
+                    srv.stats.decode_failures += len(bad)
+            futures = [(i, srv.batcher.submit(img)) for i, img in decoded]
+            results: List[Optional[dict]] = [None] * len(blobs)
+            for i, fut in futures:
+                probs = fut.result(timeout=srv.request_timeout)
+                results[i] = {"topk": srv.engine.topk(probs[None],
+                                                      srv.topk)[0]}
+            for i in bad:   # a format of A9b names itself
+                results[i] = {"error": (
+                    f"unsupported image format: {unsupported[i]}"
+                    if i in unsupported else "undecodable image")}
+            srv.stats.record_request(len(decoded))
+            srv.stats.record_latency(time.perf_counter() - t0)
+            self._json(200, {"predictions": results})
+        except Exception as e:  # a request's failure answers 500, the
+            # server keeps serving
+            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+
+class PredictServer(ThreadingHTTPServer):
+    """Long-lived prediction service over a :class:`ClassifierEngine`.
+
+    Use :meth:`serve` for a blocking CLI run or ``serve_background()``
+    in tests; the bound port is ``server_port`` (``port=0`` for an
+    ephemeral one).  Request threads decode (the C++ Huffman decode
+    releases the GIL); the batcher's threads run the classify batches.
+    """
+
+    daemon_threads = True
+
+    def __init__(self, engine: ClassifierEngine, host: str = "127.0.0.1",
+                 port: int = 8000, max_wait_ms: float = 5.0, topk: int = 3,
+                 request_timeout: float = 60.0, max_request_images: int = 256,
+                 verbose: bool = True, warmup: bool = True):
+        self.engine = engine
+        self.stats = ServerStats()
+        self.batcher = DynamicBatcher(engine, max_wait_ms=max_wait_ms,
+                                      stats=self.stats)
+        self.topk = topk
+        self.request_timeout = request_timeout
+        self.max_request_images = max_request_images
+        self.verbose = verbose
+        self._warmup = warmup
+        super().__init__((host, port), _Handler)
+
+    def serve(self) -> None:
+        """Blocking: warmup, start the batcher, serve until interrupted."""
+        if self._warmup and not self.engine.warm:
+            self.engine.warmup()
+        self.batcher.start()
+        if self.verbose:
+            print(f"[serving] listening on "
+                  f"http://{self.server_address[0]}:{self.server_port} "
+                  f"(model {self.engine.model_name}, "
+                  f"batch {self.engine.batch_size}, "
+                  f"quantize {self.engine.quantize}, {self.engine.device})")
+        try:
+            self.serve_forever()
+        finally:
+            self.batcher.stop()
+
+    def serve_background(self) -> threading.Thread:
+        """Start serving on a daemon thread (tests); returns the thread."""
+        if self._warmup and not self.engine.warm:
+            self.engine.warmup()
+        self.batcher.start()
+        t = threading.Thread(target=self.serve_forever, daemon=True,
+                             name="predict-server")
+        t.start()
+        return t
+
+    def stop(self) -> None:
+        self.shutdown()
+        self.batcher.stop()
+        self.server_close()

@@ -6,7 +6,8 @@
 Phases (any failure raises and the exit code is non-zero):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every source of ``aihab_clip_tpu_torch/csrc/`` into
-     ``build/`` (one nvcc each, started together) and print nvcc's seconds
+     ``build/`` (one nvcc for each ``.cu``, the host compiler for
+     ``jpeg_entropy.cpp``, all started together) and print the seconds
      and ptxas's register/smem report; then the launch plans of the TMA +
      wgmma kernels at the paths' shapes (registers, local bytes, shared
      bytes a block, ring stages, tiles or blocks and waves): the bf16 GEMM,
@@ -125,17 +126,36 @@ Phases (any failure raises and the exit code is non-zero):
      engine again under ``AIHAB_NO_GELU_POLY=1`` (the exact-gelu opt-out):
      96 requests, per block K2 + plain ``ln_matmul(gelu)`` + K16
      ``matmul_residual``, against plain kernels;
+     3i: the fast JPEG decode (``ops/jpeg.py``) on a 12 MP (4000 x 3000)
+     and 1024 x 768 JPEGs written by the port's encoder: the C++ Huffman
+     decoder's coefficients of the 12 MP photo equal data/decode.py's
+     pure-Python ones; the card decode at full scale and at m = 2 equals the
+     numpy pipeline on them; J1 (``jpeg_idct``) and J2
+     (``jpeg_color_resize``) against their plain versions, max|d| 0, timed at
+     the 12 MP (full, m = 2) and 1024 x 768 shapes to 224, then compared at
+     m = 4 and 1 and at 4:2:2, 4:4:4, 4:4:0 and gray;
+  8b. serving — ``PredictServer(port=0)`` over the bf16 ViT-B/16 engine: 48
+     requests in the three wires (raw, JSON base64, the binary batch) from 8
+     urllib client threads, 112 photos (12 MP and 1024 x 768): every answer
+     against ``classify_batch`` of ``decode_bytes`` of the same blob (top-1,
+     max|dprob| <= 1e-3), one J1 and one J2 a request, 12 K1 a batch, a
+     garbage and a cut JPEG counted as decode failures; images/s over HTTP,
+     latency p50/p99, fill, decode ms per photo split into host (parse +
+     C++ Huffman) and card (upload + J1 + J2); 8c: 8 requests through the
+     int8 engine (K8 + 12 K14 a batch);
   8. runner — the port's own entry point (``runner.run``, what ``python -m
      aihab_clip_tpu_torch`` calls) on a synthetic CS tree in a temporary
      directory (20 classes, 8 train and 3 test 64 px JPEGs each, written by
-     the port's encoder), ``configs/base.yaml`` + ``cs.yaml`` with
-     ``RUNNER_OPTS``: ProLIP on ViT-B/16 (3 cached views through K1, the
-     7x7 grid search, 5 epochs, the test split through K1) held against K1's
-     plain version in fp32, the CPU's projector, grid pick and accuracy, K1
-     launches = 12 x the batches encoded; then PEFT (2 epochs) with finite
-     losses and unchanged frozen leaves; host decode ms per photo, s for
-     one 12 MP JPEG and s per megapixel, build_loaders s, cache write and test encode images/s, grid
-     search and train_projector s, PEFT s per epoch;
+     the port's encoder), ``configs/base.yaml`` + ``cs.yaml`` as written
+     (the DCT-domain prescale on) with ``RUNNER_OPTS``: ProLIP on ViT-B/16
+     (3 cached views through K1, the 7x7 grid search, 5 epochs, the test
+     split through K1) held against K1's plain version in fp32, the CPU's
+     projector, grid pick and accuracy, K1 launches = 12 x the batches
+     encoded; then PEFT (2 epochs) with finite losses and unchanged frozen
+     leaves; the fast decode's ms per 64 px photo and for the 12 MP JPEG at
+     full scale and m = 2 (s per megapixel), the predict CLI over the test
+     folder against an engine's rows, build_loaders s, cache write and test
+     encode images/s, grid search and train_projector s, PEFT s per epoch;
   7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
@@ -172,6 +192,25 @@ JAX_ATT = "aihab_clip_tpu/ops/attention.py"
 JAX_FL = "aihab_clip_tpu/ops/fused_linear.py"
 JAX_PP = "aihab_clip_tpu/ops/pallas_preprocess.py"
 SRC_PP = "aihab_clip_tpu_torch/csrc/preprocess.cu"
+# the fast JPEG decode (ops/jpeg.py): J1 and J2 replace the JAX package's
+# host libjpeg decode (native/image_pipeline.cpp decode_body; no TPU kernel)
+SRC_JPEG = "aihab_clip_tpu_torch/csrc/jpeg_pixels.cu"
+JAX_JPEG = "native/image_pipeline.cpp:58"
+# J1's and J2's integer operations are held against the card's rate outside
+# the tensor cores (H100 SXM fp32, 67 T/s); per block of IDCT size 8 / 4 /
+# 2 / 1 and per output pixel of J2 (4 taps x 3 components, the colour
+# transform, the weights), counted from the source
+PEAK_CORE_OPS = 67e12
+J1_OPS = {8: 800, 4: 260, 2: 80, 1: 4}
+J2_OPS = 200
+# 8b: the HTTP serving phase on the bf16 ViT-B/16 engine: a 1024 x 768
+# photo (h, w) beside the 12 MP one, SERVE_CLIENTS client threads,
+# SERVE_ROUNDS rounds of one raw, one JSON (2 photos) and one binary (4
+# photos) request each; INT8_SERVE requests through the int8 engine; the
+# answers against classify_batch of the engine's own decode
+SERVE_MID, SERVE_MIDS, SERVE_CLIENTS, SERVE_ROUNDS = (768, 1024), 4, 8, 16
+INT8_SERVE, SERVE_PROB_TOL = 8, 1e-3
+SERVE_DIM = 224   # ViT-B/16's decode_dim (serving.ClassifierEngine)
 # 5f: the LAION towers (models/clip.py), full width and depth, 224 px, patch
 # 14 (S = 257), exact gelu run as gelu_poly (and the ViT-H/14 engine once
 # more under AIHAB_NO_GELU_POLY=1, the exact-gelu opt-out); each engine
@@ -234,8 +273,7 @@ COS_MIN = 0.999
 # projector's limit
 # against the CPU (both fp32: summation orders apart)
 RUNNER_TREE = (8, 3, 64)
-RUNNER_OPTS = ["data.decode_prescale", "False",
-               "data.preprocessing.resize", "256",
+RUNNER_OPTS = ["data.preprocessing.resize", "256",
                "data.data_split.valid_split", "0.2",
                "clip_backend", "openai", "backbone", "random:ViT-B/16",
                "save_features", "True", "aug_views", "3", "search_lr", "True",
@@ -244,7 +282,9 @@ RUNNER_PEFT_OPTS = ["clip_backend", "openclip",
                     "open_clip_model", "random:ViT-B/16", "train_epoch", "2",
                     "save_features", "False", "wandb_project", "'smoke'"]
 RUNNER_LARGE_JPEG = (3000, 4000)   # a 12 MP survey photo, 4:3
-RUNNER_TIMED = 40   # photos timed for the host decode figures
+RUNNER_TIMED = 40   # photos timed for the fast decode figures
+LOADER_RSS_FILES = 64   # 12 MP JPEGs of the loader's peak RSS figure
+LOADER_RSS_RESIZE = 439   # configs/cs.yaml's resize: the prescale's m = 4
 RUNNER_PROJ_REL = 1e-4
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
@@ -321,17 +361,19 @@ def main() -> None:
           f"{torch.cuda.device_count()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # ---- 2. build (one nvcc per source, all started together)
+    # ---- 2. build (one nvcc per CUDA source and the host compiler for
+    # jpeg_entropy.cpp, all started together)
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.2f}s total")
     for name, info in _build.build_info.items():
-        print(f"[build] {name}: nvcc {info['seconds']}s -> {info['path']}")
+        print(f"[build] {name}: built in {info['seconds']}s -> {info['path']}")
         for line in info["ptxas"].splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry")):
                 print(f"[build] {line.strip()}")
     kernel_plans(_build)
     phase("build")
+    big, mids = smoke_jpegs()
 
     # ---- 3. kernels at ViT-B/16 shapes
     gen = torch.Generator().manual_seed(SEED)
@@ -562,6 +604,9 @@ def main() -> None:
 
     # ---- 3h. the LAION towers' kernels at ViT-g/14 and ViT-bigG/14 shapes
     large_vit_kernel_cases(rnd, vec, run_cases)
+
+    # ---- 3i. the fast JPEG decode: C++ coefficients, J1 and J2
+    jpeg_figures = jpeg_kernel_cases(timed, rows, big, mids)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -662,15 +707,23 @@ def main() -> None:
     counts["vit_fast"], fast_rates, fast_figures = vit_fast_path(engine,
                                                                  images)
     rates.update(fast_rates)
+    phase("vit fast path")
+
+    # ---- 8b. serving over HTTP: PredictServer, its three wires, the decode
+    counts["serving"], serving_figures = serving_path(engine, big, mids, smi)
     del engine
     torch.cuda.empty_cache()
-    phase("vit fast path")
+    phase("serving path")
 
     # ---- 5c. the int8 ViT-B/16 path: engine + dynamic batcher
     (counts["vit_int8"], counts["vit_int8_off"], rates["vit_b16_int8_64"],
      vit_int8_figures, engine) = vit_int8_path(bk, images, probs,
                                                rates["vit_b16_64"])
     phase("vit int8 path")
+
+    # ---- 8c. a few HTTP requests through the int8 engine (K8 + K14)
+    counts["serving_int8"] = serving_int8(engine, mids)
+    phase("serving int8")
 
     # ---- 6c. the ViT-B/16 PEFT path on the int8 engine's weights
     vit_train = vit_peft_path(engine.bundle.model, bk)
@@ -716,7 +769,7 @@ def main() -> None:
     phase("large vit paths")
 
     # ---- 8. the port's own entry point: the runner, ProLIP and PEFT
-    runner = runner_path(bk, smi)
+    runner = runner_path(bk, smi, big)
     phase("runner path")
 
     # ---- 7. kernels line + result
@@ -731,7 +784,9 @@ def main() -> None:
              "convnext": "ConvNeXt base_w engine + DynamicBatcher",
              "convnext_int8": "ConvNeXt base_w int8 engine + DynamicBatcher",
              "vit_fast": "ViT-B/16 uint8 -> normalize_u8 -> vit_encode_fast",
-             "vit_train": f"ViT-B/16 vit_encode_train step (batch {TRAIN_B})"}
+             "vit_train": f"ViT-B/16 vit_encode_train step (batch {TRAIN_B})",
+             "serving": "PredictServer + ViT-B/16 engine, JPEG requests "
+                        "over HTTP"}
     for arch, tag in LARGE_TAGS.items():
         names.update({tag: f"{arch} engine + DynamicBatcher",
                       tag + "_jax": f"{arch} JAX's route (K5 + K4) encode",
@@ -753,7 +808,8 @@ def main() -> None:
                       "vit_train": vit_train, "convnext_train": cx_train,
                       "vit_fast": fast_figures,
                       "vit_encode_train": fast_train, "int8_core": int8_core,
-                      "large_vit": large_figures, "runner": runner}))
+                      "large_vit": large_figures, "runner": runner,
+                      "jpeg": jpeg_figures, "serving": serving_figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -3573,7 +3629,465 @@ def large_vit_paths(bk):
 # ---------------------------------------------------------------------------
 
 
-def runner_path(bk, smi: str) -> dict:
+def smoke_photo(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded RGB photo: 16 px patches of colour plus noise."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.normal(128, 60, (-(-h // 16), -(-w // 16), 3))
+    return np.clip(np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
+                   + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def smoke_jpegs():
+    """The 12 MP JPEG (RUNNER_LARGE_JPEG) and SERVE_MIDS 1024 x 768 ones,
+    written by the port's encoder (4:2:0, quality 95, as cv2.imwrite)."""
+    from aihab_clip_tpu_torch.data.encode import encode_jpeg
+
+    t0 = time.perf_counter()
+    big = encode_jpeg(smoke_photo(*RUNNER_LARGE_JPEG, SEED))
+    mids = [encode_jpeg(smoke_photo(*SERVE_MID, SEED + 1 + i))
+            for i in range(SERVE_MIDS)]
+    print(f"[jpeg] wrote a {RUNNER_LARGE_JPEG[1]}x{RUNNER_LARGE_JPEG[0]} "
+          f"JPEG ({len(big)} bytes) and {SERVE_MIDS} {SERVE_MID[1]}x"
+          f"{SERVE_MID[0]} ones in {time.perf_counter() - t0:.1f}s")
+    return big, mids
+
+
+def _j2_samples(plan) -> int:
+    """The plane samples J2's taps read (rows x columns each component
+    reads, fancy neighbours included), for the bytes bound."""
+    from aihab_clip_tpu_torch.ops import jpeg as J
+
+    def needed(taps, ratio, fancy, size):
+        t = np.unique(taps)
+        if not fancy:
+            return np.unique(t // ratio)
+        y = t >> 1
+        nb = np.where(t & 1, np.minimum(y + 1, size - 1), np.maximum(y - 1, 0))
+        return np.unique(np.concatenate([y, nb]))
+
+    total = 0
+    for row, tx, ty in zip(plan.photos, plan.taps_x, plan.taps_y):
+        check(row[J.PH_ORIENT] == 1, "J2's bytes count assumes no rotation")
+        for k in range(row[J.PH_NCOMP]):
+            _, _, dw, dh, hr, vr, mode = row[J.PH_SLOT + k * J.SLOT_FIELDS:
+                                             J.PH_SLOT + (k + 1)
+                                             * J.SLOT_FIELDS]
+            box = mode == J.MODES["box"]
+            cols = needed(tx[:, :2], hr if box else 1,
+                          mode in (J.MODES["h2v1"], J.MODES["h2v2"]), dw)
+            rows_ = needed(ty[:, :2], vr if box else 1,
+                           mode in (J.MODES["h1v2"], J.MODES["h2v2"]), dh)
+            total += len(cols) * len(rows_)
+    return total
+
+
+def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
+    """3i. The fast JPEG decode (ops/jpeg.py): csrc/jpeg_entropy.cpp's
+    coefficients of the 12 MP JPEG against data/decode.py's pure-Python
+    Huffman decode, exactly; the card decode of that photo at full scale
+    and at m = 2 (the serving prescale) against the numpy pipeline on those
+    coefficients, bit for bit; J1 and J2 against their plain versions (max
+    |d| 0) with their times at the 12 MP (full, m = 2) and 1024 x 768
+    shapes resized to SERVE_DIM; then, compared only, J1 at m = 4 and 1
+    and J2 at 4:2:2, 4:4:4, 4:4:0 and gray.  Returns the figures."""
+    import torch
+
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.data.encode import encode_jpeg
+    from aihab_clip_tpu_torch.ops import jpeg as J
+
+    dev = torch.device("cuda")
+    figures = {}
+    header = D.parse_jpeg(big)
+    t0 = time.perf_counter()
+    ref = D.jpeg_coefficients(big, header)
+    figures["python_huffman_s_12mp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mine = J.coefficients(big)
+    figures["cpp_huffman_s_12mp"] = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(mine, ref))
+    print(f"[jpeg] 12 MP coefficients: C++ {figures['cpp_huffman_s_12mp']:.3f}"
+          f" s, data/decode.py's Huffman {figures['python_huffman_s_12mp']:.3f}"
+          f" s; {sum(a.size for a in mine)} coefficients equal: {same}")
+    check(same, "the C++ coefficients differ from data/decode.py's")
+    full = D.reconstruct_jpeg(header, ref, 8)
+    src = smoke_photo(*RUNNER_LARGE_JPEG, SEED)
+    err = np.abs(full.astype(int) - src).mean()
+    print(f"[jpeg] 12 MP decode vs the photo encoded: mean|d| {err:.3f} "
+          f"(limit 8)")
+    check(full.shape == src.shape and err < 8, "large JPEG decode")
+    del src
+    for m, pm in ((8, 0), (2, 2 * SERVE_DIM)):
+        check(D.prescale_factor((header.width, header.height), pm) == m,
+              "the 12 MP photo's prescale")
+        want = D.resize_bilinear(full if m == 8 else D.reconstruct_jpeg(
+            header, ref, m), SERVE_DIM, SERVE_DIM)
+        got, ok, _ = J.decode_resize_batch([big], SERVE_DIM, pm, dev)
+        equal = bool(ok.all()) and np.array_equal(got[0].numpy(), want)
+        print(f"[jpeg] 12 MP card decode at m = {m} vs the numpy pipeline on "
+              f"those coefficients: equal {equal}")
+        check(equal, f"the card decode at m = {m} differs from numpy's")
+    del ref, mine, full
+
+    def case(name, blobs, prescale_min, timing=True):
+        hs = [D.parse_jpeg(b) for b in blobs]
+        scales = [D.prescale_factor((h.width, h.height), prescale_min)
+                  for h in hs]
+        plan = J.plan_batch(hs, scales, SERVE_DIM)
+        coef = torch.empty(plan.coef_total, dtype=torch.int16,
+                           pin_memory=True)
+        check(bool((J.entropy_decode(plan, blobs, coef) == 0).all()),
+              f"{name}: entropy decode")
+        coef_d = coef.to(dev)
+        qt, segs, photos, tx, ty = (torch.from_numpy(a).to(dev) for a in (
+            plan.qtables, plan.segs, plan.photos, plan.taps_x, plan.taps_y))
+        planes = torch.zeros(plan.plane_total, dtype=torch.uint8, device=dev)
+        planes_p = torch.zeros_like(planes)
+        out = torch.zeros(len(blobs), SERVE_DIM, SERVE_DIM, 3,
+                          dtype=torch.uint8, device=dev)
+        out_p = torch.zeros_like(out)
+        fns = {
+            "jpeg_idct": (lambda: J.jpeg_idct(coef_d, qt, segs, planes)
+                          or planes,
+                          lambda: J.jpeg_idct_plain(coef_d, qt, segs,
+                                                    planes_p) or planes_p),
+            "jpeg_color_resize": (
+                lambda: J.jpeg_color_resize(planes, photos, tx, ty, out)
+                or out,
+                lambda: J.jpeg_color_resize_plain(planes, photos, tx, ty,
+                                                  out_p) or out_p)}
+        nb = plan.segs[:, J.SEG_NB]
+        sizes = plan.segs[:, J.SEG_S]
+        packed = np.array([J.PACKED[int(s_)] for s_ in sizes])
+        work = {
+            "jpeg_idct": (int((nb * np.array([J1_OPS[int(s_)] for s_ in sizes]))
+                              .sum()),
+                          int((2 * nb * packed + nb * sizes ** 2).sum())
+                          + plan.qtables.nbytes),
+            "jpeg_color_resize": (
+                len(blobs) * SERVE_DIM ** 2 * J2_OPS,
+                len(blobs) * SERVE_DIM ** 2 * 3 + _j2_samples(plan)
+                + plan.taps_x.nbytes + plan.taps_y.nbytes)}
+        for kname, (fn, plain) in fns.items():
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            err = (got.int() - want.int()).abs().max().item()
+            print(f"[jpeg] {kname}[{name}]: max|d| {err} (limit 0), scales "
+                  f"{sorted(set(scales))}")
+            check(err == 0, f"{kname}[{name}] differs from its plain version")
+            if not timing:
+                continue
+            ms, plain_ms = timed(fn), timed(plain, iters=3)
+            ops, nbytes = work[kname]
+            t_ops, t_bytes = ops / PEAK_CORE_OPS, nbytes / PEAK_BYTES
+            b_ms = 1e3 * max(t_ops, t_bytes)
+            b_by = "operations" if t_ops >= t_bytes else "bytes"
+            print(f"[jpeg] {kname}[{name}]: {ms:.4f} ms (plain {plain_ms:.4f},"
+                  f" bound {b_ms:.4f} by {b_by}: {nbytes} bytes, {ops} integer"
+                  f" ops)")
+            rows.append(dict(name=f"{kname}[{name}]", route="cuda",
+                             source=SRC_JPEG, replaces=JAX_JPEG,
+                             launches=None,
+                             counter=getattr(J, kname), path="serving",
+                             max_abs_err=float(err), tol_max_abs=0.0,
+                             rel_l2=0.0, tol_rel_l2=0.0, ms=ms,
+                             tflops=ops / ms / 1e9, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            figures[f"{kname}[{name}]_ms"] = ms
+        torch.cuda.empty_cache()
+
+    case("12MP 4:2:0 full", [big], 0)
+    case("12MP 4:2:0 m=2", [big], 2 * SERVE_DIM)
+    case("1024x768 4:2:0 full", mids[:1], 2 * SERVE_DIM)
+    case("1024x768 m=4, m=1", [mids[0], mids[1]], 384, timing=False)
+    case("1024x768 m=1", mids[2:3], 96, timing=False)
+    small = smoke_photo(301, 257, SEED + 9)
+    case("4:2:2, 4:4:4, 4:4:0, gray", [
+        encode_jpeg(small, 85, (2, 1)), encode_jpeg(small, 85, (1, 1)),
+        encode_jpeg(small, 85, (1, 2)), encode_jpeg(small[:, :, 0], 85)],
+        0, timing=False)
+    return figures
+
+
+def decode_split(blob: bytes, dim: int, prescale_min: int, reps: int = 5):
+    """One photo's decode, split: host ms (parse, plan, C++ Huffman), card
+    ms (upload, J1, J2 on the decode stream; CUDA events), and the whole
+    ``decode_resize_batch`` call's ms (host clock); medians of ``reps``."""
+    import torch
+
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.ops import jpeg as J
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.Stream(dev)
+    host, card, whole = [], [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        h = D.parse_jpeg(blob)
+        plan = J.plan_batch([h], [D.prescale_factor((h.width, h.height),
+                                                    prescale_min)], dim)
+        coef = torch.empty(plan.coef_total, dtype=torch.int16,
+                           pin_memory=True)
+        J.entropy_decode(plan, [blob], coef)
+        host.append(1e3 * (time.perf_counter() - t0))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            e0.record()
+            J._pixels(plan, coef, 1, dim, dev)
+            e1.record()
+        stream.synchronize()
+        card.append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        J.decode_resize_batch([blob], dim, prescale_min, dev, stream=stream)
+        whole.append(1e3 * (time.perf_counter() - t0))
+    return (statistics.median(host), statistics.median(card),
+            statistics.median(whole))
+
+
+def _post(url: str, wire: str, blobs, timeout: float = 600.0):
+    """One POST /predict over urllib in one of the three wires."""
+    import base64
+    import urllib.request
+
+    from aihab_clip_tpu_torch.serving import encode_binary_batch
+
+    if wire == "raw":
+        body, ctype = blobs[0], "image/jpeg"
+    elif wire == "json":
+        body = json.dumps({"images_b64": [base64.b64encode(b).decode()
+                                          for b in blobs]}).encode()
+        ctype = "application/json"
+    else:
+        body, ctype = encode_binary_batch(blobs), "application/x-aihab-batch"
+    req = urllib.request.Request(url + "/predict", data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _check_answers(tag, answers, reqs, ref) -> float:
+    """Every answer's top-1 is the reference's and its top-k probabilities
+    within SERVE_PROB_TOL of it; returns the largest difference."""
+    worst = 0.0
+    for (code, payload), (_, idx) in zip(answers, reqs):
+        check(code == 200 and len(payload["predictions"]) == len(idx),
+              f"{tag}: a request failed ({code})")
+        for pred, i in zip(payload["predictions"], idx):
+            top = pred["topk"]
+            check(top[0]["label"] == int(ref[i].argmax()),
+                  f"{tag}: top-1 differs from classify_batch's")
+            for rec in top:
+                worst = max(worst, abs(rec["prob"] - float(ref[i][rec["label"]])))
+    check(worst <= SERVE_PROB_TOL, f"{tag}: max|dprob| {worst}")
+    return worst
+
+
+def serving_path(engine, big, mids, smi: str):
+    """8b. ``PredictServer(port=0)`` over the bf16 ViT-B/16 engine answers
+    SERVE_ROUNDS rounds of a raw, a JSON and a binary request (the 12 MP
+    and the 1024 x 768 JPEGs) from SERVE_CLIENTS urllib client threads:
+    each answer against ``classify_batch`` of ``decode_bytes`` of the same
+    blob (top-1 equal, max|dprob| <= SERVE_PROB_TOL), one J1 and one J2
+    launch a request, 12 K1 a batch, no decode failure; then, in one
+    request, garbage, a JPEG cut in its scan and one cut in its frame
+    header count as undecodable, one marked progressive gets an A9b error,
+    and a good photo beside them is answered.  Images/s through HTTP, latency p50/p99, fill,
+    and the decode split per photo.  Returns (launch counts, figures)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.serving import PredictServer, ServerStats
+
+    photos = [big] + list(mids)
+    ref = np.stack([engine.classify_batch(engine.decode_bytes(b)[None])[0]
+                    for b in photos])
+    n = len(photos)
+    reqs = []
+    for r in range(SERVE_ROUNDS):
+        reqs += [("raw", [r % n]), ("json", [(r + 1) % n, (r + 2) % n]),
+                 ("binary", [(r + k) % n for k in range(4)])]
+    server = PredictServer(engine, port=0, max_wait_ms=5.0, verbose=False,
+                           warmup=False)
+    server.serve_background()
+    url = f"http://127.0.0.1:{server.server_port}"
+
+    def send(req):
+        return _post(url, req[0], [photos[i] for i in req[1]])
+
+    try:
+        send(reqs[2])        # a first request: streams, pinned staging
+        server.stats = server.batcher.stats = ServerStats()
+        bk.reset_launch_counts()
+        J.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            answers = list(pool.map(send, reqs))
+        wall = time.perf_counter() - t0
+        counts = {**bk.launch_counts(), **J.launch_counts()}
+        snap = server.stats.snapshot(engine.batch_size)
+        sof = mids[0].index(b"\xff\xc0")
+        progressive = mids[0][:sof] + b"\xff\xc2" + mids[0][sof + 2:]
+        bad = _post(url, "json", [b"not an image", big[:len(big) // 3],
+                                  mids[0][:sof + 8], progressive, mids[0]])
+        stats_after = server.stats.snapshot(engine.batch_size)
+    finally:
+        server.stop()
+    images = sum(len(idx) for _, idx in reqs)
+    worst = _check_answers("serving", answers, reqs, ref)
+    batches = snap["batches"]
+    print(f"[serving] {len(reqs)} requests, {images} images from "
+          f"{SERVE_CLIENTS} threads in {wall:.3f}s: "
+          f"{images / wall:.1f} images/s over HTTP ({smi}); latency "
+          f"{snap['latency_ms']}; fill {snap['mean_batch_fill']} over "
+          f"{batches} batches; max|dprob| vs classify_batch {worst:.3g}; "
+          f"launches {counts}")
+    check(counts["jpeg_idct"] == len(reqs)
+          and counts["jpeg_color_resize"] == len(reqs),
+          "one J1 and one J2 launch a request")
+    check(counts["full_block_fused"] == 12 * batches, "12 K1 a batch")
+    check(snap["decode_failures"] == 0, "decode failures on good photos")
+    answers_bad = bad[1]["predictions"] if bad[0] == 200 else []
+    check(len(answers_bad) == 5 and answers_bad[:3] == [
+        {"error": "undecodable image"}] * 3
+        and "A9b" in answers_bad[3].get("error", "")
+        and stats_after["decode_failures"] == 4, "bad blobs not counted")
+    check(answers_bad[4]["topk"][0]["label"] == int(ref[1].argmax()),
+          "a good blob beside bad ones")
+    figures = {"images_per_s": images / wall, "requests": len(reqs),
+               "images": images, "batches": batches,
+               "fill": snap["mean_batch_fill"],
+               "latency_ms": snap["latency_ms"], "max_abs_dprob": worst}
+    for tag, blob, pm in (("12mp_m2", big, 2 * engine.decode_dim),
+                          ("1024x768", mids[0], 2 * engine.decode_dim)):
+        host, card, whole = decode_split(blob, engine.decode_dim, pm)
+        figures[f"decode_{tag}"] = dict(host_ms=host, card_ms=card,
+                                        call_ms=whole)
+        print(f"[serving] decode {tag}: host (parse + C++ Huffman) "
+              f"{host:.2f} ms, card (upload + J1 + J2) {card:.3f} ms, the "
+              f"call {whole:.2f} ms ({smi})")
+    return counts, figures
+
+
+def serving_int8(engine, mids) -> dict:
+    """8c. INT8_SERVE raw requests through ``PredictServer`` over the int8
+    ViT-B/16 engine (K8 + 12 K14 a batch, no K1), answers against its
+    ``classify_batch``; returns the launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.serving import PredictServer
+
+    ref = np.stack([engine.classify_batch(engine.decode_bytes(b)[None])[0]
+                    for b in mids])
+    reqs = [("raw", [i % len(mids)]) for i in range(INT8_SERVE)]
+    server = PredictServer(engine, port=0, max_wait_ms=5.0, verbose=False,
+                           warmup=False)
+    server.serve_background()
+    url = f"http://127.0.0.1:{server.server_port}"
+    try:
+        for mod in (bk, J, qm):
+            mod.reset_launch_counts()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            answers = list(pool.map(
+                lambda req: _post(url, req[0], [mids[i] for i in req[1]]),
+                reqs))
+        counts = {**bk.launch_counts(), **J.launch_counts(),
+                  **qm.launch_counts()}
+        batches = server.stats.batches
+    finally:
+        server.stop()
+    worst = _check_answers("serving int8", answers, reqs, ref)
+    print(f"[serving int8] {len(reqs)} requests over {batches} batches; "
+          f"max|dprob| {worst:.3g}; launches {counts}")
+    check(counts["quant_matmul_fused"] == batches
+          and counts["quant_full_block_fused"] == 12 * batches
+          and counts["full_block_fused"] == 0, "int8 serving launches")
+    return counts
+
+
+LOADER_RSS_CODE = """
+import sys
+import threading
+import time
+from aihab_clip_tpu_torch.data.bulk_load import decode_files
+
+
+def rss():
+    with open("/proc/self/status") as f:
+        return next(int(x.split()[1]) for x in f if x.startswith("VmRSS:"))
+
+
+resize, paths = int(sys.argv[1]), sys.argv[2:]
+decode_files(paths[:1], resize, prescale=True, device="cuda")
+before = rss()
+peak, done = [before], threading.Event()
+
+
+def watch():
+    while not done.is_set():
+        peak[0] = max(peak[0], rss())
+        time.sleep(0.002)
+
+
+watcher = threading.Thread(target=watch)
+watcher.start()
+out = decode_files(paths, resize, prescale=True, device="cuda")
+done.set()
+watcher.join()
+print(before, max(peak[0], rss()), sum(o is not None for o in out))
+"""
+
+
+def loader_peak_rss(big: bytes, resize: int, root: str, smi: str) -> dict:
+    """The bulk loader's host memory: in a child process (its own address
+    space: ``ru_maxrss`` would carry this process's peak across the exec),
+    the RSS after the imports, the card's context and one warm decode, then
+    the peak RSS (``VmRSS`` sampled every 2 ms) of ``decode_files``
+    (prescale on) over LOADER_RSS_FILES hard links of the 12 MP JPEG.  The
+    growth is what the loader holds at once: one chunk's raw bytes and
+    staging, where reading the split first held every file's bytes."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from aihab_clip_tpu_torch.data.bulk_load import JPEG_CHUNK
+
+    folder = Path(tempfile.mkdtemp(prefix="aihab_rss_"))
+    first = folder / "0.jpg"
+    first.write_bytes(big)
+    paths = [str(first)]
+    for i in range(1, LOADER_RSS_FILES):
+        paths.append(str(folder / f"{i}.jpg"))
+        os.link(first, paths[-1])
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", LOADER_RSS_CODE, str(resize), *paths],
+            cwd=root, capture_output=True, text=True, timeout=300)
+    finally:
+        shutil.rmtree(folder)
+    check(out.returncode == 0, f"loader RSS child: {out.stderr[-2000:]}")
+    before, after, decoded = map(int, out.stdout.split()[-3:])
+    check(decoded == LOADER_RSS_FILES, "loader RSS child decoded all files")
+    figures = dict(files=LOADER_RSS_FILES, chunk=JPEG_CHUNK,
+                   file_bytes=len(big), rss_before_mib=before / 1024,
+                   peak_rss_mib=after / 1024,
+                   growth_mib=(after - before) / 1024,
+                   split_bytes_mib=LOADER_RSS_FILES * len(big) / 2**20)
+    print(f"[runner] loader peak RSS over {LOADER_RSS_FILES} x {len(big)} "
+          f"byte 12 MP JPEGs (the split's bytes "
+          f"{figures['split_bytes_mib']:.1f} MiB), resize {resize}, chunks "
+          f"of {JPEG_CHUNK}: peak {figures['peak_rss_mib']:.1f} MiB, "
+          f"{figures['growth_mib']:.1f} MiB over the warm process's "
+          f"{figures['rss_before_mib']:.1f} MiB ({smi})")
+    return figures
+
+
+def runner_path(bk, smi: str, big: bytes) -> dict:
     """The port's runner (``aihab_clip_tpu_torch.runner.run``, what ``python
     -m aihab_clip_tpu_torch`` calls) on a synthetic CS tree in a temporary
     directory: all 20 classes, 8 train and 3 test 64 px JPEGs each, written
@@ -3586,7 +4100,10 @@ def runner_path(bk, smi: str) -> dict:
     the CPU from the same cache arrays (rel L2 <= RUNNER_PROJ_REL) and the
     same grid pick; the test accuracy recomputed on the CPU.  The PEFT run
     (openclip backend, 2 epochs): finite losses, frozen leaves unchanged,
-    K1 launches = 2 per step + 12 per eval batch.  Returns the figures."""
+    K1 launches = 2 per step + 12 per eval batch.  Before them: the fast
+    decode's ms per 64 px photo and for the 12 MP JPEG ``big`` at full
+    scale and at the prescale, and the predict CLI over the test folder,
+    its rows against a ViT-B/16 engine's.  Returns the figures."""
     import os
     import shutil
     import tempfile
@@ -3601,13 +4118,16 @@ def runner_path(bk, smi: str) -> dict:
         augmentation_settings, view_generator)
     from aihab_clip_tpu_torch.config import load_configs
     from aihab_clip_tpu_torch.data import SplitView, make_synthetic_cs_dataset
-    from aihab_clip_tpu_torch.data.decode import decode_image, decode_resize
-    from aihab_clip_tpu_torch.data.encode import encode_jpeg
+    from aihab_clip_tpu_torch.data.bulk_load import JPEG_CHUNK
     from aihab_clip_tpu_torch.models import fast_vit, load
     from aihab_clip_tpu_torch.ops.fast_warp import fast_train_transform
     from aihab_clip_tpu_torch.ops.preprocess import normalize_stats_for
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.ops.jpeg import decode_resize_batch
     from aihab_clip_tpu_torch.runner import run
+    from aihab_clip_tpu_torch.serving import ClassifierEngine
     from aihab_clip_tpu_torch.taxonomy import CS_CLASSNAMES
+    from aihab_clip_tpu_torch.tools.predict import main as predict
     from aihab_clip_tpu_torch.train.prolip import (ProjectorSpec, grid_search,
                                                    projector_accuracy,
                                                    train_projector)
@@ -3627,48 +4147,71 @@ def runner_path(bk, smi: str) -> dict:
         figures["tree_write_s"] = time.perf_counter() - t0
         files = sorted(Path(tree["train_dir"]).glob("*.jpg"))[:RUNNER_TIMED]
         blobs = [f.read_bytes() for f in files]
+        resize = int(RUNNER_OPTS[RUNNER_OPTS.index(
+            "data.preprocessing.resize") + 1])
+        decode_resize_batch(blobs[:JPEG_CHUNK], resize, 2 * resize, "cuda")
         t0 = time.perf_counter()
-        for blob in blobs:
-            decode_image(blob)
-        figures["decode_ms_per_64px_photo"] = \
+        for start in range(0, len(blobs), JPEG_CHUNK):
+            decode_resize_batch(blobs[start:start + JPEG_CHUNK], resize,
+                                2 * resize, "cuda")
+        figures["fast_decode_ms_per_64px_photo"] = \
             1e3 * (time.perf_counter() - t0) / len(blobs)
-        t0 = time.perf_counter()
-        for f in files:
-            decode_resize(str(f), 256)
-        figures["decode_resize256_ms_per_64px_photo"] = \
-            1e3 * (time.perf_counter() - t0) / len(files)
         h, w = RUNNER_LARGE_JPEG
-        rng = np.random.default_rng(SEED)
-        coarse = rng.normal(128, 60, (-(-h // 16), -(-w // 16), 3))
-        big = np.clip(np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
-                      + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
-        blob = encode_jpeg(big)
-        del coarse
+        for m, pm in ((8, 0), (2, 2 * resize)):
+            host, card, whole = decode_split(big, resize, pm)
+            figures[f"fast_decode_12mp_m{m}"] = dict(
+                host_ms=host, card_ms=card, call_ms=whole,
+                s_per_megapixel=whole / 1e3 / (h * w / 1e6))
+        print(f"[runner] fast decode to {resize}: "
+              f"{figures['fast_decode_ms_per_64px_photo']:.3f} ms per 64 px "
+              f"photo (chunks of {JPEG_CHUNK}); one {w}x{h} JPEG "
+              f"({len(big)} bytes): full scale "
+              f"{figures['fast_decode_12mp_m8']}, m = 2 (the prescale for "
+              f"{resize}) {figures['fast_decode_12mp_m2']} ({smi})")
+        figures["loader_rss"] = loader_peak_rss(big, LOADER_RSS_RESIZE,
+                                                str(here), smi)
+
+        # the predict CLI over the test folder, against the engine's rows
         t0 = time.perf_counter()
-        back = decode_image(blob)
-        dt = time.perf_counter() - t0
-        check(back.shape == big.shape and
-              np.abs(back.astype(int) - big).mean() < 8, "large JPEG decode")
-        del big, back
-        figures["decode_s_large_jpeg"] = dt
-        figures["decode_s_per_megapixel"] = dt / (h * w / 1e6)
-        figures["large_jpeg"] = f"{w}x{h}, {len(blob)} bytes"
-        print(f"[runner] host decode: {figures['decode_ms_per_64px_photo']:.3f}"
-              f" ms per 64 px photo ({figures['decode_resize256_ms_per_64px_photo']:.3f}"
-              f" with the resize to 256); {dt:.3f} s for one "
-              f"{w}x{h} JPEG ({len(blob)} bytes), "
-              f"{figures['decode_s_per_megapixel']:.3f} s per megapixel "
-              f"({smi})")
+        pred_rows = predict(["--images", tree["test_dir"], "--model",
+                             "random:ViT-B/16", "--out", "preds.csv"])
+        figures["predict_cli_images_per_s"] = \
+            len(pred_rows) / (time.perf_counter() - t0)
+        eng = ClassifierEngine(model="random:ViT-B/16", device="cuda",
+                               verbose=False)
+        paths = [str(Path(tree["test_dir"]) / r["file_name"])
+                 for r in pred_rows]
+        probs = eng.classify_batch(np.stack(eng.decode_files(paths)))
+        worst = max(abs(r["top1_prob"] - float(probs[i, r["top1_label"]]))
+                    for i, r in enumerate(pred_rows))
+        same = all(r["top1_label"] == int(probs[i].argmax())
+                   for i, r in enumerate(pred_rows))
+        print(f"[runner] predict CLI: {len(pred_rows)} rows, "
+              f"{figures['predict_cli_images_per_s']:.1f} images/s incl. "
+              f"the engine's build and the decode ({smi}); top-1 equal to "
+              f"the engine's: {same}, max|dprob| {worst:.3g}")
+        check(same and worst <= SERVE_PROB_TOL
+              and Path("preds.csv").read_text().count("\n")
+              == len(pred_rows) + 1, "predict CLI rows differ from the "
+              "engine's")
+        del eng
 
         opts = ["data.dataset_paths", repr(tree["dataset_paths"])] + RUNNER_OPTS
         cfg = load_configs(str(here / "configs/base.yaml"),
                            str(here / "configs/cs.yaml"), opts)
         bk.reset_launch_counts()
+        J.reset_launch_counts()
         t0 = time.perf_counter()
         result = run(cfg, config_file="cs", device="cuda")
         torch.cuda.synchronize()
         figures["prolip_wall_s"] = time.perf_counter() - t0
         launches = bk.launch_counts()
+        figures["jpeg_launches"] = J.launch_counts()
+        n_photos = sum(len(list(Path(d).glob("*.jpg"))) for d in (
+            tree["train_dir"], tree["test_dir"]))
+        print(f"[runner] the loaders' fast decode: {figures['jpeg_launches']}"
+              f" for {n_photos} photos in chunks of {JPEG_CHUNK}")
+        check(figures["jpeg_launches"]["jpeg_idct"] > 0, "runner J1 launches")
         loaders, out = result["loaders"], result["prolip"]
         timings = result["timings"]
         views_n = int(cfg.aug_views)

@@ -1608,3 +1608,119 @@ def test_cuda_runner_prolip_and_peft(tmp_path, monkeypatch):
                       device="cuda").model.named_parameters())
     assert all(torch.equal(fresh[n], res["params"][n])
                for n, t in res["mask"].items() if not t)
+
+
+def _exif_jpeg(data: bytes, orientation: int) -> bytes:
+    """``data`` with an APP1 EXIF segment carrying ``orientation``."""
+    import struct
+
+    tiff = (b"II*\x00" + struct.pack("<IH", 8, 1)
+            + struct.pack("<HHIHH", 0x0112, 3, 1, orientation, 0)
+            + struct.pack("<I", 0))
+    body = b"Exif\x00\x00" + tiff
+    return data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body \
+        + data[2:]
+
+
+def _jpeg_batch():
+    """Photos at every sampling the decode handles, gray, odd sizes and the
+    eight EXIF orientations (the port's encoder: no cv2 on the card)."""
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data.encode import encode_jpeg
+
+    rng = np.random.default_rng(3)
+
+    def photo(h, w):
+        coarse = rng.normal(128, 60, (h // 8 + 2, w // 8 + 2, 3))
+        img = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:h, :w]
+        return np.clip(img + rng.normal(0, 12, (h, w, 3)), 0, 255) \
+            .astype(np.uint8)
+
+    blobs = []
+    for h, w in ((256, 320), (301, 257), (37, 53), (17, 3)):
+        for sampling in ((2, 2), (2, 1), (1, 1), (1, 2)):
+            blobs.append(encode_jpeg(photo(h, w), 85, sampling))
+        blobs.append(encode_jpeg(photo(h, w)[:, :, 0]))
+    base = encode_jpeg(photo(96, 160), 90)
+    blobs += [_exif_jpeg(base, o) for o in range(1, 9)]
+    return blobs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prescale_min", [0, 16, 40, 80])
+def test_cuda_jpeg_kernels_match_plain(prescale_min):
+    """J1 (every IDCT size the prescale picks: 8, 4, 2, 1) and J2 (4:2:0,
+    4:2:2, 4:4:4, 4:4:0, gray, EXIF 1-8) against their plain versions on
+    the same coefficients and planes: max|d| 0; and the whole card decode
+    against data/decode.py's numpy pipeline, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.ops import jpeg as J
+
+    dev = torch.device("cuda")
+    blobs = _jpeg_batch()
+    dim = 24
+    headers = [D.parse_jpeg(b) for b in blobs]
+    scales = [D.prescale_factor((h.width, h.height), prescale_min)
+              for h in headers]
+    plan = J.plan_batch(headers, scales, dim)
+    coef = torch.empty(plan.coef_total, dtype=torch.int16)
+    assert (J.entropy_decode(plan, blobs, coef) == 0).all()
+    args = [torch.from_numpy(a) for a in (plan.qtables, plan.segs)]
+    planes = torch.zeros(plan.plane_total, dtype=torch.uint8)
+    J.jpeg_idct(coef, *args, planes)
+    planes_d = torch.zeros_like(planes, device=dev)
+    J.reset_launch_counts()
+    J.jpeg_idct(coef.to(dev), *(a.to(dev) for a in args), planes_d)
+    torch.cuda.synchronize()
+    assert J.launch_counts()["jpeg_idct"] == 1
+    assert torch.equal(planes_d.cpu(), planes)
+    tabs = [torch.from_numpy(a) for a in (plan.photos, plan.taps_x,
+                                          plan.taps_y)]
+    out = torch.zeros(len(blobs), dim, dim, 3, dtype=torch.uint8)
+    J.jpeg_color_resize(planes, *tabs, out)
+    out_d = torch.zeros_like(out, device=dev)
+    J.jpeg_color_resize(planes_d, *(t.to(dev) for t in tabs), out_d)
+    torch.cuda.synchronize()
+    assert J.launch_counts()["jpeg_color_resize"] == 1
+    assert torch.equal(out_d.cpu(), out)
+    got, ok, _ = J.decode_resize_batch(blobs, dim, prescale_min, device="cuda")
+    assert ok.all() and torch.equal(got.cpu(), out)
+    for i, (b, h) in enumerate(zip(blobs, headers)):
+        ref = D.resize_bilinear(D.reconstruct_jpeg(
+            h, D.jpeg_coefficients(b, h), scales[i]), dim, dim)
+        assert np.array_equal(out[i].numpy(), ref), i
+
+
+@pytest.mark.gpu
+def test_cuda_jpeg_idct_extreme_coefficients():
+    """J1 at each IDCT size on blocks of extreme coefficients (+-32767,
+    -32768) and 16-bit tables: the int64 arithmetic of data/decode.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.ops import jpeg as J
+
+    rng = np.random.default_rng(7)
+    nb = 1024
+    c = rng.choice([-32768, -32767, -2047, -1, 0, 1, 2047, 32767],
+                   (nb, 64)).astype(np.int16)
+    q = rng.choice([1, 255, 1000, 65535], (2, 64)).astype(np.uint16)
+    for s in (8, 4, 2, 1):
+        for qi in range(2):
+            packed = torch.from_numpy(np.ascontiguousarray(c[:, J.KEEP[s]]))
+            segs = torch.tensor([[0, 0, 16, nb, s, qi, 0, 0]])
+            planes = torch.zeros(nb * s * s, dtype=torch.uint8, device="cuda")
+            J.jpeg_idct(packed.reshape(-1).cuda(), torch.from_numpy(q).cuda(),
+                        segs.cuda(), planes)
+            ref = D.idct_scaled(c.reshape(nb, 8, 8).astype(np.int64)
+                                * q[qi].reshape(8, 8), s)
+            want = ref.reshape(nb // 16, 16, s, s).transpose(0, 2, 1, 3)
+            assert np.array_equal(planes.cpu().numpy(), want.reshape(-1)), \
+                (s, qi)

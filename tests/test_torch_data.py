@@ -5,7 +5,8 @@ INTER_LINEAR resize (within 1 of ``cv2.resize``, bit for bit against the
 JAX package's native resize), the JPEG encoder (the bytes ``cv2.imwrite``
 writes), the CSV index, the stratified-group split (scikit-learn's and
 JAX's indices), few-shot selection, ``build_loaders`` on a JAX-written
-tree, the decoded-array cache, and the refusals that name ROADMAP A9."""
+tree, the decoded-array cache, the DCT-domain prescale and BMPs (ROADMAP
+A9), and the refusals that name ROADMAP A9b."""
 
 import io
 import json
@@ -17,6 +18,7 @@ import cv2
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
@@ -170,18 +172,39 @@ def test_encoder_writes_cv2_bytes(size):
 
 
 def test_refusals_name_a9(tmp_path):
+    """The DCT-domain prescale and uncompressed BMPs decode (ROADMAP A9):
+    the prescale equals the JAX native path's bit for bit, a BMP
+    cv2.imread's.  Progressive and CMYK JPEGs, Adam7 PNGs and compressed
+    BMPs still raise, naming A9b."""
     big = tmp_path / "big.jpg"
     cv2.imwrite(str(big), _photo(256, 256))
-    with pytest.raises(NotImplementedError, match="A9"):
-        decode_resize(str(big), 64, prescale=True)
+    native = native_bulk_decode_resize([str(big)], 64, 1, prescale_min=128)
+    assert np.array_equal(decode_resize(str(big), 64, prescale=True),
+                          native[0][0])
     # where the native rule keeps the full scale, prescale changes nothing
     assert np.array_equal(decode_resize(str(big), 100, prescale=True),
                           decode_resize(str(big), 100))
+    ok, bmp = cv2.imencode(".bmp", _photo(31, 45))
+    assert np.array_equal(decode_image(bmp.tobytes()), _cv2_rgb(bmp.tobytes()))
     ok, buf = cv2.imencode(".jpg", _photo(32, 32),
                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A9b"):
         decode_image(buf.tobytes())
-    with pytest.raises(NotImplementedError, match="A9"):
+    cmyk = io.BytesIO()
+    Image.fromarray(_photo(16, 16)).convert("CMYK").save(cmyk, "JPEG")
+    with pytest.raises(NotImplementedError, match="A9b"):
+        decode_image(cmyk.getvalue())
+    png = io.BytesIO()
+    Image.fromarray(_photo(16, 16)).save(png, "PNG")
+    adam7 = bytearray(png.getvalue())
+    adam7[28] = 1                       # IHDR's interlace method
+    with pytest.raises(NotImplementedError, match="A9b"):
+        decode_image(bytes(adam7))
+    rle = bytearray(bmp.tobytes())
+    rle[30:34] = (1).to_bytes(4, "little")   # BI_RLE8
+    with pytest.raises(NotImplementedError, match="A9b"):
+        decode_image(bytes(rle))
+    with pytest.raises(DecodeError):
         decode_image(b"BM" + bytes(60))
     with pytest.raises(DecodeError):
         decode_image(b"not an image")
@@ -331,7 +354,8 @@ def _data_cfg(tree, **kw):
     "Urban", "Sea"]}], ids=["full", "shots", "subset"])
 def test_build_loaders_equals_jax(jax_tree, kw):
     d = _data_cfg(jax_tree, **kw)
-    mine, ref = build_loaders(ConfigNode(d)), jax_build_loaders(JaxConfig(d))
+    mine = build_loaders(ConfigNode(d), device="cpu")
+    ref = jax_build_loaders(JaxConfig(d))
     for split in ("train", "val", "test"):
         a, b = getattr(mine, split), getattr(ref, split)
         assert np.array_equal(a.indices, b.indices)
@@ -355,7 +379,8 @@ def test_decode_cache_round_trip_and_key(jax_tree, tmp_path):
     jax_ds = jax_load_folders(paths, names, 40, cache_dir=str(cache),
                               prescale=False)
     jax_dirs = set(os.listdir(cache))
-    first = load_folders(paths, names, 40, cache_dir=str(cache))
+    first = load_folders(paths, names, 40, cache_dir=str(cache),
+                         device="cpu")
     port_dirs = set(os.listdir(cache)) - jax_dirs
     assert len(port_dirs) == 1      # never read the JAX package's cache
     key = decode_cache_key(paths, names, 40, "rgb")
@@ -363,9 +388,68 @@ def test_decode_cache_round_trip_and_key(jax_tree, tmp_path):
     meta = json.loads((cache / f"bulk_{key}" / "meta.json").read_text())
     assert meta["decode_rule"].startswith("aihab_clip_tpu_torch.decode/")
     # the second load reads the cache: same arrays, memory-mapped
-    second = load_folders(paths, names, 40, cache_dir=str(cache))
+    second = load_folders(paths, names, 40, cache_dir=str(cache),
+                          device="cpu")
     assert isinstance(second.images, np.memmap)
     assert np.array_equal(first.images, second.images)
     assert first.file_names == second.file_names == jax_ds.file_names
     assert key != decode_cache_key(paths, names, 40, "bgr")
     shutil.rmtree(cache)
+
+
+def test_loaders_decode_on_the_card_by_default(jax_tree, monkeypatch):
+    """build_loaders and load_folders default to the card, as every entry
+    point of the package does: without one they raise, naming
+    device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_loaders(ConfigNode(_data_cfg(jax_tree)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_folders(jax_tree["dataset_paths"], jax_tree["index_file_names"],
+                     40)
+
+
+@pytest.fixture(scope="module")
+def large_tree(tmp_path_factory):
+    """Photos of 200 px, which the prescale for a resize of 40 decodes at
+    m = 4."""
+    root = tmp_path_factory.mktemp("large_tree")
+    return jax_make_synthetic(root, n_train_per_class=1, n_test_per_class=1,
+                              image_size=200)
+
+
+def test_prescale_routes_match_jax_loader(large_tree):
+    """With the prescale on, the RGB route equals JAX's native prescaled
+    loader bit for bit, and the BGR route decodes at full scale as JAX's
+    cv2 route does (within one level of cv2.resize)."""
+    paths, names = large_tree["dataset_paths"], large_tree["index_file_names"]
+    mine, ref = {}, {}
+    for order in ("rgb", "bgr"):
+        mine[order] = load_folders(paths, names, 40, order, prescale=True,
+                                   device="cpu")
+        ref[order] = jax_load_folders(paths, names, 40, order, prescale=True)
+        assert mine[order].file_names == ref[order].file_names
+    assert np.array_equal(mine["rgb"].images, ref["rgb"].images)
+    assert np.abs(mine["bgr"].images.astype(int)
+                  - ref["bgr"].images.astype(int)).max() <= 1
+    full = load_folders(paths, names, 40, "rgb", device="cpu")
+    assert np.array_equal(mine["bgr"].images[..., ::-1], full.images)
+    assert not np.array_equal(mine["rgb"].images, full.images)
+
+
+def test_loader_names_an_unsupported_file(jax_tree, tmp_path):
+    """A labelled photo in a format this package does not decode (here a
+    progressive JPEG) stops the load with an error naming the file and
+    A9b; skipping it would change the split."""
+    src = jax_tree["dataset_paths"][0]
+    folder = tmp_path / os.path.basename(src)
+    shutil.copytree(src, folder)
+    name = jax_tree["index_file_names"][0]
+    victim = load_folders([str(folder)], [name], 40,
+                          device="cpu").file_names[1]
+    ok, prog = cv2.imencode(".jpg", _photo(48, 48),
+                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    (folder / victim).write_bytes(prog.tobytes())
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(victim) + ".*A9b"):
+        load_folders([str(folder)], [name], 40, device="cpu")

@@ -186,7 +186,6 @@ def test_cache_refusals(base_cfg):
 def _cli(tmp_path, synth, *extra):
     opts = ["data.dataset_paths", repr(synth["dataset_paths"]),
             "data.index_file_names", repr(synth["index_file_names"]),
-            "data.decode_prescale", "False",
             "data.data_split.valid_split", "0.25",
             "data.preprocessing.resize", "48",
             "data.preprocessing.resolution", "32",
