@@ -2,7 +2,7 @@
 
     python -m aihab_clip_tpu_torch --base_config configs/base.yaml \\
         --dataset_config configs/cs.yaml [--device cuda|cpu] \\
-        [--inspect_only] [--logger auto|stdout|off] [--opts KEY VALUE ...]
+        [--inspect_only] [--logger auto|wandb|stdout|off] [--opts KEY VALUE ...]
 
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs on the CPU.  ``--opts`` takes the rest of the command line, so

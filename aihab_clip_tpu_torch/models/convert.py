@@ -15,6 +15,11 @@ Input is the flat ``{"a/b/c": ndarray}`` form that ``save_params_npz``
   * ``text/token_embedding``         -> ``text.token_embedding.weight``
   * every other leaf keeps its path (ConvNeXt's ``stage<s>_block<b>/gamma``)
 
+LoRA adapters cross the same way: ``flax_adapters_to_port`` and
+``port_adapters_to_flax`` map the keys of JAX's ``lora_adapters.npz``
+(``<kernel path>/a|b``) to and from the port's weight names
+(``jax_kernel_path`` inverts ``_convert_key`` for a Dense weight).
+
 The same rules carry a SigLIP tree into ``SigLIPModel``: its separate
 ``attn/{q,k,v,out}_proj`` and ``text/head`` Dense kernels, the conv1 bias,
 ``attnpool/{probe,attn,ln,mlp}`` and the scalar ``logit_scale`` and
@@ -83,3 +88,56 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         name, arr = _convert_key(key, v)
         sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
+
+
+def jax_kernel_path(name: str) -> str:
+    """The inverse of ``_convert_key`` for a 2-D Dense weight (a LoRA
+    target): the port's ``visual.transformer.resblocks.0.attn.in_proj_weight``
+    or ``....out_proj.weight`` -> JAX's ``visual/transformer/resblocks_0/
+    attn/in_proj/kernel`` or ``.../out_proj/kernel``."""
+    parts = name.split(".")
+    if parts[-1] == "in_proj_weight":
+        parts = parts[:-1] + ["in_proj", "weight"]
+    if parts[-1] != "weight":
+        raise ValueError(f"{name!r} is not a Dense weight")
+    out, i = [], 0
+    while i < len(parts) - 1:
+        if parts[i] == "resblocks":
+            out.append(f"resblocks_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return "/".join(out + ["kernel"])
+
+
+def flax_adapters_to_port(npz_or_dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX's ``lora_adapters.npz`` (a path, or its ``{"<kernel path>/a" |
+    "<kernel path>/b": array}`` mapping) -> ``{port weight name: {"a":
+    [in, r], "b": [r, out]}}`` fp32 tensors.  A and B keep JAX's layouts
+    (the kernel is [in, out]); ``train/lora.lora_merge`` adds their product
+    transposed to the port's [out, in] weight."""
+    if isinstance(npz_or_dict, Mapping):
+        flat = dict(npz_or_dict)
+    else:
+        with np.load(npz_or_dict) as data:
+            flat = {k: data[k] for k in data.files}
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, arr in flat.items():
+        path, leaf = key.rsplit("/", 1)
+        if leaf not in ("a", "b"):
+            raise ValueError(f"adapter key {key!r} is not <path>/a|b")
+        name = _convert_key(path, np.zeros((1, 1), np.float32))[0]
+        out.setdefault(name, {})[leaf] = torch.from_numpy(
+            np.array(arr, dtype=np.float32))
+    return out
+
+
+def port_adapters_to_flax(adapters: Mapping) -> Dict[str, np.ndarray]:
+    """``{port weight name: {"a", "b"}}`` -> the ``lora_adapters.npz``
+    mapping JAX's runner writes (``<kernel path>/a``, ``<kernel path>/b``,
+    the same layouts)."""
+    return {f"{jax_kernel_path(name)}/{leaf}":
+            np.asarray(t.detach().float().cpu().numpy() if hasattr(
+                t, "detach") else t, dtype=np.float32)
+            for name, ab in adapters.items() for leaf, t in ab.items()}

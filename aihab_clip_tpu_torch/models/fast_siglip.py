@@ -24,8 +24,14 @@ in the hand-written kernels of ``ops/block_kernel.py`` when the pack lives
 on the card and in their plain versions on the CPU.  The head grouping and
 the chunk count keep the JAX values, which the TPU's VMEM chose (8 groups
 of 2 heads and 2 chunks at SO400M), so the packed tensors and the rounding
-points are the JAX path's.  The scan entry points of the JAX module come
-with a later slice.
+points are the JAX path's.
+
+The scanned encode (``fast_siglip.py:243-291``): eager PyTorch compiles
+nothing, so there is no ``lax.scan`` to cut a compile, and
+``siglip_encode_scan`` is the module tower itself, its blocks checkpointed
+under ``scan_remat``.  The blocks' self-attention goes through
+``ops.attention.attention``, so SO400M's S = 576 runs the fused kernel K6
+forward and backward on the card.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from ..ops.block_kernel import (attn_block_split, mlp_block_split,
                                 regroup_attn_weights_f)
+from .layers import remat_blocks
 from .siglip import LN_EPS, SigLIPConfig, SigLIPModel
 
 # the TPU kernel's one-kernel MLP weight-pair budget in bytes
@@ -211,3 +218,20 @@ def siglip_encode_hybrid(model: SigLIPModel, images: torch.Tensor,
         x = blk(x)
     pooled = _map_pool(model, x)
     return (pooled, pooled) if project else pooled
+
+
+# ---------------------------------------------------------------------------
+# the scanned encode
+# ---------------------------------------------------------------------------
+
+
+def siglip_encode_scan(model: SigLIPModel, images: torch.Tensor,
+                       config: SigLIPConfig, *, project: bool = False,
+                       dtype=torch.bfloat16, remat: bool = False):
+    """JAX's scanned canonical encode: the module tower in ``dtype`` (the
+    stem, each ``SigLIPBlock`` in turn, the MAP head), with every vision
+    block's ``remat`` set to ``remat`` for the call, so each block is
+    checkpointed in training (the gradients are the same)."""
+    with remat_blocks(model.visual, remat):
+        return siglip_encode_hybrid(model, images, config, 0,
+                                    project=project, dtype=dtype)

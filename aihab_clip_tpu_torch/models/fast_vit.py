@@ -29,7 +29,14 @@ pair after K2.
 trainable blocks as the canonical ``ResidualAttentionBlock`` modules under
 autograd.  ``vit_encode_train`` is JAX's differentiable tower with the MLP
 half through K17 (``ops/block_kernel.mlp_block_train``) forward and
-backward; ``use_fused_train_encode`` is its gate.
+backward; ``use_fused_train_encode`` is its gate.  ``vit_encode_scan`` is
+JAX's scanned canonical encode (``fast_vit.py:133-178``): a loop over the
+module's blocks with their self-attention through ``ops.attention`` (the
+module's own attention is plain math), each block's MLP with the tower's
+``config.act``.  JAX's calls its ``_canonical_clip_block`` with the
+QuickGELU default whatever the tower's act; the port does not copy that,
+so a GELU tower (the LAION ViT-H/14, g/14, bigG/14) trains with
+``scan_blocks`` the network it evaluates and serves.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import attention, dot_product_attention
 from ..ops.block_kernel import (ACTS, attn_block_fused, attn_block_split,
                                 full_block_fused, mlp_block_fused,
                                 mlp_block_split, mlp_block_train,
@@ -48,6 +55,7 @@ from ..ops.fused_linear import ln_matmul, matmul_residual
 from .clip import CLIPConfig
 from .fast_convnext import convnext_encode_fused, pack_convnext
 from .fast_siglip import pack_siglip_fast_params, siglip_encode_fast
+from .layers import checkpoint_pinned, linear
 from .siglip import SigLIPConfig
 
 
@@ -314,6 +322,38 @@ def vit_encode_hybrid(model, images: torch.Tensor, config: CLIPConfig,
     x = x.to(dtype)
     for blk in vp.transformer.resblocks[n_prefix:]:
         x = blk(x)
+    pre = vp.ln_post(x[:, 0, :])
+    if not project:
+        return pre
+    return pre, pre @ vp.proj.to(pre.dtype)
+
+
+def _scan_clip_block(blk, x, heads: int):
+    """One ``ResidualAttentionBlock`` with its self-attention through
+    ``ops.attention`` (K6 on the card), the module's arithmetic
+    otherwise."""
+    q, k, v = linear(blk.ln_1(x), blk.attn.in_proj_weight,
+                     blk.attn.in_proj_bias).chunk(3, dim=-1)
+    x = x + linear(attention(q, k, v, heads), blk.attn.out_proj.weight,
+                   blk.attn.out_proj.bias)
+    return x + blk.mlp(blk.ln_2(x))
+
+
+def vit_encode_scan(model, images: torch.Tensor, config: CLIPConfig, *,
+                    project: bool = False, dtype=torch.bfloat16,
+                    remat: bool = False):
+    """The canonical CLIP ViT encode in ``dtype`` with the blocks through
+    ``_scan_clip_block`` in a loop; ``remat=True`` checkpoints each block
+    while autograd records (the gradients are the same)."""
+    vp = model.visual
+    x = _vit_embed(_stem(vp, dtype), images, config)
+    ckpt = remat and torch.is_grad_enabled()
+    for blk in vp.transformer.resblocks:
+        if ckpt:
+            x = checkpoint_pinned(blk, _scan_clip_block, blk, x,
+                                  config.vision_heads)
+        else:
+            x = _scan_clip_block(blk, x, config.vision_heads)
     pre = vp.ln_post(x[:, 0, :])
     if not project:
         return pre

@@ -9,14 +9,23 @@ The numerics contract of ``aihab_clip_tpu/models/layers.py``:
 Parameters are stored in fp32 with torch's ``nn.Linear`` layout ([out, in]);
 each module computes in the dtype of its input, casting weights at use —
 JAX's ``param_dtype=float32`` / ``dtype=<compute>`` split.
+
+``remat`` (JAX's ``nn.remat`` of each block, ``layers.py:193-201``): a block
+whose ``remat`` is set runs under ``torch.utils.checkpoint`` while autograd
+records, so its activations are recomputed in the backward instead of kept;
+the gradients are the same.  ``set_remat`` sets it on every block of a
+model; ``remat_blocks`` sets it for the duration of a call (the scanned
+encodes' ``scan_remat``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -106,7 +115,66 @@ class MLP(nn.Module):
         return linear(h, self.c_proj.weight, self.c_proj.bias)
 
 
-class ResidualAttentionBlock(nn.Module):
+def checkpoint_pinned(module: nn.Module, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``, with ``module``'s
+    parameter slots put back as they read now for the backward's
+    recompute: LoRA swaps W_eff into them for a ``with`` block
+    (``train/lora.lora_applied``) that the backward runs outside."""
+    slots = [(m, k) for m in module.modules()
+             for k, w in m._parameters.items() if w is not None]
+
+    def run(weights, *a):
+        held = [m._parameters[k] for m, k in slots]
+        for (m, k), w in zip(slots, weights):
+            m._parameters[k] = w
+        try:
+            return fn(*a)
+        finally:
+            for (m, k), w in zip(slots, held):
+                m._parameters[k] = w
+
+    return torch.utils.checkpoint.checkpoint(
+        run, [m._parameters[k] for m, k in slots], *args,
+        use_reentrant=False)
+
+
+class RematBlock(nn.Module):
+    """A block whose ``block(x)`` checkpoints ``_forward`` when ``remat``
+    is set and autograd records."""
+
+    remat = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint_pinned(self, self._forward, x)
+        return self._forward(x)
+
+
+def set_remat(model: nn.Module, enabled: bool = True) -> nn.Module:
+    """Set ``remat`` on every transformer block of ``model`` (both towers;
+    a ConvNeXt tower has none, as JAX's takes no remat)."""
+    for mod in model.modules():
+        if isinstance(mod, RematBlock):
+            mod.remat = bool(enabled)
+    return model
+
+
+@contextlib.contextmanager
+def remat_blocks(module: nn.Module, enabled: bool):
+    """``remat`` set to ``enabled`` on every block of ``module`` for the
+    duration, each block's own flag restored after."""
+    blocks = [m for m in module.modules() if isinstance(m, RematBlock)]
+    saved = [blk.remat for blk in blocks]
+    for blk in blocks:
+        blk.remat = bool(enabled)
+    try:
+        yield module
+    finally:
+        for blk, flag in zip(blocks, saved):
+            blk.remat = flag
+
+
+class ResidualAttentionBlock(RematBlock):
     """Pre-LN transformer block: x + attn(ln1(x)); x + mlp(ln2(x))."""
 
     def __init__(self, width: int, heads: int, causal: bool = False,
@@ -117,7 +185,7 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width)
         self.mlp = MLP(width, mlp_dim, act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 

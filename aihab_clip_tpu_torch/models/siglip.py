@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention, dot_product_attention
-from .layers import LayerNorm, linear
+from .layers import LayerNorm, RematBlock, linear
 
 LN_EPS = 1e-6
 
@@ -169,7 +169,7 @@ class SigLIPAttention(nn.Module):
         return linear(out, self.out_proj.weight, self.out_proj.bias)
 
 
-class SigLIPBlock(nn.Module):
+class SigLIPBlock(RematBlock):
     def __init__(self, width: int, heads: int, mlp_dim: int):
         super().__init__()
         self.ln_1 = LayerNorm(width, LN_EPS)
@@ -177,7 +177,7 @@ class SigLIPBlock(nn.Module):
         self.ln_2 = LayerNorm(width, LN_EPS)
         self.mlp = SigLIPMLP(width, mlp_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 

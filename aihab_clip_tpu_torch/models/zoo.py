@@ -35,7 +35,7 @@ from ..backend import resolve_device
 from .clip import CLIP_ARCHS, CLIPConfig, CLIPModel
 from .convert import flax_params_to_state_dict, load_params_npz
 from .convnext import register_convnext_archs
-from .layers import LayerNorm
+from .layers import LayerNorm, set_remat
 from .siglip import (SIGLIP_ARCHS, SigLIPConfig, SigLIPModel,
                      init_siglip_random_, siglip_config_for_name)
 
@@ -187,12 +187,22 @@ def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
 
 def load(name: str, dtype=torch.float32, device="cuda", seed: int = 0,
          cache_dir: Optional[str] = None,
-         random_cfg: Optional[Any] = None) -> CLIPBundle:
+         random_cfg: Optional[Any] = None, remat: bool = False) -> CLIPBundle:
     """Load a CLIP (ViT or ConvNeXt) or a SigLIP model as a ``CLIPBundle``
     on ``device`` (default the card; raises without one unless
     ``device="cpu"``).
     Parameters are fp32; the towers compute in ``dtype``.  ``random_cfg``
-    (a ``CLIPConfig`` or ``SigLIPConfig``) shapes a ``random:`` model."""
+    (a ``CLIPConfig`` or ``SigLIPConfig``) shapes a ``random:`` model.
+    ``remat`` checkpoints every transformer block in training
+    (``layers.set_remat``), as JAX's ``load(remat=)``."""
+    bundle = _load(name, dtype, device, seed, cache_dir, random_cfg)
+    if remat:
+        set_remat(bundle.model)
+    return bundle
+
+
+def _load(name: str, dtype, device, seed: int, cache_dir: Optional[str],
+          random_cfg: Optional[Any]) -> CLIPBundle:
     dev = resolve_device(device)
     name = _normalize_openclip_name(name)
     cache_root = Path(cache_dir) if cache_dir else default_cache_root()

@@ -12,12 +12,16 @@ of ``fallback_arch`` with a warning (zero-egress machines), except
 stage runs on ``device`` (default the card): in bf16 there, where the
 image encodes take the block kernels through ``encode_image_fastest``
 (K1 for a CLIP ViT, its pack built once), and in fp32 on the CPU, where the
-canonical module runs.  Branches that need model checkpoints (orbax in the
-JAX package) raise and name ROADMAP A10.
+canonical module runs.  Model checkpoints (``utils/checkpointing.py``): the
+params-only warm start (``finetune.checkpoint``: a path or ``latest``),
+``finetune.resume``, ``eval_only`` from a checkpoint, periodic async saves
+(``checkpoint_interval``), the final ``save_model`` (with LoRA also
+``lora_adapters.npz``) and ``cache_embeddings_checkpoint``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 from pathlib import Path
@@ -41,9 +45,9 @@ from .train.prolip import (ProjectorSpec, evaluate_multi_testsets,
                            grid_search, projector_accuracy, resolve_lambda,
                            train_projector)
 from .train.tracker import ClassificationTracker
-from .utils import RunLogger, save_projector
-
-_A10 = "model checkpoints (utils/checkpointing.py) are ROADMAP A10"
+from .utils import (RunLogger, latest_checkpoint, load_checkpoint,
+                    load_params_into, save_checkpoint, save_projector,
+                    wait_for_async_saves)
 
 
 def set_seed(seed: int) -> None:
@@ -66,9 +70,7 @@ def init_clip_and_text_head(cfg, device="cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
     dtype = compute_dtype_for(dev)
     backend = str(cfg.get("clip_backend", "openai")).lower()
-    if bool(cfg.get("remat", False)):
-        raise NotImplementedError("remat (rematerialized blocks) is not "
-                                  "ported: ROADMAP A10")
+    remat = bool(cfg.get("remat", False))
     if backend == "openclip":
         backbone = cfg.get("open_clip_model", cfg.get("backbone", "ViT-B/16"))
         pretrained = cfg.get("open_clip_pretrained", None)
@@ -87,7 +89,7 @@ def init_clip_and_text_head(cfg, device="cuda") -> Dict[str, Any]:
     cache_dir = cfg.get("clip_cache_dir", None)
     try:
         bundle = load_model(backbone, dtype=dtype, device=dev,
-                            cache_dir=cache_dir)
+                            cache_dir=cache_dir, remat=remat)
     except SigLIPAssetsMissingError:
         # SigLIP text encoding without the snapshot's tokenizer would give
         # wrong token ids: random weights only when asked for
@@ -96,14 +98,16 @@ def init_clip_and_text_head(cfg, device="cuda") -> Dict[str, Any]:
         print(f"[warn] no snapshot for '{backbone}'; using random init "
               "(allow_random_weights)")
         stripped = str(backbone).replace("hf-hub:", "")
-        bundle = load_model(f"random:{stripped}", dtype=dtype, device=dev)
+        bundle = load_model(f"random:{stripped}", dtype=dtype, device=dev,
+                            remat=remat)
     except Exception as exc:  # zero-egress fallback
         if str(backbone).startswith("random:"):
             raise
         arch = cfg.get("fallback_arch", "ViT-B/16")
         print(f"[warn] could not load weights for '{backbone}' ({exc}); "
               f"falling back to random-init {arch}")
-        bundle = load_model(f"random:{arch}", dtype=dtype, device=dev)
+        bundle = load_model(f"random:{arch}", dtype=dtype, device=dev,
+                            remat=remat)
 
     if prompts is None:
         prompts = [t.format(c.replace("_", " "))
@@ -212,15 +216,24 @@ def _l2_eval_ctx(cfg, num_classes: int) -> Optional[Dict]:
             "return_confusion_matrix": False}
 
 
-def _resolve_device_dataset(cfg):
-    """``device_dataset``: 'auto' keeps the host loop (the JAX package
-    scans the epoch in HBM only on the TPU); true / 'chunked' reach
-    ``finetune``, which raises (ROADMAP A10)."""
+def _resolve_device_dataset(cfg, loaders, dev):
+    """``device_dataset``: true | false | 'chunked' | 'auto'.  'auto'
+    (``runner.py:256-277``) keeps the host loop on the CPU and on the card
+    stages the train split on the device when its uint8 images take at
+    most 4 GiB, else streams it in chunks."""
     setting = cfg.get("device_dataset", "auto")
     if isinstance(setting, bool):
         return setting
     s = str(setting).lower()
-    return "chunked" if s == "chunked" else s == "true"
+    if s == "chunked":
+        return "chunked"
+    if s != "auto":
+        return False
+    if dev.type != "cuda":
+        return False
+    train_bytes = (loaders.train.num_samples
+                   * int(np.prod(loaders.train.dataset.images.shape[1:])))
+    return True if train_bytes <= 4 * 1024 ** 3 else "chunked"
 
 
 def _resolve_fused_prefix(setting) -> int:
@@ -248,19 +261,30 @@ def _split_view(loaders, split: str):
             "test": loaders.test}.get(split, loaders.test)
 
 
+def _maybe_restore_checkpoint(cfg, bundle) -> Optional[str]:
+    """The params-only warm start from ``finetune.checkpoint`` (a path or
+    ``latest``) into the bundle's model; returns the path restored."""
+    ckpt = cfg.get("finetune", {}).get("checkpoint", None)
+    if not ckpt:
+        return None
+    path = latest_checkpoint(cfg) if str(ckpt) == "latest" else Path(ckpt)
+    if path is None:
+        print("[ckpt] no checkpoint found to restore")
+        return None
+    load_params_into(bundle["model"], load_checkpoint(path)["params"])
+    print(f"[ckpt] restored params from {path}")
+    return str(path)
+
+
 def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
              ) -> Dict[str, Any]:
-    """Partial-unfreeze fine-tune through ``train.peft.finetune``."""
+    """The fine-tune through ``train.peft.finetune`` (partial unfreeze or
+    LoRA), with the checkpoint branches of ``runner.py:295-464``."""
     ft_cfg = cfg.get("finetune", {})
     aug = cfg["data"]["preprocessing"].get("augmentations", {})
     model = bundle["model"]
     dev = model.logit_scale.device
     dtype = bundle["compute_dtype"]
-    for key in ("resume", "save_model"):
-        if bool(ft_cfg.get(key, False)):
-            raise NotImplementedError(f"finetune.{key}: {_A10}")
-    if ft_cfg.get("checkpoint", None):
-        raise NotImplementedError(f"finetune.checkpoint: {_A10}")
     if str(cfg.get("aug_impl", "fast")) != "fast":
         raise NotImplementedError(
             f"aug_impl={cfg.get('aug_impl')!r}: the per-image gather "
@@ -268,7 +292,24 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
     _check_single_device(cfg)
     l2_ctx = _l2_eval_ctx(cfg, bundle["num_classes"])
 
+    # resume: the parameters, the optimizer state and the epoch, restored
+    # inside finetune; otherwise finetune.checkpoint is a params-only start
+    resume_from = restored_from = None
+    if bool(ft_cfg.get("resume", False)):
+        ckpt = ft_cfg.get("checkpoint", None) or "latest"
+        resume_from = (latest_checkpoint(cfg) if str(ckpt) == "latest"
+                       else Path(ckpt))
+        if resume_from is None:
+            print("[resume] no checkpoint found; starting fresh")
+    else:
+        restored_from = _maybe_restore_checkpoint(cfg, bundle)
+
     if bool(ft_cfg.get("eval_only", False)):
+        if resume_from is not None:
+            # resume + eval_only: evaluate the checkpoint
+            load_params_into(model, load_checkpoint(resume_from)["params"])
+            restored_from = str(resume_from)
+            print(f"[eval_only] restored params from {resume_from}")
         tracker = ClassificationTracker()
         test = evaluate(model, loaders.test, bundle["text_weights"],
                         bundle["resolution"], bundle["num_classes"],
@@ -282,9 +323,12 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
             split = str(ft_cfg.get("cache_embeddings_split", "test")).lower()
             cache_embeddings(cfg, model, _split_view(loaders, split),
                              bundle["resolution"], split=split,
+                             checkpoint_path=restored_from,
                              compute_dtype=dtype)
-        return {"val": None, "test": test, "params": None, "tracker": tracker,
-                "report": None, "mask": None}
+        return {"val": None, "test": test,
+                "params": {n: p.detach() for n, p in model.named_parameters()},
+                "opt_state": None, "tracker": tracker, "report": None,
+                "mask": None}
 
     pcfg = PEFTConfig(
         resolution=bundle["resolution"],
@@ -301,10 +345,27 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
         val_interval=int(ft_cfg.get("val_interval", 0)),
         fused_prefix=_resolve_fused_prefix(ft_cfg.get("fused_prefix", "auto")),
         prefix_quant=bool(ft_cfg.get("fused_prefix_quant", False)),
-        device_dataset=_resolve_device_dataset(cfg),
+        device_dataset=_resolve_device_dataset(cfg, loaders, dev),
+        checkpoint_interval=int(ft_cfg.get("checkpoint_interval", 0)),
         scan_blocks=bool(ft_cfg.get("scan_blocks", False)),
+        scan_remat=bool(ft_cfg.get("scan_remat", True)),
         lora_rank=int(ft_cfg.get("lora_rank", 0)),
+        lora_alpha=float(ft_cfg.get("lora_alpha", 16.0)),
+        lora_mlp=bool(ft_cfg.get("lora_mlp", False)),
     )
+    save_model = bool(ft_cfg.get("save_model", False))
+    checkpoint_fn = None
+    if pcfg.checkpoint_interval and save_model:
+        def checkpoint_fn(par, opt_state, epoch):
+            # the host copy happens here; the disk write overlaps the next
+            # epochs (waited for after training)
+            try:
+                p = save_checkpoint(cfg, par, opt_state, epoch=epoch,
+                                    async_save=True)
+                print(f"[ckpt] epoch {epoch} -> {p} (async)", flush=True)
+            except Exception as exc:
+                print(f"[ckpt] periodic save failed: {exc}")
+
     t0 = time.perf_counter()
     out = finetune(
         model, loaders.train, loaders.val, loaders.test, pcfg,
@@ -313,10 +374,44 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
         unlocked_groups=int(ft_cfg.get("unlocked_groups", 1)),
         unlocked_text_layers=int(ft_cfg.get("unlocked_layers", 1)),
         seed=int(cfg.get("seed", 1)), l2_eval_ctx=l2_ctx, logger=logger,
-        device=dev)
+        checkpoint_fn=checkpoint_fn, resume_from=resume_from, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     out["seconds"] = time.perf_counter() - t0
+    if checkpoint_fn is not None:
+        wait_for_async_saves()
+
+    saved_path = None
+    interrupted = out.get("interrupted_at_epoch")
+    # a run interrupted before its last epoch saves the epoch it reached
+    # (checkpoint_fn already did, when wired): JAX saves it under the
+    # configured epoch count, which a resume would take as finished
+    if interrupted == pcfg.epochs:
+        interrupted = None
+    if save_model and not (interrupted and checkpoint_fn is not None):
+        try:
+            saved_path = save_checkpoint(cfg, out["params"], out["opt_state"],
+                                         epoch=interrupted or pcfg.epochs)
+            print(f"[ckpt] saved -> {saved_path}")
+        except Exception as exc:
+            print(f"[ckpt] save failed: {exc}")
+    if save_model and out.get("adapters"):
+        # LoRA: the adapters alone reproduce the run from the base weights,
+        # in JAX's file format (lora_adapters.npz, its keys and layouts)
+        from .models.convert import port_adapters_to_flax
+
+        try:
+            adir = (Path(str(saved_path)).parent if saved_path
+                    else Path(str(ft_cfg.get("save_model_dir",
+                                             "./model_ckpt"))))
+            adir.mkdir(parents=True, exist_ok=True)
+            apath = adir / "lora_adapters.npz"
+            np.savez(apath, **port_adapters_to_flax(out["adapters"]))
+            out["adapters_path"] = str(apath)
+            print(f"[ckpt] LoRA adapters -> {apath}")
+        except Exception as exc:
+            print(f"[ckpt] adapter save failed: {exc}")
+    out["checkpoint_path"] = str(saved_path) if saved_path else None
 
     if bool(ft_cfg.get("cache_embeddings", False)):
         split = str(ft_cfg.get("cache_embeddings_split", "test")).lower()
@@ -325,8 +420,14 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
             print(f"[warn] cache_embeddings requested but split '{split}' "
                   "is empty.")
         else:
-            cache_embeddings(cfg, model, view, bundle["resolution"],
-                             split=split, compute_dtype=dtype)
+            from .train.lora import lora_applied
+
+            adapters = out.get("adapters")
+            with (lora_applied(model, adapters, pcfg.lora_alpha)
+                  if adapters else contextlib.nullcontext()):
+                cache_embeddings(cfg, model, view, bundle["resolution"],
+                                 split=split, checkpoint_path=saved_path,
+                                 compute_dtype=dtype)
     if out["tracker"] is not None and logger is not None:
         out["tracker"].save_classification(logger)
     if (out["test"] is not None and out["test"].get("cm") is not None
@@ -555,10 +656,16 @@ def run(cfg, inspect_only: bool = False, config_file: str = "cfg",
         print(f"Loss: {out['loss']}, Accuracy: {out['acc']}")
     else:
         print("\nFinetune disabled (finetune.enabled=False).")
-        if bool(ft_cfg.get("cache_embeddings", False)) and \
-                ft_cfg.get("cache_embeddings_checkpoint", None):
-            raise NotImplementedError(
-                f"finetune.cache_embeddings_checkpoint: {_A10}")
+        # embeddings of a saved checkpoint, without training
+        ckpt = ft_cfg.get("cache_embeddings_checkpoint", None)
+        if bool(ft_cfg.get("cache_embeddings", False)) and ckpt:
+            model = bundle["model"]
+            load_params_into(model, load_checkpoint(ckpt)["params"])
+            split = str(ft_cfg.get("cache_embeddings_split", "test")).lower()
+            cache_embeddings(cfg, model, _split_view(loaders, split),
+                             bundle["resolution"], split=split,
+                             checkpoint_path=str(ckpt),
+                             compute_dtype=bundle["compute_dtype"])
 
     if logger is not None:
         logger.finish()

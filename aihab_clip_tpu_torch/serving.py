@@ -118,12 +118,8 @@ class ClassifierEngine:
         from .templates import gen_prompts
 
         self.device = resolve_device(device)
-        if lora:
-            raise NotImplementedError("LoRA merging (train/lora.py) is not "
-                                      "ported yet: ROADMAP A10")
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        del lora_alpha
         self.model_name = model
         self.batch_size = int(batch_size)
         # batch-shape buckets (batch_size, /2, /4, ...): a partly filled
@@ -161,6 +157,12 @@ class ClassifierEngine:
                                context_length=cfg.context_length,
                                tokenize_fn=self.bundle.tokenize_fn)
         self._text_weights = head["text_weights"]
+        # LoRA adapters merged into the weights after the text head (built
+        # from the unmerged base, as JAX's engine builds it from
+        # bundle.params, serving.py:152-156) and before the kernels' pack
+        # or the int8 quantization, which then serve W_eff
+        if lora:
+            self._merge_lora(lora, lora_alpha)
         self._packed = self._qparams = self._encode_int8 = None
         # the int8 weights from the fp32 parameters, once, into the kernels'
         # layout; the SigLIP and ViT int8 encodes take no dtype, as the JAX
@@ -204,6 +206,23 @@ class ClassifierEngine:
         self._decode_stream = (torch.cuda.Stream(self.device)
                                if self.device.type == "cuda" else None)
         self._warm = False
+
+    def _merge_lora(self, lora_path: str, alpha: float) -> None:
+        """W_eff = W + (alpha / r) A @ B into the model's weights, from a
+        ``lora_adapters.npz`` of either package (``serving.py:140-151``)."""
+        from .models.convert import flax_adapters_to_port
+        from .train.lora import lora_merge
+
+        model = self.bundle.model
+        adapters = flax_adapters_to_port(lora_path)
+        with torch.no_grad():
+            merged = lora_merge({n: model.get_parameter(n) for n in adapters},
+                                adapters, alpha)
+            for name, w in merged.items():
+                model.get_parameter(name).copy_(w)
+        if self.verbose:
+            print(f"[serving] merged {len(adapters)} LoRA adapters "
+                  f"(alpha={alpha}) from {lora_path}")
 
     # -- runtime -----------------------------------------------------------
 

@@ -55,7 +55,8 @@ def main(argv=None):
     p.add_argument("--flat", action="store_true",
                    help="flat prompts (default: hierarchical descriptive)")
     p.add_argument("--lora", default=None, metavar="ADAPTERS_NPZ",
-                   help="not ported yet (ROADMAP A10): raises")
+                   help="a lora_adapters.npz (of either package) merged "
+                        "into the weights before serving")
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--quantize", default="none", choices=["none", "int8"])
     p.add_argument("--device", default="cuda",

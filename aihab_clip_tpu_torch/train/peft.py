@@ -27,19 +27,35 @@ tower (counterpart of ``aihab_clip_tpu/train/peft.py:54-475, 561-1076``).
   * a cosine learning rate stepped per epoch, periodic validation
     (``val_interval``) and the final test through ``evaluate``.
 
+The rest of JAX's finetune (``peft.py:477-1076``):
+  * LoRA (``lora_rank`` > 0, ``train/lora.py``): the base tower wholly
+    frozen, rank-r adapters train, every read of the weights (the step,
+    ``evaluate``'s kernel pack, re-packed at each eval, the text head, the
+    returned ``params``, checkpoints) sees W_eff; the fused prefix is off;
+  * the scanned encodes (``scan_blocks``, ``scan_remat``);
+  * the epoch regimes (``device_dataset``: the host loop, the split staged
+    on the device, or chunks uploaded on a side stream), step for step the
+    same training;
+  * ``checkpoint_fn``, ``resume_from`` (bit for bit), graceful SIGTERM /
+    SIGINT, ``profile_dir`` and a ``StepTimer``.
+
 The port trains the model's parameters in place (JAX returns new arrays).
 Augmentation draws come from a ``torch.Generator`` seeded per (seed, epoch,
 step), so they differ from ``jax.random``'s; the batch order is the JAX
-package's.  Options of the JAX finetune that this package does not carry yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+package's.  ``mesh`` and ``fsdp`` raise ``NotImplementedError`` naming
+ROADMAP A13.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import signal
+import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..backend import resolve_device
@@ -173,6 +189,15 @@ class PEFTConfig:
     num_templates: int = 1
     compute_dtype: Any = torch.float32
     val_interval: int = 0
+    # False = the host loop (a batch copied to the device per step); True =
+    # the train split's uint8 images and labels staged on the device once,
+    # each step's batch gathered there; "chunked" = the split in chunks of
+    # ``device_chunk_bytes``, the next uploaded from pinned memory on a side
+    # stream while the current one trains.  All three are step for step the
+    # same training (the same batches, generators and order)
+    device_dataset: Any = False
+    device_chunk_bytes: int = 1 << 30
+    checkpoint_interval: int = 0   # checkpoint_fn every N epochs (0 = off)
     # frozen-prefix fused forward: the bottom N frozen visual blocks run
     # through the forward-only block kernels in the train step (SigLIP
     # K5/K4, CLIP ViT K1, ConvNeXt K7).  -1 = auto
@@ -185,30 +210,31 @@ class PEFTConfig:
     # suffix then trains on int8-noise features.  A ConvNeXt has no int8
     # prefix (``peft.py:280-281``): its bf16 prefix runs
     prefix_quant: bool = False
-    # options of the JAX finetune that raise here until their slice
-    device_dataset: Any = False
+    # the scanned canonical encode (SigLIP and CLIP ViT towers; with the
+    # fused prefix off; the text encode is the module's, which is JAX's
+    # scanned text encode's math); scan_remat checkpoints each scanned
+    # block (JAX's default)
     scan_blocks: bool = False
+    scan_remat: bool = True
+    # LoRA (rank > 0): the whole base tower freezes and rank-r adapters on
+    # the attention (and with lora_mlp the MLP) weights train; W_eff = W +
+    # (alpha / r) A @ B is merged each step (``train/lora.py``)
     lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_mlp: bool = False
 
 
 # the ROADMAP item that brings each option of the JAX finetune not ported yet
 _UNPORTED = {
-    "lora_rank": "LoRA adapters (train/lora.py), ROADMAP A10",
-    "scan_blocks": "the scanned encode (siglip_encode_scan), ROADMAP A10",
-    "device_dataset": "the epoch scan / chunked regimes, ROADMAP A10",
     "mesh": "parallelism, ROADMAP A13",
     "fsdp": "parallelism, ROADMAP A13",
-    "resume_from": "checkpointing, ROADMAP A10",
-    "checkpoint_fn": "checkpointing, ROADMAP A10",
-    "profile_dir": "profiling (utils/profiling.py), ROADMAP A10",
 }
 
 
 def _check_unported(cfg: PEFTConfig, **options) -> None:
-    requested = dict(options, lora_rank=cfg.lora_rank > 0,
-                     scan_blocks=cfg.scan_blocks,
-                     device_dataset=cfg.device_dataset)
-    for name, value in requested.items():
+    """Raise for an option of the JAX finetune this package does not
+    carry yet (every ``PEFTConfig`` field is ported)."""
+    for name, value in options.items():
         if value:
             raise NotImplementedError(
                 f"finetune {name}={value!r} is not ported: {_UNPORTED[name]}")
@@ -276,10 +302,23 @@ def _quantize_prefix(model, cfg: PEFTConfig):
 def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
     """The train step's image encode: the frozen-prefix hybrid when
     ``fused_prefix`` > 0 (``siglip_encode_hybrid``, ``vit_encode_hybrid``
-    or ``convnext_encode_hybrid``), the canonical module otherwise.
-    ``pprefix`` is the run's prefix (``_pack_prefix``, or
+    or ``convnext_encode_hybrid``), the scanned canonical encode with
+    ``scan_blocks`` (SigLIP and CLIP ViT towers), the canonical module
+    otherwise.  ``pprefix`` is the run's prefix (``_pack_prefix``, or
     ``_quantize_prefix`` with ``prefix_quant``), built here when absent."""
     if cfg.fused_prefix <= 0:
+        if cfg.scan_blocks and isinstance(model.config, SigLIPConfig):
+            from ..models.fast_siglip import siglip_encode_scan
+
+            return siglip_encode_scan(model, x, model.config, project=True,
+                                      dtype=cfg.compute_dtype,
+                                      remat=cfg.scan_remat)
+        if cfg.scan_blocks and model.config.is_vit:
+            from ..models.fast_vit import vit_encode_scan
+
+            return vit_encode_scan(model, x, model.config, project=True,
+                                   dtype=cfg.compute_dtype,
+                                   remat=cfg.scan_remat)
         return model.encode_image(x, project=True)
     if _is_convnext(model.config):
         from ..models.fast_convnext import convnext_encode_hybrid
@@ -330,14 +369,28 @@ def _build_loss_fn(model, cfg: PEFTConfig,
     return loss_fn
 
 
+def _merged(model, cfg: PEFTConfig, adapters):
+    """The context every read of the weights goes through: the LoRA
+    merge (``W_eff``) when adapters train, nothing otherwise."""
+    if adapters is None:
+        return contextlib.nullcontext(model)
+    from .lora import lora_applied
+
+    return lora_applied(model, adapters, cfg.lora_alpha)
+
+
 def make_train_step(model, cfg: PEFTConfig,
                     text_weights: Optional[torch.Tensor],
-                    prompt_tokens: Optional[torch.Tensor]):
+                    prompt_tokens: Optional[torch.Tensor], adapters=None):
     """Returns (opt, step): ``torch.optim.Adam`` over the parameters that
-    require a gradient, and ``step(images_u8, labels, valid, generator, lr,
+    require a gradient (with ``adapters``, over the LoRA A and B tensors
+    alone), and ``step(images_u8, labels, valid, generator, lr,
     pprefix=None) -> {loss, correct, n_valid}`` (device tensors; no host
-    sync), which updates the model's trainable parameters in place."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    sync), which updates those tensors in place."""
+    if adapters is None:
+        params = [p for p in model.parameters() if p.requires_grad]
+    else:
+        params = [t for ab in adapters.values() for t in (ab["a"], ab["b"])]
     opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
     loss_fn = _build_loss_fn(model, cfg, text_weights, prompt_tokens)
 
@@ -345,8 +398,9 @@ def make_train_step(model, cfg: PEFTConfig,
         for group in opt.param_groups:
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        loss, (correct, n_valid) = loss_fn(images_u8, labels, valid,
-                                           generator, pprefix)
+        with _merged(model, cfg, adapters):
+            loss, (correct, n_valid) = loss_fn(images_u8, labels, valid,
+                                               generator, pprefix)
         loss.backward()
         opt.step()
         return {"loss": loss.detach(), "correct": correct, "n_valid": n_valid}
@@ -362,8 +416,187 @@ def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
 
 
 # ---------------------------------------------------------------------------
+# The epoch regimes: where a step's batch comes from
+# ---------------------------------------------------------------------------
+
+
+def _epoch_batch_indices(view: SplitView, epoch: int):
+    """The host-side batch order of ``SplitView.batches(epoch)`` as padded
+    index/valid arrays [steps, B] (relative to the view's selection; pad
+    entries 0 and False), JAX's table for its epoch scan."""
+    order = np.arange(view.num_samples)
+    if view.shuffle:
+        rng = np.random.RandomState((view.seed * 100003 + epoch) % (2 ** 31))
+        order = order[rng.permutation(len(order))]
+    bs = view.batch_size
+    steps = (len(order) + bs - 1) // bs
+    idx = np.zeros((steps, bs), np.int32)
+    valid = np.zeros((steps, bs), bool)
+    for s in range(steps):
+        chunk = order[s * bs:(s + 1) * bs]
+        idx[s, :len(chunk)] = chunk
+        valid[s, :len(chunk)] = True
+    return idx, valid
+
+
+def upload(array: np.ndarray, dev, stream=None) -> torch.Tensor:
+    """A host -> device copy of the train split's data; with ``stream`` (a
+    card), the copy leaves pinned memory without blocking, on that
+    stream."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if stream is None:
+        return t.to(dev)
+    with torch.cuda.stream(stream):
+        return t.pin_memory().to(dev, non_blocking=True)
+
+
+class _Feed:
+    """Where a step's batch comes from; every host -> device copy of the
+    split's data (images, labels, the batch tables) is counted in
+    ``uploads``, so a caller can show that a regime copies nothing per
+    step (``report['split_uploads']``)."""
+
+    uploads = 0
+
+    def _upload(self, array, stream=None) -> torch.Tensor:
+        self.uploads += 1
+        return upload(array, self.dev, stream)
+
+
+class _HostFeed(_Feed):
+    """The host loop: each step's padded batch copied to the device."""
+
+    def __init__(self, view: SplitView, dev):
+        self.view, self.dev = view, dev
+
+    def epoch(self, epoch: int):
+        for batch in self.view.batches(epoch=epoch):
+            yield (self._upload(batch.images), self._upload(batch.labels),
+                   self._upload(batch.valid), batch.n_valid)
+
+
+class _StagedFeed(_Feed):
+    """``device_dataset=True``: the split's uint8 images and labels on the
+    device once, one zero row after them for the pad entries (the host
+    loop pads with zeros), added on the device so the host holds the split
+    once; per epoch the batch table goes up once, and each step gathers
+    its batch on the device."""
+
+    def __init__(self, view: SplitView, dev):
+        self.view, self.dev = view, dev
+        self.pad = len(view.indices)
+        self.images = self._padded(view.dataset.images[view.indices])
+        self.labels = self._padded(view.labels.astype(np.int32))
+
+    def _padded(self, array: np.ndarray) -> torch.Tensor:
+        # n + 1 rows on the device, the split copied into the first n
+        self.uploads += 1
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        t = src.new_empty((len(src) + 1,) + src.shape[1:], device=self.dev)
+        t[:-1].copy_(src)
+        t[-1].zero_()
+        return t
+
+    def epoch(self, epoch: int):
+        idx, valid = _epoch_batch_indices(self.view, epoch)
+        table = np.where(valid, idx, self.pad).astype(np.int64)
+        idx_d, valid_d = self._upload(table), self._upload(valid)
+        for s in range(len(table)):
+            yield (self.images.index_select(0, idx_d[s]),
+                   self.labels.index_select(0, idx_d[s]), valid_d[s],
+                   int(valid[s].sum()))
+
+
+class _ChunkedFeed(_Feed):
+    """``device_dataset='chunked'``: the epoch's batches in chunks of
+    ``chunk_bytes`` of images, gathered on the host in batch order (pad
+    rows zero) and uploaded whole; on a card the next chunk's copy leaves
+    pinned memory on a side stream while the current chunk trains, and the
+    compute stream waits on its event before the first use."""
+
+    def __init__(self, view: SplitView, dev, chunk_bytes: int):
+        self.view, self.dev = view, dev
+        per_sample = int(np.prod(view.dataset.images.shape[1:]))
+        self.chunk_steps = max(1, int(chunk_bytes)
+                               // (per_sample * view.batch_size))
+        self.labels = view.labels.astype(np.int32)
+        self.stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                       else None)
+        self.chunks_staged = 0
+
+    def _stage(self, idx, valid, s0: int, s1: int):
+        rel = idx[s0:s1].reshape(-1)
+        ok = valid[s0:s1].reshape(-1)
+        imgs = self.view.dataset.images[self.view.indices[rel]]
+        imgs[~ok] = 0
+        labs = np.where(ok, self.labels[rel], 0).astype(np.int32)
+        staged = (self._upload(imgs, self.stream),
+                  self._upload(labs, self.stream),
+                  self._upload(valid[s0:s1], self.stream))
+        event = None
+        if self.stream is not None:
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.chunks_staged += 1
+        return staged, event
+
+    def epoch(self, epoch: int):
+        idx, valid = _epoch_batch_indices(self.view, epoch)
+        steps, bs = idx.shape
+        bounds = [(s0, min(s0 + self.chunk_steps, steps))
+                  for s0 in range(0, steps, self.chunk_steps)]
+        nxt = self._stage(idx, valid, *bounds[0])
+        for c, (s0, s1) in enumerate(bounds):
+            (imgs, labs, val), event = nxt
+            if event is not None:
+                main = torch.cuda.current_stream(self.dev)
+                main.wait_event(event)
+                for t in (imgs, labs, val):
+                    t.record_stream(main)
+            for s in range(s1 - s0):
+                yield (imgs[s * bs:(s + 1) * bs], labs[s * bs:(s + 1) * bs],
+                       val[s], int(valid[s0 + s].sum()))
+                if s == 0 and c + 1 < len(bounds):
+                    # the next chunk's gather and copy while this one trains
+                    nxt = self._stage(idx, valid, *bounds[c + 1])
+
+
+def _feed(cfg: PEFTConfig, view: SplitView, dev):
+    mode = cfg.device_dataset
+    if isinstance(mode, str) and mode.lower() == "chunked":
+        return _ChunkedFeed(view, dev, cfg.device_chunk_bytes)
+    if mode:
+        return _StagedFeed(view, dev)
+    return _HostFeed(view, dev)
+
+
+# ---------------------------------------------------------------------------
 # The fine-tune loop
 # ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _graceful_signals(flag: Dict[str, Any]):
+    """On SIGTERM/SIGINT set ``flag["set"]`` (the loop finishes the epoch,
+    checkpoints and returns).  Handlers are installed on the main thread
+    only, and the previous ones restored on exit."""
+    prev = {}
+    if threading.current_thread() is threading.main_thread():
+        def on_signal(signum, frame):
+            flag["set"] = True
+            print(f"[peft] signal {signum}: finishing the current epoch, "
+                  "then checkpointing and exiting")
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev[sig] = signal.signal(sig, on_signal)
+        except (ValueError, OSError):
+            pass
+    try:
+        yield
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
 
 
 def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
@@ -379,10 +612,20 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
              device="cuda") -> Dict[str, Any]:
     """Run the PEFT loop on ``device`` (default the card; raises without
     one unless ``device="cpu"``), where the model must already live.
-    Returns {val, test, params, tracker, report, mask}: ``params`` are the
-    trained parameters by name (the model's own tensors)."""
-    _check_unported(cfg, profile_dir=profile_dir, checkpoint_fn=checkpoint_fn,
-                    resume_from=resume_from, mesh=mesh, fsdp=fsdp)
+    Returns {val, test, params, opt_state, tracker, report, mask,
+    adapters, interrupted_at_epoch}: ``params`` are the trained parameters
+    by name (the model's own tensors; with LoRA, new W_eff tensors for the
+    adapted weights, the model's base weights left as they were).
+
+    ``checkpoint_fn(params, opt_state, epoch)`` runs every
+    ``cfg.checkpoint_interval`` epochs (not after the last) and after an
+    interrupted epoch; ``resume_from`` (a checkpoint directory) restores
+    the parameters, the Adam state and the absolute epoch, and the run
+    continues bit for bit as if it had not stopped.  A SIGTERM or SIGINT
+    finishes the current epoch, checkpoints and returns with
+    ``interrupted_at_epoch``.  ``profile_dir`` traces the first epoch's
+    first 5 steps (``torch.profiler``, a Chrome trace)."""
+    _check_unported(cfg, mesh=mesh, fsdp=fsdp)
     dev = resolve_device(device)
     on = model.logit_scale.device
     if on.type != dev.type or dev.index not in (None, on.index):
@@ -392,10 +635,18 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     if not (ccfg.is_vit or _is_convnext(ccfg)):
         raise NotImplementedError("PEFT of ResNet towers is not ported: "
                                   "ROADMAP A11")
+    lora = cfg.lora_rank > 0
+    if lora:
+        if resume_from is not None:
+            raise ValueError("finetune.resume is not supported with LoRA "
+                             "(checkpoints store merged weights, not "
+                             "adapters); restart the adapter run instead")
+        # the adapters sit on every block: no frozen prefix
+        cfg = dataclasses.replace(cfg, fused_prefix=0, prefix_quant=False)
     n_blocks = _visual_blocks(ccfg)
     mask = build_lock_mask(model, ccfg.vision_layers, ccfg.transformer_layers,
-                           unlocked_groups=unlocked_groups,
-                           tune_text=cfg.tune_text,
+                           unlocked_groups=0 if lora else unlocked_groups,
+                           tune_text=cfg.tune_text and not lora,
                            unlocked_text_layers=unlocked_text_layers)
     if cfg.fused_prefix < 0:
         cfg = dataclasses.replace(cfg, fused_prefix=peft_fused_prefix_len(
@@ -417,7 +668,26 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                 f"bottom depth ({max_prefix} blocks at unlocked_groups="
                 f"{unlocked_groups}); the prefix must be entirely frozen")
     report = trainable_report(mask)
-    if verbose:
+    adapters = None
+    if lora:
+        from .lora import lora_init, lora_param_count
+
+        towers = ("visual", "text") if cfg.tune_text else ("visual",)
+        adapters = lora_init(model, cfg.lora_rank,
+                             torch.Generator().manual_seed(seed + 7919),
+                             towers=towers, include_mlp=cfg.lora_mlp)
+        report.update({
+            "method": "lora", "lora_rank": cfg.lora_rank,
+            "lora_alpha": cfg.lora_alpha,
+            "num_adapted_kernels": len(adapters),
+            "num_trainable": 2 * len(adapters),
+            "lora_params": lora_param_count(adapters)})
+        if verbose:
+            print(f"LoRA r={cfg.lora_rank} alpha={cfg.lora_alpha}: "
+                  f"{len(adapters)} adapted kernels, "
+                  f"{report['lora_params']:,} trainable params "
+                  "(base tower fully frozen)")
+    elif verbose:
         print(f"Trainable params: {report['num_trainable']} "
               f"({report['fraction_trainable']:.1%})")
         print(f"Frozen params   : {report['num_frozen']}")
@@ -428,9 +698,27 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     if not cfg.tune_text and text_weights is None:
         raise ValueError("tune_text=False requires precomputed text_weights")
 
-    opt, step = make_train_step(model, cfg, text_weights, prompt_tokens)
-    # the frozen prefix's weights, packed (or quantized) once per run
+    opt, step = make_train_step(model, cfg, text_weights, prompt_tokens,
+                                adapters)
+    start_epoch = 0
+    if resume_from is not None:
+        from ..utils.checkpointing import load_checkpoint, load_params_into
+
+        restored = load_checkpoint(resume_from)
+        load_params_into(model, restored["params"])
+        if "opt_state" in restored:
+            opt.load_state_dict(restored["opt_state"])
+        start_epoch = int(restored["meta"].get("epoch", 0))
+        if verbose:
+            print(f"[resume] restored epoch {start_epoch} (params"
+                  f"{' + opt state' if 'opt_state' in restored else ''}) "
+                  f"from {resume_from}")
+    # the frozen prefix's weights, packed (or quantized) once per run,
+    # after a resume (the frozen weights never change while training)
     pprefix = _quantize_prefix(model, cfg) or _pack_prefix(model, cfg)
+
+    def weights():
+        return _merged(model, cfg, adapters)
 
     def current_text_weights():
         if cfg.tune_text:
@@ -441,55 +729,108 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         return text_weights
 
     def run_eval(view, **kw):
-        return evaluate(model, view, current_text_weights(), cfg.resolution,
-                        cfg.num_classes, compute_dtype=cfg.compute_dtype,
-                        **kw)
+        # evaluate packs the kernels' weights at each call: with LoRA the
+        # pack (and the text head) is W_eff's
+        with torch.no_grad(), weights():
+            return evaluate(model, view, current_text_weights(),
+                            cfg.resolution, cfg.num_classes,
+                            compute_dtype=cfg.compute_dtype, **kw)
 
+    def current_params():
+        if lora:
+            from .lora import merged_params
+
+            return merged_params(model, adapters, cfg.lora_alpha)
+        return {n: p.detach() for n, p in model.named_parameters()}
+
+    feed = _feed(cfg, train_view, dev)
+    timer = None
+    interrupted = {"set": False, "epoch": None}
     if verbose:
         print("\nStart Training procedure")
     val_metrics = None
-    for epoch in range(cfg.epochs):
-        t0 = time.perf_counter()
-        lr_e = cosine_lr(cfg.lr, epoch, cfg.epochs)
-        step_metrics = []
-        for bi, batch in enumerate(train_view.batches(epoch=epoch)):
-            step_metrics.append(step(
-                torch.from_numpy(batch.images).to(dev),
-                torch.from_numpy(batch.labels).to(dev),
-                torch.from_numpy(batch.valid).to(dev),
-                step_generator(seed, epoch, bi), lr_e, pprefix))
-        run_batches = len(step_metrics)
-        run_loss = correct = seen = 0.0
-        if step_metrics:   # one host sync per epoch
-            sums = torch.stack([torch.stack([m["loss"], m["correct"].float(),
-                                             m["n_valid"]])
-                                for m in step_metrics]).sum(0).tolist()
-            run_loss, correct, seen = sums
-        if verbose:
-            print(f"Train Epoch: {epoch + 1} / {cfg.epochs}  "
-                  f"Acc: {correct / max(seen, 1):.4f} "
-                  f"({int(correct)}/{int(seen)}), "
-                  f"Avg Loss: {run_loss / max(run_batches, 1):.4f}, "
-                  f"LR: {lr_e:.2e}, {time.perf_counter() - t0:.1f}s")
-        if logger is not None:
-            logger.log({"epoch": epoch + 1,
-                        "train_loss": run_loss / max(run_batches, 1),
-                        "train_acc": correct / max(seen, 1), "lr": lr_e})
+    with _graceful_signals(interrupted):
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.perf_counter()
+            lr_e = cosine_lr(cfg.lr, epoch, cfg.epochs)
+            prof = None
+            if epoch == start_epoch:
+                from ..utils.profiling import StepTimer
 
-        do_val = ((cfg.val_interval and (epoch + 1) % cfg.val_interval == 0)
-                  or (epoch + 1) == cfg.epochs)
-        if do_val and val_view is not None and val_view.num_samples > 0:
-            val_metrics = run_eval(val_view, l2_eval_ctx=l2_eval_ctx)
+                timer = StepTimer()
+                if profile_dir is not None:
+                    from ..utils.profiling import trace
+
+                    prof = trace(profile_dir)
+                    prof.__enter__()
+            step_metrics = []
+            for bi, (imgs, labs, valid, n_valid) in enumerate(
+                    feed.epoch(epoch)):
+                with torch.profiler.record_function("train_step"):
+                    step_metrics.append(step(
+                        imgs, labs, valid, step_generator(seed, epoch, bi),
+                        lr_e, pprefix))
+                timer.tick(items=n_valid)
+                if prof is not None and bi >= 4:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    prof.__exit__(None, None, None)
+                    prof = None
+                    if verbose:
+                        print(f"[profile] trace (5 steps) -> {profile_dir}")
+            if prof is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                prof.__exit__(None, None, None)
+            run_batches = len(step_metrics)
+            run_loss = correct = seen = 0.0
+            if step_metrics:   # one host sync per epoch
+                sums = torch.stack([torch.stack([
+                    m["loss"], m["correct"].float(), m["n_valid"]])
+                    for m in step_metrics]).sum(0).tolist()
+                run_loss, correct, seen = sums
             if verbose:
-                print(f"[val epoch {epoch + 1}] "
-                      f"loss={val_metrics['loss']:.4f}, "
-                      f"top1_acc={val_metrics['top1']:.4f}, "
-                      f"top3_acc={val_metrics['top3']:.4f}, "
-                      f"f1={val_metrics['f1']:.4f}, "
-                      f"mcc={val_metrics['mcc']:.4f}")
+                print(f"Train Epoch: {epoch + 1} / {cfg.epochs}  "
+                      f"Acc: {correct / max(seen, 1):.4f} "
+                      f"({int(correct)}/{int(seen)}), "
+                      f"Avg Loss: {run_loss / max(run_batches, 1):.4f}, "
+                      f"LR: {lr_e:.2e}, {time.perf_counter() - t0:.1f}s",
+                      flush=True)
             if logger is not None:
-                logger.log({f"val_{k}": v for k, v in val_metrics.items()
-                            if isinstance(v, (int, float))})
+                logger.log({"epoch": epoch + 1,
+                            "train_loss": run_loss / max(run_batches, 1),
+                            "train_acc": correct / max(seen, 1), "lr": lr_e})
+
+            do_val = ((cfg.val_interval
+                       and (epoch + 1) % cfg.val_interval == 0)
+                      or (epoch + 1) == cfg.epochs)
+            if do_val and val_view is not None and val_view.num_samples > 0:
+                val_metrics = run_eval(val_view, l2_eval_ctx=l2_eval_ctx)
+                if verbose:
+                    print(f"[val epoch {epoch + 1}] "
+                          f"loss={val_metrics['loss']:.4f}, "
+                          f"top1_acc={val_metrics['top1']:.4f}, "
+                          f"top3_acc={val_metrics['top3']:.4f}, "
+                          f"f1={val_metrics['f1']:.4f}, "
+                          f"mcc={val_metrics['mcc']:.4f}")
+                if logger is not None:
+                    logger.log({f"val_{k}": v for k, v in val_metrics.items()
+                                if isinstance(v, (int, float))})
+
+            periodic = bool(cfg.checkpoint_interval
+                            and (epoch + 1) % cfg.checkpoint_interval == 0)
+            if (checkpoint_fn is not None and periodic
+                    and (epoch + 1) < cfg.epochs):
+                checkpoint_fn(current_params(), opt.state_dict(), epoch + 1)
+            if interrupted["set"]:
+                interrupted["epoch"] = epoch + 1
+                if checkpoint_fn is not None and not periodic:
+                    checkpoint_fn(current_params(), opt.state_dict(),
+                                  epoch + 1)
+                if verbose:
+                    print(f"[peft] interrupted after epoch {epoch + 1}; "
+                          "resume with finetune.resume: true", flush=True)
+                break
 
     test_metrics = None
     tracker = ClassificationTracker() if track_test else None
@@ -504,12 +845,18 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                   f"f1={test_metrics['f1']:.4f}, mcc={test_metrics['mcc']:.4f}")
     elif verbose:
         print("[test] skipped (no test split)")
+    if timer is not None:
+        report["first_epoch_throughput"] = timer.summary()
+    report["split_uploads"] = feed.uploads
     return {
         "val": val_metrics,
         "test": test_metrics,
-        "params": {n: p.detach() for n, p in model.named_parameters()},
+        "params": current_params(),
         "opt_state": opt.state_dict(),
         "tracker": tracker,
         "report": report,
         "mask": mask,
+        "adapters": ({n: {k: t.detach() for k, t in ab.items()}
+                      for n, ab in adapters.items()} if lora else None),
+        "interrupted_at_epoch": interrupted["epoch"],
     }

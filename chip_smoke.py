@@ -156,7 +156,30 @@ Phases (any failure raises and the exit code is non-zero):
      full scale and m = 2 (s per megapixel), the predict CLI over the test
      folder against an engine's rows, build_loaders s, cache write and test
      encode images/s, grid search and train_projector s, PEFT s per epoch;
-  7. one JSON line listing every kernel; last line ``{"ok": true, ...}``.
+  9. A10 (the remaining fine-tune options): 9d, on the SO400M engine's
+     weights, one LoRA train step (rank 8 on both towers' attention,
+     ``scan_blocks`` + ``scan_remat``, tune_text, batch 16 at 384): 54 K6
+     forward (remat runs each block's forward again) and 27 K6 backward
+     launches, the loss and the adapters' gradient against the same step
+     with K6 plain (``STEP_GATES``), ms and peak memory with and without
+     ``scan_remat``; 9e, ``finetune`` with the same options and
+     ``profile_dir`` over 5 steps + one test batch (K5/K4): the Chrome trace
+     names the flash attention kernel and K6b's dq and dk/dv kernels, the
+     base weights unchanged; 9a, on ViT-B/16 through ``run()`` on a
+     synthetic CS tree (``RUNNER_PEFT_OPTS`` + LoRA rank 8 with
+     ``lora_mlp``, ``save_model``, ``checkpoint_interval 1``, 2 epochs):
+     the base weights bit-identical, every adapter moved,
+     ``lora_adapters.npz`` with JAX's keys, 12 K1 per eval batch;
+     ``ClassifierEngine(lora=)`` against an engine on the returned W_eff
+     (max|dprob| 0) and K1 plain on W_eff (``COS_MIN``), and its int8 twin
+     (K8 + 12 K14); 9c, ``device_dataset`` False / True / 'chunked' (3
+     chunks an epoch) bit for bit, the split's uploads counted; 9b, ``python
+     -m aihab_clip_tpu_torch`` (3 epochs, the K1 prefix) sent SIGTERM after
+     its first epoch, exit 0 with the epoch checkpoint, then resumed by a
+     second CLI run: its final parameters against an uninterrupted run, bit
+     for bit;
+  7. one JSON line listing every kernel (with each kernel's A10 launches);
+     last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
 
@@ -166,6 +189,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -286,6 +310,10 @@ RUNNER_TIMED = 40   # photos timed for the fast decode figures
 LOADER_RSS_FILES = 64   # 12 MP JPEGs of the loader's peak RSS figure
 LOADER_RSS_RESIZE = 439   # configs/cs.yaml's resize: the prescale's m = 4
 RUNNER_PROJ_REL = 1e-4
+# 9: A10 — the LoRA rank of the runner's and SO400M's LoRA runs, the chunks
+# an epoch of the chunked regime, and the SO400M profiled finetune's train
+# and test images (5 steps at batch 16, one test batch)
+A10_LORA_RANK, A10_CHUNKS, A10_PROFILE_SPLITS = 8, 3, (80, 16)
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
 STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
@@ -746,9 +774,13 @@ def main() -> None:
 
     # ---- 6. the SigLIP PEFT path on the engine's weights
     counts["siglip_peft"], train = peft_path(engine, bk)
+    phase("peft path")
+
+    # ---- 9d/9e. A10 on SO400M: the scanned, remat'd LoRA step; profile_dir
+    a10_so = a10_so400m_path(engine, bk, smi)
     del engine
     torch.cuda.empty_cache()
-    phase("peft path")
+    phase("a10 so400m path")
 
     # ---- 5d. the ConvNeXt base_w bf16 and int8 engines + dynamic batcher
     cx_counts, cx_rates, cx_figures, engine = convnext_path(bk)
@@ -772,6 +804,11 @@ def main() -> None:
     runner = runner_path(bk, smi, big)
     phase("runner path")
 
+    # ---- 9a-9c. A10 on ViT-B/16: LoRA through the runner and the engines,
+    # resume after SIGTERM through the CLI, the epoch regimes
+    a10_vit = a10_runner_path(bk, smi)
+    phase("a10 runner path")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -793,8 +830,25 @@ def main() -> None:
                       tag + "_int8": f"{arch} int8 engine + DynamicBatcher",
                       tag + "_int8_jax": f"{arch} JAX's int8 route (K13 + "
                                          "K9 -> K10) encode"})
+    a10_l = a10_vit["launches"]
+    so_run, so_step = a10_so["launches_finetune"], a10_so["launches_step"]
+    # the A10 launches of each kernel at the row of the A10 paths' shapes
+    # (ViT-B/16 bf16 and int8, SO400M)
+    a10_counts = {
+        "full_block_fused": a10_l["lora_run"]["full_block_fused"]
+        + a10_l["lora_engine"]["full_block_fused"] + a10_l["regimes_k1"],
+        "quant_full_block_fused":
+            a10_l["lora_engine_int8"]["quant_full_block_fused"],
+        "fused_attention_fwd": so_step["fused_attention_fwd"]
+        + so_run["fused_attention_fwd"],
+        "fused_attention_bwd": so_step["fused_attention_bwd"]
+        + so_run["fused_attention_bwd"],
+        "attn_block_split": so_run["attn_block_split"],
+        "mlp_block_split": so_run["mlp_block_split"]}
     for row in rows:
         counter = row.pop("counter").__name__
+        if row["name"] in a10_counts:
+            row["a10_launches"] = a10_counts[row["name"]]
         row["launches"] = counts[row["path"]][counter]
         row["path"] = names[row["path"]]
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
@@ -809,6 +863,7 @@ def main() -> None:
                       "vit_fast": fast_figures,
                       "vit_encode_train": fast_train, "int8_core": int8_core,
                       "large_vit": large_figures, "runner": runner,
+                      "a10": {"vit_b16": a10_vit, "so400m": a10_so},
                       "jpeg": jpeg_figures, "serving": serving_figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -4366,6 +4421,532 @@ def runner_path(bk, smi: str, big: bytes) -> dict:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     return figures
+
+
+# ---------------------------------------------------------------------------
+# A10: LoRA, checkpoints with resume and SIGTERM, the epoch regimes, the
+# scanned + remat'd LoRA step, profile_dir
+# ---------------------------------------------------------------------------
+
+
+def _lora_keys(layers: int) -> set:
+    """JAX's ``lora_adapters.npz`` keys for a CLIP tower pair of ``layers``
+    blocks each, attention and MLP adapted on both towers
+    (``aihab_clip_tpu/train/lora.py``'s targets, ``runner.py:439``'s
+    keys), written out here from the architecture."""
+    mods = ("attn/in_proj", "attn/out_proj", "mlp/c_fc", "mlp/c_proj")
+    return {f"{tower}/transformer/resblocks_{i}/{mod}/kernel/{leaf}"
+            for tower in ("visual", "text") for i in range(layers)
+            for mod in mods for leaf in ("a", "b")}
+
+
+def a10_runner_path(bk, smi: str) -> dict:
+    """A10 on ViT-B/16 through the port's entry points, on a synthetic CS
+    tree (``RUNNER_TREE``) in a temporary directory:
+    (a) ``run()`` with ``RUNNER_PEFT_OPTS`` + LoRA (rank ``A10_LORA_RANK``,
+    ``lora_mlp``, the text tower too under ``tune_text``), ``save_model``,
+    ``checkpoint_interval 1``, 2 epochs: every base weight bit-identical
+    after training, every adapter moved, ``lora_adapters.npz`` with JAX's
+    keys and layouts, K1 = 12 per eval batch; ``ClassifierEngine(lora=)``
+    on the test photos: max|dprob| 0 against an engine on the returned
+    W_eff, feature cosine >= ``COS_MIN`` against K1's plain version on
+    W_eff, 12 K1 a batch; the int8 engine with the same adapters (K8 + 12 K14 a batch),
+    feature cosine against the bf16 LoRA engine's >= ``INT8_COS['fp32']``;
+    (b) ``python -m aihab_clip_tpu_torch`` (3 epochs, partial unfreeze, the
+    K1 prefix, ``checkpoint_interval 1``) sent SIGTERM after its first
+    ``Train Epoch`` line exits 0 with an epoch checkpoint; a second CLI run
+    with ``finetune.resume True`` finishes; its final parameters against
+    an uninterrupted ``run()`` of the same config, bit for bit;
+    (c) ``finetune`` on (a)'s loaders with ``device_dataset`` False, True
+    and 'chunked' (3 chunks an epoch): per-epoch losses and the final
+    parameters bit for bit, and the uploads of the split (``peft.upload``)
+    per run: none per step.  Returns the figures."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.config import load_configs
+    from aihab_clip_tpu_torch.data import make_synthetic_cs_dataset
+    from aihab_clip_tpu_torch.models import fast_vit, load
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.runner import run
+    from aihab_clip_tpu_torch.serving import ClassifierEngine
+    from aihab_clip_tpu_torch.taxonomy import CS_CLASSNAMES
+    from aihab_clip_tpu_torch.train import lora, peft
+    from aihab_clip_tpu_torch.utils import latest_checkpoint, load_checkpoint
+
+    here = Path(__file__).resolve().parent
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="aihab_a10_")
+    os.chdir(tmp)
+    figures = {"card": smi}
+    launches = {}
+    try:
+        tree = make_synthetic_cs_dataset(
+            tmp, name="cs_synth", classes=CS_CLASSNAMES,
+            n_train_per_class=RUNNER_TREE[0], n_test_per_class=RUNNER_TREE[1],
+            image_size=RUNNER_TREE[2],
+            index_file_name="CS_Xplots_2019_23_NEW02OCT24.csv")
+        base = ["data.dataset_paths", repr(tree["dataset_paths"])] \
+            + RUNNER_OPTS + RUNNER_PEFT_OPTS
+
+        def config(*opts):
+            return load_configs(str(here / "configs/base.yaml"),
+                                str(here / "configs/cs.yaml"),
+                                base + list(opts))
+
+        # -- (a) LoRA through the runner
+        cfg = config("finetune.lora_rank", str(A10_LORA_RANK),
+                     "finetune.lora_mlp", "True", "finetune.save_model",
+                     "True", "finetune.checkpoint_interval", "1",
+                     "finetune.save_model_dir", f"{tmp}/ck_lora")
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run(cfg, config_file="cs", logger_mode="off", device="cuda")
+        torch.cuda.synchronize()
+        figures["lora_run_s"] = time.perf_counter() - t0
+        out, loaders = result["peft"], result["loaders"]
+        model = result["bundle"]["model"]
+        launches["lora_run"] = bk.launch_counts()
+        evals = len(loaders.val) + 2 * len(loaders.test)  # val, test, cache
+        print(f"[a10 lora] runner LoRA r={A10_LORA_RANK} run in "
+              f"{figures['lora_run_s']:.2f}s: {out['report']['num_adapted_kernels']}"
+              f" adapted kernels, {out['report']['lora_params']:,} trainable "
+              f"params; launches {launches['lora_run']}; test loss "
+              f"{out['test']['loss']:.4f} top1 {out['test']['top1']:.4f} "
+              f"({smi})")
+        check(launches["lora_run"]["full_block_fused"] == 12 * evals,
+              f"LoRA run K1 launches {launches['lora_run']['full_block_fused']}"
+              f" (want 12 per eval batch x {evals})")
+        fresh = load(str(cfg.open_clip_model), dtype=torch.bfloat16,
+                     device="cuda").model
+        base_changed = [n for n, p in fresh.named_parameters()
+                        if not torch.equal(p, model.get_parameter(n))]
+        check(not base_changed, f"LoRA changed base weights {base_changed[:3]}")
+        init = lora.lora_init(fresh, A10_LORA_RANK,
+                              torch.Generator().manual_seed(int(cfg.seed)
+                                                            + 7919),
+                              towers=("visual", "text"), include_mlp=True)
+        still = [n for n, ab in out["adapters"].items()
+                 if torch.equal(ab["a"], init[n]["a"])
+                 or not ab["b"].abs().max().item() > 0]
+        check(not still and init.keys() == out["adapters"].keys(),
+              f"adapters that did not move: {still[:3]}")
+        npz = np.load(out["adapters_path"])
+        width = fresh.config.vision_width
+        check(set(npz.files) == _lora_keys(12)
+              and npz["visual/transformer/resblocks_0/attn/in_proj/kernel/a"]
+              .shape == (width, A10_LORA_RANK)
+              and npz["visual/transformer/resblocks_0/mlp/c_fc/kernel/b"]
+              .shape == (A10_LORA_RANK, 4 * width),
+              "lora_adapters.npz keys or layouts differ from JAX's")
+        print(f"[a10 lora] base weights bit-identical ({len(dict(fresh.named_parameters()))}"
+              f" leaves); all {len(init)} adapters moved; "
+              f"{Path(out['adapters_path']).name}: {len(npz.files)} arrays "
+              f"with JAX's keys; checkpoint {Path(out['checkpoint_path']).name}")
+        del fresh
+
+        # ClassifierEngine(lora=) on the test photos
+        paths = sorted(str(p) for p in Path(tree["test_dir"]).glob("*.jpg"))
+        eng = ClassifierEngine(model=str(cfg.open_clip_model), device="cuda",
+                               lora=out["adapters_path"], verbose=False)
+        imgs = np.stack(eng.decode_files(paths))
+        bk.reset_launch_counts()
+        probs = eng.classify_batch(imgs)
+        torch.cuda.synchronize()
+        launches["lora_engine"] = bk.launch_counts()
+        n_batches = -(-len(imgs) // eng.batch_size)
+        check(launches["lora_engine"]["full_block_fused"] == 12 * n_batches,
+              f"LoRA engine K1 launches {launches['lora_engine']}")
+        ref = ClassifierEngine(model=str(cfg.open_clip_model), device="cuda",
+                               verbose=False)
+        with torch.no_grad():
+            for name, p in ref.bundle.model.named_parameters():
+                p.copy_(out["params"][name])
+        ref._packed = fast_vit.pack_fastest(ref.bundle.model, ref.bundle.config,
+                                            torch.bfloat16)
+        d_ref = float(np.abs(probs - ref.classify_batch(imgs)).max())
+        # K1's plain version on W_eff: the serving gate of the kernel
+        # against its plain version is the feature cosine (COS_MIN)
+        from aihab_clip_tpu_torch.ops.preprocess import eval_transform
+
+        with torch.inference_mode():
+            xb = eval_transform(torch.from_numpy(imgs).cuda(), eng.resolution,
+                                dtype=torch.bfloat16)
+            f_k = fast_vit.encode_image_fastest(
+                eng.bundle.model, xb, eng.bundle.config, project=True,
+                packed=eng._packed)[1].float()
+            with mock.patch.object(fast_vit, "full_block_fused",
+                                   bk.full_block_fused_plain):
+                f_p = fast_vit.encode_image_fastest(
+                    eng.bundle.model, xb, eng.bundle.config, project=True,
+                    packed=eng._packed)[1].float()
+                plain = eng.classify_batch(imgs)
+        cos_p = torch.nn.functional.cosine_similarity(f_k, f_p, dim=-1)
+        d_plain = float(np.abs(probs - plain).max())
+        agree = float((probs.argmax(-1) == plain.argmax(-1)).mean())
+        print(f"[a10 lora] ClassifierEngine(lora=) on {len(imgs)} test photos: "
+              f"max|dprob| {d_ref:.3g} against an engine on the returned "
+              f"W_eff; against K1 plain on W_eff: feature cosine min "
+              f"{cos_p.min().item():.6f} (limit {COS_MIN}), max|dprob| "
+              f"{d_plain:.3g}, top-1 agreement {agree:.4f}; launches "
+              f"{launches['lora_engine']} ({smi})")
+        check(d_ref == 0.0, "the LoRA engine differs from the W_eff engine")
+        check(cos_p.min().item() >= COS_MIN,
+              "the LoRA engine differs from K1 plain on W_eff")
+        del ref
+
+        # the int8 engine on the same adapters (merge, then quantize)
+        eng8 = ClassifierEngine(model=str(cfg.open_clip_model), device="cuda",
+                                lora=out["adapters_path"], quantize="int8",
+                                verbose=False)
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+        with torch.inference_mode():
+            xb = xb[:eng.batch_size]
+            f8 = eng8._encode_int8(xb).float()
+            torch.cuda.synchronize()
+            launches["lora_engine_int8"] = {**bk.launch_counts(),
+                                            **qm.launch_counts()}
+            f16 = fast_vit.encode_image_fastest(
+                eng.bundle.model, xb, eng.bundle.config, project=True,
+                packed=eng._packed)[1].float()
+        cos8 = torch.nn.functional.cosine_similarity(f8, f16, dim=-1)
+        print(f"[a10 lora] int8 engine on the adapters: feature cosine to "
+              f"the bf16 LoRA engine min {cos8.min().item():.6f} (limit "
+              f"{INT8_COS['fp32']}); launches {launches['lora_engine_int8']} "
+              f"({smi})")
+        check(launches["lora_engine_int8"]["quant_matmul_fused"] == 1
+              and launches["lora_engine_int8"]["quant_full_block_fused"] == 12
+              and launches["lora_engine_int8"]["full_block_fused"] == 0,
+              "int8 LoRA engine launches")
+        check(cos8.min().item() >= INT8_COS["fp32"], "int8 LoRA cosine")
+        figures.update(lora_engine_max_dprob=d_ref,
+                       lora_plain_cos_min=cos_p.min().item(),
+                       lora_plain_max_dprob=d_plain,
+                       lora_int8_cos_min=cos8.min().item(),
+                       lora_test_loss=out["test"]["loss"])
+        del eng, eng8, xb
+
+        # -- (c) the epoch regimes on (a)'s loaders and base weights
+        bundle = result["bundle"]
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        per_step = int(np.prod(loaders.train.dataset.images.shape[1:])) \
+            * loaders.train.batch_size
+        steps = len(loaders.train)
+        chunk_steps = -(-steps // A10_CHUNKS)
+        n_chunks = -(-steps // chunk_steps)
+        check(n_chunks >= 3, f"{n_chunks} chunks an epoch")
+        regimes = {}
+        for regime in (False, True, "chunked"):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            rows = []
+
+            class Log:
+                def log(self, row):
+                    rows.append(row)
+
+            pcfg = peft.PEFTConfig(
+                resolution=bundle["resolution"], num_classes=20,
+                lr=float(cfg.lr_v), epochs=2, crop_mode="random",
+                rotation=True, tune_text=True,
+                num_templates=bundle["num_templates"],
+                compute_dtype=torch.bfloat16, device_dataset=regime,
+                device_chunk_bytes=chunk_steps * per_step)
+            bk.reset_launch_counts()
+            t0 = time.perf_counter()
+            o = peft.finetune(model, loaders.train, None, loaders.test, pcfg,
+                              prompt_tokens=bundle["prompt_tokens"],
+                              unlocked_groups=11, unlocked_text_layers=1,
+                              seed=int(cfg.seed), logger=Log(), verbose=False,
+                              device="cuda")
+            torch.cuda.synchronize()
+            regimes[regime] = dict(
+                losses=[r["train_loss"] for r in rows if "train_loss" in r],
+                params={n: t.detach().clone() for n, t in o["params"].items()},
+                test_loss=o["test"]["loss"], s=time.perf_counter() - t0,
+                uploads=o["report"]["split_uploads"],
+                k1=bk.launch_counts()["full_block_fused"])
+        want = {False: 3 * steps * 2, True: 2 + 2 * 2,
+                "chunked": 3 * n_chunks * 2}
+        for regime, r in regimes.items():
+            same = all(torch.equal(t, regimes[False]["params"][n])
+                       for n, t in r["params"].items())
+            print(f"[a10 regimes] device_dataset={regime!r}: losses "
+                  f"{r['losses']}, test loss {r['test_loss']:.6f}, params "
+                  f"bit-identical to the host loop: {same}; uploads of the "
+                  f"split {r['uploads']} (want {want[regime]}: "
+                  f"{steps} steps an epoch); K1 {r['k1']}; {r['s']:.2f}s "
+                  f"({smi})")
+            check(r["losses"] == regimes[False]["losses"] and same
+                  and r["test_loss"] == regimes[False]["test_loss"],
+                  f"device_dataset={regime!r} differs from the host loop")
+            check(r["uploads"] == want[regime],
+                  f"device_dataset={regime!r} uploads {r['uploads']}")
+            check(r["k1"] > 0, "no K1 in the regime run")
+        figures["regimes"] = {str(k): dict(losses=v["losses"], s=v["s"],
+                                           uploads=v["uploads"])
+                              for k, v in regimes.items()}
+        launches["regimes_k1"] = regimes[True]["k1"]
+        del result, model, bundle, start, regimes
+        torch.cuda.empty_cache()
+
+        # -- (b) resume and SIGTERM through the CLI
+        opts_b = ["train_epoch", "3", "finetune.checkpoint_interval", "1",
+                  "finetune.save_model", "True",
+                  "finetune.cache_embeddings", "False"]
+        ref_cfg = config(*opts_b, "finetune.save_model_dir", f"{tmp}/ck_ref")
+        ref_out = run(ref_cfg, config_file="cs", logger_mode="off",
+                      device="cuda")["peft"]
+        want_params = {n: t.detach().cpu() for n, t in
+                       ref_out["params"].items()}
+        del ref_out
+        cmd = [sys.executable, "-m", "aihab_clip_tpu_torch", "--base_config",
+               str(here / "configs/base.yaml"), "--dataset_config",
+               str(here / "configs/cs.yaml"), "--logger", "off", "--opts",
+               *base, *opts_b, "finetune.save_model_dir", f"{tmp}/ck_int"]
+        env = dict(os.environ, PYTHONPATH=str(here), PYTHONUNBUFFERED="1")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=tmp, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("Train Epoch: 1 /"):
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        first_s = time.perf_counter() - t0
+        text = "".join(lines)
+        stopped = [ln for ln in lines if "interrupted after epoch" in ln]
+        ck1 = latest_checkpoint(config("finetune.save_model_dir",
+                                       f"{tmp}/ck_int"))
+        print(f"[a10 resume] CLI run sent SIGTERM after 'Train Epoch: 1': "
+              f"exit {rc} in {first_s:.1f}s; {stopped[-1].strip() if stopped else 'no interrupt line'}; "
+              f"checkpoint {ck1.name if ck1 else None} ({smi})")
+        check(rc == 0 and stopped and ck1 is not None,
+              f"the interrupted CLI run: exit {rc}\n{text[-3000:]}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["finetune.resume", "True"], cwd=tmp,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        second_s = time.perf_counter() - t0
+        restored = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("[resume]")]
+        check(proc.returncode == 0 and restored,
+              f"the resumed CLI run: exit {proc.returncode}\n"
+              f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        final = load_checkpoint(latest_checkpoint(config(
+            "finetune.save_model_dir", f"{tmp}/ck_int")))
+        got = final["params"]
+        diff = [n for n in want_params if not torch.equal(got[n],
+                                                          want_params[n])]
+        flat_g = torch.cat([got[n].flatten().double() for n in want_params])
+        flat_w = torch.cat([want_params[n].flatten().double()
+                            for n in want_params])
+        cos = torch.nn.functional.cosine_similarity(flat_g, flat_w,
+                                                    dim=0).item()
+        print(f"[a10 resume] {restored[0]}; resumed run exit "
+              f"{proc.returncode} in {second_s:.1f}s, final epoch "
+              f"{final['meta']['epoch']}; params against the uninterrupted "
+              f"run: {len(want_params) - len(diff)} of {len(want_params)} "
+              f"leaves bit-identical, max|d| "
+              f"{(flat_g - flat_w).abs().max().item():.3g}, cosine {cos:.9f} "
+              f"({smi})")
+        check(final["meta"]["epoch"] == 3, "the resumed run did not finish")
+        check(not diff, f"resumed params differ from the uninterrupted "
+              f"run's in {diff[:5]}")
+        figures.update(resume_bit_identical=not diff,
+                       interrupted_run_s=first_s, resumed_run_s=second_s,
+                       interrupted_at=stopped[-1].strip())
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    figures["launches"] = launches
+    return figures
+
+
+def a10_so400m_path(engine, bk, smi: str) -> dict:
+    """A10 on SO400M (the SigLIP engine's seeded weights): (d) one LoRA
+    train step (rank ``A10_LORA_RANK`` on both towers' attention, B drawn
+    N(0, 0.02) so every adapter has a gradient) with ``scan_blocks`` and
+    ``scan_remat`` at batch 16 at 384 from 439x439 uint8, tune_text: the
+    scanned encode's 27 blocks through K6 (forward twice with remat, once
+    in the backward's recompute), the loss and the adapters' gradient
+    cosine against the same step with K6 plain (``STEP_GATES['plain']``);
+    the peak memory and ms of the step with ``scan_remat`` True and False;
+    (e) ``finetune`` over ``A10_PROFILE_SPLITS`` with the same options and
+    ``profile_dir``: a Chrome trace whose CUDA kernels name the flash
+    attention kernel and the dq and dk/dv kernels; the base weights
+    unchanged; the test split through K5/K4.  Returns the figures."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from aihab_clip_tpu_torch.data import SplitView
+    from aihab_clip_tpu_torch.models import build_text_head
+    from aihab_clip_tpu_torch.ops import attention as att
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.train import lora
+    from aihab_clip_tpu_torch.train.peft import (PEFTConfig, _build_loss_fn,
+                                                 finetune, make_train_step,
+                                                 step_generator)
+
+    dev = torch.device("cuda")
+    model, mcfg = engine.bundle.model, engine.bundle.config
+    layers = mcfg.vision_layers
+
+    def counts():
+        return {**bk.launch_counts(), **att.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        att.reset_launch_counts()
+
+    prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+    tokens = build_text_head(model, prompts, 20, tpc,
+                             context_length=mcfg.context_length)["prompt_tokens"]
+    cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                     lr=PEFT_LR, epochs=1, crop_mode="random", rotation=True,
+                     tune_text=True, num_templates=tpc,
+                     compute_dtype=torch.bfloat16, fused_prefix=0,
+                     scan_blocks=True, scan_remat=True,
+                     lora_rank=A10_LORA_RANK)
+    adapters = lora.lora_init(model, A10_LORA_RANK,
+                              torch.Generator().manual_seed(SEED + 7919),
+                              towers=("visual", "text"))
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for ab in adapters.values():
+            ab["b"].copy_(0.02 * torch.randn(ab["b"].shape, generator=g))
+    ds = synthetic_dataset(np.random.default_rng(SEED + 5),
+                           sum(A10_PROFILE_SPLITS), PEFT_DECODE)
+    n_tr, n_te = A10_PROFILE_SPLITS
+    train_view = SplitView(ds, np.arange(n_tr), PEFT_B, shuffle=True,
+                           seed=SEED)
+    test_view = SplitView(ds, np.arange(n_tr, n_tr + n_te), PEFT_B)
+    batch = next(train_view.batches(0))
+    imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
+        batch.images, batch.labels, batch.valid))
+    flat = [t for ab in adapters.values() for t in (ab["a"], ab["b"])]
+
+    def step_grads(c):
+        loss_fn = _build_loss_fn(model, c, None, tokens)
+        for t in flat:
+            t.grad = None
+        with lora.lora_applied(model, adapters, c.lora_alpha):
+            loss, _ = loss_fn(imgs, labs, valid, step_generator(SEED, 0, 0))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), torch.cat([t.grad.float().flatten()
+                                       for t in flat])
+
+    reset()
+    kern = step_grads(cfg)
+    per_step = counts()
+    print(f"[a10 so400m] LoRA r={A10_LORA_RANK} on {len(adapters)} kernels "
+          f"({lora.lora_param_count(adapters):,} params), scan_blocks + "
+          f"scan_remat, batch {PEFT_B} at {mcfg.image_resolution}: launches "
+          f"in one step {per_step}")
+    check(per_step["fused_attention_fwd"] == 2 * layers
+          and per_step["fused_attention_bwd"] == layers,
+          f"K6 launches in the remat'd scanned step {per_step}")
+    with plain_kernels():
+        reset()
+        plain = step_grads(cfg)
+        check(not any(counts().values()), f"plain step launched {counts()}")
+    gate = check_step("a10 so400m", "plain", kern, plain, STEP_GATES["plain"])
+    print(f"[a10 so400m] the step against K6 plain: loss rel |d| "
+          f"{gate['loss_rel']:.3e}, gradient cosine {gate['grad_cos']:.6f} "
+          f"({smi})")
+    del plain
+
+    # peak memory and ms of the step, remat on and off
+    mem = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, scan_remat=remat)
+        _, step = make_train_step(model, c, None, tokens, adapters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = timed_steps(step, imgs, labs, valid, None, 1)
+        mem[remat] = dict(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          step_ms=statistics.median(times), step_ms_all=times)
+        print(f"[a10 so400m] scan_remat={remat}: train step median "
+              f"{mem[remat]['step_ms']:.3f} ms over {len(times)} steps ("
+              f"{', '.join(f'{t:.2f}' for t in times)}), peak memory "
+              f"{mem[remat]['peak_gib']:.2f} GiB ({smi})")
+    del step
+
+    # (e) finetune with profile_dir
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    prof_dir = tempfile.mkdtemp(prefix="aihab_prof_")
+    reset()
+    t0 = time.perf_counter()
+    out = finetune(model, train_view, None, test_view, cfg,
+                   prompt_tokens=tokens, seed=SEED, verbose=False,
+                   profile_dir=prof_dir, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = counts()
+    steps = n_tr // PEFT_B
+    print(f"[a10 profile] finetune LoRA + scan + remat, {steps} steps + "
+          f"{n_te // PEFT_B} test batches in {wall:.2f}s; launches "
+          f"{run_counts} ({smi})")
+    check(run_counts["fused_attention_fwd"] == 2 * layers * steps
+          and run_counts["fused_attention_bwd"] == layers * steps
+          and run_counts["attn_block_split"] == layers * (n_te // PEFT_B)
+          and run_counts["mlp_block_split"] == layers * (n_te // PEFT_B),
+          "K6 / K5 / K4 launches in the profiled finetune")
+    changed = [n for n, p in model.named_parameters()
+               if not torch.equal(p, before[n])]
+    check(not changed, f"LoRA finetune changed base weights {changed[:3]}")
+    files = sorted(Path(prof_dir).glob("trace_*.json"))
+    check(len(files) == 1, f"profile_dir holds {len(files)} traces")
+    trace_mb = files[0].stat().st_size / 2 ** 20
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    # the demangled instance names: attention_bwd_kernel<72, false> is the
+    # dq kernel, <72, true> the dk/dv kernel (csrc/fused_attention_bwd.cu)
+    bwd = [re.search(r"attention_bwd_kernel<\s*72,\s*(\w+)", k)
+           for k in kernels]
+    found = {
+        "flash_attention_kernel": sum("flash_attention_kernel" in k
+                                      for k in kernels),
+        "attention_bwd_kernel (dq)": sum(
+            m is not None and m.group(1) in ("false", "0") for m in bwd),
+        "attention_bwd_kernel (dk/dv)": sum(
+            m is not None and m.group(1) in ("true", "1") for m in bwd)}
+    n_steps_traced = sum(e.get("name") == "train_step"
+                         and e.get("cat") == "user_annotation"
+                         for e in events)
+    print(f"[a10 profile] {files[0].name}: {trace_mb:.1f} MiB, "
+          f"{len(events)} events, {len(kernels)} CUDA kernels, "
+          f"{n_steps_traced} train_step regions; kernel events {found} "
+          f"({smi})")
+    check(all(found.values()), f"trace lacks K6's kernels: {found}")
+    check(n_steps_traced == min(5, steps), "train_step regions in the trace")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    model.zero_grad(set_to_none=True)
+    del before, adapters, flat
+    torch.cuda.empty_cache()
+    return dict(step_check=gate, memory={str(k): v for k, v in mem.items()},
+                finetune_s=wall, trace_kernels=found, trace_mb=trace_mb,
+                launches_step=per_step, launches_finetune=run_counts,
+                test_loss=out["test"]["loss"], card=smi)
 
 
 if __name__ == "__main__":

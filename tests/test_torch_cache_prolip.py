@@ -8,6 +8,7 @@ the optax-form Adam, and the run logger's modes."""
 
 import dataclasses
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -264,7 +265,7 @@ def test_schedules_equal_jax(flags, shots):
         assert prolip.cosine_lr(1e-3, e, 5) == jax_prolip.cosine_lr(1e-3, e, 5)
 
 
-def test_run_logger_modes(tmp_path, capsys):
+def test_run_logger_modes(tmp_path, capsys, monkeypatch):
     log = RunLogger("p", "r", config={"a": np.float32(1.5)}, mode="stdout",
                     run_dir=str(tmp_path / "s"))
     log.log({"acc": np.float64(0.5)})
@@ -280,5 +281,9 @@ def test_run_logger_modes(tmp_path, capsys):
     off = RunLogger("p", "r", mode="off", run_dir=str(tmp_path / "o"))
     off.log({"x": 1})
     assert not (tmp_path / "o").exists()
-    with pytest.raises(NotImplementedError, match="A10"):
-        RunLogger("p", "r", mode="wandb")
+    # 'wandb' without the wandb package: the stdout logger, as JAX's
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    wb = RunLogger("p", "r", mode="wandb", run_dir=str(tmp_path / "w"))
+    wb.log({"x": 1})
+    assert (tmp_path / "w" / "log.jsonl").read_text() == '{"x": 1}\n'
+    wb.finish()

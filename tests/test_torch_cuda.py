@@ -1610,6 +1610,92 @@ def test_cuda_runner_prolip_and_peft(tmp_path, monkeypatch):
                for n, t in res["mask"].items() if not t)
 
 
+@pytest.mark.gpu
+def test_cuda_lora_and_staged_regimes(tmp_path, monkeypatch):
+    """A10 on the card at a small size (random:Tiny, bf16): a LoRA run
+    through the runner leaves every base weight bit-identical, moves its
+    adapters and writes ``lora_adapters.npz``; ``ClassifierEngine(lora=)``
+    serves it through K1 with the probabilities of an engine on the
+    returned W_eff; the staged and the chunked epoch regimes train bit for
+    bit as the host loop, with no upload per step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.config import ConfigNode
+    from aihab_clip_tpu_torch.data import make_synthetic_cs_dataset
+    from aihab_clip_tpu_torch.models import load
+    from aihab_clip_tpu_torch.runner import run
+    from aihab_clip_tpu_torch.serving import ClassifierEngine
+    from aihab_clip_tpu_torch.train import peft
+
+    monkeypatch.chdir(tmp_path)
+    tree = make_synthetic_cs_dataset(tmp_path, n_train_per_class=5,
+                                     n_test_per_class=3, image_size=48)
+    cfg = ConfigNode({
+        "root_path": str(tmp_path), "dataset": "synth", "seed": 1, "shots": 0,
+        "clip_backend": "openclip", "open_clip_model": "random:Tiny",
+        "use_model_preprocess": False, "wandb_project": None,
+        "train_epoch": 2, "lr_v": 1e-3, "device_dataset": False,
+        "use_hierarchical_prompts": False, "use_descriptive_prompts": False,
+        "finetune": {"enabled": True, "unlocked_groups": 2,
+                     "unlocked_layers": 1, "cache_embeddings": False,
+                     "lora_rank": 4, "lora_mlp": True, "save_model": True,
+                     "save_model_dir": str(tmp_path / "ck")},
+        "data": {"dataset_paths": tree["dataset_paths"],
+                 "index_file_names": tree["index_file_names"],
+                 "batch_size": 8, "decode_prescale": False,
+                 "data_split": {"valid_split": 0.25, "split_seed": 42},
+                 "preprocessing": {"resize": 48, "resolution": 32,
+                                   "augmentations": {"random_crop": True}}}})
+    result = run(cfg, device="cuda")
+    out, model = result["peft"], result["bundle"]["model"]
+    fresh = dict(load("random:Tiny", dtype=torch.bfloat16,
+                      device="cuda").model.named_parameters())
+    for name, p in model.named_parameters():
+        assert torch.equal(p, fresh[name]), name
+    assert all(ab["b"].abs().max() > 0 for ab in out["adapters"].values())
+    eng = ClassifierEngine(model="random:Tiny", lora=out["adapters_path"],
+                           batch_size=8, flat=True, verbose=False)
+    ref = ClassifierEngine(model="random:Tiny", batch_size=8, flat=True,
+                           verbose=False)
+    with torch.no_grad():
+        for name, p in ref.bundle.model.named_parameters():
+            p.copy_(out["params"][name])
+    from aihab_clip_tpu_torch.models.fast_vit import pack_fastest
+
+    ref._packed = pack_fastest(ref.bundle.model, ref.bundle.config,
+                               torch.bfloat16)
+    imgs = np.random.default_rng(0).integers(0, 256, (8, 224, 224, 3),
+                                             dtype=np.uint8)
+    bk.reset_launch_counts()
+    got = eng.classify_batch(imgs)
+    assert bk.launch_counts()["full_block_fused"] == 2
+    assert np.abs(got - ref.classify_batch(imgs)).max() == 0.0
+
+    loaders = result["loaders"]
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for regime in (False, True, "chunked"):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        pcfg = peft.PEFTConfig(
+            resolution=32, num_classes=20, lr=1e-3, epochs=2,
+            compute_dtype=torch.bfloat16, device_dataset=regime,
+            device_chunk_bytes=48 * 48 * 3 * 8 * 2)
+        o = peft.finetune(model, loaders.train, None, loaders.test, pcfg,
+                          text_weights=result["bundle"]["text_weights"],
+                          unlocked_groups=2, seed=1, verbose=False)
+        runs[regime] = (o, o["report"]["split_uploads"])
+    steps = len(loaders.train)
+    assert runs[False][1] == 3 * steps * 2 and runs[True][1] == 2 + 2 * 2
+    for regime in (True, "chunked"):
+        assert runs[regime][0]["test"]["loss"] == runs[False][0]["test"]["loss"]
+        for name, t in runs[False][0]["params"].items():
+            assert torch.equal(t, runs[regime][0]["params"][name]), name
+
+
 def _exif_jpeg(data: bytes, orientation: int) -> bytes:
     """``data`` with an APP1 EXIF segment carrying ``orientation``."""
     import struct

@@ -1,8 +1,9 @@
 """The port's PEFT loop against the JAX package on the same weights: the
 lock masks (CLIP and SigLIP, including SigLIP's text-head group quirk) and
 a two-epoch ``finetune`` trail; plus the pieces around them (data view,
-schedule, objective tail, tracker) and the options this package does not
-carry yet.  The hybrid encode and the train objective:
+schedule, objective tail, tracker), the scanned encodes and ``remat``
+(forward and gradients against JAX's), and the options this package does
+not carry yet (``mesh``, ``fsdp``).  The hybrid encode and the train objective:
 ``tests/test_torch_peft_step.py``."""
 
 import dataclasses
@@ -282,11 +283,7 @@ def test_fused_prefix_length_matches_jax_on_the_accelerator(monkeypatch):
 
 
 @pytest.mark.parametrize("change,kwargs", [
-    ({"lora_rank": 4}, {}),
-    ({"scan_blocks": True}, {}), ({"device_dataset": "chunked"}, {}),
-    ({}, {"mesh": object()}),
-    ({}, {"fsdp": True}), ({}, {"resume_from": "ckpt"}),
-    ({}, {"checkpoint_fn": print}), ({}, {"profile_dir": "trace"}),
+    ({}, {"mesh": object()}), ({}, {"fsdp": True}),
 ])
 def test_unported_options_raise(siglip_tiny, change, kwargs):
     model = siglip_tiny[2]
@@ -329,3 +326,230 @@ def test_finetune_argument_checks(siglip_tiny, clip_tiny):
         pre, proj = peft._encode_projected(clip, ccfg,
                                            torch.zeros(1, 24, 24, 3))
     assert pre.shape == (1, 64) and proj.shape == (1, 32)
+
+
+# ---------------------------------------------------------------------------
+# the scanned encodes and remat
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def trainable():
+    """Every parameter of the module fixtures trainable for one test (the
+    lock-mask tests leave ``requires_grad`` set), restored after it."""
+    models = []
+
+    def make(model):
+        models.append((model, {n: p.requires_grad
+                               for n, p in model.named_parameters()}))
+        for p in model.parameters():
+            p.requires_grad_(True)
+        return model
+
+    yield make
+    for model, flags in models:
+        for n, p in model.named_parameters():
+            p.requires_grad_(flags[n])
+        model.zero_grad(set_to_none=True)
+
+
+def _grads_match(model, grads, atol=1e-4):
+    named = dict(model.named_parameters())
+    for key, g in flatten_params(grads).items():
+        name, g = _convert_key(key, g)
+        got = named[name].grad
+        if got is None:
+            assert not np.any(g), name
+        else:
+            np.testing.assert_allclose(got.numpy(), g, atol=atol, rtol=atol,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_siglip_encode_scan_matches_jax(siglip_tiny, remat, trainable):
+    """``siglip_encode_scan`` (the module tower, its blocks checkpointed
+    under ``remat``) against JAX's on the same weights, forward (5e-4) and
+    the gradients of a scalar loss (1e-4), as ``test_torch_peft_step.py``;
+    ``remat`` gives the same result and gradients, and every block's own
+    flag is restored after the call."""
+    from aihab_clip_tpu.models import fast_siglip as jax_fast
+    from aihab_clip_tpu_torch.models import fast_siglip
+
+    b, params, model = siglip_tiny
+    trainable(model)
+    cfg = model.config
+    images = np.random.default_rng(4).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)
+    r = np.random.default_rng(5).standard_normal((2, 64)).astype(np.float32)
+
+    def jax_loss(p):
+        pooled, _ = jax_fast.siglip_encode_scan(
+            p, jnp.asarray(images), b.config, project=True,
+            dtype=jnp.float32, remat=remat)
+        return jnp.sum(pooled * r), pooled
+
+    (_, ref), grads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+        params)
+
+    def port_grads(flag):
+        model.zero_grad(set_to_none=True)
+        pooled, _ = fast_siglip.siglip_encode_scan(
+            model, torch.from_numpy(images), cfg, project=True,
+            dtype=torch.float32, remat=flag)
+        (pooled * torch.from_numpy(r)).sum().backward()
+        return pooled.detach(), {n: p.grad.clone() for n, p in
+                                 model.named_parameters()
+                                 if p.grad is not None}
+
+    pooled, g = port_grads(remat)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(ref), atol=5e-4,
+                               rtol=5e-4)
+    _grads_match(model, grads)
+    pooled2, g2 = port_grads(not remat)
+    assert torch.equal(pooled, pooled2)
+    assert g.keys() == g2.keys()
+    for name in g:
+        torch.testing.assert_close(g[name], g2[name], rtol=1e-6, atol=1e-7)
+    assert not any(blk.remat for blk in model.modules()
+                   if hasattr(blk, "_forward"))
+    model.zero_grad(set_to_none=True)
+
+
+def test_siglip_text_scan_matches_jax(siglip_tiny):
+    """JAX's scanned text encode (``siglip_text_scan``) and its
+    ``compute_text_weights(scan_blocks=True)`` against the port's module
+    text encode and text head, which ``scan_blocks`` leaves as they are."""
+    from aihab_clip_tpu.models import fast_siglip as jax_fast
+    from aihab_clip_tpu.models.text_head import \
+        compute_text_weights as jax_text_weights
+    from aihab_clip_tpu_torch.models import compute_text_weights
+
+    b, params, model = siglip_tiny
+    head, tpc = _head(b, params)
+    tokens = np.asarray(head["prompt_tokens"])
+    pre, proj = jax_fast.siglip_text_scan(params, jnp.asarray(tokens),
+                                          b.config, dtype=jnp.float32)
+    with torch.no_grad():
+        got = model.encode_text(torch.from_numpy(tokens))
+        w = compute_text_weights(model, torch.from_numpy(tokens), 20, tpc)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(pre), atol=5e-4)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(proj), atol=5e-4)
+    ref_w = jax_text_weights(b.model, params, jnp.asarray(tokens), 20, tpc,
+                             scan_blocks=True)
+    np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), atol=1e-5)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_vit_encode_scan_matches_jax(clip_tiny, remat, trainable):
+    """``vit_encode_scan`` on CLIP-Tiny against JAX's, forward and
+    gradients; the canonical module gives the same features."""
+    from aihab_clip_tpu.models import fast_vit as jax_fast_vit_mod
+    from aihab_clip_tpu_torch.models import fast_vit
+
+    b, model = clip_tiny
+    trainable(model)
+    images = np.random.default_rng(6).standard_normal(
+        (3, 24, 24, 3)).astype(np.float32)
+    r = np.random.default_rng(7).standard_normal((3, 32)).astype(np.float32)
+
+    def jax_loss(p):
+        _, proj = jax_fast_vit_mod.vit_encode_scan(
+            p, jnp.asarray(images), b.config, project=True,
+            dtype=jnp.float32, remat=remat)
+        return jnp.sum(proj * r), proj
+
+    (_, ref), grads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+        b.params)
+    model.zero_grad(set_to_none=True)
+    _, proj = fast_vit.vit_encode_scan(model, torch.from_numpy(images),
+                                       model.config, project=True,
+                                       dtype=torch.float32, remat=remat)
+    np.testing.assert_allclose(proj.detach().numpy(), np.asarray(ref),
+                               atol=5e-4, rtol=5e-4)
+    (proj * torch.from_numpy(r)).sum().backward()
+    _grads_match(model, grads)
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        canon = model.encode_image(torch.from_numpy(images), project=True)[1]
+    torch.testing.assert_close(proj.detach(), canon, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_vit_encode_scan_runs_the_tower_act(act):
+    """``vit_encode_scan`` runs each block's MLP with the tower's own act
+    (JAX's calls its scanned block with QuickGELU whatever the tower's),
+    so a GELU tower's scanned encode is its module encode, forward and
+    gradients, with and without remat."""
+    from aihab_clip_tpu_torch.models import CLIPModel, fast_vit
+
+    torch.manual_seed(3)
+    model = CLIPModel(CLIPConfig(**{**TINY_CLIP, "act": act}))
+    with torch.no_grad():   # the module's parameters start uninitialised
+        for name, p in model.named_parameters():
+            p.copy_(0.05 * torch.randn_like(p)
+                    + ("ln" in name and name.endswith(".weight")))
+    images = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 24, 24, 3)).astype(np.float32))
+
+    def run(encode):
+        model.zero_grad(set_to_none=True)
+        _, proj = encode()
+        proj.square().sum().backward()
+        return proj.detach(), {n: p.grad.clone()
+                               for n, p in model.named_parameters()
+                               if p.grad is not None}
+
+    ref, ref_g = run(lambda: model.encode_image(images, project=True))
+    for remat in (False, True):
+        got, g = run(lambda: fast_vit.vit_encode_scan(
+            model, images, model.config, project=True, dtype=torch.float32,
+            remat=remat))
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        assert g.keys() == ref_g.keys()
+        for name in g:
+            torch.testing.assert_close(g[name], ref_g[name], rtol=1e-4,
+                                       atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("tower", ["clip", "siglip"])
+def test_remat_gives_equal_gradients(tower, clip_tiny, siglip_tiny,
+                                     trainable):
+    """The model flag ``remat`` (``layers.set_remat``; JAX ``load(remat=)``)
+    checkpoints every block while autograd records: the same loss and the
+    same gradients as without it (and as JAX's canonical module's)."""
+    from aihab_clip_tpu_torch.models.layers import set_remat
+
+    if tower == "clip":
+        b, model = clip_tiny
+        params, res, dim = b.params, 24, 32
+    else:
+        b, params, model = siglip_tiny
+        res, dim = 32, 64
+    trainable(model)
+    images = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, res, res, 3)).astype(np.float32))
+    tokens = torch.from_numpy(np.asarray(_head(b, params)[0][
+        "prompt_tokens"])[:4])
+    r = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, dim)).astype(np.float32))
+
+    def grads(flag):
+        set_remat(model, flag)
+        model.zero_grad(set_to_none=True)
+        _, img = model.encode_image(images, project=True)
+        _, txt = model.encode_text(tokens)
+        loss = (img * r).sum() + txt.square().sum()
+        loss.backward()
+        out = {n: p.grad.clone() for n, p in model.named_parameters()
+               if p.grad is not None}
+        set_remat(model, False)
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), out
+
+    l0, g0 = grads(False)
+    l1, g1 = grads(True)
+    assert torch.equal(l0, l1) and g0.keys() == g1.keys()
+    for name in g0:
+        torch.testing.assert_close(g0[name], g1[name], rtol=1e-6, atol=1e-7)
+    blocks = list(model.visual.transformer.resblocks)
+    assert all(not blk.remat for blk in blocks)

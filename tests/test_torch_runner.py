@@ -139,14 +139,8 @@ def test_peft_pipeline(base_cfg, tmp_path):
 
 
 UNPORTED = [
-    ({"finetune.save_model": True}, "A10"),
-    ({"finetune.resume": True}, "A10"),
-    ({"finetune.checkpoint": "x"}, "A10"),
     ({"aug_impl": "exact"}, "A7"),
     ({"parallel": {"enabled": True}}, "A13"),
-    ({"remat": True}, "A10"),
-    ({"finetune.enabled": False, "finetune.cache_embeddings": True,
-      "finetune.cache_embeddings_checkpoint": "x"}, "A10"),
 ]
 
 
@@ -163,6 +157,68 @@ def test_unported_branches_raise(base_cfg, opts, item):
         node[leaf] = value
     with pytest.raises(NotImplementedError, match=item):
         run(cfg, device="cpu")
+
+
+def _peft_cfg(base_cfg, **finetune):
+    cfg = base_cfg.clone()
+    cfg.clip_backend = "openclip"
+    cfg.open_clip_model = "random:Tiny"
+    cfg.use_model_preprocess = False
+    cfg.train_epoch = 2
+    for key, value in finetune.items():
+        cfg.finetune[key] = value
+    return cfg
+
+
+def test_peft_remat_equals_plain(base_cfg):
+    """``remat: true`` checkpoints every block: the same run, bit for bit
+    (``aihab_clip_tpu/runner.py:94``'s ``load(remat=)``)."""
+    plain = run(_peft_cfg(base_cfg), device="cpu")
+    cfg = _peft_cfg(base_cfg)
+    cfg.remat = True
+    rem = run(cfg, device="cpu")
+    assert all(blk.remat for blk in
+               rem["bundle"]["model"].visual.transformer.resblocks)
+    assert plain["peft"]["test"]["loss"] == rem["peft"]["test"]["loss"]
+    for name, t in plain["peft"]["params"].items():
+        assert torch.equal(t, rem["peft"]["params"][name]), name
+
+
+def test_peft_lora_saves_jax_adapters(base_cfg, tmp_path):
+    """A LoRA run through the runner (``finetune.lora_rank``, ``lora_mlp``,
+    ``save_model``): the final checkpoint holds W_eff, the base weights
+    stay, and ``lora_adapters.npz`` beside it has JAX's keys (the JAX
+    package's target paths for the same tower, ``/a`` and ``/b``) and
+    layouts; the embedding cache is W_eff's."""
+    from aihab_clip_tpu.models.zoo import load as jax_load
+    from aihab_clip_tpu.train.lora import lora_target_paths
+
+    from aihab_clip_tpu_torch.train.lora import merged_params
+    from aihab_clip_tpu_torch.utils import load_checkpoint
+
+    cfg = _peft_cfg(base_cfg, lora_rank=4, lora_mlp=True, save_model=True,
+                    save_model_dir=str(tmp_path / "ck"),
+                    cache_embeddings=True,
+                    cache_embeddings_dir=str(tmp_path / "emb"))
+    out = run(cfg, device="cpu")["peft"]
+    assert out["report"]["method"] == "lora"
+    npz = np.load(out["adapters_path"])
+    ref = lora_target_paths(jax_load("random:Tiny").params,
+                            include_mlp=True)
+    assert sorted(npz.files) == sorted(f"{'/'.join(p)}/{leaf}" for p in ref
+                                       for leaf in ("a", "b"))
+    assert npz["visual/transformer/resblocks_0/attn/in_proj/kernel/a"].shape \
+        == (64, 4)
+    saved = load_checkpoint(out["checkpoint_path"])["params"]
+    for name, t in out["params"].items():
+        assert torch.equal(saved[name], t), name
+    fresh = run(_peft_cfg(base_cfg, enabled=False, cache_embeddings=False),
+                device="cpu")["bundle"]["model"]
+    merged = merged_params(fresh, out["adapters"], 16.0)
+    for name, t in merged.items():
+        assert torch.equal(t, out["params"][name]), name
+    emb = load_embedding_cache(embedding_cache_dir(cfg, "test"))
+    assert emb["info"]["checkpoint_path"] == out["checkpoint_path"]
 
 
 def test_cache_refusals(base_cfg):

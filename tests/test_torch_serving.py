@@ -329,7 +329,7 @@ def test_bad_blobs_fail_alone_in_a_request(servers):
     assert after - before == 3
 
 
-def test_serve_cli_builds_server():
+def test_serve_cli_builds_server(tmp_path):
     """The CLI wires its flags through to a working server; without
     --device cpu and without a card it raises."""
     srv = build_server(["--model", "random:Tiny", "--port", "0",
@@ -346,9 +346,23 @@ def test_serve_cli_builds_server():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_server(["--model", "random:Tiny", "--port", "0"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_server(["--model", "random:Tiny", "--port", "0", "--device",
-                      "cpu", "--lora", "x.npz"])
+    # --lora: the adapters merged into the served weights
+    from aihab_clip_tpu_torch.models.convert import port_adapters_to_flax
+    from aihab_clip_tpu_torch.train.lora import lora_init, lora_merge
+
+    base = build_server(["--model", "random:Tiny", "--port", "0",
+                         "--device", "cpu"]).engine.bundle.model
+    adapters = lora_init(base, 2, torch.Generator().manual_seed(1))
+    for ab in adapters.values():
+        ab["b"].data.normal_(generator=torch.Generator().manual_seed(2))
+    path = tmp_path / "lora_adapters.npz"
+    np.savez(path, **port_adapters_to_flax(adapters))
+    srv = build_server(["--model", "random:Tiny", "--port", "0", "--device",
+                        "cpu", "--lora", str(path), "--lora_alpha", "4"])
+    want = lora_merge(dict(base.named_parameters()), adapters, 4.0)
+    for name, p in srv.engine.bundle.model.named_parameters():
+        assert torch.equal(p, want[name]), name
+    assert any(not torch.equal(want[n], p) for n, p in base.named_parameters())
 
 
 def test_predict_cli_matches_jax(model_root, tmp_path, monkeypatch):
