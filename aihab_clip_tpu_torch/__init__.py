@@ -16,10 +16,13 @@ Module names mirror the JAX package so each counterpart is easy to find.
   utils         the run logger, projector checkpoints
   taxonomy      L3/L2 habitat label spaces (copy)
   templates     prompt ensembles (copy)
-  tokenizer     byte-level CLIP BPE, pure Python
+  tokenizer     byte-level CLIP BPE, pure Python; a HF snapshot's
+                tokenizer.json (hf_json)
   models        CLIP ViT + text towers and SigLIP (nn.Module), weight
-                carry from the JAX package's npz layout, zoo, text head,
-                fast ViT and SigLIP encodes
+                carry from OpenAI/open_clip checkpoints, HF SigLIP
+                snapshots (its own safetensors reader) and the JAX
+                package's npz layout both ways, zoo, text head, fast ViT
+                and SigLIP encodes
   ops           eval preprocessing; the hand-written CUDA block kernels
   serving       ClassifierEngine + DynamicBatcher
   train         PEFT finetune, ProLIP, evaluation

@@ -135,3 +135,66 @@ class CLIPModel(nn.Module):
     def encode_text(self, tokens: torch.Tensor):
         """tokens [B, context] int -> (pre_projection, projected)."""
         return self.text(tokens)
+
+
+def config_from_state_dict_shapes(
+        shapes: Dict[str, Tuple[int, ...]]) -> CLIPConfig:
+    """The CLIPConfig of an OpenAI/open_clip CLIP state dict (ViT or
+    ModifiedResNet), from its tensor shapes alone (JAX ``clip.py:206-286``).
+
+    Head counts and the activation are not in the shapes: width // 64 heads
+    and QuickGELU, unless every inferred field equals a registered row that
+    overrides them (the LAION ViT-H/g/bigG: exact GELU, 16 vision heads for
+    g and bigG), whose overrides are then taken."""
+    is_vit = "visual.proj" in shapes
+    if is_vit:
+        vision_width = shapes["visual.conv1.weight"][0]
+        vision_layers = len({k.split(".")[3] for k in shapes
+                             if k.startswith("visual.transformer.resblocks.")})
+        patch = shapes["visual.conv1.weight"][-1]
+        grid = round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
+        image_resolution = patch * grid
+    else:
+        vision_layers = tuple(
+            len({k[len(f"visual.layer{s}."):].split(".")[0] for k in shapes
+                 if k.startswith(f"visual.layer{s}.")}) for s in (1, 2, 3, 4))
+        vision_width = shapes["visual.layer1.0.conv1.weight"][0]
+        patch = None
+        out_width = round(
+            (shapes["visual.attnpool.positional_embedding"][0] - 1) ** 0.5)
+        image_resolution = out_width * 32
+    text_width = int(shapes["ln_final.weight"][0])
+
+    def mlp_dim_of(prefix: str, width: int) -> int:
+        key = f"{prefix}.resblocks.0.mlp.c_fc.weight"
+        if key in shapes and shapes[key][0] != 4 * width:
+            return int(shapes[key][0])
+        return 0
+
+    cfg = CLIPConfig(
+        embed_dim=int(shapes["text_projection"][1]),
+        image_resolution=int(image_resolution),
+        vision_layers=(int(vision_layers) if is_vit
+                       else tuple(int(c) for c in vision_layers)),
+        vision_width=int(vision_width),
+        vision_patch_size=int(patch) if patch else None,
+        context_length=int(shapes["positional_embedding"][0]),
+        vocab_size=int(shapes["token_embedding.weight"][0]),
+        transformer_width=text_width,
+        transformer_heads=text_width // 64,
+        transformer_layers=len({k.split(".")[2] for k in shapes
+                                if k.startswith("transformer.resblocks.")}),
+        vision_mlp_dim=(mlp_dim_of("visual.transformer", int(vision_width))
+                        if is_vit else 0),
+        text_mlp_dim=mlp_dim_of("transformer", text_width))
+    for arch in CLIP_ARCHS.values():
+        if (arch.vision_heads_override or arch.act != cfg.act) and all(
+                getattr(arch, f) == getattr(cfg, f) for f in (
+                    "embed_dim", "image_resolution", "vision_layers",
+                    "vision_width", "vision_patch_size", "context_length",
+                    "vocab_size", "transformer_width", "transformer_layers",
+                    "vision_mlp_dim", "text_mlp_dim")):
+            return dataclasses.replace(
+                cfg, vision_heads_override=arch.vision_heads_override,
+                act=arch.act, transformer_heads=arch.transformer_heads)
+    return cfg

@@ -1,4 +1,5 @@
-"""The weight carry: the JAX package's flax-layout parameters -> this port.
+"""The weight carry: reference checkpoints and the JAX package's
+flax-layout parameters -> this port, and the port -> JAX's cache layout.
 
 Input is the flat ``{"a/b/c": ndarray}`` form that ``save_params_npz``
 (``aihab_clip_tpu/models/convert.py:208``) writes and
@@ -24,14 +25,24 @@ The same rules carry a SigLIP tree into ``SigLIPModel``: its separate
 ``attn/{q,k,v,out}_proj`` and ``text/head`` Dense kernels, the conv1 bias,
 ``attnpool/{probe,attn,ln,mlp}`` and the scalar ``logit_scale`` and
 ``logit_bias`` keep their names.
+
+``torch_state_dict_to_port`` reads an OpenAI/open_clip CLIP state dict
+(JAX ``convert.py:80-139``).  The port's module names follow OpenAI's, so
+the text tower only gains its ``text.`` prefix and every tensor keeps its
+layout (JAX's two transposes cancel): the result equals
+``flax_params_to_state_dict`` of JAX's converted tree bit for bit.
+``state_dict_to_flax_params`` inverts ``flax_params_to_state_dict``, and
+``save_params_npz`` writes the converted cache JAX reads.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from .clip import CLIPConfig, config_from_state_dict_shapes
 
 
 def _set(tree: Dict, path, value) -> None:
@@ -86,7 +97,9 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd = {}
     for key, v in flatten_params(params).items():
         name, arr = _convert_key(key, v)
-        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        # np.ascontiguousarray makes a 0-d logit scale [1]: keep its shape
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+            arr.shape)
     return sd
 
 
@@ -100,15 +113,21 @@ def jax_kernel_path(name: str) -> str:
         parts = parts[:-1] + ["in_proj", "weight"]
     if parts[-1] != "weight":
         raise ValueError(f"{name!r} is not a Dense weight")
+    return "/".join(_flax_parts(parts[:-1]) + ["kernel"])
+
+
+def _flax_parts(parts):
+    """Module names of the port -> flax's (``resblocks.<i>`` ->
+    ``resblocks_<i>``)."""
     out, i = [], 0
-    while i < len(parts) - 1:
-        if parts[i] == "resblocks":
+    while i < len(parts):
+        if parts[i] == "resblocks" and i + 1 < len(parts):
             out.append(f"resblocks_{parts[i + 1]}")
             i += 2
         else:
             out.append(parts[i])
             i += 1
-    return "/".join(out + ["kernel"])
+    return out
 
 
 def flax_adapters_to_port(npz_or_dict) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -141,3 +160,102 @@ def port_adapters_to_flax(adapters: Mapping) -> Dict[str, np.ndarray]:
             np.asarray(t.detach().float().cpu().numpy() if hasattr(
                 t, "detach") else t, dtype=np.float32)
             for name, ab in adapters.items() for leaf, t in ab.items()}
+
+
+# what a key of a transformer block may be after ``resblocks.<i>.``
+_BLOCK_KEYS = {"attn.in_proj_weight", "attn.in_proj_bias",
+               "attn.out_proj.weight", "attn.out_proj.bias"} | {
+    f"{m}.{leaf}" for m in ("ln_1", "ln_2", "mlp.c_fc", "mlp.c_proj")
+    for leaf in ("weight", "bias")}
+_TEXT_KEYS = {"positional_embedding", "text_projection",
+              "token_embedding.weight", "ln_final.weight", "ln_final.bias"}
+_VIT_KEYS = {"class_embedding", "positional_embedding", "proj",
+             "conv1.weight", "ln_pre.weight", "ln_pre.bias", "ln_post.weight",
+             "ln_post.bias"}
+
+
+def clean_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's tensors as fp32 torch tensors: the DDP
+    ``module.`` prefix stripped (when every key has it), the ``attn_mask``
+    buffers and the ``input_resolution`` / ``context_length`` /
+    ``vocab_size`` entries of OpenAI's JIT archives dropped."""
+    if state_dict and all(str(k).startswith("module.") for k in state_dict):
+        state_dict = {str(k)[len("module."):]: v
+                      for k, v in state_dict.items()}
+    return {k: torch.as_tensor(v).float() for k, v in state_dict.items()
+            if not str(k).endswith("attn_mask")
+            and k not in ("input_resolution", "context_length", "vocab_size")}
+
+
+def _block_key(key: str, prefix: str) -> bool:
+    parts = key[len(prefix):].split(".", 1)
+    return key.startswith(prefix) and len(parts) == 2 \
+        and parts[0].isdigit() and parts[1] in _BLOCK_KEYS
+
+
+def text_key(key: str) -> str:
+    """An OpenAI text-tower key or ``logit_scale`` -> the port's name."""
+    if key == "logit_scale":
+        return key
+    if key in _TEXT_KEYS or _block_key(key, "transformer.resblocks."):
+        return "text." + key
+    raise KeyError(f"Unhandled checkpoint key: {key}")
+
+
+def torch_state_dict_to_port(state_dict: Mapping, resolution: int = 0
+                             ) -> Tuple[CLIPConfig, Dict[str, torch.Tensor]]:
+    """An OpenAI/open_clip CLIP state dict (tensors or arrays, any float
+    dtype) -> (CLIPConfig, the port's fp32 state dict).  A state dict with
+    ``visual.trunk.`` keys is open_clip's ConvNeXt layout
+    (``convnext.openclip_convnext_state_dict_to_port``, which alone reads
+    ``resolution``).  A ModifiedResNet's visual keys keep their reference
+    names: ``CLIPModel`` refuses that tower (ROADMAP A11).  An unknown key
+    raises ``KeyError``, as in JAX."""
+    sd = clean_state_dict(state_dict)
+    if any(k.startswith("visual.trunk.") for k in sd):
+        from .convnext import openclip_convnext_state_dict_to_port
+
+        return openclip_convnext_state_dict_to_port(sd, resolution=resolution)
+    cfg = config_from_state_dict_shapes({k: tuple(v.shape)
+                                         for k, v in sd.items()})
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        if not key.startswith("visual."):
+            out[text_key(key)] = v
+        elif cfg.is_vit and key[len("visual."):] not in _VIT_KEYS \
+                and not _block_key(key, "visual.transformer.resblocks."):
+            raise KeyError(f"Unhandled ViT visual key: {key}")
+        else:
+            out[key] = v
+    return cfg, out
+
+
+def state_dict_to_flax_params(sd: Mapping) -> Dict[str, np.ndarray]:
+    """The port's state dict (CLIP ViT, ConvNeXt or SigLIP) -> JAX's flat
+    flax layout ``{"a/b/c": fp32 ndarray}``: the inverse of
+    ``flax_params_to_state_dict``."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, t in sd.items():
+        v = t.detach().float().cpu().numpy()
+        *mods, leaf = name.split(".")
+        path = _flax_parts(mods)
+        if name == "text.token_embedding.weight":
+            path, leaf = ["text"], "token_embedding"
+        elif leaf in ("in_proj_weight", "in_proj_bias"):
+            path.append("in_proj")
+            leaf, v = ("kernel", v.T) if leaf == "in_proj_weight" else (
+                "bias", v)
+        elif leaf == "weight" and v.ndim > 1:
+            leaf = "kernel"
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+        elif leaf == "weight":
+            leaf = "scale"
+        flat["/".join(path + [leaf])] = np.ascontiguousarray(
+            v, dtype=np.float32).reshape(v.shape)
+    return flat
+
+
+def save_params_npz(path, params: Mapping) -> None:
+    """A param tree (nested or ``/``-flat) -> an ``.npz`` keyed by
+    ``/``-joined paths (JAX ``convert.py:208-221``)."""
+    np.savez(path, **flatten_params(params))

@@ -16,14 +16,16 @@ feature is the post-``head_norm`` pooled vector.
 
 Module attributes carry the flax names (``stem_conv``, ``down_norm_1``,
 ``stage2_block5.fc1``, ``head_proj`` ...), so ``models/convert.py`` carries a
-JAX parameter tree by name and the PEFT lock groups read it.  Converting an
-open_clip ``.pt`` checkpoint (``openclip_convnext_state_dict_to_params``)
-waits for a checkpoint in the repository.
+JAX parameter tree by name and the PEFT lock groups read it;
+``openclip_convnext_state_dict_to_port`` renames an open_clip checkpoint's
+timm trunk and head onto them (JAX ``convnext.py:240-352``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
+import warnings
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -225,3 +227,62 @@ def convnext_config_from_shapes(shapes: Mapping[str, tuple]):
         transformer_heads=int(t_width) // 64,
         transformer_layers=int(t_layers),
         act="gelu", vision_tower="convnext", vision_proj=proj)
+
+
+def openclip_convnext_state_dict_to_port(state_dict: Mapping[str, torch.Tensor],
+                                         resolution: int = 0):
+    """An open_clip ``CLIP-convnext_*`` state dict (fp32 tensors, after
+    ``convert.clean_state_dict``) -> (CLIPConfig, the port's state dict).
+    The trunk follows timm's names under ``visual.trunk.``, the head
+    open_clip's under ``visual.head.``, the text tower OpenAI's; every
+    weight keeps its layout.  ``resolution`` is not in the weights: 0 warns
+    and takes 256, as JAX does.  open_clip exports the head without its
+    bias (``proj_bias=False``): a missing ``head_proj`` / ``head_fc2`` bias
+    is zeros."""
+    from .convert import text_key
+
+    cfg = convnext_config_from_shapes({k: tuple(v.shape)
+                                       for k, v in state_dict.items()})
+    if resolution:
+        cfg = dataclasses.replace(cfg, image_resolution=int(resolution))
+    else:
+        warnings.warn(
+            "ConvNeXt checkpoint resolution is not inferable from weights; "
+            f"defaulting to {cfg.image_resolution}px.  Pass resolution= "
+            "(224 for convnext_base, 256 for _w/large_d/xxlarge, 320 for "
+            "*_320 variants) to silence this and evaluate at the trained "
+            "resolution.")
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in state_dict.items():
+        p = key.split(".")
+        if not key.startswith("visual."):
+            out[text_key(key)] = v
+        elif key.startswith("visual.trunk.stem."):
+            out[f"visual.stem_{'conv' if p[3] == '0' else 'norm'}.{p[4]}"] = v
+        elif key.startswith("visual.trunk.stages.") and p[4] == "downsample":
+            mod = "down_norm" if p[5] == "0" else "down_conv"
+            out[f"visual.{mod}_{p[3]}.{p[6]}"] = v
+        elif key.startswith("visual.trunk.stages.") and p[4] == "blocks":
+            blk = f"visual.stage{p[3]}_block{p[5]}"
+            if p[6] == "gamma":
+                out[f"{blk}.gamma"] = v
+            elif p[6] in ("conv_dw", "norm"):
+                out[f"{blk}.{'dwconv' if p[6] == 'conv_dw' else 'norm'}."
+                    f"{p[7]}"] = v
+            elif p[6] == "mlp":
+                out[f"{blk}.{p[7]}.{p[8]}"] = v
+            else:
+                raise KeyError(f"Unhandled block key: {key}")
+        elif key.startswith("visual.trunk.head.norm."):
+            out[f"visual.head_norm.{p[4]}"] = v
+        elif key.startswith("visual.head.proj."):
+            out[f"visual.head_proj.{p[3]}"] = v
+        elif key.startswith("visual.head.mlp."):
+            out[f"visual.head_{p[3]}.{p[4]}"] = v
+        else:
+            raise KeyError(f"Unhandled checkpoint key: {key}")
+    for mod in ("head_proj", "head_fc2"):
+        w = out.get(f"visual.{mod}.weight")
+        if w is not None and f"visual.{mod}.bias" not in out:
+            out[f"visual.{mod}.bias"] = torch.zeros(w.shape[0])
+    return cfg, out

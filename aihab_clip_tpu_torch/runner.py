@@ -6,9 +6,11 @@ config -> model + text head -> loaders -> (inspect | feature cache | ProLIP
   * ``clip_backend: openai``   -> ProLIP on the pre-projection feature cache;
   * ``clip_backend: openclip`` -> PEFT (``train.peft.finetune``).
 
-A model name without a converted checkpoint falls back to random weights
-of ``fallback_arch`` with a warning (zero-egress machines), except
-``random:`` names and SigLIP names without a snapshot, which raise.  Every
+A model that does not load (no file, cache, snapshot or download) falls
+back to random weights of ``fallback_arch`` with a warning (zero-egress
+machines), as in JAX, except ``random:`` names, SigLIP names without a
+snapshot (random weights only with ``allow_random_weights``) and a tower
+the port lacks (a ResNet checkpoint, ROADMAP A11), which raise.  Every
 stage runs on ``device`` (default the card): in bf16 there, where the
 image encodes take the block kernels through ``encode_image_fastest``
 (K1 for a CLIP ViT, its pack built once), and in fp32 on the CPU, where the
@@ -86,20 +88,16 @@ def init_clip_and_text_head(cfg, device="cuda") -> Dict[str, Any]:
         prompts = None
         tpc = len(CS_TEMPLATES)
 
-    cache_dir = cfg.get("clip_cache_dir", None)
     try:
-        bundle = load_model(backbone, dtype=dtype, device=dev,
-                            cache_dir=cache_dir, remat=remat)
-    except SigLIPAssetsMissingError:
+        bundle = load_model(
+            backbone, dtype=dtype, device=dev,
+            cache_dir=cfg.get("clip_cache_dir", None), remat=remat,
+            allow_random_fallback=bool(cfg.get("allow_random_weights",
+                                               False)))
+    except (SigLIPAssetsMissingError, NotImplementedError):
         # SigLIP text encoding without the snapshot's tokenizer would give
-        # wrong token ids: random weights only when asked for
-        if not bool(cfg.get("allow_random_weights", False)):
-            raise
-        print(f"[warn] no snapshot for '{backbone}'; using random init "
-              "(allow_random_weights)")
-        stripped = str(backbone).replace("hf-hub:", "")
-        bundle = load_model(f"random:{stripped}", dtype=dtype, device=dev,
-                            remat=remat)
+        # wrong token ids; a tower the port lacks is not a missing file
+        raise
     except Exception as exc:  # zero-egress fallback
         if str(backbone).startswith("random:"):
             raise

@@ -93,7 +93,10 @@ def encode_binary_batch(blobs: Sequence[bytes]) -> bytes:
 class ClassifierEngine:
     """Load-once image classifier.
 
-    Owns the model bundle, the CS text head, the kernels' weight pack and a
+    ``model`` is any name ``models.load`` resolves (a zoo name, a
+    checkpoint path, ``hf-hub:<repo>`` for a local HF snapshot,
+    ``random:<ARCH>``); a SigLIP snapshot's own tokenizer builds the text
+    head.  Owns the model bundle, the CS text head, the kernels' weight pack and a
     ``classify(uint8[B, D, D, 3]) -> probs[B, C]`` function.  Funnel
     :meth:`classify_dispatch` through one thread (the
     :class:`DynamicBatcher` does) to keep launch order deterministic.

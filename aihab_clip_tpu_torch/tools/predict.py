@@ -46,7 +46,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--images", required=True, help="folder of images")
     p.add_argument("--model", default="ViT-B/16",
-                   help="zoo name | checkpoint path | random:<ARCH>")
+                   help="zoo name | checkpoint path | hf-hub:<repo> (a "
+                        "local HF snapshot) | random:<ARCH>")
     p.add_argument("--out", default="predictions.csv")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--topk", type=int, default=3)

@@ -32,7 +32,8 @@ def build_server(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="ViT-B/16",
-                   help="zoo name | checkpoint path | random:<ARCH>")
+                   help="zoo name | checkpoint path | hf-hub:<repo> (a "
+                        "local HF snapshot) | random:<ARCH>")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000,
                    help="0 = ephemeral (printed at startup)")

@@ -178,8 +178,22 @@ Phases (any failure raises and the exit code is non-zero):
      its first epoch, exit 0 with the epoch checkpoint, then resumed by a
      second CLI run: its final parameters against an uninterrupted run, bit
      for bit;
-  7. one JSON line listing every kernel (with each kernel's A10 launches);
-     last line ``{"ok": true, ...}``.
+  10. weights path — the ViT-B/16 engine's weights as an OpenAI fp16
+     state-dict ``.pt`` (after 8b), the SO400M engine's as an HF snapshot
+     of BF16 safetensors in 2 shards with a stripped ``config.json`` and a
+     byte-fallback BPE ``tokenizer.json``, read as
+     ``hf-hub:timm/ViT-SO400M-16-SigLIP2-384`` through its alias under a
+     temporary ``HF_HOME`` (after 9d/9e), the ConvNeXt base_w engine's as an
+     open_clip ``open_clip_pytorch_model.bin`` in the snapshot
+     ``laion/CLIP-convnext_base_w-laion2B-s13B-b82K`` (after 6d), each in
+     a temporary directory deleted after: ``ClassifierEngine`` on each
+     name, its probabilities equal bit for bit to an engine on the source
+     weights rounded to the file's dtype, K1 / K5 + K4 / K7 launched; the
+     ``.pt`` and ConvNeXt names again from the converted cache
+     (``npz-cache``); the SigLIP text head on the snapshot's tokenizer ids;
+     load seconds (host clock), file sizes and host RSS;
+  7. one JSON line listing every kernel (with each kernel's A10 launches)
+     and every phase's figures; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
 
@@ -270,6 +284,14 @@ VIT_PEFT_PREFIX, VIT_PEFT_SPLITS = 2, (32, 0, 16)  # train (2 steps), test
 CX_MODEL, CX_RES, CX_DEPTHS = "random:convnext_base_w", 256, (3, 3, 27, 3)
 CX_WIDTHS, CX_REQUESTS = (128, 256, 512, 1024), 96
 CX_PEFT_PREFIX, CX_PEFT_SPLITS = 26, (32, 0, 16)
+# the weights path: the ViT-B/16, SO400M and ConvNeXt base_w bundles written
+# in their published layouts (an OpenAI fp16 state-dict .pt; an HF SigLIP
+# snapshot of BF16 safetensors in WEIGHTS_SHARDS shards under the alias of
+# configs/base.yaml's open_clip_model; an open_clip snapshot), then served
+WEIGHTS_SHARDS = 2
+SL_HUB = "hf-hub:timm/ViT-SO400M-16-SigLIP2-384"
+SL_HF_REPO = "google/siglip2-so400m-patch16-384"
+CX_HF_REPO = "laion/CLIP-convnext_base_w-laion2B-s13B-b82K"
 # tolerances against the plain version on the same inputs, as (rel L2,
 # max|d| / max|ref|): both round to bf16 at the same points, so they differ
 # where an fp32 sum lands on the other side of a bf16 rounding boundary
@@ -739,9 +761,13 @@ def main() -> None:
 
     # ---- 8b. serving over HTTP: PredictServer, its three wires, the decode
     counts["serving"], serving_figures = serving_path(engine, big, mids, smi)
+    phase("serving path")
+
+    # ---- 10. the weights path: the engine's weights as an OpenAI .pt
+    weights = {"vit_b16": weights_path("vit_b16", engine, bk, smi)}
     del engine
     torch.cuda.empty_cache()
-    phase("serving path")
+    phase("weights path (ViT-B/16 .pt)")
 
     # ---- 5c. the int8 ViT-B/16 path: engine + dynamic batcher
     (counts["vit_int8"], counts["vit_int8_off"], rates["vit_b16_int8_64"],
@@ -778,9 +804,13 @@ def main() -> None:
 
     # ---- 9d/9e. A10 on SO400M: the scanned, remat'd LoRA step; profile_dir
     a10_so = a10_so400m_path(engine, bk, smi)
+    phase("a10 so400m path")
+
+    # ---- 10. the weights path: SO400M as an HF snapshot (BF16 shards)
+    weights["so400m"] = weights_path("so400m", engine, bk, smi)
     del engine
     torch.cuda.empty_cache()
-    phase("a10 so400m path")
+    phase("weights path (SO400M HF snapshot)")
 
     # ---- 5d. the ConvNeXt base_w bf16 and int8 engines + dynamic batcher
     cx_counts, cx_rates, cx_figures, engine = convnext_path(bk)
@@ -790,9 +820,14 @@ def main() -> None:
 
     # ---- 6d. the ConvNeXt base_w PEFT step and finetune on its weights
     cx_train = convnext_peft_path(engine.bundle.model, bk)
+    phase("convnext peft path")
+
+    # ---- 10. the weights path: ConvNeXt base_w as an open_clip snapshot
+    weights["convnext_base_w"] = weights_path("convnext_base_w", engine, bk,
+                                              smi)
     del engine
     torch.cuda.empty_cache()
-    phase("convnext peft path")
+    phase("weights path (ConvNeXt open_clip .bin)")
 
     # ---- 5f. the LAION ViT-H/14, ViT-g/14 and ViT-bigG/14 engines
     large_counts, large_rates, large_figures = large_vit_paths(bk)
@@ -864,7 +899,8 @@ def main() -> None:
                       "vit_encode_train": fast_train, "int8_core": int8_core,
                       "large_vit": large_figures, "runner": runner,
                       "a10": {"vit_b16": a10_vit, "so400m": a10_so},
-                      "jpeg": jpeg_figures, "serving": serving_figures}))
+                      "jpeg": jpeg_figures, "serving": serving_figures,
+                      "weights": weights}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -4947,6 +4983,397 @@ def a10_so400m_path(engine, bk, smi: str) -> dict:
                 finetune_s=wall, trace_kernels=found, trace_mb=trace_mb,
                 launches_step=per_step, launches_finetune=run_counts,
                 test_loss=out["test"]["loss"], card=smi)
+
+
+# ---------------------------------------------------------------------------
+# the weights path: published checkpoint layouts, written from the port's
+# state dicts (the CPU tests hold these writers against transformers and
+# the JAX package's converters)
+
+
+def openai_state_dict(sd):
+    """The port's CLIP ViT state dict -> OpenAI's names (the text tower at
+    the top level)."""
+    return {k.removeprefix("text."): v for k, v in sd.items()}
+
+
+_CX_BLOCK = {"dwconv": "conv_dw", "norm": "norm", "fc1": "mlp.fc1",
+             "fc2": "mlp.fc2", "gamma": "gamma"}
+
+
+def openclip_convnext_state_dict(sd):
+    """The port's ConvNeXt-CLIP state dict -> open_clip's names (timm's
+    trunk, open_clip's head, OpenAI's text tower).  A head bias that is all
+    zeros is left out, as open_clip exports the head (``proj_bias=False``)."""
+    out = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if parts[0] != "visual":
+            out[k.removeprefix("text.")] = v
+            continue
+        mod, rest = parts[1], parts[2:]
+        if mod in ("stem_conv", "stem_norm"):
+            name = ["trunk.stem", "0" if mod == "stem_conv" else "1"]
+        elif mod.startswith("down_"):
+            kind, s = mod[len("down_"):].split("_")
+            name = [f"trunk.stages.{s}.downsample",
+                    "0" if kind == "norm" else "1"]
+        elif mod.startswith("stage"):
+            s, b = re.fullmatch(r"stage(\d+)_block(\d+)", mod).groups()
+            name = [f"trunk.stages.{s}.blocks.{b}", _CX_BLOCK[rest[0]]]
+            rest = rest[1:]
+        elif mod == "head_norm":
+            name = ["trunk.head.norm"]
+        else:
+            if rest == ["bias"] and not bool(v.any()):
+                continue
+            name = {"head_proj": ["head.proj"], "head_fc1": ["head.mlp.fc1"],
+                    "head_fc2": ["head.mlp.fc2"]}[mod]
+        out[".".join(["visual"] + name + rest)] = v
+    return out
+
+
+_HF_LAYER = {"attn": "self_attn", "ln_1": "layer_norm1", "ln_2": "layer_norm2",
+             "mlp.c_fc": "mlp.fc1", "mlp.c_proj": "mlp.fc2"}
+_HF_NAMES = {
+    "visual.positional_embedding":
+        "vision_model.embeddings.position_embedding.weight",
+    "visual.attnpool.probe": "vision_model.head.probe",
+    "text.token_embedding.weight":
+        "text_model.embeddings.token_embedding.weight",
+    "text.positional_embedding":
+        "text_model.embeddings.position_embedding.weight",
+    "logit_scale": "logit_scale", "logit_bias": "logit_bias",
+    **{f"{port}.{leaf}": f"{hf}.{leaf}" for port, hf in (
+        ("visual.conv1", "vision_model.embeddings.patch_embedding"),
+        ("visual.ln_post", "vision_model.post_layernorm"),
+        ("visual.attnpool.attn.out_proj",
+         "vision_model.head.attention.out_proj"),
+        ("visual.attnpool.ln", "vision_model.head.layernorm"),
+        ("visual.attnpool.mlp.c_fc", "vision_model.head.mlp.fc1"),
+        ("visual.attnpool.mlp.c_proj", "vision_model.head.mlp.fc2"),
+        ("text.ln_final", "text_model.final_layer_norm"),
+        ("text.head", "text_model.head")) for leaf in ("weight", "bias")}}
+
+
+def hf_siglip_state_dict(sd):
+    """The port's SigLIP state dict -> transformers' ``SiglipModel`` names
+    (the MAP head's q/k/v packed into ``in_proj_weight``/``in_proj_bias``,
+    the scalar logit scale and bias as [1])."""
+    import torch
+
+    out = {}
+    for k, v in sd.items():
+        m = re.fullmatch(r"(visual|text)\.transformer\.resblocks\.(\d+)\."
+                         r"(attn|ln_1|ln_2|mlp\.c_fc|mlp\.c_proj)\.(.+)", k)
+        if m:
+            tower = "vision_model" if m[1] == "visual" else "text_model"
+            out[f"{tower}.encoder.layers.{m[2]}.{_HF_LAYER[m[3]]}.{m[4]}"] = v
+        elif k in _HF_NAMES:
+            out[_HF_NAMES[k]] = v.reshape(1) if v.dim() == 0 else v
+    for leaf in ("weight", "bias"):
+        out[f"vision_model.head.attention.in_proj_{leaf}"] = torch.cat(
+            [sd[f"visual.attnpool.attn.{p}_proj.{leaf}"] for p in "qkv"])
+    return out
+
+
+def write_safetensors(path, tensors) -> None:
+    """{name: tensor} -> a .safetensors file (header length, JSON header
+    padded to 8 bytes, the tensors' bytes in order)."""
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().reshape(-1).view(
+                torch.uint8).numpy())
+
+
+def smoke_tokenizer_json(texts):
+    """A Gemma-style byte-fallback BPE ``tokenizer.json`` whose merges
+    build each word of ``texts`` (after the " " -> "▁" normalizer) from its
+    characters; any other character falls back to its <0xNN> bytes."""
+    specials = ["<pad>", "<eos>", "<bos>", "<unk>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    words = sorted({"▁" + w for t in texts for w in t.split()})
+    for ch in sorted(set("".join(words))):
+        vocab.setdefault(ch, len(vocab))
+    merges = []
+    for w in words:
+        for i in range(2, len(w) + 1):
+            if w[:i] not in vocab:
+                vocab[w[:i]] = len(vocab)
+                merges.append([w[:i - 1], w[i - 1]])
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [dict(id=i, content=t, single_word=False, lstrip=False,
+                              rstrip=False, normalized=False, special=True)
+                         for i, t in enumerate(specials)],
+        "normalizer": {"type": "Replace", "pattern": {"String": " "},
+                       "content": "▁"},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "<eos>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<eos>": {"id": "<eos>", "ids": [1],
+                                         "tokens": ["<eos>"]}}},
+        "decoder": None,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges}}
+
+
+def write_hf_siglip_snapshot(root, repo, cfg, sd, dtype, shards, texts):
+    """An HF hub snapshot of the port's SigLIP ``sd`` under ``root``
+    (``root`` is then an ``HF_HOME``): ``SiglipModel`` safetensors in
+    ``dtype`` (one file, or ``shards`` files and their index), a
+    ``config.json`` without the keys that equal transformers' defaults, and
+    a Gemma tokenizer (``smoke_tokenizer_json(texts)``, appending <eos>,
+    right padding).  Returns the snapshot directory."""
+    from pathlib import Path
+
+    from aihab_clip_tpu_torch.models.convert_hf import (SIGLIP_TEXT_DEFAULTS,
+                                                        SIGLIP_VISION_DEFAULTS)
+
+    snap = (Path(root) / "hub" / f"models--{repo.replace('/', '--')}"
+            / "snapshots" / "smoke")
+    snap.mkdir(parents=True)
+    hf = {k: v.to(dtype) for k, v in hf_siglip_state_dict(sd).items()}
+    if shards == 1:
+        write_safetensors(snap / "model.safetensors", hf)
+    else:
+        names = list(hf)
+        cuts = np.array_split(np.arange(len(names)), shards)
+        weight_map = {}
+        for i, idx in enumerate(cuts):
+            file = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+            part = {names[j]: hf[names[j]] for j in idx}
+            write_safetensors(snap / file, part)
+            weight_map.update(dict.fromkeys(part, file))
+        total = sum(t.numel() * t.element_size() for t in hf.values())
+        (snap / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    text = dict(vocab_size=cfg.vocab_size, hidden_size=cfg.text_width,
+                intermediate_size=cfg.text_mlp_dim,
+                num_hidden_layers=cfg.text_layers,
+                num_attention_heads=cfg.text_heads,
+                max_position_embeddings=cfg.context_length)
+    vision = dict(hidden_size=cfg.vision_width,
+                  intermediate_size=cfg.vision_mlp_dim,
+                  num_hidden_layers=cfg.vision_layers,
+                  num_attention_heads=cfg.vision_heads,
+                  image_size=cfg.image_resolution, patch_size=cfg.patch_size)
+    (snap / "config.json").write_text(json.dumps({
+        "architectures": ["SiglipModel"], "model_type": "siglip",
+        "text_config": {k: v for k, v in text.items()
+                        if SIGLIP_TEXT_DEFAULTS[k] != v},
+        "vision_config": {k: v for k, v in vision.items()
+                          if SIGLIP_VISION_DEFAULTS[k] != v}}))
+    (snap / "tokenizer.json").write_text(json.dumps(smoke_tokenizer_json(
+        texts)))
+    (snap / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "GemmaTokenizer", "add_bos_token": False,
+         "add_eos_token": True, "padding_side": "right"}))
+    (snap / "special_tokens_map.json").write_text(json.dumps(
+        {"pad_token": "<pad>", "eos_token": "<eos>", "bos_token": "<bos>",
+         "unk_token": "<unk>"}))
+    return snap
+
+
+@contextlib.contextmanager
+def rss_peak():
+    """Host RSS before the block and its peak inside it (VmRSS sampled
+    every 5 ms), in MiB."""
+    import threading
+
+    def rss():
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) for line in f
+                        if line.startswith("VmRSS")) / 1024
+
+    out, peak, stop = {"before_mib": rss()}, [rss()], threading.Event()
+
+    def watch():
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], rss())
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        watcher.join()
+        out["peak_mib"] = max(peak[0], rss())
+
+
+def weights_path(source: str, engine, bk, smi: str) -> dict:
+    """The weights path for one of the smoke's bundles (``source``:
+    ``vit_b16``, ``so400m`` or ``convnext_base_w``): the engine's weights
+    written in their published layout at full width in a temporary
+    directory (an ``HF_HOME`` and the zoo's cache root, deleted after), then
+    ``ClassifierEngine`` by the name a user gives (the ``.pt`` path, the
+    hub names) against an engine on the source weights rounded to the
+    file's dtype: probabilities equal bit for bit, the kernels (K1, K5/K4,
+    K7) launched; the ``.pt`` and ConvNeXt files again from the cache
+    (``npz-cache``, equal), none written for the SigLIP snapshot, whose
+    text head takes the snapshot's tokenizer.  Load seconds (host clock),
+    file sizes and host RSS."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import aihab_clip_tpu_torch.models as models
+    from aihab_clip_tpu_torch.models import zoo
+    from aihab_clip_tpu_torch.models.siglip import SigLIPModel
+    from aihab_clip_tpu_torch.serving import ClassifierEngine
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.tokenizer import tokenize
+    from aihab_clip_tpu_torch.tokenizer.hf_json import load_hf_tokenizer
+
+    dev = torch.device("cuda")
+    cfg = engine.bundle.config
+    src = {k: v.detach() for k, v in engine.bundle.model.state_dict().items()}
+    dtype, kernels = {
+        "vit_b16": (torch.float16, ("full_block_fused",)),
+        "so400m": (torch.bfloat16, ("attn_block_split", "mlp_block_split")),
+        "convnext_base_w": (torch.float32, ("convnext_mlp_block",))}[source]
+    tmp = Path(tempfile.mkdtemp(prefix="aihab_weights_"))
+    old_home, old_root, old_load = (os.environ.get("HF_HOME"),
+                                    zoo.default_cache_root, models.load)
+    loads = []
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        bundle = old_load(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0, bundle.source))
+        return bundle
+
+    try:
+        t0 = time.perf_counter()
+        tokenizer = None
+        if source == "vit_b16":
+            name = str(tmp / "ViT-B-16.pt")
+            torch.save({k: v.to(dtype).cpu()
+                        for k, v in openai_state_dict(src).items()}, name)
+            files = [Path(name)]
+        elif source == "so400m":
+            name = SL_HUB
+            snap = write_hf_siglip_snapshot(
+                tmp, SL_HF_REPO, cfg, src, dtype, WEIGHTS_SHARDS,
+                gen_prompts(use_hierarchy=True, use_descriptive=True)[0][:10])
+            files = sorted(snap.glob("*.safetensors"))
+            tokenizer = load_hf_tokenizer(snap)
+        else:
+            name = f"hf-hub:{CX_HF_REPO}"
+            snap = (tmp / "hub" / f"models--{CX_HF_REPO.replace('/', '--')}"
+                    / "snapshots" / "smoke")
+            snap.mkdir(parents=True)
+            files = [snap / "open_clip_pytorch_model.bin"]
+            torch.save({k: v.cpu() for k, v in
+                        openclip_convnext_state_dict(src).items()}, files[0])
+        write_s = time.perf_counter() - t0
+        mb = sum(f.stat().st_size for f in files) / 1e6
+        os.environ["HF_HOME"] = str(tmp)
+        zoo.default_cache_root = lambda: tmp / "cache"
+
+        # the reference: an engine on the source weights rounded to the
+        # file's dtype
+        rounded = {k: v.to(dtype).float() for k, v in src.items()}
+        cls = SigLIPModel if source == "so400m" else models.CLIPModel
+        models.load = lambda n, dtype=None, **kw: zoo.CLIPBundle(
+            n, cfg, zoo._from_state_dict(cls, cfg, rounded, dtype, dev),
+            "random", tokenizer)
+        ref = ClassifierEngine(model=name, batch_size=B, device="cuda",
+                               verbose=False)
+        del rounded
+        images = np.random.default_rng(SEED + 9).integers(
+            0, 256, (B, ref.decode_dim, ref.decode_dim, 3), dtype=np.uint8)
+        want = ref.classify_batch(images)
+        del ref
+        models.load = timed_load
+        figures = dict(format={"vit_b16": "OpenAI state-dict .pt",
+                               "so400m": "HF snapshot, safetensors",
+                               "convnext_base_w": "open_clip .bin"}[source],
+                       dtype=str(dtype).removeprefix("torch."),
+                       files=len(files), file_mb=mb, write_s=write_s,
+                       loads=[], card=smi)
+        for attempt in range(1 if source == "so400m" else 2):
+            with rss_peak() as rss:
+                t0 = time.perf_counter()
+                eng = ClassifierEngine(model=name, batch_size=B,
+                                       device="cuda", verbose=False)
+                engine_s = time.perf_counter() - t0
+            load_s, got_source = loads[-1]
+            check(eng.bundle.config == cfg, f"{source}: loaded config "
+                  f"{eng.bundle.config} is not the source's {cfg}")
+            bk.reset_launch_counts()
+            probs = eng.classify_batch(images)
+            launches = {k: bk.launch_counts()[k] for k in kernels}
+            max_d = float(np.abs(probs - want).max())
+            print(f"[weights] {source} load {attempt + 1} ({name}): source "
+                  f"{got_source!r}, load {load_s:.3f}s, engine {engine_s:.3f}s"
+                  f"; {len(files)} file(s) {mb:.1f} MB ({figures['dtype']}),"
+                  f" written in {write_s:.3f}s; host RSS "
+                  f"{rss['before_mib']:.0f} -> peak {rss['peak_mib']:.0f} MiB"
+                  f"; probs max|d| {max_d:g} against the rounded source "
+                  f"engine; launches {launches} ({smi})")
+            want_source = ("hf-local" if attempt == 0 and source != "vit_b16"
+                           else "torch" if attempt == 0 else "npz-cache")
+            check(got_source == want_source, f"{source} load {attempt + 1}: "
+                  f"source {got_source!r}, want {want_source!r}")
+            check(np.array_equal(probs, want), f"{source} load {attempt + 1}:"
+                  f" probabilities differ from the rounded source engine "
+                  f"(max|d| {max_d})")
+            check(all(launches.values()), f"{source}: kernels not launched "
+                  f"on the loaded engine: {launches}")
+            figures["loads"].append(dict(
+                source=got_source, load_s=load_s, engine_s=engine_s,
+                rss_before_mib=rss["before_mib"], rss_peak_mib=rss["peak_mib"],
+                launches=launches))
+            if source == "so400m":
+                prompts = gen_prompts(use_hierarchy=True,
+                                      use_descriptive=True)[0]
+                ids = eng.bundle.tokenize_fn(prompts, cfg.context_length)
+                check(eng.bundle.tokenize_fn is not None and np.array_equal(
+                    ids, tokenizer(prompts, cfg.context_length)) and not
+                    np.array_equal(ids, tokenize(prompts, cfg.context_length,
+                                                 truncate=True)),
+                      "the SigLIP text head does not take the snapshot's "
+                      "tokenizer ids")
+                check(not (tmp / "cache").exists(),
+                      "a cache was written for a SigLIP snapshot")
+            del eng
+            torch.cuda.empty_cache()
+        return figures
+    finally:
+        models.load, zoo.default_cache_root = old_load, old_root
+        if old_home is None:
+            os.environ.pop("HF_HOME", None)
+        else:
+            os.environ["HF_HOME"] = old_home
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it pulls in no JAX, no flax,
 nothing of ``aihab_clip_tpu``, and none of the host libraries the card's
 machine lacks (yaml, pandas, scikit-learn, cv2, PIL, optax, orbax,
-tensorstore); ``wandb``, ``matplotlib`` and ``seaborn`` are imported only
+tensorstore, transformers, tokenizers, safetensors, open_clip); ``wandb``, ``matplotlib`` and ``seaborn`` are imported only
 inside a function, at use (the logger's guarded imports), never at a
 module's import; its entry points refuse a missing card."""
 
@@ -18,7 +18,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "aihab_clip_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "aihab_clip_tpu", "yaml", "pandas",
-             "sklearn", "cv2", "PIL", "optax", "orbax", "tensorstore"}
+             "sklearn", "cv2", "PIL", "optax", "orbax", "tensorstore",
+             "transformers", "tokenizers", "safetensors", "open_clip"}
 # optional at run time: imported inside a function only, behind a guard
 GUARDED = {"wandb", "matplotlib", "seaborn"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
