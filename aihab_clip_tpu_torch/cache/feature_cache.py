@@ -12,7 +12,8 @@ file.  ``cache_features_from_loader`` encodes a batch as
 ``fast_train_transform`` (its draws from a ``torch.Generator`` seeded per
 (seed, view, batch): other crops and angles than JAX's ``fold_in`` keys)
 -> ``encode_image_fastest`` (on the card: K1 per block over a pack built
-once) -> fp16 on the device.  The JAX writer's lag-1 fetch is dropped: the
+once; a ModifiedResNet's folded convs, ``width * 32`` wide: 2,048 at RN50)
+-> fp16 on the device.  The JAX writer's lag-1 fetch is dropped: the
 features of a view stay on the device and come to the host in one copy at
 the view's end, so the host's gather and upload of the next batch already
 run while the card computes.  Multi-host shards (``shard_count > 1``) wait

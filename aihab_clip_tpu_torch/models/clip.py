@@ -2,11 +2,12 @@
 
 ``CLIPConfig`` is re-declared with the JAX package's field names, so a
 config JSON written by either package loads in the other.  ``CLIPModel``
-builds CLIP ViT and ConvNeXt towers (``vision_tower="convnext"``; the
-ModifiedResNet waits for its port); ``CLIP_ARCHS`` holds the ViT rows of the
-JAX table (the OpenAI towers and the LAION ViT-H/14, ViT-g/14 and
-ViT-bigG/14), the ``Tiny`` and ``TinyConvNeXt`` development architectures
-and, once ``models/zoo`` is imported, the LAION ConvNeXt tag grid.  The
+builds CLIP ViT, ModifiedResNet (``vision_layers`` a tuple of stage depths)
+and ConvNeXt towers (``vision_tower="convnext"``); ``CLIP_ARCHS`` holds the
+rows of the JAX table (the OpenAI RN50 to RN50x64 and ViT towers, the LAION
+ViT-H/14, ViT-g/14 and ViT-bigG/14), the ``Tiny``, ``TinyRN`` and
+``TinyConvNeXt`` development architectures and, once ``models/zoo`` is
+imported, the LAION ConvNeXt tag grid.  The
 zoo maps open_clip's dashed names (``ViT-B-16``, ``ViT-bigG-14``) onto these
 keys, as JAX's does.
 
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from .convnext import ConvNeXtVisionTower
+from .resnet import ModifiedResNet
 from .text import TextTransformer
 from .vit import VisionTransformer
 
@@ -76,13 +78,20 @@ class CLIPConfig:
         return self.vision_width if self.is_vit else self.vision_width * 32
 
 
-# The ViT rows of the OpenAI CLIP zoo (public shape facts) + a dev arch.
+# The OpenAI CLIP zoo (public shape facts), the LAION towers and dev archs.
 CLIP_ARCHS: Dict[str, CLIPConfig] = {
+    "RN50": CLIPConfig(1024, 224, (3, 4, 6, 3), 64, None, 77, 49408, 512, 8, 12),
+    "RN101": CLIPConfig(512, 224, (3, 4, 23, 3), 64, None, 77, 49408, 512, 8, 12),
+    "RN50x4": CLIPConfig(640, 288, (4, 6, 10, 6), 80, None, 77, 49408, 640, 10, 12),
+    "RN50x16": CLIPConfig(768, 384, (6, 8, 18, 8), 96, None, 77, 49408, 768, 12, 12),
+    "RN50x64": CLIPConfig(1024, 448, (3, 15, 36, 10), 128, None, 77, 49408, 1024, 16, 12),
     "ViT-B/32": CLIPConfig(512, 224, 12, 768, 32, 77, 49408, 512, 8, 12),
     "ViT-B/16": CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12),
     "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 77, 49408, 768, 12, 12),
     "Tiny": CLIPConfig(32, 32, 2, 64, 8, 77, 49408, 64, 1, 2),
+    # tiny ModifiedResNet for tests (width 8 -> pool embed 256, 4 heads)
+    "TinyRN": CLIPConfig(32, 32, (1, 1, 1, 1), 8, None, 77, 49408, 64, 1, 2),
     # the LAION-trained open_clip towers (JAX clip.py:111-119), exact GELU
     # as open_clip builds them: ViT-H/14 keeps 20 heads of 64; ViT-g/14
     # (16 heads of 88) and ViT-bigG/14 (16 of 104) override the head count
@@ -119,9 +128,9 @@ class CLIPModel(nn.Module):
                 cfg.vision_layers, cfg.vision_heads, cfg.embed_dim,
                 mlp_dim=cfg.vision_mlp_dim, act=cfg.act, dtype=dtype)
         else:
-            raise NotImplementedError(
-                f"{cfg.tower!r} (ModifiedResNet) vision towers are not ported "
-                "yet: ROADMAP A11")
+            self.visual = ModifiedResNet(
+                cfg.vision_layers, cfg.embed_dim, cfg.vision_heads,
+                cfg.image_resolution, cfg.vision_width, dtype=dtype)
         self.text = TextTransformer(
             cfg.context_length, cfg.vocab_size, cfg.transformer_width,
             cfg.transformer_layers, cfg.transformer_heads, cfg.embed_dim,

@@ -9,9 +9,10 @@ Input is the flat ``{"a/b/c": ndarray}`` form that ``save_params_npz``
   * flax Conv ``kernel`` HWIO        -> torch ``weight`` OIHW (every 4-D
     kernel: ViT's ``conv1``, ConvNeXt's ``stem_conv`` [4, 4, 3, C],
     ``down_conv_<s>`` [2, 2, C, 2C] and ``dwconv`` [7, 7, 1, C] -> [C, 1,
-    7, 7])
+    7, 7], a ModifiedResNet's ``conv1``-``conv3`` and ``downsample_conv``)
   * ``attn/in_proj/{kernel,bias}``   -> ``attn.in_proj_{weight,bias}``
-  * LayerNorm ``scale``              -> ``weight``
+  * LayerNorm and FrozenBatchNorm ``scale`` -> ``weight`` (a BatchNorm's
+    ``mean`` and ``var`` keep their names)
   * ``resblocks_<i>``                -> ``resblocks.<i>``
   * ``text/token_embedding``         -> ``text.token_embedding.weight``
   * every other leaf keeps its path (ConvNeXt's ``stage<s>_block<b>/gamma``)
@@ -29,7 +30,9 @@ The same rules carry a SigLIP tree into ``SigLIPModel``: its separate
 ``torch_state_dict_to_port`` reads an OpenAI/open_clip CLIP state dict
 (JAX ``convert.py:80-139``).  The port's module names follow OpenAI's, so
 the text tower only gains its ``text.`` prefix and every tensor keeps its
-layout (JAX's two transposes cancel): the result equals
+layout (JAX's two transposes cancel); a ModifiedResNet's visual keys take
+JAX's module names (``rn_visual_key``, JAX ``convert.py:166-205``).  The
+result equals
 ``flax_params_to_state_dict`` of JAX's converted tree bit for bit.
 ``state_dict_to_flax_params`` inverts ``flax_params_to_state_dict``, and
 ``save_params_npz`` writes the converted cache JAX reads.
@@ -91,8 +94,8 @@ def _convert_key(key: str, v: np.ndarray):
 
 
 def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax-layout CLIP (ViT or ConvNeXt) or SigLIP params (nested or
-    ``/``-flat) -> a state dict for ``CLIPModel`` or
+    """Flax-layout CLIP (ViT, ModifiedResNet or ConvNeXt) or SigLIP params
+    (nested or ``/``-flat) -> a state dict for ``CLIPModel`` or
     ``SigLIPModel.load_state_dict``."""
     sd = {}
     for key, v in flatten_params(params).items():
@@ -202,15 +205,60 @@ def text_key(key: str) -> str:
     raise KeyError(f"Unhandled checkpoint key: {key}")
 
 
+_BN_LEAVES = {"weight": "weight", "bias": "bias", "running_mean": "mean",
+              "running_var": "var"}
+
+
+def rn_visual_key(key: str):
+    """An OpenAI ModifiedResNet visual key (below ``visual.``) -> the
+    port's name, or None for a BatchNorm's ``num_batches_tracked`` (dropped):
+    ``layer<s>.<b>.`` -> ``layer<s>_<b>.``, ``downsample.0`` / ``.1`` ->
+    ``downsample_conv`` / ``downsample_bn``, ``running_mean`` / ``_var``
+    -> ``mean`` / ``var``.  An unknown key raises JAX's ``KeyError``."""
+    parts = key.split(".")
+
+    def bn(prefix: str, leaf: str, what: str):
+        if leaf == "num_batches_tracked":
+            return None
+        if leaf not in _BN_LEAVES:
+            raise KeyError(f"Unhandled {what} bn key: visual.{key}")
+        return f"visual.{prefix}.{_BN_LEAVES[leaf]}"
+
+    if parts[0] in ("conv1", "conv2", "conv3"):
+        return f"visual.{parts[0]}.weight"
+    if parts[0] in ("bn1", "bn2", "bn3"):
+        return bn(parts[0], parts[1], "stem")
+    if parts[0].startswith("layer"):
+        blk, mod = f"{parts[0]}_{parts[1]}", parts[2]
+        if mod.startswith("conv"):
+            return f"visual.{blk}.{mod}.weight"
+        if mod.startswith("bn"):
+            return bn(f"{blk}.{mod}", parts[3], "block")
+        if mod == "downsample" and parts[3] == "0":
+            return f"visual.{blk}.downsample_conv.weight"
+        if mod == "downsample" and parts[3] == "1":
+            return bn(f"{blk}.downsample_bn", parts[4], "downsample")
+        if mod == "downsample":
+            raise KeyError(f"Unhandled downsample key: visual.{key}")
+        raise KeyError(f"Unhandled block key: visual.{key}")
+    if parts[0] == "attnpool":
+        if parts[1] == "positional_embedding":
+            return "visual.attnpool.positional_embedding"
+        if parts[1] in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            leaf = "weight" if parts[2] == "weight" else "bias"
+            return f"visual.attnpool.{parts[1]}.{leaf}"
+        raise KeyError(f"Unhandled attnpool key: visual.{key}")
+    raise KeyError(f"Unhandled ResNet visual key: visual.{key}")
+
+
 def torch_state_dict_to_port(state_dict: Mapping, resolution: int = 0
                              ) -> Tuple[CLIPConfig, Dict[str, torch.Tensor]]:
     """An OpenAI/open_clip CLIP state dict (tensors or arrays, any float
     dtype) -> (CLIPConfig, the port's fp32 state dict).  A state dict with
     ``visual.trunk.`` keys is open_clip's ConvNeXt layout
     (``convnext.openclip_convnext_state_dict_to_port``, which alone reads
-    ``resolution``).  A ModifiedResNet's visual keys keep their reference
-    names: ``CLIPModel`` refuses that tower (ROADMAP A11).  An unknown key
-    raises ``KeyError``, as in JAX."""
+    ``resolution``); a ModifiedResNet's visual keys are renamed by
+    ``rn_visual_key``.  An unknown key raises ``KeyError``, as in JAX."""
     sd = clean_state_dict(state_dict)
     if any(k.startswith("visual.trunk.") for k in sd):
         from .convnext import openclip_convnext_state_dict_to_port
@@ -222,7 +270,11 @@ def torch_state_dict_to_port(state_dict: Mapping, resolution: int = 0
     for key, v in sd.items():
         if not key.startswith("visual."):
             out[text_key(key)] = v
-        elif cfg.is_vit and key[len("visual."):] not in _VIT_KEYS \
+        elif not cfg.is_vit:
+            name = rn_visual_key(key[len("visual."):])
+            if name is not None:
+                out[name] = v
+        elif key[len("visual."):] not in _VIT_KEYS \
                 and not _block_key(key, "visual.transformer.resblocks."):
             raise KeyError(f"Unhandled ViT visual key: {key}")
         else:
@@ -231,8 +283,8 @@ def torch_state_dict_to_port(state_dict: Mapping, resolution: int = 0
 
 
 def state_dict_to_flax_params(sd: Mapping) -> Dict[str, np.ndarray]:
-    """The port's state dict (CLIP ViT, ConvNeXt or SigLIP) -> JAX's flat
-    flax layout ``{"a/b/c": fp32 ndarray}``: the inverse of
+    """The port's state dict (CLIP ViT, ModifiedResNet, ConvNeXt or SigLIP)
+    -> JAX's flat flax layout ``{"a/b/c": fp32 ndarray}``: the inverse of
     ``flax_params_to_state_dict``."""
     flat: Dict[str, np.ndarray] = {}
     for name, t in sd.items():

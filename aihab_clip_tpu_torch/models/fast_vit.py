@@ -1,6 +1,7 @@
 """Fast ViT encode: the CLIP vision tower over the Hopper block kernels
 (counterpart of ``aihab_clip_tpu/models/fast_vit.py``).  SigLIP towers
-dispatch to ``fast_siglip`` and ConvNeXt towers to ``fast_convnext`` from
+dispatch to ``fast_siglip``, ConvNeXt towers to ``fast_convnext`` and
+ModifiedResNet towers to ``fast_resnet`` (the BatchNorm-folded convs) from
 ``pack_fastest`` and ``encode_image_fastest``.
 
 ``pack_fastest`` lays the tower's weights out once, at load, in the
@@ -54,6 +55,7 @@ from ..ops.block_kernel import (ACTS, attn_block_fused, attn_block_split,
 from ..ops.fused_linear import ln_matmul, matmul_residual
 from .clip import CLIPConfig
 from .fast_convnext import convnext_encode_fused, pack_convnext
+from .fast_resnet import fold_resnet_bn, resnet_encode_folded
 from .fast_siglip import pack_siglip_fast_params, siglip_encode_fast
 from .layers import checkpoint_pinned, linear
 from .siglip import SigLIPConfig
@@ -68,14 +70,15 @@ def pack_fastest(model, config, dtype=torch.bfloat16, *,
                  stop: Optional[int] = None):
     """Weights of a CLIP ViT, ConvNeXt or SigLIP tower in the kernels'
     layout, on the model's device, for blocks [0, stop) (default all; the
-    PEFT hybrid packs its frozen CLIP prefix).  Built once at load (or once
-    per training run); ``None`` for towers without a fast path."""
+    PEFT hybrid packs its frozen CLIP prefix); for a ModifiedResNet,
+    ``{"folded_rn": fold_resnet_bn(...)}`` (JAX ``fast_vit.py:206-211``).
+    Built once at load (or once per training run)."""
     if isinstance(config, SigLIPConfig):
         return pack_siglip_fast_params(model, config, dtype, stop=stop)
-    if isinstance(config, CLIPConfig) and config.tower == "convnext":
+    if config.tower == "convnext":
         return pack_convnext(model, config, dtype, stop=stop)
-    if not (isinstance(config, CLIPConfig) and config.is_vit):
-        return None
+    if config.tower == "rn":
+        return {"folded_rn": fold_resnet_bn(model, dtype)}
     vp = model.visual
 
     def mat(t):       # torch [out, in] -> kernel [in, out], compute dtype
@@ -259,12 +262,10 @@ def vit_encode_block_fused(packed, images: torch.Tensor, config: CLIPConfig,
 def encode_image_fastest(model, x: torch.Tensor, config, *,
                          project: bool = False, packed=None):
     """The fastest image encode for where ``x`` lives: CLIP ViT, ConvNeXt
-    and SigLIP towers on the card take the block kernels (``packed`` from
-    ``pack_fastest``, required there); the CPU runs the canonical module."""
-    on_card = x.is_cuda and (isinstance(config, SigLIPConfig) or (
-        isinstance(config, CLIPConfig)
-        and (config.is_vit or config.tower == "convnext")))
-    if not on_card:
+    and SigLIP towers on the card take the block kernels, a ModifiedResNet
+    its folded convs (``packed`` from ``pack_fastest``, required there);
+    the CPU runs the canonical module."""
+    if not x.is_cuda:
         return model.encode_image(x, project=project)
     if packed is None:
         raise ValueError("the card path needs packed=pack_fastest(...), "
@@ -274,6 +275,9 @@ def encode_image_fastest(model, x: torch.Tensor, config, *,
                                   packed=packed)
     if config.tower == "convnext":
         return convnext_encode_fused(packed, x, config, project=project)
+    if config.tower == "rn":
+        return resnet_encode_folded(packed["folded_rn"], x, config,
+                                    project=project)
     return vit_encode_block_fused(packed, x, config, project=project)
 
 

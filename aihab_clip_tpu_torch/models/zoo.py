@@ -47,6 +47,7 @@ from .convnext import (convnext_config_for_name,
                        openclip_convnext_state_dict_to_port,
                        register_convnext_archs)
 from .layers import LayerNorm, set_remat
+from .resnet import FrozenBatchNorm
 from .siglip import (SIGLIP_ARCHS, SigLIPConfig, SigLIPModel,
                      init_siglip_random_, siglip_config_for_name)
 
@@ -365,20 +366,22 @@ def _normalize_openclip_name(name: str) -> str:
 @torch.no_grad()
 def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
     """Draw every parameter from ``generator``: normal weights at
-    1/sqrt(fan_in), zero biases, unit LayerNorm scales, the CLIP embedding
-    scales (class/positional/projection 1/sqrt(width), token 0.02, text
+    1/sqrt(fan_in), zero biases, unit LayerNorm scales, the frozen
+    BatchNorms at JAX's init (scale 1, bias 0, mean 0, var 1), the CLIP
+    embedding scales (class/positional/projection 1/sqrt(width), the RN
+    attention pool's positional 1/sqrt(its width), token 0.02, text
     positional 0.01) and ConvNeXt's layer scales ``gamma`` normal at
     ``CONVNEXT_GAMMA_STD`` (0.1, not JAX's constant 1e-6)."""
     vis_scale = model.config.vision_width ** -0.5
-    ln_params = {f"{mn}.{pn}" for mn, m in model.named_modules()
-                 if isinstance(m, LayerNorm)
-                 for pn, _ in m.named_parameters(recurse=False)}
+    norm_params = {f"{mn}.{pn}" for mn, m in model.named_modules()
+                   if isinstance(m, (LayerNorm, FrozenBatchNorm))
+                   for pn, _ in m.named_parameters(recurse=False)}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name == "logit_scale":
             p.fill_(torch.log(torch.tensor(1 / 0.07)).item())
-        elif name in ln_params:
-            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif name in norm_params:
+            p.fill_(1.0 if leaf in ("weight", "var") else 0.0)
         elif leaf == "gamma":
             p.normal_(0.0, CONVNEXT_GAMMA_STD, generator=generator)
         elif leaf in ("bias", "in_proj_bias"):
@@ -392,6 +395,8 @@ def init_random_(model: CLIPModel, generator: torch.Generator) -> None:
         elif name in ("visual.class_embedding", "visual.positional_embedding",
                       "visual.proj"):
             p.normal_(0.0, vis_scale, generator=generator)
+        elif name == "visual.attnpool.positional_embedding":
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
         else:  # [out, in(, kh, kw)] weights
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
 
@@ -401,9 +406,9 @@ def load(name: str, dtype=torch.float32, device="cuda", seed: int = 0,
          random_cfg: Optional[Any] = None, remat: bool = False,
          allow_random_fallback: bool = False,
          require_tokenizer: bool = True) -> CLIPBundle:
-    """Load a CLIP (ViT or ConvNeXt) or a SigLIP model as a ``CLIPBundle``
-    on ``device`` (default the card; raises without one unless
-    ``device="cpu"``).  Parameters are fp32, whatever the checkpoint's
+    """Load a CLIP (ViT, ModifiedResNet or ConvNeXt) or a SigLIP model as a
+    ``CLIPBundle`` on ``device`` (default the card; raises without one
+    unless ``device="cpu"``).  Parameters are fp32, whatever the checkpoint's
     dtype; the towers compute in ``dtype``.  ``random_cfg`` (a
     ``CLIPConfig`` or ``SigLIPConfig``) shapes a ``random:`` model.
     ``download=False`` refuses to fetch a zoo name that has no cache.

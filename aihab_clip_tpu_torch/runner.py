@@ -8,13 +8,13 @@ config -> model + text head -> loaders -> (inspect | feature cache | ProLIP
 
 A model that does not load (no file, cache, snapshot or download) falls
 back to random weights of ``fallback_arch`` with a warning (zero-egress
-machines), as in JAX, except ``random:`` names, SigLIP names without a
-snapshot (random weights only with ``allow_random_weights``) and a tower
-the port lacks (a ResNet checkpoint, ROADMAP A11), which raise.  Every
-stage runs on ``device`` (default the card): in bf16 there, where the
-image encodes take the block kernels through ``encode_image_fastest``
-(K1 for a CLIP ViT, its pack built once), and in fp32 on the CPU, where the
-canonical module runs.  Model checkpoints (``utils/checkpointing.py``): the
+machines), as in JAX, except ``random:`` names and SigLIP names without a
+snapshot (random weights only with ``allow_random_weights``), which raise.
+A ModifiedResNet checkpoint or zoo name (RN50 is the openai backend's
+default ``backbone``) loads as any other.  Every stage runs on ``device`` (default the card): in bf16 there,
+where the image encodes go through ``encode_image_fastest`` (K1 per block
+for a CLIP ViT, the BatchNorm-folded convs for a ResNet, the pack built
+once), and in fp32 on the CPU, where the canonical module runs.  Model checkpoints (``utils/checkpointing.py``): the
 params-only warm start (``finetune.checkpoint``: a path or ``latest``),
 ``finetune.resume``, ``eval_only`` from a checkpoint, periodic async saves
 (``checkpoint_interval``), the final ``save_model`` (with LoRA also
@@ -94,9 +94,9 @@ def init_clip_and_text_head(cfg, device="cuda") -> Dict[str, Any]:
             cache_dir=cfg.get("clip_cache_dir", None), remat=remat,
             allow_random_fallback=bool(cfg.get("allow_random_weights",
                                                False)))
-    except (SigLIPAssetsMissingError, NotImplementedError):
+    except SigLIPAssetsMissingError:
         # SigLIP text encoding without the snapshot's tokenizer would give
-        # wrong token ids; a tower the port lacks is not a missing file
+        # wrong token ids
         raise
     except Exception as exc:  # zero-egress fallback
         if str(backbone).startswith("random:"):

@@ -8,7 +8,9 @@
   CLIP ViT towers and SigLIP (``random:ViT-SO400M-16-SigLIP2-384``, the
   system's default backbone, with its 0.5/0.5 pixel stats and its text
   head) take the same path, and so do ConvNeXt-CLIP towers
-  (``random:convnext_base_w``: K7 per block, ``models/fast_convnext``).
+  (``random:convnext_base_w``: K7 per block, ``models/fast_convnext``) and
+  the ModifiedResNet towers (``random:RN50``: the BatchNorm-folded convs on
+  cuDNN, ``models/fast_resnet``; no int8 tower, as in JAX).
   ``quantize="int8"`` serves SigLIP towers through the int8 kernels
   (``models/quant_siglip``: K8 patchify, then K13, K9 and K10 per block),
   CLIP ViT towers through ``models/quant_vit`` (K8 patchify, then the
@@ -139,12 +141,10 @@ class ClassifierEngine:
         self.bundle = load(model, dtype=self._compute_dtype,
                            device=self.device)
         cfg = self.bundle.config
-        if quantize == "int8" and not (isinstance(cfg, SigLIPConfig)
-                                       or cfg.is_vit
-                                       or cfg.tower == "convnext"):
-            raise NotImplementedError(
-                "quantize='int8' serves SigLIP, CLIP ViT and ConvNeXt towers: "
-                "the ResNet int8 tower waits for its port (ROADMAP A11)")
+        if quantize == "int8" and getattr(cfg, "tower", "vit") == "rn":
+            # no int8 ResNet tower, as in JAX (serving.py:236-238)
+            raise ValueError("quantize='int8' requires a ViT/SigLIP/ConvNeXt "
+                             "backbone")
         self.resolution = resolution or cfg.image_resolution
         if self.resolution != cfg.image_resolution:
             raise ValueError(

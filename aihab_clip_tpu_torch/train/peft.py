@@ -1,10 +1,13 @@
-"""PEFT: partial-unfreeze fine-tuning of a CLIP (ViT or ConvNeXt) or SigLIP
-tower (counterpart of ``aihab_clip_tpu/train/peft.py:54-475, 561-1076``).
+"""PEFT: partial-unfreeze fine-tuning of a CLIP (ViT, ModifiedResNet or
+ConvNeXt) or SigLIP tower (counterpart of ``aihab_clip_tpu/train/peft.py:
+54-475, 561-1076``).
 
   * freezing follows open_clip's ``lock_image_tower(unlocked_groups)`` /
     ``lock_text_tower(unlocked_layers)``: groups are [stem] + resblocks (a
     ConvNeXt's blocks in depth order, each stage's downsample with its first
-    block) + [head] and the last n unlock.  ``build_lock_mask`` maps the
+    block; a ModifiedResNet's four stages) + [head] and the last n unlock;
+    a frozen BatchNorm's ``mean`` and ``var`` never train, at any depth
+    (``PARITY.md``).  ``build_lock_mask`` maps the
     port's parameter names to that mask and sets ``requires_grad``, so
     autograd builds no graph below the earliest trainable layer.  SigLIP's
     text ``head`` Dense counts as group 0 (only ``ln_final``/
@@ -19,7 +22,8 @@ tower (counterpart of ``aihab_clip_tpu/train/peft.py:54-475, 561-1076``).
     K1 for the prefix, or with ``prefix_quant`` the int8 block K14, the
     canonical blocks for the rest; for a ConvNeXt ``convnext_encode_hybrid``,
     K7 for the prefix, with or without ``prefix_quant`` as in JAX, the
-    canonical blocks for the rest), fp32 L2 normalisation,
+    canonical blocks for the rest; a ModifiedResNet runs its canonical
+    module, with no scan and no fused prefix), fp32 L2 normalisation,
     the in-step text-head recompute when ``tune_text``, masked CE of
     ``100 * f @ T`` (``logit_scale`` is ignored, as in the reference), then
     Adam (optax's defaults: betas 0.9/0.999, eps 1e-8) over fp32 master
@@ -97,14 +101,26 @@ def _convnext_group_of(path: Tuple[str, ...], depths: Tuple[int, ...]) -> int:
     return 0                                     # stem_conv / stem_norm
 
 
+def _rn_group_of(path: Tuple[str, ...]) -> int:
+    """Group of a ModifiedResNet parameter (``peft.py:66-77``): 0 = stem
+    (conv1-3, bn1-3), 1..4 = the stages (``layer<s>_<b>``), 5 = the
+    attention pool."""
+    if path[0].startswith("layer"):
+        return int(path[0][len("layer"):].split("_")[0])
+    if path[0] == "attnpool":
+        return 5
+    return 0
+
+
 def _is_convnext(config) -> bool:
     return getattr(config, "tower", "vit") == "convnext"
 
 
 def _visual_blocks(config) -> int:
-    """L: the tower's block count (a ConvNeXt's over all its stages)."""
-    return (sum(config.vision_layers) if _is_convnext(config)
-            else config.vision_layers)
+    """L: the tower's block count (a ConvNeXt's or ResNet's over all its
+    stages)."""
+    return (config.vision_layers if config.is_vit
+            else sum(config.vision_layers))
 
 
 def _text_group_of(path: Tuple[str, ...], num_layers: int) -> int:
@@ -121,26 +137,33 @@ def build_lock_mask(model: torch.nn.Module, vision_layers,
                     text_layers: int, unlocked_groups: int = 0,
                     tune_text: bool = False,
                     unlocked_text_layers: int = 0) -> Dict[str, bool]:
-    """{parameter name: trainable} for a ViT-family or ConvNeXt model
-    (``vision_layers`` its stage depths), and each parameter's
-    ``requires_grad`` set to match.  ``unlocked_groups`` unlocks the last n
-    visual groups (0 = vision frozen); ``unlocked_text_layers`` the last n
-    text groups when ``tune_text`` (the text tower is frozen otherwise);
-    ``logit_scale``/``logit_bias`` stay frozen (the loss does not use
-    them)."""
-    convnext = _is_convnext(model.config)
-    if convnext:
+    """{parameter name: trainable} for a ViT-family, ModifiedResNet or
+    ConvNeXt model (``vision_layers`` its stage depths), and each
+    parameter's ``requires_grad`` set to match.  ``unlocked_groups``
+    unlocks the last n visual groups (0 = vision frozen; a ModifiedResNet
+    has 6); ``unlocked_text_layers`` the last n text groups when
+    ``tune_text`` (the text tower is frozen otherwise);
+    ``logit_scale``/``logit_bias`` and BatchNorm statistics stay frozen."""
+    tower = getattr(model.config, "tower", "vit")
+    if tower == "convnext":
         depths = tuple(vision_layers)
         n_vis = sum(depths) + 2
     else:
-        n_vis = vision_layers + 2
+        n_vis = 6 if tower == "rn" else vision_layers + 2
     n_txt = text_layers + 2
     mask = {}
     for name, param in model.named_parameters():
         top, *path = name.split(".")
-        if top == "visual":
-            group = (_convnext_group_of(tuple(path), depths) if convnext
-                     else _vit_group_of(tuple(path), vision_layers))
+        if path and path[-1] in ("mean", "var"):
+            # FrozenBatchNorm statistics: inference statistics, not weights
+            trainable = False
+        elif top == "visual":
+            if tower == "convnext":
+                group = _convnext_group_of(tuple(path), depths)
+            elif tower == "rn":
+                group = _rn_group_of(tuple(path))
+            else:
+                group = _vit_group_of(tuple(path), vision_layers)
             trainable = group >= n_vis - unlocked_groups
         elif top == "text":
             trainable = tune_text and _text_group_of(
@@ -632,9 +655,6 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         raise ValueError(f"the model is on {on}, not on {dev}")
     dev = on
     ccfg = model.config
-    if not (ccfg.is_vit or _is_convnext(ccfg)):
-        raise NotImplementedError("PEFT of ResNet towers is not ported: "
-                                  "ROADMAP A11")
     lora = cfg.lora_rank > 0
     if lora:
         if resume_from is not None:
@@ -660,6 +680,11 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                      "bf16 prefix runs, as in JAX)"
                      if cfg.prefix_quant and not int8 else ""))
     elif cfg.fused_prefix > 0:
+        if not (ccfg.is_vit or _is_convnext(ccfg)):
+            raise ValueError(
+                "finetune.fused_prefix > 0 requires a ViT-family or "
+                "ConvNeXt vision tower (the RN tower has no fused-prefix "
+                "hybrid)")
         # every prefix block must be frozen: no gradient reaches it
         max_prefix = max(0, n_blocks + 1 - unlocked_groups)
         if cfg.fused_prefix > max_prefix:

@@ -2,8 +2,8 @@
 (counterpart of ``aihab_clip_tpu/train/prolip.py``).
 
   * the projector is the model's own visual projection, trainable (ViT:
-    ``visual.proj``; a linear-head ConvNeXt: ``head_proj`` with its bias
-    frozen);
+    ``visual.proj``; a linear-head ConvNeXt: ``head_proj``, a ModifiedResNet:
+    the attention pool's ``c_proj``, each with its bias frozen);
   * loss = CE(100 * normalize(x @ P) @ text_weights, y)
            + lambda * sum((P - P_init)^2);
   * one optimizer step per epoch on the whole cached tensor, or chunked
@@ -54,7 +54,8 @@ def _fp32_matmuls() -> None:
 @dataclasses.dataclass
 class ProjectorSpec:
     """The trainable projector: weight [pre_dim, embed_dim] fp32 and the
-    frozen bias [embed_dim] (ConvNeXt ``head_proj``) or None."""
+    frozen bias [embed_dim] (ConvNeXt ``head_proj``, the RN attention
+    pool's ``c_proj``) or None."""
 
     weight: torch.Tensor
     bias: Optional[torch.Tensor]
@@ -80,9 +81,12 @@ class ProjectorSpec:
             return ProjectorSpec(
                 weight=w, bias=(hb.detach().float().clone() if hb is not None
                                 else torch.zeros(w.shape[1], device=w.device)))
-        raise NotImplementedError(
-            "ProLIP on ResNet towers (the attention-pool c_proj projector) "
-            "is not ported: ROADMAP A11")
+        # a ModifiedResNet: the attention pool's c_proj, its weight
+        # trained and its bias frozen (JAX prolip.py:78-80)
+        c_proj = vis.attnpool.c_proj
+        return ProjectorSpec(
+            weight=c_proj.weight.detach().float().T.contiguous(),
+            bias=c_proj.bias.detach().float().clone())
 
     def to(self, device) -> "ProjectorSpec":
         return ProjectorSpec(

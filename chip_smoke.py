@@ -336,6 +336,14 @@ RUNNER_PROJ_REL = 1e-4
 # an epoch of the chunked regime, and the SO400M profiled finetune's train
 # and test images (5 steps at batch 16, one test batch)
 A10_LORA_RANK, A10_CHUNKS, A10_PROFILE_SPLITS = 8, 3, (80, 16)
+# A11: the RN engines' top-1 agreement with the fp32 canonical tower over
+# one batch of random images; the RN50 PEFT step's unlock depth (stage 4 +
+# the attention pool); the RN50 runner's ProLIP epochs
+RN_TOP1_MIN, RN_PEFT_UNLOCKED, RN_RUNNER_EPOCHS = 0.95, 2, 5
+# the cosine the random RN towers' fp32 features (BatchNorm calibrated,
+# tools/rn_gains.calibrate_bn_) must keep under 1e-3 N(0, 1) input noise
+# for a bf16 encode's comparison with them to mean anything
+RN_STABLE_MIN = 0.9999
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
 STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
@@ -844,6 +852,12 @@ def main() -> None:
     a10_vit = a10_runner_path(bk, smi)
     phase("a10 runner path")
 
+    # ---- A11. the ModifiedResNet towers: RN50 and RN50x64
+    resnet = resnet_paths(bk, smi, mids)
+    rates.update(rn50_64=resnet["rn50"]["images_per_s"],
+                 rn50x64_16=resnet["rn50x64"]["images_per_s"])
+    phase("resnet paths")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -900,7 +914,7 @@ def main() -> None:
                       "large_vit": large_figures, "runner": runner,
                       "a10": {"vit_b16": a10_vit, "so400m": a10_so},
                       "jpeg": jpeg_figures, "serving": serving_figures,
-                      "weights": weights}))
+                      "weights": weights, "resnet": resnet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -4986,15 +5000,437 @@ def a10_so400m_path(engine, bk, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# A11: the ModifiedResNet towers.  No TPU kernel lies on them (the JAX
+# package left the whole tower to XLA): the folded convs run on cuDNN
+
+
+def rn_stages(folded, config):
+    """The folded encode as timed stages: the stem (3 convs, the 2x2
+    pool), each of the four stages, the attention pool + ``c_proj``."""
+    from aihab_clip_tpu_torch.models import fast_resnet as fr
+
+    return ([("stem", lambda x: fr.resnet_stem(folded, x))]
+            + [(f"layer{s}", lambda x, s=s: fr.resnet_stage(folded, x,
+                                                            config, s))
+               for s in range(1, 5)]
+            + [("attnpool", lambda x: fr.resnet_pool(folded, x, config,
+                                                     project=True)[1])])
+
+
+def rn_engine_check(tag: str, engine, smi: str, seed: int) -> dict:
+    """The bf16 RN engine on one full batch of seeded photos: its folded
+    encode (one ``resnet_encode_folded`` call a batch) against the fp32
+    canonical tower (TF32 off) on the same card and images (cosine >=
+    COS_MIN; the canonical module in bf16 beside it), the engine's top-1
+    against the fp32 tower's (>= RN_TOP1_MIN); the spread of the fp32
+    features and their cosine under 1e-3 input noise (>= RN_STABLE_MIN: a
+    chaotic random tower would fail any bf16 encode); the batch's
+    device-time split; end-to-end images/s and peak memory."""
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.models import fast_vit
+    from aihab_clip_tpu_torch.ops.preprocess import (eval_transform,
+                                                     normalize_stats_for)
+    from aihab_clip_tpu_torch.tools.rn_gains import seeded_photos
+
+    model, cfg, bs = engine.bundle.model, engine.bundle.config, \
+        engine.batch_size
+    images = seeded_photos(bs, engine.decode_dim, seed)
+    batch = torch.from_numpy(images).cuda()
+    mean, std = normalize_stats_for(cfg)
+    ref_tower = copy.copy(model.visual)
+    ref_tower.dtype = torch.float32
+    with mock.patch.object(fast_vit, "resnet_encode_folded",
+                           wraps=fast_vit.resnet_encode_folded) as folded:
+        probs = engine.classify_batch(images)
+    check(folded.call_count == 1, f"{tag}: {folded.call_count} folded "
+          "encodes for one batch")
+    with torch.inference_mode():
+        xb = eval_transform(batch, engine.resolution, dtype=torch.bfloat16,
+                            mean=mean, std=std)
+        feats = fast_vit.encode_image_fastest(
+            model, xb, cfg, project=True, packed=engine._packed)[1].float()
+        canon = model.encode_image(xb, project=True)[1].float()
+        x32 = eval_transform(batch, engine.resolution, mean=mean, std=std)
+        ref = ref_tower(x32, project=True)[1]
+        noise = torch.randn(x32.shape, device=x32.device,
+                            generator=torch.Generator(x32.device).manual_seed(
+                                seed))
+        moved = ref_tower(x32 + 1e-3 * noise, project=True)[1]
+        ref_probs = torch.softmax(100.0 * torch.nn.functional.normalize(
+            ref, dim=-1) @ engine._text_weights, dim=-1).cpu().numpy()
+    cos, cos_canon, stable = (
+        torch.nn.functional.cosine_similarity(f, ref, dim=-1)
+        for f in (feats, canon, moved))
+    top1 = float((probs.argmax(-1) == ref_probs.argmax(-1)).mean())
+    f = torch.nn.functional.normalize(ref, dim=-1)
+    spread = (((f @ f.T).sum() - bs) / (bs * bs - bs)).item()
+    print(f"[{tag}] bf16 folded engine vs the fp32 canonical tower ({bs} "
+          f"images at {engine.resolution}): cosine min {cos.min().item():.6f}"
+          f" mean {cos.mean().item():.6f} (limit {COS_MIN}); the bf16 "
+          f"canonical module's min {cos_canon.min().item():.6f}; top-1 "
+          f"agreement {top1:.4f} (limit {RN_TOP1_MIN}); mean pairwise cosine"
+          f" of the fp32 features {spread:.4f}; the fp32 tower under 1e-3 "
+          f"input noise: cosine min {stable.min().item():.6f} (limit "
+          f"{RN_STABLE_MIN})")
+    check(stable.min().item() >= RN_STABLE_MIN, f"{tag}: the random tower "
+          "is chaotic, its bf16 comparison meaningless")
+    check(cos.min().item() >= COS_MIN, f"{tag} cosine against fp32")
+    check(top1 >= RN_TOP1_MIN, f"{tag} top-1 agreement with fp32")
+    del ref_tower, ref, feats, canon, moved, x32, xb
+    split, t_all = classify_split(
+        engine, batch, rn_stages(engine._packed["folded_rn"], cfg), iters=3)
+    print(f"[{tag}] batch {bs} device time: classify {t_all:.3f} ms; its "
+          f"stages in one run {sum(split.values()):.3f} = " + " + ".join(
+              f"{k} {v:.3f}" for k, v in split.items()) + f" ({smi})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rate = images_per_s(engine, bs, engine.decode_dim, n=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{tag}] classify_batch end-to-end at batch {bs}: {rate:.1f} "
+          f"images/s, peak memory {peak:.2f} GiB ({smi})")
+    return dict(cos_min=cos.min().item(), cos_mean=cos.mean().item(),
+                canonical_bf16_cos_min=cos_canon.min().item(),
+                fp32_noise_cos_min=stable.min().item(),
+                top1_vs_fp32=top1, feature_spread=spread, classify_ms=t_all,
+                split_ms=split, images_per_s=rate, batch=bs,
+                resolution=engine.resolution, peak_gib=peak)
+
+
+def resnet_paths(bk, smi: str, mids) -> dict:
+    """A11. The ModifiedResNet towers at their published widths, random
+    weights from a seed, BatchNorm statistics calibrated on 16 seeded photos
+    with residual branch gains U(0, 0.2) (``tools/rn_gains.calibrate_bn_``:
+    the random init collapses the features, unit gains make the tower
+    chaotic; ``python -m aihab_clip_tpu_torch.tools.rn_gains`` shows both):
+
+      * RN50's weights as OpenAI's ``RN50.pt`` (fp16 state dict, int64
+        ``num_batches_tracked``) in a temporary directory (the zoo's cache
+        root, deleted after): ``zoo.load`` of the file (``torch``) and again
+        (``npz-cache``, the JAX-layout cache), each the fp16-rounded source
+        parameters bit for bit;
+      * ``ClassifierEngine`` on that file (batch 64, 224 px) and
+        ``ClassifierEngine("random:RN50x64")`` (batch 16, 448 px, BatchNorm
+        calibrated and the fold re-packed): ``rn_engine_check``; RN50 answers 4
+        requests through ``PredictServer`` (one J1 and one J2 each);
+      * one PEFT step on the RN50 engine's weights (unlocked_groups 2,
+        tune_text, batch 16 at 224 from 439x439) against the fp32 step
+        (``VIT_STEP_GATES["fp32"]``) and its time;
+      * the openai runner on the file: the feature cache (2,048 wide), the
+        grid search and ProLIP, its cached view 0 against the fp32
+        canonical tower and its projector against the CPU's.
+    Returns the figures."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.cache import (feature_cache_dir,
+                                            read_preprojection_cache)
+    from aihab_clip_tpu_torch.cache.feature_cache import (
+        augmentation_settings, view_generator)
+    from aihab_clip_tpu_torch.config import load_configs
+    from aihab_clip_tpu_torch.data import SplitView, make_synthetic_cs_dataset
+    from aihab_clip_tpu_torch.models import (CLIP_ARCHS, build_text_head,
+                                             fast_vit, zoo)
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.ops.fast_warp import fast_train_transform
+    from aihab_clip_tpu_torch.ops.preprocess import normalize_stats_for
+    from aihab_clip_tpu_torch.runner import run
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, PredictServer
+    from aihab_clip_tpu_torch.taxonomy import CS_CLASSNAMES
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.tools.rn_gains import (calibrate_bn_,
+                                                     seeded_photos)
+    from aihab_clip_tpu_torch.train.peft import (PEFTConfig, build_lock_mask,
+                                                 make_train_step,
+                                                 peft_fused_prefix_len)
+    from aihab_clip_tpu_torch.train.prolip import (ProjectorSpec, grid_search,
+                                                   projector_accuracy,
+                                                   train_projector)
+
+    dev = torch.device("cuda")
+    here = Path(__file__).resolve().parent
+    cwd = os.getcwd()
+    tmp = Path(tempfile.mkdtemp(prefix="aihab_rn_"))
+    old_root = zoo.default_cache_root
+    figures = {"card": smi}
+    try:
+        zoo.default_cache_root = lambda: tmp / "cache"
+        # RN50 as OpenAI's .pt, loaded and loaded again from the cache
+        t0 = time.perf_counter()
+        src = zoo.load("random:RN50", device="cuda", seed=SEED).model
+        calibrate_bn_(src, torch.from_numpy(seeded_photos(
+            16, 224, SEED + 11)).to(dev), SEED + 11)
+        sd = {k: v.cpu() for k, v in src.state_dict().items()}
+        pt = str(tmp / "RN50.pt")
+        torch.save({k: v.half() if v.is_floating_point() else v
+                    for k, v in openai_state_dict(sd).items()}, pt)
+        rounded = {k: v.half().float() for k, v in sd.items()}
+        del src, sd
+        figures["weights"] = w = {"write_s": time.perf_counter() - t0,
+                                  "file_mb": os.path.getsize(pt) / 1e6,
+                                  "loads": []}
+        for want in ("torch", "npz-cache"):
+            t0 = time.perf_counter()
+            b = zoo.load(pt, dtype=torch.bfloat16, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            got = b.model.state_dict()
+            same = got.keys() == rounded.keys() and all(
+                torch.equal(got[k].cpu(), rounded[k]) for k in rounded)
+            print(f"[resnet] RN50.pt load ({b.source}) in {load_s:.3f}s, "
+                  f"{w['file_mb']:.1f} MB fp16; {len(got)} tensors equal to "
+                  f"the fp16-rounded source: {same}")
+            check(b.source == want and b.config == CLIP_ARCHS["RN50"] and same,
+                  f"RN50.pt load: source {b.source}, parameters equal {same}")
+            w["loads"].append(dict(source=b.source, load_s=load_s))
+            del b, got
+        with np.load(zoo._npz_cache_path(pt, tmp / "cache")) as npz:
+            check(npz["visual/conv1/kernel"].shape == (3, 3, 3, 32)
+                  and "visual/layer1_0/downsample_bn/var" in npz.files
+                  and "visual/attnpool/c_proj/kernel" in npz.files
+                  and not any("num_batches" in k for k in npz.files),
+                  "the RN50 cache is not in JAX's layout")
+        cached_cfg = json.loads(zoo._config_cache_path(
+            pt, tmp / "cache").read_text())
+        check(cached_cfg["vision_layers"] == [3, 4, 6, 3], "cached config")
+        del rounded
+
+        # the RN50 engine on the file, PredictServer, the PEFT step
+        engine = ClassifierEngine(model=pt, batch_size=64, device="cuda",
+                                  verbose=False)
+        check(engine.bundle.source == "npz-cache"
+              and set(engine._packed) == {"folded_rn"}, "RN50 engine")
+        engine.warmup()
+        figures["rn50"] = rn_engine_check("rn50", engine, smi, SEED + 13)
+        ref = np.stack([engine.classify_batch(engine.decode_bytes(b)[None])[0]
+                        for b in mids])
+        reqs = [("raw", [0]), ("json", [1, 2]), ("binary", [0, 1, 2, 3]),
+                ("binary", [3, 2])]
+        server = PredictServer(engine, port=0, max_wait_ms=5.0,
+                               verbose=False, warmup=False)
+        server.serve_background()
+        try:
+            J.reset_launch_counts()
+            url = f"http://127.0.0.1:{server.server_port}"
+            answers = [_post(url, wire, [mids[i] for i in idx])
+                       for wire, idx in reqs]
+            jl = J.launch_counts()
+        finally:
+            server.stop()
+        worst = _check_answers("resnet serving", answers, reqs, ref)
+        check(jl["jpeg_idct"] == jl["jpeg_color_resize"] == len(reqs),
+              f"RN50 server decode launches {jl}")
+        print(f"[resnet] PredictServer over the RN50 engine: {len(reqs)} "
+              f"requests answered, max|dprob| vs classify_batch {worst:.3g};"
+              f" launches {jl}")
+        figures["rn50"]["server_max_abs_dprob"] = worst
+
+        model = engine.bundle.model
+        mcfg = model.config
+        check(peft_fused_prefix_len(mcfg, RN_PEFT_UNLOCKED, dev) == 0,
+              "an RN tower has no fused prefix")
+        prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+        tokens = build_text_head(model, prompts, 20, tpc)["prompt_tokens"]
+        cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                         lr=PEFT_LR, epochs=1, crop_mode="random",
+                         rotation=True, tune_text=True, num_templates=tpc,
+                         compute_dtype=torch.bfloat16, fused_prefix=0)
+        mask = build_lock_mask(model, mcfg.vision_layers,
+                               mcfg.transformer_layers,
+                               unlocked_groups=RN_PEFT_UNLOCKED,
+                               tune_text=True, unlocked_text_layers=1)
+        trainable = [(n, p) for n, p in model.named_parameters() if mask[n]]
+        check(not any(n.endswith((".mean", ".var")) for n, _ in trainable)
+              and {n.split(".")[1] for n, _ in trainable
+                   if n.startswith("visual.")} == {
+                  "attnpool", *(f"layer4_{i}" for i in range(3))},
+              "RN lock mask at unlocked_groups 2")
+        ds = synthetic_dataset(np.random.default_rng(SEED + 14), PEFT_B,
+                               PEFT_DECODE)
+        batch = next(SplitView(ds, np.arange(PEFT_B), PEFT_B).batches(0))
+        imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
+            batch.images, batch.labels, batch.valid))
+        step_grads = step_grads_fn(model, trainable, tokens, imgs, labs,
+                                   valid)
+        kern = step_grads(cfg, None)
+        vis_dt, txt_dt = model.visual.dtype, model.text.dtype
+        model.visual.dtype = model.text.dtype = torch.float32
+        try:
+            fp32 = step_grads(dataclasses.replace(
+                cfg, compute_dtype=torch.float32), None)
+        finally:
+            model.visual.dtype, model.text.dtype = vis_dt, txt_dt
+        gate = check_step("resnet peft", "fp32", kern, fp32,
+                          VIT_STEP_GATES["fp32"])
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        _, step = make_train_step(model, cfg, None, tokens)
+        times = timed_steps(step, imgs, labs, valid, None, 1)
+        figures["rn50_peft"] = dict(
+            step_check=gate, step_ms=statistics.median(times),
+            step_ms_all=times, trainable_leaves=len(trainable),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[resnet peft] RN50 train step (unlocked_groups "
+              f"{RN_PEFT_UNLOCKED}, tune_text, batch {PEFT_B}): median "
+              f"{figures['rn50_peft']['step_ms']:.3f} ms over {len(times)}; "
+              f"peak memory {figures['rn50_peft']['peak_gib']:.2f} GiB "
+              f"({smi})")
+        del engine, model, step, step_grads, kern, fp32, trainable
+        torch.cuda.empty_cache()
+
+        # the openai runner on RN50.pt: feature cache, grid search, ProLIP
+        os.chdir(tmp)
+        tree = make_synthetic_cs_dataset(
+            tmp, name="cs_synth", classes=CS_CLASSNAMES,
+            n_train_per_class=RUNNER_TREE[0], n_test_per_class=RUNNER_TREE[1],
+            image_size=RUNNER_TREE[2],
+            index_file_name="CS_Xplots_2019_23_NEW02OCT24.csv")
+        opts = (["data.dataset_paths", repr(tree["dataset_paths"])]
+                + RUNNER_OPTS + ["backbone", pt, "clip_cache_dir",
+                                 str(tmp / "cache"), "train_epoch",
+                                 str(RN_RUNNER_EPOCHS)])
+        rcfg = load_configs(str(here / "configs/base.yaml"),
+                            str(here / "configs/cs.yaml"), opts)
+        with mock.patch.object(fast_vit, "resnet_encode_folded",
+                               wraps=fast_vit.resnet_encode_folded) as fold:
+            t0 = time.perf_counter()
+            result = run(rcfg, config_file="cs", device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        loaders, out, bundle = (result["loaders"], result["prolip"],
+                                result["bundle"])
+        views_n = int(rcfg.aug_views)
+        batches = (views_n * len(loaders.train) + len(loaders.val)
+                   + len(loaders.test))
+        print(f"[resnet runner] ProLIP on RN50.pt in {wall:.2f}s (source "
+              f"{bundle['source']!r}): train {loaders.train.num_samples}, val "
+              f"{loaders.val.num_samples}, test {loaders.test.num_samples}; "
+              f"{fold.call_count} folded encodes for {batches} batches")
+        check(bundle["source"] == "npz-cache" and fold.call_count == batches,
+              "the runner's RN50 encodes")
+        model, config = bundle["model"], bundle["model"].config
+        views, labels = read_preprojection_cache(feature_cache_dir(rcfg),
+                                                 views_n)
+        check(all(v.dtype == np.float16 and v.shape == (
+            loaders.train.num_samples, 2048) for v in views), "RN cache shapes")
+        mean, std = normalize_stats_for(config)
+        aug = augmentation_settings(rcfg)
+        ref_tower = copy.copy(model.visual)
+        ref_tower.dtype = torch.float32
+        refs = []
+        with torch.inference_mode():
+            for bi, b in enumerate(SplitView(
+                    loaders.train.dataset, loaders.train.indices,
+                    loaders.train.batch_size).batches()):
+                x = fast_train_transform(
+                    torch.from_numpy(b.images).cuda(),
+                    view_generator(int(rcfg.seed), 0, bi),
+                    bundle["resolution"], dtype=torch.float32, mean=mean,
+                    std=std, **aug)
+                refs.append(ref_tower(x)[torch.from_numpy(b.valid).cuda()])
+        cos = torch.nn.functional.cosine_similarity(
+            torch.from_numpy(views[0]).cuda().float(), torch.cat(refs),
+            dim=-1)
+        print(f"[resnet runner] cached view 0 vs the fp32 canonical tower on "
+              f"the same augmented batches: cosine min {cos.min().item():.6f}"
+              f" over {len(cos)} rows")
+        check(cos.min().item() >= COS_MIN, "RN cached view 0 cosine")
+        del ref_tower, refs
+        tw_cpu = bundle["text_weights"].float().cpu()
+        spec_cpu = ProjectorSpec.from_clip_model(model).to("cpu")
+        t0 = time.perf_counter()
+        cpu_lr, cpu_lam, _ = grid_search(
+            views, labels, tw_cpu, spec_cpu, out["val_feats"],
+            out["val_labels"], RN_RUNNER_EPOCHS, verbose=False, device="cpu")
+        proj_cpu, _ = train_projector(
+            views, labels, tw_cpu, spec_cpu, out["lr"], out["lambda"],
+            RN_RUNNER_EPOCHS, feat_batch_size=int(rcfg.feat_batch_size or 0),
+            verbose=False, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        w_card = out["projector"].weight.float().cpu()
+        rel = ((w_card - proj_cpu.weight).norm()
+               / proj_cpu.weight.norm()).item()
+        acc_cpu = projector_accuracy(out["projector"].to("cpu"),
+                                     out["test_feats"], out["test_labels"],
+                                     tw_cpu)
+        print(f"[resnet runner] grid pick card (lr {out['lr']}, lambda "
+              f"{out['lambda']}) vs CPU (lr {cpu_lr}, lambda {cpu_lam}); "
+              f"c_proj projector rel L2 {rel:.3e} (limit {RUNNER_PROJ_REL:g});"
+              f" test accuracy {out['acc']:.4f} (CPU {acc_cpu:.4f}); the CPU "
+              f"run {cpu_s:.1f}s")
+        check((cpu_lr, cpu_lam) == (out["lr"], out["lambda"]),
+              "RN grid pick differs from the CPU's")
+        check(rel <= RUNNER_PROJ_REL and torch.equal(
+            out["projector"].bias.cpu(), spec_cpu.bias),
+              "RN projector differs from the CPU's")
+        check(acc_cpu == out["acc"], "RN test accuracy recompute")
+        timings = result["timings"]
+        figures["rn50_runner"] = dict(
+            wall_s=wall, view0_cos_min=cos.min().item(), proj_rel_l2=rel,
+            lr=out["lr"], lam=out["lambda"], test_acc=out["acc"],
+            cache_write_images_per_s=timings["cache_write_images"]
+            / timings["cache_write_s"])
+        del result, bundle, model, out, views
+        os.chdir(cwd)
+        torch.cuda.empty_cache()
+
+        # RN50x64, the widest row, at 448
+        t0 = time.perf_counter()
+        engine = ClassifierEngine(model="random:RN50x64", batch_size=16,
+                                  device="cuda", verbose=False)
+        calibrate_bn_(engine.bundle.model, torch.from_numpy(seeded_photos(
+            16, 448, SEED + 12)).to(dev), SEED + 12)
+        engine._packed = fast_vit.pack_fastest(
+            engine.bundle.model, engine.bundle.config, torch.bfloat16)
+        engine.warmup()
+        print(f"[resnet] RN50x64 engine built + warm in "
+              f"{time.perf_counter() - t0:.1f}s")
+        check(engine.resolution == 448 and engine.bundle.config.vision_layers
+              == (3, 15, 36, 10), "RN50x64 engine")
+        figures["rn50x64"] = rn_engine_check("rn50x64", engine, smi,
+                                             SEED + 15)
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        zoo.default_cache_root = old_root
+        shutil.rmtree(tmp, ignore_errors=True)
+    return figures
+
+
+# ---------------------------------------------------------------------------
 # the weights path: published checkpoint layouts, written from the port's
 # state dicts (the CPU tests hold these writers against transformers and
 # the JAX package's converters)
 
 
 def openai_state_dict(sd):
-    """The port's CLIP ViT state dict -> OpenAI's names (the text tower at
-    the top level)."""
-    return {k.removeprefix("text."): v for k, v in sd.items()}
+    """The port's CLIP ViT or ModifiedResNet state dict -> OpenAI's names:
+    the text tower at the top level; a ResNet's blocks as ``layer<s>.<b>``,
+    ``downsample.0`` / ``.1``, each BatchNorm's statistics as
+    ``running_mean`` / ``running_var`` beside an int64
+    ``num_batches_tracked``, as torch's ``BatchNorm2d`` saves them."""
+    import torch
+
+    out = {}
+    for k, v in sd.items():
+        k = re.sub(r"^visual\.layer(\d)_(\d+)\.", r"visual.layer\1.\2.",
+                   k.removeprefix("text."))
+        k = k.replace(".downsample_conv.", ".downsample.0.").replace(
+            ".downsample_bn.", ".downsample.1.")
+        k = re.sub(r"\.(mean|var)$", r".running_\1", k)
+        out[k] = v
+        if k.endswith(".running_var"):
+            out[k.removesuffix("running_var") + "num_batches_tracked"] = \
+                torch.tensor(1000, dtype=torch.int64)
+    return out
 
 
 _CX_BLOCK = {"dwconv": "conv_dw", "norm": "norm", "fc1": "mlp.fc1",

@@ -16,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import traverse_util
 
 from aihab_clip_tpu.cache import embedding_cache as jax_emb
 from aihab_clip_tpu.cache import feature_cache as jax_fc
@@ -28,7 +29,9 @@ from aihab_clip_tpu_torch.cache import array_store, embedding_cache
 from aihab_clip_tpu_torch.cache import feature_cache as fc
 from aihab_clip_tpu_torch.config import ConfigNode
 from aihab_clip_tpu_torch.models import CLIPConfig, CLIPModel
-from aihab_clip_tpu_torch.models.convert import flax_params_to_state_dict
+from aihab_clip_tpu_torch.models import zoo
+from aihab_clip_tpu_torch.models.convert import (flax_params_to_state_dict,
+                                                 state_dict_to_flax_params)
 from aihab_clip_tpu_torch.train import prolip
 from aihab_clip_tpu_torch.utils import RunLogger, load_projector, save_projector
 
@@ -244,12 +247,16 @@ def test_projector_spec_cases():
     with pytest.raises(ValueError, match="MLP-head"):
         prolip.ProjectorSpec.from_clip_model(cmodel)
 
-    class RN:
-        config = dataclasses.replace(model.config, vision_layers=(1, 1, 1, 1))
-        visual = torch.nn.Module()
-
-    with pytest.raises(NotImplementedError, match="A11"):
-        prolip.ProjectorSpec.from_clip_model(RN())
+    # a ModifiedResNet: the attention pool's c_proj, its bias frozen (the
+    # port's random draw carried into JAX's layout)
+    rmodel = zoo.load("random:TinyRN", device="cpu", seed=1).model
+    rparams = traverse_util.unflatten_dict(
+        state_dict_to_flax_params(rmodel.state_dict()), sep="/")
+    spec = prolip.ProjectorSpec.from_clip_model(rmodel)
+    ref = jax_prolip.ProjectorSpec.from_clip_params(rparams, False)
+    assert spec.weight.shape == (256, 32)
+    assert np.array_equal(spec.weight.numpy(), np.asarray(ref.weight))
+    assert np.array_equal(spec.bias.numpy(), np.asarray(ref.bias))
 
 
 @pytest.mark.parametrize("flags,shots", [

@@ -239,9 +239,11 @@ def test_grid_and_random_load():
                         if n.endswith(".gamma")])
     assert 0.05 < gammas.std().item() < 0.2
     assert bundle.model.visual.stem_norm.weight.eq(1).all()
-    with pytest.raises(NotImplementedError, match="A11"):
-        CLIPModel(dataclasses.replace(base_w, vision_tower="rn",
-                                      vision_layers=(1, 1, 1, 1)))
+    # vision_tower "rn" selects the ModifiedResNet
+    rn = CLIPModel(dataclasses.replace(
+        CLIP_ARCHS["TinyConvNeXt"], vision_tower="rn", act="quick_gelu"))
+    assert type(rn.visual).__name__ == "ModifiedResNet"
+    assert rn.visual.attnpool.c_proj.weight.shape == (32, 16 * 32)
 
 
 def test_config_from_shapes():

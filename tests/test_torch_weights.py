@@ -15,8 +15,8 @@ same files (tiny sizes, numpy-seeded weights, nothing from the network):
   defaults: the state dict bit for bit, token ids, features and zero-shot
   logits at JAX's 5e-4/1e-3; ``chip_smoke.py``'s snapshot writer against
   transformers;
-* the safetensors reader, the zoo's errors, the download, and the runner's
-  refusal of a ResNet checkpoint (ROADMAP A11).
+* the safetensors reader, the zoo's errors, the download, and a ResNet
+  checkpoint through the zoo, the runner and the CLI.
 """
 
 import dataclasses
@@ -616,12 +616,11 @@ def test_download_checks_sha256(vit_sd, tmp_path, monkeypatch):
 # ---- the runner ------------------------------------------------------------
 
 def _rn_checkpoint(path):
-    """A ModifiedResNet CLIP state dict (the keys that carry its config,
-    tiny): it converts to a config and stops at the tower."""
-    cfg = jax_clip.CLIP_ARCHS["TinyRN"]
-    rng = np.random.default_rng(1)
-    torch.save({k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
-                for k, s in _shapes(cfg).items()}, path)
+    """A TinyRN CLIP checkpoint in OpenAI's layout: fp16 tensors, every
+    BatchNorm with its int64 ``num_batches_tracked``."""
+    sd = chip_smoke.openai_state_dict(_port_sd("random:TinyRN", seed=1))
+    torch.save({k: v.half() if v.is_floating_point() else v
+                for k, v in sd.items()}, path)
 
 
 def _runner_cfg(backbone, tmp_path, cls=ConfigNode):
@@ -632,18 +631,51 @@ def _runner_cfg(backbone, tmp_path, cls=ConfigNode):
                 "data": {"preprocessing": {"resolution": 32}}})
 
 
-def test_resnet_checkpoint_raises_naming_a11(tmp_path):
+def test_resnet_checkpoint_raises_naming_a11(tmp_path, monkeypatch, capsys):
+    """A ModifiedResNet checkpoint in OpenAI's layout loads where JAX's
+    does: ``zoo.load`` (the parameters of JAX's converter bit for bit, its
+    features, then the converted cache), ``init_clip_and_text_head`` (the
+    same text head as JAX's runner) and the CLI's inspection run, with no
+    fallback to ``fallback_arch``."""
+    from aihab_clip_tpu_torch.data import make_synthetic_cs_dataset
+
     path = str(tmp_path / "RN-tiny.pt")
     _rn_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="A11"):
-        zoo.load(path, device="cpu", cache_dir=str(tmp_path))
-    assert not (tmp_path / "converted").exists()
-    with pytest.raises(NotImplementedError, match="A11"):
-        init_clip_and_text_head(_runner_cfg(path, tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli_main(["--device", "cpu", "--logger", "off", "--opts",
-                  "clip_backend", "openai", "backbone", path,
-                  "clip_cache_dir", str(tmp_path), "fallback_arch", "Tiny"])
+    port = zoo.load(path, device="cpu", cache_dir=str(tmp_path))
+    ref = jax_zoo.load(path, cache_dir=str(tmp_path / "j"))
+    assert port.source == ref.source == "torch"
+    assert port.config == CLIP_ARCHS["TinyRN"]
+    assert dataclasses.asdict(port.config) == dataclasses.asdict(ref.config)
+    _assert_sd_equal(port.model.state_dict(),
+                     flax_params_to_state_dict(ref.params))
+    _assert_clip_features(port, ref)
+    again = zoo.load(path, device="cpu", cache_dir=str(tmp_path))
+    assert again.source == "npz-cache" and again.config == port.config
+    _assert_sd_equal(again.model.state_dict(), port.model.state_dict())
+
+    head = init_clip_and_text_head(_runner_cfg(path, tmp_path), device="cpu")
+    want = jax_init(_runner_cfg(path, tmp_path / "j", JaxConfig))
+    assert head["source"] == "npz-cache" and want["source"] == "npz-cache"
+    assert head["config"] == CLIP_ARCHS["TinyRN"]
+    np.testing.assert_allclose(head["text_weights"].numpy(),
+                               np.asarray(want["text_weights"]), atol=5e-5,
+                               rtol=1e-4)
+
+    synth = make_synthetic_cs_dataset(tmp_path / "data", n_train_per_class=5,
+                                      n_test_per_class=1, image_size=40)
+    monkeypatch.chdir(tmp_path)
+    result = cli_main([
+        "--device", "cpu", "--logger", "off", "--inspect_only", "--opts",
+        "data.dataset_paths", repr(synth["dataset_paths"]),
+        "data.index_file_names", repr(synth["index_file_names"]),
+        "data.data_split.valid_split", "0.25",
+        "data.preprocessing.resize", "40",
+        "data.preprocessing.resolution", "32", "clip_backend", "openai",
+        "backbone", path, "clip_cache_dir", str(tmp_path),
+        "fallback_arch", "Tiny", "wandb_project", "None",
+        "root_path", str(tmp_path)])
+    assert result["bundle"]["config"] == CLIP_ARCHS["TinyRN"]
+    assert "falling back" not in capsys.readouterr().out
 
 
 def test_runner_falls_back_where_jax_does(vit_sd, tmp_path, capsys):
