@@ -8,9 +8,10 @@
 
 Each view ``v`` is one augmentation pass of the train split in
 deterministic split order, so every ``f{v}`` aligns with the one label
-file.  ``cache_features_from_loader`` encodes a batch as
-``fast_train_transform`` (its draws from a ``torch.Generator`` seeded per
-(seed, view, batch): other crops and angles than JAX's ``fold_in`` keys)
+file.  ``cache_features_from_loader`` encodes a batch as the config's
+train augment (``aug_impl``: ``fast_train_transform``, or the exact
+``train_transform``; its draws from a ``torch.Generator`` seeded per (seed,
+view, batch): other crops and angles than JAX's ``fold_in`` keys)
 -> ``encode_image_fastest`` (on the card: K1 per block over a pack built
 once; a ModifiedResNet's folded convs, ``width * 32`` wide: 2,048 at RN50)
 -> fp16 on the device.  The JAX writer's lag-1 fetch is dropped: the
@@ -223,17 +224,13 @@ def cache_features_from_loader(cfg, model, train_view, resolution: int,
     when not given."""
     from ..data.pipeline import SplitView
     from ..models.fast_vit import encode_image_fastest, pack_fastest
-    from ..ops.fast_warp import fast_train_transform
     from ..ops.preprocess import normalize_stats_for
+    from ..train.peft import train_augment
 
     if shard_count is not None and int(shard_count) > 1:
         raise NotImplementedError(
             f"cache_shard_count={shard_count}: multi-host cache shards are "
             "not ported: ROADMAP A13")
-    if str(cfg.get("aug_impl", "fast")) != "fast":
-        raise NotImplementedError(
-            f"aug_impl={cfg.get('aug_impl')!r}: the per-image gather "
-            "augmentation (train_transform) is not ported: ROADMAP A7")
     config = model.config
     dev = model.logit_scale.device
     nmean, nstd = normalize_stats_for(config)
@@ -241,6 +238,7 @@ def cache_features_from_loader(cfg, model, train_view, resolution: int,
     aug_views = int(cfg.get("aug_views", 1) or 1)
     seed = int(cfg.get("seed", 1) or 1)
     aug = augmentation_settings(cfg)
+    aug_fn = train_augment(cfg.get("aug_impl", "fast"))
     cache_view = SplitView(train_view.dataset, train_view.indices,
                            train_view.batch_size, shuffle=False,
                            use_l2_label=train_view.use_l2_label)
@@ -256,9 +254,8 @@ def cache_features_from_loader(cfg, model, train_view, resolution: int,
         feats, labels = [], []
         for bi, batch in enumerate(cache_view.batches()):
             images = torch.from_numpy(batch.images).to(dev)
-            x = fast_train_transform(images, view_generator(seed, v, bi),
-                                     resolution, dtype=compute_dtype,
-                                     mean=nmean, std=nstd, **aug)
+            x = aug_fn(images, view_generator(seed, v, bi), resolution,
+                       dtype=compute_dtype, mean=nmean, std=nstd, **aug)
             pre = encode_image_fastest(model, x, config, packed=packed)
             valid = torch.from_numpy(batch.valid).to(dev)
             feats.append(pre.to(torch.float16)[valid])

@@ -10,16 +10,33 @@ the stratified-group validation split and the seeded few-shot selection.
     by the std of each group's class counts, the greedy fold choice — so
     it returns scikit-learn's indices;
   * ``few_shot_indices``: ``shots`` per class with the JAX package's
-    ``RandomState.choice`` call pattern.
+    ``RandomState.choice`` call pattern;
+  * ``train_test_split``: scikit-learn's (1.9) stratified
+    ``train_test_split`` (``StratifiedShuffleSplit``'s first split: the
+    approximate mode of the multivariate hypergeometric per class, ties
+    broken by ``RandomState.choice``, a permutation per class, then the two
+    sets permuted), the same indices for the same (labels, sizes, seed); the
+    legacy loaders' split (``data/legacy.py``).
 """
 
 from __future__ import annotations
 
 import warnings
 from collections import defaultdict
+from math import ceil
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+
+def _random_state(rs) -> np.random.RandomState:
+    """scikit-learn's ``check_random_state``: None is numpy's global
+    RandomState, a RandomState is itself, a seed a new RandomState."""
+    if rs is None:
+        return np.random.mtrand._rand
+    if isinstance(rs, np.random.RandomState):
+        return rs
+    return np.random.RandomState(rs)
 
 
 class StratifiedGroupKFold:
@@ -38,12 +55,7 @@ class StratifiedGroupKFold:
         self.random_state = random_state
 
     def _rng(self) -> np.random.RandomState:
-        rs = self.random_state
-        if rs is None:
-            return np.random.mtrand._rand
-        if isinstance(rs, np.random.RandomState):
-            return rs
-        return np.random.RandomState(rs)
+        return _random_state(self.random_state)
 
     def _iter_test_indices(self, y, groups) -> Iterator[list]:
         rng = self._rng()
@@ -172,3 +184,88 @@ def selection_by_class(sel: np.ndarray, labels: np.ndarray) -> Dict[int, list]:
     for c in np.unique(labels):
         out[int(c)] = sel[labels[sel] == c].tolist()
     return out
+
+
+def _split_sizes(n_samples: int, test_size) -> Tuple[int, int]:
+    """(n_train, n_test) of scikit-learn's ``_validate_shuffle_split`` with
+    no train_size: a float test size is a fraction rounded up, an int a
+    count; the rest trains."""
+    kind = np.asarray(test_size).dtype.kind
+    if kind not in ("i", "f") or (kind == "i" and not 0 < test_size < n_samples) \
+            or (kind == "f" and not 0 < test_size < 1):
+        raise ValueError(
+            f"test_size={test_size} should be either positive and smaller than"
+            f" the number of samples {n_samples} or a float in the (0, 1) "
+            "range")
+    n_test = ceil(test_size * n_samples) if kind == "f" else int(test_size)
+    if n_samples - n_test == 0:
+        raise ValueError(f"With n_samples={n_samples}, test_size={test_size}"
+                         " and train_size=None, the resulting train set will "
+                         "be empty.")
+    return n_samples - n_test, n_test
+
+
+def _approximate_mode(class_counts: np.ndarray, n_draws: int,
+                      rng: np.random.RandomState) -> np.ndarray:
+    """scikit-learn's ``_approximate_mode``: the floored share of
+    ``n_draws`` per class, the rest added by largest remainder, ties broken
+    by ``rng.choice``."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def train_test_split(array, *, test_size=0.25, random_state=None,
+                     stratify=None):
+    """scikit-learn's ``train_test_split(array, test_size=...,
+    stratify=labels, random_state=seed)`` (shuffled, stratified; the test
+    size a fraction or a count): returns [array[train], array[test]] with
+    its indices."""
+    if stratify is None:
+        raise ValueError("only the stratified split is carried: pass "
+                         "stratify=labels")
+    array = np.asarray(array)
+    y = np.asarray(stratify)
+    n_samples = len(array)
+    if len(y) != n_samples:
+        raise ValueError("array and stratify differ in length")
+    n_train, n_test = _split_sizes(n_samples, test_size)
+    classes, y_indices, class_counts = np.unique(y, return_inverse=True,
+                                                 return_counts=True)
+    n_classes = classes.shape[0]
+    if np.min(class_counts) < 2:
+        raise ValueError(
+            "The least populated classes in y have only 1 member, which is "
+            "too few. The minimum number of groups for any class cannot be "
+            f"less than 2. Classes with too few members are: "
+            f"{classes[class_counts < 2].tolist()}")
+    if n_train < n_classes:
+        raise ValueError(f"The train_size = {n_train} should be greater or "
+                         f"equal to the number of classes = {n_classes}")
+    if n_test < n_classes:
+        raise ValueError(f"The test_size = {n_test} should be greater or "
+                         f"equal to the number of classes = {n_classes}")
+    class_indices = np.split(np.argsort(y_indices, kind="stable"),
+                             np.cumsum(class_counts)[:-1])
+    rng = _random_state(random_state)
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train, test = [], []
+    for i in range(n_classes):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]),
+                                     mode="clip")
+        train.extend(perm[:n_i[i]])
+        test.extend(perm[n_i[i]:n_i[i] + t_i[i]])
+    train, test = rng.permutation(train), rng.permutation(test)
+    return [array[train], array[test]]

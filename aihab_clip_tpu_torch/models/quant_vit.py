@@ -16,12 +16,27 @@ or gelu MLP, LN eps 1e-5, CLS token + ``ln_post`` + ``proj``):
   * ``ln_post(CLS)`` and ``proj`` in the compute dtype (one token: plain
     PyTorch, as the JAX package left it to XLA).
 
-Only the kernel route (JAX ``impl="pallas"``) is ported: here the kernels
-run on CUDA tensors and their plain versions on CPU tensors.  JAX's
-``impl="xla"`` and ``"chained"`` routes (its CPU reference and an A/B route)
-raise.  The weights are quantized once, from the fp32 parameters, into the
-kernels' K-major layout (``ops/quant_matmul.int8_weight``); the dict keeps
-the JAX package's names and shapes.
+``vit_encode_int8``'s ``impl`` names JAX's route (``quant_vit.py:292-376``):
+
+  * ``"pallas"`` (``"auto"``): the kernel route above; the kernels run on
+    CUDA tensors and their plain versions on CPU tensors;
+  * ``"xla"``: per GEMM ``ops/quant.quant_dense`` (JAX's ``qmm``: the int8
+    product through ``torch._int_mm`` on a card, exact either way) with the
+    LNs in the compute dtype, exact gelu where the tower has it, and the
+    plain attention (``ops/attention.dot_product_attention``, JAX's
+    ``_xla_attention``);
+  * ``"chained"``: per GEMM kernels, K8 with the LN prologue for qkv, the
+    plain attention, K8 with the residual for the out-projection, then K9 ->
+    K10 for the MLP.
+
+As in JAX, an exact-gelu tower (``AIHAB_NO_GELU_POLY=1``) is sent to
+``"xla"`` whatever route was asked: no kernel epilogue holds exact gelu.
+``int8_block_plan`` marks such a tower's plan ``impl="xla"``, and
+``apply_int8_vit_blocks`` (the engine's blocks and the int8 PEFT prefix)
+then runs its blocks on that route.  The weights are quantized once, from
+the fp32 parameters, into the kernels' K-major layout
+(``ops/quant_matmul.int8_weight``); the dict keeps the JAX package's names
+and shapes.
 """
 
 from __future__ import annotations
@@ -31,7 +46,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..ops.quant import quantize_weight
+from ..ops.attention import dot_product_attention
+from ..ops.quant import quant_dense, quantize_weight
 from ..ops.quant_matmul import (int8_attn_weights, int8_weight,
                                 quant_attn_block_fused,
                                 quant_attn_block_split,
@@ -109,17 +125,16 @@ def int8_block_plan(config: CLIPConfig, merge_blocks: str = "auto") -> Dict:
     residual to x's dtype between them as JAX's two-kernel route does, the
     way ``fast_vit.vit_encode_block_fused`` runs K2 + K3.  K13
     (``attn_groups`` > 0) and the chained K9 -> K10 MLP (``mlp="chained"``,
-    ``mlp_chunks`` slices) are reached only through an explicit plan."""
+    ``mlp_chunks`` slices) are reached only through an explicit plan.  An
+    exact-gelu tower (``AIHAB_NO_GELU_POLY=1``) gets ``impl="xla"``: its
+    blocks run JAX's XLA route (``quant_vit.py:305-306``), every other plan
+    ``impl="pallas"``."""
     if merge_blocks not in ("auto", "off"):
         raise ValueError(f"merge_blocks {merge_blocks!r} not 'auto'/'off'")
     act = _kernel_act(config)
-    if act == "gelu":
-        raise NotImplementedError(
-            "exact gelu under AIHAB_NO_GELU_POLY: JAX's int8 encode takes "
-            "its XLA route (impl='xla', quant_vit.py:300-306), which is not "
-            "ported; only the kernel path ('pallas') is (ROADMAP A15)")
     return dict(merge=merge_blocks != "off", attn_groups=0, mlp="whole",
-                mlp_chunks=1, act=act)
+                mlp_chunks=1, act=act,
+                impl="xla" if act == "gelu" else "pallas")
 
 
 def split_int8_plan(config: CLIPConfig, attn_groups: int,
@@ -135,8 +150,14 @@ def split_int8_plan(config: CLIPConfig, attn_groups: int,
             or mlp_chunks < 1 or hidden % mlp_chunks:
         raise ValueError(f"{attn_groups} groups of {heads} heads or "
                          f"{mlp_chunks} slices of {hidden} do not divide")
-    return dict(int8_block_plan(config, "off"), attn_groups=attn_groups,
-                mlp="chained", mlp_chunks=mlp_chunks)
+    plan = int8_block_plan(config, "off")
+    if plan["impl"] != "pallas":
+        raise ValueError(
+            "JAX's split int8 route applies exact gelu inside its kernels; "
+            "these kernels' epilogues hold no exact gelu: an exact-gelu "
+            "tower takes impl='xla' (int8_block_plan)")
+    return dict(plan, attn_groups=attn_groups, mlp="chained",
+                mlp_chunks=mlp_chunks)
 
 
 def _chained_int8_mlp(x2, fc, pr, ln, *, act: str, n_ch: int):
@@ -163,10 +184,14 @@ def apply_int8_vit_blocks(qblocks: Dict, x: torch.Tensor, config: CLIPConfig,
     int8 frozen prefix of the PEFT step, ``fast_vit.vit_encode_hybrid``).
     ``qblocks`` is {resblocks_i: ``quantize_vit_block``}; x [B, S, W] tokens
     after ``ln_pre``; ``plan`` from ``int8_block_plan`` (default: K14 for
-    every block).  The residual stream leaves each block in x's dtype."""
+    every block; an ``impl="xla"`` plan runs JAX's XLA route).  The residual
+    stream leaves each block in x's dtype."""
     plan = plan or int8_block_plan(config)
     heads, width = config.vision_heads, config.vision_width
     act = plan["act"]
+    if plan.get("impl", "pallas") != "pallas":
+        return _per_gemm_blocks(qblocks, x, config, start=start, stop=stop,
+                                impl=plan["impl"], act=act)
     b, s, _ = x.shape
     for i in range(start, stop):
         blk = qblocks[f"resblocks_{i}"]
@@ -206,10 +231,64 @@ def apply_int8_vit_blocks(qblocks: Dict, x: torch.Tensor, config: CLIPConfig,
     return x
 
 
+def _qmm_xla(x, q, act=None, residual=None, ln=None):
+    """JAX's XLA-route ``qmm`` (``quant_vit.py:317-323``): LN in x's dtype,
+    then ``quant_dense``, then the residual."""
+    if ln is not None:
+        x = _ln(x, ln["scale"], ln["bias"])
+    out = quant_dense(x, q["w8"], q["scale"], q.get("bias"), act=act)
+    return out if residual is None else out + residual
+
+
+def _qmm_kernel(x, q, act=None, residual=None, ln=None):
+    """JAX's kernel-route ``qmm`` (``quant_vit.py:307-315``): K8, with the
+    LN prologue and the residual when given; no bias is a zero bias."""
+    bias = q.get("bias")
+    return quant_matmul_fused(
+        x, q["w8"], q["scale"],
+        torch.zeros_like(q["scale"]) if bias is None else bias,
+        act=act or "none", residual=residual,
+        ln_scale=None if ln is None else ln["scale"],
+        ln_bias=None if ln is None else ln["bias"])
+
+
+def _per_gemm_blocks(qblocks: Dict, x: torch.Tensor, config: CLIPConfig, *,
+                     start: int, stop: int, impl: str, act: str):
+    """Blocks [start, stop) on JAX's per-GEMM routes (``quant_vit.py:
+    340-376``) over x [B, S, W]: ``"xla"`` (``_qmm_xla`` for every GEMM) or
+    ``"chained"`` (K8 + LN for qkv, K8 + residual for the out-projection,
+    K9 -> K10 for the MLP); the attention is the plain one either way."""
+    if impl not in ("xla", "chained"):
+        raise ValueError(f"impl {impl!r} is not a per-GEMM route")
+    qmm = _qmm_xla if impl == "xla" else _qmm_kernel
+    b, s, width = x.shape
+    heads = config.vision_heads
+    x2 = x.reshape(b * s, width)
+    for i in range(start, stop):
+        blk = qblocks[f"resblocks_{i}"]
+        qkv = qmm(x2, blk["attn/in_proj"], ln=blk["ln_1"])
+        q, k, v = qkv.reshape(b, s, 3 * width).split(width, dim=-1)
+        attn = dot_product_attention(q, k, v, heads).reshape(b * s, width)
+        x2 = qmm(attn, blk["attn/out_proj"], residual=x2)
+        fc, pr = blk["mlp/c_fc"], blk["mlp/c_proj"]
+        if impl == "chained":
+            hdn8, hsc = quant_matmul_fused_qout(
+                x2, fc["w8"], fc["scale"], fc["bias"], blk["ln_2"]["scale"],
+                blk["ln_2"]["bias"], act=act)
+            x2 = quant_matmul_q8in(hdn8, hsc, pr["w8"], pr["scale"],
+                                   pr["bias"], residual=x2)
+        else:
+            hdn = qmm(x2, fc, act=act, ln=blk["ln_2"])
+            x2 = qmm(hdn, pr, residual=x2)
+    return x2.reshape(b, s, width)
+
+
 def vit_patchify_int8(qparams: Dict, images: torch.Tensor,
-                      config: CLIPConfig, dtype=torch.bfloat16):
-    """images [B, H, W, 3] -> tokens [B, S, W] in ``dtype``: im2col + K8 (no
-    bias; at patch 14, K = 588 in a 592-wide padding), the class token, the
+                      config: CLIPConfig, dtype=torch.bfloat16, *,
+                      impl: str = "pallas"):
+    """images [B, H, W, 3] -> tokens [B, S, W] in ``dtype``: im2col + the
+    int8 GEMM with no bias (K8, at patch 14 with K = 588 in a 592-wide
+    padding; ``quant_dense`` on the ``"xla"`` route), the class token, the
     positional embedding and ``ln_pre``."""
     p = config.vision_patch_size
     x = images.to(dtype)
@@ -217,13 +296,14 @@ def vit_patchify_int8(qparams: Dict, images: torch.Tensor,
     gh, gw = h // p, w // p
     patches = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
     patches = patches.reshape(b * gh * gw, p * p * c)
-    cq = qparams["conv1"]
-    x = quant_matmul_fused(patches, cq["w8"], cq["scale"],
-                           torch.zeros_like(cq["scale"]))
-    x = x.reshape(b, gh * gw, config.vision_width)
+    qmm = _qmm_xla if impl == "xla" else _qmm_kernel
+    x = qmm(patches, qparams["conv1"]).reshape(b, gh * gw, config.vision_width)
     cls = qparams["class_embedding"].to(dtype).expand(b, 1, -1)
     x = torch.cat([cls, x], dim=1) + qparams["positional_embedding"].to(dtype)
     return _ln(x, qparams["ln_pre"]["scale"], qparams["ln_pre"]["bias"])
+
+
+IMPLS = ("auto", "pallas", "chained", "xla")
 
 
 def vit_encode_int8(qparams: Dict, images: torch.Tensor, config: CLIPConfig,
@@ -231,15 +311,19 @@ def vit_encode_int8(qparams: Dict, images: torch.Tensor, config: CLIPConfig,
                     impl: str = "auto", merge_blocks: str = "auto"):
     """images [B, H, W, 3] normalized NHWC -> pre-projection CLS features
     (or ``(pre, projected)``).  ``qparams`` from ``quantize_vit_params``.
-    ``impl`` names the JAX route: only the kernel path (``"pallas"``, which
-    ``"auto"`` picks on the TPU) is ported.  ``merge_blocks``: 'auto' (K14)
-    or 'off' (K12 + K11)."""
-    if impl not in ("pallas", "auto"):
-        raise NotImplementedError(
-            f"vit_encode_int8 impl={impl!r}: only the kernel path ('pallas') "
-            "is ported; CPU tensors run its plain versions")
+    ``impl``: ``"auto"`` / ``"pallas"`` (the whole-block kernels: K8, then
+    K14, or K12 + K11 with ``merge_blocks="off"``), ``"chained"`` (per-GEMM
+    kernels) or ``"xla"`` (per-GEMM ``quant_dense``); an exact-gelu tower
+    takes ``"xla"`` whatever is asked, as JAX's (``quant_vit.py:305-306``)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
     plan = int8_block_plan(config, merge_blocks)
-    x = vit_patchify_int8(qparams, images, config, dtype)
+    if plan["impl"] == "xla":
+        impl = "xla"
+    elif impl in ("xla", "chained"):
+        plan = dict(plan, impl=impl)
+    route = "xla" if impl == "xla" else "pallas"
+    x = vit_patchify_int8(qparams, images, config, dtype, impl=route)
     x = apply_int8_vit_blocks(qparams["transformer"], x, config, start=0,
                               stop=config.vision_layers, plan=plan)
     pre = _ln(x[:, 0, :], qparams["ln_post"]["scale"],

@@ -208,18 +208,25 @@ def host_library(name: str = "jpeg_entropy") -> ctypes.CDLL:
         return _libs[name]
 
 
+# each C entry point once its library is loaded (a launch then skips the
+# lock and the library lookup: a small kernel's call is bound by the host)
+_entries: dict = {}
+
+
 def launch(fn: str, device, *args) -> None:
     """Call the C entry point ``fn`` with ``args`` and the current stream of
     ``device``, with ``device`` current; raise on the CUDA error code it
     returns."""
     import torch
 
-    lib = library(_SOURCE_OF[fn])
+    entry = _entries.get(fn)
+    if entry is None:
+        entry = _entries[fn] = getattr(library(_SOURCE_OF[fn]), fn)
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index is None or device.index == torch.cuda.current_device():
-        err = getattr(lib, fn)(*args, stream)  # (the device switch costs µs)
+        err = entry(*args, stream)  # (the device switch costs µs)
     else:
         with torch.cuda.device(device):
-            err = getattr(lib, fn)(*args, stream)
+            err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

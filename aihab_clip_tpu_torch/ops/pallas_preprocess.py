@@ -7,8 +7,10 @@ with ``scale_c = 1 / (255 std_c)`` and ``shift_c = -mean_c / std_c`` in fp32
 ``normalize_u8`` kernel of ``csrc/preprocess.cu``, on CPU tensors the plain
 version, which rounds the product and the sum apart as the kernel does, so
 the two agree bit for bit.  The TPU kernel's 384-lane phase layout is a
-fact of its 128-lane registers: the kernel takes the channel of flat element
-i as i % 3.  Its launches are counted in ``normalize_u8_pallas.launches``.
+fact of its 128-lane registers: the kernel converts 48 bytes (16 pixels) a
+thread, six warp-coalesced 8-byte pieces in whose bytes the channel is
+fixed, and the ragged end a byte at a time with the channel i % 3.  Its
+launches are counted in ``normalize_u8_pallas.launches``.
 
 ``normalize_u8(use_pallas=True)`` launches the kernel on CUDA tensors and
 raises there when it cannot, as JAX's comment demands (``:119-122``);
@@ -17,6 +19,7 @@ otherwise it runs ``ops/preprocess.normalize``.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -35,6 +38,15 @@ def _phase_tables(mean, std, lanes: int) -> Tuple[np.ndarray, np.ndarray]:
     scale = (1.0 / (255.0 * std))[ch]
     shift = (-mean / std)[ch]
     return scale.astype(np.float32), shift.astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def _phase_args(mean: Tuple[float, ...], std: Tuple[float, ...]):
+    """The kernel's six float arguments (scale_0..2, shift_0..2) of one
+    (mean, std), computed once: the per-call numpy work cost more than the
+    kernel at the eval batch."""
+    scale, shift = _phase_tables(mean, std, 3)
+    return (*map(float, scale), *map(float, shift))
 
 
 def _check_u8(images_u8: torch.Tensor) -> None:
@@ -67,11 +79,10 @@ def normalize_u8_pallas(images_u8: torch.Tensor, mean=CLIP_MEAN,
     x = images_u8.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("normalize_u8's kernel needs 16-byte aligned input")
-    scale, shift = _phase_tables(mean, std, 3)
     y = torch.empty(x.shape, dtype=dtype, device=x.device)
     launch("aihab_normalize_u8", x.device, x.data_ptr(), y.data_ptr(),
-           int(dtype == torch.float32), x.numel(), *map(float, scale),
-           *map(float, shift))
+           int(dtype == torch.float32), x.numel(),
+           *_phase_args(tuple(map(float, mean)), tuple(map(float, std))))
     normalize_u8_pallas.launches += 1
     return y
 

@@ -47,14 +47,39 @@ def int_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
     return (a8.double() @ b8.double()).float()
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int_mm_card(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 codes on a card, as fp32, through
+    ``torch._int_mm`` (the library int8 GEMM: JAX's XLA route runs its int8
+    dot outside any Pallas kernel too).  ``_int_mm`` takes M > 16 and K, N
+    multiples of 8: the operands are zero-padded to that and the product cut
+    back, which changes no sum."""
+    m, k = a8.shape
+    n = b8.shape[1]
+    mp, kp, np_ = max(m, 17), _round_up(k, 8), _round_up(n, 8)
+    if (mp, kp) != (m, k):
+        a8 = torch.nn.functional.pad(a8, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b8 = torch.nn.functional.pad(b8, (0, np_ - n, 0, kp - k))
+    elif not (b8.is_contiguous() or b8.t().is_contiguous()):
+        b8 = b8.contiguous()
+    return torch._int_mm(a8.contiguous(), b8)[:m, :n].float()
+
+
 def quant_dense(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
                 out_dtype=None) -> torch.Tensor:
     """y = act(dequant(int8(x) @ w8) + bias), x [M, K] float, w8 [K, N]
-    int8, w_scale [N] fp32."""
+    int8, w_scale [N] fp32.  The int32 product is exact either way: float64
+    on the CPU (``int_matmul``), ``torch._int_mm`` on a card
+    (``int_mm_card``)."""
     out_dtype = out_dtype or x.dtype
     x8, sx = quantize_activation(x)
-    y = int_matmul(x8, w8) * (sx * w_scale[None, :].float())
+    acc = int_mm_card(x8, w8) if x8.is_cuda else int_matmul(x8, w8)
+    y = acc * (sx * w_scale[None, :].float())
     if bias is not None:
         y = y + bias.float()[None, :]
     if act == "quick_gelu":

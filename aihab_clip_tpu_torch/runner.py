@@ -283,10 +283,6 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
     model = bundle["model"]
     dev = model.logit_scale.device
     dtype = bundle["compute_dtype"]
-    if str(cfg.get("aug_impl", "fast")) != "fast":
-        raise NotImplementedError(
-            f"aug_impl={cfg.get('aug_impl')!r}: the per-image gather "
-            "augmentation (train_transform) is not ported: ROADMAP A7")
     _check_single_device(cfg)
     l2_ctx = _l2_eval_ctx(cfg, bundle["num_classes"])
 
@@ -337,6 +333,7 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
                    "random" if aug.get("random_crop") else "center"),
         flip=bool(aug.get("flip", False)),
         rotation=bool(aug.get("rotation", False)),
+        aug_impl=str(cfg.get("aug_impl", "fast")),
         tune_text=bool(ft_cfg.get("tune_text", False)),
         num_templates=bundle["num_templates"],
         compute_dtype=dtype,

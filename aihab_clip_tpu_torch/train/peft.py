@@ -208,6 +208,10 @@ class PEFTConfig:
     crop_mode: str = "random"
     flip: bool = False
     rotation: bool = False
+    # the train augment: "fast" = the matmul-formulated warp
+    # (ops/fast_warp.fast_train_transform), "exact" = the per-image gather
+    # (ops/preprocess.train_transform)
+    aug_impl: str = "fast"
     tune_text: bool = False
     num_templates: int = 1
     compute_dtype: Any = torch.float32
@@ -362,23 +366,32 @@ def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
                   dtype=cfg.compute_dtype, packed_prefix=pprefix)
 
 
+def train_augment(aug_impl: str):
+    """The train augment of ``aug_impl`` (JAX ``peft.py:394-395``, ``feature_
+    cache.py:283-285``): "fast", the matmul-formulated warp, else the exact
+    per-image gather; both take (images_u8, generator, resolution, ...)."""
+    from ..ops.fast_warp import fast_train_transform
+    from ..ops.preprocess import train_transform
+
+    return fast_train_transform if str(aug_impl) == "fast" else train_transform
+
+
 def _build_loss_fn(model, cfg: PEFTConfig,
                    text_weights: Optional[torch.Tensor],
                    prompt_tokens: Optional[torch.Tensor]):
     """The PEFT objective: augment -> encode -> L2-normalise in fp32 ->
     (recomputed) text head -> masked CE.  ``loss_fn(images_u8, labels,
     valid, generator, pprefix=None) -> (loss, (correct, n_valid))``."""
-    from ..ops.fast_warp import fast_train_transform
     from ..ops.preprocess import normalize_stats_for
 
     nmean, nstd = normalize_stats_for(model.config)
+    aug_fn = train_augment(cfg.aug_impl)
 
     def loss_fn(images_u8, labels, valid, generator, pprefix=None):
-        x = fast_train_transform(images_u8, generator, cfg.resolution,
-                                 crop_mode=cfg.crop_mode, flip=cfg.flip,
-                                 rotation=cfg.rotation,
-                                 dtype=cfg.compute_dtype, mean=nmean,
-                                 std=nstd)
+        x = aug_fn(images_u8, generator, cfg.resolution,
+                   crop_mode=cfg.crop_mode, flip=cfg.flip,
+                   rotation=cfg.rotation, dtype=cfg.compute_dtype,
+                   mean=nmean, std=nstd)
         _, feats = _encode_projected(model, cfg, x, pprefix)
         feats = feats.float()
         feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)

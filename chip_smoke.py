@@ -98,7 +98,9 @@ Phases (any failure raises and the exit code is non-zero):
      ``ln_matmul`` at qkv and at c_fc with quick_gelu, gelu_tanh and
      gelu_poly, ``matmul_residual`` at out-proj and c_proj beside cuBLAS
      ``addmm``; K17 ``mlp_block_train`` forward and backward at M = 16 x
-     197; K18 ``normalize_u8_pallas`` at 64 x 224^2 x 3, bit for bit;
+     197; K18 ``normalize_u8_pallas`` at 64 x 224^2 x 3, bit for bit
+     (bf16, fp32, a ragged tail), its device time from a CUDA graph of 100
+     launches and its host time a call (``tools/k18_time.measure``);
      5e: path (a) on the bf16 engine's pack: uint8 -> K18 ->
      ``vit_encode_fast`` (24 ``ln_matmul`` + 24 ``matmul_residual`` per
      batch) against the all-plain run and the fp32 tower, its split
@@ -125,7 +127,25 @@ Phases (any failure raises and the exit code is non-zero):
      batch-64 split and images/s; each tower's load seconds; the ViT-H/14
      engine again under ``AIHAB_NO_GELU_POLY=1`` (the exact-gelu opt-out):
      96 requests, per block K2 + plain ``ln_matmul(gelu)`` + K16
-     ``matmul_residual``, against plain kernels;
+     ``matmul_residual``, against plain kernels; then its int8 engine
+     under the same variable, which takes JAX's ``xla`` route (A15:
+     ``quant_dense`` per GEMM, exact gelu, the plain attention; no kernel
+     launch), features against the bf16 exact-gelu engine's
+     (``INT8_COS["plain"]``), images/s beside it;
+  A17. the LAION towers' default fine-tune step (batch 16 at 224 from
+     439x439, unlocked_groups 11, tune_text) on ViT-H/14, ViT-g/14 and
+     ViT-bigG/14 at full width and depth, the memory reckoned from the
+     configuration first: the K1-prefix step (22 / 30 / 38 K1) against K1
+     plain and the fp32 tower (``VIT_STEP_GATES``), the K14-prefix step
+     against K14 plain (``INT8_PLAIN_COS``, which the K1-prefix step must
+     fail) and against the K1-prefix step, on ViT-H/14 the
+     ``scan_blocks`` + ``scan_remat`` step against the unscanned one (D2);
+     2 warm-up + 3 timed steps of each, ms and peak GiB, frozen leaves bit
+     for bit unchanged; the OpenAI ViT-L/14 and ViT-L/14@336px (S = 577)
+     bf16 (24 K1 a batch) and int8 (K8 + 24 K14) engines answering 96
+     requests through ``DynamicBatcher`` against K1 plain (``COS_MIN``,
+     ``INT8_COS``), images/s, ``cache_features_from_loader`` (2 views of 32
+     images), and the same fine-tune step (a 14-block prefix);
      3i: the fast JPEG decode (``ops/jpeg.py``) on a 12 MP (4000 x 3000)
      and 1024 x 768 JPEGs written by the port's encoder: the C++ Huffman
      decoder's coefficients of the 12 MP photo equal data/decode.py's
@@ -152,7 +172,11 @@ Phases (any failure raises and the exit code is non-zero):
      split through K1) held against K1's plain version in fp32, the CPU's
      projector, grid pick and accuracy, K1 launches = 12 x the batches
      encoded; then PEFT (2 epochs) with finite losses and unchanged frozen
-     leaves; the fast decode's ms per 64 px photo and for the 12 MP JPEG at
+     leaves; one more PEFT epoch with ``aug_impl: exact`` (the per-image
+     gather augment: one ``train_transform`` a step); Tip-Adapter's search
+     on the ProLIP cache (``train/tip_adapter.py``) on the card against the
+     CPU (the same best accuracy, logits within 1e-5 rel L2); the fast
+     decode's ms per 64 px photo and for the 12 MP JPEG at
      full scale and m = 2 (s per megapixel), the predict CLI over the test
      folder against an engine's rows, build_loaders s, cache write and test
      encode images/s, grid search and train_projector s, PEFT s per epoch;
@@ -344,6 +368,18 @@ RN_TOP1_MIN, RN_PEFT_UNLOCKED, RN_RUNNER_EPOCHS = 0.95, 2, 5
 # tools/rn_gains.calibrate_bn_) must keep under 1e-3 N(0, 1) input noise
 # for a bf16 encode's comparison with them to mean anything
 RN_STABLE_MIN = 0.9999
+# A17: the LAION towers' default fine-tune (batch 16 at 224 from 439x439,
+# unlocked_groups 11 -> a frozen prefix of L + 1 - 11 blocks: 22 / 30 / 38,
+# tune_text) at full width and depth, A17_WARM warm-up and A17_TIMED timed
+# steps each with the K1 and the K14 prefix; scan_blocks + scan_remat on
+# ViT-H/14 (D2 on a GELU tower); the OpenAI ViT-L/14 (S = 257) and
+# ViT-L/14@336px (S = 577) rows: VITL_REQUESTS single requests through each
+# engine (bf16 and int8), the feature cache over VITL_CACHE images in
+# VITL_CACHE_VIEWS views, and the same PEFT step (prefix 14)
+A17_TOWERS = ("ViT-H/14", "ViT-g/14", "ViT-bigG/14")
+A17_WARM, A17_TIMED = 2, 3
+VITL_ARCHS = ("ViT-L/14", "ViT-L/14@336px")
+VITL_REQUESTS, VITL_CACHE, VITL_CACHE_VIEWS = 96, 32, 2
 # the train step: loss relative |d| and gradient cosine against the same
 # step with every kernel plain (bf16), and against the fp32 canonical tower
 STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
@@ -355,6 +391,20 @@ STEP_GATES = {"plain": (1e-3, 0.999), "fp32": (1e-2, 0.99)}
 # 0.99998 against plain and 0.9995 against fp32, is the gate that tells a
 # kernel's step from a differently rounded one
 VIT_STEP_GATES = {"plain": (6e-3, 0.9999), "fp32": (1e-2, 0.99)}
+# A17's K14-prefix step against the same step with K14 plain, by tower: K14
+# is held to its plain version at TOL "int8_block", not bit for bit, and a
+# code that flips between the two (an fp32 sum in another order) moves its
+# row by one int8 step, more so over more prefix blocks.  The loss limit is
+# VIT_STEP_GATES["plain"]'s (the loss does not tell a flip from a skipped
+# quantization); the cosine limit sits between the flips' reading and the
+# control's, the unquantized K1-prefix step against K14 plain, which must
+# fail it.  On an H100 (PERF.md) 1 - cosine read, flips against the K14
+# step vs the K1 step: ViT-H/14 6.9e-5 vs 3.94e-4, ViT-g/14 6.6e-5 vs
+# 4.42e-4, ViT-bigG/14 2.07e-4 vs 6.66e-4, ViT-L/14 9.5e-5 vs 3.38e-4,
+# ViT-L/14@336px 4.0e-5 vs 5.69e-4; each limit is their geometric mean
+INT8_PLAIN_COS = {"ViT-H/14": 0.99984, "ViT-g/14": 0.99983,
+                  "ViT-bigG/14": 0.99963, "ViT-L/14": 0.99982,
+                  "ViT-L/14@336px": 0.99985}
 # the int8-prefix step against the bf16-prefix step: the suffix trains on
 # int8-noise features
 INT8_STEP_GATE = (5e-2, 0.9)
@@ -843,6 +893,15 @@ def main() -> None:
     rates.update(large_rates)
     phase("large vit paths")
 
+    # ---- A17. the LAION towers' fine-tune steps (K1 and K14 prefixes,
+    # scan_blocks on ViT-H/14), the OpenAI ViT-L/14 and ViT-L/14@336px rows
+    a17 = {"large": large_peft_paths(bk, smi)}
+    phase("a17 large peft")
+    vitl_counts, vitl_rates, a17["vitl"] = vitl_paths(bk, smi)
+    counts.update(vitl_counts)
+    rates.update(vitl_rates)
+    phase("a17 vit-l paths")
+
     # ---- 8. the port's own entry point: the runner, ProLIP and PEFT
     runner = runner_path(bk, smi, big)
     phase("runner path")
@@ -914,7 +973,7 @@ def main() -> None:
                       "large_vit": large_figures, "runner": runner,
                       "a10": {"vit_b16": a10_vit, "so400m": a10_so},
                       "jpeg": jpeg_figures, "serving": serving_figures,
-                      "weights": weights, "resnet": resnet}))
+                      "weights": weights, "resnet": resnet, "a17": a17}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -1015,12 +1074,15 @@ def vit_fast_kernel_cases(rnd, vec, run_cases, compare) -> None:
     beside cuBLAS ``addmm`` with the residual as its input), K17's forward
     and backward at the train batch (M = 16 x 197) on the branches y - x and
     dx - dy, with h_pre, dh_pre and dln compared too, and K18 at 64 x 224^2
-    x 3, bit for bit; each against its plain version."""
+    x 3, bit for bit (bf16, fp32, a ragged tail), its device time from a
+    CUDA graph of launches and its host time a call
+    (``tools/k18_time.measure``); each against its plain version."""
     import torch
 
     from aihab_clip_tpu_torch.ops import block_kernel as bk
     from aihab_clip_tpu_torch.ops import fused_linear as fl
     from aihab_clip_tpu_torch.ops import pallas_preprocess as pp
+    from aihab_clip_tpu_torch.tools import k18_time
 
     m, mt = B * S, TRAIN_B * S
     x2, attn = rnd(m, W), rnd(m, W)
@@ -1079,7 +1141,29 @@ def vit_fast_kernel_cases(rnd, vec, run_cases, compare) -> None:
                   lambda: pp.normalize_u8_pallas(u8),
                   lambda: pp.normalize_u8_pallas_plain(u8), None, 0,
                   3 * u8.numel(), pp.normalize_u8_pallas, "vit_fast", SRC_PP))
-    run_cases(cases)
+    k18 = next(r for r in run_cases(cases) if r["name"] == "normalize_u8_pallas")
+    # K18's own device time (a CUDA graph of launches: the host's ctypes call
+    # outlasts the kernel, so back-to-back calls time the host), with the L2
+    # evicted before each launch (its input and output fit the 50 MB L2
+    # together, so repeated launches run from it) and warm, and the host time
+    # per call; bf16 and fp32 and a ragged tail bit for bit
+    fig = k18_time.measure(pp)
+    check(fig["exact"], "K18 is not bit for bit its plain version (bf16, "
+          "fp32, ragged)")
+    # without a profiler reading there is no cold figure: the row then takes
+    # the warm graph time and says so
+    cold = fig["cold_ms"]
+    where = "with the L2 evicted" if cold is not None else (
+        "warm (torch.profiler gave no reading with the L2 evicted)")
+    k18.update(ms=fig["graph_ms"] if cold is None else cold, ms_l2=where,
+               warm_ms=fig["graph_ms"], events_ms=k18["ms"],
+               host_ms=fig["host_ms"], fp32_warm_ms=fig["fp32_graph_ms"])
+    print(f"[kernels] normalize_u8_pallas device time {k18['ms']:.4f} ms "
+          f"{where} ({k18['bound_ms'] / k18['ms']:.0%} of the "
+          f"{k18['bound_ms']:.4f} ms bound), {fig['graph_ms']:.4f} ms warm (a "
+          f"graph of {fig['launches']}), fp32 out {fig['fp32_graph_ms']:.4f} "
+          f"ms warm; host time {fig['host_ms']:.4f} ms a call, events over "
+          f"calls back to back {k18['events_ms']:.4f} ms")
     compare("mlp_block_train[fwd] h_pre", bk.mlp_block_train_fwd(*targs)[1],
             hp, "kernel")
     for name, got, ref in zip(("dh_pre", "dln"),
@@ -2032,33 +2116,40 @@ def step_grads_fn(model, trainable, tokens, imgs, labs, valid):
     return step_grads
 
 
-def check_step(tag, name, got, ref, gate):
+def check_step(tag, name, got, ref, gate, *, control=False):
     """A train step's (loss, gradient) against a reference step's: loss
-    relative |d| and gradient cosine within ``gate``; returns the figures."""
+    relative |d| and gradient cosine within ``gate``; returns the figures.
+    A ``control`` step must fall outside the gate."""
     import torch
 
     (loss_k, g_k), (loss_r, g_r) = got, ref
     rel = abs(loss_k - loss_r) / abs(loss_r)
     cos = torch.nn.functional.cosine_similarity(g_k, g_r, dim=0).item()
     lim_rel, lim_cos = gate
-    print(f"[{tag}] train step vs {name}: loss {loss_k:.6f} vs {loss_r:.6f}, "
-          f"rel |d| {rel:.3e} (limit {lim_rel:g}); gradient cosine {cos:.6f} "
-          f"(limit {lim_cos:g}), |g| {g_k.norm().item():.4g} vs "
-          f"{g_r.norm().item():.4g}")
-    check(rel <= lim_rel and cos >= lim_cos, f"{tag} train step vs {name}")
+    print(f"[{tag}] train step{' (control)' if control else ''} vs {name}: "
+          f"loss {loss_k:.6f} vs {loss_r:.6f}, rel |d| {rel:.3e} (limit "
+          f"{lim_rel:g}); gradient cosine {cos:.6f} (limit {lim_cos:g}), |g| "
+          f"{g_k.norm().item():.4g} vs {g_r.norm().item():.4g}")
+    within = rel <= lim_rel and cos >= lim_cos
+    if control:
+        check(not within, f"{tag}: the control step passes the gate against "
+              f"{name}")
+    else:
+        check(within, f"{tag} train step vs {name}")
     return dict(loss=loss_r, loss_rel=rel, grad_cos=cos)
 
 
-def timed_steps(step, imgs, labs, valid, pp, epoch, reset=None):
-    """CUDA-event ms of 5 train steps after 2 warm-up ones (``reset()``
-    just before the first timed one)."""
+def timed_steps(step, imgs, labs, valid, pp, epoch, reset=None, warm=2,
+                timed=5):
+    """CUDA-event ms of ``timed`` train steps after ``warm`` warm-up ones
+    (``reset()`` just before the first timed one)."""
     import torch
 
     from aihab_clip_tpu_torch.train.peft import step_generator
 
     times = []
-    for i in range(7):
-        if i == 2 and reset is not None:
+    for i in range(warm + timed):
+        if i == warm and reset is not None:
             reset()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -2066,7 +2157,7 @@ def timed_steps(step, imgs, labs, valid, pp, epoch, reset=None):
         step(imgs, labs, valid, step_generator(SEED, epoch, i), PEFT_LR, pp)
         e1.record()
         torch.cuda.synchronize()
-        if i >= 2:
+        if i >= warm:
             times.append(e0.elapsed_time(e1))
     return times
 
@@ -3501,7 +3592,7 @@ def large_vit_paths(bk):
         tag = f"{arch} bf16 under AIHAB_NO_GELU_POLY=1"
         with mock.patch.dict(os.environ, {"AIHAB_NO_GELU_POLY": "1"}):
             eng.warmup()
-            run, n, _ = serve(eng, tag)
+            run, n, opt_probs = serve(eng, tag)
             check(run["attn_block_fused"] == layers * n
                   and run["matmul_residual"] == layers * n
                   and run["ln_matmul"] == 0
@@ -3525,10 +3616,34 @@ def large_vit_paths(bk):
             fig["optout_cos_min"] = gate(tag, "plain kernels", g_k, g_p,
                                          COS_MIN)
             rate = images_per_s(eng, B, 224)
-        print(f"[large] {tag}: max|dprob| vs plain kernels {dprob:.4g}; "
-              f"top-1 agreement {agree:.4f}; classify_batch at batch {B}: "
-              f"{rate:.1f} images/s")
-        fig.update(optout_dprob=dprob, optout_top1=agree)
+            print(f"[large] {tag}: max|dprob| vs plain kernels {dprob:.4g}; "
+                  f"top-1 agreement {agree:.4f}; classify_batch at batch {B}: "
+                  f"{rate:.1f} images/s")
+            # A15: the int8 engine under the opt-out takes JAX's XLA route
+            # (quant_dense per GEMM, exact gelu, the plain attention): no
+            # kernel launch; its features against the bf16 exact-gelu
+            # engine's
+            tag8 = f"{arch} int8 under AIHAB_NO_GELU_POLY=1 (the xla route)"
+            eng8, fig["optout_int8_load_s"] = build(f"random:{arch}",
+                                                    quantize="int8")
+            run8, _, probs8 = serve(eng8, tag8)
+            check(not any(run8.values()), f"{tag8}: launches {run8}")
+            with torch.inference_mode():
+                f8 = qv.vit_encode_int8(eng8._qparams, xb, cfg,
+                                        project=True)[1].float()
+            fig["optout_int8_cos_min"] = gate(
+                tag8, "the bf16 exact-gelu engine", f8, g_k,
+                INT8_COS["plain"])
+            rate8 = images_per_s(eng8, B, 224)
+            fig.update(optout_int8_launches=run8, optout_int8_images_per_s=rate8,
+                       optout_int8_top1_vs_bf16=float(
+                           (probs8.argmax(-1) == opt_probs.argmax(-1)).mean()))
+            print(f"[large] {tag8}: classify_batch at batch {B}: {rate8:.1f} "
+                  f"images/s (the bf16 exact-gelu engine {rate:.1f}); top-1 "
+                  f"agreement {fig['optout_int8_top1_vs_bf16']:.4f}")
+            del eng8, f8
+        fig.update(optout_dprob=dprob, optout_top1=agree,
+                   optout_images_per_s=rate)
         return run, rate
 
     def build(name, **kw):
@@ -3726,6 +3841,417 @@ def large_vit_paths(bk):
         torch.cuda.empty_cache()
     del batch
     torch.cuda.empty_cache()
+    return counts, rates, figures
+
+
+# ---------------------------------------------------------------------------
+# A17: the LAION towers' PEFT, scan_blocks on a GELU tower, the ViT-L rows
+# ---------------------------------------------------------------------------
+
+
+def _bit_sums(params) -> dict:
+    """{name: (sum of the tensor's 32-bit words, sum of them weighted by
+    their position mod 9973)}: any change of a value changes them."""
+    import torch
+
+    out = {}
+    for name, p in params:
+        words = p.detach().contiguous().view(torch.int32).flatten().long()
+        pos = torch.arange(words.numel(), device=words.device) % 9973
+        out[name] = (int(words.sum()), int((words * pos).sum()))
+    return out
+
+
+def reckon_peft_gib(config, unlocked: int) -> dict:
+    """The fine-tune's device memory reckoned from the configuration alone
+    (a model on the meta device): the fp32 parameters, the trainable
+    leaves' fp32 gradients and Adam's two moments, the bf16 prefix pack."""
+    import torch
+
+    from aihab_clip_tpu_torch.models import CLIPModel
+    from aihab_clip_tpu_torch.train.peft import build_lock_mask
+
+    with torch.device("meta"):
+        model = CLIPModel(config)
+    mask = build_lock_mask(model, config.vision_layers,
+                           config.transformer_layers, unlocked_groups=unlocked,
+                           tune_text=True, unlocked_text_layers=1)
+    named = dict(model.named_parameters())
+    total = sum(p.numel() for p in named.values())
+    train = sum(p.numel() for n, p in named.items() if mask[n])
+    prefix_blocks = config.vision_layers + 1 - unlocked
+    per_block = sum(p.numel() for p in
+                    model.visual.transformer.resblocks[0].parameters())
+    gib = {"params_fp32": 4 * total / 2 ** 30,
+           "grads_adam_fp32": 12 * train / 2 ** 30,
+           "prefix_bf16": 2 * per_block * prefix_blocks / 2 ** 30}
+    gib["total"] = sum(gib.values())
+    gib["params"], gib["trainable"] = total, train
+    return gib
+
+
+def large_peft_step(tag, model, bk, smi, *, scan=False) -> dict:
+    """A17's fine-tune checks on one CLIP tower at full width and depth (the
+    default fine-tune: batch 16 at the tower's resolution from 439x439
+    uint8, random crop + rotation, tune_text, unlocked_groups 11, bf16 over
+    fp32 Adam): one step with the K1 prefix against the same step with K1
+    plain and against the fp32 tower (``VIT_STEP_GATES``); one with the K14
+    prefix against K14 plain (``INT8_PLAIN_COS``, which the K1-prefix step
+    must fail) and the K1-prefix step (``INT8_STEP_GATE``); launches per
+    step; with ``scan``,
+    ``scan_blocks`` + ``scan_remat`` (no prefix) against the unscanned step;
+    then ``A17_WARM`` + ``A17_TIMED`` train steps of each (CUDA events) with
+    their peak memory, frozen leaves bit for bit unchanged and trainable
+    ones moved.  Trains ``model`` in place; returns the figures."""
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.models import build_text_head, fast_vit
+    from aihab_clip_tpu_torch.models import quant_vit as qv
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.train.peft import (
+        PEFTConfig, _pack_prefix, _quantize_prefix, build_lock_mask,
+        make_train_step, peft_fused_prefix_len)
+
+    dev = torch.device("cuda")
+    mcfg = model.config
+    layers = mcfg.vision_layers
+
+    def counts():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+
+    n_prefix = peft_fused_prefix_len(mcfg, PEFT_UNLOCKED, dev)
+    check(n_prefix == layers + 1 - PEFT_UNLOCKED, f"{tag} prefix {n_prefix}")
+    prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+    tokens = build_text_head(model, prompts, 20, tpc)["prompt_tokens"]
+    cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                     lr=PEFT_LR, epochs=1, crop_mode="random", rotation=True,
+                     tune_text=True, num_templates=tpc,
+                     compute_dtype=torch.bfloat16)
+    mask = build_lock_mask(model, layers, mcfg.transformer_layers,
+                           unlocked_groups=PEFT_UNLOCKED, tune_text=True,
+                           unlocked_text_layers=1)
+    trainable = [(n, p) for n, p in model.named_parameters() if mask[n]]
+    frozen = [(n, p) for n, p in model.named_parameters() if not mask[n]]
+    rng = np.random.default_rng(SEED + 17)
+    imgs = torch.from_numpy(rng.integers(
+        0, 256, (PEFT_B, PEFT_DECODE, PEFT_DECODE, 3), dtype=np.uint8)).to(dev)
+    labs = torch.from_numpy(rng.integers(0, 20, PEFT_B)).to(dev)
+    valid = torch.ones(PEFT_B, dtype=torch.bool, device=dev)
+    step_grads = step_grads_fn(model, trainable, tokens, imgs, labs, valid)
+    fig = dict(prefix=n_prefix, trainable_params=sum(
+        p.numel() for _, p in trainable))
+    print(f"[a17] {tag}: {len(trainable)} trainable leaves "
+          f"({fig['trainable_params']:,} parameters), fused prefix {n_prefix}"
+          f" of {layers} blocks, S = {(mcfg.image_resolution // mcfg.vision_patch_size) ** 2 + 1}")
+
+    cfg_p = dataclasses.replace(cfg, fused_prefix=n_prefix)
+    pprefix = _pack_prefix(model, cfg_p)
+    reset()
+    kern = step_grads(cfg_p, pprefix)
+    per_step = counts()
+    check(per_step["full_block_fused"] == n_prefix
+          and per_step["quant_full_block_fused"] == 0,
+          f"{tag}: K1 launches per step {per_step}")
+    with mock.patch.object(fast_vit, "full_block_fused",
+                           bk.full_block_fused_plain):
+        reset()
+        plain = step_grads(cfg_p, pprefix)
+        check(not any(counts().values()), f"{tag} plain step launched")
+    vis_dt, txt_dt = model.visual.dtype, model.text.dtype
+    model.visual.dtype = model.text.dtype = torch.float32
+    try:
+        fp32 = step_grads(dataclasses.replace(
+            cfg, compute_dtype=torch.float32, fused_prefix=0), None)
+    finally:
+        model.visual.dtype, model.text.dtype = vis_dt, txt_dt
+    gates = {name: check_step(f"a17 {tag}", name, kern, ref,
+                              VIT_STEP_GATES[name])
+             for name, ref in (("plain", plain), ("fp32", fp32))}
+    del plain, fp32
+
+    cfg8 = dataclasses.replace(cfg_p, prefix_quant=True)
+    qprefix = _quantize_prefix(model, cfg8)
+    reset()
+    int8 = step_grads(cfg8, qprefix)
+    per_step_q = counts()
+    check(per_step_q["quant_full_block_fused"] == n_prefix
+          and per_step_q["full_block_fused"] == 0,
+          f"{tag}: K14 launches per step {per_step_q}")
+    with mock.patch.object(qv, "quant_full_block_fused",
+                           qm.quant_full_block_fused_plain):
+        reset()
+        int8_plain = step_grads(cfg8, qprefix)
+        check(not any(counts().values()), f"{tag} K14-plain step launched")
+    gate8 = (VIT_STEP_GATES["plain"][0], INT8_PLAIN_COS[tag])
+    gates["int8_plain"] = check_step(f"a17 {tag} int8", "K14 plain", int8,
+                                     int8_plain, gate8)
+    gates["int8_plain_control"] = check_step(
+        f"a17 {tag} K1 prefix", "K14 plain", kern, int8_plain, gate8,
+        control=True)
+    gates["int8_prefix"] = check_step(f"a17 {tag} int8", "the K1-prefix step",
+                                      int8, kern, INT8_STEP_GATE)
+    del int8, int8_plain
+    runs = [("k1_prefix", cfg_p, pprefix), ("k14_prefix", cfg8, qprefix)]
+    if scan:
+        cfg_s = dataclasses.replace(cfg, fused_prefix=0, scan_blocks=True,
+                                    scan_remat=True)
+        cfg_u = dataclasses.replace(cfg, fused_prefix=0)
+        reset()
+        scanned = step_grads(cfg_s, None)
+        unscanned = step_grads(cfg_u, None)
+        check(not any(counts().values()), f"{tag}: the scanned and "
+              "unscanned steps launched a prefix kernel")
+        gates["scan"] = check_step(f"a17 {tag} scan_blocks", "the unscanned "
+                                   "step", scanned, unscanned,
+                                   VIT_STEP_GATES["plain"])
+        del scanned, unscanned
+        runs.append(("scan_remat", cfg_s, None))
+    del kern
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    frozen_before = _bit_sums(frozen)
+    train_before = _bit_sums(trainable)
+    fig["launches_per_step"] = {"k1_prefix": per_step["full_block_fused"],
+                                "k14_prefix":
+                                    per_step_q["quant_full_block_fused"]}
+    for label, c, pp in runs:
+        torch.cuda.reset_peak_memory_stats()
+        _, step = make_train_step(model, c, None, tokens)
+        times = timed_steps(step, imgs, labs, valid, pp, 1, warm=A17_WARM,
+                            timed=A17_TIMED)
+        del step
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fig[label] = dict(step_ms=statistics.median(times), step_ms_all=times,
+                          peak_gib=peak)
+        print(f"[a17] {tag} {label} train step at batch {PEFT_B}: median "
+              f"{fig[label]['step_ms']:.3f} ms over {A17_TIMED} steps after "
+              f"{A17_WARM} ({', '.join(f'{t:.2f}' for t in times)}); peak "
+              f"{peak:.2f} GiB ({smi})")
+        torch.cuda.empty_cache()
+    changed = [n for n, v in _bit_sums(frozen).items()
+               if v != frozen_before[n]]
+    moved = [n for n, v in _bit_sums(trainable).items()
+             if v != train_before[n]]
+    check(not changed, f"{tag}: frozen leaves changed: {changed[:5]}")
+    check(len(moved) > 0, f"{tag}: no trainable leaf moved")
+    print(f"[a17] {tag}: {len(frozen)} frozen leaves bit for bit unchanged, "
+          f"{len(moved)} of {len(trainable)} trainable leaves moved")
+    fig["step_checks"] = gates
+    del pprefix, qprefix
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return fig
+
+
+def large_peft_paths(bk, smi: str) -> dict:
+    """A17.  ``finetune``'s train step on ViT-H/14, ViT-g/14 and ViT-bigG/14
+    at full width and depth (random weights from seed 0), each with the K1
+    and the K14 prefix (``large_peft_step``), the memory reckoned from the
+    configuration before the tower is built beside the measured peak;
+    ``scan_blocks`` on ViT-H/14.  Returns the figures by tower."""
+    import torch
+
+    from aihab_clip_tpu_torch.models import CLIP_ARCHS, load
+
+    figures = {}
+    for arch in A17_TOWERS:
+        tag = LARGE_TAGS[arch]
+        gib = reckon_peft_gib(CLIP_ARCHS[arch], PEFT_UNLOCKED)
+        print(f"[a17] {arch} reckoned before the build: {gib['params']:,} "
+              f"parameters ({gib['params_fp32']:.2f} GiB fp32), "
+              f"{gib['trainable']:,} trainable (gradients + Adam "
+              f"{gib['grads_adam_fp32']:.2f} GiB), bf16 prefix "
+              f"{gib['prefix_bf16']:.2f} GiB: {gib['total']:.2f} GiB before "
+              "activations")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = load(f"random:{arch}", dtype=torch.bfloat16, device="cuda",
+                     seed=SEED).model
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        figures[tag] = large_peft_step(arch, model, bk, smi,
+                                       scan=arch == "ViT-H/14")
+        figures[tag].update(reckoned_gib=gib, load_s=load_s)
+        del model
+        torch.cuda.empty_cache()
+    return figures
+
+
+def vitl_paths(bk, smi: str) -> dict:
+    """A17's OpenAI rows, ViT-L/14 (224 px, S = 257) and ViT-L/14@336px
+    (336 px, S = 577), random weights from seed 0: the bf16 engine (24 K1 a
+    batch) and the int8 engine (K8 + 24 K14 a batch), each answering
+    ``VITL_REQUESTS`` single requests through ``DynamicBatcher``, features
+    against K1 plain (``COS_MIN``; int8: ``INT8_COS["fp32"]``, and the
+    all-plain int8 encode at ``INT8_COS["plain"]``), images/s; the feature
+    cache (``cache_features_from_loader``, ``VITL_CACHE_VIEWS`` views of
+    ``VITL_CACHE`` images, K1 per block) read back; the PEFT step of
+    ``large_peft_step`` on the bf16 engine's weights.  Returns (launch
+    counts by path, images/s, figures)."""
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from aihab_clip_tpu_torch.cache import (cache_features_from_loader,
+                                            feature_cache_dir,
+                                            read_preprojection_cache)
+    from aihab_clip_tpu_torch.config import ConfigNode
+    from aihab_clip_tpu_torch.data import SplitView
+    from aihab_clip_tpu_torch.models import fast_vit
+    from aihab_clip_tpu_torch.models import quant_vit as qv
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+    from aihab_clip_tpu_torch.ops.preprocess import eval_transform
+    from aihab_clip_tpu_torch.serving import ClassifierEngine, DynamicBatcher
+
+    dev = torch.device("cuda")
+    cos = torch.nn.functional.cosine_similarity
+    counts, rates, figures = {}, {}, {}
+
+    def launches():
+        return {**bk.launch_counts(), **qm.launch_counts()}
+
+    def reset():
+        bk.reset_launch_counts()
+        qm.reset_launch_counts()
+
+    def serve(eng, images, tag):
+        reset()
+        batcher = DynamicBatcher(eng, max_wait_ms=5.0)
+        batcher.start()
+        t0 = time.perf_counter()
+        futures = [batcher.submit(img) for img in images]
+        probs = np.stack([f.result(timeout=900) for f in futures])
+        wall = time.perf_counter() - t0
+        batcher.stop()
+        run, n = launches(), batcher.stats.batches
+        print(f"[vitl] {tag}: {len(futures)} requests in {wall:.3f}s over {n}"
+              f" batches; launches {run}")
+        check(probs.shape == (len(images), 20)
+              and bool(np.isfinite(probs).all())
+              and bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3)),
+              f"{tag} probabilities")
+        return run, n, probs
+
+    def gate(tag, name, feats, ref, limit):
+        c = cos(feats.float(), ref.float(), dim=-1)
+        print(f"[vitl] {tag} features vs {name}: cosine min "
+              f"{c.min().item():.6f} mean {c.mean().item():.6f} (limit "
+              f"{limit})")
+        check(c.min().item() >= limit, f"{tag} cosine vs {name}")
+        return c.min().item()
+
+    for arch in VITL_ARCHS:
+        tag = "vitl14" if arch == "ViT-L/14" else "vitl14_336"
+        fig = figures[tag] = {}
+        eng = ClassifierEngine(model=f"random:{arch}", batch_size=B,
+                               device="cuda", verbose=False)
+        eng.warmup()
+        cfg, packed, res = eng.bundle.config, eng._packed, eng.resolution
+        layers = cfg.vision_layers
+        images = np.random.default_rng(SEED + 19).integers(
+            0, 256, (VITL_REQUESTS, res, res, 3), dtype=np.uint8)
+        batch = torch.from_numpy(images[:B]).to(dev)
+        run, n, probs = serve(eng, images, f"{arch} bf16")
+        counts[tag] = run
+        check(run["full_block_fused"] == layers * n,
+              f"{arch}: K1 launched {run['full_block_fused']} times for {n} "
+              f"batches (want {layers} each)")
+        with torch.inference_mode():
+            xb = eval_transform(batch, res, dtype=torch.bfloat16)
+            feats = fast_vit.vit_encode_block_fused(packed, xb, cfg,
+                                                    project=True)[1]
+            with mock.patch.object(fast_vit, "full_block_fused",
+                                   bk.full_block_fused_plain):
+                k1_plain = fast_vit.vit_encode_block_fused(
+                    packed, xb, cfg, project=True)[1]
+        fig["cos_k1_plain_min"] = gate(f"{arch} bf16", "K1 plain", feats,
+                                       k1_plain, COS_MIN)
+        rates[f"{tag}_64"] = images_per_s(eng, B, res)
+        print(f"[vitl] {arch} bf16 classify_batch at batch {B}: "
+              f"{rates[f'{tag}_64']:.1f} images/s ({smi})")
+
+        # the feature cache, K1 per block, on the engine's weights and pack
+        tmp = tempfile.mkdtemp(prefix="aihab_vitl_")
+        try:
+            ccfg = ConfigNode({
+                "root_path": tmp, "dataset": "smoke", "seed": 1, "shots": 0,
+                "clip_backend": "openai", "backbone": f"random:{arch}",
+                "aug_views": VITL_CACHE_VIEWS,
+                "data": {"preprocessing": {"augmentations": {
+                    "random_crop": True, "rotation": True}}}})
+            ds = synthetic_dataset(np.random.default_rng(SEED + 20),
+                                   VITL_CACHE, PEFT_DECODE)
+            view = SplitView(ds, np.arange(VITL_CACHE), PEFT_B)
+            reset()
+            t0 = time.perf_counter()
+            cache_features_from_loader(ccfg, eng.bundle.model, view, res,
+                                       {"train_size": VITL_CACHE},
+                                       packed=packed)
+            torch.cuda.synchronize()
+            cache_s = time.perf_counter() - t0
+            views, labels = read_preprojection_cache(feature_cache_dir(ccfg),
+                                                     VITL_CACHE_VIEWS)
+            k1 = launches()["full_block_fused"]
+            want = layers * VITL_CACHE_VIEWS * len(view)
+            check(k1 == want, f"{arch} cache: K1 launched {k1} (want {want})")
+            check(all(v.shape == (VITL_CACHE, cfg.vision_width)
+                      and v.dtype == np.float16
+                      and np.isfinite(v.astype(np.float32)).all()
+                      for v in views) and len(labels) == VITL_CACHE
+                  and not np.array_equal(views[0], views[1]),
+                  f"{arch} feature cache")
+            fig["cache_images_per_s"] = VITL_CACHE * VITL_CACHE_VIEWS / cache_s
+            print(f"[vitl] {arch} feature cache: {VITL_CACHE_VIEWS} views of "
+                  f"{VITL_CACHE} images, {views[0].shape[1]} wide, {k1} K1 "
+                  f"launches, {fig['cache_images_per_s']:.1f} images/s incl. "
+                  "the write")
+        finally:
+            import shutil
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # the int8 engine (a second draw of the same seeded weights)
+        eng8 = ClassifierEngine(model=f"random:{arch}", batch_size=B,
+                                device="cuda", verbose=False, quantize="int8")
+        eng8.warmup()
+        qp = eng8._qparams
+        run8, n8, probs8 = serve(eng8, images, f"{arch} int8")
+        counts[tag + "_int8"] = run8
+        check(run8["quant_matmul_fused"] == n8
+              and run8["quant_full_block_fused"] == layers * n8
+              and run8["full_block_fused"] == 0,
+              f"{arch} int8 launches {run8}")
+        with torch.inference_mode():
+            feats8 = qv.vit_encode_int8(qp, xb, cfg, project=True)[1]
+            with plain_int8_kernels():
+                plain8 = qv.vit_encode_int8(qp, xb, cfg, project=True)[1]
+        fig["int8_cos_plain_min"] = gate(f"{arch} int8", "all-plain kernels",
+                                         feats8, plain8, INT8_COS["plain"])
+        fig["int8_cos_k1_plain_min"] = gate(f"{arch} int8", "K1 plain",
+                                            feats8, k1_plain,
+                                            INT8_COS["fp32"])
+        fig["int8_top1_vs_bf16"] = float((probs8.argmax(-1)
+                                          == probs.argmax(-1)).mean())
+        rates[f"{tag}_int8_64"] = images_per_s(eng8, B, res)
+        print(f"[vitl] {arch} int8 classify_batch at batch {B}: "
+              f"{rates[f'{tag}_int8_64']:.1f} images/s (bf16 "
+              f"{rates[f'{tag}_64']:.1f}); top-1 agreement with bf16 "
+              f"{fig['int8_top1_vs_bf16']:.4f} ({smi})")
+        del eng8, qp, feats8, plain8, xb, feats, k1_plain, batch
+        torch.cuda.empty_cache()
+
+        # the PEFT step on the bf16 engine's weights
+        fig["peft"] = large_peft_step(arch, eng.bundle.model, bk, smi)
+        del eng, packed
+        torch.cuda.empty_cache()
     return counts, rates, figures
 
 
@@ -4400,6 +4926,9 @@ def runner_path(bk, smi: str, big: bytes) -> dict:
         check(acc_cpu == out["acc"] and np.isfinite(out["loss"]),
               "test accuracy recompute")
         figures["test_acc"] = out["acc"]
+        figures["tip_adapter"] = tip_adapter_check(
+            feature_cache_dir(cfg), views_n, model, bundle["text_weights"],
+            out["val_feats"], out["val_labels"])
 
         figures.update({
             "build_loaders_s": timings["build_loaders_s"],
@@ -4467,10 +4996,100 @@ def runner_path(bk, smi: str, big: bytes) -> dict:
               f"(finetune wall incl. the final val + test) ({smi})")
         del result, peft, fresh
         torch.cuda.empty_cache()
+
+        # one epoch of the same PEFT run with aug_impl: exact (the per-image
+        # gather augment, ops/preprocess.train_transform)
+        from aihab_clip_tpu_torch.ops import preprocess as P
+
+        cfg3 = load_configs(str(here / "configs/base.yaml"),
+                            str(here / "configs/cs.yaml"),
+                            opts + RUNNER_PEFT_OPTS
+                            + ["aug_impl", "exact", "train_epoch", "1"])
+        calls = []
+        real = P.train_transform
+
+        def spy(*a, **k):
+            calls.append(a[0].shape)
+            return real(*a, **k)
+
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(P, "train_transform", spy):
+            result = run(cfg3, config_file="cs", logger_mode="stdout",
+                         device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peft, loaders = result["peft"], result["loaders"]
+        steps = len(loaders.train)
+        evals = len(loaders.val) + 2 * len(loaders.test)
+        k1 = bk.launch_counts()["full_block_fused"]
+        print(f"[runner] PEFT with aug_impl: exact, 1 epoch in {wall:.2f}s: "
+              f"{len(calls)} train_transform calls for {steps} steps; K1 "
+              f"{k1}; test loss {peft['test']['loss']:.4f} top1 "
+              f"{peft['test']['top1']:.4f}")
+        check(len(calls) == steps and k1 == 2 * steps + 12 * evals
+              and np.isfinite(peft["test"]["loss"])
+              and np.isfinite(peft["val"]["loss"]),
+              "PEFT with aug_impl: exact")
+        figures.update(peft_exact_aug_s=wall,
+                       peft_exact_aug_test_loss=peft["test"]["loss"])
+        del result, peft
+        torch.cuda.empty_cache()
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     return figures
+
+
+def tip_adapter_check(cache_dir, views_n: int, model, text_weights,
+                      val_feats, val_labels) -> dict:
+    """Tip-Adapter (``train/tip_adapter.py``) on the runner's ProLIP cache:
+    the cache model from its ``views_n`` views projected by the tower's
+    ``proj``, the (beta, alpha) grid search on the val split's projected
+    features, on the card and on the CPU from the same arrays: the same
+    best accuracy, and the logits at the CPU's pick within 1e-5 rel L2."""
+    import torch
+
+    from aihab_clip_tpu_torch.cache import read_preprojection_cache
+    from aihab_clip_tpu_torch.train import tip_adapter as tip
+
+    proj = model.visual.proj.detach().float().cpu().numpy()
+    views, labels = read_preprojection_cache(cache_dir, views_n)
+    q = np.asarray(torch.as_tensor(val_feats).float().cpu()) @ proj
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    labels_q = np.asarray(torch.as_tensor(val_labels).cpu())
+    w = text_weights.float().cpu()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        keys, values = tip.build_cache_model(
+            lambda v: (views[v].astype(np.float32) @ proj, labels), views_n,
+            w.shape[1], device=dev)
+        qd, wd = torch.from_numpy(q).to(dev), w.to(dev)
+        beta, alpha, acc = tip.search_hp_tip(qd, labels_q, keys, values, wd)
+        # the logits at the CPU's pick on both devices
+        logits = tip.tip_logits(qd, keys, values, wd,
+                                out.get("cpu", {}).get("beta", beta),
+                                out.get("cpu", {}).get("alpha", alpha))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = dict(beta=beta, alpha=alpha, acc=acc,
+                        seconds=time.perf_counter() - t0,
+                        logits=logits.float().cpu())
+    rel = ((out["cuda"]["logits"] - out["cpu"]["logits"]).norm()
+           / out["cpu"]["logits"].norm()).item()
+    pick = {k: (out["cuda"][k], out["cpu"][k]) for k in ("beta", "alpha",
+                                                          "acc")}
+    print(f"[runner] Tip-Adapter on the cache ({views_n} views, "
+          f"{len(labels)} keys): card (beta, alpha, acc) vs CPU {pick}; "
+          f"logits at the CPU's pick rel L2 {rel:.3e} (limit 1e-5); search "
+          f"{out['cuda']['seconds']:.3f} s on the card")
+    check(pick["acc"][0] == pick["acc"][1] and rel <= 1e-5,
+          "Tip-Adapter on the card differs from the CPU's")
+    return dict(beta=pick["beta"][0], alpha=pick["alpha"][0],
+                acc=pick["acc"][0], cpu_pick=(pick["beta"][1],
+                                              pick["alpha"][1]),
+                logits_rel_l2=rel, search_s=out["cuda"]["seconds"])
 
 
 # ---------------------------------------------------------------------------

@@ -769,7 +769,9 @@ def test_cuda_fused_linear_matches_plain():
 @pytest.mark.gpu
 def test_cuda_normalize_u8_is_bit_exact():
     """K18 on the card equals its plain version bit for bit, in bf16 and
-    fp32, with a ragged tail (17 x 13 x 3 is no multiple of 16);
+    fp32, with a ragged tail (17 x 13 x 3 and 5 x 5 x 3 are no multiple of
+    its 48-byte unit), and past one wave of blocks (180 x 224^2 x 3: more
+    units than the grid's threads take in one step);
     ``normalize_u8(use_pallas=True)`` launches it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -777,7 +779,9 @@ def test_cuda_normalize_u8_is_bit_exact():
 
     g = torch.Generator().manual_seed(21)
     pp.reset_launch_counts()
-    for shape in ((2, 224, 224, 3), (1, 17, 13, 3)):
+    shapes = ((180, 224, 224, 3), (1, 5, 5, 3), (2, 224, 224, 3),
+              (1, 17, 13, 3))
+    for shape in shapes:
         u8 = torch.randint(0, 256, shape, generator=g,
                            dtype=torch.uint8).cuda()
         for dt in (torch.bfloat16, torch.float32):
@@ -787,7 +791,7 @@ def test_cuda_normalize_u8_is_bit_exact():
                                                                  dtype=dt))
     assert torch.equal(pp.normalize_u8(u8, use_pallas=True),
                        pp.normalize_u8_pallas_plain(u8))
-    assert pp.launch_counts() == {"normalize_u8_pallas": 5}
+    assert pp.launch_counts() == {"normalize_u8_pallas": 2 * len(shapes) + 1}
 
 
 @pytest.mark.gpu

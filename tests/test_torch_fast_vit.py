@@ -19,6 +19,7 @@ from aihab_clip_tpu.models.convert import save_params_npz
 from aihab_clip_tpu.models import fast_vit as jax_fast_vit
 from aihab_clip_tpu.models.fast_vit import \
     vit_encode_block_fused as jax_encode
+from aihab_clip_tpu.models import quant_vit as jax_qv
 from aihab_clip_tpu.models.quant_vit import _kernel_act as jax_kernel_act
 
 from aihab_clip_tpu_torch.models import CLIP_ARCHS, CLIPConfig, CLIPModel
@@ -219,16 +220,34 @@ def test_block_fused_encode_under_the_opt_out_matches_jax(carried,
     assert 0 < (got - poly).abs().max().item() < 1e-3
 
 
-def test_int8_act_honours_the_opt_out(monkeypatch):
+def test_int8_act_honours_the_opt_out(carried, monkeypatch):
     """C2 in the int8 route (``tests/test_fast_vit.py:493-505``): exact gelu
-    under the opt-out is JAX's XLA route, which is not ported and raises."""
+    under the opt-out is JAX's XLA route (``quant_vit.py:305-306``).  The
+    plan says ``impl="xla"``, and the int8 encode of a gelu tower under the
+    variable (asked for the kernel route) matches JAX's, which takes its XLA
+    route too, at the tower gates of ``tests/test_torch_quant_vit.py``."""
     cfg, jcfg = _gelu_configs()[1]
     assert qv._kernel_act(cfg) == jax_kernel_act(jcfg) == "gelu_poly"
     monkeypatch.setenv("AIHAB_NO_GELU_POLY", "1")
     assert qv._kernel_act(cfg) == jax_kernel_act(jcfg) == "gelu"
-    with pytest.raises(NotImplementedError, match="xla"):
-        qv.int8_block_plan(cfg)
-    with pytest.raises(NotImplementedError, match="xla"):
-        qv.vit_encode_int8({}, torch.zeros(1, 224, 224, 3), cfg)
+    plan = qv.int8_block_plan(cfg)
+    assert plan["impl"] == "xla" and plan["act"] == "gelu"
+    bundle, model, tcfg, x = carried
+    gcfg = dataclasses.replace(tcfg, act="gelu")
+    ref = jax_qv.vit_encode_int8(
+        jax_qv.quantize_vit_params(bundle.params,
+                                   dataclasses.replace(bundle.config,
+                                                       act="gelu")),
+        jnp.asarray(x), dataclasses.replace(bundle.config, act="gelu"),
+        dtype=jnp.float32, impl="pallas", interpret=True)
+    with torch.no_grad():
+        got = qv.vit_encode_int8(qv.quantize_vit_params(model, gcfg),
+                                 torch.from_numpy(x), gcfg,
+                                 dtype=torch.float32).numpy()
+    ref = np.asarray(ref)
+    cos = (got * ref).sum(-1) / np.linalg.norm(got, axis=-1) \
+        / np.linalg.norm(ref, axis=-1)
+    assert cos.min() >= 0.9999
+    assert np.abs(got - ref).max() <= 5e-3 * np.abs(ref).max()
     assert qv._kernel_act(dataclasses.replace(cfg, act="quick_gelu")) == \
         "quick_gelu"

@@ -400,12 +400,91 @@ def test_int8_tower_plans(tower):
 
 
 def test_int8_tower_refuses_other_routes(tower):
+    """JAX's other two routes (``quant_vit.py:299-376``) against JAX's same
+    ``impl`` in fp32 at the tower gates: ``"xla"`` (``quant_dense`` per
+    GEMM, the plain attention) and ``"chained"`` (the plain K8 with LN or
+    residual, the plain attention, the plain K9 -> K10; JAX's kernels in
+    interpret mode); neither launches a kernel on the CPU.  A route JAX does
+    not have is refused."""
+    jcfg, params, model, images = tower
+    cfg = CLIPConfig(**TOWER)
+    jq = jax_qv.quantize_vit_params(params, jcfg)
+    qp = qv.quantize_vit_params(model, cfg)
+    for impl in ("xla", "chained"):
+        ref = jax_qv.vit_encode_int8(jq, jnp.asarray(images), jcfg,
+                                     dtype=jnp.float32, impl=impl,
+                                     interpret=True, project=True)
+        qm.reset_launch_counts()
+        with torch.no_grad():
+            pre, proj = qv.vit_encode_int8(qp, torch.from_numpy(images), cfg,
+                                           dtype=torch.float32, impl=impl,
+                                           project=True)
+        assert not any(qm.launch_counts().values())
+        _close_tower(pre.numpy(), ref[0])
+        _close_tower(proj.numpy(), ref[1])
+    with pytest.raises(ValueError, match="impl"):
+        qv.vit_encode_int8(qp, torch.from_numpy(images), cfg, impl="mosaic")
+    assert qv._kernel_act(dataclasses.replace(cfg, act="gelu")) == "gelu_poly"
+
+
+@pytest.mark.parametrize("impl", ["xla", "chained"])
+def test_int8_tower_routes_match_jax_in_bf16(tower, impl):
+    """The same two routes in bf16 against JAX's at the bf16 tower gates."""
+    jcfg, params, model, images = tower
+    cfg = CLIPConfig(**TOWER)
+    ref = jax_qv.vit_encode_int8(jax_qv.quantize_vit_params(params, jcfg),
+                                 jnp.asarray(images), jcfg,
+                                 dtype=jnp.bfloat16, impl=impl,
+                                 interpret=True)
+    with torch.no_grad():
+        got = qv.vit_encode_int8(qv.quantize_vit_params(model, cfg),
+                                 torch.from_numpy(images), cfg,
+                                 dtype=torch.bfloat16, impl=impl)
+    assert got.dtype == torch.bfloat16
+    _close_tower(got.float().numpy(), ref, "bfloat16")
+
+
+def test_int8_routes_take_the_chained_kernels(tower, monkeypatch):
+    """The routes' dispatch, counted through the kernels' wrappers: "xla"
+    calls none of K8-K14; "chained" calls K8 per patchify, qkv and
+    out-projection and K9 -> K10 per MLP; an exact-gelu tower under the
+    opt-out is sent to "xla" whatever is asked, and its plan says so."""
     _, _, model, images = tower
     cfg = CLIPConfig(**TOWER)
-    for impl in ("xla", "chained"):
-        with pytest.raises(NotImplementedError, match="pallas"):
-            qv.vit_encode_int8({}, torch.from_numpy(images), cfg, impl=impl)
-    assert qv._kernel_act(dataclasses.replace(cfg, act="gelu")) == "gelu_poly"
+    qp = qv.quantize_vit_params(model, cfg)
+    calls = {}
+
+    def counting(name):
+        real = getattr(qv, name)
+
+        def wrapped(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **k)
+        return wrapped
+
+    for name in ("quant_matmul_fused", "quant_matmul_fused_qout",
+                 "quant_matmul_q8in", "quant_full_block_fused",
+                 "quant_attn_block_fused", "quant_mlp_block_fused"):
+        monkeypatch.setattr(qv, name, counting(name))
+    x = torch.from_numpy(images)
+    layers = cfg.vision_layers
+    with torch.no_grad():
+        qv.vit_encode_int8(qp, x, cfg, dtype=torch.float32, impl="xla")
+        assert calls == {}
+        qv.vit_encode_int8(qp, x, cfg, dtype=torch.float32, impl="chained")
+        assert calls == {"quant_matmul_fused": 1 + 2 * layers,
+                         "quant_matmul_fused_qout": layers,
+                         "quant_matmul_q8in": layers}
+        calls.clear()
+        gcfg = dataclasses.replace(cfg, act="gelu")
+        monkeypatch.setenv("AIHAB_NO_GELU_POLY", "1")
+        plan = qv.int8_block_plan(gcfg)
+        assert plan["impl"] == "xla" and plan["act"] == "gelu"
+        for impl in ("auto", "pallas", "chained"):
+            qv.vit_encode_int8(qp, x, gcfg, dtype=torch.float32, impl=impl)
+        assert calls == {}
+        with pytest.raises(ValueError, match="exact gelu"):
+            qv.split_int8_plan(gcfg, 2, 2)
 
 
 # ---------------------------------------------------------------------------

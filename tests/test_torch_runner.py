@@ -30,6 +30,7 @@ from aihab_clip_tpu_torch.cache import (embedding_cache_dir, feature_cache_dir,
                                         read_preprojection_cache)
 from aihab_clip_tpu_torch.config import ConfigNode
 from aihab_clip_tpu_torch.data import make_synthetic_cs_dataset
+from aihab_clip_tpu_torch.ops import preprocess
 from aihab_clip_tpu_torch.runner import run
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -142,10 +143,16 @@ UNPORTED = [
     ({"aug_impl": "exact"}, "A7"),
     ({"parallel": {"enabled": True}}, "A13"),
 ]
+# the items of UNPORTED ported since (A7b: the exact train augment): their
+# branch now runs
+PORTED_SINCE = {"A7"}
 
 
 @pytest.mark.parametrize("opts,item", UNPORTED, ids=lambda o: str(o)[:40])
-def test_unported_branches_raise(base_cfg, opts, item):
+def test_unported_branches_raise(base_cfg, opts, item, monkeypatch):
+    """A branch still waiting for its ROADMAP item raises naming it; one
+    ported since runs: ``aug_impl: exact`` trains the PEFT run through
+    ``ops/preprocess.train_transform`` at the run's crop and rotation."""
     cfg = base_cfg.clone()
     cfg.clip_backend = "openclip"
     cfg.open_clip_model = "random:Tiny"
@@ -155,8 +162,24 @@ def test_unported_branches_raise(base_cfg, opts, item):
         for part in path:
             node = node[part]
         node[leaf] = value
-    with pytest.raises(NotImplementedError, match=item):
-        run(cfg, device="cpu")
+    if item not in PORTED_SINCE:
+        with pytest.raises(NotImplementedError, match=item):
+            run(cfg, device="cpu")
+        return
+    calls = []
+    real = preprocess.train_transform
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(preprocess, "train_transform", spy)
+    result = run(cfg, device="cpu")
+    steps = -(-result["loaders"].train.num_samples // 8) * cfg.train_epoch
+    assert len(calls) == steps
+    assert calls[0]["crop_mode"] == "random" and calls[0]["rotation"]
+    test = result["peft"]["test"]
+    assert np.isfinite(test["loss"]) and 0.0 <= test["top1"] <= 1.0
 
 
 def _peft_cfg(base_cfg, **finetune):
@@ -239,7 +262,7 @@ def test_cache_refusals(base_cfg):
         run(cfg, device="cpu")
 
 
-def _cli(tmp_path, synth, *extra):
+def _cli(tmp_path, synth, *extra, more_opts=()):
     opts = ["data.dataset_paths", repr(synth["dataset_paths"]),
             "data.index_file_names", repr(synth["index_file_names"]),
             "data.data_split.valid_split", "0.25",
@@ -248,7 +271,7 @@ def _cli(tmp_path, synth, *extra):
             "clip_backend", "openai", "backbone", "random:Tiny",
             "save_features", "True", "aug_views", "2", "search_lr", "True",
             "train_epoch", "2", "wandb_project", "None",
-            "root_path", str(tmp_path)]
+            "root_path", str(tmp_path), *more_opts]
     cmd = [sys.executable, "-m", "aihab_clip_tpu_torch", "--base_config",
            "configs/base.yaml", "--dataset_config", "configs/cs.yaml",
            *extra, "--opts", *opts]
@@ -266,6 +289,25 @@ def test_cli_runs_prolip_on_the_cpu(tmp_path, synth):
             / "f1.npy").is_file()
 
 
+def test_cli_runs_the_exact_augment(tmp_path, synth):
+    """``python -m aihab_clip_tpu_torch`` with ``aug_impl exact``: the
+    feature cache of the ProLIP run, then a PEFT run, both through the
+    per-image gather augment."""
+    proc = _cli(tmp_path, synth, "--device", "cpu", "--logger", "off",
+                more_opts=["aug_impl", "exact"])
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "==== ProLIP results ====" in proc.stdout
+    views = [np.load(tmp_path / "features_random_Tiny_cs" / "0_shot"
+                     / "seed1" / f"f{v}.npy") for v in range(2)]
+    assert np.isfinite(views[0].astype(np.float32)).all()
+    assert not np.array_equal(views[0], views[1])
+    proc = _cli(tmp_path, synth, "--device", "cpu", "--logger", "off",
+                more_opts=["aug_impl", "exact", "clip_backend", "openclip",
+                           "open_clip_model", "random:Tiny",
+                           "use_model_preprocess", "False"])
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
 def test_cli_without_a_card_raises(tmp_path, synth):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -278,6 +320,19 @@ def test_run_prolip_parity_with_jax(synth, tmp_path, monkeypatch):
     """Both runners on the same Tiny weights, center crop and no rotation:
     cached features within 5e-4 rel L2 (fp16 on disk), the projector within
     1e-4, the same grid pick and the same test accuracy."""
+    _prolip_parity(synth, tmp_path, monkeypatch, "fast")
+
+
+def test_run_prolip_parity_with_jax_exact_augment(synth, tmp_path,
+                                                  monkeypatch):
+    """The same with ``aug_impl: exact``: both caches written through the
+    per-image gather augment (``train_transform``; a center crop draws
+    nothing, so both packages warp with the same maps), at the same
+    limits."""
+    _prolip_parity(synth, tmp_path, monkeypatch, "exact")
+
+
+def _prolip_parity(synth, tmp_path, monkeypatch, aug_impl):
     monkeypatch.chdir(tmp_path)
     b = jax_load("random:Tiny", seed=3)
     rng = np.random.default_rng(0)
@@ -290,7 +345,8 @@ def test_run_prolip_parity_with_jax(synth, tmp_path, monkeypatch):
     _save_config(zoo / "Tiny.config.json", b.config)
     d = _cfg_dict(synth, tmp_path)
     d.update(backbone="Tiny", clip_cache_dir=str(tmp_path / "zoo"),
-             save_features=True, search_lr=True, train_epoch=4)
+             save_features=True, search_lr=True, train_epoch=4,
+             aug_impl=aug_impl)
     d["finetune"]["eval_l2"] = False
     d["data"]["preprocessing"]["augmentations"].update(random_crop=False,
                                                        rotation=False)
