@@ -216,6 +216,20 @@ Phases (any failure raises and the exit code is non-zero):
      ``.pt`` and ConvNeXt names again from the converted cache
      (``npz-cache``); the SigLIP text head on the snapshot's tokenizer ids;
      load seconds (host clock), file sizes and host RSS;
+  A14. tools path — the offline tools on the card (no TPU kernel lies on
+     them: JAX leaves them to scikit-learn and OpenCV): ``run_grid`` over
+     ``sweeps/openclip_ft.yaml`` (2 combinations) and ``sweeps/lora_ft.yaml``
+     (1) on the runner's tree with random:ViT-B/16 (the CSV rows printed,
+     sorted by top1_acc, finite), ``run_ft_sweep`` as a subprocess (its
+     overrides and run name); ``cs_clean_testset score`` single and multi
+     on the PEFT run's test embedding cache and a synthetic 20,000 x 512
+     one against the port's CPU run (similarities, ranks and flags but for
+     ties, each class's k-means inertia from the card's initial centres),
+     the planted rows' recall; ``feat_vis`` t-SNE of the 20,000 points
+     (finite, the KL falling after exaggeration, the 10-NN label agreement
+     at least the PCA init's) and a 600-row draw's P and KL against the
+     CPU; ``canny_rgb`` and ``edge_blend`` on 64 x 224^2 photos and the
+     12 MP one bit for bit with the CPU; the seconds and ms of each;
   7. one JSON line listing every kernel (with each kernel's A10 launches)
      and every phase's figures; last line ``{"ok": true, ...}``.
 Each phase prints its seconds.
@@ -368,6 +382,22 @@ RN_TOP1_MIN, RN_PEFT_UNLOCKED, RN_RUNNER_EPOCHS = 0.95, 2, 5
 # tools/rn_gains.calibrate_bn_) must keep under 1e-3 N(0, 1) input noise
 # for a bf16 encode's comparison with them to mean anything
 RN_STABLE_MIN = 0.9999
+# A14: the tools path.  The sweeps (file, combinations run) on the runner's
+# tree with RUNNER_OPTS + RUNNER_PEFT_OPTS in a temporary base config; the
+# synthetic embedding cache (rows, ViT-B/16's embedding width, classes), the
+# sizes of its classes in heuristic_k's bands below 300 (< 20, 20-99,
+# 100-199, 200-299; the rest share the remaining rows), its share of rows
+# planted from other classes; the scorers' limits against the port's CPU
+# run (similarity columns, the window inside which ranks and flags may
+# differ, the k-means inertia from the same initial centres, relative) and
+# the planted rows' least recall; the t-SNE draw held against the CPU, its P
+# limit and final KL limit (relative); the Canny batch (photos, side)
+TOOLS_SWEEPS = (("sweeps/openclip_ft.yaml", 2), ("sweeps/lora_ft.yaml", 1))
+TOOLS_CACHE = (20000, 512, 20)
+TOOLS_BANDS, TOOLS_PLANTED = (12, 60, 150, 250), 0.01
+TOOLS_SIM_TOL, TOOLS_INERTIA_REL, TOOLS_RECALL = 1e-5, 1e-4, 0.95
+TOOLS_TSNE_DRAW, TOOLS_P_TOL, TOOLS_KL_REL = 600, 1e-6, 0.02
+TOOLS_CANNY = (64, 224)
 # A17: the LAION towers' default fine-tune (batch 16 at 224 from 439x439,
 # unlocked_groups 11 -> a frozen prefix of L + 1 - 11 blocks: 22 / 30 / 38,
 # tune_text) at full width and depth, A17_WARM warm-up and A17_TIMED timed
@@ -917,6 +947,10 @@ def main() -> None:
                  rn50x64_16=resnet["rn50x64"]["images_per_s"])
     phase("resnet paths")
 
+    # ---- A14. the tools: sweeps, outlier scoring, PCA + t-SNE, Canny
+    tools = tools_path(smi)
+    phase("tools path")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -973,7 +1007,8 @@ def main() -> None:
                       "large_vit": large_figures, "runner": runner,
                       "a10": {"vit_b16": a10_vit, "so400m": a10_so},
                       "jpeg": jpeg_figures, "serving": serving_figures,
-                      "weights": weights, "resnet": resnet, "a17": a17}))
+                      "weights": weights, "resnet": resnet, "a17": a17,
+                      "tools": tools}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -6429,6 +6464,400 @@ def weights_path(source: str, engine, bk, smi: str) -> dict:
         else:
             os.environ["HF_HOME"] = old_home
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# A14: the tools.  No TPU kernel lies on them (JAX leaves k-means, PCA and
+# t-SNE to scikit-learn and Canny to OpenCV on the host): the card runs
+# them as torch ops, held against the port's own CPU run.
+def _yaml_scalar(v) -> str:
+    """A YAML 1.1 flow scalar or list (floats keep a '.', as YAML 1.1's
+    float pattern wants)."""
+    if isinstance(v, float):
+        text = repr(v)
+        if "e" in text and "." not in text:
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    return "{}" if isinstance(v, dict) else json.dumps(v)
+
+
+def yaml_text(cfg: dict, indent: int = 0) -> str:
+    """A config tree as block YAML the port's reader reads back equal."""
+    lines = []
+    for k, v in cfg.items():
+        if isinstance(v, dict) and v:
+            lines += [" " * indent + f"{k}:", yaml_text(v, indent + 2)]
+        else:
+            lines.append(" " * indent + f"{k}: {_yaml_scalar(v)}")
+    return "\n".join(lines)
+
+
+def synthetic_embedding_cache(root, seed: int) -> set:
+    """TOOLS_CACHE rows in the embedding cache's layout under ``root``: per
+    class four modes around a class centre plus noise, unit rows; the
+    classes' sizes TOOLS_BANDS and the rest, TOOLS_PLANTED of each class's
+    rows (at least one) drawn from another class's modes.  Returns the
+    planted rows' file names."""
+    import csv
+    from pathlib import Path
+
+    from aihab_clip_tpu_torch.cache.embedding_cache import METADATA_COLUMNS
+    from aihab_clip_tpu_torch.taxonomy import REASSIGN_LABEL_NAME_L3
+
+    n, dim, classes = TOOLS_CACHE
+    rng = np.random.default_rng(seed)
+    rest, big = n - sum(TOOLS_BANDS), classes - len(TOOLS_BANDS)
+    sizes = list(TOOLS_BANDS) + [rest // big + (i < rest % big)
+                                 for i in range(big)]
+    modes = rng.standard_normal((classes, 1, dim)) + 0.6 * rng.standard_normal(
+        (classes, 4, dim))
+    embs, labels, files, planted = [], [], [], set()
+    for c, size in enumerate(sizes):
+        x = modes[c, rng.integers(0, 4, size)] + 0.5 * rng.standard_normal(
+            (size, dim))
+        for j in range(max(1, round(size * TOOLS_PLANTED))):
+            other = (c + 1 + int(rng.integers(0, classes - 1))) % classes
+            x[j] = modes[other, rng.integers(0, 4)] + 0.5 * rng.standard_normal(
+                dim)
+            planted.add(f"c{c:02d}_{j:05d}.jpg")
+        embs.append(x)
+        labels += [c] * size
+        files += [f"c{c:02d}_{j:05d}.jpg" for j in range(size)]
+    order = rng.permutation(n)
+    emb = np.concatenate(embs)[order]
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    labels = np.asarray(labels, np.int32)
+    root = Path(root)
+    root.mkdir(parents=True)
+    np.save(root / "embeddings.npy", emb.astype(np.float32))
+    np.save(root / "labels.npy", labels[order])
+    with open(root / "metadata.csv", "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(METADATA_COLUMNS)
+        for i in order:
+            c = int(labels[i])
+            w.writerow([files[i], c, REASSIGN_LABEL_NAME_L3[c], -1])
+    (root / "meta.json").write_text(json.dumps(
+        {"split": "test", "normalized": True, "num_samples": n, "dim": dim}))
+    return planted
+
+
+def _scores_against_cpu(tag, card, cpu, sim_col) -> dict:
+    """The card's score table against the CPU's on the same cache: equal
+    file sets, similarity columns within TOOLS_SIM_TOL, class_size and
+    k_per_class equal, ranks and flags equal but between rows whose scores
+    lie within TOOLS_SIM_TOL."""
+    idx = {f: i for i, f in enumerate(cpu["file_name"].tolist())}
+    check(sorted(idx) == sorted(card["file_name"].tolist()),
+          f"{tag}: the card's rows are not the CPU's")
+    at = np.asarray([idx[f] for f in card["file_name"].tolist()])
+    worst = {}
+    for col in (sim_col, "outlier_score", "margin_to_other_class"):
+        if col in cpu:
+            d = np.abs(card[col].astype(np.float64)
+                       - cpu[col][at].astype(np.float64))
+            worst[col] = float(np.nanmax(d)) if len(d) else 0.0
+            check(worst[col] <= TOOLS_SIM_TOL, f"{tag}: {col} max|d| "
+                  f"{worst[col]} > {TOOLS_SIM_TOL}")
+    for col in ("class_size", "k_per_class", "ground_truth_num_label"):
+        if col in cpu:
+            check(np.array_equal(card[col], cpu[col][at]),
+                  f"{tag}: {col} differs from the CPU's")
+    score = cpu["outlier_score"].astype(np.float64)
+    cls = cpu["ground_truth_num_label"]
+    off = 0
+    for col in ("rank_in_class", "is_bottom_5pct"):
+        for i in np.flatnonzero(card[col] != cpu[col][at]):
+            j = at[i]
+            same = (cls == cls[j]) & (np.arange(len(cls)) != j)
+            check(bool((np.abs(score[same] - score[j]) <= TOOLS_SIM_TOL)
+                       .any()), f"{tag}: {col} of {card['file_name'][i]} "
+                  "differs from the CPU's away from a tie")
+            off += 1
+    print(f"[tools] {tag}: card vs CPU max|d| {worst}; {off} rank/flag "
+          f"differences, each inside a {TOOLS_SIM_TOL:g} tie")
+    return dict(max_abs=worst, tie_differences=off)
+
+
+def tools_path(smi: str, dev: str = "cuda") -> dict:
+    """A14 (``tools/``, ``ops/{kmeans,tsne,edges}.py``) on the card.
+    (1) ``run_grid`` over TOOLS_SWEEPS on the runner's synthetic CS tree
+    (random:ViT-B/16 at 224, RUNNER_OPTS + RUNNER_PEFT_OPTS in a temporary
+    base config): every combination in the CSV, sorted by top1_acc, finite
+    metrics; ``run_ft_sweep`` as a subprocess with two overrides: exit 0,
+    its overrides and ``sweep_run_name``.  (2) The first grid run's test
+    embedding cache (K1 through ``encode_image_fastest``) and a synthetic
+    one (TOOLS_CACHE).  (3) ``cs_clean_testset score``, single and multi,
+    on both, against the CPU's (``_scores_against_cpu``), each class's
+    k-means inertia against the CPU's from the card's initial centres, the
+    planted recall.  (4) ``feat_vis --method tsne --pca_dim 50`` on the
+    synthetic cache: finite, the final KL below the KL after exaggeration,
+    the 10-NN label agreement at least the PCA-2 init's; on TOOLS_TSNE_DRAW
+    rows P and the final KL against the CPU.  (5) ``canny_rgb`` and
+    ``edge_blend`` on TOOLS_CANNY photos and the 12 MP photo, bit for bit
+    with the CPU.  ``dev="cpu"`` rehearses the path on the CPU (every
+    comparison then holds the CPU against itself).  Returns the figures."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from aihab_clip_tpu_torch.cache import embedding_cache_dir
+    from aihab_clip_tpu_torch.cache import load_embedding_cache
+    from aihab_clip_tpu_torch.config import (load_configs, safe_load,
+                                             set_by_dotted_path)
+    from aihab_clip_tpu_torch.data import make_synthetic_cs_dataset
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.ops import edges, tsne
+    from aihab_clip_tpu_torch.ops.kmeans import kmeans
+    from aihab_clip_tpu_torch.taxonomy import CS_CLASSNAMES
+    from aihab_clip_tpu_torch.tools import cs_clean_testset, feat_vis
+    from aihab_clip_tpu_torch.tools.outlier_cleaning import \
+        MultiPrototypeScorer
+    from aihab_clip_tpu_torch.tools.run_ft_sweep import sweep_run_name
+    from aihab_clip_tpu_torch.tools.run_grid import expand_grid, run_grid
+    from aihab_clip_tpu_torch.tools.table import Table
+
+    here = Path(__file__).resolve().parent
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="aihab_tools_")
+    os.chdir(tmp)   # feat_cache_vis/, runs/ and the grid CSVs
+    figures = {"card": smi}
+
+    def sync_s(t0):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    try:
+        # ---- (1) the sweeps
+        tree = make_synthetic_cs_dataset(
+            tmp, name="cs_synth", classes=CS_CLASSNAMES,
+            n_train_per_class=RUNNER_TREE[0], n_test_per_class=RUNNER_TREE[1],
+            image_size=RUNNER_TREE[2],
+            index_file_name="CS_Xplots_2019_23_NEW02OCT24.csv")
+        base_cfg = load_configs(str(here / "configs/base.yaml"),
+                                str(here / "configs/cs.yaml"),
+                                ["data.dataset_paths",
+                                 repr(tree["dataset_paths"])]
+                                + RUNNER_OPTS + RUNNER_PEFT_OPTS)
+        base = Path(tmp) / "base.yaml"
+        base.write_text(yaml_text(base_cfg) + "\n")
+        figures["sweeps"] = []
+        first_cfg = None
+        for sweep_file, limit in TOOLS_SWEEPS:
+            out = Path(tmp) / f"grid_{Path(sweep_file).stem}.csv"
+            bk.reset_launch_counts()
+            t0 = time.perf_counter()
+            rows = run_grid(str(here / sweep_file), str(base), str(base),
+                            limit=limit, out_csv=str(out), device=dev)
+            wall = sync_s(t0)
+            k1 = bk.launch_counts()["full_block_fused"]
+            table = Table.read_csv(out)
+            combos = expand_grid(safe_load(
+                (here / sweep_file).read_text()))[:limit]
+            print(f"[tools] run_grid {sweep_file} --limit {limit}: "
+                  f"{wall:.2f}s, K1 {k1}; CSV ({smi}):")
+            print((out.read_text()).rstrip())
+            top1 = table["top1_acc"].astype(np.float64)
+            metrics = np.stack([table[c].astype(np.float64) for c in (
+                "top1_acc", "top3_acc", "f1", "mcc", "loss")])
+            check(len(table) == len(rows) == limit and sorted(
+                table["run"].tolist()) == sorted(r["run"] for r in rows)
+                and all(any(all(r[k] == v for k, v in c.items())
+                            for r in rows) for c in combos),
+                f"{sweep_file}: the CSV lacks a combination")
+            check(bool((np.diff(top1) <= 0).all())
+                  and bool(np.isfinite(metrics).all())
+                  and (k1 > 0 or dev == "cpu"),
+                  f"{sweep_file}: the CSV is not sorted by top1_acc or has "
+                  "a non-finite metric")
+            figures["sweeps"].append(dict(
+                sweep=sweep_file, combinations=limit, seconds=wall,
+                k1_launches=k1, rows=[{k: table[k][i].item() if hasattr(
+                    table[k][i], "item") else table[k][i]
+                    for k in table.columns} for i in range(len(table))]))
+            if first_cfg is None:
+                first_cfg = load_configs(str(base), str(base))
+                for k, v in combos[0].items():
+                    set_by_dotted_path(first_cfg, k, v)
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "aihab_clip_tpu_torch.tools.run_ft_sweep",
+             "--base_config", str(base), "--dataset_config", str(base),
+             "--finetune.unlocked_layers=5", "--seed=2", "--device", dev,
+             "--logger", "stdout"],
+            cwd=tmp, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(here)))
+        sweep_cfg = load_configs(str(base), str(base))
+        for k, v in (("finetune.unlocked_layers", "5"), ("seed", "2")):
+            set_by_dotted_path(sweep_cfg, k, v)
+        name = sweep_run_name(sweep_cfg)
+        figures["run_ft_sweep_s"] = time.perf_counter() - t0
+        print(f"[tools] run_ft_sweep subprocess: exit {proc.returncode} in "
+              f"{figures['run_ft_sweep_s']:.2f}s; run name {name}")
+        check(proc.returncode == 0, "run_ft_sweep failed: "
+              + proc.stdout[-2000:] + proc.stderr[-2000:])
+        check("[sweep] overrides: {'finetune.unlocked_layers': '5', "
+              "'seed': '2'}" in proc.stdout
+              and f"[sweep] run name: {name}\n" in proc.stdout,
+              "run_ft_sweep printed other overrides or another run name")
+
+        # ---- (2) the caches
+        peft_cache = Path(embedding_cache_dir(first_cfg, "test"))
+        synth_cache = Path(tmp) / "synthetic_cache"
+        t0 = time.perf_counter()
+        planted = synthetic_embedding_cache(synth_cache, SEED)
+        figures["synthetic_cache_write_s"] = time.perf_counter() - t0
+        check((peft_cache / "embeddings.npy").is_file(),
+              f"the PEFT run wrote no embedding cache at {peft_cache}")
+
+        # ---- (3) scoring, card against the CPU
+        figures["scores"] = {}
+        for cache_tag, cache in (("peft", peft_cache),
+                                 ("synthetic", synth_cache)):
+            for scorer in ("single", "multi"):
+                tag = f"{cache_tag} {scorer}"
+                argv = ["score", "--cache_dir", str(cache), "--scorer",
+                        scorer]
+                t0 = time.perf_counter()
+                card = cs_clean_testset.main(argv + ["--device", dev])
+                score_s = sync_s(t0)
+                cpu = cs_clean_testset.main(argv + ["--device", "cpu"])
+                sim = ("sim_to_centroid" if scorer == "single"
+                       else "sim_to_prototype")
+                fig = _scores_against_cpu(tag, card, cpu, sim)
+                fig["score_s"] = score_s
+                if cache_tag == "synthetic":
+                    flagged = set(card["file_name"][
+                        card["is_bottom_5pct"].astype(bool)].tolist())
+                    fig["recall"] = len(flagged & planted) / len(planted)
+                    print(f"[tools] {tag}: planted recall "
+                          f"{fig['recall']:.4f} ({len(planted)} planted, "
+                          f"{len(flagged)} flagged)")
+                    check(fig["recall"] >= TOOLS_RECALL,
+                          f"{tag}: planted recall {fig['recall']}")
+                print(f"[tools] {tag}: score {score_s:.3f}s ({smi})")
+                figures["scores"][tag] = fig
+
+        # the k-means alone (the card's runs), each class's inertia against
+        # the CPU's from the card's initial centres
+        data = load_embedding_cache(synth_cache)
+        scorer = MultiPrototypeScorer(data["embeddings"], data["labels"],
+                                      data["metadata"], device=dev)
+        t0 = time.perf_counter()
+        scorer.compute_prototypes()
+        figures["kmeans_s"] = sync_s(t0)
+        worst = 0.0
+        x = torch.from_numpy(data["embeddings"])
+        for label, run in scorer.kmeans_runs.items():
+            cpu_run = kmeans(x[torch.from_numpy(data["labels"] == label)],
+                             run.centers.shape[0], init=run.init.cpu())
+            worst = max(worst, abs(cpu_run.inertia - run.inertia)
+                        / run.inertia)
+        figures["kmeans_inertia_rel"] = worst
+        print(f"[tools] k-means over {len(scorer.kmeans_runs)} classes "
+              f"({TOOLS_CACHE[0]} rows, 10 runs a class): "
+              f"{figures['kmeans_s']:.3f}s on the card ({smi}); inertia vs "
+              f"the CPU from the same initial centres, max rel {worst:.3e}")
+        check(worst <= TOOLS_INERTIA_REL, "k-means inertia differs from the "
+              "CPU's")
+        del scorer
+
+        # ---- (4) the projection
+        t0 = time.perf_counter()
+        info = feat_vis.main(["--cache_dir", str(synth_cache), "--method",
+                              "tsne", "--pca_dim", "50", "--out_dir",
+                              str(Path(tmp) / "vis"), "--device", dev])
+        wall = time.perf_counter() - t0
+        res = info["tsne"]
+        coords = np.load(info["coords"])
+        labels = torch.from_numpy(data["labels"].astype(np.int64)).to(dev)
+        agree = tsne.knn_label_agreement(res.embedding, labels)
+        agree0 = tsne.knn_label_agreement(res.init, labels)
+        figures["tsne"] = dict(
+            n=TOOLS_CACHE[0], wall_s=wall, pca_s=info["pca_s"],
+            seconds=res.seconds, n_iter=res.n_iter,
+            kl=res.kl_divergence, kl_after_exaggeration=
+            res.kl_after_exaggeration, kl_exaggerated=res.kl_exaggerated,
+            knn10_agreement=agree, knn10_agreement_pca_init=agree0)
+        print(f"[tools] feat_vis t-SNE of {TOOLS_CACHE[0]} points (PCA 50) "
+              f"in {wall:.2f}s ({smi}): PCA {info['pca_s']:.3f}s, P "
+              f"{res.seconds['affinities']:.3f}s, init "
+              f"{res.seconds['pca_init']:.3f}s, {res.n_iter + 1} iterations "
+              f"{res.seconds['iterations']:.2f}s; KL "
+              f"{res.kl_exaggerated:.4f} (x12 P) / "
+              f"{res.kl_after_exaggeration:.4f} after exaggeration, final "
+              f"{res.kl_divergence:.4f}; 10-NN label agreement {agree:.4f} "
+              f"(PCA-2 init {agree0:.4f})")
+        check(coords.shape == (TOOLS_CACHE[0], 2)
+              and bool(np.isfinite(coords).all()), "t-SNE coordinates")
+        check(res.kl_divergence < res.kl_after_exaggeration,
+              "the final KL is not below the KL after exaggeration")
+        check(agree >= agree0, "t-SNE's 10-NN label agreement is below the "
+              "PCA-2 init's")
+        check((Path(tmp) / "vis/vis_tsne.html").read_text().count("<circle")
+              == TOOLS_CACHE[0], "the HTML does not hold a mark a point")
+
+        draw = np.random.default_rng(SEED).choice(
+            TOOLS_CACHE[0], TOOLS_TSNE_DRAW, replace=False)
+        xs = torch.from_numpy(data["embeddings"][draw])
+        dense = []
+        for where in (dev, "cpu"):
+            p = tsne.affinities(xs.to(where), 30.0)
+            dense.append(torch.sparse_coo_tensor(
+                torch.stack([p.rows, p.cols]).cpu(), p.values.cpu(),
+                (TOOLS_TSNE_DRAW,) * 2, check_invariants=True).to_dense())
+        p_err = float((dense[0] - dense[1]).abs().max())
+        t0 = time.perf_counter()
+        kl_card = tsne.tsne(xs.to(dev)).kl_divergence
+        card_s = sync_s(t0)
+        kl_cpu = tsne.tsne(xs).kl_divergence
+        kl_rel = abs(kl_card - kl_cpu) / kl_cpu
+        figures["tsne_check"] = dict(n=TOOLS_TSNE_DRAW, p_max_abs=p_err,
+                                     kl_card=kl_card, kl_cpu=kl_cpu,
+                                     kl_rel=kl_rel, card_s=card_s)
+        print(f"[tools] t-SNE of {TOOLS_TSNE_DRAW} rows, card vs CPU: P "
+              f"max|d| {p_err:.3e} (limit {TOOLS_P_TOL:g}); final KL "
+              f"{kl_card:.5f} vs {kl_cpu:.5f}, rel {kl_rel:.3e} (limit "
+              f"{TOOLS_KL_REL:g}); {card_s:.2f}s on the card")
+        check(p_err <= TOOLS_P_TOL, "t-SNE P differs from the CPU's")
+        check(kl_rel <= TOOLS_KL_REL, "t-SNE final KL differs from the CPU's")
+
+        # ---- (5) Canny
+        n, side = TOOLS_CANNY
+        batch = np.stack([smoke_photo(side, side, SEED + 100 + i)
+                          for i in range(n)])
+        big = smoke_photo(*RUNNER_LARGE_JPEG, SEED)
+        figures["canny"] = {}
+        for tag, imgs in ((f"{n}x{side}^2", batch), ("12 MP", big)):
+            cpu_t = torch.from_numpy(imgs)
+            card_t = cpu_t.to(dev)
+            for fn in (edges.canny_rgb, edges.edge_blend):
+                ref = fn(cpu_t)
+                got = fn(card_t)
+                check(torch.equal(got.cpu(), ref), f"{fn.__name__} on {tag} "
+                      "differs from the CPU's")
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn(card_t)
+                    times.append(1e3 * sync_s(t0))
+                key = f"{fn.__name__} {tag}"
+                figures["canny"][key] = dict(
+                    ms=statistics.median(times),
+                    edge_share=float((ref > 0).float().mean())
+                    if fn is edges.canny_rgb else None)
+                print(f"[tools] {key}: {statistics.median(times):.3f} ms a "
+                      f"call (median of 5, host clock after a sync; "
+                      f"{smi}), bit for bit with the CPU")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return figures
 
 
 if __name__ == "__main__":
