@@ -7,6 +7,14 @@
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs on the CPU.  ``--opts`` takes the rest of the command line, so
 it comes last.
+
+Over N ranks (``parallel.enabled`` auto takes a mesh of them)::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m aihab_clip_tpu_torch ...
+
+the process group is initialised from the launcher's environment (NCCL on
+the card, one card a rank; gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from pathlib import Path
 
 from .backend import resolve_device
 from .config import load_configs
+from .parallel.distributed import (initialize_distributed, local_device,
+                                   shutdown_distributed)
 from .runner import run
 
 
@@ -35,13 +45,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    initialize_distributed(device=device)
     root = Path(__file__).resolve().parent.parent
     cfg = load_configs(args.base_config, args.dataset_config, args.opts,
                        anchors=(root,))
-    return run(cfg, inspect_only=args.inspect_only,
-               config_file=Path(args.dataset_config).stem,
-               logger_mode=args.logger, device=device)
+    try:
+        return run(cfg, inspect_only=args.inspect_only,
+                   config_file=Path(args.dataset_config).stem,
+                   logger_mode=args.logger, device=device)
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

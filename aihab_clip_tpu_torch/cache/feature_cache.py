@@ -17,8 +17,15 @@ once; a ModifiedResNet's folded convs, ``width * 32`` wide: 2,048 at RN50)
 -> fp16 on the device.  The JAX writer's lag-1 fetch is dropped: the
 features of a view stay on the device and come to the host in one copy at
 the view's end, so the host's gather and upload of the next batch already
-run while the card computes.  Multi-host shards (``shard_count > 1``) wait
-for ROADMAP A13; the readers accept shard layouts the JAX package wrote.
+run while the card computes.
+
+Multi-process shards (``shard_count > 1``, by default the process group's
+size, ``shard_index`` its rank): each process encodes a deterministic,
+disjoint shard of the split (``parallel.distributed.process_shard_indices``,
+JAX's permutation) and writes ``f{v}.shard{k}``, ``label.shard{k}`` and
+``manifest.shard{k}.json``, the JAX package's layout; the readers merge
+shards in order (JAX's shard sets too).  The runner waits on a barrier
+before anyone reads.
 """
 
 from __future__ import annotations
@@ -80,14 +87,18 @@ def write_preprojection_cache(
         cache_dir: CacheDir,
         encode_view: Callable[[int], Tuple[np.ndarray, np.ndarray]],
         aug_views: int, expected_n: Optional[int] = None,
-        feature_dtype=np.float16) -> Dict:
+        feature_dtype=np.float16, shard_index: Optional[int] = None,
+        shard_count: Optional[int] = None) -> Dict:
     """Write the cache: ``encode_view(v)`` returns (features [N, D],
     labels [N]) for view ``v``.  Each view is reloaded and checked (shape,
-    rows against labels, expected count) and ``manifest.json`` records it."""
+    rows against labels, expected count) and ``manifest.json`` records it;
+    with ``shard_index`` every name takes ``.shard{k}``."""
     store = open_store(cache_dir)
     store.ensure()
+    suffix = "" if shard_index is None else f".shard{shard_index}"
     manifest: Dict = {"views": [], "aug_views": aug_views,
-                      "shard_index": None, "shard_count": None}
+                      "shard_index": shard_index,
+                      "shard_count": shard_count}
     t0 = time.perf_counter()
     total_bytes = 0
     labels_ref: Optional[np.ndarray] = None
@@ -96,15 +107,15 @@ def write_preprojection_cache(
         if feats.dtype != feature_dtype:
             feats = np.asarray(feats, dtype=feature_dtype)
         labels = np.asarray(labels, dtype=np.int32)
-        fpath = store.save(f"f{v}", feats)
+        fpath = store.save(f"f{v}{suffix}", feats)
         total_bytes += feats.nbytes
         if v == 0:
             labels_ref = labels
-            lpath = store.save("label", labels)
+            lpath = store.save(f"label{suffix}", labels)
             total_bytes += labels.nbytes
             print(f"[cache] labels -> {lpath} "
                   f"shape={labels.shape} unique={len(np.unique(labels))}")
-        loaded = store.load(f"f{v}", mmap=True)
+        loaded = store.load(f"f{v}{suffix}", mmap=True)
         ok_shape = loaded.shape == feats.shape
         ok_count = feats.shape[0] == labels_ref.shape[0]
         ok_expected = expected_n is None or feats.shape[0] == expected_n
@@ -117,7 +128,8 @@ def write_preprojection_cache(
                 f"reload_ok={ok_shape} rows_match_labels={ok_count} "
                 f"rows_match_expected={ok_expected} "
                 f"(got {feats.shape[0]} rows, expected {expected_n})")
-        manifest["views"].append({"file": f"f{v}", "shape": list(feats.shape),
+        manifest["views"].append({"file": f"f{v}{suffix}",
+                                  "shape": list(feats.shape),
                                   "dtype": str(feats.dtype)})
     dt = time.perf_counter() - t0
     manifest.update({
@@ -126,7 +138,7 @@ def write_preprojection_cache(
         "write_seconds": dt,
         "write_gbps": total_bytes / max(dt, 1e-9) / 1e9,
     })
-    store.write_json("manifest.json", manifest)
+    store.write_json(f"manifest{suffix}.json", manifest)
     print("\nFeature caching complete.")
     return manifest
 
@@ -221,16 +233,16 @@ def cache_features_from_loader(cfg, model, train_view, resolution: int,
     """Run the train split through the frozen encoder once per view (see
     the module docstring) and write the cache.  ``model`` lives on its
     device; ``packed`` is ``pack_fastest``'s pack, built here on the card
-    when not given."""
+    when not given.  ``shard_count`` (default the process group's size)
+    > 1 writes shard ``shard_index`` (default this rank) alone."""
     from ..data.pipeline import SplitView
     from ..models.fast_vit import encode_image_fastest, pack_fastest
     from ..ops.preprocess import normalize_stats_for
     from ..train.peft import train_augment
 
-    if shard_count is not None and int(shard_count) > 1:
-        raise NotImplementedError(
-            f"cache_shard_count={shard_count}: multi-host cache shards are "
-            "not ported: ROADMAP A13")
+    from ..parallel.distributed import (process_shard_indices, rank,
+                                        world_size)
+
     config = model.config
     dev = model.logit_scale.device
     nmean, nstd = normalize_stats_for(config)
@@ -242,9 +254,24 @@ def cache_features_from_loader(cfg, model, train_view, resolution: int,
     cache_view = SplitView(train_view.dataset, train_view.indices,
                            train_view.batch_size, shuffle=False,
                            use_l2_label=train_view.use_l2_label)
+    shard_count = int(world_size() if shard_count is None else shard_count)
+    expected_n = info.get("train_size")
+    if shard_count > 1:
+        shard_index = int(rank() if shard_index is None else shard_index)
+        pos = process_shard_indices(cache_view.num_samples, seed=seed,
+                                    process_index=shard_index,
+                                    process_count=shard_count)
+        cache_view = SplitView(cache_view.dataset, cache_view.indices[pos],
+                               cache_view.batch_size, shuffle=False,
+                               use_l2_label=cache_view.use_l2_label)
+        expected_n = cache_view.num_samples
+    else:
+        shard_index = None
     print("\n==== Feature Caching (pre-projection) ====")
     print({"cache_dir": str(cache_dir), "aug_views": aug_views,
-           "expected_train_size": info.get("train_size"), "shard": None,
+           "expected_train_size": info.get("train_size"),
+           "shard": (None if shard_index is None
+                     else f"{shard_index}/{shard_count}"),
            "crop_mode": aug["crop_mode"]})
     if packed is None and dev.type == "cuda":
         packed = pack_fastest(model, config, compute_dtype)
@@ -263,5 +290,7 @@ def cache_features_from_loader(cfg, model, train_view, resolution: int,
         return (torch.cat(feats).cpu().numpy(),
                 np.concatenate(labels, 0))
 
-    return write_preprojection_cache(cache_dir, encode_view, aug_views,
-                                     expected_n=info.get("train_size"))
+    return write_preprojection_cache(
+        cache_dir, encode_view, aug_views, expected_n=expected_n,
+        shard_index=shard_index,
+        shard_count=shard_count if shard_count > 1 else None)

@@ -282,6 +282,27 @@ def torch_state_dict_to_port(state_dict: Mapping, resolution: int = 0
     return cfg, out
 
 
+def jax_param_path(name: str, ndim: int) -> Tuple[str, Tuple[int, ...]]:
+    """A port parameter's JAX path and its axis map: ``(path, perm)`` with
+    the port tensor's dim ``d`` holding the JAX leaf's dim ``perm[d]``
+    (a Dense kernel is transposed, a conv kernel OIHW <- HWIO); the
+    inverse of ``_convert_key``."""
+    *mods, leaf = name.split(".")
+    path = _flax_parts(mods)
+    perm = tuple(range(ndim))
+    if name == "text.token_embedding.weight":
+        path, leaf = ["text"], "token_embedding"
+    elif leaf in ("in_proj_weight", "in_proj_bias"):
+        path.append("in_proj")
+        leaf, perm = (("kernel", (1, 0)) if leaf == "in_proj_weight"
+                      else ("bias", perm))
+    elif leaf == "weight" and ndim > 1:
+        leaf, perm = "kernel", (3, 2, 0, 1) if ndim == 4 else (1, 0)
+    elif leaf == "weight":
+        leaf = "scale"
+    return "/".join(path + [leaf]), perm
+
+
 def state_dict_to_flax_params(sd: Mapping) -> Dict[str, np.ndarray]:
     """The port's state dict (CLIP ViT, ModifiedResNet, ConvNeXt or SigLIP)
     -> JAX's flat flax layout ``{"a/b/c": fp32 ndarray}``: the inverse of
@@ -289,21 +310,11 @@ def state_dict_to_flax_params(sd: Mapping) -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     for name, t in sd.items():
         v = t.detach().float().cpu().numpy()
-        *mods, leaf = name.split(".")
-        path = _flax_parts(mods)
-        if name == "text.token_embedding.weight":
-            path, leaf = ["text"], "token_embedding"
-        elif leaf in ("in_proj_weight", "in_proj_bias"):
-            path.append("in_proj")
-            leaf, v = ("kernel", v.T) if leaf == "in_proj_weight" else (
-                "bias", v)
-        elif leaf == "weight" and v.ndim > 1:
-            leaf = "kernel"
-            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
-        elif leaf == "weight":
-            leaf = "scale"
-        flat["/".join(path + [leaf])] = np.ascontiguousarray(
-            v, dtype=np.float32).reshape(v.shape)
+        path, perm = jax_param_path(name, v.ndim)
+        # the JAX leaf's dim perm[d] is the port's d
+        v = v.transpose(np.argsort(perm)) if v.ndim > 1 else v
+        flat[path] = np.ascontiguousarray(v, dtype=np.float32).reshape(
+            v.shape)
     return flat
 
 

@@ -189,7 +189,10 @@ def convnext_encode_hybrid(model, images: torch.Tensor, config,
     then the canonical blocks ``[n_prefix, L)`` and head under autograd, in
     ``dtype``.  ``packed_prefix`` (``pack_convnext`` with ``stop=n_prefix``)
     is packed once per run by the caller, here when not given.  With
-    ``n_prefix`` 0 the stem is differentiable too."""
+    ``n_prefix`` 0 the stem is differentiable too.  Under a data-parallel
+    mesh each rank calls it on its rows of the batch, its own pack
+    replicated (JAX's ``shard_map`` of the prefix,
+    ``fast_convnext.py:266-279``)."""
     vis = model.visual
     if n_prefix > 0:
         if packed_prefix is None:

@@ -188,7 +188,9 @@ def siglip_encode_hybrid(model: SigLIPModel, images: torch.Tensor,
     ({resblocks_i: ``quant_siglip.quantize_siglip_block``}) switches the
     prefix blocks to the int8 kernels (K13 -> K9 -> K10); the stem stays in
     ``dtype``, as in JAX.  With ``n_prefix`` 0 the stem is differentiable
-    too."""
+    too.  Under a data-parallel mesh each rank calls it on its rows of the
+    batch, its own pack replicated (JAX's ``shard_map`` of the prefix,
+    ``fast_siglip.py:366-376``)."""
     vp = model.visual
 
     def stem():   # the canonical stem's weights in dtype

@@ -28,7 +28,10 @@ pair after K2.
 ``n_prefix`` blocks through K1 over a pack of those blocks (or, with
 ``qprefix``, the int8 block K14 of ``quant_vit``) without a graph, then the
 trainable blocks as the canonical ``ResidualAttentionBlock`` modules under
-autograd.  ``vit_encode_train`` is JAX's differentiable tower with the MLP
+autograd; under a data-parallel mesh each rank calls it on its rows (JAX's
+``_shard_mapped_prefix``).  ``encode_fn_sharded`` and
+``vit_encode_block_fused_sharded`` are JAX's data-parallel encodes: each
+rank encodes its rows, the outputs gathered.  ``vit_encode_train`` is JAX's differentiable tower with the MLP
 half through K17 (``ops/block_kernel.mlp_block_train``) forward and
 backward; ``use_fused_train_encode`` is its gate.  ``vit_encode_scan`` is
 JAX's scanned canonical encode (``fast_vit.py:133-178``): a loop over the
@@ -279,6 +282,36 @@ def encode_image_fastest(model, x: torch.Tensor, config, *,
         return resnet_encode_folded(packed["folded_rn"], x, config,
                                     project=project)
     return vit_encode_block_fused(packed, x, config, project=project)
+
+
+def encode_fn_sharded(encode_fn, x: torch.Tensor, mesh, *,
+                      pair_output: bool = False):
+    """Any encode under a data-parallel ``mesh`` (``fast_vit.py:314-323``,
+    JAX's ``shard_map``): every rank passes the global batch, encodes its
+    rows of the data axis with its own (replicated) weights, and the
+    outputs are gathered over the axis, so every rank returns the global
+    batch's.  Forward only."""
+    from ..parallel import comm
+    from ..parallel.mesh import DATA_AXIS, batch_sharding
+
+    out = encode_fn(x[batch_sharding(mesh).rows(x.shape[0])])
+    outs = out if pair_output else (out,)
+    outs = tuple(comm.all_gather_cat(o.contiguous(), mesh, DATA_AXIS, 0)
+                 for o in outs)
+    return outs if pair_output else outs[0]
+
+
+def vit_encode_block_fused_sharded(packed, images: torch.Tensor,
+                                   config: CLIPConfig, mesh, *,
+                                   project: bool = False):
+    """``vit_encode_block_fused`` under a data-parallel mesh
+    (``fast_vit.py:326-341``): each rank runs the block kernels on its rows
+    with its replicated pack.  Needs no model-axis sharding and a batch
+    the data axis divides."""
+    return encode_fn_sharded(
+        lambda xs: vit_encode_block_fused(packed, xs, config,
+                                          project=project),
+        images, mesh, pair_output=project)
 
 
 def _stem(vp, dtype):

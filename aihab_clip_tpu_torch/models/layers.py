@@ -140,11 +140,29 @@ def checkpoint_pinned(module: nn.Module, fn, *args):
 
 class RematBlock(nn.Module):
     """A block whose ``block(x)`` checkpoints ``_forward`` when ``remat``
-    is set and autograd records."""
+    is set and autograd records.  A block given ``gather`` (a context
+    manager that puts its whole weights into its parameter slots, FSDP's
+    per-block gather) runs ``_forward`` inside it, checkpointed while
+    autograd records: the whole weights live for the block's forward and
+    again for its backward's recompute, never across the step."""
 
     remat = False
+    gather = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gather is not None:
+            # bound now: the backward's recompute runs after the caller's
+            # contexts (the gather, a tensor-parallel _forward) have ended
+            gather, fwd = self.gather, self._forward
+
+            def run(x):
+                with gather():
+                    return fwd(x)
+
+            if torch.is_grad_enabled():
+                return torch.utils.checkpoint.checkpoint(
+                    run, x, use_reentrant=False)
+            return run(x)
         if self.remat and torch.is_grad_enabled():
             return checkpoint_pinned(self, self._forward, x)
         return self._forward(x)

@@ -136,9 +136,10 @@ class SigLIPMLP(nn.Module):
         super().__init__()
         self.c_fc = nn.Linear(width, hidden_dim)
         self.c_proj = nn.Linear(hidden_dim, width)
+        self.act = gelu_tanh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu_tanh(linear(x, self.c_fc.weight, self.c_fc.bias))
+        h = self.act(linear(x, self.c_fc.weight, self.c_fc.bias))
         return linear(h, self.c_proj.weight, self.c_proj.bias)
 
 

@@ -19,6 +19,20 @@ params-only warm start (``finetune.checkpoint``: a path or ``latest``),
 ``finetune.resume``, ``eval_only`` from a checkpoint, periodic async saves
 (``checkpoint_interval``), the final ``save_model`` (with LoRA also
 ``lora_adapters.npz``) and ``cache_embeddings_checkpoint``.
+
+Parallelism (``parallel.enabled``: true, false or auto, a mesh when the
+process group has more than one rank; ``model_parallel``, ``fsdp``): the
+PEFT steps and evaluations run over a (data, model) mesh of the
+``torch.distributed`` ranks (``python -m torch.distributed.run
+--nproc_per_node N -m aihab_clip_tpu_torch ...``; ``__main__`` initialises
+the process group); ``parallel.enabled: true`` without a process group
+raises.  Under ``fsdp`` each transformer block gathers its weights as it
+runs (and again in the backward), so a rank holds its shards and one
+block's whole weights; LoRA and ``scan_blocks`` read every weight whole
+for the step.  The feature cache is written in per-rank shards
+(``cache_shard_index``/``cache_shard_count`` override them) behind a
+barrier, and rank 0 alone writes checkpoints, adapters and the embedding
+cache.
 """
 
 from __future__ import annotations
@@ -247,11 +261,55 @@ def _resolve_fused_prefix(setting) -> int:
     return int(setting)
 
 
-def _check_single_device(cfg) -> None:
+def _build_mesh(cfg, dev):
+    """The (data, model) mesh of the PEFT and evaluation paths, or None:
+    ``parallel.enabled`` true, false or auto (a mesh when the process
+    group has more than one rank); ``parallel.model_parallel`` the TP
+    degree.  true without a process group raises."""
+    from .parallel.distributed import is_initialized, world_size
+    from .parallel.mesh import make_mesh
+
     par = cfg.get("parallel", {}) or {}
-    if par.get("enabled", "auto") is True:
-        raise NotImplementedError("parallel.enabled: the mesh is not "
-                                  "ported: ROADMAP A13")
+    enabled = par.get("enabled", "auto")
+    n = world_size()
+    use = enabled if isinstance(enabled, bool) else n > 1
+    if not use:
+        return None
+    if not is_initialized():
+        raise RuntimeError(
+            "parallel.enabled: true needs a torch.distributed process "
+            "group: launch with python -m torch.distributed.run "
+            "--nproc_per_node N -m aihab_clip_tpu_torch ...")
+    mesh = make_mesh(model_parallel=int(par.get("model_parallel", 1)),
+                     device=dev)
+    print(f"[parallel] mesh {mesh.describe()}")
+    return mesh
+
+
+def _cache_shard_kwargs(cfg) -> Dict[str, Optional[int]]:
+    """The cache shard overrides (default: the rank and the world size
+    inside the writer)."""
+    si = cfg.get("cache_shard_index", None)
+    sc = cfg.get("cache_shard_count", None)
+    return {"shard_index": None if si is None else int(si),
+            "shard_count": None if sc is None else int(sc)}
+
+
+def _cache_write_barrier() -> None:
+    """Every rank writes only its own cache shard: wait for all before
+    anyone reads (the sharded reader refuses an incomplete shard set, the
+    barrier avoids the race)."""
+    from .parallel.distributed import world_size
+
+    if world_size() > 1:
+        torch.distributed.barrier()
+
+
+def _writer() -> bool:
+    """Rank 0 (or the only process) writes the run's files."""
+    from .parallel.distributed import rank
+
+    return rank() == 0
 
 
 def _split_view(loaders, split: str):
@@ -283,7 +341,9 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
     model = bundle["model"]
     dev = model.logit_scale.device
     dtype = bundle["compute_dtype"]
-    _check_single_device(cfg)
+    mesh = _build_mesh(cfg, dev)
+    fsdp = mesh is not None and bool(
+        (cfg.get("parallel", {}) or {}).get("fsdp", False))
     l2_ctx = _l2_eval_ctx(cfg, bundle["num_classes"])
 
     # resume: the parameters, the optimizer state and the epoch, restored
@@ -308,12 +368,12 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
         test = evaluate(model, loaders.test, bundle["text_weights"],
                         bundle["resolution"], bundle["num_classes"],
                         compute_dtype=dtype, return_confusion_matrix=True,
-                        l2_eval_ctx=l2_ctx, tracker=tracker)
+                        l2_eval_ctx=l2_ctx, tracker=tracker, mesh=mesh)
         print(f"[eval_only] top1={test['top1']:.4f} top3={test['top3']:.4f} "
               f"f1={test['f1']:.4f} mcc={test['mcc']:.4f}")
         if logger is not None:
             tracker.save_classification(logger)
-        if bool(ft_cfg.get("cache_embeddings", False)):
+        if bool(ft_cfg.get("cache_embeddings", False)) and _writer():
             split = str(ft_cfg.get("cache_embeddings_split", "test")).lower()
             cache_embeddings(cfg, model, _split_view(loaders, split),
                              bundle["resolution"], split=split,
@@ -353,7 +413,10 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
     if pcfg.checkpoint_interval and save_model:
         def checkpoint_fn(par, opt_state, epoch):
             # the host copy happens here; the disk write overlaps the next
-            # epochs (waited for after training)
+            # epochs (waited for after training); every rank gathered the
+            # whole state, rank 0 writes it
+            if not _writer():
+                return
             try:
                 p = save_checkpoint(cfg, par, opt_state, epoch=epoch,
                                     async_save=True)
@@ -369,7 +432,8 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
         unlocked_groups=int(ft_cfg.get("unlocked_groups", 1)),
         unlocked_text_layers=int(ft_cfg.get("unlocked_layers", 1)),
         seed=int(cfg.get("seed", 1)), l2_eval_ctx=l2_ctx, logger=logger,
-        checkpoint_fn=checkpoint_fn, resume_from=resume_from, device=dev)
+        checkpoint_fn=checkpoint_fn, resume_from=resume_from, mesh=mesh,
+        fsdp=fsdp, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     out["seconds"] = time.perf_counter() - t0
@@ -383,14 +447,15 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
     # configured epoch count, which a resume would take as finished
     if interrupted == pcfg.epochs:
         interrupted = None
-    if save_model and not (interrupted and checkpoint_fn is not None):
+    if save_model and _writer() and not (interrupted
+                                         and checkpoint_fn is not None):
         try:
             saved_path = save_checkpoint(cfg, out["params"], out["opt_state"],
                                          epoch=interrupted or pcfg.epochs)
             print(f"[ckpt] saved -> {saved_path}")
         except Exception as exc:
             print(f"[ckpt] save failed: {exc}")
-    if save_model and out.get("adapters"):
+    if save_model and out.get("adapters") and _writer():
         # LoRA: the adapters alone reproduce the run from the base weights,
         # in JAX's file format (lora_adapters.npz, its keys and layouts)
         from .models.convert import port_adapters_to_flax
@@ -408,7 +473,7 @@ def run_peft(cfg, bundle, loaders, logger=None, config_file: str = "cfg"
             print(f"[ckpt] adapter save failed: {exc}")
     out["checkpoint_path"] = str(saved_path) if saved_path else None
 
-    if bool(ft_cfg.get("cache_embeddings", False)):
+    if bool(ft_cfg.get("cache_embeddings", False)) and _writer():
         split = str(ft_cfg.get("cache_embeddings_split", "test")).lower()
         view = _split_view(loaders, split)
         if view is None or view.num_samples == 0:
@@ -448,11 +513,12 @@ def _refuse_poisoned_cache(bundle) -> None:
 
 def _write_feature_cache(cfg, bundle, loaders, packed=None) -> Dict:
     _refuse_poisoned_cache(bundle)
-    sc = cfg.get("cache_shard_count", None)
-    return cache_features_from_loader(
+    manifest = cache_features_from_loader(
         cfg, bundle["model"], loaders.train, bundle["resolution"],
-        loaders.info, compute_dtype=bundle["compute_dtype"],
-        shard_count=None if sc is None else int(sc), packed=packed)
+        loaders.info, compute_dtype=bundle["compute_dtype"], packed=packed,
+        **_cache_shard_kwargs(cfg))
+    _cache_write_barrier()
+    return manifest
 
 
 def _sync(dev) -> None:

@@ -7,6 +7,14 @@ canonical module on the CPU) -> ``100 * normalize(f) @ T`` -> masked
 cross-entropy -> the metric state, which stays on the device until the end
 of the split.  Returns loss, top1, top3, weighted F1, MCC, the optional
 confusion matrix and L2 roll-up, and fills an optional tracker.
+
+Under a ``mesh`` every rank walks the whole split: it encodes its rows of
+each batch (``fast_vit.encode_fn_sharded``: the kernels per rank over whole
+weights; over a sharded model read through ``Sharding.gathered``, the
+canonical module with the tensor-parallel blocks on a model axis > 1), the
+features are gathered over the data axis, and every rank updates the same
+metric state, so the confusion matrix equals a single rank's evaluation of
+the split.
 """
 
 from __future__ import annotations
@@ -21,13 +29,16 @@ from ..ops.preprocess import eval_transform, normalize_stats_for
 from .tracker import ClassificationTracker
 
 
-def masked_ce_metrics(logits, labels, valid):
+def masked_ce_metrics(logits, labels, valid, count=None):
     """Masked cross-entropy and (correct, n_valid): the one definition of
     the classification objective's tail, shared by the train step and the
-    evaluation."""
+    evaluation.  ``count`` is the valid count the sum is divided by
+    (default this batch's; a data-parallel rank passes the global
+    batch's, so the ranks' losses sum to the global batch's)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
-    n_valid = valid.float().sum().clamp_min(1.0)
+    n_valid = (valid.float().sum().clamp_min(1.0) if count is None
+               else count)
     loss = torch.where(valid, nll, 0.0).sum() / n_valid
     correct = ((logits.argmax(-1) == labels) & valid).sum()
     return loss, (correct, n_valid)
@@ -40,16 +51,24 @@ def evaluate(model, view: SplitView, text_weights: torch.Tensor,
              return_confusion_matrix: bool = False,
              l2_eval_ctx: Optional[Dict] = None,
              tracker: Optional[ClassificationTracker] = None,
-             packed=None) -> Dict[str, Any]:
+             packed=None, mesh=None,
+             sharded_weights: bool = False) -> Dict[str, Any]:
     """Evaluate a split on the model's device.  Returns {loss, top1, top3,
     f1, mcc, cm (optional), l2 (optional)}.  ``packed`` is the kernels'
     weight pack (``pack_fastest``), built here for a tower on the card when
-    not given."""
-    from ..models.fast_vit import encode_image_fastest, pack_fastest
+    not given.  ``mesh``: see the module docstring.  ``sharded_weights``:
+    the model is read through ``Sharding.gathered`` (FSDP's weights
+    gathered whole, tensor-parallel blocks as their shards), so the
+    canonical module encodes, with the tensor-parallel block forward on a
+    model axis > 1 (JAX's ``sharded_weights``); whole weights take the
+    kernels on every rank whatever the mesh's model axis."""
+    from ..models.fast_vit import (encode_fn_sharded, encode_image_fastest,
+                                   pack_fastest)
+    from ..parallel.tensor import tensor_parallel_blocks
 
     config = model.config
     dev = model.logit_scale.device
-    if packed is None and dev.type == "cuda":
+    if packed is None and dev.type == "cuda" and not sharded_weights:
         packed = pack_fastest(model, config, compute_dtype)
     mean, std = normalize_stats_for(config)
     state = M.init_metric_state(num_classes, device=dev)
@@ -63,14 +82,21 @@ def evaluate(model, view: SplitView, text_weights: torch.Tensor,
             return_confusion_matrix=l2_eval_ctx.get(
                 "return_confusion_matrix", False), device=dev)
 
+    def encode(x):
+        if sharded_weights:
+            with tensor_parallel_blocks(model, mesh):
+                return model.encode_image(x, project=True)[1]
+        return encode_image_fastest(model, x, config, project=True,
+                                    packed=packed)[1]
+
     for batch in view.batches():
         imgs = torch.from_numpy(batch.images).to(dev)
         labels = torch.from_numpy(batch.labels).to(dev)
         valid = torch.from_numpy(batch.valid).to(dev)
         x = eval_transform(imgs, resolution, dtype=compute_dtype, mean=mean,
                            std=std)
-        _, feats = encode_image_fastest(model, x, config, project=True,
-                                        packed=packed)
+        feats = encode(x) if mesh is None else encode_fn_sharded(
+            encode, x, mesh)
         feats = feats.float()
         feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         logits = 100.0 * feats @ text_weights

@@ -111,13 +111,18 @@ def lora_merge(params: Mapping[str, torch.Tensor], adapters: Mapping,
 def lora_applied(model: torch.nn.Module, adapters: Mapping, alpha: float):
     """Inside the block, each adapted parameter of ``model`` reads as its
     ``W_eff``; the base parameters are put back on exit (also on error)."""
-    merged = lora_merge({n: model.get_parameter(n) for n in adapters},
+    slots = {}
+    for name in adapters:
+        mod_name, _, attr = name.rpartition(".")
+        slots[name] = (model.get_submodule(mod_name), attr)
+    # the slots' tensors as they read now (a sharded model's whole ones
+    # inside its ``Sharding.gathered`` block)
+    merged = lora_merge({n: m._parameters[a] for n, (m, a) in slots.items()},
                         adapters, alpha)
     swapped = []
     try:
         for name, w_eff in merged.items():
-            mod_name, _, attr = name.rpartition(".")
-            mod = model.get_submodule(mod_name)
+            mod, attr = slots[name]
             swapped.append((mod, attr, mod._parameters[attr]))
             mod._parameters[attr] = w_eff
         yield model

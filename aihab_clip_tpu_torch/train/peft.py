@@ -43,11 +43,26 @@ The rest of JAX's finetune (``peft.py:477-1076``):
   * ``checkpoint_fn``, ``resume_from`` (bit for bit), graceful SIGTERM /
     SIGINT, ``profile_dir`` and a ``StepTimer``.
 
+Under a ``mesh`` (``parallel.make_mesh``: ranks of ``torch.distributed``)
+every rank draws the global batch and its augmentation alike, encodes its
+rows of the data axis, divides its masked cross-entropy sum by the GLOBAL
+valid count (JAX's ``masked_ce_metrics`` sees the whole batch; a mean per
+rank averaged would be wrong whenever the shards hold different valid
+counts, as at a padded last batch), and the gradients are summed over the
+data axis.  A model axis > 1 cuts the blocks' qkv/``c_fc``/``out_proj``/
+``c_proj`` by JAX's TP rules (``parallel/tensor.py``'s block forward; LoRA
+refuses it, the fused prefix is off); ``fsdp`` also cuts every parameter
+over the data axis (gathered for the step, gradients reduce-scattered,
+Adam moments sharded; the fused prefix is off).  Under pure DP the fused
+prefix runs the kernels per rank on its rows (JAX's ``_shard_mapped_
+prefix``).  The ``device_dataset`` regimes are off under a mesh.
+Checkpoints hold whole parameters and Adam moments, so a run resumes at
+any world size.
+
 The port trains the model's parameters in place (JAX returns new arrays).
 Augmentation draws come from a ``torch.Generator`` seeded per (seed, epoch,
 step), so they differ from ``jax.random``'s; the batch order is the JAX
-package's.  ``mesh`` and ``fsdp`` raise ``NotImplementedError`` naming
-ROADMAP A13.
+package's.
 """
 
 from __future__ import annotations
@@ -66,6 +81,9 @@ from ..backend import resolve_device
 from ..data.pipeline import SplitView
 from ..models.siglip import SigLIPConfig
 from ..models.text_head import compute_text_weights
+from ..parallel import comm
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, batch_sharding
+from ..parallel.tensor import tensor_parallel_blocks, tp_local
 from .evaluate import evaluate, masked_ce_metrics
 from .prolip import cosine_lr
 from .tracker import ClassificationTracker
@@ -251,32 +269,25 @@ class PEFTConfig:
     lora_mlp: bool = False
 
 
-# the ROADMAP item that brings each option of the JAX finetune not ported yet
-_UNPORTED = {
-    "mesh": "parallelism, ROADMAP A13",
-    "fsdp": "parallelism, ROADMAP A13",
-}
-
-
-def _check_unported(cfg: PEFTConfig, **options) -> None:
-    """Raise for an option of the JAX finetune this package does not
-    carry yet (every ``PEFTConfig`` field is ported)."""
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"finetune {name}={value!r} is not ported: {_UNPORTED[name]}")
-
-
-def peft_fused_prefix_len(config, unlocked_groups: int, device) -> int:
+def peft_fused_prefix_len(config, unlocked_groups: int, device, mesh=None,
+                          batch_size: Optional[int] = None) -> int:
     """How many bottom visual blocks are frozen under ``unlocked_groups``
     and run through the forward-only kernels (``fast_vit.py:624-671``): 0
-    off the card (JAX: off the TPU) and for SigLIP towers of width <= 1024
-    (a wash on the TPU); otherwise L + 1 - unlocked_groups, clipped to
-    [0, L], L the block count (a ConvNeXt's over all stages).  At
-    ``unlocked_groups=11``: SO400M 17, ViT-B/16 2, ConvNeXt base_w 26."""
+    off the card (JAX: off the TPU), for SigLIP towers of width <= 1024
+    (a wash on the TPU), and under a ``mesh`` with a sharded-weight axis
+    (any axis but ``data`` > 1) or a ``batch_size`` the data axis does not
+    divide (a pure-DP mesh runs the prefix per rank on its rows);
+    otherwise L + 1 - unlocked_groups, clipped to [0, L], L the block
+    count (a ConvNeXt's over all stages).  At ``unlocked_groups=11``:
+    SO400M 17, ViT-B/16 2, ConvNeXt base_w 26."""
     if resolve_device(device).type != "cuda" or not (
             config.is_vit or _is_convnext(config)):
         return 0
+    if mesh is not None:
+        if any(v != 1 for k, v in mesh.shape.items() if k != DATA_AXIS):
+            return 0
+        if batch_size is None or batch_size % mesh.shape[DATA_AXIS]:
+            return 0
     if isinstance(config, SigLIPConfig) and config.vision_width <= 1024:
         return 0
     layers = _visual_blocks(config)
@@ -326,13 +337,21 @@ def _quantize_prefix(model, cfg: PEFTConfig):
             for i in range(cfg.fused_prefix)}
 
 
-def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None):
+def _encode_projected(model, cfg: PEFTConfig, x, pprefix=None,
+                      tp: bool = False):
     """The train step's image encode: the frozen-prefix hybrid when
     ``fused_prefix`` > 0 (``siglip_encode_hybrid``, ``vit_encode_hybrid``
     or ``convnext_encode_hybrid``), the scanned canonical encode with
     ``scan_blocks`` (SigLIP and CLIP ViT towers), the canonical module
     otherwise.  ``pprefix`` is the run's prefix (``_pack_prefix``, or
-    ``_quantize_prefix`` with ``prefix_quant``), built here when absent."""
+    ``_quantize_prefix`` with ``prefix_quant``), built here when absent.
+    Under tensor parallelism (``tp``) the blocks run their tensor-parallel
+    forward in the module, ``scan_blocks`` as its ``remat`` setting."""
+    if tp:
+        from ..models.layers import remat_blocks
+
+        with remat_blocks(model.visual, cfg.scan_blocks and cfg.scan_remat):
+            return model.encode_image(x, project=True)
     if cfg.fused_prefix <= 0:
         if cfg.scan_blocks and isinstance(model.config, SigLIPConfig):
             from ..models.fast_siglip import siglip_encode_scan
@@ -378,10 +397,16 @@ def train_augment(aug_impl: str):
 
 def _build_loss_fn(model, cfg: PEFTConfig,
                    text_weights: Optional[torch.Tensor],
-                   prompt_tokens: Optional[torch.Tensor]):
+                   prompt_tokens: Optional[torch.Tensor], mesh=None,
+                   encode=None):
     """The PEFT objective: augment -> encode -> L2-normalise in fp32 ->
     (recomputed) text head -> masked CE.  ``loss_fn(images_u8, labels,
-    valid, generator, pprefix=None) -> (loss, (correct, n_valid))``."""
+    valid, generator, pprefix=None) -> (loss, (correct, n_valid))``.
+    Under a ``mesh`` the batch and the draws are the global ones on every
+    rank; the rank encodes its rows of the data axis and its loss is its
+    part of the global batch's (the sum over the data axis is the loss).
+    ``encode(x) -> projected features`` replaces the step's own encode
+    (the pipeline step's, over the global batch)."""
     from ..ops.preprocess import normalize_stats_for
 
     nmean, nstd = normalize_stats_for(model.config)
@@ -392,7 +417,18 @@ def _build_loss_fn(model, cfg: PEFTConfig,
                    crop_mode=cfg.crop_mode, flip=cfg.flip,
                    rotation=cfg.rotation, dtype=cfg.compute_dtype,
                    mean=nmean, std=nstd)
-        _, feats = _encode_projected(model, cfg, x, pprefix)
+        count = None
+        if mesh is not None:
+            count = valid.float().sum().clamp_min(1.0)
+            rows = batch_sharding(mesh).rows(x.shape[0])
+            x, labels, valid = x[rows], labels[rows], valid[rows]
+        if encode is not None:
+            feats = encode(x)
+        else:
+            with tensor_parallel_blocks(model, mesh):
+                _, feats = _encode_projected(
+                    model, cfg, x, pprefix,
+                    tp=mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1)
         feats = feats.float()
         feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         if cfg.tune_text:
@@ -400,7 +436,8 @@ def _build_loss_fn(model, cfg: PEFTConfig,
                                      cfg.num_templates)
         else:
             w = text_weights
-        return masked_ce_metrics(100.0 * feats @ w, labels, valid)
+        return masked_ce_metrics(100.0 * feats @ w, labels, valid,
+                                 count=count)
 
     return loss_fn
 
@@ -415,31 +452,64 @@ def _merged(model, cfg: PEFTConfig, adapters):
     return lora_applied(model, adapters, cfg.lora_alpha)
 
 
+def _gathered(model, mesh, sharding, per_block: bool = False):
+    """The context a sharded model is read through: every parameter
+    whole, the tensor-parallel blocks' as their shards (``tp_local``);
+    ``per_block``: each transformer block gathers its own as it runs."""
+    if sharding is None:
+        return contextlib.nullcontext(model)
+    tp = mesh.shape.get(MODEL_AXIS, 1) > 1
+    return sharding.gathered(model, tp_local if tp else None,
+                             per_block=per_block)
+
+
 def make_train_step(model, cfg: PEFTConfig,
                     text_weights: Optional[torch.Tensor],
-                    prompt_tokens: Optional[torch.Tensor], adapters=None):
+                    prompt_tokens: Optional[torch.Tensor], adapters=None,
+                    mesh=None, sharding=None):
     """Returns (opt, step): ``torch.optim.Adam`` over the parameters that
     require a gradient (with ``adapters``, over the LoRA A and B tensors
     alone), and ``step(images_u8, labels, valid, generator, lr,
     pprefix=None) -> {loss, correct, n_valid}`` (device tensors; no host
-    sync), which updates those tensors in place."""
+    sync), which updates those tensors in place.  Under a ``mesh`` every
+    rank passes the global batch; the gradients not reduce-scattered by
+    the ``sharding`` (``parallel.shard_params``) are summed over the data
+    axis, and the metrics are the global batch's."""
     if adapters is None:
-        params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
     else:
-        params = [t for ab in adapters.values() for t in (ab["a"], ab["b"])]
+        named = [(f"{n}.{k}", ab[k]) for n, ab in adapters.items()
+                 for k in ("a", "b")]
+    params = [p for _, p in named]
     opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
-    loss_fn = _build_loss_fn(model, cfg, text_weights, prompt_tokens)
+    loss_fn = _build_loss_fn(model, cfg, text_weights, prompt_tokens, mesh)
+    summed = [p for n, p in named
+              if sharding is None or not sharding.data_sharded(n)]
+    # FSDP's blocks gather their weights one at a time where the encode
+    # runs them through their forward (not the LoRA merge's W_eff, not the
+    # scanned encodes, which read the slots themselves)
+    per_block = adapters is None and not cfg.scan_blocks
 
     def step(images_u8, labels, valid, generator, lr, pprefix=None):
         for group in opt.param_groups:
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        with _merged(model, cfg, adapters):
+        with _gathered(model, mesh, sharding, per_block), \
+                _merged(model, cfg, adapters):
             loss, (correct, n_valid) = loss_fn(images_u8, labels, valid,
                                                generator, pprefix)
         loss.backward()
+        if mesh is not None:
+            comm.all_reduce_grads_(summed, mesh, DATA_AXIS)
         opt.step()
-        return {"loss": loss.detach(), "correct": correct, "n_valid": n_valid}
+        loss = loss.detach()
+        if mesh is not None:
+            both = comm.all_reduce_(torch.stack([loss.float(),
+                                                 correct.float()]),
+                                    mesh, DATA_AXIS)
+            loss, correct = both[0], both[1].to(correct.dtype)
+        return {"loss": loss, "correct": correct, "n_valid": n_valid}
 
     return opt, step
 
@@ -660,13 +730,29 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     continues bit for bit as if it had not stopped.  A SIGTERM or SIGINT
     finishes the current epoch, checkpoints and returns with
     ``interrupted_at_epoch``.  ``profile_dir`` traces the first epoch's
-    first 5 steps (``torch.profiler``, a Chrome trace)."""
-    _check_unported(cfg, mesh=mesh, fsdp=fsdp)
+    first 5 steps (``torch.profiler``, a Chrome trace).
+
+    ``mesh`` (``parallel.make_mesh``, this rank's device the model's) runs
+    the steps and the evaluations over the process group (see the module
+    docstring): every rank calls ``finetune`` with the same views, and the
+    ``checkpoint_fn`` runs on every rank with whole parameters and Adam
+    moments (a caller writes on one).  ``fsdp`` (with a mesh) also shards
+    the parameters and the Adam moments over the data axis.  The model
+    holds whole parameters again when ``finetune`` returns."""
     dev = resolve_device(device)
     on = model.logit_scale.device
     if on.type != dev.type or dev.index not in (None, on.index):
         raise ValueError(f"the model is on {on}, not on {dev}")
     dev = on
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True requires a mesh")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), not "
+                        f"{type(mesh).__name__}")
+    tp = mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"the mesh's device is {mesh.device}, the model "
+                         f"is on {dev}")
     ccfg = model.config
     lora = cfg.lora_rank > 0
     if lora:
@@ -674,8 +760,17 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
             raise ValueError("finetune.resume is not supported with LoRA "
                              "(checkpoints store merged weights, not "
                              "adapters); restart the adapter run instead")
+        if tp:
+            raise ValueError("LoRA does not compose with tensor parallelism "
+                             "(adapter deltas are replicated; base kernels "
+                             "would be column/row-sharded)")
         # the adapters sit on every block: no frozen prefix
         cfg = dataclasses.replace(cfg, fused_prefix=0, prefix_quant=False)
+    if fsdp and cfg.fused_prefix != 0:
+        if verbose:
+            print("[peft] fused_prefix disabled under fsdp (the fused prefix "
+                  "assumes replicated weights)")
+        cfg = dataclasses.replace(cfg, fused_prefix=0)
     n_blocks = _visual_blocks(ccfg)
     mask = build_lock_mask(model, ccfg.vision_layers, ccfg.transformer_layers,
                            unlocked_groups=0 if lora else unlocked_groups,
@@ -683,7 +778,8 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                            unlocked_text_layers=unlocked_text_layers)
     if cfg.fused_prefix < 0:
         cfg = dataclasses.replace(cfg, fused_prefix=peft_fused_prefix_len(
-            ccfg, unlocked_groups, dev))
+            ccfg, unlocked_groups, dev, mesh=mesh,
+            batch_size=train_view.batch_size))
         int8 = cfg.prefix_quant and not _is_convnext(ccfg)
         if verbose and cfg.fused_prefix:
             print(f"[peft] fused frozen-prefix forward: bottom "
@@ -691,8 +787,13 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                   f"forward-only {'int8 ' if int8 else ''}block kernels"
                   + (" (prefix_quant: a ConvNeXt has no int8 prefix, the "
                      "bf16 prefix runs, as in JAX)"
-                     if cfg.prefix_quant and not int8 else ""))
+                     if cfg.prefix_quant and not int8 else "")
+                  + (" (per rank, on its rows of the data axis)"
+                     if mesh is not None else ""))
     elif cfg.fused_prefix > 0:
+        if tp:
+            raise ValueError("finetune.fused_prefix > 0 needs replicated "
+                             "weights: not under tensor parallelism")
         if not (ccfg.is_vit or _is_convnext(ccfg)):
             raise ValueError(
                 "finetune.fused_prefix > 0 requires a ViT-family or "
@@ -736,27 +837,56 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     if not cfg.tune_text and text_weights is None:
         raise ValueError("tune_text=False requires precomputed text_weights")
 
-    opt, step = make_train_step(model, cfg, text_weights, prompt_tokens,
-                                adapters)
-    start_epoch = 0
+    start_epoch, restored = 0, None
     if resume_from is not None:
         from ..utils.checkpointing import load_checkpoint, load_params_into
 
         restored = load_checkpoint(resume_from)
         load_params_into(model, restored["params"])
-        if "opt_state" in restored:
-            opt.load_state_dict(restored["opt_state"])
         start_epoch = int(restored["meta"].get("epoch", 0))
         if verbose:
             print(f"[resume] restored epoch {start_epoch} (params"
                   f"{' + opt state' if 'opt_state' in restored else ''}) "
                   f"from {resume_from}")
+    sharding = None
+    if mesh is not None:
+        from ..parallel.mesh import replicated, shard_params
+
+        # every rank starts from rank 0's weights (and adapters), then
+        # keeps its shards
+        replicated(mesh, *[p.detach() for p in model.parameters()], *(
+            t for ab in (adapters or {}).values() for t in ab.values()))
+        if tp or fsdp:
+            sharding = shard_params(mesh, model, fsdp=fsdp)
+        if verbose:
+            print(f"[parallel] finetune on mesh {mesh.describe()}"
+                  + (", fsdp" if fsdp else ""))
+        if cfg.device_dataset:
+            if verbose:
+                print("[peft] device_dataset disabled under a mesh "
+                      "(per-step loop instead)")
+            cfg = dataclasses.replace(cfg, device_dataset=False)
+    opt, step = make_train_step(model, cfg, text_weights, prompt_tokens,
+                                adapters, mesh=mesh, sharding=sharding)
+    names = ([n for n, p in model.named_parameters() if p.requires_grad]
+             if adapters is None else None)
+    if restored is not None and "opt_state" in restored:
+        opt.load_state_dict(restored["opt_state"] if sharding is None
+                            else sharding.local_opt_state(
+                                restored["opt_state"], names, dev))
     # the frozen prefix's weights, packed (or quantized) once per run,
     # after a resume (the frozen weights never change while training)
     pprefix = _quantize_prefix(model, cfg) or _pack_prefix(model, cfg)
 
+    @contextlib.contextmanager
     def weights():
-        return _merged(model, cfg, adapters)
+        with _gathered(model, mesh, sharding), \
+                _merged(model, cfg, adapters) as m:
+            yield m
+
+    def opt_state():
+        return (opt.state_dict() if sharding is None or lora
+                else sharding.full_opt_state(opt, names))
 
     def current_text_weights():
         if cfg.tune_text:
@@ -772,13 +902,17 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         with torch.no_grad(), weights():
             return evaluate(model, view, current_text_weights(),
                             cfg.resolution, cfg.num_classes,
-                            compute_dtype=cfg.compute_dtype, **kw)
+                            compute_dtype=cfg.compute_dtype, mesh=mesh,
+                            sharded_weights=sharding is not None, **kw)
 
     def current_params():
         if lora:
             from .lora import merged_params
 
-            return merged_params(model, adapters, cfg.lora_alpha)
+            with _gathered(model, mesh, sharding):
+                return merged_params(model, adapters, cfg.lora_alpha)
+        if sharding is not None:
+            return sharding.full_state(model)
         return {n: p.detach() for n, p in model.named_parameters()}
 
     feed = _feed(cfg, train_view, dev)
@@ -859,12 +993,13 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                             and (epoch + 1) % cfg.checkpoint_interval == 0)
             if (checkpoint_fn is not None and periodic
                     and (epoch + 1) < cfg.epochs):
-                checkpoint_fn(current_params(), opt.state_dict(), epoch + 1)
+                checkpoint_fn(current_params(), opt_state(), epoch + 1)
+            if mesh is not None:   # a signal to one rank stops them all
+                interrupted["set"] = comm.any_rank(interrupted["set"], mesh)
             if interrupted["set"]:
                 interrupted["epoch"] = epoch + 1
                 if checkpoint_fn is not None and not periodic:
-                    checkpoint_fn(current_params(), opt.state_dict(),
-                                  epoch + 1)
+                    checkpoint_fn(current_params(), opt_state(), epoch + 1)
                 if verbose:
                     print(f"[peft] interrupted after epoch {epoch + 1}; "
                           "resume with finetune.resume: true", flush=True)
@@ -886,11 +1021,15 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     if timer is not None:
         report["first_epoch_throughput"] = timer.summary()
     report["split_uploads"] = feed.uploads
+    final_opt = opt_state()
+    if sharding is not None:
+        sharding.unshard_(model)
+        sharding = None
     return {
         "val": val_metrics,
         "test": test_metrics,
         "params": current_params(),
-        "opt_state": opt.state_dict(),
+        "opt_state": final_opt,
         "tracker": tracker,
         "report": report,
         "mask": mask,

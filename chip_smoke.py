@@ -470,6 +470,9 @@ def check(ok: bool, msg: str) -> None:
 def main() -> None:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-worker":
+        parallel_worker(sys.argv[2], sys.argv[3])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False — this "
               "script needs one CUDA card", file=sys.stderr)
@@ -951,6 +954,11 @@ def main() -> None:
     tools = tools_path(smi)
     phase("tools path")
 
+    # ---- A13. the parallel paths: one NCCL rank, then two ranks (DP, TP,
+    # FSDP, the pipeline, the DP eval, the sharded cache)
+    parallel = parallel_path(smi)
+    phase("parallel paths")
+
     # ---- 7. kernels line + result
     names = {"vit": "ViT-B/16 engine + DynamicBatcher",
              "vit_off": "ViT-B/16 merge_blocks='off' encode",
@@ -997,6 +1005,8 @@ def main() -> None:
         if counter == "full_block_fused":
             row["runner_launches"] = (runner["prolip_k1_launches"]
                                       + runner["peft_k1_launches"])
+            # the DP step's K1 per rank (the parallel phase's subprocesses)
+            row["parallel_launches"] = parallel["pair"]["k1_per_dp_rank"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": rows, "card": smi, "images_per_s": rates,
                       "int8": int8_figures, "vit_int8": vit_int8_figures,
@@ -1008,7 +1018,7 @@ def main() -> None:
                       "a10": {"vit_b16": a10_vit, "so400m": a10_so},
                       "jpeg": jpeg_figures, "serving": serving_figures,
                       "weights": weights, "resnet": resnet, "a17": a17,
-                      "tools": tools}))
+                      "tools": tools, "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -6857,6 +6867,530 @@ def tools_path(smi: str, dev: str = "cuda") -> dict:
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
+    return figures
+
+
+# ---------------------------------------------------------------------------
+# A13: the parallel paths, on ranks started as subprocesses
+# ---------------------------------------------------------------------------
+
+# the ViT-B/16 default fine-tune step (6c's configuration) per path, each
+# against the single-rank step on the same global batch and draws: loss
+# relative |d| and gradient cosine within VIT_STEP_GATES["plain"] (the
+# spread of one step's bf16 roundings; a parallel step differs from the
+# single rank's only in where its sums are cut and in which order they add;
+# the cosine, summed in fp64, must also not pass 1 + PAR_COS_OVER, which no
+# true cosine does), and the parameters after the step: each element's
+# update is Adam's first step on the path's own gradient, -lr g / (|g| +
+# eps), within PAR_ADAM_TOL lr beyond the fp32 rounding of the parameter
+# (2^-22 |p|; a wrong moment or a shard's update on another's parameter is
+# off by up to 2 lr), and the update's sign agrees with the reference's on
+# PAR_SIGN_MIN of the elements whose reference gradient is above
+# PAR_SIGN_FLOOR of its largest (below that the sign is rounding noise, as
+# the CPU tests found).  On an H100 (PERF.md) the paths disagreed on at
+# most 3.8e-6 of those signs (TP; DP 1.8e-7, FSDP 3.6e-7, the pipeline
+# 6e-8): the limit allows 1e-4, 26 times that; a gradient unrelated to the
+# reference agrees on about half
+PAR_GATE = VIT_STEP_GATES["plain"]
+PAR_COS_OVER, PAR_ADAM_TOL = 1e-9, 1e-3
+PAR_SIGN_MIN, PAR_SIGN_FLOOR = 0.9999, 1e-3
+PAR_STAGES, PAR_MICRO, PAR_UNLOCKED_LAYERS = 2, 4, 10
+PAR_EVAL_N, PAR_CACHE_N = 32, 40
+PAR_TIMEOUTS = {"nccl1": 240, "pair": 480}
+
+
+def _par_flat(tensors) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors])
+
+
+def _par_adam_err(grad, upd, before) -> float:
+    """The largest departure of an update from Adam's first step on its
+    gradient (-lr g / (|g| + 1e-8)), past the fp32 rounding of the
+    parameter, in units of lr (host vectors, summed in fp64)."""
+    g = grad.double()
+    want = -PEFT_LR * g / (g.abs() + 1e-8)
+    err = (upd.double() - want).abs() - 2.0 ** -22 * before.double().abs()
+    return float(err.max().clamp_min(0.0)) / PEFT_LR
+
+
+def _par_compare(tag, got, ref, line) -> dict:
+    """(loss, grad, update, adam_err) of a path against the reference's:
+    the gates above; returns the figures."""
+    import torch
+
+    rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    # fp64 sums: over 85 M elements an fp32 cosine drifts past 1
+    g, r = got["grad"].double(), ref["grad"].double()
+    cos = (g @ r / (g.norm() * r.norm())).item()
+    big = r.abs() > PAR_SIGN_FLOOR * r.abs().max()
+    agree = (torch.sign(got["upd"][big]) == torch.sign(ref["upd"][big])
+             ).double().mean().item()
+    line(f"{tag} vs the single-rank step: loss {got['loss']:.6f} vs "
+         f"{ref['loss']:.6f}, rel |d| {rel:.3e} (limit {PAR_GATE[0]:g}); "
+         f"gradient cosine {cos:.9f} (limits {PAR_GATE[1]:g} to 1 + "
+         f"{PAR_COS_OVER:g}); update sign agreement {agree:.6f} over "
+         f"{int(big.sum())} elements (limit {PAR_SIGN_MIN:g}); update vs "
+         f"Adam's first step on its gradient {got['adam_err']:.3e} lr "
+         f"(limit {PAR_ADAM_TOL:g})")
+    check(rel <= PAR_GATE[0] and PAR_GATE[1] <= cos <= 1 + PAR_COS_OVER,
+          f"{tag}: step gate")
+    check(agree >= PAR_SIGN_MIN and got["adam_err"] <= PAR_ADAM_TOL,
+          f"{tag}: the parameters after the step")
+    return dict(loss_rel=rel, grad_cos=cos, sign_agree=agree,
+                adam_err=got["adam_err"])
+
+
+def parallel_worker(workdir: str, mode: str) -> None:
+    """One rank of the parallel phase (``python3 chip_smoke.py
+    --parallel-worker <dir> <mode>`` under ``spawn_ranks``' environment):
+    ``nccl1``, one NCCL rank (the collectives on the card, a 1-rank mesh's
+    step); ``pair``, two ranks (DP, TP, FSDP, the pipeline, the DP eval,
+    the sharded cache, each against the single rank).  Rank 0 writes
+    ``<dir>/<mode>.json``; a failed gate raises, and the rank exits non-zero."""
+    import os
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from aihab_clip_tpu_torch.cache import (cache_features_from_loader,
+                                            feature_cache_dir,
+                                            read_preprojection_cache)
+    from aihab_clip_tpu_torch.data import SplitView
+    from aihab_clip_tpu_torch.models import build_text_head, load
+    from aihab_clip_tpu_torch.ops import block_kernel as bk
+    from aihab_clip_tpu_torch.parallel import comm
+    from aihab_clip_tpu_torch.parallel.distributed import (
+        initialize_distributed, local_device, process_shard_indices)
+    from aihab_clip_tpu_torch.parallel.mesh import make_mesh
+    from aihab_clip_tpu_torch.parallel.pipeline import make_pipeline_mesh
+    from aihab_clip_tpu_torch.templates import gen_prompts
+    from aihab_clip_tpu_torch.tools.dryrun_multichip import parallel_step
+    from aihab_clip_tpu_torch.train.evaluate import evaluate
+    from aihab_clip_tpu_torch.train.peft import (
+        PEFTConfig, _pack_prefix, build_lock_mask, make_train_step,
+        step_generator)
+    from aihab_clip_tpu_torch.train.pipeline_peft import (
+        init_pipeline_trainable, make_pipeline_train_step,
+        stacked_layer_mask)
+
+    spec = json.loads((Path(workdir) / "spec.json").read_text())
+    smi, backend = spec["smi"], spec["backend"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = local_device(spec["device"])
+    on_card = dev.type == "cuda"
+    dtype = torch.bfloat16 if on_card else torch.float32
+    unlocked, n_prefix = spec["unlocked"], spec["prefix"]
+    if mode == "nccl1":
+        kw = {}
+        if on_card:
+            torch.cuda.set_device(dev)
+            kw["device_id"] = dev
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+            rank=0, world_size=1, **kw)
+    else:
+        initialize_distributed(device=dev, backend=backend)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lines = []
+
+    def line(msg):
+        text = (f"[parallel] {msg} ({dist.get_backend()}, world {world}, "
+                f"rank {rank}; {smi})")
+        lines.append(text)
+        print(text, flush=True)
+
+    from aihab_clip_tpu_torch.models import CLIPConfig
+
+    pristine = load(spec["model"], dtype=dtype, device=dev, seed=SEED,
+                    random_cfg=(CLIPConfig(**spec["config"])
+                                if spec.get("config") else None)).model
+    mcfg = pristine.config
+    layers = mcfg.vision_layers
+    prompts, tpc = gen_prompts(use_hierarchy=True, use_descriptive=True)
+    head = {k: v.clone() if torch.is_tensor(v) else v for k, v in
+            build_text_head(pristine, prompts, 20, tpc).items()}
+    tokens = head["prompt_tokens"]
+    decode = spec["decode"]
+    ds = synthetic_dataset(np.random.default_rng(SEED + 3), PEFT_B, decode)
+    batch = next(SplitView(ds, np.arange(PEFT_B), PEFT_B).batches())
+    imgs, labs, valid = (torch.from_numpy(a).to(dev) for a in (
+        batch.images, batch.labels, batch.valid))
+    cfg = PEFTConfig(resolution=mcfg.image_resolution, num_classes=20,
+                     lr=PEFT_LR, epochs=1, crop_mode="random", rotation=True,
+                     tune_text=True, num_templates=tpc, compute_dtype=dtype,
+                     fused_prefix=0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(step, args, warm=1, n=3):
+        """ms of n steps after warm (CUDA events; the host clock on the
+        CPU rehearsal)."""
+        times = []
+        for i in range(warm + n):
+            if on_card:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            t0 = time.perf_counter()
+            step(*args(i))
+            if on_card:
+                e1.record()
+            sync()
+            if i >= warm:
+                times.append(e0.elapsed_time(e1) if on_card
+                             else 1e3 * (time.perf_counter() - t0))
+        return times
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else 0.0)
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peft_path(tag, mesh=None, fsdp=False, prefix=0):
+        """One step (``parallel_step``: loss, whole gradient, whole update,
+        K1 launches; the vectors kept on the host), then the step's ms and
+        the rank's peak memory over the timed steps (the model, its
+        optimizer state and the steps' working set)."""
+        model = copy.deepcopy(pristine)
+        mask = build_lock_mask(model, layers, mcfg.transformer_layers,
+                               unlocked_groups=unlocked, tune_text=True,
+                               unlocked_text_layers=1)
+        names = [n for n, p in model.named_parameters() if mask[n]]
+        c = dataclasses.replace(cfg, fused_prefix=prefix)
+        pprefix = _pack_prefix(model, c) if prefix else None
+        bk.reset_launch_counts()
+        res = parallel_step(model, c, None, tokens, (imgs, labs, valid),
+                            step_generator(SEED, 0, 0), mesh, fsdp,
+                            pprefix=pprefix)
+        sync()
+        k1 = bk.launch_counts()["full_block_fused"]
+        with torch.no_grad():
+            before = _par_flat(pristine.get_parameter(n) for n in names).cpu()
+            grad = _par_flat(res["grads"][n] for n in names).cpu()
+            upd = _par_flat(res["params"][n] for n in names).cpu() - before
+        step, loss = res["step"], res["loss"]
+        del res
+        adam_err = _par_adam_err(grad, upd, before)
+        del before
+        reset_peak()
+        times = timed(step, lambda i: (imgs, labs, valid,
+                                       step_generator(SEED, 1, i), PEFT_LR,
+                                       pprefix))
+        peak = peak_gib()
+        line(f"{tag}: step median {statistics.median(times):.3f} ms over "
+             f"{len(times)} ({', '.join(f'{t:.2f}' for t in times)}); peak "
+             f"{peak:.2f} GiB this rank; {k1} K1 in the first step")
+        del model, step
+        return dict(loss=loss, grad=grad, upd=upd, adam_err=adam_err, k1=k1,
+                    ms=statistics.median(times), ms_all=times, peak_gib=peak)
+
+    def so400m_dp(mesh):
+        """The SO400M default step under DP (its prefix per rank): K5 and
+        K4 on the 17 frozen blocks, K6 forward and backward on the 10
+        trainable ones, counted per rank; its time and peak."""
+        from aihab_clip_tpu_torch.ops import attention as att
+        from aihab_clip_tpu_torch.train.peft import peft_fused_prefix_len
+
+        sm = load(SL_MODEL, dtype=dtype, device=dev, seed=SEED).model
+        scfg = sm.config
+        stokens = build_text_head(sm, prompts, 20, tpc,
+                                  context_length=scfg.context_length)[
+            "prompt_tokens"]
+        build_lock_mask(sm, scfg.vision_layers, scfg.text_layers,
+                        unlocked_groups=PEFT_UNLOCKED, tune_text=True,
+                        unlocked_text_layers=1)
+        n_pre = peft_fused_prefix_len(scfg, PEFT_UNLOCKED, dev, mesh=mesh,
+                                      batch_size=PEFT_B)
+        c = dataclasses.replace(cfg, resolution=scfg.image_resolution,
+                                fused_prefix=n_pre)
+        pp = _pack_prefix(sm, c)
+        _, step = make_train_step(sm, c, None, stokens, mesh=mesh)
+        bk.reset_launch_counts()
+        att.reset_launch_counts()
+        sm_m = step(imgs, labs, valid, step_generator(SEED, 0, 0), PEFT_LR,
+                    pp)
+        sync()
+        got = {**bk.launch_counts(), **att.launch_counts()}
+        got = {k: got[k] for k in ("attn_block_split", "mlp_block_split",
+                                   "fused_attention_fwd",
+                                   "fused_attention_bwd")}
+        n_suf = scfg.vision_layers - PEFT_PREFIX
+        check(n_pre == PEFT_PREFIX and got == {
+            "attn_block_split": PEFT_PREFIX, "mlp_block_split": PEFT_PREFIX,
+            "fused_attention_fwd": n_suf, "fused_attention_bwd": n_suf},
+            f"SO400M DP launches per rank {got}")
+        reset_peak()
+        times = timed(step, lambda i: (imgs, labs, valid,
+                                       step_generator(SEED, 1, i), PEFT_LR,
+                                       pp), n=2)
+        peak = peak_gib()
+        line(f"SO400M DP 2 step (prefix {n_pre} per rank): launches this "
+             f"rank {got}; loss {float(sm_m['loss']):.6f}; step median "
+             f"{statistics.median(times):.3f} ms ({', '.join(f'{t:.2f}' for t in times)}); "
+             f"peak {peak:.2f} GiB")
+        return dict(launches=got, ms=statistics.median(times),
+                    ms_all=times, peak_gib=peak, loss=float(sm_m["loss"]))
+
+    out = {"backend": dist.get_backend(), "world": world, "rank": rank}
+    if mode == "nccl1":
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        dist.all_reduce(x)
+        dist.broadcast(x, 0)
+        g = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(g, x)
+        r = torch.empty(8, device=dev)
+        dist.reduce_scatter_tensor(r, x)
+        dist.barrier()
+        check(torch.equal(g, x) and torch.equal(r, x), "NCCL collectives")
+        line("NCCL init, all_reduce, broadcast, all_gather, "
+             "reduce_scatter and barrier on the card")
+        ref = peft_path("single-rank step (K1 prefix)", prefix=n_prefix)
+        got = peft_path("1-rank mesh step (K1 prefix)",
+                        make_mesh(device=dev), prefix=n_prefix)
+        out["mesh1"] = _par_compare("1-rank mesh step", got, ref, line)
+        out["mesh1"]["bitwise"] = bool(torch.equal(got["grad"], ref["grad"])
+                                       and got["loss"] == ref["loss"])
+        out["ms"] = {"single": ref["ms"], "mesh1": got["ms"]}
+    else:
+        dp_mesh = make_mesh(device=dev)
+        tp_mesh = make_mesh(model_parallel=2, device=dev)
+        ref = canon = None
+        if rank == 0:
+            ref = peft_path("single-rank step (K1 prefix)", prefix=n_prefix)
+            canon = peft_path("single-rank step (canonical, no prefix)")
+        dp = peft_path("DP 2 (K1 prefix per rank)", dp_mesh, prefix=n_prefix)
+        check(dp["k1"] == (n_prefix if on_card else 0),
+              f"DP: {dp['k1']} K1 per rank")
+        tp = peft_path("TP 2 (Megatron halves; no prefix)", tp_mesh)
+        check(tp["k1"] == 0, "TP launched K1")
+        fsdp = peft_path("FSDP 2 (no prefix)", dp_mesh, fsdp=True)
+        peaks = comm.all_gather_cat(torch.tensor(
+            [dp["peak_gib"], tp["peak_gib"], fsdp["peak_gib"]], device=dev),
+            dp_mesh, "data", 0).view(world, 3).tolist()
+        k1s = comm.all_gather_cat(torch.tensor([float(dp["k1"])], device=dev),
+                                  dp_mesh, "data", 0).tolist()
+        if rank == 0:
+            out["dp"] = _par_compare("DP 2", dp, ref, line)
+            out["tp"] = _par_compare("TP 2", tp, canon, line)
+            out["fsdp"] = _par_compare("FSDP 2", fsdp, canon, line)
+            out["fsdp_vs_dp"] = _par_compare("FSDP 2 (against DP 2)", fsdp,
+                                             dp, line)
+            out["ms"] = {k: v["ms"] for k, v in (
+                ("single", ref), ("single_canonical", canon), ("dp", dp),
+                ("tp", tp), ("fsdp", fsdp))}
+            out["ms_all"] = {k: v["ms_all"] for k, v in (
+                ("single", ref), ("dp", dp), ("tp", tp), ("fsdp", fsdp))}
+            out["peak_gib"] = {"dp": [p[0] for p in peaks],
+                               "tp": [p[1] for p in peaks],
+                               "fsdp": [p[2] for p in peaks],
+                               "single": ref["peak_gib"]}
+            out["k1_per_dp_rank"] = k1s
+            line(f"per-rank peak memory GiB: DP {out['peak_gib']['dp']}, TP "
+                 f"{out['peak_gib']['tp']}, FSDP {out['peak_gib']['fsdp']} "
+                 f"(single rank {ref['peak_gib']:.2f}); K1 per DP rank per "
+                 f"step {k1s}")
+        del ref, canon, dp, tp, fsdp
+
+        # the pipeline: 2 stages x 4 microbatches against the unpipelined
+        # canonical step (every rank holds the reference for its stage)
+        pcfg = dataclasses.replace(cfg, tune_text=False)
+        tw = head["text_weights"]
+        model = copy.deepcopy(pristine)
+        build_lock_mask(model, layers, mcfg.transformer_layers,
+                        unlocked_groups=PAR_UNLOCKED_LAYERS + 1)
+        _, rstep = make_train_step(model, pcfg, tw, None)
+        rm = rstep(imgs, labs, valid, step_generator(SEED, 0, 0), PEFT_LR)
+        pmesh = make_pipeline_mesh(PAR_STAGES, device=dev)
+        stage, per = pmesh.coords["stage"], layers // PAR_STAGES
+        pmodel = copy.deepcopy(pristine)
+        trainable = init_pipeline_trainable(pmodel, mcfg, pmesh)
+        before = {k: v.detach().clone()
+                  for k, v in trainable["blocks"].items()}
+        _, pstep = make_pipeline_train_step(
+            pmodel, pcfg, tw, None, pmesh, num_microbatches=PAR_MICRO,
+            unlocked_layers=PAR_UNLOCKED_LAYERS, trainable=trainable)
+        comm.staged.clear()
+        pm = pstep(imgs, labs, valid, step_generator(SEED, 0, 0), PEFT_LR)
+        sync()
+        mask = stacked_layer_mask(layers, PAR_STAGES,
+                                  PAR_UNLOCKED_LAYERS)[stage]
+        blocks = model.visual.transformer.resblocks
+        keys = list(trainable["blocks"])
+        live = [i for i in range(per) if mask[i]]
+        got = dict(loss=float(pm["loss"]),
+                   grad=_par_flat(trainable["blocks"][k].grad[i]
+                                  for i in live for k in keys).cpu(),
+                   upd=_par_flat(trainable["blocks"][k][i] - before[k][i]
+                                 for i in live for k in keys).cpu())
+        got["adam_err"] = _par_adam_err(got["grad"], got["upd"], _par_flat(
+            before[k][i] for i in live for k in keys).cpu())
+        refp = dict(loss=float(rm["loss"]),
+                    grad=_par_flat(blocks[stage * per + i].get_parameter(
+                        k).grad for i in live for k in keys).cpu(),
+                    upd=_par_flat(
+                        blocks[stage * per + i].get_parameter(k)
+                        - pristine.visual.transformer.resblocks[
+                            stage * per + i].get_parameter(k)
+                        for i in live for k in keys).cpu())
+        locked_same = all(torch.equal(trainable["blocks"][k][i],
+                                      before[k][i])
+                          for i in range(per) if not mask[i] for k in keys)
+        check(locked_same, "pipeline: a locked layer moved")
+        staged = dict(comm.staged)
+        del model, rstep, before
+        reset_peak()
+        times = timed(pstep, lambda i: (imgs, labs, valid,
+                                        step_generator(SEED, 1, i), PEFT_LR))
+        ppeak = peak_gib()
+        line(f"pipeline {PAR_STAGES} stages x {PAR_MICRO} microbatches, stage "
+             f"{stage} ({len(live)} of {per} layers trainable): step median "
+             f"{statistics.median(times):.3f} ms ({', '.join(f'{t:.2f}' for t in times)}); "
+             f"peak {ppeak:.2f} GiB; locked layers bit-identical; host-staged "
+             f"ops in one step {staged}")
+        pipe = _par_compare(f"pipeline stage {stage}", got, refp, line)
+        flags = comm.all_gather_cat(torch.tensor(
+            [pipe["loss_rel"], pipe["grad_cos"], pipe["sign_agree"],
+             statistics.median(times), ppeak], device=dev), dp_mesh, "data",
+            0).view(world, 5).tolist()
+        del pmodel, trainable, pstep
+
+        # the DP eval of 2 batches: every rank's confusion matrix is the
+        # single rank's
+        eds = synthetic_dataset(np.random.default_rng(SEED + 4), PAR_EVAL_N,
+                                decode)
+        eview = SplitView(eds, np.arange(PAR_EVAL_N), PEFT_B)
+        emodel = copy.deepcopy(pristine)
+        with torch.no_grad():
+            bk.reset_launch_counts()
+            t0 = time.perf_counter()
+            got_e = evaluate(emodel, eview, head["text_weights"],
+                             mcfg.image_resolution, 20, compute_dtype=dtype,
+                             return_confusion_matrix=True, mesh=dp_mesh)
+            sync()
+            eval_s = time.perf_counter() - t0
+            ek1 = bk.launch_counts()["full_block_fused"]
+            ref_e = (evaluate(emodel, eview, head["text_weights"],
+                              mcfg.image_resolution, 20, compute_dtype=dtype,
+                              return_confusion_matrix=True)
+                     if rank == 0 else None)
+        del emodel
+
+        # the sharded cache: every rank writes its shard; rank 0 reads the
+        # merged set against its own unsharded write
+        cds = synthetic_dataset(np.random.default_rng(SEED + 5), PAR_CACHE_N,
+                                decode)
+        cview = SplitView(cds, np.arange(PAR_CACHE_N), PEFT_B)
+        ccfg = {"dataset": "par", "seed": 1, "shots": 0, "aug_views": 2,
+                "aug_impl": "fast", "backbone": "ViT-B/16",
+                "clip_backend": "openai", "root_path": str(Path(workdir) /
+                                                           "sharded"),
+                "data": {"preprocessing": {"augmentations": {
+                    "bottom_crop": False, "random_crop": False,
+                    "flip": False, "rotation": False}}}}
+        t0 = time.perf_counter()
+        cache_features_from_loader(ccfg, pristine, cview,
+                                   mcfg.image_resolution,
+                                   {"train_size": PAR_CACHE_N},
+                                   compute_dtype=dtype)
+        sync()
+        cache_s = time.perf_counter() - t0
+        dist.barrier()
+        if rank == 0:
+            check(np.array_equal(got_e["cm"], ref_e["cm"]),
+                  "DP eval confusion matrix")
+            line(f"DP eval of {PAR_EVAL_N} images in {PEFT_B}-image batches: "
+                 f"confusion matrix equal to the single rank's (top1 "
+                 f"{got_e['top1']:.4f}, loss {got_e['loss']:.6f} vs "
+                 f"{ref_e['loss']:.6f}); {ek1} K1 this rank; {eval_s:.3f} s")
+            views, labels = read_preprojection_cache(
+                feature_cache_dir(ccfg), 2, mmap=False)
+            ucfg = dict(ccfg, root_path=str(Path(workdir) / "unsharded"))
+            cache_features_from_loader(ucfg, pristine, cview,
+                                       mcfg.image_resolution,
+                                       {"train_size": PAR_CACHE_N},
+                                       compute_dtype=dtype, shard_count=1)
+            uviews, ulabels = read_preprojection_cache(
+                feature_cache_dir(ucfg), 2, mmap=False)
+            order = np.concatenate([process_shard_indices(
+                PAR_CACHE_N, seed=1, process_index=k, process_count=world)
+                for k in range(world)])
+            same = np.array_equal(labels, ulabels[order]) and all(
+                np.array_equal(a, b[order]) for a, b in zip(views, uviews))
+            check(same, "the merged sharded cache vs the unsharded write")
+            line(f"sharded cache, {PAR_CACHE_N} images x 2 views in {world} "
+                 f"shards ({cache_s:.3f} s this rank): the merged read equals "
+                 f"the unsharded write bit for bit")
+            out["pipeline"] = {"per_stage": flags, "staged_ops": staged,
+                               "locked_bit_identical": locked_same}
+            out["ms"]["pipeline"] = [f[3] for f in flags]
+            out["peak_gib"]["pipeline"] = [f[4] for f in flags]
+            out["eval"] = {"cm_equal": True, "k1_rank0": ek1,
+                           "seconds": eval_s}
+            out["cache"] = {"bit_for_bit": True, "seconds_rank0": cache_s}
+        del pristine
+        if spec.get("so400m", True):
+            out["so400m_dp"] = so400m_dp(dp_mesh)
+    out["lines"] = lines
+    out["staged"] = dict(comm.staged)
+    if rank == 0:
+        (Path(workdir) / f"{mode}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_path(smi: str, dev: str = "cuda", **spec) -> dict:
+    """The parallel phase: one NCCL rank, then two ranks, each launched as
+    subprocesses with a hard timeout (a rank that fails or hangs fails the
+    phase).  With two or more cards the pair is one NCCL rank a card; with
+    one card both ranks share it over gloo (NCCL refuses two ranks on one
+    device), so the pair measures correctness and per-rank memory, not
+    scaling.  ``dev="cpu"`` (with a small ``model``, ``unlocked``,
+    ``prefix`` 0 and ``decode``) rehearses the phase on gloo CPU ranks."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from aihab_clip_tpu_torch.parallel.distributed import spawn_ranks
+
+    spec = dict(dict(model="random:ViT-B/16", unlocked=PEFT_UNLOCKED,
+                     prefix=VIT_PEFT_PREFIX, decode=PEFT_DECODE), **spec)
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+    shared = cards < 2
+    backend = "gloo" if shared else "nccl"
+    figures = {"cards": cards, "pair_backend": backend,
+               "pair_shares_one_card": shared}
+    with tempfile.TemporaryDirectory(prefix="aihab_par_") as workdir:
+        (Path(workdir) / "spec.json").write_text(json.dumps(
+            dict(spec, smi=smi, backend=backend, device=dev)))
+        for mode, n in (("nccl1", 1), ("pair", 2)):
+            t0 = time.perf_counter()
+            outs = spawn_ranks([__file__, "--parallel-worker", workdir, mode],
+                               n, PAR_TIMEOUTS[mode],
+                               one_device=mode == "nccl1" or shared)
+            for r, text in enumerate(outs):
+                for ln in text.splitlines():
+                    if ln.startswith("[parallel]") and (r == 0 or "stage" in ln):
+                        print(ln)
+            figures[mode] = json.loads((Path(workdir) / f"{mode}.json")
+                                       .read_text())
+            figures[mode]["wall_s"] = time.perf_counter() - t0
+            print(f"[parallel] {mode}: {n} rank(s) in "
+                  f"{figures[mode]['wall_s']:.1f} s ({smi})")
+    if shared:
+        print(f"[parallel] the pair shared one card over gloo: its times and "
+              f"memory read correctness and per-rank memory, not scaling "
+              f"({smi})")
     return figures
 
 

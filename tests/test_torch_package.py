@@ -42,6 +42,38 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "aihab_clip_tpu_torch.parallel", "aihab_clip_tpu_torch.parallel.comm",
+    "aihab_clip_tpu_torch.parallel.pipeline",
+    "aihab_clip_tpu_torch.train.pipeline_peft",
+    "aihab_clip_tpu_torch.tools.dryrun_multichip"])
+def test_parallel_modules_leave_jax_out(module):
+    """The parallel paths, imported alone, pull in no JAX and nothing of
+    the JAX package."""
+    assert module in MODULES
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\nsys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_entry_points_refuse_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from aihab_clip_tpu_torch.parallel.distributed import (
+        initialize_distributed, local_device)
+    from aihab_clip_tpu_torch.tools import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        local_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed("127.0.0.1:1", num_processes=2, process_id=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip.main([])
+
+
 def _imports(tree):
     """(import node, names, inside a function) for every import."""
     def walk(node, in_fn):

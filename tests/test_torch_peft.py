@@ -2,8 +2,8 @@
 lock masks (CLIP and SigLIP, including SigLIP's text-head group quirk) and
 a two-epoch ``finetune`` trail; plus the pieces around them (data view,
 schedule, objective tail, tracker), the scanned encodes and ``remat``
-(forward and gradients against JAX's), and the options this package does
-not carry yet (``mesh``, ``fsdp``).  The hybrid encode and the train objective:
+(forward and gradients against JAX's), and the refusals of ``mesh`` and
+``fsdp`` (their paths: ``tests/test_torch_parallel*.py``).  The hybrid encode and the train objective:
 ``tests/test_torch_peft_step.py``."""
 
 import dataclasses
@@ -286,11 +286,16 @@ def test_fused_prefix_length_matches_jax_on_the_accelerator(monkeypatch):
     ({}, {"mesh": object()}), ({}, {"fsdp": True}),
 ])
 def test_unported_options_raise(siglip_tiny, change, kwargs):
+    """``mesh`` and ``fsdp`` are ported (``tests/test_torch_parallel*.py``):
+    a mesh that is not ``parallel.make_mesh``'s, and ``fsdp`` without a
+    mesh, raise as JAX's finetune does."""
     model = siglip_tiny[2]
     ds = _dataset(ImageArrayDataset, n=8)
     cfg = peft.PEFTConfig(resolution=32, num_classes=20, lr=1e-3, epochs=1,
                           **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((TypeError, "make_mesh") if "mesh" in kwargs
+                    else (ValueError, "fsdp=True requires a mesh"))
+    with pytest.raises(error, match=match):
         peft.finetune(model, SplitView(ds, np.arange(8), 4), None, None, cfg,
                       text_weights=torch.zeros(64, 20), device="cpu",
                       verbose=False, **kwargs)

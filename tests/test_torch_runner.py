@@ -143,9 +143,10 @@ UNPORTED = [
     ({"aug_impl": "exact"}, "A7"),
     ({"parallel": {"enabled": True}}, "A13"),
 ]
-# the items of UNPORTED ported since (A7b: the exact train augment): their
-# branch now runs
-PORTED_SINCE = {"A7"}
+# the items of UNPORTED ported since (A7b: the exact train augment; A13:
+# parallelism, which without a process group refuses parallel.enabled:
+# true): their branch now runs
+PORTED_SINCE = {"A7", "A13"}
 
 
 @pytest.mark.parametrize("opts,item", UNPORTED, ids=lambda o: str(o)[:40])
@@ -164,6 +165,12 @@ def test_unported_branches_raise(base_cfg, opts, item, monkeypatch):
         node[leaf] = value
     if item not in PORTED_SINCE:
         with pytest.raises(NotImplementedError, match=item):
+            run(cfg, device="cpu")
+        return
+    if item == "A13":
+        # one process: the mesh needs a torch.distributed process group
+        # (the 2-rank run: tests/test_torch_parallel_runner.py)
+        with pytest.raises(RuntimeError, match="process group"):
             run(cfg, device="cpu")
         return
     calls = []
@@ -248,7 +255,9 @@ def test_cache_refusals(base_cfg):
     cfg = base_cfg.clone()
     cfg.save_features = True
     cfg.cache_shard_count = 2
-    with pytest.raises(NotImplementedError, match="A13"):
+    # one process writes shard 0 of 2 (A13, JAX's rule); the read refuses
+    # the incomplete shard set
+    with pytest.raises(RuntimeError, match="writer fleet had 2"):
         run(cfg, device="cpu")
     cfg = base_cfg.clone()
     cfg.save_features = True
