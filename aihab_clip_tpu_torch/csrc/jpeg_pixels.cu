@@ -1,19 +1,26 @@
 // Hopper (sm_90a) kernels of the fast JPEG decode's pixel stage
 // (ops/jpeg.py), after the host's Huffman decode (csrc/jpeg_entropy.cpp).
 // No TPU kernel stands behind them: the JAX package decodes with libjpeg on
-// the host (native/image_pipeline.cpp:58-111).  Both are integer
-// arithmetic, bit for bit with data/decode.py, which is libjpeg's.
+// the host (native/image_pipeline.cpp:58-111).  All are integer arithmetic,
+// bit for bit with data/decode.py, which is libjpeg's.
 //
 // J1 jpeg_idct: every block of every photo of a batch, one thread a block:
-//   dequantize (int16 coefficient x uint16 table, in int64: a coefficient
-//   of 32767 times a 16-bit table entry times 25,172 passes 2^45), then
-//   libjpeg's islow IDCT (jidctint.c, s = 8) or its reduced IDCTs
-//   (jidctred.c: 4x4, 2x2, 1x1) with their descales, range-limited through
-//   libjpeg's wrapping table, into the component's block-padded plane.
-//   The coefficients arrive packed: only the 64 / 49 / 25 / 1 that the IDCT
-//   of size s reads.  A segment table (one row per photo and component)
-//   gives each run of blocks its offsets, size and table; a thread finds
-//   its segment by binary search over the rows' first blocks.
+//   dequantize (int16 coefficient x uint16 table), then libjpeg's islow
+//   IDCT (jidctint.c, s = 8) or its reduced IDCTs (jidctred.c: 4x4, 2x2,
+//   1x1) with their descales, as libjpeg-turbo runs them on x86: its SIMD
+//   forms for s = 8, 4, 2 hold the dequantized inputs in int16 lanes
+//   (islow also adds c0 +- c4, c7 + c3, c5 + c1 in 16 bits) and their sums
+//   in int32 lanes, saturate the first pass's outputs to int16 (but for
+//   the 2x2's column 0) and the outputs to 0..255, and the islow and 4x4
+//   take a block with no AC rows through a shortcut (each column's DC
+//   times 4, in 16 bits); its C 1x1 range-limits through libjpeg's
+//   wrapping table.  Otherwise exact in int64, so on any photo's
+//   coefficients these are the C routines' pixels.  The
+//   coefficients arrive packed: only the 64 / 49 / 25 / 1 that the IDCT of
+//   size s reads (the 4x4's followed by the flag of its zero test).  A
+//   segment table (one row per photo and component) gives each run of
+//   blocks its offsets, size and table; a thread finds its segment by
+//   binary search over the rows' first blocks.
 //   Bound: bytes (the packed coefficients read, the planes written; the
 //   arithmetic is ~700 integer operations a block).
 //
@@ -26,9 +33,12 @@
 //   replication) and the three go through libjpeg's fixed-point YCbCr ->
 //   RGB (SCALEBITS 16).  Only the samples the resize reads are computed: a
 //   12 MP photo resized to 224 touches ~4 x 224^2 of its 12 M pixels.
+//   Its instance for four components (FOUR) takes Adobe CMYK, or YCCK
+//   through libjpeg's ycck_cmyk_convert (255 minus the YCbCr -> RGB of the
+//   first three), then cv2's CMYK -> BGR (k - ((255 - c) * k >> 8)).
 //   Bound: bytes (the output, and the plane samples the taps read).
 //
-// Both launch once for a whole batch of photos and take their layouts from
+// They launch once for a whole batch of photos and take their layouts from
 // tables the wrapper builds (ops/jpeg.py plan_batch).  Interface: plain C
 // functions, loaded with ctypes; each launches on the stream it is given,
 // allocates nothing and returns cudaGetLastError().
@@ -44,10 +54,10 @@ constexpr int kThreads = 256;
 // ops/jpeg.py's table layouts
 enum { SEG_COEF = 0, SEG_PLANE, SEG_BW, SEG_NB, SEG_S, SEG_QT, SEG_FIRST, SEG_FIELDS = 8 };
 enum { PH_OUT = 0, PH_NCOMP, PH_COLOR, PH_ORIENT, PH_W, PH_H, PH_SLOT, SLOT_FIELDS = 7 };
-constexpr int PH_FIELDS = PH_SLOT + 3 * SLOT_FIELDS;
+constexpr int PH_FIELDS = PH_SLOT + 4 * SLOT_FIELDS;
 enum { SL_OFF = 0, SL_STRIDE, SL_DW, SL_DH, SL_HR, SL_VR, SL_MODE };
 enum { MODE_NONE = 0, MODE_BOX, MODE_H2V1, MODE_H1V2, MODE_H2V2 };
-enum { COLOR_YCC = 0, COLOR_RGB, COLOR_GRAY };
+enum { COLOR_YCC = 0, COLOR_RGB, COLOR_GRAY, COLOR_CMYK, COLOR_YCCK };
 
 // jidctint.c / jidctred.c constants (CONST_BITS 13)
 constexpr long long F0_211 = 1730, F0_298 = 2446, F0_390 = 3196, F0_509 = 4176,
@@ -57,26 +67,43 @@ constexpr long long F0_211 = 1730, F0_298 = 2446, F0_390 = 3196, F0_509 = 4176,
                     F1_961 = 16069, F2_053 = 16819, F2_172 = 17799, F2_562 = 20995,
                     F3_072 = 25172, F3_624 = 29692;
 
+// x wrapped to int16 or int32, and saturated to int16, as SIMD lanes hold it
+__device__ __forceinline__ long long wrap16(long long x) {
+  return static_cast<long long>(static_cast<int16_t>(static_cast<uint16_t>(x & 0xFFFF)));
+}
+__device__ __forceinline__ long long wrap32(long long x) {
+  return static_cast<long long>(static_cast<int32_t>(static_cast<uint32_t>(x & 0xFFFFFFFF)));
+}
+__device__ __forceinline__ long long sat16(long long x) {
+  return x < -32768 ? -32768 : (x > 32767 ? 32767 : x);
+}
+// an output sample saturated to 0..255 (packsswb, then + 128)
+__device__ __forceinline__ uint8_t sat_sample(long long x) {
+  return static_cast<uint8_t>((x < -128 ? -128 : (x > 127 ? 127 : x)) + 128);
+}
+
 // libjpeg's range-limit table, indexed by x & 1023
 __device__ __forceinline__ uint8_t range_limit(long long x) {
   const int i = static_cast<int>(x & 1023);
   return static_cast<uint8_t>(i < 128 ? i + 128 : (i < 512 ? 255 : (i < 896 ? 0 : i - 896)));
 }
 
-// jpeg_idct_islow's 1-D pass (before its descale)
+// jpeg_idct_islow's 1-D pass (before its descale), with the SIMD form's
+// 16-bit sums c0 +- c4, c7 + c3 and c5 + c1
 __device__ __forceinline__ void islow_1d(const long long* c, long long* o) {
   const long long z1e = (c[2] + c[6]) * F0_541;
   const long long tmp2 = z1e - c[6] * F1_847;
   const long long tmp3 = z1e + c[2] * F0_765;
-  const long long tmp0 = (c[0] + c[4]) * 8192;
-  const long long tmp1 = (c[0] - c[4]) * 8192;
+  const long long tmp0 = wrap16(c[0] + c[4]) * 8192;
+  const long long tmp1 = wrap16(c[0] - c[4]) * 8192;
   const long long t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
   const long long a0 = c[7], a1 = c[5], a2 = c[3], a3 = c[1];
-  const long long z5 = (a0 + a2 + a1 + a3) * F1_175;
+  const long long z3w = wrap16(a0 + a2), z4w = wrap16(a1 + a3);
+  const long long z5 = (z3w + z4w) * F1_175;
   const long long z1 = -(a0 + a3) * F0_899;
   const long long z2 = -(a1 + a2) * F2_562;
-  const long long z3 = -(a0 + a2) * F1_961 + z5;
-  const long long z4 = -(a1 + a3) * F0_390 + z5;
+  const long long z3 = -z3w * F1_961 + z5;
+  const long long z4 = -z4w * F0_390 + z5;
   const long long o0 = a0 * F0_298 + z1 + z3;
   const long long o1 = a1 * F2_053 + z2 + z4;
   const long long o2 = a2 * F3_072 + z2 + z3;
@@ -122,6 +149,11 @@ __device__ void idct_block(const int16_t* __restrict__ cf, const uint16_t* __res
     constexpr int D1 = S == 8 ? 11 : (S == 4 ? 12 : 13);  // pass-1 descale
     constexpr int D2 = S == 8 ? 18 : (S == 4 ? 19 : 20);  // pass-2 descale
     constexpr int K = S == 8 ? 8 : (S == 4 ? 7 : 5);       // packed row length
+    // the SIMD islow and 4x4 test the AC rows for zero (the 4x4's column 4,
+    // which the packing drops, through its 50th value); with none, pass 1
+    // is the DC x 4
+    bool flat = S != 2;
+    for (int i = K; i < (S == 4 ? 50 : K * K) && flat; ++i) flat = cf[i] == 0;
     long long ws[S][8];
 #pragma unroll
     for (int x = 0; x < 8; ++x) {
@@ -131,18 +163,27 @@ __device__ void idct_block(const int16_t* __restrict__ cf, const uint16_t* __res
         for (int r = 0; r < S; ++r) ws[r][x] = 0;
         continue;
       }
+      if (flat) {
+        const long long dc = wrap16(wrap16(static_cast<long long>(cf[px]) * q[x]) * 4);
+#pragma unroll
+        for (int r = 0; r < S; ++r) ws[r][x] = dc;
+        continue;
+      }
       long long in[8];
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int pr = S == 8 ? r : (S == 4 ? pack4(r) : pack2(r));
-        in[r] = pr < 0 ? 0 : static_cast<long long>(cf[pr * K + px]) * q[r * 8 + x];
+        in[r] = pr < 0 ? 0 : wrap16(static_cast<long long>(cf[pr * K + px]) * q[r * 8 + x]);
       }
       long long o[8];
       if constexpr (S == 8) islow_1d(in, o);
       else if constexpr (S == 4) red4_1d(in, o);
       else red2_1d(in, o);
 #pragma unroll
-      for (int r = 0; r < S; ++r) ws[r][x] = (o[r] + (1LL << (D1 - 1))) >> D1;
+      for (int r = 0; r < S; ++r) {
+        const long long v = wrap32(o[r] + (1LL << (D1 - 1))) >> D1;
+        ws[r][x] = S == 2 && x == 0 ? v : sat16(v);
+      }
     }
 #pragma unroll
     for (int y = 0; y < S; ++y) {
@@ -152,7 +193,7 @@ __device__ void idct_block(const int16_t* __restrict__ cf, const uint16_t* __res
       else red2_1d(ws[y], o);
 #pragma unroll
       for (int x = 0; x < S; ++x) {
-        out[y * stride + x] = range_limit((o[x] + (1LL << (D2 - 1))) >> D2);
+        out[y * stride + x] = sat_sample(wrap32(o[x] + (1LL << (D2 - 1))) >> D2);
       }
     }
   }
@@ -178,7 +219,7 @@ jpeg_idct_kernel(const int16_t* __restrict__ coef, const uint16_t* __restrict__ 
     const long long stride = bw * s;
     uint8_t* out = planes + sg[SEG_PLANE] + (b / bw) * s * stride + (b % bw) * s;
     const uint16_t* q = qt + sg[SEG_QT] * 64;
-    const int k = s == 8 ? 64 : (s == 4 ? 49 : (s == 2 ? 25 : 1));
+    const int k = s == 8 ? 64 : (s == 4 ? 50 : (s == 2 ? 25 : 1));
     const int16_t* cf = coef + sg[SEG_COEF] + b * k;
     switch (s) {
       case 8: idct_block<8>(cf, q, out, stride); break;
@@ -224,7 +265,18 @@ __device__ __forceinline__ int sample(const uint8_t* __restrict__ planes,
   }
 }
 
+__device__ __forceinline__ int clamp255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
+
+// libjpeg's fixed-point YCbCr -> RGB (build_ycc_rgb_table, SCALEBITS 16)
+__device__ __forceinline__ void ycc_rgb(int y, int c2, int c3, int* px) {
+  const int cb = c2 - 128, cr = c3 - 128;
+  px[0] = clamp255(y + ((91881 * cr + 32768) >> 16));
+  px[1] = clamp255(y + ((-22554 * cb - 46802 * cr + 32768) >> 16));
+  px[2] = clamp255(y + ((116130 * cb + 32768) >> 16));
+}
+
 // the upright RGB pixel at oriented position (r, c) of the photo `row`
+template <bool FOUR>
 __device__ __forceinline__ void rgb_at(const uint8_t* __restrict__ planes,
                                        const long long* __restrict__ row, long long r,
                                        long long c, int* px) {
@@ -237,25 +289,29 @@ __device__ __forceinline__ void rgb_at(const uint8_t* __restrict__ planes,
   const long long ru = transposed ? c1 : r1, cu = transposed ? r1 : c1;
   const int color = static_cast<int>(row[PH_COLOR]);
   const int y = sample(planes, row + PH_SLOT, ru, cu);
-  if (color == COLOR_GRAY) {
+  if (!FOUR && color == COLOR_GRAY) {
     px[0] = px[1] = px[2] = y;
     return;
   }
   const int c2 = sample(planes, row + PH_SLOT + SLOT_FIELDS, ru, cu);
   const int c3 = sample(planes, row + PH_SLOT + 2 * SLOT_FIELDS, ru, cu);
-  if (color == COLOR_RGB) {
+  if constexpr (FOUR) {
+    const int k = sample(planes, row + PH_SLOT + 3 * SLOT_FIELDS, ru, cu);
+    int cmy[3] = {y, c2, c3};
+    if (color == COLOR_YCCK) {  // ycck_cmyk_convert
+      int rgb[3];
+      ycc_rgb(y, c2, c3, rgb);
+      for (int ch = 0; ch < 3; ++ch) cmy[ch] = 255 - rgb[ch];
+    }
+    for (int ch = 0; ch < 3; ++ch) px[ch] = k - (((255 - cmy[ch]) * k) >> 8);
+  } else if (color == COLOR_RGB) {
     px[0] = y; px[1] = c2; px[2] = c3;
-    return;
+  } else {
+    ycc_rgb(y, c2, c3, px);
   }
-  const int cb = c2 - 128, cr = c3 - 128;  // build_ycc_rgb_table, SCALEBITS 16
-  const int rr = y + ((91881 * cr + 32768) >> 16);
-  const int gg = y + ((-22554 * cb - 46802 * cr + 32768) >> 16);
-  const int bb = y + ((116130 * cb + 32768) >> 16);
-  px[0] = rr < 0 ? 0 : (rr > 255 ? 255 : rr);
-  px[1] = gg < 0 ? 0 : (gg > 255 ? 255 : gg);
-  px[2] = bb < 0 ? 0 : (bb > 255 ? 255 : bb);
 }
 
+template <bool FOUR>
 __global__ void __launch_bounds__(kThreads)
 jpeg_color_resize_kernel(const uint8_t* __restrict__ planes, const long long* __restrict__ photos,
                          const int* __restrict__ taps_x, const int* __restrict__ taps_y,
@@ -278,7 +334,7 @@ jpeg_color_resize_kernel(const uint8_t* __restrict__ planes, const long long* __
       for (int j = 0; j < 2; ++j) {
         const long long wx = j ? tx[2] : 2048 - tx[2];
         int px[3];
-        rgb_at(planes, row, ty[i], tx[j], px);
+        rgb_at<FOUR>(planes, row, ty[i], tx[j], px);
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) acc[ch] += px[ch] * wy * wx;
       }
@@ -314,8 +370,20 @@ int aihab_jpeg_idct(const void* coef, const void* qtables, const void* segs, voi
 int aihab_jpeg_color_resize(const void* planes, const void* photos, const void* taps_x,
                             const void* taps_y, void* out, int n_photos, int dim,
                             void* stream) {
-  jpeg_color_resize_kernel<<<grid_for(static_cast<long long>(n_photos) * dim * dim), kThreads,
-                             0, static_cast<cudaStream_t>(stream)>>>(
+  jpeg_color_resize_kernel<false><<<grid_for(static_cast<long long>(n_photos) * dim * dim),
+                                    kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(planes), static_cast<const long long*>(photos),
+      static_cast<const int*>(taps_x), static_cast<const int*>(taps_y),
+      static_cast<uint8_t*>(out), n_photos, dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// J2's four-component instance (CMYK, YCCK rows), as aihab_jpeg_color_resize.
+int aihab_jpeg_color_resize_cmyk(const void* planes, const void* photos, const void* taps_x,
+                                 const void* taps_y, void* out, int n_photos, int dim,
+                                 void* stream) {
+  jpeg_color_resize_kernel<true><<<grid_for(static_cast<long long>(n_photos) * dim * dim),
+                                   kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), static_cast<const long long*>(photos),
       static_cast<const int*>(taps_x), static_cast<const int*>(taps_y),
       static_cast<uint8_t*>(out), n_photos, dim);

@@ -2,18 +2,22 @@
 array held in RAM (counterpart of ``aihab_clip_tpu/data/bulk_load.py``).
 
 The files of a folder are taken in sorted order, the ``CORRUPT_IMAGES`` are
-skipped and unlabelled files are not decoded.  Files are read and decoded
-a chunk at a time through ``ops/jpeg.decode_blobs``: JPEGs by the fast
-decode (the C++ Huffman decode on the host, J1 and J2 on ``device``), with
-the JAX native path's DCT-domain prescale (``prescale_min = 2 *
-resize_dim``, JAX ``data/bulk_load.py:133-150``) when ``prescale`` is set;
-PNGs and BMPs by ``data/decode.py`` on a thread pool.  The loader emits
-RGB; with ``channel_order='bgr'`` it reproduces the reference's swapped
-channels.  An optional on-disk cache of the decoded arrays
-(``decode_cache_dir``) has the JAX package's layout, but its key carries
-this package's decode rule (``decode.DECODE_RULE``) and the prescale, so a
-cache that the JAX package wrote with its own decoder is never read here,
-nor this package's there.
+skipped and unlabelled files are not decoded.  Each folder decodes on the
+route the JAX loader takes for it (``folder_route``): an RGB folder whose
+labelled files all end in .jpg/.jpeg goes to JAX's native libjpeg path
+(``native.py:183-184``; the DCT-domain prescale ``prescale_min = 2 *
+resize_dim`` when ``prescale`` is set, JAX ``data/bulk_load.py:133-150``; a
+file libjpeg-turbo 2.1 cannot decode to RGB is dropped with its warning),
+any other folder to ``cv2.imread`` at full scale (JAX
+``data/bulk_load.py:90-100, 153-156``).  Files are read and decoded a chunk
+at a time through ``ops/jpeg.decode_blobs``: JPEGs by the fast decode (the
+C++ Huffman decode on the host, J1 and J2 on ``device``), PNGs and BMPs by
+``data/decode.py`` on a thread pool.  The loader emits RGB; with
+``channel_order='bgr'`` it reproduces the reference's swapped channels.  An
+optional on-disk cache of the decoded arrays (``decode_cache_dir``) has the
+JAX package's layout, but its key carries this package's decode rule
+(``decode.DECODE_RULE``) and the prescale, so a cache that the JAX package
+wrote with its own decoder is never read here, nor this package's there.
 """
 
 from __future__ import annotations
@@ -39,19 +43,30 @@ _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 JPEG_CHUNK = 16
 
 
+def folder_route(names: Sequence[str], channel_order: str = "rgb") -> str:
+    """The JAX loader's route for a folder's labelled files: "native" for
+    an RGB load of files that all end in .jpg/.jpeg (tested by name, as
+    ``native_bulk_decode_resize`` does), else "imread"."""
+    if channel_order == "rgb" and names and all(
+            n.lower().endswith((".jpg", ".jpeg")) for n in names):
+        return "native"
+    return "imread"
+
+
 def decode_files(paths: Sequence[str], resize_dim: int,
                  channel_order: str = "rgb", prescale: bool = False,
-                 num_workers: int = 0,
-                 device=None) -> List[Optional[np.ndarray]]:
+                 num_workers: int = 0, device=None
+                 ) -> List[Optional[np.ndarray]]:
     """Files -> one [resize_dim, resize_dim, 3] uint8 array in
-    ``channel_order`` each, or None for a file that is missing or no
-    readable image.  ``JPEG_CHUNK`` files at a time are read on a thread
-    pool and decoded by ``ops/jpeg.decode_blobs`` (JPEGs on ``device``,
-    the card by default), so one chunk's bytes is held at a time.  As in
-    the JAX loader, the prescale applies to the RGB route only: its BGR
-    route decodes at full scale (``cv2.imread``).  A file in a format this
-    package does not decode (A9b) raises ``NotImplementedError`` naming
-    it, as skipping it would change the split."""
+    ``channel_order`` each, or None for a file that is missing or that the
+    route does not read.  The route is the JAX loader's for these files
+    as one folder (``folder_route``); the prescale applies on the native
+    route only.  ``JPEG_CHUNK`` files at a
+    time are read on a thread pool and decoded by ``ops/jpeg.decode_blobs``
+    (JPEGs on ``device``, the card by default), so one chunk's bytes is
+    held at a time.  A file that the route reads and this package does not
+    decode (A9c) raises ``NotImplementedError`` naming it, as skipping it
+    would change the split."""
     import torch
 
     from ..backend import resolve_device
@@ -60,8 +75,8 @@ def decode_files(paths: Sequence[str], resize_dim: int,
     device = resolve_device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     workers = num_workers if num_workers > 0 else min(32, os.cpu_count() or 4)
-    prescale_min = 2 * resize_dim if prescale and channel_order == "rgb" \
-        else 0
+    route = folder_route([os.path.basename(p) for p in paths], channel_order)
+    prescale_min = 2 * resize_dim if prescale and route == "native" else 0
 
     def read(path):
         try:
@@ -74,8 +89,8 @@ def decode_files(paths: Sequence[str], resize_dim: int,
         for start in range(0, len(paths), JPEG_CHUNK):
             chunk = paths[start:start + JPEG_CHUNK]
             images, unsupported = decode_blobs(
-                list(pool.map(read, chunk)), resize_dim, prescale_min, device,
-                workers, stream, pool)
+                list(pool.map(read, chunk)), resize_dim, route, prescale_min,
+                device, workers, stream, pool)
             if unsupported:
                 i = min(unsupported)
                 raise NotImplementedError(f"{chunk[i]}: {unsupported[i]}")
@@ -89,7 +104,8 @@ def load_folder(folder_path: str | Path, index_file_name: str,
                 resize_dim: int, channel_order: str = "rgb",
                 num_workers: int = 0, verbose: bool = False,
                 prescale: bool = False, device=None) -> ImageArrayDataset:
-    """Load every labelled, non-corrupt image in a folder into RAM (JPEGs
+    """Load every labelled, non-corrupt image in a folder into RAM, on the
+    route the JAX loader takes for the folder (``folder_route``; JPEGs
     through the fast decode on ``device``, the card by default;
     ``prescale``: the JAX native path's DCT-domain decode)."""
     folder = Path(folder_path)

@@ -6,12 +6,18 @@ decode (``ops/jpeg.py``): its header parser serves both, its Huffman decode
 and pixel stage are what the C++ entropy decoder and the card's kernels are
 held against.
 
-  * **Baseline JPEG** (SOF0/SOF1, Huffman, 8-bit): libjpeg's integer "islow"
-    IDCT (``jidctint.c``), h2v1/h1v2/h2v2 "fancy" (triangular) chroma
-    upsampling with libjpeg's edge rows and biases, its fixed-point YCbCr ->
-    RGB tables, restart markers, grayscale and Adobe/RGB JPEGs.  This is the
-    arithmetic libjpeg-turbo runs (its SIMD kernels are bit-exact with these
-    C routines), so the pixels are libjpeg's.
+  * **JPEG**, sequential (SOF0/SOF1) and progressive (SOF2), Huffman,
+    8-bit, 1, 3 or 4 components: libjpeg's Huffman decode with its rules
+    for data that runs out (a cut file decodes, the rest of its scan left
+    as it is) and, for a cut progressive file, its interblock smoothing
+    (``jdcoefct.c``, libjpeg-turbo >= 2.1); the integer "islow" IDCT
+    (``jidctint.c``), h2v1/h1v2/h2v2 "fancy" (triangular) chroma
+    upsampling with libjpeg's edge rows and biases, its fixed-point YCbCr
+    -> RGB tables, restart markers, grayscale and Adobe/RGB JPEGs; CMYK and
+    YCCK (Adobe transform 0 or 2) through libjpeg's YCCK -> CMYK and cv2's
+    CMYK -> BGR.  This is the arithmetic libjpeg-turbo runs (the IDCTs
+    as its x86 SIMD forms hold them in int16 and int32 lanes,
+    ``idct_scaled``), so the pixels are libjpeg's.
   * **DCT-domain prescale** (the native path's ``prescale_min``): a JPEG
     decodes at m/8, m in {1, 2, 4}, through libjpeg's reduced IDCTs
     (``jidctred.c``: 1x1, 2x2, 4x4), with ``jdmaster.c``'s per-component
@@ -20,18 +26,24 @@ held against.
     ``jdsample.c``'s rule that fancy upsampling is off at m = 1.
   * **PNG**: zlib + the five scanline filters, bit depths 1-16 (16-bit keeps
     the high byte, as ``cv2.imread(IMREAD_COLOR)``), gray, RGB, palette,
-    alpha dropped.
-  * **BMP**: uncompressed (BI_RGB) 24 and 32 bit, bottom-up and top-down
-    (32 bit drops its fourth byte, as ``cv2.imread`` does).
+    alpha dropped, plain or Adam7-interlaced.
+  * **BMP**, as cv2's reader takes it: the Windows headers and OS/2's
+    12-byte one, 1/4/8-bit palettes (RLE8 and RLE4 too), 16-bit (555, and
+    565 by BI_BITFIELDS), 24-bit, 32-bit (BI_RGB or BI_BITFIELDS),
+    bottom-up and top-down.
   * **EXIF orientation** (JPEG APP1) is applied as ``cv2.imread`` does.
   * **Resize**: bilinear with ``cv2.INTER_LINEAR``'s half-pixel centres in
     the fixed point of the native path (11-bit weights, 22-bit rounding),
     which equals that path bit for bit and cv2 within one level.
 
-Progressive, arithmetic-coded, lossless, 12-bit and CMYK JPEGs, Adam7 PNGs
-and compressed or palette BMPs raise ``NotImplementedError`` naming ROADMAP
-A9b.  The Huffman decode here is pure Python (seconds per megapixel): the
-reference, not the production path.
+``parse_jpeg`` raises ``UnsupportedJpeg`` (a ``NotImplementedError``) naming
+ROADMAP A9c for arithmetic-coded, lossless and 12-bit JPEGs.  JAX's native
+path and cv2 decode the arithmetic-coded ones, so a route that reaches one
+raises; neither reads the lossless or 12-bit ones, which are None on every
+route (``decode_image`` takes them as a ``DecodeError``), as are
+hierarchical ones, which no libjpeg decodes.  The Huffman decode here is
+pure Python (seconds per megapixel): the reference, not the production
+path.
 """
 
 from __future__ import annotations
@@ -47,10 +59,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 # the pixels this module produces; part of the decoded-array cache key
-DECODE_RULE = "aihab_clip_tpu_torch.decode/2:islow,jidctred,fancy,linear11"
+DECODE_RULE = ("aihab_clip_tpu_torch.decode/3:islow,jidctred,fancy,linear11,"
+               "progressive,smooth9,cut,cmyk,routes")
 
-_A9B = ("ROADMAP A9b (progressive, arithmetic, 12-bit and CMYK JPEGs, Adam7 "
-        "PNGs, compressed BMPs)")
+_A9C = ("ROADMAP A9c (arithmetic-coded, lossless, hierarchical and 12-bit "
+        "JPEGs)")
 
 
 class DecodeError(ValueError):
@@ -69,18 +82,41 @@ _ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63],
     dtype=np.int64)
 _ZZ = _ZIGZAG.tolist()
+# libjpeg's jpeg_natural_order with its 16 extra entries: a run that takes a
+# corrupt scan's index past 63 writes coefficient 63
+_ZZX = _ZZ + [63] * 16
 
-_SOF_UNSUPPORTED = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
-    0xC6: "differential progressive", 0xC7: "differential lossless",
-    0xC9: "arithmetic-coded", 0xCA: "arithmetic progressive",
-    0xCB: "arithmetic lossless", 0xCD: "arithmetic differential",
-    0xCE: "arithmetic differential progressive",
-    0xCF: "arithmetic differential lossless"}
+# frame markers of the modes left to A9c: (what it is, decoded by JAX's
+# native libjpeg path, decoded by cv2 5.0); 12-bit frames are refused by both
+_SOF_A9C = {
+    0xC3: ("lossless", False, False),
+    0xC9: ("arithmetic-coded", True, True),
+    0xCA: ("arithmetic-coded progressive", True, True),
+    0xCB: ("arithmetic-coded lossless", False, False)}
+# hierarchical (differential) frames: no libjpeg decodes them
+_SOF_HIERARCHICAL = {0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF}
 
 # the marker that ends an entropy-coded segment: 0xFF followed by anything
 # but a stuffed zero, a fill byte or a restart marker
 _SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
+
+# a lookup entry for bits that start no code: libjpeg reads 17 bits and
+# takes symbol 0 (jdhuff.c jpeg_huff_decode)
+_MISS = 17 << 8
+# zero bytes after a restart segment: more than one MCU can read, so the MCU
+# in which the data runs out decodes with zero bits
+_PAD = 4096
+
+
+class UnsupportedJpeg(NotImplementedError):
+    """A JPEG mode this package does not decode (ROADMAP A9c).  ``native``
+    and ``cv2`` say whether JAX's native libjpeg path and cv2 decode it: a
+    route that would decode it raises, the others drop the file as they
+    do."""
+
+    def __init__(self, kind: str, native: bool, cv2: bool):
+        super().__init__(f"{kind} JPEG is not decoded: {_A9C}")
+        self.kind, self.native, self.cv2 = kind, native, cv2
 
 
 def _check_huffman(counts: bytes, n_symbols: int) -> None:
@@ -97,10 +133,10 @@ def _check_huffman(counts: bytes, n_symbols: int) -> None:
 
 def _build_lut(spec: bytes) -> List[int]:
     """A table spec (16 counts, then the symbols) -> a 16-bit lookup: next
-    16 bits -> (code length << 8) | symbol (0: no code)."""
+    16 bits -> (code length << 8) | symbol (``_MISS``: no code)."""
     counts, symbols = spec[:16], spec[16:]
     _check_huffman(counts, len(symbols))
-    lut = [0] * 65536
+    lut = [_MISS] * 65536
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
@@ -152,7 +188,8 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 
 class _Component:
-    __slots__ = ("cid", "h", "v", "tq", "bw", "bh", "coef", "dc", "ac")
+    __slots__ = ("cid", "h", "v", "tq", "bw", "bh", "wib", "hib", "coef",
+                 "dc", "ac")
 
     def __init__(self, cid, h, v, tq):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
@@ -161,8 +198,11 @@ class _Component:
 @dataclasses.dataclass
 class JpegScan:
     """One scan: its components (indices into ``JpegHeader.comps``), their
-    DC and AC table specs (16 counts, then the symbols), the entropy-coded
-    bytes ``data[start:end]`` and the restart interval in force."""
+    DC and AC table specs (16 counts, then the symbols; ``b""`` where the
+    scan reads none), the entropy-coded bytes ``data[start:end]``, the
+    restart interval in force and its spectral band ``ss``..``se`` and
+    successive-approximation bits ``ah``, ``al`` (0, 63, 0, 0 in a
+    sequential frame)."""
 
     comps: List[int]
     dc: List[bytes]
@@ -170,15 +210,23 @@ class JpegScan:
     start: int
     end: int
     restart: int
+    ss: int = 0
+    se: int = 63
+    ah: int = 0
+    al: int = 0
 
 
 @dataclasses.dataclass
 class JpegHeader:
-    """What a baseline JPEG's markers say: the frame, the components
+    """What a JPEG's markers say: the frame, the components
     (``_Component``: cid, sampling h and v, table tq; ``bw`` x ``bh``
-    blocks, MCU-padded), quantization tables (int64 [8, 8], natural order),
-    the scans, the EXIF orientation and the colour transform ("ycc", "rgb"
-    or "gray")."""
+    blocks, MCU-padded, of which ``wib`` x ``hib`` hold the image),
+    quantization tables (int64 [8, 8], natural order), the scans, the EXIF
+    orientation, the colour transform ("ycc", "rgb", "gray", "cmyk" or
+    "ycck"), whether the frame is progressive (SOF2), whether the data
+    reaches its EOI marker (``complete``; a cut file does not) and the
+    bytes libjpeg's fake EOI adds to a scan cut in its header (``tail``,
+    to append to the data)."""
 
     width: int
     height: int
@@ -187,6 +235,9 @@ class JpegHeader:
     scans: List[JpegScan]
     orientation: int
     color: str
+    progressive: bool = False
+    complete: bool = True
+    tail: bytes = b""
 
     @property
     def hmax(self) -> int:
@@ -195,6 +246,10 @@ class JpegHeader:
     @property
     def vmax(self) -> int:
         return max(c.v for c in self.comps)
+
+    @property
+    def imcu_rows(self) -> int:
+        return -(-self.height // (8 * self.vmax))
 
 
 def _u16(data: bytes, i: int) -> int:
@@ -223,16 +278,25 @@ def jpeg_size(data: bytes) -> Optional[Tuple[int, int]]:
 
 
 def parse_jpeg(data: bytes) -> JpegHeader:
-    """Walk a baseline JPEG's markers (the entropy-coded data is skipped,
-    not decoded).  Raises ``DecodeError`` for a file that is no image (a
-    segment cut short included) and ``NotImplementedError`` (A9b) for one
-    this package does not decode."""
+    """Walk a JPEG's markers (the entropy-coded data is skipped, not
+    decoded).  Raises ``DecodeError`` for a file that libjpeg refuses (a
+    segment cut short, no scan, a bad progression, ...) and
+    ``UnsupportedJpeg`` (A9c) for one in a mode this package leaves out.
+    A file cut inside its entropy-coded data, or missing its EOI, parses:
+    libjpeg decodes it with the missing data as zeros."""
     try:
         return _parse_jpeg(data)
-    except DecodeError:
+    except (DecodeError, NotImplementedError):
         raise
     except (IndexError, ValueError) as e:   # a segment shorter than its kind
         raise DecodeError(f"corrupt JPEG marker segment ({e})") from e
+
+
+def _dc_table(spec: bytes) -> bytes:
+    """A table used for DC differences: libjpeg refuses symbols past 15."""
+    if any(s > 15 for s in spec[16:]):
+        raise DecodeError("Huffman table: DC symbol past 15")
+    return spec
 
 
 def _parse_jpeg(data: bytes) -> JpegHeader:
@@ -244,6 +308,7 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
     comps: List[_Component] = []
     scans: List[JpegScan] = []
     frame = None
+    progressive = False
     restart = 0
     orientation = 1
     saw_jfif = False
@@ -251,11 +316,12 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
     pos = 2
     n = len(data)
     eoi = False
+    tail = b""
     while pos < n:
         if data[pos] != 0xFF:
             raise DecodeError(f"expected a marker at byte {pos}")
         if pos + 1 >= n:
-            raise DecodeError("truncated marker")
+            break                   # a fill byte cut from its marker
         marker = data[pos + 1]
         if marker == 0xFF:
             pos += 1
@@ -267,10 +333,30 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
             pos += 2
             continue
         if pos + 4 > n:
+            if scans and (marker == 0xFE or 0xE0 <= marker <= 0xEF):
+                break               # libjpeg skips its garbage length
             raise DecodeError("truncated marker segment")
         length = _u16(data, pos + 2)
-        seg = data[pos + 4:pos + 2 + length]
         body_end = pos + 2 + length
+        if body_end > n or length < 2:
+            part = data[pos + 4:]
+            if (marker == 0xDA and frame is not None and not progressive
+                    and length >= 2 and part
+                    and len(part) >= 1 + 2 * part[0]):
+                # a sequential scan cut in its band bytes, which libjpeg
+                # only warns about: it reads them from its fake EOI (FF D9
+                # FF D9 ...), and a D9 left over is the scan's one byte
+                missing = length - 2 - len(part)
+                part += b"\xff\xd9" * (length // 2)
+                scans.append(_parse_sos(part[:length - 2], comps, dc_specs,
+                                        ac_specs, False, restart, n))
+                tail = b"\xd9" * (missing % 2)
+                scans[-1].end = n + len(tail)
+                break
+            if scans and _cut_after_scans(marker, part, length):
+                break
+            raise DecodeError("truncated marker segment")
+        seg = data[pos + 4:body_end]
         if marker == 0xE0 and seg[:5] == b"JFIF\x00":
             saw_jfif = True
         elif marker == 0xE1 and seg[:6] == b"Exif\x00\x00":
@@ -306,59 +392,55 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
                 i += 17 + total
         elif marker == 0xDD:        # DRI
             restart = _u16(seg, 0)
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise DecodeError("a second frame header")
+            if seg[0] == 12:
+                raise UnsupportedJpeg("12-bit", False, False)
             if seg[0] != 8:
-                raise NotImplementedError(
-                    f"{seg[0]}-bit JPEG is not decoded: {_A9B}")
+                raise DecodeError(f"{seg[0]}-bit JPEG")
             height, width, nf = _u16(seg, 1), _u16(seg, 3), seg[5]
             if height == 0 or width == 0:
                 raise DecodeError("JPEG frame with a zero dimension (DNL)")
-            if nf not in (1, 3):
-                raise NotImplementedError(
-                    f"{nf}-component (CMYK/YCCK) JPEG is not decoded: {_A9B}")
+            if nf not in (1, 3, 4):
+                raise DecodeError(f"{nf}-component JPEG")
             for c in range(nf):
                 cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
                 if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
                     raise DecodeError("bad sampling factors")
                 comps.append(_Component(cid, hv >> 4, hv & 15, tq))
             frame = (width, height)
+            progressive = marker == 0xC2
             hmax = max(c.h for c in comps)
             vmax = max(c.v for c in comps)
             mcux = -(-width // (8 * hmax))
             mcuy = -(-height // (8 * vmax))
             for c in comps:
                 c.bw, c.bh = mcux * c.h, mcuy * c.v
-        elif marker in _SOF_UNSUPPORTED:
-            raise NotImplementedError(
-                f"{_SOF_UNSUPPORTED[marker]} JPEG is not decoded: {_A9B}")
+                c.wib = -(-(-(-width * c.h // hmax)) // 8)
+                c.hib = -(-(-(-height * c.v // vmax)) // 8)
+        elif marker in _SOF_A9C:
+            raise UnsupportedJpeg(*_SOF_A9C[marker])
+        elif marker in _SOF_HIERARCHICAL:
+            raise DecodeError("hierarchical JPEG")
         elif marker == 0xDA:        # SOS
             if frame is None:
                 raise DecodeError("scan before frame header")
-            index = {c.cid: k for k, c in enumerate(comps)}
-            ks, dcs, acs = [], [], []
-            for s in range(seg[0]):
-                cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
-                if cid not in index:
-                    raise DecodeError("scan references a missing component")
-                if (t >> 4) not in dc_specs or (t & 15) not in ac_specs:
-                    raise DecodeError("scan references a missing table")
-                ks.append(index[cid])
-                dcs.append(dc_specs[t >> 4])
-                acs.append(ac_specs[t & 15])
+            scans.append(_parse_sos(seg, comps, dc_specs, ac_specs,
+                                    progressive, restart, body_end))
             m = _SCAN_END.search(data, body_end)
-            end = m.start() if m else n
-            scans.append(JpegScan(ks, dcs, acs, body_end, end, restart))
-            pos = end
+            scans[-1].end = m.start() if m else n
+            pos = scans[-1].end
             continue
         pos = body_end
-    if frame is None or not eoi or not scans:
-        raise DecodeError("no frame header" if frame is None
-                          else "no EOI marker (truncated)" if not eoi
-                          else "no scan")
+    if frame is None or not scans:
+        raise DecodeError("no frame header" if frame is None else "no scan")
     if any(c.tq not in qt for c in comps):
         raise DecodeError("missing quantization table")
     if len(comps) == 1:
         color = "gray"
+    elif len(comps) == 4:
+        color = ("cmyk" if adobe_transform in (None, 0) else "ycck")
     elif saw_jfif:
         color = "ycc"
     elif adobe_transform is not None:
@@ -366,19 +448,78 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
     else:
         color = ("rgb" if tuple(c.cid for c in comps) == (82, 71, 66)
                  else "ycc")
-    return JpegHeader(frame[0], frame[1], comps, qt, scans, orientation, color)
+    return JpegHeader(frame[0], frame[1], comps, qt, scans, orientation,
+                      color, progressive, eoi, tail)
+
+
+def _cut_after_scans(marker: int, seg: bytes, length: int) -> bool:
+    """Whether libjpeg still decodes a file cut inside a marker segment
+    that follows its scans: its source then reads fake EOI bytes (FF D9
+    ...), which a skipped segment (APPn, COM), a restart interval or the
+    symbols of a DHT's last table take in, and the counts or index of a
+    table, or any other segment, refuse."""
+    if marker in (0xDD, 0xFE) or 0xE0 <= marker <= 0xEF:
+        return True
+    if marker != 0xC4:
+        return False
+    i = 0
+    while i + 17 <= len(seg):
+        if seg[i] & 0xEF >= 4 or sum(seg[i + 1:i + 17]) > 256:
+            return False
+        end = i + 17 + sum(seg[i + 1:i + 17])
+        if end >= len(seg):
+            return end == length - 2 and end > len(seg)
+        i = end
+    return False
+
+
+def _parse_sos(seg, comps, dc_specs, ac_specs, progressive, restart,
+               start) -> JpegScan:
+    """An SOS segment -> its ``JpegScan`` (end unset), with the checks of
+    libjpeg's start_pass (jdhuff.c, jdphuff.c)."""
+    index = {c.cid: k for k, c in enumerate(comps)}
+    ns = seg[0]
+    if not 1 <= ns <= 4 or len(seg) != 2 * ns + 4:
+        raise DecodeError("bad SOS segment")
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], \
+        seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if progressive:
+        bad = (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+        if bad or (ah and al != ah - 1) or al > 13:
+            raise DecodeError(f"bad progression (Ss {ss}, Se {se}, Ah {ah},"
+                              f" Al {al})")
+        need_dc, need_ac = ss == 0 and ah == 0, ss > 0
+    else:
+        ss, se, ah, al = 0, 63, 0, 0
+        need_dc = need_ac = True
+    ks, dcs, acs = [], [], []
+    for s in range(ns):
+        cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
+        if cid not in index or index[cid] in ks:
+            raise DecodeError("scan references a missing component")
+        if (need_dc and (t >> 4) not in dc_specs) or \
+                (need_ac and (t & 15) not in ac_specs):
+            raise DecodeError("scan references a missing table")
+        ks.append(index[cid])
+        dcs.append(_dc_table(dc_specs[t >> 4]) if need_dc else b"")
+        acs.append(ac_specs[t & 15] if need_ac else b"")
+    return JpegScan(ks, dcs, acs, start, start, restart, ss, se, ah, al)
 
 
 def _scan_segments(data: bytes, pos: int) -> List[bytes]:
     """The entropy-coded data from ``pos``: unstuffed segments split at
-    RSTn markers, up to the marker that ends the scan."""
+    RSTn markers, up to the marker that ends the scan or the end of the
+    data (a 0xFF cut from its marker is dropped, as libjpeg reads it)."""
     segments = []
     start = pos
     n = len(data)
     while True:
         i = data.find(b"\xff", pos)
-        if i < 0 or i + 1 >= n:
+        if i < 0:
             segments.append(data[start:].replace(b"\xff\x00", b"\xff"))
+            return segments
+        if i + 1 >= n:
+            segments.append(data[start:i].replace(b"\xff\x00", b"\xff"))
             return segments
         nxt = data[i + 1]
         if nxt == 0x00 or nxt == 0xFF:
@@ -392,33 +533,28 @@ def _scan_segments(data: bytes, pos: int) -> List[bytes]:
         return segments
 
 
-def _decode_segment(seg: bytes, units, n_units: int) -> None:
-    """Huffman-decode ``n_units`` MCUs from one restart segment.  ``units``
-    lists per MCU block: (component, block-index function); each
-    component's DC predictor restarts at 0 here."""
-    # a block reads at most 1,665 bits (27 for DC, 26 per AC): the zero pad
-    # covers the last block of a scan that ends early
-    buf = seg + bytes(256)
+def _decode_segment(seg: bytes, units, n_units: int) -> int:
+    """Huffman-decode ``n_units`` MCUs of a sequential scan from one
+    restart segment.  ``units`` lists per MCU block: (component, block
+    index); each component's DC predictor restarts at 0 here.  Returns the
+    index of the MCU that read past the segment's data (decoded with zero
+    bits; the caller leaves every later one at zero, as jdhuff.c does), or
+    -1."""
+    buf = seg + bytes(_PAD)
     nbits = 8 * len(seg)
     pos = 0
-    zz = _ZZ
+    zz = _ZZX
     preds = {}
     for mcu in range(n_units):
         for comp, base in units(mcu):
-            if pos > nbits:  # cv2.imread refuses a cut file too
-                raise DecodeError("JPEG scan data ends early (truncated)")
             coef = comp.coef
             dc_lut, ac_lut = comp.dc, comp.ac
             p = pos >> 3
             w = ((buf[p] << 24) | (buf[p + 1] << 16) | (buf[p + 2] << 8)
                  | buf[p + 3]) << (pos & 7) & 0xFFFFFFFF
             e = dc_lut[w >> 16]
-            if not e:
-                raise DecodeError("bad Huffman code (DC)")
             ln = e >> 8
             s = e & 0xFF
-            if s > 16:
-                raise DecodeError("bad Huffman code (DC)")
             pos += ln
             diff = 0
             if s:
@@ -441,8 +577,6 @@ def _decode_segment(seg: bytes, units, n_units: int) -> None:
                 w = ((buf[p] << 24) | (buf[p + 1] << 16) | (buf[p + 2] << 8)
                      | buf[p + 3]) << (pos & 7) & 0xFFFFFFFF
                 e = ac_lut[w >> 16]
-                if not e:
-                    raise DecodeError("bad Huffman code (AC)")
                 ln = e >> 8
                 rs = e & 0xFF
                 s = rs & 15
@@ -458,75 +592,389 @@ def _decode_segment(seg: bytes, units, n_units: int) -> None:
                             & 0xFFFFFFFF
                         v = w2 >> (32 - s)
                     pos += s
-                    if k < 64:
-                        coef[base + zz[k]] = (v if v >> (s - 1)
-                                              else v - (1 << s) + 1)
+                    coef[base + zz[k]] = (v if v >> (s - 1)
+                                          else v - (1 << s) + 1)
                     k += 1
                 elif rs == 0xF0:
                     k += 16
                 else:
                     break
+        if pos > nbits:
+            return mcu
+    return -1
 
 
-def _decode_scan(scomps, header: JpegHeader, segments, restart):
-    width, height = header.width, header.height
-    hmax, vmax = header.hmax, header.vmax
+def _wrap16(v: int) -> int:
+    """A value stored into libjpeg's JCOEF (int16)."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _decode_progressive_segment(seg: bytes, units, n_units: int,
+                                scan: JpegScan) -> int:
+    """``_decode_segment`` for one scan of a progressive frame (jdphuff.c:
+    DC first and refine, AC first with its EOB runs, AC refine with the
+    correction bits of coefficients already non-zero): the same return."""
+    buf = seg + bytes(_PAD)
+    nbits = 8 * len(seg)
+    pos = 0
+    zz = _ZZX
+    ss, se, al = scan.ss, scan.se, scan.al
+    p1, m1 = 1 << al, -1 << al
+    dc_first, dc_refine = ss == 0 and scan.ah == 0, ss == 0 and scan.ah > 0
+    ac_first = ss > 0 and scan.ah == 0
+    preds: Dict[int, int] = {}
+    eobrun = 0
+
+    def bits(n):
+        nonlocal pos
+        p = pos >> 3
+        w = ((buf[p] << 24) | (buf[p + 1] << 16) | (buf[p + 2] << 8)
+             | buf[p + 3]) << (pos & 7) & 0xFFFFFFFF
+        pos += n
+        return w >> (32 - n)
+
+    def huff(lut):
+        nonlocal pos
+        p = pos >> 3
+        w = ((buf[p] << 24) | (buf[p + 1] << 16) | (buf[p + 2] << 8)
+             | buf[p + 3]) << (pos & 7) & 0xFFFFFFFF
+        e = lut[w >> 16]
+        pos += e >> 8
+        return e & 0xFF
+
+    def extend(v, s):
+        return v if v >> (s - 1) else v - (1 << s) + 1
+
+    def correct(coef, i):
+        # a correction bit on a coefficient already non-zero
+        if bits(1) and (coef[i] & p1) == 0:
+            coef[i] = _wrap16(coef[i] + (p1 if coef[i] >= 0 else m1))
+
+    for mcu in range(n_units):
+        for comp, base in units(mcu):
+            coef = comp.coef
+            if dc_first:
+                s = huff(comp.dc)
+                diff = extend(bits(s), s) if s else 0
+                pred = preds.get(comp.cid, 0) + diff
+                preds[comp.cid] = pred
+                coef[base] = _wrap16(pred << al)
+            elif dc_refine:
+                if bits(1):
+                    coef[base] = _wrap16(coef[base] | p1)
+            elif ac_first:
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    rs = huff(comp.ac)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        coef[base + zz[k]] = _wrap16(extend(bits(s), s)
+                                                     << al)
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                        break
+                    k += 1
+            else:                   # AC refine
+                k = ss
+                if eobrun == 0:
+                    while k <= se:
+                        rs = huff(comp.ac)
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            s = p1 if bits(1) else m1
+                        elif r != 15:
+                            eobrun = (1 << r) + (bits(r) if r else 0)
+                            break
+                        while True:
+                            i = base + zz[k]
+                            if coef[i]:
+                                correct(coef, i)
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                            if k > se:
+                                break
+                        if s:
+                            coef[base + zz[k]] = s
+                        k += 1
+                if eobrun > 0:
+                    while k <= se:
+                        i = base + zz[k]
+                        if coef[i]:
+                            correct(coef, i)
+                        k += 1
+                    eobrun -= 1
+        if pos > nbits:
+            return mcu
+    return -1
+
+
+def _scan_units(header: JpegHeader, scomps):
+    """A scan's MCUs: (count, units per iMCU row, the function of an offset
+    giving ``units`` for ``_decode_segment``).  A one-component scan walks
+    the component's own ceil(w/8) x ceil(h/8) blocks, an interleaved one
+    the MCU-padded grid."""
     if len(scomps) == 1:
         c = scomps[0]
-        cols = -(-(-(-width * c.h // hmax)) // 8)
-        rows = -(-(-(-height * c.v // vmax)) // 8)
-        total = cols * rows
-        bw = c.bw
+        cols, bw = c.wib, c.bw
 
         def unit_fn(offset):
             def units(i):
-                j = offset + i
-                r, q = divmod(j, cols)
+                r, q = divmod(offset + i, cols)
                 return ((c, 64 * (r * bw + q)),)
             return units
-    else:
-        mcux = -(-width // (8 * hmax))
-        mcuy = -(-height // (8 * vmax))
-        total = mcux * mcuy
-        layout = [(c, y, x) for c in scomps for y in range(c.v)
-                  for x in range(c.h)]
+        return cols * c.hib, cols * c.v, unit_fn
+    mcux = -(-header.width // (8 * header.hmax))
+    mcuy = -(-header.height // (8 * header.vmax))
+    layout = [(c, y, x) for c in scomps for y in range(c.v)
+              for x in range(c.h)]
 
-        def unit_fn(offset):
-            def units(i):
-                my, mx = divmod(offset + i, mcux)
-                return [(c, 64 * ((my * c.v + y) * c.bw + mx * c.h + x))
-                        for c, y, x in layout]
-            return units
-    per = restart if restart else total
-    done = 0
-    for seg in segments:
-        if done >= total:
-            break
+    def unit_fn(offset):
+        def units(i):
+            my, mx = divmod(offset + i, mcux)
+            return [(c, 64 * ((my * c.v + y) * c.bw + mx * c.h + x))
+                    for c, y, x in layout]
+        return units
+    return mcux * mcuy, mcux, unit_fn
+
+
+def _decode_scan(header: JpegHeader, scan: JpegScan, scomps,
+                 segments) -> Optional[int]:
+    """Decode one scan's restart segments (libjpeg's rules for data that
+    runs out: the MCU that reads past a segment's data decodes with zero
+    bits, every later MCU is left as it is until a restart marker; a
+    segment missing from the data is empty).  Returns the iMCU row of the
+    first MCU that read past the data, or None."""
+    total, per_row, unit_fn = _scan_units(header, scomps)
+    decode = (_decode_segment if not header.progressive
+              else lambda s, u, k: _decode_progressive_segment(s, u, k, scan))
+    per = scan.restart if scan.restart else total
+    done = si = 0
+    short = False
+    first_bad = None
+    while done < total:
         k = min(per, total - done)
-        _decode_segment(seg, unit_fn(done), k)
+        if si < len(segments):
+            seg = segments[si]
+            if si:                      # a restart marker clears the flag
+                short = False
+        else:
+            seg = b""
+        if not short:
+            bad = decode(seg, unit_fn(done), k)
+            if bad >= 0:
+                short = True
+                if first_bad is None:
+                    first_bad = (done + bad) // per_row
         done += k
+        si += 1
+    return first_bad
 
 
-def jpeg_coefficients(data: bytes,
-                      header: Optional[JpegHeader] = None) -> List[np.ndarray]:
+def jpeg_coefficients(data: bytes, header: Optional[JpegHeader] = None,
+                      smooth: Optional[str] = "2.1") -> List[np.ndarray]:
     """The quantized DCT coefficients of each component, int32 [bh * bw,
     64] in natural order (blocks row-major), by the pure-Python Huffman
-    decode: the reference of ``csrc/jpeg_entropy.cpp``."""
+    decode: the reference of ``csrc/jpeg_entropy.cpp``.  A progressive
+    file whose low coefficients are not all known (a cut one) gets
+    libjpeg's interblock smoothing, as its IDCT reads them: ``smooth``
+    names the libjpeg-turbo whose rows it takes ("2.1": JAX's native path,
+    "3.1": cv2's; None: no smoothing)."""
     header = header or parse_jpeg(data)
+    data += header.tail
     luts: Dict[bytes, List[int]] = {}
     for c in header.comps:
         c.coef = array.array("i", bytes(4 * 64 * c.bw * c.bh))
+    last_good = header.imcu_rows
     for scan in header.scans:
         scomps = [header.comps[k] for k in scan.comps]
         for c, dc, ac in zip(scomps, scan.dc, scan.ac):
             for spec in (dc, ac):
-                if spec not in luts:
+                if spec and spec not in luts:
                     luts[spec] = _build_lut(spec)
-            c.dc, c.ac = luts[dc], luts[ac]
-        _decode_scan(scomps, header, _scan_segments(data, scan.start),
-                     scan.restart)
-    return [np.frombuffer(c.coef, np.int32).reshape(-1, 64)
-            for c in header.comps]
+            c.dc, c.ac = luts.get(dc), luts.get(ac)
+        bad = _decode_scan(header, scan, scomps,
+                           _scan_segments(data, scan.start))
+        last_good = header.imcu_rows if bad is None else bad
+    coefs = [np.frombuffer(c.coef, np.int32).reshape(-1, 64)
+             for c in header.comps]
+    plan = smoothing_plan(header) if smooth else None
+    if plan is not None:
+        coefs = [smooth_blocks(header, k, coef, plan[k], last_good, smooth)
+                 for k, coef in enumerate(coefs)]
+    return coefs
+
+
+# ---------------------------------------------------------------------------
+# progressive block smoothing (libjpeg-turbo's jdcoefct.c, 2.1 and later)
+# ---------------------------------------------------------------------------
+
+# natural positions of zigzag coefficients 1..9 (Q01 Q10 Q20 Q11 Q02 Q03
+# Q12 Q21 Q30)
+_SMOOTH_POS = _ZZ[1:10]
+# 5 x 5 DC kernels (rows -2..2, columns -2..2) of each estimate: without
+# DC interpolation (AC01..AC02) and with it (AC01..AC30, then the DC)
+_K = np.array
+_SMOOTH_PLAIN = [
+    _K([[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-7, 50, 0, -50, 7],
+        [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]]),
+    _K([[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0, 0, 0, 0, 0],
+        [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]]),
+    _K([[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0],
+        [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]),
+    _K([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0, 0, 0, 0, 0],
+        [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+    _K([[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-1, 13, -24, 13, -1],
+        [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]])]
+_SMOOTH_DC = [
+    _K([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+        [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]]),
+    _K([[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0, 0, 0, 0, 0],
+        [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]]),
+    _K([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+        [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]]),
+    _K([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+        [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]]),
+    _K([[0, 0, 0, 0, 0], [0, 2, -5, 2, 0], [1, 7, -14, 7, 1],
+        [0, 2, -5, 2, 0], [0, 0, 0, 0, 0]]),
+    _K([[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+        [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]]),
+    _K([[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0],
+        [0, -1, 3, -1, 0], [0, 0, 0, 0, 0]]),
+    _K([[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, -3, 0, 3, 0],
+        [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]]),
+    _K([[0, 0, 0, 0, 0], [0, 1, 2, 1, 0], [0, 0, 0, 0, 0],
+        [0, -1, -2, -1, 0], [0, 0, 0, 0, 0]])]
+_SMOOTH_DC0 = _K([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                  [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                  [-2, -6, -8, -6, -2]])
+
+
+def smoothing_plan(header: JpegHeader):
+    """libjpeg's ``smoothing_ok`` for a progressive frame: per component,
+    the accuracy bits (``coef_bits``) of zigzag coefficients 0..9 after
+    the scans the file holds, and those before each component's last
+    scan (-1 where there was none); or None where smoothing is off: a
+    sequential frame, a component with no DC scan, a zero quantizer among
+    the ten, or every component's coefficients 1..9 fully known (a
+    complete file)."""
+    if not header.progressive:
+        return None
+    nc = len(header.comps)
+    bits = [[-1] * 64 for _ in range(nc)]
+    prev = [[-1] * 10 for _ in range(nc)]
+    for number, scan in enumerate(header.scans, 1):
+        for k in scan.comps:
+            for i in range(min(scan.ss, 1), max(scan.se, 9) + 1):
+                if i < 10:
+                    prev[k][i] = bits[k][i] if number > 1 else 0
+            for i in range(scan.ss, scan.se + 1):
+                bits[k][i] = scan.al
+    if len(header.scans) < 2:
+        prev = [[-1] * 10 for _ in range(nc)]
+    useful = False
+    for k, c in enumerate(header.comps):
+        q = header.qt[c.tq].reshape(64)
+        if q[0] == 0 or any(q[p] == 0 for p in _SMOOTH_POS) or bits[k][0] < 0:
+            return None
+        useful |= any(b != 0 for b in bits[k][1:10])
+    return [(b[:10], p) for b, p in zip(bits, prev)] if useful else None
+
+
+def _smooth_rows(c: _Component, rows: int, rule: str = "2.1"):
+    """The rows decompress_smooth_data reads beside each block row y <
+    ``c.hib``: (y - 2, y - 1, y, y + 1, y + 2) as libjpeg picks them, by
+    iMCU rows (of ``c.v`` block rows; ``rows`` of them).  ``rule`` "2.1":
+    libjpeg-turbo 2.1 (JAX's native path), whose rows two away fall back
+    to the nearer one across the second and the second-to-last iMCU rows;
+    "3.1": cv2's libjpeg-turbo 3.1, which clamps to the rows it holds
+    (the padded grid but for the last iMCU row), two rows up only past
+    the first iMCU row, or in the second where it holds more than one
+    block row."""
+    y = np.arange(c.hib)
+    r, br = y // c.v, y % c.v
+    last = rows - 1
+    n = np.where(r < last, c.v, c.hib % c.v or c.v)
+    if rule == "3.1":
+        top = np.where(r == last, c.hib - 1, c.bh - 1)
+        out = np.clip(y[:, None] + np.arange(-2, 3)[None, :], 0,
+                      top[:, None])
+        far = (br > 1) | (r > 1) | ((r == 1) & (n > 1))
+        out[:, 0] = np.where(far, out[:, 0], out[:, 1])
+        return out
+    up = np.where((br > 0) | (r > 0), y - 1, y)
+    up2 = np.where((br > 1) | (r > 1), y - 2, up)
+    dn = np.where((br < n - 1) | (r < last), y + 1, y)
+    dn2 = np.where((br < n - 2) | (r + 1 < last), y + 2, dn)
+    return np.stack([up2, up, y, dn, dn2], -1)
+
+
+def smooth_blocks(header: JpegHeader, k: int, coef: np.ndarray, plan,
+                  last_good: int, rule: str = "2.1") -> np.ndarray:
+    """Component ``k``'s coefficients [bh * bw, 64] after libjpeg's
+    interblock smoothing (``decompress_smooth_data``): each of zigzag
+    coefficients 1..9 that is zero and not fully known gets an estimate
+    from the 5 x 5 DC neighbourhood, clamped below 2^Al; with no AC data at
+    all the DC is interpolated too.  Block rows past the iMCU row
+    ``last_good`` (where the last scan's data ran out) take the accuracy
+    bits from before the component's last scan.  Only the image's own
+    blocks change.  ``rule``: whose neighbour rows (``_smooth_rows``)."""
+    c = header.comps[k]
+    q = header.qt[c.tq].reshape(64).astype(np.int64)
+    blocks = coef.reshape(c.bh, c.bw, 64).astype(np.int64)
+    rows = _smooth_rows(c, header.imcu_rows, rule)
+    cols = np.clip(np.arange(c.wib)[:, None] + np.arange(-2, 3)[None, :],
+                   0, c.wib - 1)
+    if c.wib == 2 and rule == "2.1":
+        # libjpeg-turbo 2.1's first column sets only the register one to
+        # its right, so two to the right stays the first column's DC
+        cols = np.array([[0, 0, 0, 1, 0], [0, 0, 1, 0, 0]])
+    dc = blocks[:, :, 0]
+    # nb[i][j]: the DC at row offset i - 2, column offset j - 2
+    nb = [[dc[rows[:, i]][:, cols[:, j]] for j in range(5)] for i in range(5)]
+    out = blocks.copy()
+    work = out[:c.hib, :c.wib]
+    cur, prev = plan
+    imcu = np.arange(c.hib) // c.v
+    for bits, sel in ((cur, imcu <= last_good), (prev, imcu > last_good)):
+        if not sel.any():
+            continue
+        w = work[sel]
+        orig = blocks[:c.hib, :c.wib][sel]
+        change_dc = all(b == -1 for b in bits[1:10])
+        kernels = _SMOOTH_DC if change_dc else _SMOOTH_PLAIN
+
+        def conv(kern):
+            return sum(int(kern[i, j]) * nb[i][j][sel] for i in range(5)
+                       for j in range(5) if kern[i, j])
+
+        for i, kern in enumerate(kernels):
+            al, pos = bits[i + 1], _SMOOTH_POS[i]
+            if al == 0:
+                continue
+            num = q[0] * conv(kern)
+            qk = int(q[pos])
+            pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+            if al > 0:
+                pred = np.minimum(pred, (1 << al) - 1)
+            pred = np.where(num >= 0, pred, -pred)
+            w[..., pos] = np.where(orig[..., pos] == 0, pred, orig[..., pos])
+        if change_dc:
+            num = q[0] * conv(_SMOOTH_DC0)
+            q0 = int(q[0])
+            pred = ((q0 << 7) + np.abs(num)) // (q0 << 8)
+            w[..., 0] = np.where(num >= 0, pred, -pred)
+        work[sel] = w
+    return (((out + 32768) & 0xFFFF) - 32768).astype(np.int32) \
+        .reshape(-1, 64)
 
 
 # jidctint.c and jidctred.c constants (CONST_BITS 13)
@@ -554,19 +1002,32 @@ _F3_072 = 25172
 _F3_624 = 29692
 
 
+def _w16(x):
+    """x wrapped to int16, as a 16-bit SIMD lane holds it."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _w32(x):
+    """x wrapped to int32, as a 32-bit SIMD lane holds it."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def _idct_1d(c):
     """One islow pass over the last axis of c [..., 8] (int64): the eight
-    outputs before their descale."""
+    outputs before their descale.  The sums c0 +- c4, c7 + c3 and c5 + c1
+    wrap at 16 bits, as libjpeg-turbo's SIMD islow forms them (``paddw``);
+    everything else is exact, as its ``pmaddwd`` pairs are."""
     z2, z3 = c[..., 2], c[..., 6]
     z1 = (z2 + z3) * _F0_541
     tmp2 = z1 + z3 * (-_F1_847)
     tmp3 = z1 + z2 * _F0_765
-    tmp0 = (c[..., 0] + c[..., 4]) << 13
-    tmp1 = (c[..., 0] - c[..., 4]) << 13
+    tmp0 = _w16(c[..., 0] + c[..., 4]) << 13
+    tmp1 = _w16(c[..., 0] - c[..., 4]) << 13
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = c[..., 7], c[..., 5], c[..., 3], c[..., 1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2 = t0 + t3, t1 + t2
+    z3, z4 = _w16(t0 + t2), _w16(t1 + t3)
     z5 = (z3 + z4) * _F1_175
     t0 = t0 * _F0_298
     t1 = t1 * _F2_053
@@ -624,23 +1085,40 @@ _RANGE = _idct_range_table()
 # (1-D pass, pass-1 descale bits, pass-2 descale bits) of each scaled IDCT
 _IDCT_PASSES = {8: (_idct_1d, 11, 18), 4: (_idct4_1d, 12, 19),
                 2: (_idct2_1d, 13, 20)}
+# the rows whose coefficients the SIMD islow and 4x4 test for zero: where
+# all are zero in all eight columns, the first pass is the DC shifted
+_FLAT_ROWS = {8: [1, 2, 3, 4, 5, 6, 7], 4: [1, 2, 3, 5, 6, 7]}
 
 
-def idct_scaled(coef: np.ndarray, s: int = 8) -> np.ndarray:
-    """Dequantized blocks [n, 8, 8] (row = vertical frequency) -> samples
-    [n, s, s] uint8: libjpeg's ``jpeg_idct_islow`` (s = 8) or
-    ``jpeg_idct_4x4`` / ``_2x2`` / ``_1x1`` (s = 4, 2, 1), bit for bit, in
-    int64 (libjpeg's ``JLONG`` on LP64)."""
+def idct_scaled(coef: np.ndarray, q: np.ndarray, s: int = 8) -> np.ndarray:
+    """Quantized blocks [n, 8, 8] (row = vertical frequency) and their
+    table ``q`` [8, 8] -> samples [n, s, s] uint8: libjpeg's
+    ``jpeg_idct_islow`` (s = 8) or ``jpeg_idct_4x4`` / ``_2x2`` / ``_1x1``
+    (s = 4, 2, 1), bit for bit with what libjpeg-turbo runs on x86: its
+    SIMD IDCTs for s = 8, 4, 2 and its C 1x1 (libjpeg's wrapping range
+    limit).  The SIMD forms dequantize into int16 lanes and sum in int32
+    lanes; the first pass's outputs are saturated to int16 (but for the
+    2x2's column 0, which stays in int32), and a block whose rows 1-7
+    (the 4x4: 1-3 and 5-7) hold only zeros takes a shortcut there: each
+    column's dequantized DC times 4, wrapped to int16.  The outputs are
+    saturated to 0..255.  Exact in int64 otherwise, so on any photo's
+    coefficients these are the C routines' pixels."""
     c = coef.astype(np.int64)
+    dq = c * np.asarray(q, np.int64)
     if s == 1:
-        return _RANGE[((c[:, 0, 0] + 4) >> 3) & 1023].reshape(-1, 1, 1)
+        return _RANGE[((dq[:, 0, 0] + 4) >> 3) & 1023].reshape(-1, 1, 1)
+    dq = _w16(dq)
     one_d, d1, d2 = _IDCT_PASSES[s]
-    # pass 1: columns (vertical), pass 2: rows
-    ws = one_d(np.swapaxes(c, 1, 2))               # [n, col, s]
-    ws = (ws + (1 << (d1 - 1))) >> d1
-    out = one_d(np.swapaxes(ws, 1, 2))             # [n, s, s]
-    out = (out + (1 << (d2 - 1))) >> d2
-    return _RANGE[out & 1023]
+    # pass 1: columns (vertical), ws[:, x, r]
+    ws = _w32(one_d(np.swapaxes(dq, 1, 2)) + (1 << (d1 - 1))) >> d1
+    sat = ws[:, 1:] if s == 2 else ws
+    sat[...] = np.clip(sat, -32768, 32767)
+    if s in _FLAT_ROWS:
+        flat = ~c[:, _FLAT_ROWS[s], :].any((1, 2))
+        ws[flat] = _w16(dq[flat, 0, :, None] << 2)
+    # pass 2: rows
+    out = _w32(one_d(np.swapaxes(ws, 1, 2)) + (1 << (d2 - 1))) >> d2
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 def _upsample(plane: np.ndarray, hr: int, vr: int, mode: str) -> np.ndarray:
@@ -758,6 +1236,25 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray,
+                k: np.ndarray) -> np.ndarray:
+    """cv2's CMYK -> BGR (``icvCvt_CMYK2BGR_8u_C4C3R``), in RGB order:
+    uint8 planes -> [h, w, 3] uint8."""
+    kk = k.astype(np.int64)
+
+    def one(x):
+        return kk - (((255 - x.astype(np.int64)) * kk) >> 8)
+
+    return np.stack([one(c), one(m), one(y)], -1).astype(np.uint8)
+
+
+def ycck_to_cmyk(y: np.ndarray, cb: np.ndarray, cr: np.ndarray):
+    """libjpeg's ``ycck_cmyk_convert`` for the first three planes: 255
+    minus the YCbCr -> RGB result, clamped (K passes through)."""
+    rgb = ycc_to_rgb(y, cb, cr)
+    return [255 - rgb[..., i] for i in range(3)]
+
+
 def reconstruct_jpeg(header: JpegHeader, coefs: List[np.ndarray],
                      m: int = 8) -> np.ndarray:
     """Quantized coefficients (``jpeg_coefficients``) -> the upright RGB
@@ -766,7 +1263,7 @@ def reconstruct_jpeg(header: JpegHeader, coefs: List[np.ndarray],
     out_w, out_h, layouts = jpeg_layout(header, m)
     planes = []
     for c, lay, blocks in zip(header.comps, layouts, coefs):
-        samples = idct_scaled(blocks.reshape(-1, 8, 8) * header.qt[c.tq],
+        samples = idct_scaled(blocks.reshape(-1, 8, 8), header.qt[c.tq],
                               lay.s)
         s = lay.s
         plane = samples.reshape(c.bh, c.bw, s, s).transpose(0, 2, 1, 3) \
@@ -777,16 +1274,22 @@ def reconstruct_jpeg(header: JpegHeader, coefs: List[np.ndarray],
         img = np.repeat(planes[0][:, :, None], 3, -1)
     elif header.color == "rgb":
         img = np.stack(planes, -1)
+    elif header.color == "cmyk":
+        img = cmyk_to_rgb(*planes)
+    elif header.color == "ycck":
+        img = cmyk_to_rgb(*ycck_to_cmyk(*planes[:3]), planes[3])
     else:
         img = ycc_to_rgb(planes[0], planes[1], planes[2])
     return apply_orientation(img, header.orientation)
 
 
-def decode_jpeg(data: bytes, m: int = 8) -> np.ndarray:
-    """Baseline JPEG bytes -> RGB [H', W', 3] uint8 at scale m/8 (m = 8:
-    full size; see the module docstring)."""
+def decode_jpeg(data: bytes, m: int = 8, smooth: str = "2.1") -> np.ndarray:
+    """JPEG bytes -> RGB [H', W', 3] uint8 at scale m/8 (m = 8: full size;
+    see the module docstring); ``smooth``: whose interblock smoothing a cut
+    progressive file takes ("2.1": JAX's native path, "3.1": cv2's)."""
     header = parse_jpeg(data)
-    return reconstruct_jpeg(header, jpeg_coefficients(data, header), m)
+    return reconstruct_jpeg(header, jpeg_coefficients(data, header, smooth),
+                            m)
 
 
 # ---------------------------------------------------------------------------
@@ -824,46 +1327,18 @@ def _sub_row(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> RGB [H, W, 3] uint8 (see the module docstring)."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise DecodeError("not a PNG")
-    pos = 8
-    idat = []
-    palette = None
-    ihdr = None
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        ctype = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if ctype == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body[:13])
-        elif ctype == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype == b"IEND":
-            break
-    if ihdr is None:
-        raise DecodeError("PNG without IHDR")
-    width, height, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise NotImplementedError(f"interlaced (Adam7) PNG is not decoded: "
-                                  f"{_A9B}")
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
-    if channels is None:
-        raise DecodeError(f"PNG colour type {ctype}")
-    try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    except zlib.error as exc:
-        raise DecodeError(f"PNG zlib: {exc}") from None
-    bits = channels * depth
-    stride = (width * bits + 7) // 8
-    bpp = max(1, bits // 8)
-    if raw.size < height * (stride + 1):
+# Adam7's passes: (x start, y start, x step, y step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_rows(raw: np.ndarray, height: int, stride: int, bpp: int):
+    """``height`` filtered scanlines of ``stride`` bytes from ``raw`` ->
+    (unfiltered uint8 [height, stride], the bytes they took)."""
+    need = height * (stride + 1)
+    if raw.size < need:
         raise DecodeError("truncated PNG data")
-    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
+    rows = raw[:need].reshape(height, stride + 1)
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
     for y in range(height):
@@ -882,19 +1357,83 @@ def decode_png(data: bytes) -> np.ndarray:
             raise DecodeError(f"PNG filter type {ftype}")
         out[y] = cur
         prior = cur
+    return out, need
+
+
+def _png_samples(rows: np.ndarray, width: int, channels: int, depth: int,
+                 ctype: int) -> np.ndarray:
+    """Unfiltered scanlines -> samples [h, width, channels] uint8: 16-bit
+    keeps the high byte, 1/2/4-bit gray expands to 8 bits (a palette index
+    stays an index)."""
+    height = rows.shape[0]
     if depth == 16:
-        samples = out.reshape(height, width * channels, 2)[..., 0]
+        samples = rows.reshape(height, -1, 2)[:, :width * channels, 0]
     elif depth == 8:
-        samples = out[:, :width * channels]
+        samples = rows[:, :width * channels]
     else:
         per = 8 // depth
         shifts = (8 - depth - depth * np.arange(per)).astype(np.uint8)
-        vals = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
+        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
         samples = vals.reshape(height, -1)[:, :width * channels]
         if ctype != 3:  # gray expands to 8 bits (png_set_expand_gray_1_2_4_to_8)
             samples = (samples.astype(np.int32) * 255
                        // ((1 << depth) - 1)).astype(np.uint8)
-    px = samples.reshape(height, width, channels)
+    return samples.reshape(height, width, channels)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> RGB [H, W, 3] uint8 (see the module docstring)."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise DecodeError("not a PNG")
+    pos = 8
+    idat = []
+    palette = None
+    ihdr = None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        ctype = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        pos += 12 + length
+        if ctype in (b"IHDR", b"PLTE", b"IDAT", b"IEND") and crc != \
+                struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF):
+            raise DecodeError(f"PNG {ctype.decode()} chunk CRC")  # libpng's
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body[:13])
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if ihdr is None:
+        raise DecodeError("PNG without IHDR")
+    width, height, depth, ctype, _, _, interlace = ihdr
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if channels is None:
+        raise DecodeError(f"PNG colour type {ctype}")
+    if interlace not in (0, 1):
+        raise DecodeError(f"PNG interlace method {interlace}")
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as exc:
+        raise DecodeError(f"PNG zlib: {exc}") from None
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    if not interlace:
+        rows, _ = _png_rows(raw, height, (width * bits + 7) // 8, bpp)
+        px = _png_samples(rows, width, channels, depth, ctype)
+    else:
+        px = np.zeros((height, width, channels), np.uint8)
+        for x0, y0, dx, dy in _ADAM7:
+            w = -(-(width - x0) // dx) if width > x0 else 0
+            h = -(-(height - y0) // dy) if height > y0 else 0
+            if w == 0 or h == 0:
+                continue            # an empty pass holds no scanlines
+            rows, used = _png_rows(raw, h, (w * bits + 7) // 8, bpp)
+            raw = raw[used:]
+            px[y0::dy, x0::dx] = _png_samples(rows, w, channels, depth,
+                                              ctype)
     if ctype == 3:
         if palette is None:
             raise DecodeError("palette PNG without PLTE")
@@ -909,31 +1448,202 @@ def decode_png(data: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+class _BmpStream:
+    """cv2's RBaseStream over the bytes: a read past the end raises (and
+    cv2.imread returns None)."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def take(self, n: int) -> bytes:
+        if n < 0 or self.pos + n > len(self.data):
+            raise DecodeError("truncated BMP data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def byte(self) -> int:
+        return self.take(1)[0]
+
+    def word(self) -> int:
+        return int.from_bytes(self.take(2), "little")
+
+    def dword(self) -> int:
+        return int.from_bytes(self.take(4), "little", signed=True)
+
+
+def _bmp_header(data: bytes):
+    """cv2's ``BmpDecoder::readHeader``: (offset, width, height, bpp (15 for
+    5-5-5 16-bit), compression, BGR palette [256, 3], palette length)."""
+    st = _BmpStream(data, 10)
+    offset, size = st.dword(), st.dword()
+    palette = np.zeros((256, 3), np.uint8)
+    if size >= 36:
+        width, height = st.dword(), st.dword()
+        bpp, comp = st.dword() >> 16, st.dword()
+        if not 0 <= comp <= 3:
+            raise DecodeError(f"BMP compression {comp}")
+        st.take(12)
+        clrused = st.dword()
+        st.take(size - 36)
+        ok = width > 0 and height != 0 and (
+            (bpp in (1, 4, 8, 24, 32) and comp == 0)
+            or (bpp in (16, 32) and comp in (0, 3))
+            or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1))
+        if not ok:
+            raise DecodeError(f"BMP of {bpp} bits, compression {comp}")
+        if bpp <= 8:
+            if not 0 <= clrused <= 256:
+                raise DecodeError("BMP palette size")
+            n = clrused or 1 << bpp
+            quads = np.frombuffer(st.take(4 * n), np.uint8).reshape(n, 4)
+            palette[:n] = quads[:, :3]
+        elif bpp == 16 and comp == 3:
+            red, green, blue = st.dword(), st.dword(), st.dword()
+            if (blue, green, red) == (0x1F, 0x3E0, 0x7C00):
+                bpp = 15
+            elif (blue, green, red) != (0x1F, 0x7E0, 0xF800):
+                raise DecodeError("BMP bit fields other than 555 and 565")
+        elif bpp == 16:
+            bpp = 15
+    elif size == 12:                   # OS/2
+        width, height = st.word(), st.word()
+        bpp, comp = st.dword() >> 16, 0
+        if not (width > 0 and height != 0 and bpp in (1, 4, 8, 24, 32)):
+            raise DecodeError(f"OS/2 BMP of {bpp} bits")
+        if bpp <= 8:
+            n = 1 << bpp
+            palette[:n] = np.frombuffer(st.take(3 * n), np.uint8).reshape(
+                n, 3)
+    else:
+        raise DecodeError(f"BMP header of {size} bytes")
+    return offset, width, height, bpp, comp, palette
+
+
+def _bmp_rle(st: _BmpStream, width: int, height: int, palette: np.ndarray,
+             four: bool) -> np.ndarray:
+    """cv2's RLE8 / RLE4 loops over file rows -> BGR [height * width, 3]:
+    a run that would pass its row's end fails the file; end of line, end
+    of bitmap and a delta fill with palette entry 0; RLE8's runs and
+    deltas carry on over rows, RLE4's delta moves along the row only."""
+    out = np.zeros((height * width, 3), np.uint8)
+    data, line_end, y = 0, width, 0
+    flag = 0
+
+    def fill(count, color):
+        # cv2's FillUniColor from ``data``: across rows, up to ``height``
+        nonlocal data, line_end, y
+        while True:
+            end = min(data + count, line_end)
+            count -= end - data
+            if end > data:
+                out[data:end] = color
+            data = max(data, end)
+            if data >= line_end:
+                line_end += width
+                data = line_end - width
+                y += 1
+                if y >= height:
+                    break
+            if count <= 0:
+                break
+
+    def row(src, count):
+        nonlocal data
+        if four:
+            idx = np.stack([src >> 4, src & 15], -1).reshape(-1)[:count]
+        else:
+            idx = src[:count]
+        out[data:data + count] = palette[idx]
+        data += count
+
+    while True:
+        code = st.word()
+        length, code = code & 255, code >> 8
+        if length:                                   # encoded mode
+            prev = y
+            if data + length > line_end:
+                raise DecodeError("BMP run past its row")
+            if four:
+                pair = palette[[code >> 4, code & 15]]
+                out[data:data + length] = pair[np.arange(length) & 1]
+                data += length
+            else:
+                fill(length, palette[code])
+                flag = y - prev
+                if y >= height:
+                    break
+        elif code > 2:                               # absolute mode
+            prev = y
+            if data + code > line_end:
+                raise DecodeError("BMP run past its row")
+            size = ((code + 1) // 2 + 1) & ~1 if four else (code + 1) & ~1
+            row(np.frombuffer(st.take(size), np.uint8), code)
+            flag = y - prev
+        elif four:
+            shift = line_end - data
+            if code == 2:
+                shift = st.byte()
+                st.byte()
+            fill(shift, palette[0])
+            if y >= height:
+                break
+        else:
+            shift, yshift = line_end - data, height - y
+            if code or not flag or shift < width:
+                if code == 2:
+                    shift, yshift = st.byte(), st.byte()
+                if code != 0:
+                    shift += yshift * width
+                if y >= height:
+                    break
+                fill(shift, palette[0])
+                if y >= height:
+                    break
+            flag = 0
+            if y >= height:
+                break
+    return out
+
+
 def decode_bmp(data: bytes) -> np.ndarray:
-    """Uncompressed (BI_RGB) 24- or 32-bit BMP bytes -> RGB [H, W, 3] uint8;
-    rows bottom-up (positive height) or top-down (negative)."""
+    """BMP bytes -> RGB [H, W, 3] uint8 as ``cv2.imread(IMREAD_COLOR)``
+    reads them (``BmpDecoder``): rows bottom-up (positive height) or
+    top-down; 1/4/8-bit palettes (BGRX quads, OS/2's BGR triples),
+    uncompressed or RLE8/RLE4; 16-bit as 5-5-5 or 5-6-5 shifted up
+    without fill bits; 24-bit; 32-bit dropping its fourth byte whatever its
+    bit fields.  What cv2 refuses is a ``DecodeError``."""
     if data[:2] != b"BM" or len(data) < 30:
         raise DecodeError("not a BMP")
-    offset, header_size = struct.unpack_from("<II", data, 10)
-    if header_size == 12:
-        raise NotImplementedError(f"OS/2 BMP header is not decoded: {_A9B}")
-    if header_size < 40 or len(data) < 34:
-        raise DecodeError("bad or truncated BMP header")
-    width, height, _, bpp, compression = struct.unpack_from("<iiHHI", data,
-                                                            18)
-    if compression != 0 or bpp not in (24, 32):
-        raise NotImplementedError(
-            f"BMP with compression {compression} at {bpp} bits is not "
-            f"decoded: {_A9B}")
+    offset, width, height, bpp, comp, palette = _bmp_header(data)
     rows_n = abs(height)
-    if width <= 0 or rows_n == 0:
-        raise DecodeError("BMP with a zero dimension")
-    stride = (width * bpp + 31) // 32 * 4
-    if offset + stride * rows_n > len(data):
-        raise DecodeError("truncated BMP pixel data")
-    rows = np.frombuffer(data, np.uint8, stride * rows_n, offset).reshape(
-        rows_n, stride)[:, :width * bpp // 8].reshape(rows_n, width, bpp // 8)
-    img = rows[:, :, 2::-1]                         # BGR(X) -> RGB
+    st = _BmpStream(data, offset)
+    if comp in (1, 2):
+        img = _bmp_rle(st, width, rows_n, palette, comp == 2)
+        img = img.reshape(rows_n, width, 3)
+    else:
+        pitch = ((width * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4
+        raw = np.frombuffer(st.take(pitch * rows_n), np.uint8).reshape(
+            rows_n, pitch)
+        if bpp <= 8:
+            per = 8 // bpp
+            shifts = (8 - bpp - bpp * np.arange(per)).astype(np.uint8)
+            idx = ((raw[:, :, None] >> shifts) & ((1 << bpp) - 1)).reshape(
+                rows_n, -1)[:, :width]
+            img = palette[idx]
+        elif bpp in (15, 16):
+            t = raw[:, :2 * width].view("<u2").astype(np.int32)
+            if bpp == 15:
+                img = np.stack([(t << 3) & 0xF8, (t >> 2) & 0xF8,
+                                (t >> 7) & 0xF8], -1)
+            else:
+                img = np.stack([(t << 3) & 0xF8, (t >> 3) & 0xFC,
+                                (t >> 8) & 0xF8], -1)
+            img = img.astype(np.uint8)
+        else:
+            img = raw[:, :width * bpp // 8].reshape(rows_n, width,
+                                                     bpp // 8)[:, :, :3]
+    img = img[:, :, ::-1]                            # BGR -> RGB
     return np.ascontiguousarray(img if height < 0 else img[::-1])
 
 
@@ -946,7 +1656,12 @@ def decode_image(data: bytes) -> np.ndarray:
     """Encoded bytes -> upright RGB [H, W, 3] uint8 (``cv2.imread``'s
     IMREAD_COLOR pixels, in RGB order)."""
     if data[:2] == b"\xff\xd8":
-        return decode_jpeg(data)
+        try:
+            return decode_jpeg(data, smooth="3.1")
+        except UnsupportedJpeg as e:
+            if e.cv2:
+                raise
+            raise DecodeError(str(e)) from None     # cv2 returns None too
     try:
         if data[:8] == b"\x89PNG\r\n\x1a\n":
             return decode_png(data)
@@ -1006,17 +1721,23 @@ def prescale_factor(size: Tuple[int, int], prescale_min: int) -> int:
 def decode_resize(path: str, resize_dim: int, channel_order: str = "rgb",
                   prescale: bool = False) -> Optional[np.ndarray]:
     """One file -> [resize_dim, resize_dim, 3] uint8 in ``channel_order``,
-    or None when the file is not a readable image (as ``cv2.imread``
-    returns None).  With ``prescale`` a JPEG decodes at the native path's
-    DCT scale for ``prescale_min = 2 * resize_dim`` before the resize."""
+    or None where JAX's decode returns None.  With ``prescale`` the file
+    takes JAX's native path (a JPEG at the DCT scale for ``prescale_min =
+    2 * resize_dim``; what libjpeg-turbo 2.1 cannot decode to RGB is None),
+    else ``cv2.imread``'s."""
     try:
         data = Path(path).read_bytes()
     except OSError:
         return None
-    size = jpeg_size(data) if prescale else None
     try:
-        img = (decode_jpeg(data, prescale_factor(size, 2 * resize_dim))
-               if size else decode_image(data))
+        if prescale:
+            header = parse_jpeg(data)
+            if header.color not in ("ycc", "rgb", "gray"):
+                return None
+            m = prescale_factor((header.width, header.height), 2 * resize_dim)
+            img = reconstruct_jpeg(header, jpeg_coefficients(data, header), m)
+        else:
+            img = decode_image(data)
     except DecodeError:
         return None
     img = resize_bilinear(img, resize_dim, resize_dim)

@@ -90,12 +90,13 @@ _ARGTYPES = {
     "jpeg_pixels": {
         "aihab_jpeg_idct": [_p, _p, _p, _p, _i, _ll, _p],
         "aihab_jpeg_color_resize": [_p, _p, _p, _p, _p, _i, _i, _p],
+        "aihab_jpeg_color_resize_cmyk": [_p, _p, _p, _p, _p, _i, _i, _p],
     },
 }
 # the host sources' entry points (no stream argument)
 _HOST_ARGTYPES = {
     "jpeg_entropy": {
-        "aihab_jpeg_entropy": [_p, _p, _p, _p, _i, _p, _i, _p, _p, _i],
+        "aihab_jpeg_entropy": [_p, _p, _p, _p, _p, _i, _p, _i, _p, _p, _i],
         "aihab_jpeg_packed_size": [_i],
     },
 }

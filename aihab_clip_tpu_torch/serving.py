@@ -267,37 +267,40 @@ class ClassifierEngine:
 
     # -- decoding ----------------------------------------------------------
 
-    def _decode(self, blobs: Sequence[bytes], prescale_min: int):
+    def _decode(self, blobs: Sequence[bytes], route: str):
         """Blobs -> (RGB uint8 [decode_dim, decode_dim, 3] or None each,
-        {index: reason} of those in a format this package does not decode):
-        ``ops/jpeg.decode_blobs`` on the engine's device and decode
+        {index: reason} of those in a mode this package does not decode):
+        ``ops/jpeg.decode_blobs`` on ``route`` (with the JAX native rule's
+        prescale, 2 x decode_dim, on the "serve" route, where a blob may
+        take the native path), on the engine's device and decode
         stream."""
         from .ops.jpeg import decode_blobs
 
-        return decode_blobs(blobs, self.decode_dim, prescale_min, self.device,
-                            stream=self._decode_stream)
+        prescale_min = 2 * self.decode_dim if route == "serve" else 0
+        return decode_blobs(blobs, self.decode_dim, route, prescale_min,
+                            self.device, stream=self._decode_stream)
 
-    def _prescale_min(self) -> int:
-        """The JAX native rule, 2 x decode_dim; ``AIHAB_SERVE_DECODE=cv2``
-        keeps the full scale, as JAX's cv2 route does."""
+    def _bytes_route(self) -> str:
+        """JAX's ``decode_bytes`` order, native then cv2.imdecode;
+        ``AIHAB_SERVE_DECODE=cv2`` keeps to cv2.imdecode, as JAX's does."""
         if os.environ.get("AIHAB_SERVE_DECODE") == "cv2":
-            return 0
-        return 2 * self.decode_dim
+            return "imdecode"
+        return "serve"
 
     def decode_bytes(self, data: bytes) -> Optional[np.ndarray]:
         """Encoded image bytes -> RGB uint8 [decode_dim, decode_dim, 3], or
-        None when they are no readable image."""
-        return self._decode([data], self._prescale_min())[0][0]
+        None where JAX's ``decode_bytes`` answers None."""
+        return self._decode([data], self._bytes_route())[0][0]
 
     def decode_blobs(self, blobs: List[bytes]) -> List[Optional[np.ndarray]]:
         """A request's image list, its JPEGs in one decode call: one
         [D, D, 3] uint8 array (or None) per blob."""
-        return self._decode(blobs, self._prescale_min())[0]
+        return self._decode(blobs, self._bytes_route())[0]
 
     def decode_request(self, blobs: List[bytes]):
         """``decode_blobs`` and, beside it, {index: reason} for the blobs in
-        a format this package does not decode (A9b)."""
-        return self._decode(blobs, self._prescale_min())
+        a mode this package does not decode (A9c)."""
+        return self._decode(blobs, self._bytes_route())
 
     def decode_files(self, paths: Sequence[str]) -> List[Optional[np.ndarray]]:
         """Files at full scale (JAX's ``cv2.imread`` route), JPEGs in one
@@ -308,7 +311,7 @@ class ClassifierEngine:
                 blobs.append(Path(p).read_bytes())
             except OSError:
                 blobs.append(b"")
-        return self._decode(blobs, 0)[0]
+        return self._decode(blobs, "imread")[0]
 
     def decode_file(self, path: str) -> Optional[np.ndarray]:
         return self.decode_files([path])[0]
@@ -589,7 +592,7 @@ class _Handler(BaseHTTPRequestHandler):
                 probs = fut.result(timeout=srv.request_timeout)
                 results[i] = {"topk": srv.engine.topk(probs[None],
                                                       srv.topk)[0]}
-            for i in bad:   # a format of A9b names itself
+            for i in bad:   # a mode of A9c names itself
                 results[i] = {"error": (
                     f"unsupported image format: {unsupported[i]}"
                     if i in unsupported else "undecodable image")}

@@ -147,26 +147,35 @@ Phases (any failure raises and the exit code is non-zero):
      ``INT8_COS``), images/s, ``cache_features_from_loader`` (2 views of 32
      images), and the same fine-tune step (a 14-block prefix);
      3i: the fast JPEG decode (``ops/jpeg.py``) on a 12 MP (4000 x 3000)
-     and 1024 x 768 JPEGs written by the port's encoder: the C++ Huffman
+     and 1024 x 768 JPEGs written by the port's encoder and a 1024 x 768
+     CMYK and YCCK one by ``tools/jpeg_fixtures.py``: the C++ Huffman
      decoder's coefficients of the 12 MP photo equal data/decode.py's
      pure-Python ones; the card decode at full scale and at m = 2 equals the
-     numpy pipeline on them; J1 (``jpeg_idct``) and J2
-     (``jpeg_color_resize``) against their plain versions, max|d| 0, timed at
-     the 12 MP (full, m = 2) and 1024 x 768 shapes to 224, then compared at
-     m = 4 and 1 and at 4:2:2, 4:4:4, 4:4:0 and gray;
+     numpy pipeline on them; the photo's progressive re-code (the fixture
+     tool) has the same C++ coefficients and card pixels at m = 8 and 2,
+     and the host Huffman ms of both; J1 (``jpeg_idct``), J2
+     (``jpeg_color_resize``) and J2's four-component instance
+     (``jpeg_color_resize_cmyk``) against their plain versions, max|d| 0,
+     timed at the 12 MP (full, m = 2), 1024 x 768 and CMYK/YCCK shapes to
+     224, then compared at m = 4 and 1 and at 4:2:2, 4:4:4, 4:4:0 and gray;
   8b. serving — ``PredictServer(port=0)`` over the bf16 ViT-B/16 engine: 48
      requests in the three wires (raw, JSON base64, the binary batch) from 8
-     urllib client threads, 112 photos (12 MP and 1024 x 768): every answer
-     against ``classify_batch`` of ``decode_bytes`` of the same blob (top-1,
-     max|dprob| <= 1e-3), one J1 and one J2 a request, 12 K1 a batch, a
-     garbage and a cut JPEG counted as decode failures; images/s over HTTP,
+     urllib client threads, 112 photos (12 MP, 1024 x 768, CMYK and YCCK):
+     every answer against ``classify_batch`` of ``decode_bytes`` of the same
+     blob (top-1, max|dprob| <= 1e-3), one J1 a request and one launch of
+     each J2 instance its photos need, 12 K1 a batch; garbage and a JPEG cut
+     in its header counted as decode failures, an arithmetic-coded one
+     answered with an A9c error, a 1024 x 768 JPEG cut in its scan answered
+     with probabilities (JAX's native path keeps it); images/s over HTTP,
      latency p50/p99, fill, decode ms per photo split into host (parse +
      C++ Huffman) and card (upload + J1 + J2); 8c: 8 requests through the
      int8 engine (K8 + 12 K14 a batch);
   8. runner — the port's own entry point (``runner.run``, what ``python -m
      aihab_clip_tpu_torch`` calls) on a synthetic CS tree in a temporary
      directory (20 classes, 8 train and 3 test 64 px JPEGs each, written by
-     the port's encoder), ``configs/base.yaml`` + ``cs.yaml`` as written
+     the port's encoder; one train photo re-coded as a progressive JPEG and
+     one rewritten as a PNG, so the folder takes JAX's cv2.imread route),
+     ``configs/base.yaml`` + ``cs.yaml`` as written
      (the DCT-domain prescale on) with ``RUNNER_OPTS``: ProLIP on ViT-B/16
      (3 cached views through K1, the 7x7 grid search, 5 epochs, the test
      split through K1) held against K1's plain version in fp32, the CPU's
@@ -279,6 +288,9 @@ JAX_JPEG = "native/image_pipeline.cpp:58"
 PEAK_CORE_OPS = 67e12
 J1_OPS = {8: 800, 4: 260, 2: 80, 1: 4}
 J2_OPS = 200
+# J2's four-component instance: a fourth sample a tap, YCCK's YCbCr -> RGB
+# and cv2's CMYK -> BGR
+J2_CMYK_OPS = 280
 # 8b: the HTTP serving phase on the bf16 ViT-B/16 engine: a 1024 x 768
 # photo (h, w) beside the 12 MP one, SERVE_CLIENTS client threads,
 # SERVE_ROUNDS rounds of one raw, one JSON (2 photos) and one binary (4
@@ -514,7 +526,7 @@ def main() -> None:
                 print(f"[build] {line.strip()}")
     kernel_plans(_build)
     phase("build")
-    big, mids = smoke_jpegs()
+    big, mids, adobe = smoke_jpegs()
 
     # ---- 3. kernels at ViT-B/16 shapes
     gen = torch.Generator().manual_seed(SEED)
@@ -747,7 +759,7 @@ def main() -> None:
     large_vit_kernel_cases(rnd, vec, run_cases)
 
     # ---- 3i. the fast JPEG decode: C++ coefficients, J1 and J2
-    jpeg_figures = jpeg_kernel_cases(timed, rows, big, mids)
+    jpeg_figures = jpeg_kernel_cases(timed, rows, big, mids, adobe)
     phase("kernels")
 
     # ---- 4. the ViT path: engine + dynamic batcher
@@ -851,7 +863,8 @@ def main() -> None:
     phase("vit fast path")
 
     # ---- 8b. serving over HTTP: PredictServer, its three wires, the decode
-    counts["serving"], serving_figures = serving_path(engine, big, mids, smi)
+    counts["serving"], serving_figures = serving_path(engine, big, mids,
+                                                      adobe, smi)
     phase("serving path")
 
     # ---- 10. the weights path: the engine's weights as an OpenAI .pt
@@ -4306,26 +4319,67 @@ def vitl_paths(bk, smi: str) -> dict:
 
 
 def smoke_photo(h: int, w: int, seed: int) -> np.ndarray:
-    """A seeded RGB photo: 16 px patches of colour plus noise."""
-    rng = np.random.default_rng(seed)
-    coarse = rng.normal(128, 60, (-(-h // 16), -(-w // 16), 3))
-    return np.clip(np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
-                   + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+    """A seeded RGB photo: 16 px patches of colour plus noise
+    (``tools/decode_time.photo``, which times the 12 MP one)."""
+    from aihab_clip_tpu_torch.tools.decode_time import photo
+
+    return photo(h, w, seed)
 
 
 def smoke_jpegs():
     """The 12 MP JPEG (RUNNER_LARGE_JPEG) and SERVE_MIDS 1024 x 768 ones,
-    written by the port's encoder (4:2:0, quality 95, as cv2.imwrite)."""
+    written by the port's encoder (4:2:0, quality 95, as cv2.imwrite), and
+    two 1024 x 768 Adobe ones by tools/jpeg_fixtures.py: CMYK (4:4:4) and
+    YCCK (2x2 on Y and K)."""
     from aihab_clip_tpu_torch.data.encode import encode_jpeg
+    from aihab_clip_tpu_torch.tools.jpeg_fixtures import (adobe_planes,
+                                                          encode_adobe)
 
     t0 = time.perf_counter()
     big = encode_jpeg(smoke_photo(*RUNNER_LARGE_JPEG, SEED))
     mids = [encode_jpeg(smoke_photo(*SERVE_MID, SEED + 1 + i))
             for i in range(SERVE_MIDS)]
+    adobe = [encode_adobe(adobe_planes(*SERVE_MID, SEED + 20), 0),
+             encode_adobe(adobe_planes(*SERVE_MID, SEED + 21), 2, 90, (2, 2))]
     print(f"[jpeg] wrote a {RUNNER_LARGE_JPEG[1]}x{RUNNER_LARGE_JPEG[0]} "
-          f"JPEG ({len(big)} bytes) and {SERVE_MIDS} {SERVE_MID[1]}x"
-          f"{SERVE_MID[0]} ones in {time.perf_counter() - t0:.1f}s")
-    return big, mids
+          f"JPEG ({len(big)} bytes), {SERVE_MIDS} {SERVE_MID[1]}x"
+          f"{SERVE_MID[0]} ones and a CMYK and a YCCK one in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return big, mids, adobe
+
+
+def progressive_case(big: bytes, coefs, dev) -> dict:
+    """3i, progressive: the 12 MP photo re-coded as a progressive JPEG by
+    tools/jpeg_fixtures.py (libjpeg's default script, optimal tables): the
+    C++ decoder's coefficients of it equal the baseline file's bit for bit
+    (``coefs``), and the card decode of it equals the baseline's at m = 8
+    and m = 2; the host Huffman ms of both (``tools/decode_time``).
+    Returns the figures."""
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.tools.decode_time import huffman_ms
+    from aihab_clip_tpu_torch.tools.jpeg_fixtures import progressive_recode
+
+    figures = {}
+    t0 = time.perf_counter()
+    prog = progressive_recode(big, coefs)
+    figures["progressive_recode_s_12mp"] = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(J.coefficients(prog),
+                                                    coefs))
+    print(f"[jpeg] 12 MP progressive re-code ({len(prog)} bytes, 10 scans) "
+          f"in {figures['progressive_recode_s_12mp']:.1f}s; its C++ "
+          f"coefficients equal the baseline file's: {same}")
+    check(same, "the progressive 12 MP photo's coefficients differ")
+    for m, pm in ((8, 0), (2, 2 * SERVE_DIM)):
+        (a, b), _ = J.decode_blobs([big, prog], SERVE_DIM, "native", pm, dev)
+        equal = a is not None and b is not None and np.array_equal(a, b)
+        print(f"[jpeg] 12 MP progressive card decode at m = {m} equals the "
+              f"baseline's: {equal}")
+        check(equal, f"the progressive card decode differs at m = {m}")
+    base_ms, prog_ms = huffman_ms(big, 3), huffman_ms(prog, 3)
+    figures["huffman_ms_12mp"] = {"baseline": base_ms, "progressive": prog_ms}
+    print(f"[jpeg] 12 MP host Huffman (C++, one thread): baseline "
+          f"{base_ms:.1f} ms, progressive {prog_ms:.1f} ms")
+    return figures
 
 
 def _j2_samples(plan) -> int:
@@ -4357,15 +4411,17 @@ def _j2_samples(plan) -> int:
     return total
 
 
-def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
+def jpeg_kernel_cases(timed, rows, big, mids, adobe) -> dict:
     """3i. The fast JPEG decode (ops/jpeg.py): csrc/jpeg_entropy.cpp's
     coefficients of the 12 MP JPEG against data/decode.py's pure-Python
     Huffman decode, exactly; the card decode of that photo at full scale
     and at m = 2 (the serving prescale) against the numpy pipeline on those
-    coefficients, bit for bit; J1 and J2 against their plain versions (max
-    |d| 0) with their times at the 12 MP (full, m = 2) and 1024 x 768
-    shapes resized to SERVE_DIM; then, compared only, J1 at m = 4 and 1
-    and J2 at 4:2:2, 4:4:4, 4:4:0 and gray.  Returns the figures."""
+    coefficients, bit for bit; its progressive re-code (``progressive_case``);
+    J1 and J2 against their plain versions (max |d| 0) with their times at
+    the 12 MP (full, m = 2) and 1024 x 768 shapes resized to SERVE_DIM, and
+    J2's four-component instance on the CMYK and YCCK photos ``adobe``;
+    then, compared only, J1 at m = 4 and 1 and J2 at 4:2:2, 4:4:4, 4:4:0
+    and gray.  Returns the figures."""
     import torch
 
     from aihab_clip_tpu_torch.data import decode as D
@@ -4398,12 +4454,14 @@ def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
               "the 12 MP photo's prescale")
         want = D.resize_bilinear(full if m == 8 else D.reconstruct_jpeg(
             header, ref, m), SERVE_DIM, SERVE_DIM)
-        got, ok, _ = J.decode_resize_batch([big], SERVE_DIM, pm, dev)
-        equal = bool(ok.all()) and np.array_equal(got[0].numpy(), want)
+        got, _ = J.decode_blobs([big], SERVE_DIM, "native", pm, dev)
+        equal = got[0] is not None and np.array_equal(got[0], want)
         print(f"[jpeg] 12 MP card decode at m = {m} vs the numpy pipeline on "
               f"those coefficients: equal {equal}")
         check(equal, f"the card decode at m = {m} differs from numpy's")
-    del ref, mine, full
+    del ref, full
+    figures.update(progressive_case(big, mine, dev))
+    del mine
 
     def case(name, blobs, prescale_min, timing=True):
         hs = [D.parse_jpeg(b) for b in blobs]
@@ -4422,16 +4480,16 @@ def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
         out = torch.zeros(len(blobs), SERVE_DIM, SERVE_DIM, 3,
                           dtype=torch.uint8, device=dev)
         out_p = torch.zeros_like(out)
+        four = all(len(h.comps) == 4 for h in hs)
+        j2 = "jpeg_color_resize_cmyk" if four else "jpeg_color_resize"
+        j2_fn, j2_plain = getattr(J, j2), J.jpeg_color_resize_plain
         fns = {
             "jpeg_idct": (lambda: J.jpeg_idct(coef_d, qt, segs, planes)
                           or planes,
                           lambda: J.jpeg_idct_plain(coef_d, qt, segs,
                                                     planes_p) or planes_p),
-            "jpeg_color_resize": (
-                lambda: J.jpeg_color_resize(planes, photos, tx, ty, out)
-                or out,
-                lambda: J.jpeg_color_resize_plain(planes, photos, tx, ty,
-                                                  out_p) or out_p)}
+            j2: (lambda: j2_fn(planes, photos, tx, ty, out) or out,
+                 lambda: j2_plain(planes, photos, tx, ty, out_p) or out_p)}
         nb = plan.segs[:, J.SEG_NB]
         sizes = plan.segs[:, J.SEG_S]
         packed = np.array([J.PACKED[int(s_)] for s_ in sizes])
@@ -4440,10 +4498,10 @@ def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
                               .sum()),
                           int((2 * nb * packed + nb * sizes ** 2).sum())
                           + plan.qtables.nbytes),
-            "jpeg_color_resize": (
-                len(blobs) * SERVE_DIM ** 2 * J2_OPS,
-                len(blobs) * SERVE_DIM ** 2 * 3 + _j2_samples(plan)
-                + plan.taps_x.nbytes + plan.taps_y.nbytes)}
+            j2: (len(blobs) * SERVE_DIM ** 2 * (J2_CMYK_OPS if four
+                                                 else J2_OPS),
+                 len(blobs) * SERVE_DIM ** 2 * 3 + _j2_samples(plan)
+                 + plan.taps_x.nbytes + plan.taps_y.nbytes)}
         for kname, (fn, plain) in fns.items():
             got, want = fn(), plain()
             torch.cuda.synchronize()
@@ -4475,6 +4533,7 @@ def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
     case("12MP 4:2:0 full", [big], 0)
     case("12MP 4:2:0 m=2", [big], 2 * SERVE_DIM)
     case("1024x768 4:2:0 full", mids[:1], 2 * SERVE_DIM)
+    case("1024x768 CMYK, YCCK", adobe, 0)
     case("1024x768 m=4, m=1", [mids[0], mids[1]], 384, timing=False)
     case("1024x768 m=1", mids[2:3], 96, timing=False)
     small = smoke_photo(301, 257, SEED + 9)
@@ -4488,7 +4547,8 @@ def jpeg_kernel_cases(timed, rows, big, mids) -> dict:
 def decode_split(blob: bytes, dim: int, prescale_min: int, reps: int = 5):
     """One photo's decode, split: host ms (parse, plan, C++ Huffman), card
     ms (upload, J1, J2 on the decode stream; CUDA events), and the whole
-    ``decode_resize_batch`` call's ms (host clock); medians of ``reps``."""
+    ``decode_blobs`` call's ms on the native route (host clock); medians of
+    ``reps``."""
     import torch
 
     from aihab_clip_tpu_torch.data import decode as D
@@ -4515,7 +4575,8 @@ def decode_split(blob: bytes, dim: int, prescale_min: int, reps: int = 5):
         stream.synchronize()
         card.append(e0.elapsed_time(e1))
         t0 = time.perf_counter()
-        J.decode_resize_batch([blob], dim, prescale_min, dev, stream=stream)
+        J.decode_blobs([blob], dim, "native", prescale_min, dev,
+                       stream=stream)
         whole.append(1e3 * (time.perf_counter() - t0))
     return (statistics.median(host), statistics.median(card),
             statistics.median(whole))
@@ -4559,24 +4620,28 @@ def _check_answers(tag, answers, reqs, ref) -> float:
     return worst
 
 
-def serving_path(engine, big, mids, smi: str):
+def serving_path(engine, big, mids, adobe, smi: str):
     """8b. ``PredictServer(port=0)`` over the bf16 ViT-B/16 engine answers
-    SERVE_ROUNDS rounds of a raw, a JSON and a binary request (the 12 MP
-    and the 1024 x 768 JPEGs) from SERVE_CLIENTS urllib client threads:
-    each answer against ``classify_batch`` of ``decode_bytes`` of the same
-    blob (top-1 equal, max|dprob| <= SERVE_PROB_TOL), one J1 and one J2
-    launch a request, 12 K1 a batch, no decode failure; then, in one
-    request, garbage, a JPEG cut in its scan and one cut in its frame
-    header count as undecodable, one marked progressive gets an A9b error,
-    and a good photo beside them is answered.  Images/s through HTTP, latency p50/p99, fill,
-    and the decode split per photo.  Returns (launch counts, figures)."""
+    SERVE_ROUNDS rounds of a raw, a JSON and a binary request (the 12 MP,
+    the 1024 x 768 JPEGs and the CMYK and YCCK ones, which JAX's server
+    decodes by cv2 at full scale) from SERVE_CLIENTS urllib client
+    threads: each answer against ``classify_batch`` of ``decode_bytes`` of
+    the same blob (top-1 equal, max|dprob| <= SERVE_PROB_TOL), one J1
+    launch a request and one launch of each J2 instance its photos need,
+    12 K1 a batch, no decode failure; then, in one request, garbage and a
+    JPEG cut in its frame header count as undecodable, one marked
+    arithmetic-coded gets an A9c error, and a 1024 x 768 JPEG cut in its
+    scan (JAX's native path keeps it) and a good photo beside them are
+    answered.  Images/s through HTTP, latency p50/p99, fill, and the decode
+    split per photo.  Returns (launch counts, figures)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from aihab_clip_tpu_torch.ops import block_kernel as bk
     from aihab_clip_tpu_torch.ops import jpeg as J
     from aihab_clip_tpu_torch.serving import PredictServer, ServerStats
 
-    photos = [big] + list(mids)
+    photos = [big] + list(mids) + list(adobe)
+    four = [False] * (1 + len(mids)) + [True] * len(adobe)
     ref = np.stack([engine.classify_batch(engine.decode_bytes(b)[None])[0]
                     for b in photos])
     n = len(photos)
@@ -4592,6 +4657,8 @@ def serving_path(engine, big, mids, smi: str):
     def send(req):
         return _post(url, req[0], [photos[i] for i in req[1]])
 
+    cut = mids[0][:int(len(mids[0]) * 0.6)]
+    cut_ref = engine.classify_batch(engine.decode_bytes(cut)[None])[0]
     try:
         send(reqs[2])        # a first request: streams, pinned staging
         server.stats = server.batcher.stats = ServerStats()
@@ -4604,9 +4671,9 @@ def serving_path(engine, big, mids, smi: str):
         counts = {**bk.launch_counts(), **J.launch_counts()}
         snap = server.stats.snapshot(engine.batch_size)
         sof = mids[0].index(b"\xff\xc0")
-        progressive = mids[0][:sof] + b"\xff\xc2" + mids[0][sof + 2:]
-        bad = _post(url, "json", [b"not an image", big[:len(big) // 3],
-                                  mids[0][:sof + 8], progressive, mids[0]])
+        arithmetic = mids[0][:sof] + b"\xff\xc9" + mids[0][sof + 2:]
+        bad = _post(url, "json", [b"not an image", cut, mids[0][:sof + 8],
+                                  arithmetic, mids[0]])
         stats_after = server.stats.snapshot(engine.batch_size)
     finally:
         server.stop()
@@ -4619,18 +4686,29 @@ def serving_path(engine, big, mids, smi: str):
           f"{snap['latency_ms']}; fill {snap['mean_batch_fill']} over "
           f"{batches} batches; max|dprob| vs classify_batch {worst:.3g}; "
           f"launches {counts}")
+    j2 = sum(not all(four[i] for i in idx) for _, idx in reqs)
+    j2_cmyk = sum(any(four[i] for i in idx) for _, idx in reqs)
     check(counts["jpeg_idct"] == len(reqs)
-          and counts["jpeg_color_resize"] == len(reqs),
-          "one J1 and one J2 launch a request")
+          and counts["jpeg_color_resize"] == j2
+          and counts["jpeg_color_resize_cmyk"] == j2_cmyk > 0,
+          "one J1 launch a request and one of each J2 instance it needs")
     check(counts["full_block_fused"] == 12 * batches, "12 K1 a batch")
     check(snap["decode_failures"] == 0, "decode failures on good photos")
     answers_bad = bad[1]["predictions"] if bad[0] == 200 else []
-    check(len(answers_bad) == 5 and answers_bad[:3] == [
-        {"error": "undecodable image"}] * 3
-        and "A9b" in answers_bad[3].get("error", "")
-        and stats_after["decode_failures"] == 4, "bad blobs not counted")
+    check(len(answers_bad) == 5
+          and answers_bad[0] == answers_bad[2] == {"error":
+                                                   "undecodable image"}
+          and "A9c" in answers_bad[3].get("error", "")
+          and stats_after["decode_failures"] == 3, "bad blobs not counted")
     check(answers_bad[4]["topk"][0]["label"] == int(ref[1].argmax()),
           "a good blob beside bad ones")
+    cut_top = answers_bad[1].get("topk", [{}])[0]
+    print(f"[serving] a 1024x768 JPEG cut to 60%: top-1 {cut_top} (the "
+          f"engine's decode_bytes: {int(cut_ref.argmax())}, "
+          f"{float(cut_ref.max()):.4f})")
+    check(cut_top.get("label") == int(cut_ref.argmax())
+          and abs(cut_top.get("prob", -1) - float(cut_ref.max()))
+          <= SERVE_PROB_TOL, "a cut JPEG comes back with probabilities")
     figures = {"images_per_s": images / wall, "requests": len(reqs),
                "images": images, "batches": batches,
                "fill": snap["mean_batch_fill"],
@@ -4763,11 +4841,65 @@ def loader_peak_rss(big: bytes, resize: int, root: str, smi: str) -> dict:
     return figures
 
 
+def _png_bytes(img: np.ndarray) -> bytes:
+    """RGB uint8 [h, w, 3] -> a plain PNG (filter 0 rows), the card's
+    machine having neither cv2 nor PIL."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, -1)], 1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def mixed_formats(folder: str, index_name: str) -> dict:
+    """8, the runner's tree: one train JPEG re-coded as a progressive JPEG
+    (tools/jpeg_fixtures.py) and one rewritten as a PNG under .png (its
+    index row renamed), so the folder takes JAX's cv2.imread route, where
+    a progressive file stopped the port's loader before A9b."""
+    import csv
+    from pathlib import Path
+
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.tools.jpeg_fixtures import progressive_recode
+
+    names = sorted(p.name for p in Path(folder).glob("*.jpg"))
+    prog, png = names[0], names[1]
+    path = Path(folder) / prog
+    path.write_bytes(progressive_recode(path.read_bytes()))
+    path = Path(folder) / png
+    new = png[:-4] + ".png"
+    (Path(folder) / new).write_bytes(_png_bytes(D.decode_image(
+        path.read_bytes())))
+    path.unlink()
+    index = Path(folder) / index_name
+    with open(index, newline="") as f:
+        rows = list(csv.reader(f))
+    col = rows[0].index("file")
+    for row in rows[1:]:
+        if row[col] == png:
+            row[col] = new
+    with open(index, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    print(f"[runner] the train folder holds a progressive JPEG ({prog}) and "
+          f"a PNG ({new}): JAX's cv2.imread route")
+    return {"progressive": prog, "png": new}
+
+
 def runner_path(bk, smi: str, big: bytes) -> dict:
     """The port's runner (``aihab_clip_tpu_torch.runner.run``, what ``python
     -m aihab_clip_tpu_torch`` calls) on a synthetic CS tree in a temporary
     directory: all 20 classes, 8 train and 3 test 64 px JPEGs each, written
-    by the port's encoder; ``configs/base.yaml`` + ``cs.yaml`` through the
+    by the port's encoder, one train photo a progressive JPEG and one a PNG
+    (``mixed_formats``); ``configs/base.yaml`` + ``cs.yaml`` through the
     port's ``load_configs`` with ``RUNNER_OPTS``.  The ProLIP run (openai
     backend, ViT-B/16 at full width, 3 cached views, the 7x7 grid search, 5
     epochs) is gated: the cached view 0 against the same augmented batches
@@ -4799,7 +4931,7 @@ def runner_path(bk, smi: str, big: bytes) -> dict:
     from aihab_clip_tpu_torch.ops.fast_warp import fast_train_transform
     from aihab_clip_tpu_torch.ops.preprocess import normalize_stats_for
     from aihab_clip_tpu_torch.ops import jpeg as J
-    from aihab_clip_tpu_torch.ops.jpeg import decode_resize_batch
+    from aihab_clip_tpu_torch.ops.jpeg import decode_blobs
     from aihab_clip_tpu_torch.runner import run
     from aihab_clip_tpu_torch.serving import ClassifierEngine
     from aihab_clip_tpu_torch.taxonomy import CS_CLASSNAMES
@@ -4821,15 +4953,17 @@ def runner_path(bk, smi: str, big: bytes) -> dict:
             image_size=RUNNER_TREE[2],
             index_file_name="CS_Xplots_2019_23_NEW02OCT24.csv")
         figures["tree_write_s"] = time.perf_counter() - t0
+        figures["tree_formats"] = mixed_formats(
+            tree["train_dir"], "CS_Xplots_2019_23_NEW02OCT24.csv")
         files = sorted(Path(tree["train_dir"]).glob("*.jpg"))[:RUNNER_TIMED]
         blobs = [f.read_bytes() for f in files]
         resize = int(RUNNER_OPTS[RUNNER_OPTS.index(
             "data.preprocessing.resize") + 1])
-        decode_resize_batch(blobs[:JPEG_CHUNK], resize, 2 * resize, "cuda")
+        decode_blobs(blobs[:JPEG_CHUNK], resize, "native", 2 * resize, "cuda")
         t0 = time.perf_counter()
         for start in range(0, len(blobs), JPEG_CHUNK):
-            decode_resize_batch(blobs[start:start + JPEG_CHUNK], resize,
-                                2 * resize, "cuda")
+            decode_blobs(blobs[start:start + JPEG_CHUNK], resize, "native",
+                         2 * resize, "cuda")
         figures["fast_decode_ms_per_64px_photo"] = \
             1e3 * (time.perf_counter() - t0) / len(blobs)
         h, w = RUNNER_LARGE_JPEG

@@ -1751,6 +1751,8 @@ def test_cuda_jpeg_kernels_match_plain(prescale_min):
     from aihab_clip_tpu_torch.data import decode as D
     from aihab_clip_tpu_torch.ops import jpeg as J
 
+    from torch_jpeg_batch import decode_batch
+
     dev = torch.device("cuda")
     blobs = _jpeg_batch()
     dim = 24
@@ -1778,7 +1780,8 @@ def test_cuda_jpeg_kernels_match_plain(prescale_min):
     torch.cuda.synchronize()
     assert J.launch_counts()["jpeg_color_resize"] == 1
     assert torch.equal(out_d.cpu(), out)
-    got, ok, _ = J.decode_resize_batch(blobs, dim, prescale_min, device="cuda")
+    got, ok, _ = decode_batch(blobs, dim, "native", prescale_min,
+                              "cuda")
     assert ok.all() and torch.equal(got.cpu(), out)
     for i, (b, h) in enumerate(zip(blobs, headers)):
         ref = D.resize_bilinear(D.reconstruct_jpeg(
@@ -1789,7 +1792,9 @@ def test_cuda_jpeg_kernels_match_plain(prescale_min):
 @pytest.mark.gpu
 def test_cuda_jpeg_idct_extreme_coefficients():
     """J1 at each IDCT size on blocks of extreme coefficients (+-32767,
-    -32768) and 16-bit tables: the int64 arithmetic of data/decode.py."""
+    -32768) and 16-bit tables, a quarter of them dense and the others with
+    only row 0, only the DC, or only row 0 and column 4 (the SIMD
+    shortcut's cases): the arithmetic of data/decode.py."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import numpy as np
@@ -1801,16 +1806,68 @@ def test_cuda_jpeg_idct_extreme_coefficients():
     nb = 1024
     c = rng.choice([-32768, -32767, -2047, -1, 0, 1, 2047, 32767],
                    (nb, 64)).astype(np.int16)
+    c[1::4, 8:] = 0
+    c[2::4, 1:] = 0
+    col4 = np.ones(64, bool)
+    col4[:8] = col4[4::8] = False
+    c[3::4, col4] = 0
     q = rng.choice([1, 255, 1000, 65535], (2, 64)).astype(np.uint16)
     for s in (8, 4, 2, 1):
         for qi in range(2):
-            packed = torch.from_numpy(np.ascontiguousarray(c[:, J.KEEP[s]]))
+            packed = torch.from_numpy(J.pack_blocks(c, s))
             segs = torch.tensor([[0, 0, 16, nb, s, qi, 0, 0]])
             planes = torch.zeros(nb * s * s, dtype=torch.uint8, device="cuda")
             J.jpeg_idct(packed.reshape(-1).cuda(), torch.from_numpy(q).cuda(),
                         segs.cuda(), planes)
-            ref = D.idct_scaled(c.reshape(nb, 8, 8).astype(np.int64)
-                                * q[qi].reshape(8, 8), s)
+            ref = D.idct_scaled(c.reshape(nb, 8, 8), q[qi].reshape(8, 8), s)
             want = ref.reshape(nb // 16, 16, s, s).transpose(0, 2, 1, 3)
             assert np.array_equal(planes.cpu().numpy(), want.reshape(-1)), \
                 (s, qi)
+
+
+@pytest.mark.gpu
+def test_cuda_jpeg_formats_match_plain():
+    """The A9b JPEGs on the card (tools/jpeg_fixtures.py writes them: the
+    card's machine has no cv2): progressive re-codes, a cut baseline and a
+    cut progressive one (its interblock smoothing), CMYK and YCCK.  J1, J2
+    and J2's four-component instance equal their plain versions, max|d| 0,
+    and the card decode on the server's route equals data/decode.py's
+    pipeline bit for bit at m = 8 and 2 (CMYK and YCCK at full scale, as
+    JAX's decode_bytes takes them through cv2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.tools import jpeg_fixtures as F
+    from torch_jpeg_batch import decode_batch
+
+    base = _jpeg_batch()
+    prog = [F.progressive_recode(b) for b in base[:5]]
+    cut = [base[0][:len(base[0]) * 3 // 5], prog[0][:len(prog[0]) // 2]]
+    adobe = [F.encode_adobe(F.adobe_planes(96, 160, 1), 0),
+             F.encode_adobe(F.adobe_planes(77, 50, 2), 2, 90, (2, 2))]
+    blobs = prog + cut + adobe
+    dim = 24
+    for prescale_min in (0, 40):
+        J.reset_launch_counts()
+        got, ok, _ = decode_batch(blobs, dim, "serve", prescale_min,
+                                   "cuda")
+        assert ok.all()
+        counts = J.launch_counts()
+        assert counts == {"jpeg_idct": 1, "jpeg_color_resize": 1,
+                          "jpeg_color_resize_cmyk": 1}
+        plain, ok_p, _ = decode_batch(blobs, dim, "serve",
+                                       prescale_min)
+        assert ok_p.all() and torch.equal(got, plain)
+        for i, b in enumerate(blobs):
+            h = D.parse_jpeg(b)
+            m = 8 if len(h.comps) == 4 else D.prescale_factor(
+                (h.width, h.height), prescale_min)
+            ref = D.resize_bilinear(D.reconstruct_jpeg(
+                h, D.jpeg_coefficients(b, h), m), dim, dim)
+            assert np.array_equal(got[i].numpy(), ref), i
+    for p, b in zip(prog, base):
+        for x, y in zip(J.coefficients(p), J.coefficients(b)):
+            assert np.array_equal(x, y)

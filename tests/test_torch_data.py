@@ -6,7 +6,8 @@ JAX package's native resize), the JPEG encoder (the bytes ``cv2.imwrite``
 writes), the CSV index, the stratified-group split (scikit-learn's and
 JAX's indices), few-shot selection, ``build_loaders`` on a JAX-written
 tree, the decoded-array cache, the DCT-domain prescale and BMPs (ROADMAP
-A9), and the refusals that name ROADMAP A9b."""
+A9), cut JPEGs as JAX's routes decode them, and the refusals that name
+ROADMAP A9c."""
 
 import io
 import json
@@ -172,10 +173,12 @@ def test_encoder_writes_cv2_bytes(size):
 
 
 def test_refusals_name_a9(tmp_path):
-    """The DCT-domain prescale and uncompressed BMPs decode (ROADMAP A9):
-    the prescale equals the JAX native path's bit for bit, a BMP
-    cv2.imread's.  Progressive and CMYK JPEGs, Adam7 PNGs and compressed
-    BMPs still raise, naming A9b."""
+    """The DCT-domain prescale and the formats of A9 and A9b decode: the
+    prescale equals the JAX native path's bit for bit, a BMP, a
+    progressive and a CMYK JPEG, an Adam7 PNG and an RLE8 BMP cv2.imread's.
+    Only the JPEG modes of A9c raise, naming it: an arithmetic-coded one
+    (which JAX's native path and cv2 decode); lossless and 12-bit ones,
+    which neither reads, are no image."""
     big = tmp_path / "big.jpg"
     cv2.imwrite(str(big), _photo(256, 256))
     native = native_bulk_decode_resize([str(big)], 64, 1, prescale_min=128)
@@ -188,22 +191,36 @@ def test_refusals_name_a9(tmp_path):
     assert np.array_equal(decode_image(bmp.tobytes()), _cv2_rgb(bmp.tobytes()))
     ok, buf = cv2.imencode(".jpg", _photo(32, 32),
                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="A9b"):
-        decode_image(buf.tobytes())
+    assert np.array_equal(decode_image(buf.tobytes()), _cv2_rgb(buf.tobytes()))
     cmyk = io.BytesIO()
     Image.fromarray(_photo(16, 16)).convert("CMYK").save(cmyk, "JPEG")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        decode_image(cmyk.getvalue())
+    assert np.array_equal(decode_image(cmyk.getvalue()),
+                          _cv2_rgb(cmyk.getvalue()))
     png = io.BytesIO()
     Image.fromarray(_photo(16, 16)).save(png, "PNG")
     adam7 = bytearray(png.getvalue())
     adam7[28] = 1                       # IHDR's interlace method
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(DecodeError):    # its data is no Adam7 data
         decode_image(bytes(adam7))
+    assert cv2.imdecode(np.frombuffer(bytes(adam7), np.uint8), 1) is None
     rle = bytearray(bmp.tobytes())
-    rle[30:34] = (1).to_bytes(4, "little")   # BI_RLE8
-    with pytest.raises(NotImplementedError, match="A9b"):
+    rle[30:34] = (1).to_bytes(4, "little")   # BI_RLE8 at 24 bits
+    with pytest.raises(DecodeError):
         decode_image(bytes(rle))
+    assert cv2.imdecode(np.frombuffer(bytes(rle), np.uint8), 1) is None
+    base = bytearray(encode_jpeg(_photo(16, 16)))
+    sof = base.index(b"\xff\xc0")
+    arith = bytearray(base)
+    arith[sof + 1] = 0xC9
+    with pytest.raises(NotImplementedError, match="A9c"):
+        decode_image(bytes(arith))
+    lossless = bytearray(base)
+    lossless[sof + 1] = 0xC3
+    twelve = bytearray(base)
+    twelve[sof + 4] = 12
+    for blob in (lossless, twelve):
+        with pytest.raises(DecodeError, match="A9c"):
+            decode_image(bytes(blob))
     with pytest.raises(DecodeError):
         decode_image(b"BM" + bytes(60))
     with pytest.raises(DecodeError):
@@ -215,16 +232,24 @@ def test_refusals_name_a9(tmp_path):
 
 @pytest.mark.parametrize("keep", [0.3, 0.6, 0.9, 0.999])
 def test_truncated_jpeg_refused_as_cv2(tmp_path, keep):
-    """A file cut inside its scan, or without its EOI marker, is no image
-    for cv2.imread (None) and none here."""
+    """A file cut inside its scan, or without its EOI marker, decodes as
+    JAX decodes it: JAX's native path keeps it (libjpeg fills the missing
+    data), and so does the port's native route, bit for bit; cv2.imread
+    keeps it too, with the same pixels as data/decode.py's; only
+    cv2.imdecode refuses it, which no JAX route calls on a JPEG that the
+    native path takes."""
     data = encode_jpeg(_photo(64, 96))
     cut = data[:int(len(data) * keep)] if keep < 0.999 else data[:-2]
-    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR) is None
-    with pytest.raises(DecodeError):
-        decode_image(cut)
     p = tmp_path / "cut.jpg"
     p.write_bytes(cut)
-    assert decode_resize(str(p), 32) is None
+    native = native_bulk_decode_resize([str(p)], 32, 1, prescale_min=0)
+    assert native[1].all()
+    assert np.array_equal(decode_resize(str(p), 32, prescale=True),
+                          native[0][0])
+    assert np.array_equal(decode_image(cut), cv2.imread(str(p))[:, :, ::-1])
+    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR) is None
+    assert np.array_equal(decode_resize(str(p), 32),
+                          resize_bilinear(decode_image(cut), 32, 32))
 
 
 CSV = (
@@ -438,18 +463,20 @@ def test_prescale_routes_match_jax_loader(large_tree):
 
 
 def test_loader_names_an_unsupported_file(jax_tree, tmp_path):
-    """A labelled photo in a format this package does not decode (here a
-    progressive JPEG) stops the load with an error naming the file and
-    A9b; skipping it would change the split."""
+    """A labelled photo in a mode this package does not decode and JAX's
+    native path does (here an arithmetic-coded JPEG, A9c) stops the load
+    with an error naming the file and A9c; skipping it would change the
+    split."""
     src = jax_tree["dataset_paths"][0]
     folder = tmp_path / os.path.basename(src)
     shutil.copytree(src, folder)
     name = jax_tree["index_file_names"][0]
     victim = load_folders([str(folder)], [name], 40,
                           device="cpu").file_names[1]
-    ok, prog = cv2.imencode(".jpg", _photo(48, 48),
-                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    (folder / victim).write_bytes(prog.tobytes())
+    arith = bytearray(encode_jpeg(_photo(48, 48)))
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9
+    (folder / victim).write_bytes(bytes(arith))
+    assert native_bulk_decode_resize([str(folder / victim)], 40, 1)[1].all()
     with pytest.raises(NotImplementedError,
-                       match=re.escape(victim) + ".*A9b"):
+                       match=re.escape(victim) + ".*A9c"):
         load_folders([str(folder)], [name], 40, device="cpu")

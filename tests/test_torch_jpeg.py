@@ -6,7 +6,8 @@ package's native libjpeg path bit for bit, at full scale and at the scales
 m = 1, 2 and 4 its prescale picks, and the unresized reduced decode against
 ``cv2.imdecode(IMREAD_REDUCED_*)``; the plain IDCTs against
 ``data/decode.py``'s int64 form under hypothesis; BMPs against
-``cv2.imread``; a missing compiler and a failed build raise."""
+``cv2.imread``; cut and corrupt scans and cut headers as JAX's native
+path decodes them; a missing compiler and a failed build raise."""
 
 import io
 import shutil
@@ -27,6 +28,7 @@ from aihab_clip_tpu.native import (native_bulk_decode_resize,
 from aihab_clip_tpu_torch.data import decode as D
 from aihab_clip_tpu_torch.ops import _build
 from aihab_clip_tpu_torch.ops import jpeg as J
+from torch_jpeg_batch import decode_batch
 
 SAMPLING = {"420": 0x221111, "422": 0x211111, "444": 0x111111, "440": 0x121111}
 # m -> the cv2 flag that decodes at m/8
@@ -69,32 +71,33 @@ def test_entropy_coefficients_equal_python(sampling, quality, rst):
             assert len(got) == len(ref)
             for a, b in zip(got, ref):
                 assert a.dtype == np.int16
-                assert np.array_equal(a, b[:, J.KEEP[s]]), (h, w, s)
+                assert np.array_equal(a, J.pack_blocks(b, s)), (h, w, s)
 
 
 def test_entropy_gray_truncated_and_corrupt():
     """Gray files decode alike; a scan cut short (its EOI put back, so the
-    header parses) or a scan with a corrupt code fails in both decoders
-    with the same DecodeError."""
+    header parses) or a scan with a corrupt code decodes in both decoders
+    as libjpeg decodes it (the rest of a cut scan left at zero; bits that
+    start no code read as symbol 0): the same coefficients, and the
+    pixels of JAX's native path."""
     data = _gray(40, 52)
     assert np.array_equal(J.coefficients(data)[0],
                           D.jpeg_coefficients(data)[0])
     full = _jpeg(_photo(48, 64), 90)
     header = D.parse_jpeg(full)
     start = header.scans[0].start
-    for keep in (0.3, 0.6, 0.9):
-        cut = full[:start + int((len(full) - start) * keep)] + b"\xff\xd9"
-        with pytest.raises(D.DecodeError, match="truncated") as ref:
-            D.jpeg_coefficients(cut)
-        with pytest.raises(D.DecodeError) as got:
-            J.coefficients(cut)
-        assert str(got.value) == str(ref.value)
     corrupt = full[:start + 5] + b"\xff\x00" * 20 + full[start + 45:]
-    with pytest.raises(D.DecodeError, match="bad Huffman code") as ref:
-        D.jpeg_coefficients(corrupt)
-    with pytest.raises(D.DecodeError) as got:
-        J.coefficients(corrupt)
-    assert str(got.value) == str(ref.value)
+    cuts = [full[:start + int((len(full) - start) * keep)] + b"\xff\xd9"
+            for keep in (0.3, 0.6, 0.9)]
+    for blob in cuts + [corrupt]:
+        ref = D.jpeg_coefficients(blob)
+        for a, b in zip(J.coefficients(blob), ref):
+            assert np.array_equal(a, b)
+        got, ok, _ = decode_batch([blob], 32)
+        assert ok.all()
+        assert np.array_equal(got[0].numpy(),
+                              native_decode_resize_mem(blob, 32, 0))
+    assert not D.jpeg_coefficients(cuts[0])[0][-1].any()
 
 
 def _non_interleaved(data: bytes, rst: int = 0) -> bytes:
@@ -161,7 +164,7 @@ def test_non_interleaved_scans(sampling, rst):
     cv = cv2.imdecode(np.frombuffer(multi, np.uint8), cv2.IMREAD_COLOR)
     assert np.array_equal(D.decode_jpeg(multi), cv[:, :, ::-1])
     for pm in (0, 16):
-        got, ok, _ = J.decode_resize_batch([multi], 12, pm, device="cpu")
+        got, ok, _ = decode_batch([multi], 12, "native", pm)
         m = D.prescale_factor((header.width, header.height), pm)
         assert ok.all() and np.array_equal(
             got[0].numpy(), D.resize_bilinear(D.decode_jpeg(multi, m), 12, 12))
@@ -181,8 +184,7 @@ def test_fast_decode_full_scale_equals_decode_py_and_native(dim, tmp_path):
     for i, b in enumerate(blobs):
         paths.append(tmp_path / f"{i}.jpg")
         paths[-1].write_bytes(b)
-    got, ok, _ = J.decode_resize_batch(blobs + [b"junk", blobs[0][:200]], dim,
-                                    device="cpu")
+    got, ok, _ = decode_batch(blobs + [b"junk", blobs[0][:200]], dim)
     assert got.shape == (len(blobs) + 2, dim, dim, 3)
     assert ok.tolist() == [True] * len(blobs) + [False, False]
     assert not got[-2:].any()
@@ -208,7 +210,7 @@ def test_prescale_equals_native_and_cv2(sampling, dim, m, tmp_path):
     assert D.prescale_factor((w, h), 2 * dim) == m
     path = tmp_path / "p.jpg"
     path.write_bytes(data)
-    got, ok, _ = J.decode_resize_batch([data], dim, 2 * dim, device="cpu")
+    got, ok, _ = decode_batch([data], dim, "native", 2 * dim)
     assert ok.all()
     mine = got[0].numpy()
     assert np.array_equal(mine, native_decode_resize_mem(data, dim, 2 * dim))
@@ -230,7 +232,7 @@ def test_prescale_batch_mixes_scales_and_restarts():
              in enumerate([(336, 448, "420", 0), (200, 160, "422", 4),
                            (100, 90, "444", 0), (40, 48, "440", 1),
                            (330, 250, "420", 7)])]
-    got, ok, _ = J.decode_resize_batch(blobs, 20, 40, device="cpu")
+    got, ok, _ = decode_batch(blobs, 20, "native", 40)
     ref, rok = native_bulk_decode_resize_mem(blobs, 20, prescale_min=40)
     assert ok.all() and rok.all()
     assert np.array_equal(got.numpy(), ref)
@@ -249,7 +251,7 @@ def test_fast_decode_applies_exif_as_decode_py(orientation):
     pil.save(b, "JPEG", quality=90, exif=exif.tobytes())
     data = b.getvalue()
     for dim, pm in ((24, 0), (24, 48), (40, 0)):
-        got, ok, _ = J.decode_resize_batch([data], dim, pm, device="cpu")
+        got, ok, _ = decode_batch([data], dim, "native", pm)
         m = D.prescale_factor(D.jpeg_size(data), pm)
         ref = D.resize_bilinear(D.decode_jpeg(data, m), dim, dim)
         assert ok.all() and np.array_equal(got[0].numpy(), ref)
@@ -276,7 +278,7 @@ def test_exif_is_the_only_difference_from_native(orientation):
     pil.save(b, "JPEG", quality=90, exif=exif.tobytes())
     data = b.getvalue()
     for dim, pm in ((24, 0), (24, 48), (40, 80), (37, 0)):
-        got, ok, _ = J.decode_resize_batch([data], dim, pm, device="cpu")
+        got, ok, _ = decode_batch([data], dim, "native", pm)
         native = native_decode_resize_mem(data, dim, pm)
         mine = got[0].numpy()
         assert ok.all()
@@ -284,22 +286,28 @@ def test_exif_is_the_only_difference_from_native(orientation):
         assert np.array_equal(mine, native) == (orientation == 1)
 
 
+def _arithmetic(data: bytes) -> bytes:
+    """``data`` with its frame marked arithmetic-coded (SOF9): a mode of
+    A9c that JAX's native path and cv2 decode."""
+    b = bytearray(data)
+    b[b.index(b"\xff\xc0") + 1] = 0xC9
+    return bytes(b)
+
+
 def test_fast_decode_refuses_what_decode_py_refuses():
-    """A progressive JPEG is refused on its own, naming A9b, while the
-    good blob beside it decodes; a batch of no good blob launches
+    """An arithmetic-coded JPEG is refused on its own, naming A9c, while
+    the good blob beside it decodes; a batch of no good blob launches
     nothing."""
-    ok, prog = cv2.imencode(".jpg", _photo(32, 32),
-                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    arith = _arithmetic(_jpeg(_photo(32, 32)))
     good = _jpeg(_photo(32, 32))
-    got, ok, unsupported = J.decode_resize_batch([good, prog.tobytes()], 16,
-                                                 device="cpu")
+    got, ok, unsupported = decode_batch([good, arith], 16)
     assert ok.tolist() == [True, False] and list(unsupported) == [1]
-    assert "A9b" in unsupported[1] and not got[1].any()
+    assert "A9c" in unsupported[1] and not got[1].any()
     assert np.array_equal(got[0].numpy(),
                           D.resize_bilinear(D.decode_jpeg(good), 16, 16))
     J.reset_launch_counts()
-    J.decode_resize_batch([prog.tobytes(), b"junk"], 16, device="cpu")
-    assert J.launch_counts() == {"jpeg_idct": 0, "jpeg_color_resize": 0}
+    decode_batch([arith, b"junk"], 16)
+    assert set(J.launch_counts().values()) == {0}
 
 
 def _sof(data: bytes) -> int:
@@ -324,12 +332,21 @@ def _bad_blobs():
 def test_parse_jpeg_raises_decode_error_on_every_cut_header():
     """Every prefix of a JPEG's header (DQT, DHT, DRI, SOF, SOS cut
     anywhere), a segment shorter than its kind and a fractional sampling
-    ratio are DecodeErrors: a file that is no image, never an IndexError."""
+    ratio are DecodeErrors where JAX's native path refuses them: a file
+    that is no image, never an IndexError.  The prefixes it decodes (an SOS
+    cut in its band bytes, which libjpeg only warns about) decode to its
+    pixels."""
     base = _jpeg(_photo(40, 56), rst=2)
     scan = base.index(b"\xff\xda")
     for cut in range(scan + 14):
-        with pytest.raises(D.DecodeError):
-            D.parse_jpeg(base[:cut])
+        native = native_decode_resize_mem(base[:cut], 16, 0)
+        if native is None:
+            with pytest.raises(D.DecodeError):
+                D.parse_jpeg(base[:cut])
+            continue
+        assert cut >= scan + 11, cut
+        got, ok, _ = decode_batch([base[:cut]], 16)
+        assert ok.all() and np.array_equal(got[0].numpy(), native)
     for name, blob in _bad_blobs().items():
         with pytest.raises(D.DecodeError):
             D.jpeg_layout(D.parse_jpeg(blob))
@@ -345,23 +362,26 @@ def _decodes_to_none(blob) -> bool:
 
 
 def test_one_bad_blob_fails_alone():
-    """Header-cut, short-segment, fractional-sampling and progressive
-    JPEGs, garbage, a cut PNG and an Adam7 PNG, mixed with good JPEGs, a
-    PNG and a BMP: the good ones decode as data/decode.py does, the bad
-    ones are None, and only the A9b formats are reported as unsupported."""
-    good = [_jpeg(_photo(48, 64, 1)), _jpeg(_photo(33, 41, 2), sampling="422")]
+    """Header-cut, short-segment, fractional-sampling and arithmetic-coded
+    JPEGs, garbage, a cut PNG and one whose IHDR no longer matches its CRC,
+    mixed with good JPEGs (one progressive), a PNG and a BMP on the
+    server's route: the good ones decode as data/decode.py does, the bad
+    ones are None, and only the A9c mode is reported as unsupported."""
+    good = [_jpeg(_photo(48, 64, 1)), _jpeg(_photo(33, 41, 2), sampling="422"),
+            cv2.imencode(".jpg", _photo(32, 32),
+                         [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()]
     png = cv2.imencode(".png", _photo(30, 26, 3))[1].tobytes()
     bmp = cv2.imencode(".bmp", _photo(21, 19, 4))[1].tobytes()
     adam7 = bytearray(png)
     adam7[28] = 1                       # IHDR's interlace method
-    prog = cv2.imencode(".jpg", _photo(32, 32),
-                        [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    arith = _arithmetic(good[0])
     bad = list(_bad_blobs().values()) + [b"junk", png[:20]]
-    blobs = [good[0], *bad[:3], prog, good[1], png, bytes(adam7), *bad[3:],
-             bmp]
-    images, unsupported = J.decode_blobs(blobs, 20, 40, device="cpu")
-    assert sorted(unsupported) == [blobs.index(prog), blobs.index(bytes(adam7))]
-    assert all("A9b" in why for why in unsupported.values())
+    blobs = [good[0], *bad[:3], arith, good[1], png, bytes(adam7), *bad[3:],
+             bmp, good[2]]
+    images, unsupported = J.decode_blobs(blobs, 20, "serve", 40,
+                                         device="cpu")
+    assert sorted(unsupported) == [blobs.index(arith)]
+    assert all("A9c" in why for why in unsupported.values())
     for blob, img in zip(blobs, images):
         if blob in good or blob in (png, bmp):
             m = D.prescale_factor(D.jpeg_size(blob), 40) \
@@ -388,9 +408,10 @@ def test_plain_idct_matches_decode_py(coef, table, s):
     equal data/decode.py's int64 form (islow, jidctred 4x4 / 2x2 / 1x1)."""
     c = np.asarray(coef, np.int64).reshape(6, 64)
     q = np.asarray(table, np.int64)
-    ref = D.idct_scaled((c * q).reshape(6, 8, 8), s)
-    dq = torch.from_numpy(c[:, J.KEEP[s]] * q[J.KEEP[s]])
-    assert np.array_equal(J.idct_plain(dq, s).numpy(), ref)
+    ref = D.idct_scaled(c.reshape(6, 8, 8), q.reshape(8, 8), s)
+    got = J.idct_plain(torch.from_numpy(J.pack_blocks(c, s)),
+                       torch.from_numpy(q[J.KEEP[s]]), s)
+    assert np.array_equal(got.numpy(), ref)
 
 
 def _bmp(img: np.ndarray, bpp: int, top_down: bool) -> bytes:
@@ -437,7 +458,7 @@ def test_host_build_raises_without_compiler(fresh_build, monkeypatch):
     with pytest.raises(RuntimeError, match="compiler"):
         _build.host_library("jpeg_entropy")
     with pytest.raises(RuntimeError, match="compiler"):
-        J.decode_resize_batch([_jpeg(_photo(16, 16))], 8, device="cpu")
+        decode_batch([_jpeg(_photo(16, 16))], 8)
 
 
 def test_host_build_failure_raises(fresh_build, monkeypatch):

@@ -297,12 +297,12 @@ def test_served_probs_equal_engine(servers):
 
 
 def test_bad_blobs_fail_alone_in_a_request(servers):
-    """A header-cut JPEG, a progressive JPEG and an Adam7-flagged PNG in
-    one request with good blobs: the good ones are answered as by JAX's
-    server, the cut one is "undecodable image" in both, and the formats
-    this package does not decode (A9b; JAX's cv2 route decodes the
-    progressive one) get an error entry that names A9b; all three count
-    as decode failures."""
+    """A header-cut JPEG, a progressive JPEG, a PNG whose IHDR no longer
+    matches its CRC and an arithmetic-coded JPEG in one request with good
+    blobs: the good ones and the progressive one are answered as by JAX's
+    server, the cut one and the PNG are "undecodable image" in both, and
+    the arithmetic-coded one, which JAX's native path decodes, gets an
+    error entry that names A9c; all three count as decode failures."""
     js, ps = servers
     good = [_encode(_photo(300, 400, 7)), _encode(_photo(224, 224, 8), ".png")]
     cut = good[0][:good[0].index(b"\xff\xc0") + 8]
@@ -310,7 +310,9 @@ def test_bad_blobs_fail_alone_in_a_request(servers):
                         [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     adam7 = bytearray(good[1])
     adam7[28] = 1                       # IHDR's interlace method
-    blobs = [good[0], cut, prog, good[1], bytes(adam7)]
+    arith = bytearray(good[0])
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9    # SOF9
+    blobs = [good[0], cut, prog, good[1], bytes(adam7), bytes(arith)]
     before = _request(ps.server_port, "GET", "/stats")[1]["decode_failures"]
     req = ("POST", "/predict", encode_binary_batch(blobs),
            "application/x-aihab-batch")
@@ -318,13 +320,12 @@ def test_bad_blobs_fail_alone_in_a_request(servers):
                           _request(js.server_port, *req))
     assert ca == cb == 200
     mine, theirs = pa["predictions"], pb["predictions"]
-    _same_predictions([mine[0], mine[1], mine[3]],
-                      [theirs[0], theirs[1], theirs[3]])
-    assert mine[1] == {"error": "undecodable image"}
-    for i in (2, 4):
-        assert mine[i]["error"].startswith("unsupported image format")
-        assert "A9b" in mine[i]["error"]
-    assert "topk" in theirs[2]
+    _same_predictions([mine[i] for i in (0, 2, 3)],
+                      [theirs[i] for i in (0, 2, 3)])
+    for i in (1, 4):
+        assert mine[i] == theirs[i] == {"error": "undecodable image"}
+    assert mine[5]["error"].startswith("unsupported image format")
+    assert "A9c" in mine[5]["error"] and "topk" in theirs[5]
     after = _request(ps.server_port, "GET", "/stats")[1]["decode_failures"]
     assert after - before == 3
 
