@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm, linear
+from .layers import GatherBlock, LayerNorm, linear
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
@@ -44,7 +44,10 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     return y.permute(0, 2, 3, 1)
 
 
-class ConvNeXtBlock(nn.Module):
+class ConvNeXtBlock(GatherBlock):
+    """One block; under FSDP it gathers its own weights as it runs
+    (``GatherBlock``)."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
@@ -53,7 +56,7 @@ class ConvNeXtBlock(nn.Module):
         self.fc2 = nn.Linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv_nhwc(x, self.dwconv.weight, self.dwconv.bias, padding=3,
                       groups=x.shape[-1])
         y = F.gelu(linear(self.norm(y), self.fc1.weight, self.fc1.bias))

@@ -45,6 +45,7 @@ so a GELU tower (the LAION ViT-H/14, g/14, bigG/14) trains with
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Optional
 
@@ -60,7 +61,7 @@ from .clip import CLIPConfig
 from .fast_convnext import convnext_encode_fused, pack_convnext
 from .fast_resnet import fold_resnet_bn, resnet_encode_folded
 from .fast_siglip import pack_siglip_fast_params, siglip_encode_fast
-from .layers import checkpoint_pinned, linear
+from .layers import linear
 from .siglip import SigLIPConfig
 
 
@@ -381,16 +382,14 @@ def vit_encode_scan(model, images: torch.Tensor, config: CLIPConfig, *,
                     remat: bool = False):
     """The canonical CLIP ViT encode in ``dtype`` with the blocks through
     ``_scan_clip_block`` in a loop; ``remat=True`` checkpoints each block
-    while autograd records (the gradients are the same)."""
+    while autograd records (the gradients are the same).  Under FSDP's
+    per-block gather each block gathers its weights in the loop body,
+    inside its checkpoint (``GatherBlock.run``)."""
     vp = model.visual
     x = _vit_embed(_stem(vp, dtype), images, config)
-    ckpt = remat and torch.is_grad_enabled()
     for blk in vp.transformer.resblocks:
-        if ckpt:
-            x = checkpoint_pinned(blk, _scan_clip_block, blk, x,
-                                  config.vision_heads)
-        else:
-            x = _scan_clip_block(blk, x, config.vision_heads)
+        x = blk.run(functools.partial(_scan_clip_block, blk,
+                                      heads=config.vision_heads), x, remat)
     pre = vp.ln_post(x[:, 0, :])
     if not project:
         return pre

@@ -138,39 +138,59 @@ def checkpoint_pinned(module: nn.Module, fn, *args):
         use_reentrant=False)
 
 
-class RematBlock(nn.Module):
-    """A block whose ``block(x)`` checkpoints ``_forward`` when ``remat``
-    is set and autograd records.  A block given ``gather`` (a context
-    manager that puts its whole weights into its parameter slots, FSDP's
-    per-block gather) runs ``_forward`` inside it, checkpointed while
-    autograd records: the whole weights live for the block's forward and
-    again for its backward's recompute, never across the step."""
+class GatherBlock(nn.Module):
+    """A block of a tower that FSDP gathers one at a time: ``block(x)``
+    runs ``_forward``.  A block given ``gather`` (a context manager that
+    puts its whole weights into its parameter slots, FSDP's per-block
+    gather, and merges its LoRA adapters into them) runs ``_forward``
+    inside it, checkpointed while autograd records: the whole weights live
+    for the block's forward and again for its backward's recompute, never
+    across the step.  ``ConvNeXtBlock`` and the RN ``Bottleneck`` are
+    such blocks; the transformer blocks are ``RematBlock``s."""
 
-    remat = False
     gather = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def run(self, fn, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``fn(x)`` as this block's compute: inside its ``gather`` when it
+        has one (checkpointed while autograd records), else checkpointed
+        when ``remat`` and autograd records, else plainly.  ``fn`` is read
+        by the caller now: the backward's recompute runs after the
+        caller's contexts (the gather, a tensor-parallel ``_forward``) have
+        ended."""
         if self.gather is not None:
-            # bound now: the backward's recompute runs after the caller's
-            # contexts (the gather, a tensor-parallel _forward) have ended
-            gather, fwd = self.gather, self._forward
+            gather = self.gather
 
-            def run(x):
+            def gathered(x):
                 with gather():
-                    return fwd(x)
+                    return fn(x)
 
             if torch.is_grad_enabled():
                 return torch.utils.checkpoint.checkpoint(
-                    run, x, use_reentrant=False)
-            return run(x)
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint_pinned(self, self._forward, x)
-        return self._forward(x)
+                    gathered, x, use_reentrant=False)
+            return gathered(x)
+        if remat and torch.is_grad_enabled():
+            return checkpoint_pinned(self, fn, x)
+        return fn(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run(self._forward, x)
+
+
+class RematBlock(GatherBlock):
+    """A transformer block: a ``GatherBlock`` whose ``block(x)`` also
+    checkpoints ``_forward`` when ``remat`` is set and autograd records
+    (JAX's ``nn.remat`` of the block)."""
+
+    remat = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run(self._forward, x, self.remat)
 
 
 def set_remat(model: nn.Module, enabled: bool = True) -> nn.Module:
     """Set ``remat`` on every transformer block of ``model`` (both towers;
-    a ConvNeXt tower has none, as JAX's takes no remat)."""
+    a ConvNeXt or RN tower's blocks are ``GatherBlock``s without it, as
+    JAX's take no remat)."""
     for mod in model.modules():
         if isinstance(mod, RematBlock):
             mod.remat = bool(enabled)

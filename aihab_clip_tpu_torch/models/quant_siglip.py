@@ -15,27 +15,43 @@ projections, gelu_tanh MLP, LN eps 1e-6, MAP pooling head):
     dtype (one probe token: plain PyTorch, as the JAX package left it to
     XLA).
 
-This is the path the JAX package dispatches on the TPU (``impl="pallas"``,
-``attn_impl="split"``).  Its ``impl="xla"`` and ``attn_impl="chained"``
-routes are JAX's CPU and A/B routes and are not ported: here the kernels run
-on CUDA tensors and their plain versions on CPU tensors, and any other
-``impl`` raises.  The weights are quantized once, from the fp32 parameters
-(``load`` keeps them fp32 whatever the compute dtype), into the kernels'
-K-major layout (``ops/quant_matmul.int8_weight``); the dict keeps the JAX
-package's names and shapes.
+``siglip_encode_int8``'s ``impl`` and ``attn_impl`` name JAX's routes
+(``quant_siglip.py:206-249``):
+
+  * ``impl="pallas"`` (``"auto"``), ``attn_impl="split"`` (``"auto"``): the
+    kernel route above; the kernels run on CUDA tensors and their plain
+    versions on CPU tensors;
+  * ``impl="pallas"``, ``attn_impl="chained"``: per block K8 with the LN1
+    prologue for the packed qkv, ``ops/attention.attention`` (K6f on the
+    card at S in its window, head_dim 72, bf16), K8 with the residual for
+    the out-projection, then K9 -> K10; the patch embed through K8;
+  * ``impl="xla"`` (any ``attn_impl``): per GEMM ``ops/quant.quant_dense``
+    (the int8 product through ``torch._int_mm`` on a card, exact either
+    way), LN1/LN2 in the compute dtype (eps 1e-6), gelu_tanh after the
+    dequantize, ``attention`` for the core.
+
+JAX's ``"auto"`` picks ``"xla"`` off the TPU; the port's picks the kernel
+route, its serving path.  An unknown route raises.  The weights are
+quantized once, from the fp32 parameters (``load`` keeps them fp32 whatever
+the compute dtype), into the kernels' K-major layout
+(``ops/quant_matmul.int8_weight``); the dict keeps the JAX package's names
+and shapes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 
+from ..ops.attention import attention
 from ..ops.quant import quantize_weight
 from ..ops.quant_matmul import (int8_attn_weights, int8_weight,
-                                quant_attn_block_split, quant_matmul_fused,
+                                quant_attn_block_split,
                                 quant_matmul_fused_qout, quant_matmul_q8in,
                                 regroup_attn_weights)
+from . import quant_vit
 from .fast_siglip import _map_pool, siglip_attn_groups
 from .siglip import LN_EPS, SigLIPConfig, SigLIPModel
 
@@ -94,66 +110,101 @@ def quantize_siglip_params(model: SigLIPModel, config: SigLIPConfig) -> Dict:
     }
 
 
+IMPLS = ("auto", "pallas", "xla")
+ATTN_IMPLS = ("auto", "split", "chained")
+
+
+# JAX's per-GEMM routes, at SigLIP's LN eps (the ViT's 1e-5 is the default)
+_qmm_xla = functools.partial(quant_vit._qmm_xla, ln_eps=LN_EPS)
+_qmm_kernel = functools.partial(quant_vit._qmm_kernel, ln_eps=LN_EPS)
+
+
 def apply_int8_siglip_blocks(qblocks: Dict, x: torch.Tensor,
                              config: SigLIPConfig, *, start: int,
-                             stop: int) -> torch.Tensor:
-    """SigLIP blocks [start, stop) through K13 -> K9 -> K10 (forward only;
-    also the int8 frozen prefix of the PEFT step).  ``qblocks`` is
+                             stop: int, use_pallas: bool = True,
+                             use_split_attn: bool = True) -> torch.Tensor:
+    """SigLIP blocks [start, stop) over x [B, S, W] (forward only; also the
+    int8 frozen prefix of the PEFT step, on the split route), JAX's three
+    routes (``quant_siglip.py:119-203``): ``use_split_attn`` (with
+    ``use_pallas``) K13 -> K9 -> K10; ``use_pallas`` alone the chained
+    route, K8 + LN for qkv, ``attention``, K8 + residual, K9 -> K10;
+    neither, ``quant_dense`` per GEMM with ``attention``.  ``qblocks`` is
     {resblocks_i: quantize_siglip_block(...)}, regrouped at quantize time;
-    x [B, S, W]; the residual stream stays in x's dtype."""
+    the residual stream stays in x's dtype."""
     heads, width = config.vision_heads, config.vision_width
     b, s, _ = x.shape
+    x2 = x.reshape(b * s, width)
+    qmm = _qmm_kernel if use_pallas else _qmm_xla
     for i in range(start, stop):
         blk = qblocks[f"resblocks_{i}"]
-        g = blk["attn/qkv_g"]
         out_q = blk["attn/out_proj"]
-        # the stored grouping wins: the hybrid prefix quantizes with its own
-        x = quant_attn_block_split(
-            x, g["w8_g"], g["scale_g"], g["bias_g"], g["out_g"],
-            out_q["scale"], out_q["bias"], blk["ln_1"]["scale"],
-            blk["ln_1"]["bias"], heads, int(g["w8_g"].shape[0]),
-            ln_eps=LN_EPS)
+        if use_pallas and use_split_attn:
+            g = blk["attn/qkv_g"]
+            # the stored grouping wins: the hybrid prefix quantizes with its
+            # own
+            x2 = quant_attn_block_split(
+                x2.reshape(b, s, width), g["w8_g"], g["scale_g"],
+                g["bias_g"], g["out_g"], out_q["scale"], out_q["bias"],
+                blk["ln_1"]["scale"], blk["ln_1"]["bias"], heads,
+                int(g["w8_g"].shape[0]), ln_eps=LN_EPS).reshape(b * s, width)
+        else:
+            qkv = qmm(x2, blk["attn/qkv"], ln=blk["ln_1"])
+            # K6f takes contiguous q, k and v (JAX's split makes arrays)
+            q, k, v = (t.contiguous() for t in
+                       qkv.reshape(b, s, 3 * width).split(width, dim=-1))
+            attn = attention(q, k, v, heads).reshape(b * s, width)
+            x2 = qmm(attn, out_q, residual=x2)
         fc, pr = blk["mlp/c_fc"], blk["mlp/c_proj"]
-        x2 = x.reshape(b * s, width)
-        hdn8, hsc = quant_matmul_fused_qout(
-            x2, fc["w8"], fc["scale"], fc["bias"], blk["ln_2"]["scale"],
-            blk["ln_2"]["bias"], act="gelu_tanh", ln_eps=LN_EPS)
-        x = quant_matmul_q8in(hdn8, hsc, pr["w8"], pr["scale"], pr["bias"],
-                              residual=x2).reshape(b, s, width)
-    return x
+        if use_pallas:
+            hdn8, hsc = quant_matmul_fused_qout(
+                x2, fc["w8"], fc["scale"], fc["bias"], blk["ln_2"]["scale"],
+                blk["ln_2"]["bias"], act="gelu_tanh", ln_eps=LN_EPS)
+            x2 = quant_matmul_q8in(hdn8, hsc, pr["w8"], pr["scale"],
+                                   pr["bias"], residual=x2)
+        else:
+            hdn = qmm(x2, fc, act="gelu_tanh", ln=blk["ln_2"])
+            x2 = qmm(hdn, pr, residual=x2)
+    return x2.reshape(b, s, width)
 
 
 def siglip_patchify_int8(qparams: Dict, images: torch.Tensor,
-                         config: SigLIPConfig, dtype=torch.bfloat16):
+                         config: SigLIPConfig, dtype=torch.bfloat16, *,
+                         use_pallas: bool = True):
     """images [B, H, W, 3] -> tokens [B, S, W] in ``dtype``: im2col + K8
-    (conv bias in its epilogue) + the positional embedding."""
+    (conv bias in its epilogue; ``quant_dense`` off the kernel route) +
+    the positional embedding."""
     p = config.patch_size
     x = images.to(dtype)
     b, h, w, c = x.shape
     gh, gw = h // p, w // p
     patches = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
     patches = patches.reshape(b * gh * gw, p * p * c)
-    cq = qparams["conv1"]
-    x = quant_matmul_fused(patches, cq["w8"], cq["scale"], cq["bias"])
-    x = x.reshape(b, gh * gw, config.vision_width)
+    qmm = _qmm_kernel if use_pallas else _qmm_xla
+    x = qmm(patches, qparams["conv1"]).reshape(b, gh * gw, config.vision_width)
     return x + qparams["positional_embedding"].to(x.dtype)
 
 
 def siglip_encode_int8(qparams: Dict, model: SigLIPModel,
                        images: torch.Tensor, config: SigLIPConfig, *,
                        project: bool = False, dtype=torch.bfloat16,
-                       impl: str = "pallas"):
+                       impl: str = "auto", attn_impl: str = "auto"):
     """images [B, H, W, 3] normalized NHWC -> pooled SigLIP embedding (or
     ``(pooled, pooled)`` with ``project=True``).  ``qparams`` from
     ``quantize_siglip_params``; ``model`` carries the original weights of
-    ``ln_post`` and the MAP head.  ``impl`` names the JAX route: only
-    ``"pallas"`` (the split-attention kernel path) is ported."""
-    if impl not in ("pallas", "auto"):
-        raise NotImplementedError(
-            f"siglip_encode_int8 impl={impl!r}: only the kernel path "
-            "('pallas') is ported; CPU tensors run its plain versions")
-    x = siglip_patchify_int8(qparams, images, config, dtype)
+    ``ln_post`` and the MAP head.  ``impl`` (``IMPLS``) and ``attn_impl``
+    (``ATTN_IMPLS``) name JAX's route (module docstring); ``"auto"`` is the
+    split kernel route."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+    use_pallas = impl != "xla"
+    use_split = use_pallas and attn_impl != "chained"
+    x = siglip_patchify_int8(qparams, images, config, dtype,
+                             use_pallas=use_pallas)
     x = apply_int8_siglip_blocks(qparams["transformer"], x, config, start=0,
-                                 stop=config.vision_layers)
+                                 stop=config.vision_layers,
+                                 use_pallas=use_pallas,
+                                 use_split_attn=use_split)
     pooled = _map_pool(model, x)
     return (pooled, pooled) if project else pooled

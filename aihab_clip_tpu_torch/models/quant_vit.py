@@ -231,16 +231,16 @@ def apply_int8_vit_blocks(qblocks: Dict, x: torch.Tensor, config: CLIPConfig,
     return x
 
 
-def _qmm_xla(x, q, act=None, residual=None, ln=None):
+def _qmm_xla(x, q, act=None, residual=None, ln=None, ln_eps=1e-5):
     """JAX's XLA-route ``qmm`` (``quant_vit.py:317-323``): LN in x's dtype,
     then ``quant_dense``, then the residual."""
     if ln is not None:
-        x = _ln(x, ln["scale"], ln["bias"])
+        x = _ln(x, ln["scale"], ln["bias"], eps=ln_eps)
     out = quant_dense(x, q["w8"], q["scale"], q.get("bias"), act=act)
     return out if residual is None else out + residual
 
 
-def _qmm_kernel(x, q, act=None, residual=None, ln=None):
+def _qmm_kernel(x, q, act=None, residual=None, ln=None, ln_eps=1e-5):
     """JAX's kernel-route ``qmm`` (``quant_vit.py:307-315``): K8, with the
     LN prologue and the residual when given; no bias is a zero bias."""
     bias = q.get("bias")
@@ -249,7 +249,7 @@ def _qmm_kernel(x, q, act=None, residual=None, ln=None):
         torch.zeros_like(q["scale"]) if bias is None else bias,
         act=act or "none", residual=residual,
         ln_scale=None if ln is None else ln["scale"],
-        ln_bias=None if ln is None else ln["bias"])
+        ln_bias=None if ln is None else ln["bias"], ln_eps=ln_eps)
 
 
 def _per_gemm_blocks(qblocks: Dict, x: torch.Tensor, config: CLIPConfig, *,

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import attention, linear
+from .layers import GatherBlock, attention, linear
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor, bias=None, *,
@@ -69,7 +69,10 @@ class FrozenBatchNorm(nn.Module):
         return (y * chan(self.weight) + chan(self.bias)).to(x.dtype)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(GatherBlock):
+    """One block; under FSDP it gathers its own weights as it runs
+    (``GatherBlock``)."""
+
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
@@ -86,7 +89,7 @@ class Bottleneck(nn.Module):
             self.downsample_conv = nn.Conv2d(inplanes, out, 1, bias=False)
             self.downsample_bn = FrozenBatchNorm(out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(conv(x, self.conv1.weight)))
         out = F.relu(self.bn2(conv(out, self.conv2.weight, padding=1)))
         if self.stride > 1:

@@ -307,40 +307,74 @@ class Sharding:
                 mod._parameters[attr] = shard
 
     @contextlib.contextmanager
+    def _block_gather(self, model, names, tp_local, adapters, alpha):
+        """One block's gather: its data-cut weights whole, then its LoRA
+        adapters merged into them (``W_eff``, differentiable in A and B)."""
+        with self._swapped(model, names, tp_local):
+            if adapters:
+                from ..train.lora import lora_applied
+
+                with lora_applied(model, adapters, alpha):
+                    yield model
+            else:
+                yield model
+
+    @contextlib.contextmanager
     def gathered(self, model: torch.nn.Module, tp_local=None,
-                 per_block: bool = False):
+                 per_block: bool = False, adapters=None,
+                 alpha: float = 1.0, unread: Tuple[str, ...] = ()):
         """Inside the block every sharded parameter of ``model`` reads
         whole (gathered once, differentiably); those ``tp_local(name)``
         picks read as their tensor-parallel shard (gathered over data
-        only), for the tensor-parallel block forward.  ``per_block``
-        leaves the transformer blocks' FSDP shards (those cut over data)
-        in place and has each block gather its own when it runs
-        (``RematBlock.gather``), so a rank never holds more than one
-        block's whole weights; for callers that read the blocks through
-        their forward alone.  A block cut over the model axis alone runs
-        as it is: its gather would save nothing."""
-        from ..models.layers import RematBlock
+        only), for the tensor-parallel forward.  ``adapters`` (LoRA,
+        ``train/lora``) are merged into the weights they adapt (``W_eff``
+        with ``alpha``) after the gather.  ``per_block`` leaves every
+        tower block's FSDP shards (those cut over data) in place and has
+        each block (``layers.GatherBlock``: the transformer, ConvNeXt and
+        RN blocks) gather its own and merge its own adapters when it runs,
+        so a rank never holds more than one block's whole weights; for
+        callers that read the blocks through their forward alone.  A block
+        cut over the model axis alone runs as it is: its gather would save
+        nothing.  Parameters under the ``unread`` prefixes (a tower the
+        caller does not read) stay as their shards."""
+        from ..models.layers import GatherBlock
 
+        adapters = adapters or {}
         blocks = ({n: m for n, m in model.named_modules()
-                   if isinstance(m, RematBlock)} if per_block else {})
+                   if isinstance(m, GatherBlock)} if per_block else {})
+
+        def owner(name):
+            return next((b for b in blocks if name.startswith(b + ".")),
+                        None)
+
         own: Dict[str, List[str]] = {}
         eager = []
         for name in self.cuts:
-            owner = next((b for b in blocks if name.startswith(b + ".")),
-                         None) if self.data_sharded(name) else None
-            if owner is None:
+            if name.startswith(unread):
+                continue
+            b = owner(name) if self.data_sharded(name) else None
+            if b is None:
                 eager.append(name)
             else:
-                own.setdefault(owner, []).append(name)
+                own.setdefault(b, []).append(name)
+        merge: Dict[str, Dict] = {}
+        rest = {}
+        for name, ab in adapters.items():
+            b = owner(name)
+            if b is None:
+                rest[name] = ab
+            else:
+                merge.setdefault(b, {})[name] = ab
         try:
-            for owner, names in own.items():
-                blocks[owner].gather = functools.partial(
-                    self._swapped, model, names, tp_local)
-            with self._swapped(model, eager, tp_local):
+            for b in set(own) | set(merge):
+                blocks[b].gather = functools.partial(
+                    self._block_gather, model, own.get(b, []), tp_local,
+                    merge.get(b), alpha)
+            with self._block_gather(model, eager, tp_local, rest, alpha):
                 yield model
         finally:
-            for owner in own:
-                blocks[owner].gather = None
+            for b in set(own) | set(merge):
+                blocks[b].gather = None
 
     @torch.no_grad()
     def full_state(self, model: torch.nn.Module) -> Dict[str, torch.Tensor]:

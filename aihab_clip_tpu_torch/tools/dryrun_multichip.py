@@ -51,15 +51,25 @@ def parallel_step(model, cfg, text_weights, prompt_tokens, batch,
     (the adapters' ``<name>.a``/``<name>.b`` with ``adapters``); ``step``
     takes further steps.  The dry run, ``chip_smoke.py`` and the tests
     hold each parallel path against the single rank through it."""
+    return _parallel_step(model, cfg, text_weights, prompt_tokens, batch,
+                          generator, mesh, fsdp, adapters, pprefix,
+                          control=False)
+
+
+def _parallel_step(model, cfg, text_weights, prompt_tokens, batch,
+                   generator, mesh, fsdp, adapters, pprefix, control: bool):
+    """``parallel_step``; ``control``: the step of
+    ``peft._make_train_step``'s control (every weight gathered whole, the
+    replicated forward), which ``chip_smoke.py`` and the tests measure the
+    per-block gather and the tensor-parallel shards against."""
     from ..parallel.mesh import MODEL_AXIS, shard_params
-    from ..train.peft import make_train_step
+    from ..train.peft import _make_train_step
 
     sharding = None
     if mesh is not None and (fsdp or mesh.shape[MODEL_AXIS] > 1):
         sharding = shard_params(mesh, model, fsdp=fsdp)
-    _, step = make_train_step(model, cfg, text_weights, prompt_tokens,
-                              adapters=adapters, mesh=mesh,
-                              sharding=sharding)
+    _, step = _make_train_step(model, cfg, text_weights, prompt_tokens,
+                               adapters, mesh, sharding, control)
     m = step(*batch, generator, cfg.lr, pprefix)
     if adapters is None:
         named = [(n, p) for n, p in model.named_parameters()

@@ -425,10 +425,9 @@ def _build_loss_fn(model, cfg: PEFTConfig,
         if encode is not None:
             feats = encode(x)
         else:
-            with tensor_parallel_blocks(model, mesh):
-                _, feats = _encode_projected(
-                    model, cfg, x, pprefix,
-                    tp=mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1)
+            _, feats = _encode_projected(
+                model, cfg, x, pprefix,
+                tp=mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1)
         feats = feats.float()
         feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         if cfg.tune_text:
@@ -452,15 +451,31 @@ def _merged(model, cfg: PEFTConfig, adapters):
     return lora_applied(model, adapters, cfg.lora_alpha)
 
 
-def _gathered(model, mesh, sharding, per_block: bool = False):
-    """The context a sharded model is read through: every parameter
-    whole, the tensor-parallel blocks' as their shards (``tp_local``);
-    ``per_block``: each transformer block gathers its own as it runs."""
+@contextlib.contextmanager
+def _read(model, cfg: PEFTConfig, mesh, sharding, adapters,
+          control: bool = False):
+    """The context the step and the evaluation read the weights through:
+    the LoRA merge (``_merged``) of a model that is not sharded; of a
+    sharded one, its gather (``Sharding.gathered``: the tensor-parallel
+    blocks' weights as their shards, every block's FSDP shards gathered
+    and its adapters merged by the block as it runs, the rest whole and
+    merged now; the text tower left as its shards when the step does not
+    recompute the text head) with the tensor-parallel forward of every
+    block the rules cut on a model axis > 1.  ``control``
+    (``_make_train_step``'s): every weight it reads gathered whole and
+    merged now, and the replicated forward in place of the
+    tensor-parallel one."""
     if sharding is None:
-        return contextlib.nullcontext(model)
-    tp = mesh.shape.get(MODEL_AXIS, 1) > 1
-    return sharding.gathered(model, tp_local if tp else None,
-                             per_block=per_block)
+        with _merged(model, cfg, adapters):
+            yield model
+        return
+    tp = not control and mesh.shape.get(MODEL_AXIS, 1) > 1
+    unread = () if cfg.tune_text else ("text.",)
+    with sharding.gathered(model, tp_local if tp else None,
+                           per_block=not control, adapters=adapters,
+                           alpha=cfg.lora_alpha, unread=unread), \
+            tensor_parallel_blocks(model, mesh if tp else None):
+        yield model
 
 
 def make_train_step(model, cfg: PEFTConfig,
@@ -474,7 +489,20 @@ def make_train_step(model, cfg: PEFTConfig,
     sync), which updates those tensors in place.  Under a ``mesh`` every
     rank passes the global batch; the gradients not reduce-scattered by
     the ``sharding`` (``parallel.shard_params``) are summed over the data
-    axis, and the metrics are the global batch's."""
+    axis, and the metrics are the global batch's.  Under FSDP each block
+    of every tower gathers its weights (and merges its LoRA adapters) as
+    it runs, and under TP the blocks run as shards."""
+    return _make_train_step(model, cfg, text_weights, prompt_tokens,
+                            adapters, mesh, sharding, control=False)
+
+
+def _make_train_step(model, cfg: PEFTConfig, text_weights, prompt_tokens,
+                     adapters, mesh, sharding, control: bool):
+    """``make_train_step``; ``control`` builds the control that
+    ``chip_smoke.py`` and the tests measure the per-block gather and the
+    tensor-parallel shards against: a sharded model's weights gathered
+    whole for the step, and a replicated forward (no tensor-parallel
+    blocks; ``_read``)."""
     if adapters is None:
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
@@ -486,17 +514,12 @@ def make_train_step(model, cfg: PEFTConfig,
     loss_fn = _build_loss_fn(model, cfg, text_weights, prompt_tokens, mesh)
     summed = [p for n, p in named
               if sharding is None or not sharding.data_sharded(n)]
-    # FSDP's blocks gather their weights one at a time where the encode
-    # runs them through their forward (not the LoRA merge's W_eff, not the
-    # scanned encodes, which read the slots themselves)
-    per_block = adapters is None and not cfg.scan_blocks
 
     def step(images_u8, labels, valid, generator, lr, pprefix=None):
         for group in opt.param_groups:
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        with _gathered(model, mesh, sharding, per_block), \
-                _merged(model, cfg, adapters):
+        with _read(model, cfg, mesh, sharding, adapters, control):
             loss, (correct, n_valid) = loss_fn(images_u8, labels, valid,
                                                generator, pprefix)
         loss.backward()
@@ -878,12 +901,6 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
     # after a resume (the frozen weights never change while training)
     pprefix = _quantize_prefix(model, cfg) or _pack_prefix(model, cfg)
 
-    @contextlib.contextmanager
-    def weights():
-        with _gathered(model, mesh, sharding), \
-                _merged(model, cfg, adapters) as m:
-            yield m
-
     def opt_state():
         return (opt.state_dict() if sharding is None or lora
                 else sharding.full_opt_state(opt, names))
@@ -898,8 +915,9 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
 
     def run_eval(view, **kw):
         # evaluate packs the kernels' weights at each call: with LoRA the
-        # pack (and the text head) is W_eff's
-        with torch.no_grad(), weights():
+        # pack (and the text head) is W_eff's; a sharded model's blocks
+        # gather theirs one at a time (the canonical module encodes)
+        with torch.no_grad(), _read(model, cfg, mesh, sharding, adapters):
             return evaluate(model, view, current_text_weights(),
                             cfg.resolution, cfg.num_classes,
                             compute_dtype=cfg.compute_dtype, mesh=mesh,
@@ -909,7 +927,8 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
         if lora:
             from .lora import merged_params
 
-            with _gathered(model, mesh, sharding):
+            with (contextlib.nullcontext() if sharding is None
+                  else sharding.gathered(model)):
                 return merged_params(model, adapters, cfg.lora_alpha)
         if sharding is not None:
             return sharding.full_state(model)

@@ -58,12 +58,17 @@ Phases (any failure raises and the exit code is non-zero):
      ``mlp_block_split`` (K4); features against the fp32 canonical module
      on the card; the batch-64 device-time split; ``classify_batch``
      images/s at batch 64;
-     5b: the same model with ``quantize="int8"`` (a second draw of the same
+     5b: the same model with ``quantize="int8"`` (on the bf16 engine's
      seeded weights: the engine takes a model name, as in JAX) answers the
      same requests, per batch 1 K8, 27 K13, 27 K9, 27 K10 and no K4/K5;
      features against the same encode with every kernel plain and against
      the fp32 canonical tower; top-1 agreement with the bf16 engine; the
-     batch-64 split; images/s beside the bf16 engine's;
+     batch-64 split; images/s beside the bf16 engine's; then JAX's other
+     two int8 routes at batch 64 (A15b), each counted from zero over one
+     encode: ``attn_impl="chained"`` (55 K8, 27 K6f, 27 K9, 27 K10) and
+     ``impl="xla"`` (``quant_dense`` through ``torch._int_mm``, 27 K6f),
+     against the bf16 engine's features and the split route's top-1, with
+     device ms and images/s;
   6. SigLIP PEFT path, on the engine's seeded SO400M weights — the default
      fine-tune (``configs/base.yaml`` + ``cs.yaml``: batch 16 at 384 from
      439x439 uint8, random crop + rotation, tune_text, unlocked_groups 11,
@@ -898,8 +903,10 @@ def main() -> None:
     phase("siglip path")
 
     # ---- 5b. the int8 SigLIP path: engine + dynamic batcher
-    counts["siglip_int8"], rates["siglip_so400m_int8_64"], int8_figures = \
+    int8_runs, rates["siglip_so400m_int8_64"], int8_figures = \
         siglip_int8_path(bk, engine, rates["siglip_so400m_64"])
+    counts["siglip_int8"] = int8_runs.pop("split")
+    counts.update(int8_runs)
     phase("siglip int8 path")
 
     # ---- 6. the SigLIP PEFT path on the engine's weights
@@ -968,7 +975,8 @@ def main() -> None:
     phase("tools path")
 
     # ---- A13. the parallel paths: one NCCL rank, then two ranks (DP, TP,
-    # FSDP, the pipeline, the DP eval, the sharded cache)
+    # FSDP, the pipeline, the DP eval, the sharded cache; A13b: per-block
+    # FSDP and TP at full width against their whole-gather controls)
     parallel = parallel_path(smi)
     phase("parallel paths")
 
@@ -979,6 +987,8 @@ def main() -> None:
              "vit_int8_off": "ViT-B/16 int8 merge_blocks='off' encode",
              "siglip": "SigLIP SO400M engine + DynamicBatcher",
              "siglip_int8": "SigLIP SO400M int8 engine + DynamicBatcher",
+             "siglip_int8_chained": "SigLIP SO400M int8 encode, JAX's "
+                                    "chained route (batch 64)",
              "siglip_peft": f"SigLIP SO400M finetune ({PEFT_SPLITS[0] // PEFT_B}"
                             " steps + val/test)",
              "convnext": "ConvNeXt base_w engine + DynamicBatcher",
@@ -1653,6 +1663,8 @@ def int8_kernel_cases(rnd, vec, run_cases, compare, timed) -> dict:
     wo8, so = quantize_weight(rnd(w, w, scale=w ** -0.5, dtype=torch.float32))
     wg, sg, bg, og = qm.regroup_attn_weights(wq8, sq, vec(3 * w), wo8, heads,
                                              groups)
+    wq8k, wo8k = qm.int8_weight(wq8), qm.int8_weight(wo8)
+    bq = vec(3 * w)
     wg, og = qm.int8_attn_weights(wg, og)
     k13 = (wg, sg, bg, og, so, bo, *ln1, heads, groups)
     h8, hs = qm.quant_matmul_fused_qout(x2, wf8, sf, bf, *ln2,
@@ -1699,6 +1711,24 @@ def int8_kernel_cases(rnd, vec, run_cases, compare, timed) -> dict:
          lambda: int_mm(mm_in[hid], wc8), (0, f_fc),
          m * hid + 4 * m + hid * w + 8 * w + 2 * m * w + 2 * m * w,
          qm.quant_matmul_q8in, "siglip_int8", SRC_Q),
+        # K8's instances on JAX's chained route (A15b): the packed qkv with
+        # the LN1 prologue, the out-projection with the residual
+        ("quant_matmul_fused[SigLIP qkv, LN1]", f"{JAX_QM}:376", "kernel",
+         lambda: qm.quant_matmul_fused(x2, wq8k, sq, bq, ln_scale=ln1[0],
+                                       ln_bias=ln1[1], ln_eps=1e-6),
+         lambda: qm.quant_matmul_fused_plain(x2, wq8k, sq, bq,
+                                             ln_scale=ln1[0], ln_bias=ln1[1],
+                                             ln_eps=1e-6),
+         lambda: int_mm(mm_in[w], wq8k), (0, f_qkv),
+         2 * m * w + 8 * w + 3 * w * w + 8 * 3 * w + 2 * m * 3 * w,
+         qm.quant_matmul_fused, "siglip_int8_chained", SRC_Q),
+        ("quant_matmul_fused[SigLIP out-proj, residual]", f"{JAX_QM}:376",
+         "kernel",
+         lambda: qm.quant_matmul_fused(x2, wo8k, so, bo, residual=x2),
+         lambda: qm.quant_matmul_fused_plain(x2, wo8k, so, bo, residual=x2),
+         lambda: int_mm(mm_in[w], wo8k), (0, f_out),
+         2 * m * w + w * w + 8 * w + 2 * m * w + 2 * m * w,
+         qm.quant_matmul_fused, "siglip_int8_chained", SRC_Q),
         ("quant_attn_block_split", f"{JAX_QM}:622", "block",
          lambda: qm.quant_attn_block_split(x, *k13, ln_eps=1e-6),
          lambda: qm.quant_attn_block_split_plain(x, *k13, ln_eps=1e-6),
@@ -2470,6 +2500,19 @@ def siglip_path(bk):
 
 
 @contextlib.contextmanager
+def same_weights(bundle):
+    """Inside the block ``models.load`` returns ``bundle``, so an int8
+    engine of the model a bf16 engine serves quantizes those weights (the
+    same seeded draw) instead of drawing them again on the host."""
+    from unittest import mock
+
+    from aihab_clip_tpu_torch import models
+
+    with mock.patch.object(models, "load", lambda *a, **k: bundle):
+        yield bundle
+
+
+@contextlib.contextmanager
 def plain_int8_kernels():
     """Every kernel of the int8 SigLIP, ViT and ConvNeXt encodes swapped for
     its plain version."""
@@ -2493,8 +2536,8 @@ def plain_int8_kernels():
 
 
 def siglip_int8_path(bk, bf16_engine, bf16_rate):
-    """ClassifierEngine(quantize="int8") + DynamicBatcher on the same seeded
-    SO400M weights as the bf16 engine (a second draw: the engine takes a
+    """ClassifierEngine(quantize="int8") + DynamicBatcher on the bf16
+    engine's seeded SO400M weights (``same_weights``: the engine takes a
     model name, as JAX's does); returns the launch counts of the batcher
     run, images/s at batch 64 and the path's figures."""
     import torch
@@ -2507,8 +2550,9 @@ def siglip_int8_path(bk, bf16_engine, bf16_rate):
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    engine = ClassifierEngine(model=SL_MODEL, batch_size=64, quantize="int8",
-                              device="cuda")
+    with same_weights(bf16_engine.bundle):
+        engine = ClassifierEngine(model=SL_MODEL, batch_size=64,
+                                  quantize="int8", device="cuda")
     t_built = time.perf_counter() - t0
     engine.warmup()
     cfg = engine.bundle.config
@@ -2517,7 +2561,7 @@ def siglip_int8_path(bk, bf16_engine, bf16_rate):
     n_groups = int(qp["transformer"]["resblocks_0"]["attn/qkv_g"]["w8_g"]
                    .shape[0])
     print(f"[int8] {SL_MODEL} quantize='int8': built in {t_built:.1f}s (a "
-          f"second draw of the seeded weights), warm in "
+          f"bf16 engine's seeded weights), warm in "
           f"{time.perf_counter() - t0:.1f}s; {n_groups} head groups")
     check(n_groups == SL_GROUPS, f"int8 head groups {n_groups}")
     images = np.random.default_rng(SEED + 1).integers(
@@ -2607,9 +2651,89 @@ def siglip_int8_path(bk, bf16_engine, bf16_rate):
     rate = images_per_s(engine, 64, dim, n=5)
     print(f"[int8] classify_batch end-to-end at batch 64: {rate:.1f} "
           f"images/s (bf16 engine {bf16_rate:.1f}, same run)")
+    figures["routes"], routes_run = siglip_int8_routes(
+        bk, engine, bf16_engine, batch, xb)
     del engine, model, batch, xb, ref_tower
     torch.cuda.empty_cache()
-    return run, rate, figures
+    return {"split": run, **routes_run}, rate, figures
+
+
+def siglip_int8_routes(bk, engine, bf16_engine, batch, xb):
+    """JAX's other two int8 routes of ``siglip_encode_int8`` at batch 64
+    (A15b): ``attn_impl="chained"`` (K8 with the LN1 prologue, K6f, K8 with
+    the residual, K9 -> K10; the patch embed through K8) and ``impl="xla"``
+    (``quant_dense`` through ``torch._int_mm``, K6f for the core), each
+    counted from zero over one encode, held against the bf16 engine's
+    features (``INT8_COS["fp32"]``) and the split route's top-1; device ms
+    (CUDA events) and images/s of the encode.  Returns (figures, {route:
+    launches})."""
+    import torch
+
+    from aihab_clip_tpu_torch.models import quant_siglip as qs
+    from aihab_clip_tpu_torch.models.fast_vit import encode_image_fastest
+    from aihab_clip_tpu_torch.ops import attention as att
+    from aihab_clip_tpu_torch.ops import quant_matmul as qm
+
+    qp, model, cfg = engine._qparams, engine.bundle.model, engine.bundle.config
+    n, layers = xb.shape[0], cfg.vision_layers
+
+    def probs(feats):
+        f = torch.nn.functional.normalize(feats.float(), dim=-1)
+        return torch.softmax(100.0 * f @ engine._text_weights, -1)
+
+    def encode(**kw):
+        return qs.siglip_encode_int8(qp, model, xb, cfg, **kw)
+
+    with torch.inference_mode():
+        bf16 = encode_image_fastest(bf16_engine.bundle.model, xb, cfg,
+                                    project=True,
+                                    packed=bf16_engine._packed)[1].float()
+        split_top1 = probs(encode()).argmax(-1)
+    figures, launches = {}, {}
+    want = {
+        "chained": {"quant_matmul_fused": 1 + 2 * layers,
+                    "quant_matmul_fused_qout": layers,
+                    "quant_matmul_q8in": layers,
+                    "quant_attn_block_split": 0,
+                    "fused_attention_fwd": layers,
+                    "row_quant": 1 + 3 * layers, "int8_gemm": 1 + 4 * layers},
+        "xla": {"quant_matmul_fused": 0, "quant_matmul_fused_qout": 0,
+                "quant_matmul_q8in": 0, "quant_attn_block_split": 0,
+                "fused_attention_fwd": layers, "row_quant": 0,
+                "int8_gemm": 0}}
+    for route, kw in (("chained", dict(attn_impl="chained")),
+                      ("xla", dict(impl="xla"))):
+        with torch.inference_mode():
+            for reset in (bk.reset_launch_counts, qm.reset_launch_counts,
+                          att.reset_launch_counts):
+                reset()
+            feats = encode(**kw).float()
+            torch.cuda.synchronize()
+            got = {**bk.launch_counts(), **qm.launch_counts(),
+                   **att.launch_counts()}
+            launches[f"siglip_int8_{route}"] = got
+            cos = torch.nn.functional.cosine_similarity(feats, bf16, dim=-1)
+            top1 = (probs(feats).argmax(-1) == split_top1).float().mean()
+            ms = staged_ms(xb, [("encode", lambda x: encode(**kw))], 3)[0][
+                "encode"]
+        for key, v in want[route].items():
+            check(got[key] == v, f"int8 {route}: {key} launched {got[key]} "
+                  f"times in one encode (want {v})")
+        check(bool(torch.isfinite(feats).all()) and feats.shape == bf16.shape,
+              f"int8 {route}: features {tuple(feats.shape)}")
+        check(cos.min().item() >= INT8_COS["fp32"],
+              f"int8 {route}: cosine vs the bf16 engine {cos.min().item()}")
+        figures[route] = dict(cos_bf16_min=cos.min().item(),
+                              cos_bf16_mean=cos.mean().item(),
+                              top1_vs_split=top1.item(), encode_ms=ms,
+                              images_per_s=1e3 * n / ms)
+        print(f"[int8] route {route} at batch {n}: launches "
+              f"{ {k: got[k] for k in want[route]} }; features vs the bf16 "
+              f"engine cosine min {cos.min().item():.6f} mean "
+              f"{cos.mean().item():.6f} (limit {INT8_COS['fp32']}); top-1 "
+              f"agreement with the split route {top1.item():.4f}; encode "
+              f"{ms:.3f} ms (device), {1e3 * n / ms:.1f} images/s")
+    return figures, launches
 
 
 def fused_attention_cases(rnd, run_cases, compare, timed) -> None:
@@ -3704,11 +3828,12 @@ def large_vit_paths(bk):
                    optout_images_per_s=rate)
         return run, rate
 
-    def build(name, **kw):
+    def build(name, bundle=None, **kw):
         """The engine and the seconds its ``load`` took (the random weights
-        are drawn on the host)."""
+        are drawn on the host; ``bundle``: a bf16 engine's weights, reused,
+        0 s)."""
         seconds = []
-        real = models.load
+        real = models.load if bundle is None else (lambda *a, **k: bundle)
 
         def timed_load(*a, **k):
             t0 = time.perf_counter()
@@ -3723,8 +3848,9 @@ def large_vit_paths(bk):
                                    verbose=False, **kw)
         eng.warmup()
         print(f"[large] {name}{' int8' if kw else ''}: load {seconds[0]:.1f}s"
-              f" (random weights drawn on the host), engine built + warm in "
-              f"{time.perf_counter() - t0:.1f}s")
+              + (" (random weights drawn on the host)" if bundle is None
+                 else " (the bf16 engine's weights)")
+              + f", engine built + warm in {time.perf_counter() - t0:.1f}s")
         return eng, seconds[0]
 
     def serve(eng, tag):
@@ -3821,13 +3947,16 @@ def large_vit_paths(bk):
         if arch == "ViT-H/14":
             counts[tag + "_nogelupoly"], rates[f"{tag}_gelu_optout_64"] = \
                 gelu_optout(eng, arch, fig)
+        bundle = eng.bundle
         del eng, packed, feats, xb
         torch.cuda.empty_cache()
         if arch == "ViT-H/14":
             continue
 
-        # ---- int8, by the table's name
-        eng, fig["int8_load_s"] = build(f"random:{arch}", quantize="int8")
+        # ---- int8, by the table's name, on the bf16 engine's weights
+        eng, fig["int8_load_s"] = build(f"random:{arch}", bundle,
+                                        quantize="int8")
+        del bundle
         qp = eng._qparams
         run, n, probs8 = serve(eng, f"{arch} int8")
         counts[tag + "_int8"] = run
@@ -3946,6 +4075,37 @@ def reckon_peft_gib(config, unlocked: int) -> dict:
     gib["total"] = sum(gib.values())
     gib["params"], gib["trainable"] = total, train
     return gib
+
+
+def reckon_gather_gib(config, tp: bool = False, text: bool = True) -> dict:
+    """What reading the weights as they are cut should save a rank against
+    gathering every weight whole, reckoned from the configuration alone (a
+    model on the meta device), in GiB of fp32: FSDP (``tp`` False), every
+    tower block's weights less the largest block's (a block gathers its
+    own as it runs; the control holds every block whole beside its
+    shards); TP, every weight the rules cut on the model axis (the shards
+    are read in place; the control gathers them whole).  ``text`` False:
+    a step that does not read the text tower (no ``tune_text``), which
+    both sides leave as its shards."""
+    import torch
+
+    from aihab_clip_tpu_torch.models import CLIPModel, SigLIPModel
+    from aihab_clip_tpu_torch.models.layers import GatherBlock
+    from aihab_clip_tpu_torch.parallel.tensor import tp_local
+
+    with torch.device("meta"):
+        model = (CLIPModel(config) if hasattr(config, "transformer_width")
+                 else SigLIPModel(config))
+    if tp:
+        cut = sum(p.numel() for n, p in model.named_parameters()
+                  if tp_local(n))
+        return {"tp_cut": 4 * cut / 2 ** 30}
+    blocks = [sum(p.numel() for p in m.parameters())
+              for n, m in model.named_modules() if isinstance(m, GatherBlock)
+              and (text or not n.startswith("text."))]
+    return {"blocks": 4 * sum(blocks) / 2 ** 30,
+            "largest_block": 4 * max(blocks) / 2 ** 30,
+            "drop": 4 * (sum(blocks) - max(blocks)) / 2 ** 30}
 
 
 def large_peft_step(tag, model, bk, smi, *, scan=False) -> dict:
@@ -7028,9 +7188,29 @@ def tools_path(smi: str, dev: str = "cuda") -> dict:
 PAR_GATE = VIT_STEP_GATES["plain"]
 PAR_COS_OVER, PAR_ADAM_TOL = 1e-9, 1e-3
 PAR_SIGN_MIN, PAR_SIGN_FLOOR = 0.9999, 1e-3
+# A TP step cuts the text tower's sums too (A13b): in bf16 a reordering of
+# them moves the random text tower's features by its own rounding, which
+# the 100x logits carry to the whole step.  On an H100 the bf16 TP step of
+# both towers read loss rel 9.063e-3, gradient cosine 0.999394 and sign
+# agreement 0.99916 from the bf16 single rank (TP of the visual blocks
+# alone, 2.3e-3 and 0.99997), and the fp32 single rank 4.619e-3, 0.999564
+# and 0.99951 from it: bf16's own rounding.  So the TP arms are gated in
+# fp32 by PAR_GATE, where it reads the shards' arithmetic, and the bf16 TP
+# step by TP16_GATE (loss rel, cosine, sign agreement), each the geometric
+# mean of that step's reading and the nearer of the faults tp16_faults
+# plants, which must fail it: the text tower's MLP partials unsummed read
+# 1.260e-1, 0.2238 and 0.5819, its attention not causal 2.815e-1, -0.1469
+# and 0.4456 (1 - cosine and 1 - agreement for the last two; PERF.md §6)
+TP16_GATE = (3.4e-2, 0.978, 0.981)
 PAR_STAGES, PAR_MICRO, PAR_UNLOCKED_LAYERS = 2, 4, 10
 PAR_EVAL_N, PAR_CACHE_N = 32, 40
-PAR_TIMEOUTS = {"nccl1": 240, "pair": 480}
+# A13b's SO400M arms: full width, 9 of the 27 blocks a tower (the smoke's
+# time limit; the DP step above keeps all 27)
+PAR_SL_LAYERS = 9
+# each A13b arm's drop in peak against its control (the same unread
+# tower on both sides) must reach this share of reckon_gather_gib's
+A13B_DROP_MIN = 0.5
+PAR_TIMEOUTS = {"nccl1": 240, "pair": 720}
 
 
 def _par_flat(tensors) -> "torch.Tensor":
@@ -7049,9 +7229,13 @@ def _par_adam_err(grad, upd, before) -> float:
     return float(err.max().clamp_min(0.0)) / PEFT_LR
 
 
-def _par_compare(tag, got, ref, line) -> dict:
+def _par_compare(tag, got, ref, line, gate: bool = True,
+                 limits=(*PAR_GATE, PAR_SIGN_MIN)) -> dict:
     """(loss, grad, update, adam_err) of a path against the reference's:
-    the gates above; returns the figures."""
+    ``limits`` (loss rel, gradient cosine, update sign agreement; the
+    cosine also at most 1 + PAR_COS_OVER, the update within PAR_ADAM_TOL
+    of Adam's first step), checked with ``gate`` (else the figures alone);
+    returns the figures and whether they pass (``passes``)."""
     import torch
 
     rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -7062,18 +7246,56 @@ def _par_compare(tag, got, ref, line) -> dict:
     agree = (torch.sign(got["upd"][big]) == torch.sign(ref["upd"][big])
              ).double().mean().item()
     line(f"{tag} vs the single-rank step: loss {got['loss']:.6f} vs "
-         f"{ref['loss']:.6f}, rel |d| {rel:.3e} (limit {PAR_GATE[0]:g}); "
-         f"gradient cosine {cos:.9f} (limits {PAR_GATE[1]:g} to 1 + "
+         f"{ref['loss']:.6f}, rel |d| {rel:.3e} (limit {limits[0]:g}); "
+         f"gradient cosine {cos:.9f} (limits {limits[1]:g} to 1 + "
          f"{PAR_COS_OVER:g}); update sign agreement {agree:.6f} over "
-         f"{int(big.sum())} elements (limit {PAR_SIGN_MIN:g}); update vs "
+         f"{int(big.sum())} elements (limit {limits[2]:g}); update vs "
          f"Adam's first step on its gradient {got['adam_err']:.3e} lr "
          f"(limit {PAR_ADAM_TOL:g})")
-    check(rel <= PAR_GATE[0] and PAR_GATE[1] <= cos <= 1 + PAR_COS_OVER,
-          f"{tag}: step gate")
-    check(agree >= PAR_SIGN_MIN and got["adam_err"] <= PAR_ADAM_TOL,
-          f"{tag}: the parameters after the step")
+    step_ok = rel <= limits[0] and limits[1] <= cos <= 1 + PAR_COS_OVER
+    params_ok = agree >= limits[2] and got["adam_err"] <= PAR_ADAM_TOL
+    if gate:
+        check(step_ok, f"{tag}: step gate")
+        check(params_ok, f"{tag}: the parameters after the step")
     return dict(loss_rel=rel, grad_cos=cos, sign_agree=agree,
-                adam_err=got["adam_err"])
+                adam_err=got["adam_err"], passes=step_ok and params_ok)
+
+
+def tp16_faults(text_len: int) -> dict:
+    """The faults planted in the bf16 TP step, TP16_GATE's witnesses:
+    {name: (a context that plants it, whether the gate must fail it)}.
+    The text tower's attention without its causal mask; the text tower's
+    MLP partials left unsummed (each rank keeps its own); every
+    row-parallel partial summed in fp16, which holds each bf16 partial of
+    the step (a finer mantissa, the activations well inside its range) and
+    so moves the step only as far as another order of the sums would: that
+    one is printed, not failed.  ``text_len``: the text tower's sequence
+    (its blocks' [B, S, W] inputs)."""
+    import functools
+    from unittest import mock
+
+    from aihab_clip_tpu_torch.ops.attention import dot_product_attention
+    from aihab_clip_tpu_torch.parallel import comm, tensor
+
+    mlp, reduce = tensor._tp_mlp, comm.reduce_from_group
+
+    def text_unsummed(m, h, mesh):
+        if h.shape[-2] != text_len:
+            return mlp(m, h, mesh)
+        with mock.patch.object(comm, "reduce_from_group", lambda x, *_: x):
+            return mlp(m, h, mesh)
+
+    return {
+        "the text tower's attention not causal": (lambda: mock.patch.object(
+            tensor, "_block_attend", lambda att: functools.partial(
+                dot_product_attention, causal=False)), True),
+        "the text tower's MLP partials unsummed": (
+            lambda: mock.patch.object(tensor, "_tp_mlp", text_unsummed),
+            True),
+        "every row-parallel partial summed in fp16": (
+            lambda: mock.patch.object(
+                comm, "reduce_from_group", lambda x, mesh, axis: reduce(
+                    x.half(), mesh, axis).to(x.dtype)), False)}
 
 
 def parallel_worker(workdir: str, mode: str) -> None:
@@ -7081,7 +7303,11 @@ def parallel_worker(workdir: str, mode: str) -> None:
     --parallel-worker <dir> <mode>`` under ``spawn_ranks``' environment):
     ``nccl1``, one NCCL rank (the collectives on the card, a 1-rank mesh's
     step); ``pair``, two ranks (DP, TP, FSDP, the pipeline, the DP eval,
-    the sharded cache, each against the single rank).  Rank 0 writes
+    the sharded cache, each against the single rank; then A13b's arms at
+    full width: ViT-B/16 LoRA and SO400M LoRA with scan + remat under
+    FSDP, SO400M under TP (both SO400M arms at ``PAR_SL_LAYERS`` blocks a
+    tower), ConvNeXt base_w and RN50 under FSDP, each with its peak beside
+    its whole-gather control's).  Rank 0 writes
     ``<dir>/<mode>.json``; a failed gate raises, and the rank exits non-zero."""
     import os
     from pathlib import Path
@@ -7101,7 +7327,8 @@ def parallel_worker(workdir: str, mode: str) -> None:
     from aihab_clip_tpu_torch.parallel.mesh import make_mesh
     from aihab_clip_tpu_torch.parallel.pipeline import make_pipeline_mesh
     from aihab_clip_tpu_torch.templates import gen_prompts
-    from aihab_clip_tpu_torch.tools.dryrun_multichip import parallel_step
+    from aihab_clip_tpu_torch.tools.dryrun_multichip import (_parallel_step,
+                                                             parallel_step)
     from aihab_clip_tpu_torch.train.evaluate import evaluate
     from aihab_clip_tpu_torch.train.peft import (
         PEFTConfig, _pack_prefix, build_lock_mask, make_train_step,
@@ -7190,17 +7417,26 @@ def parallel_worker(workdir: str, mode: str) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
 
-    def peft_path(tag, mesh=None, fsdp=False, prefix=0):
+    def peft_path(tag, mesh=None, fsdp=False, prefix=0, control=False,
+                  fp32=False, warm=1, n=3):
         """One step (``parallel_step``: loss, whole gradient, whole update,
         K1 launches; the vectors kept on the host), then the step's ms and
         the rank's peak memory over the timed steps (the model, its
-        optimizer state and the steps' working set)."""
-        model = copy.deepcopy(pristine)
-        mask = build_lock_mask(model, layers, mcfg.transformer_layers,
-                               unlocked_groups=unlocked, tune_text=True,
-                               unlocked_text_layers=1)
-        names = [n for n, p in model.named_parameters() if mask[n]]
-        c = dataclasses.replace(cfg, fused_prefix=prefix)
+        optimizer state and the steps' working set); with ``control``,
+        also the peak of the same step with every weight gathered whole
+        (``ctl_peak_gib``); ``fp32``: both towers compute in fp32; ``warm``
+        and ``n``: the steps before and in the timing."""
+        def masked():
+            m = in_dtype(copy.deepcopy(pristine), fp32)
+            build_lock_mask(m, layers, mcfg.transformer_layers,
+                            unlocked_groups=unlocked, tune_text=True,
+                            unlocked_text_layers=1)
+            return m
+
+        model = masked()
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        c = dataclasses.replace(cfg, fused_prefix=prefix, compute_dtype=(
+            torch.float32 if fp32 else cfg.compute_dtype))
         pprefix = _pack_prefix(model, c) if prefix else None
         bk.reset_launch_counts()
         res = parallel_step(model, c, None, tokens, (imgs, labs, valid),
@@ -7219,27 +7455,176 @@ def parallel_worker(workdir: str, mode: str) -> None:
         reset_peak()
         times = timed(step, lambda i: (imgs, labs, valid,
                                        step_generator(SEED, 1, i), PEFT_LR,
-                                       pprefix))
+                                       pprefix), warm=warm, n=n)
         peak = peak_gib()
+        del model, step
+        ctl, ctl_ms = whole_gather_peak(
+            masked, c, None, tokens, mesh, fsdp, None, pprefix) \
+            if control else (None, None)
         line(f"{tag}: step median {statistics.median(times):.3f} ms over "
              f"{len(times)} ({', '.join(f'{t:.2f}' for t in times)}); peak "
-             f"{peak:.2f} GiB this rank; {k1} K1 in the first step")
-        del model, step
+             f"{peak:.2f} GiB this rank"
+             + (f" (every weight gathered whole: {ctl:.2f} GiB, "
+                f"{ctl_ms:.3f} ms)" if control else "")
+             + f"; {k1} K1 in the first step")
         return dict(loss=loss, grad=grad, upd=upd, adam_err=adam_err, k1=k1,
-                    ms=statistics.median(times), ms_all=times, peak_gib=peak)
+                    ms=statistics.median(times), ms_all=times, peak_gib=peak,
+                    ctl_peak_gib=ctl, ctl_ms=ctl_ms)
 
-    def so400m_dp(mesh):
+    def in_dtype(model, fp32):
+        """``model`` computing in fp32 when ``fp32`` (its towers' compute
+        dtype; the parameters are fp32 either way)."""
+        if fp32:
+            model.visual.dtype = model.text.dtype = torch.float32
+        return model
+
+    def whole_gather_peak(make, c, tw, toks, mesh, fsdp, adapters,
+                          pprefix=None, lora_rank=0):
+        """The rank's peak and ms over one step with every weight gathered
+        whole for the step (``peft._make_train_step``'s control of the
+        per-block gather and of the tensor-parallel shards), after a first
+        one."""
+        model = make()
+        if lora_rank:
+            model.requires_grad_(False)
+            adapters = lora_adapters(model, lora_rank)
+        res = _parallel_step(model, c, tw, toks, (imgs, labs, valid),
+                             step_generator(SEED, 0, 0), mesh, fsdp,
+                             adapters, pprefix, control=True)
+        step = res["step"]
+        del res
+        reset_peak()
+        ms = timed(step, lambda i: (imgs, labs, valid,
+                                    step_generator(SEED, 1, i), PEFT_LR,
+                                    pprefix), warm=0, n=1)[0]
+        peak = peak_gib()
+        del model, step, adapters
+        return peak, ms
+
+    def lora_adapters(model, rank):
+        """The runner's LoRA init (attention weights of the visual tower,
+        its seed), B drawn at N(0, 1e-3) so A's first gradient is not 0."""
+        from aihab_clip_tpu_torch.train.lora import lora_init
+
+        adapters = lora_init(model, rank, torch.Generator().manual_seed(
+            SEED + 7919))
+        with torch.no_grad():
+            for ab in adapters.values():
+                ab["b"].copy_(torch.randn(ab["b"].shape, generator=(
+                    torch.Generator().manual_seed(SEED + 8))) * 1e-3)
+        return adapters
+
+    def a13b_arm(tag, host_model, c, tw, toks, mesh, fsdp, *, unlocked=0,
+                 lora_rank=0, fp32=False):
+        """A per-block FSDP or tensor-parallel step of a tower at full
+        width (the model drawn once on the host, ``host_model``; each
+        variant a fresh copy on the card) against the single rank's step
+        on rank 0 (the ``PAR_*`` gates), its ms over 2 timed steps after
+        that compared step (the warm-up), the rank's peak beside the
+        whole-gather control's."""
+        from aihab_clip_tpu_torch.train.peft import build_lock_mask
+
+        mc = host_model.config
+        text_layers = getattr(mc, "transformer_layers", None) or getattr(
+            mc, "text_layers")
+
+        if fp32:
+            c = dataclasses.replace(c, compute_dtype=torch.float32)
+
+        def fresh():
+            model = in_dtype(copy.deepcopy(host_model).to(dev), fp32)
+            if lora_rank:
+                model.requires_grad_(False)
+                adapters = lora_adapters(model, lora_rank)
+                names = [f"{n}.{k}" for n, ab in adapters.items()
+                         for k in ("a", "b")]
+                vals = {f"{n}.{k}": ab[k] for n, ab in adapters.items()
+                        for k in ("a", "b")}
+            else:
+                mask = build_lock_mask(model, mc.vision_layers, text_layers,
+                                       unlocked_groups=unlocked,
+                                       tune_text=c.tune_text,
+                                       unlocked_text_layers=1)
+                names = [n for n, p in model.named_parameters() if mask[n]]
+                vals = dict(model.named_parameters())
+                adapters = None
+            with torch.no_grad():
+                before = _par_flat(vals[n] for n in names).cpu()
+            return model, adapters, names, before
+
+        def first(mesh_):
+            model, adapters, names, before = fresh()
+            res = parallel_step(model, c, tw, toks, (imgs, labs, valid),
+                                step_generator(SEED, 0, 0), mesh_,
+                                fsdp and mesh_ is not None, adapters)
+            sync()
+            with torch.no_grad():
+                grad = _par_flat(res["grads"][n] for n in names).cpu()
+                upd = _par_flat(res["params"][n] for n in names).cpu() \
+                    - before
+            got = dict(loss=res["loss"], grad=grad, upd=upd,
+                       adam_err=_par_adam_err(grad, upd, before))
+            return got, res["step"], model, adapters
+
+        ref = None
+        if rank == 0:
+            ref, step, model, adapters = first(None)
+            del step, model, adapters
+            torch.cuda.empty_cache()
+        got, step, model, adapters = first(mesh)
+        reset_peak()
+        times = timed(step, lambda i: (imgs, labs, valid,
+                                       step_generator(SEED, 1, i), PEFT_LR),
+                      warm=0, n=2)
+        peak = peak_gib()
+        del step, model, adapters
+        torch.cuda.empty_cache()
+        ctl, ctl_ms = whole_gather_peak(
+            lambda: copy.deepcopy(host_model).to(dev), c, tw, toks, mesh,
+            fsdp, None, lora_rank=lora_rank) if lora_rank \
+            else whole_gather_peak(lambda: fresh()[0], c, tw, toks, mesh,
+                                   fsdp, None)
+        torch.cuda.empty_cache()
+        peaks = comm.all_gather_cat(torch.tensor(
+            [peak, ctl], device=dev), dp_mesh, "data", 0).view(world, 2)
+        reckoned = reckon_gather_gib(mc, tp=not fsdp, text=c.tune_text)
+        want = reckoned["drop" if fsdp else "tp_cut"]
+        drops = peaks[:, 1] - peaks[:, 0]
+        line(f"{tag}: step median {statistics.median(times):.3f} ms over "
+             f"{len(times)} ({', '.join(f'{t:.2f}' for t in times)}); peak "
+             f"per rank {[round(p, 3) for p in peaks[:, 0].tolist()]} GiB; "
+             f"every weight gathered whole "
+             f"{[round(p, 3) for p in peaks[:, 1].tolist()]} GiB, "
+             f"{ctl_ms:.3f} ms a step; drop per rank "
+             f"{[round(d, 3) for d in drops.tolist()]} GiB, reckoned "
+             f"{want:.3f} GiB (limit {A13B_DROP_MIN:g} of it)")
+        check(not on_card or bool((peaks[:, 0] < peaks[:, 1]).all()),
+              f"{tag}: a rank's peak is not below its whole-gather "
+              f"control's")
+        check(not on_card or bool((drops >= A13B_DROP_MIN * want).all()),
+              f"{tag}: a rank's drop is below {A13B_DROP_MIN:g} of the "
+              f"reckoned {want:.3f} GiB")
+        fig = dict(ms=statistics.median(times), ms_all=times,
+                   peak_gib=peaks[:, 0].tolist(),
+                   ctl_peak_gib=peaks[:, 1].tolist(), ctl_ms=ctl_ms,
+                   drop_gib=drops.tolist(), reckoned_gib=reckoned)
+        if rank == 0:
+            fig.update(_par_compare(tag, got, ref, line))
+        return fig
+
+    def so400m_dp(mesh, host_model):
         """The SO400M default step under DP (its prefix per rank): K5 and
         K4 on the 17 frozen blocks, K6 forward and backward on the 10
-        trainable ones, counted per rank; its time and peak."""
+        trainable ones, counted per rank; its time and peak; and the
+        tower's text head."""
         from aihab_clip_tpu_torch.ops import attention as att
         from aihab_clip_tpu_torch.train.peft import peft_fused_prefix_len
 
-        sm = load(SL_MODEL, dtype=dtype, device=dev, seed=SEED).model
+        sm = copy.deepcopy(host_model).to(dev)
         scfg = sm.config
-        stokens = build_text_head(sm, prompts, 20, tpc,
-                                  context_length=scfg.context_length)[
-            "prompt_tokens"]
+        shead = build_text_head(sm, prompts, 20, tpc,
+                                context_length=scfg.context_length)
+        stokens = shead["prompt_tokens"]
         build_lock_mask(sm, scfg.vision_layers, scfg.text_layers,
                         unlocked_groups=PEFT_UNLOCKED, tune_text=True,
                         unlocked_text_layers=1)
@@ -7272,8 +7657,12 @@ def parallel_worker(workdir: str, mode: str) -> None:
              f"rank {got}; loss {float(sm_m['loss']):.6f}; step median "
              f"{statistics.median(times):.3f} ms ({', '.join(f'{t:.2f}' for t in times)}); "
              f"peak {peak:.2f} GiB")
+        del sm, step, pp
+        torch.cuda.empty_cache()
         return dict(launches=got, ms=statistics.median(times),
-                    ms_all=times, peak_gib=peak, loss=float(sm_m["loss"]))
+                    ms_all=times, peak_gib=peak, loss=float(sm_m["loss"])), {
+            k: v.clone() if torch.is_tensor(v) else v
+            for k, v in shead.items()}
 
     out = {"backend": dist.get_backend(), "world": world, "rank": rank}
     if mode == "nccl1":
@@ -7298,42 +7687,79 @@ def parallel_worker(workdir: str, mode: str) -> None:
     else:
         dp_mesh = make_mesh(device=dev)
         tp_mesh = make_mesh(model_parallel=2, device=dev)
-        ref = canon = None
+        ref = canon = canon32 = None
         if rank == 0:
             ref = peft_path("single-rank step (K1 prefix)", prefix=n_prefix)
             canon = peft_path("single-rank step (canonical, no prefix)")
+            canon32 = peft_path("single-rank step (canonical, fp32)",
+                                fp32=True)
         dp = peft_path("DP 2 (K1 prefix per rank)", dp_mesh, prefix=n_prefix)
         check(dp["k1"] == (n_prefix if on_card else 0),
               f"DP: {dp['k1']} K1 per rank")
-        tp = peft_path("TP 2 (Megatron halves; no prefix)", tp_mesh)
-        check(tp["k1"] == 0, "TP launched K1")
-        fsdp = peft_path("FSDP 2 (no prefix)", dp_mesh, fsdp=True)
+        # TP gated in fp32 by PAR_GATE, in bf16 by TP16_GATE, which must
+        # fail each planted fault it is required to
+        tp = peft_path("TP 2 (Megatron halves, both towers; fp32)", tp_mesh,
+                       control=True, fp32=True)
+        tp16 = peft_path("TP 2 (bf16)", tp_mesh, warm=0, n=1)
+        planted = tp16_faults(mcfg.context_length)
+        faults = {}
+        for name, (plant, _) in planted.items():
+            with plant():
+                faults[name] = peft_path(f"TP 2 (bf16) with {name}", tp_mesh,
+                                         warm=0, n=1)
+        check(tp["k1"] == 0 and tp16["k1"] == 0, "TP launched K1")
+        fsdp = peft_path("FSDP 2 (no prefix)", dp_mesh, fsdp=True,
+                         control=True)
         peaks = comm.all_gather_cat(torch.tensor(
-            [dp["peak_gib"], tp["peak_gib"], fsdp["peak_gib"]], device=dev),
-            dp_mesh, "data", 0).view(world, 3).tolist()
+            [dp["peak_gib"], tp["peak_gib"], fsdp["peak_gib"],
+             tp["ctl_peak_gib"], fsdp["ctl_peak_gib"]], device=dev),
+            dp_mesh, "data", 0).view(world, 5).tolist()
+        for k, (i, j) in (("TP", (1, 3)), ("FSDP", (2, 4))):
+            check(not on_card or all(p[i] < p[j] for p in peaks),
+                  f"ViT-B/16 {k} 2: a rank's peak is not below its "
+                  f"whole-gather control's")
         k1s = comm.all_gather_cat(torch.tensor([float(dp["k1"])], device=dev),
                                   dp_mesh, "data", 0).tolist()
         if rank == 0:
             out["dp"] = _par_compare("DP 2", dp, ref, line)
-            out["tp"] = _par_compare("TP 2", tp, canon, line)
+            out["tp"] = _par_compare("TP 2 (fp32)", tp, canon32, line)
+            out["bf16_own"] = _par_compare(
+                "single-rank step in fp32 (bf16's own rounding; ungated)",
+                canon32, canon, line, gate=False)
+            out["tp_bf16"] = _par_compare("TP 2 (bf16)", tp16, canon, line,
+                                          limits=TP16_GATE)
+            out["tp_bf16_faults"] = {}
+            for name, (_, caught) in planted.items():
+                out["tp_bf16_faults"][name] = got = _par_compare(
+                    f"TP 2 (bf16) with {name} ("
+                    + ("must fail TP16_GATE" if caught else "printed") + ")",
+                    faults[name], canon, line, gate=False, limits=TP16_GATE)
+                check(not (caught and got["passes"]),
+                      f"TP16_GATE passed a planted fault: {name}")
             out["fsdp"] = _par_compare("FSDP 2", fsdp, canon, line)
             out["fsdp_vs_dp"] = _par_compare("FSDP 2 (against DP 2)", fsdp,
                                              dp, line)
             out["ms"] = {k: v["ms"] for k, v in (
-                ("single", ref), ("single_canonical", canon), ("dp", dp),
-                ("tp", tp), ("fsdp", fsdp))}
+                ("single", ref), ("single_canonical", canon),
+                ("single_fp32", canon32), ("dp", dp), ("tp", tp),
+                ("tp_bf16", tp16), ("fsdp", fsdp))}
+            out["ms"].update(tp_whole=tp["ctl_ms"], fsdp_whole=fsdp["ctl_ms"])
             out["ms_all"] = {k: v["ms_all"] for k, v in (
                 ("single", ref), ("dp", dp), ("tp", tp), ("fsdp", fsdp))}
             out["peak_gib"] = {"dp": [p[0] for p in peaks],
                                "tp": [p[1] for p in peaks],
                                "fsdp": [p[2] for p in peaks],
+                               "tp_whole": [p[3] for p in peaks],
+                               "fsdp_whole": [p[4] for p in peaks],
                                "single": ref["peak_gib"]}
             out["k1_per_dp_rank"] = k1s
             line(f"per-rank peak memory GiB: DP {out['peak_gib']['dp']}, TP "
-                 f"{out['peak_gib']['tp']}, FSDP {out['peak_gib']['fsdp']} "
-                 f"(single rank {ref['peak_gib']:.2f}); K1 per DP rank per "
-                 f"step {k1s}")
-        del ref, canon, dp, tp, fsdp
+                 f"{out['peak_gib']['tp']} (whole gather "
+                 f"{out['peak_gib']['tp_whole']}), FSDP "
+                 f"{out['peak_gib']['fsdp']} (whole gather "
+                 f"{out['peak_gib']['fsdp_whole']}) (single rank "
+                 f"{ref['peak_gib']:.2f}); K1 per DP rank per step {k1s}")
+        del ref, canon, canon32, dp, tp, tp16, faults, fsdp
 
         # the pipeline: 2 stages x 4 microbatches against the unpipelined
         # canonical step (every rank holds the reference for its stage)
@@ -7472,8 +7898,80 @@ def parallel_worker(workdir: str, mode: str) -> None:
                            "seconds": eval_s}
             out["cache"] = {"bit_for_bit": True, "seconds_rank0": cache_s}
         del pristine
+        torch.cuda.empty_cache()
+        # the SigLIP tower of the DP step and of the A13b arms (SO400M;
+        # a CPU rehearsal names a small one, or None)
+        sl_name = spec.get("a13b_siglip", SL_MODEL)
+        sl_host = shead = None
+        if spec.get("so400m", True) or sl_name:
+            sl_host = load(sl_name or SL_MODEL, dtype=dtype, device="cpu",
+                           seed=SEED).model
         if spec.get("so400m", True):
-            out["so400m_dp"] = so400m_dp(dp_mesh)
+            out["so400m_dp"], shead = so400m_dp(dp_mesh, sl_host)
+        elif sl_name:
+            shead = {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in build_text_head(
+                         copy.deepcopy(sl_host).to(dev), prompts, 20, tpc,
+                         context_length=sl_host.config.context_length)
+                     .items()}
+        if spec.get("a13b", True):
+            # A13b: every weight read as JAX's GSPMD cuts it, at full
+            # width: FSDP per block (LoRA, the scanned remat'd encode,
+            # ConvNeXt, RN) and TP over both towers and the MAP head
+            a13b = {}
+            host = load(spec["model"], dtype=dtype, device="cpu", seed=SEED,
+                        random_cfg=(CLIPConfig(**spec["config"])
+                                    if spec.get("config") else None)).model
+            a13b["vit_lora_fsdp"] = a13b_arm(
+                f"{spec['model']} LoRA r8 FSDP 2 (per block)", host,
+                dataclasses.replace(cfg, lora_rank=8, tune_text=False),
+                head["text_weights"], None, dp_mesh, True, lora_rank=8)
+            del host
+            if sl_name:
+                cut = sl_host.config
+                if cut.vision_layers > PAR_SL_LAYERS:
+                    del sl_host
+                    cut = dataclasses.replace(cut, vision_layers=PAR_SL_LAYERS,
+                                              text_layers=PAR_SL_LAYERS)
+                    sl_host = load(sl_name, dtype=dtype, device="cpu",
+                                   seed=SEED, random_cfg=cut).model
+                sres = cut.image_resolution
+                a13b["so400m_lora_fsdp"] = a13b_arm(
+                    f"{sl_name[7:]} ({cut.vision_layers} + {cut.text_layers} "
+                    "blocks) LoRA r8 scan + remat FSDP 2 (per block)",
+                    sl_host, dataclasses.replace(
+                        cfg, resolution=sres, lora_rank=8, tune_text=False,
+                        scan_blocks=True, scan_remat=True),
+                    shead["text_weights"], None, dp_mesh, True, lora_rank=8)
+                a13b["so400m_tp"] = a13b_arm(
+                    f"{sl_name[7:]} ({cut.vision_layers} + {cut.text_layers} "
+                    "blocks) TP 2 (both towers and the MAP head as shards; "
+                    "tune_text; fp32)", sl_host,
+                    dataclasses.replace(cfg, resolution=sres),
+                    None, shead["prompt_tokens"], tp_mesh, False,
+                    unlocked=unlocked, fp32=True)
+            del sl_host
+            for tag, name, arm_unlocked in spec.get("a13b_towers", (
+                    ("convnext_fsdp", "random:convnext_base_w", unlocked),
+                    ("rn50_fsdp", "random:RN50", RN_PEFT_UNLOCKED))):
+                host = load(name, dtype=dtype, device="cpu", seed=SEED).model
+                if not host.config.is_vit and host.config.tower == "rn":
+                    from aihab_clip_tpu_torch.tools.rn_gains import (
+                        calibrate_bn_, seeded_photos)
+
+                    host = host.to(dev)
+                    calibrate_bn_(host, torch.from_numpy(seeded_photos(
+                        16, host.config.image_resolution, SEED + 11)).to(dev),
+                        SEED + 11)
+                    host = host.cpu()
+                a13b[tag] = a13b_arm(
+                    f"{name[7:]} FSDP 2 (per block)", host,
+                    dataclasses.replace(
+                        cfg, resolution=host.config.image_resolution),
+                    None, tokens, dp_mesh, True, unlocked=arm_unlocked)
+                del host
+            if rank == 0:
+                out["a13b"] = a13b
     out["lines"] = lines
     out["staged"] = dict(comm.staged)
     if rank == 0:

@@ -1,7 +1,7 @@
 """The int8 SigLIP tower of the port against the JAX package on the same
 weights, carried over by the weight carry: the quantized weights bit for bit,
-the int8 encode (K8, K13, K9, K10 plain versions; JAX: Pallas in interpret
-mode) and the int8 frozen prefix of the PEFT step's hybrid encode.  The
+the int8 encode on JAX's split, chained and xla routes (K8, K13, K9, K10
+plain versions; JAX: Pallas in interpret mode) and the int8 frozen prefix of the PEFT step's hybrid encode.  The
 engine and the train loss: ``tests/test_torch_quant_serving.py``."""
 
 import jax
@@ -16,6 +16,7 @@ from aihab_clip_tpu.models import siglip as jax_siglip
 
 from aihab_clip_tpu_torch.models import SigLIPConfig, fast_siglip
 from aihab_clip_tpu_torch.models import quant_siglip as qs
+from aihab_clip_tpu_torch.models import quant_vit as qv
 from aihab_clip_tpu_torch.ops import quant_matmul as qm
 
 from test_torch_peft import _port_model
@@ -124,12 +125,67 @@ def test_int8_tower_matches_jax(tower, dtype):
     assert _cos(got.float().numpy(), xla).min() >= 0.99
 
 
-def test_int8_tower_refuses_other_routes(tower):
-    _, _, model, images = tower
+# JAX's routes by the port's arguments (``siglip_encode_int8``) and each
+# route's calls of the GEMM / attention entry points for a tower of L
+# blocks: (K8, K13, K9, K10, quant_dense, attention) as functions of L
+ROUTES = {
+    "split": (dict(impl="pallas", attn_impl="split"),
+              lambda n: (1, n, n, n, 0, 0)),
+    "chained": (dict(impl="pallas", attn_impl="chained"),
+                lambda n: (1 + 2 * n, 0, n, n, 0, n)),
+    "xla": (dict(impl="xla", attn_impl="auto"),
+            lambda n: (0, 0, 0, 0, 1 + 4 * n, n)),
+}
+CALLED = ("quant_matmul_fused", "quant_attn_block_split",
+          "quant_matmul_fused_qout", "quant_matmul_q8in", "quant_dense",
+          "attention")
+# the per-GEMM routes call K8 and quant_dense through quant_vit's helpers
+CALLED_IN = {"quant_matmul_fused": qv, "quant_dense": qv}
+
+
+@pytest.mark.parametrize("route,dtype", [
+    ("split", "float32"), ("chained", "float32"), ("chained", "bfloat16"),
+    ("xla", "float32"), ("xla", "bfloat16"), ("mosaic", None)])
+def test_int8_tower_refuses_other_routes(tower, monkeypatch, route, dtype):
+    """Each of JAX's routes (``quant_siglip.py:119-249``) against JAX's
+    same route at the tower ``GATES``: "split" (K13 -> K9 -> K10), "chained"
+    (K8 with the LN1 prologue, the attention, K8 with the residual, K9 ->
+    K10; JAX's kernels in interpret mode) and "xla" (``quant_dense`` per
+    GEMM); each calls its entry points as ``ROUTES`` counts and launches no
+    kernel on the CPU.  A route JAX has not is refused, named."""
+    jcfg, params, model, images = tower
     cfg = SigLIPConfig(**TOWER)
-    with pytest.raises(NotImplementedError, match="pallas"):
-        qs.siglip_encode_int8({}, model, torch.from_numpy(images), cfg,
-                              impl="xla")
+    qp = qs.quantize_siglip_params(model, cfg)
+    x = torch.from_numpy(images)
+    if route not in ROUTES:
+        with pytest.raises(ValueError, match=route):
+            qs.siglip_encode_int8(qp, model, x, cfg, impl=route)
+        with pytest.raises(ValueError, match=route):
+            qs.siglip_encode_int8(qp, model, x, cfg, attn_impl=route)
+        return
+    kw, calls_of = ROUTES[route]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jax_qs.siglip_encode_int8(
+        jax_qs.quantize_siglip_params(params, jcfg), params,
+        jnp.asarray(images), jcfg, dtype=jdt, interpret=True, **kw)
+    calls = dict.fromkeys(CALLED, 0)
+
+    def counting(name):
+        real = getattr(CALLED_IN.get(name, qs), name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return wrapped
+
+    for name in CALLED:
+        monkeypatch.setattr(CALLED_IN.get(name, qs), name, counting(name))
+    qm.reset_launch_counts()
+    with torch.no_grad():
+        got = qs.siglip_encode_int8(qp, model, x, cfg, dtype=tdt, **kw)
+    assert got.dtype == tdt and not any(qm.launch_counts().values())
+    assert tuple(calls[n] for n in CALLED) == calls_of(cfg.vision_layers)
+    _close_tower(got.float().numpy(), ref, dtype)
 
 
 # ---------------------------------------------------------------------------

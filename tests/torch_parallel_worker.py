@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import os
 import sys
 from pathlib import Path
@@ -55,11 +56,19 @@ def _inputs(workdir):
     return torch.load(Path(workdir) / "inputs.pt", weights_only=False)
 
 
-def _model(inp):
-    from aihab_clip_tpu_torch.models import CLIPConfig, CLIPModel
+def _model(inp, tower=None):
+    """The tests' CLIP tower, or ``inp["towers"][tower]``'s (its config
+    dict and state dict; SigLIP's config has ``text_width``)."""
+    from aihab_clip_tpu_torch.models import (CLIPConfig, CLIPModel,
+                                             SigLIPConfig, SigLIPModel)
 
-    model = CLIPModel(CLIPConfig(**inp["config"]))
-    model.load_state_dict(inp["state_dict"])
+    config, sd = ((inp["config"], inp["state_dict"]) if tower is None
+                  else inp["towers"][tower])
+    if "text_width" in config:
+        model = SigLIPModel(SigLIPConfig(**config))
+    else:
+        model = CLIPModel(CLIPConfig(**config))
+    model.load_state_dict(sd)
     return model.eval()
 
 
@@ -84,81 +93,126 @@ def _batch(inp):
                  for k in ("images", "labels", "valid"))
 
 
-def _step(inp, mesh=None, fsdp=False, **cfg_kw):
-    """One PEFT step on a fresh model (``dryrun_multichip.parallel_step``):
-    {loss, correct, grads, params} (whole tensors, the trainable ones by
-    name) and every parameter's local shape."""
-    from aihab_clip_tpu_torch.tools.dryrun_multichip import parallel_step
+def _step(inp, mesh=None, fsdp=False, tower=None, control=False,
+          **cfg_kw):
+    """One PEFT step on a fresh model (``dryrun_multichip.parallel_step``;
+    ``tower`` one of ``inp["towers"]``, its prompt tokens and unlock
+    depth; ``control``: every weight gathered whole, the replicated
+    forward): {loss, correct, grads, params} (whole tensors, the trainable
+    ones by name) and every parameter's local shape."""
+    from aihab_clip_tpu_torch.tools.dryrun_multichip import _parallel_step
     from aihab_clip_tpu_torch.train.peft import (build_lock_mask,
                                                  step_generator)
 
-    model = _model(inp)
+    model = _model(inp, tower)
     c = model.config
-    build_lock_mask(model, c.vision_layers, c.transformer_layers,
-                    unlocked_groups=inp["unlocked_groups"],
-                    tune_text=inp["tune_text"],
+    tokens = inp["prompt_tokens"] if tower is None \
+        else inp["tower_tokens"][tower]
+    unlocked = inp["unlocked_groups"] if tower is None \
+        else inp["tower_unlocked"][tower]
+    build_lock_mask(model, c.vision_layers,
+                    getattr(c, "transformer_layers", None)
+                    or getattr(c, "text_layers", None),
+                    unlocked_groups=unlocked, tune_text=inp["tune_text"],
                     unlocked_text_layers=inp["unlocked_text_layers"])
-    out = parallel_step(model, _peft_cfg(inp, **cfg_kw), inp["text_weights"],
-                        inp["prompt_tokens"], _batch(inp),
-                        step_generator(0, 0, 0), mesh, fsdp)
+    out = _parallel_step(model, _peft_cfg(inp, **cfg_kw),
+                         inp["text_weights"], tokens, _batch(inp),
+                         step_generator(0, 0, 0), mesh, fsdp, None, None,
+                         control)
     return {"loss": out["loss"], "correct": out["correct"],
             "grads": out["grads"], "params": out["params"],
             "local_shapes": {n: tuple(p.shape)
                              for n, p in model.named_parameters()}}
 
 
-def _lora_step(inp, mesh=None, fsdp=False):
-    """One LoRA step (rank 2, attention adapters; the base frozen, with
-    ``fsdp`` sharded): {loss, grads, params} of the adapters."""
+def lora_adapters(model):
+    """The LoRA steps' adapters (rank 2, attention; B drawn at N(0, 0.05),
+    away from zero, so A's gradient is not 0), drawn alike by every rank
+    and by the test."""
     import torch
 
-    from aihab_clip_tpu_torch.tools.dryrun_multichip import parallel_step
     from aihab_clip_tpu_torch.train.lora import lora_init
+
+    adapters = lora_init(model, 2, torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        for ab in adapters.values():
+            ab["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(8))
+    return adapters
+
+
+def _lora_step(inp, mesh=None, fsdp=False, control=False):
+    """One LoRA step (``lora_adapters``; the base frozen, with ``fsdp``
+    sharded; ``control`` as ``_step``'s): {loss, grads, params} of the
+    adapters."""
+    from aihab_clip_tpu_torch.tools.dryrun_multichip import _parallel_step
     from aihab_clip_tpu_torch.train.peft import step_generator
 
     model = _model(inp)
     model.requires_grad_(False)
-    adapters = lora_init(model, 2, torch.Generator().manual_seed(7))
-    with torch.no_grad():       # B away from zero, so A's gradient is not 0
-        for ab in adapters.values():
-            ab["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(8))
-    out = parallel_step(model, _peft_cfg(inp, lora_rank=2, tune_text=False),
-                        inp["text_weights"], None, _batch(inp),
-                        step_generator(0, 0, 0), mesh, fsdp, adapters)
+    adapters = lora_adapters(model)
+    out = _parallel_step(model, _peft_cfg(inp, lora_rank=2,
+                                          tune_text=False),
+                         inp["text_weights"], None, _batch(inp),
+                         step_generator(0, 0, 0), mesh, fsdp, adapters, None,
+                         control)
     return {k: out[k] for k in ("loss", "correct", "grads", "params")}
 
 
-def _fsdp_kept(inp, **cfg_kw):
-    """An FSDP step on 2 ranks: how many whole (gathered) weights of the
-    visual blocks autograd kept for the backward outside a checkpoint
-    (``kept``), and how many gathers of them ran (``gathered``)."""
+@contextlib.contextmanager
+def _fsdp_kept():
+    """Around an FSDP step: {"gathered": how many gathers of the tower
+    blocks' weights ran (``Sharding.full`` of a block's parameter, and
+    with LoRA each W_eff merged from them), "kept": how many whole weights
+    of a block autograd kept for the backward outside a checkpoint (saved
+    tensors on the storage of a gathered one still alive), "live_blocks":
+    the most blocks whose whole weights were alive at once}."""
+    import re
+    import weakref
+
     import torch
 
     from aihab_clip_tpu_torch.parallel import mesh as pmesh
+    from aihab_clip_tpu_torch.train import lora as plora
 
-    gathered, saved = [], []
-    full = pmesh.Sharding.full
+    block = re.compile(r"^(.*(?:resblocks\.\d+|stage\d+_block\d+|"
+                       r"layer\d+_\d+))\.")
+    alive, stats = [], {"gathered": 0, "kept": 0, "live_blocks": 0}
 
-    def recorded(self, name, local, *args, **kw):
+    def record(name, t):
+        m = block.match(name)
+        if m is None:
+            return
+        alive[:] = [(b, r) for b, r in alive if r() is not None]
+        alive.append((m.group(1), weakref.ref(t)))
+        stats["gathered"] += 1
+        stats["live_blocks"] = max(stats["live_blocks"],
+                                   len({b for b, _ in alive}))
+
+    full, merge = pmesh.Sharding.full, plora.lora_merge
+
+    def recorded_full(self, name, local, *args, **kw):
         t = full(self, name, local, *args, **kw)
-        if name.startswith("visual.transformer.resblocks."):
-            gathered.append(t)
+        record(name, t)
         return t
+
+    def recorded_merge(params, adapters, alpha):
+        out = merge(params, adapters, alpha)
+        for name in adapters:
+            record(name, out[name])
+        return out
 
     def pack(t):
-        saved.append(t)
+        ptrs = {r().untyped_storage().data_ptr() for _, r in alive
+                if r() is not None}
+        stats["kept"] += t.untyped_storage().data_ptr() in ptrs
         return t
 
-    pmesh.Sharding.full = recorded
+    pmesh.Sharding.full, plora.lora_merge = recorded_full, recorded_merge
     try:
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            _step(inp, pmesh.make_mesh(device="cpu"), fsdp=True, **cfg_kw)
+            yield stats
     finally:
-        pmesh.Sharding.full = full
-    ptrs = {t.untyped_storage().data_ptr() for t in gathered}
-    return {"gathered": len(gathered),
-            "kept": sum(t.untyped_storage().data_ptr() in ptrs
-                        for t in saved)}
+        pmesh.Sharding.full, plora.lora_merge = full, merge
 
 
 def case_steps(rank, world, workdir):
@@ -170,9 +224,12 @@ def case_steps(rank, world, workdir):
 
     inp = _inputs(workdir)
     tp = "tp" if world == 2 else "dp_tp"
+    dp = make_mesh(device="cpu")
+    kept = {}
+    with _fsdp_kept() as kept["per_block"]:
+        fsdp = _step(inp, dp, fsdp=True)
     out = {"single": _step(inp) if rank == 0 else None,
-           "dp": _step(inp, make_mesh(device="cpu")),
-           "fsdp": _step(inp, make_mesh(device="cpu"), fsdp=True),
+           "dp": _step(inp, dp), "fsdp": fsdp,
            tp: _step(inp, make_mesh(model_parallel=2, device="cpu")),
            "scan_" + tp: _step(inp, make_mesh(model_parallel=2,
                                               device="cpu"),
@@ -182,12 +239,39 @@ def case_steps(rank, world, workdir):
                                               device="cpu"), fsdp=True)
     else:
         out["lora_single"] = _lora_step(inp) if rank == 0 else None
-        out["lora_dp"] = _lora_step(inp, make_mesh(device="cpu"))
-        out["lora_fsdp"] = _lora_step(inp, make_mesh(device="cpu"),
-                                      fsdp=True)
-        out["fsdp_kept"] = {"per_block": _fsdp_kept(inp),
-                            "scan": _fsdp_kept(inp, scan_blocks=True,
-                                              scan_remat=False)}
+        out["lora_dp"] = _lora_step(inp, dp)
+        # FSDP per block (what autograd keeps recorded) and its
+        # whole-gather control: LoRA, the scanned encodes (with and
+        # without remat; their control is the module's, ``fsdp_whole``),
+        # ConvNeXt and RN
+        arms = (("lora", _lora_step, True),
+                ("scan", functools.partial(_step, scan_blocks=True,
+                                           scan_remat=False), False),
+                ("convnext", functools.partial(_step, tower="convnext"),
+                 True),
+                ("rn", functools.partial(_step, tower="rn"), True))
+        for kind, step, control in arms:
+            with _fsdp_kept() as kept[kind]:
+                out[f"{kind}_fsdp"] = step(inp, dp, fsdp=True)
+            if control:
+                out[f"{kind}_fsdp_whole"] = step(inp, dp, fsdp=True,
+                                                 control=True)
+        out["scan_remat_fsdp"] = _step(inp, dp, fsdp=True, scan_blocks=True,
+                                       scan_remat=True)
+        out["fsdp_whole"] = _step(inp, dp, fsdp=True, control=True)
+        out["tp_whole"] = _step(inp, make_mesh(model_parallel=2,
+                                               device="cpu"),
+                                control=True)
+        for tower in ("convnext", "rn"):
+            out[f"{tower}_single"] = (_step(inp, tower=tower) if rank == 0
+                                      else None)
+        # SigLIP's towers and MAP head as tensor-parallel shards
+        out["siglip_single"] = (_step(inp, tower="siglip") if rank == 0
+                                else None)
+        out["siglip_tp"] = _step(inp, make_mesh(model_parallel=2,
+                                                device="cpu"),
+                                 tower="siglip")
+        out["fsdp_kept"] = kept
     torch.save(out, Path(workdir) / f"steps_{rank}.pt")
 
 
@@ -373,7 +457,7 @@ def case_prefix(rank, world, workdir):
 
 def case_eval(rank, world, workdir):
     """``evaluate`` of one split: single rank, DP, TP (model 2) and FSDP
-    (gathered weights, the canonical module)."""
+    (each block gathering its weights as it runs, the canonical module)."""
     import torch
 
     from aihab_clip_tpu_torch.parallel.mesh import make_mesh, shard_params
@@ -392,7 +476,9 @@ def case_eval(rank, world, workdir):
         tp = mesh.shape["model"] > 1
         sharding = shard_params(mesh, model, fsdp=fsdp) if tp or fsdp \
             else None
-        ctx = (sharding.gathered(model, tp_local if tp else None)
+        # FSDP's eval reads the blocks one at a time, as the epoch's does
+        ctx = (sharding.gathered(model, tp_local if tp else None,
+                                 per_block=fsdp)
                if sharding is not None else contextlib.nullcontext())
         with torch.no_grad(), ctx:
             return evaluate(model, view, inp["text_weights"],
