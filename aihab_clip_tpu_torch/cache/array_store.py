@@ -1,10 +1,19 @@
 """Cache array storage (counterpart of ``aihab_clip_tpu/cache/array_store.py``).
 
-``LocalNpyStore`` keeps arrays as ``<root>/<name>.npy`` and JSON/text as
-plain files — the JAX package's on-disk layout, so either package reads a
-cache the other wrote.  A remote root (anything with ``://``, the JAX
-package's ``TensorStoreStore`` over ``gs://`` ...) raises: the remote
-store is ROADMAP A18.
+Two stores behind one interface, in the JAX package's layouts, so either
+package reads a cache the other wrote:
+
+  * ``LocalNpyStore`` keeps arrays as ``<root>/<name>.npy`` and JSON/text as
+    plain files;
+  * ``ZarrStore`` (JAX's ``TensorStoreStore``) keeps them as zarr v2 arrays
+    under ``<root>/<name>/`` (``cache/zarr.py``: blosc/LZ4 chunks in
+    tensorstore's default chunk shape, the ``.zarray`` tensorstore writes)
+    over a kvstore (``cache/kvstore.py``).
+
+``open_store(root)`` picks ``ZarrStore`` for any ``scheme://`` root and
+``LocalNpyStore`` otherwise.  ``file://`` roots read and write; ``gs://``,
+``s3://`` and other schemes open, and raise ``NotImplementedError`` naming
+ROADMAP A18c at their first read or write.
 """
 
 from __future__ import annotations
@@ -15,6 +24,9 @@ from pathlib import Path
 from typing import List, Union
 
 import numpy as np
+
+from . import zarr
+from .kvstore import open_kvstore
 
 _MADV_WILLNEED = 2
 
@@ -90,15 +102,70 @@ class LocalNpyStore:
         return json.loads(self.read_text(name))
 
 
+class ZarrStore:
+    """Arrays as zarr v2 under ``<root>/<name>/``; text and JSON as keys of
+    the kvstore (the JAX package's ``TensorStoreStore``)."""
+
+    def __init__(self, root_uri: str):
+        self.root = root_uri if root_uri.endswith("/") else root_uri + "/"
+        self.kv = open_kvstore(self.root)
+
+    def ensure(self) -> None:  # kvstores have no directories
+        pass
+
+    def prefetch(self, name: str) -> None:
+        """Nothing to hint: a load reads its chunks whole."""
+
+    def save(self, name: str, arr) -> str:
+        """Replace ``name`` (its old chunks go first, as tensorstore's
+        ``delete_existing``) with ``arr``."""
+        self.kv.delete_prefix(f"{name}/")
+        zarr.write_array(self.kv, name, arr)
+        return f"{self.root}{name}/"
+
+    def load(self, name: str, mmap: bool = False):
+        try:
+            return zarr.read_array(self.kv, name)
+        except KeyError:
+            raise FileNotFoundError(
+                f"no cache array '{name}' in {self.root}") from None
+
+    def exists(self, name: str) -> bool:
+        """False only when the array is absent: any other failure (an
+        unreachable root) raises, so a cache is never taken for missing and
+        written over."""
+        return self.kv.exists(f"{name}/.zarray")
+
+    def list_arrays(self, prefix: str) -> List[str]:
+        return sorted(k[:-len("/.zarray")] for k in self.kv.list(prefix)
+                      if k.endswith("/.zarray"))
+
+    def write_text(self, name: str, text: str) -> None:
+        self.kv.write(name, text.encode())
+
+    def read_text(self, name: str) -> str:
+        data = self.kv.read(name)
+        if data is None:
+            raise FileNotFoundError(f"no {name} in {self.root}")
+        return data.decode()
+
+    def write_json(self, name: str, obj) -> None:
+        self.write_text(name, json.dumps(obj, indent=2))
+
+    def read_json(self, name: str):
+        return json.loads(self.read_text(name))
+
+
+Store = Union[LocalNpyStore, ZarrStore]
+
+
 def is_remote_root(root: Union[str, Path]) -> bool:
     return "://" in str(root)
 
 
-def open_store(root: Union[str, Path]) -> LocalNpyStore:
+def open_store(root: Union[str, Path]) -> Store:
     if is_remote_root(root):
-        raise NotImplementedError(
-            f"cache root {root}: remote (TensorStore) cache roots are not "
-            "ported: ROADMAP A18")
+        return ZarrStore(str(root))
     return LocalNpyStore(root)
 
 

@@ -23,7 +23,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from ..data.index import read_csv_columns
+from ..data.index import parse_csv_columns
 from .array_store import is_remote_root, join_cache_path, open_store
 from .feature_cache import resolve_model_name
 
@@ -122,7 +122,7 @@ def load_embedding_cache(cache_dir: CacheDir) -> Dict:
     store = open_store(cache_dir)
     emb = np.asarray(store.load("embeddings"))
     labels = np.asarray(store.load("labels"))
-    meta = read_csv_columns(Path(store.root) / "metadata.csv")
+    meta = parse_csv_columns(store.read_text("metadata.csv"))
     info = store.read_json("meta.json")
     n_meta = len(next(iter(meta.values()))) if meta else 0
     if emb.shape[0] != labels.shape[0]:

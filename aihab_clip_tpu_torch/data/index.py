@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import io
 import math
 import re
 from pathlib import Path
@@ -54,7 +55,12 @@ def _typed_column(values: List[str]) -> List[object]:
 def read_csv_columns(path: str | Path) -> Dict[str, List[object]]:
     """A CSV with a header row -> {column: typed values}."""
     with open(path, newline="", encoding="utf-8-sig") as f:
-        rows = list(csv.reader(f))
+        return parse_csv_columns(f.read())
+
+
+def parse_csv_columns(text: str) -> Dict[str, List[object]]:
+    """``read_csv_columns`` of a CSV's text."""
+    rows = list(csv.reader(io.StringIO(text.lstrip("\ufeff"), newline="")))
     if not rows:
         return {}
     header, body = rows[0], rows[1:]

@@ -100,9 +100,9 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd = {}
     for key, v in flatten_params(params).items():
         name, arr = _convert_key(key, v)
-        # np.ascontiguousarray makes a 0-d logit scale [1]: keep its shape
-        sd[name] = torch.from_numpy(np.ascontiguousarray(arr)).reshape(
-            arr.shape)
+        # the transposes copied by torch (blocked, threaded: numpy's
+        # strided copy of a kernel runs several times slower)
+        sd[name] = torch.from_numpy(arr).contiguous()
     return sd
 
 
@@ -309,12 +309,12 @@ def state_dict_to_flax_params(sd: Mapping) -> Dict[str, np.ndarray]:
     ``flax_params_to_state_dict``."""
     flat: Dict[str, np.ndarray] = {}
     for name, t in sd.items():
-        v = t.detach().float().cpu().numpy()
-        path, perm = jax_param_path(name, v.ndim)
+        v = t.detach().float().cpu()
+        path, perm = jax_param_path(name, v.dim())
         # the JAX leaf's dim perm[d] is the port's d
-        v = v.transpose(np.argsort(perm)) if v.ndim > 1 else v
-        flat[path] = np.ascontiguousarray(v, dtype=np.float32).reshape(
-            v.shape)
+        if v.dim() > 1:
+            v = v.permute(*np.argsort(perm).tolist()).contiguous()
+        flat[path] = v.numpy()
     return flat
 
 

@@ -26,10 +26,15 @@ libraries link against cudart alone.
   jpeg_pixels.cu         the fast JPEG decode's pixel stage: jpeg_idct (J1),
                          jpeg_color_resize (J2)
 
-The host source ``jpeg_entropy.cpp`` (the fast JPEG decode's Huffman stage)
-compiles the same way with the host C++ compiler (``$CXX``, else ``c++``;
-``-O2``, no ``-march=native``, no ``-ffast-math``) and runs on the CPU too:
-``host_library`` builds it alone, without ``nvcc``.  A build that fails, or
+The host sources compile the same way with the host C++ compiler (``$CXX``,
+else ``c++``; ``-O2``, no ``-march=native``, no ``-ffast-math``) and run on
+the CPU too: ``host_library`` builds one alone, without ``nvcc``.
+
+  jpeg_entropy.cpp       the fast JPEG decode's Huffman stage
+  zstd_decode.cpp        the zstd decoder (orbax checkpoints, ops/zstd.py)
+  blosc_lz4.cpp          LZ4 blocks and blosc1 frames (the zarr cache store,
+                         ops/blosc.py)
+  A build that fails, or
 a compiler that is missing, raises; nothing falls back.
 """
 
@@ -47,7 +52,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("block_kernels", "fused_attention_bwd", "quant_kernels",
            "preprocess", "jpeg_pixels")
-HOST_SOURCES = ("jpeg_entropy",)
+HOST_SOURCES = ("jpeg_entropy", "zstd_decode", "blosc_lz4")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -99,7 +104,23 @@ _HOST_ARGTYPES = {
         "aihab_jpeg_entropy": [_p, _p, _p, _p, _p, _i, _p, _i, _p, _p, _i],
         "aihab_jpeg_packed_size": [_i],
     },
+    "zstd_decode": {
+        "aihab_zstd_decode": [_p, _ll, _p, _p, _p, _i],
+        "aihab_zstd_decode_into": [_p, _ll, _p, _ll, _p, _i],
+        "aihab_zstd_content_size": [_p, _ll],
+        "aihab_zstd_take": [_p, _p],
+        "aihab_xxh64": [_p, _ll, ctypes.c_ulonglong, _p],
+    },
+    "blosc_lz4": {
+        "aihab_blosc_decompress": [_p, _ll, _p, _ll, _i],
+        "aihab_blosc_compress": [_p, _ll, _i, _p, _p, _i],
+        "aihab_lz4_decompress": [_p, _ll, _p, _ll],
+        "aihab_lz4_compress": [_p, _ll, _p, _p],
+    },
 }
+
+# the entry points that return a value other than an error code
+_RESTYPES = {"aihab_zstd_content_size": _ll}
 
 _SOURCE_OF = {fn: src for src, fns in _ARGTYPES.items() for fn in fns}
 
@@ -124,7 +145,8 @@ def _cxx() -> str:
     path = shutil.which(cand)
     if path is None:
         raise RuntimeError(f"host C++ compiler {cand!r} not found (set CXX); "
-                           "csrc/jpeg_entropy.cpp is compiled on first use")
+                           "the host sources (csrc/*.cpp) are compiled on "
+                           "first use")
     return path
 
 
@@ -187,7 +209,7 @@ def _load(paths: dict) -> None:
         table = _HOST_ARGTYPES if src in HOST_SOURCES else _ARGTYPES
         for fn, argtypes in table[src].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         _libs[src] = lib
 
 

@@ -893,17 +893,27 @@ def finetune(model, train_view: SplitView, val_view: Optional[SplitView],
                                 adapters, mesh=mesh, sharding=sharding)
     names = ([n for n, p in model.named_parameters() if p.requires_grad]
              if adapters is None else None)
+    # the parameter of each Adam index, named in the checkpoints
+    opt_names = names if adapters is None else [
+        f"{n}.{k}" for n, ab in adapters.items() for k in ("a", "b")]
     if restored is not None and "opt_state" in restored:
-        opt.load_state_dict(restored["opt_state"] if sharding is None
-                            else sharding.local_opt_state(
-                                restored["opt_state"], names, dev))
+        from ..utils.checkpointing import adam_state_for
+
+        full_sd = adam_state_for(restored["opt_state"], opt_names,
+                                 opt.state_dict())
+        opt.load_state_dict(full_sd if sharding is None
+                            else sharding.local_opt_state(full_sd, names,
+                                                          dev))
     # the frozen prefix's weights, packed (or quantized) once per run,
     # after a resume (the frozen weights never change while training)
     pprefix = _quantize_prefix(model, cfg) or _pack_prefix(model, cfg)
 
     def opt_state():
-        return (opt.state_dict() if sharding is None or lora
-                else sharding.full_opt_state(opt, names))
+        from ..utils.checkpointing import with_param_names
+
+        return with_param_names(
+            opt.state_dict() if sharding is None or lora
+            else sharding.full_opt_state(opt, names), opt_names)
 
     def current_text_weights():
         if cfg.tune_text:

@@ -1,25 +1,35 @@
 """Model checkpoints with resume, and projector files (counterpart of
-``aihab_clip_tpu/utils/checkpointing.py``).
+``aihab_clip_tpu/utils/checkpointing.py``), in the JAX package's layout:
+either package resumes, warm-starts or evaluates from the other's.
 
   * path scheme: ``<save_model_dir>/<model>_<epoch>_<YYYYMMDD_HH>`` (``/``
     in the name becomes ``_``), under ``root_path`` when relative;
   * layout: ``meta.json`` (JAX's keys: ``epoch``, ``timestamp``,
     ``clip_backend``, ``open_clip_model``, ``backbone``, ``cfg``,
-    ``has_opt_state``) and the committed directory ``state/`` holding
-    ``payload.pt``: ``{"params": {name: tensor}, "opt_state":
-    optimizer.state_dict()}`` written by ``torch.save`` and read with
-    ``weights_only=True``.  ``state/`` is written into a temporary
-    directory and renamed into place, as orbax renames on commit, so a
-    checkpoint whose write never finished has no ``state/`` and
-    ``latest_checkpoint`` skips it;
+    ``has_opt_state``) and ``state/``, orbax's ``StandardCheckpointer``
+    layout (``utils/orbax.py``: ``_METADATA``, an OCDBT database of zarr
+    arrays) holding ``{"params": JAX's param tree, "opt_state": optax's
+    state}``.  ``params`` are the model's under JAX's names and layouts
+    (``models/convert.state_dict_to_flax_params``).  ``opt_state`` is
+    ``optax.inject_hyperparams(optax.adam)``'s state, JAX's PEFT optimizer:
+    ``count``, ``hyperparams`` (``learning_rate``, ``b1``, ``b2``, ``eps``,
+    ``eps_root``), ``hyperparams_states`` and ``inner_state`` =
+    (ScaleByAdamState(``count``, ``mu``, ``nu``), EmptyState()); ``mu`` and
+    ``nu`` cover the trainable leaves alone (JAX's ``partition_params``),
+    from ``torch.optim.Adam``'s ``exp_avg`` and ``exp_avg_sq``, ``count``
+    from its ``step`` (``adam_to_optax``, ``optax_to_adam``).  A LoRA run's
+    moments sit under JAX's adapter tree (``<kernel path>: {a, b}``).
+    ``state/`` is written into a temporary directory and renamed into
+    place, as orbax renames on commit, so a checkpoint whose write never
+    finished has no ``state/`` and ``latest_checkpoint`` skips it;
   * ``save_checkpoint(..., async_save=True)`` copies every tensor to the
     host before it returns (the train loop may update its parameters at
     once) and writes to disk on one background thread;
     ``wait_for_async_saves`` blocks until every write has committed.
 
-The port cannot read the JAX package's orbax checkpoints (ROADMAP A18b),
-nor JAX the port's; LoRA adapters go both ways (``lora_adapters.npz``,
-``models/convert.py``).
+``load_checkpoint`` also reads ``state/payload.pt`` (``torch.save`` of
+{"params", "opt_state"}), the port's layout before it wrote JAX's.  LoRA
+adapters go both ways through ``lora_adapters.npz`` (``models/convert.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +49,11 @@ import torch
 
 from ..cache.feature_cache import resolve_model_name
 
-PAYLOAD = "payload.pt"
+from ..models.convert import (flax_params_to_state_dict, jax_kernel_path,
+                              state_dict_to_flax_params)
+from . import orbax
+
+LEGACY_PAYLOAD = "payload.pt"
 
 
 def _resolve_dir(root: Path, path: str) -> Path:
@@ -72,14 +86,164 @@ def _to_host(obj):
     return obj
 
 
+def _nest(flat: Dict[str, Any]) -> Dict:
+    """{"a/b/c": leaf} -> nested dicts."""
+    out: Dict = {}
+    for key, v in flat.items():
+        node = out
+        *head, leaf = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _lora_split(name: str):
+    """A LoRA adapter tensor's name (``<weight name>.a`` or ``.b``) ->
+    (weight name, "a" | "b"); None for a model parameter."""
+    base, _, leaf = name.rpartition(".")
+    return (base, leaf) if leaf in ("a", "b") and base.endswith(
+        "weight") else None
+
+
+def adam_to_optax(opt_state: Dict, params: Dict[str, torch.Tensor]) -> Dict:
+    """A ``torch.optim.Adam`` ``state_dict`` whose group names its
+    parameters (``param_names``) -> optax's ``inject_hyperparams(adam)``
+    state over those parameters in JAX's tree and layouts.  A parameter
+    with no Adam state yet (no gradient so far) gets zero moments, as optax
+    keeps them.  ``params`` gives the shapes of those."""
+    group = opt_state["param_groups"][0]
+    names = group.get("param_names")
+    states = opt_state["state"]
+    if names is None:
+        if states:
+            raise ValueError("the optimizer state names no parameters "
+                             "(param_groups[0]['param_names'])")
+        names = []
+    steps = {float(st["step"]) for st in states.values()}
+    if len(steps) > 1:
+        raise ValueError(f"Adam steps differ across parameters: {steps}")
+    count = np.int32(steps.pop() if steps else 0)
+    moments = {"mu": {}, "nu": {}}
+    for idx, name in zip(group["params"], names):
+        st = states.get(idx)
+        for key, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            t = st[slot] if st is not None else torch.zeros_like(
+                params[name])
+            moments[key][name] = t
+    tree = {}
+    for key, by_name in moments.items():
+        node = _nest(state_dict_to_flax_params(
+            {n: t for n, t in by_name.items() if _lora_split(n) is None}))
+        for n, t in by_name.items():
+            split = _lora_split(n)
+            if split is not None:  # JAX's adapter tree: {kernel path: a, b}
+                node.setdefault(jax_kernel_path(split[0]), {})[split[1]] = \
+                    _f32(t.detach().float().cpu().numpy())
+        tree[key] = node
+    b1, b2 = group["betas"]
+    return {"count": count,
+            "hyperparams": {"b1": _f32(b1), "b2": _f32(b2),
+                            "eps": _f32(group["eps"]), "eps_root": _f32(0.0),
+                            "learning_rate": _f32(group["lr"])},
+            "hyperparams_states": {},
+            "inner_state": ({"count": count, "mu": tree["mu"],
+                             "nu": tree["nu"]}, None)}
+
+
+def _py(x) -> float:
+    """A float32 scalar as the shortest float that rounds to it (0.9, not
+    0.8999999761581421)."""
+    return float(str(np.float32(x)))
+
+
+def optax_to_adam(state: Dict) -> Dict:
+    """The inverse of ``adam_to_optax``: a ``torch.optim.Adam``
+    ``state_dict`` over the parameters the moments name (in JAX's order),
+    ``param_names`` in its group.  ``adam_state_for`` orders it for an
+    optimizer."""
+    inner = state["inner_state"][0]
+    step = torch.tensor(float(np.asarray(inner["count"])), dtype=torch.float32)
+    per: Dict[str, Dict] = {}
+    for key, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        node = inner[key]
+        dense = {k: v for k, v in node.items() if "/" not in k}
+        for name, t in flax_params_to_state_dict(dense).items():
+            per.setdefault(name, {})[slot] = t
+        for path, ab in node.items():
+            if "/" in path:  # a LoRA adapter's {a, b}
+                for leaf, v in ab.items():
+                    per.setdefault(f"{_port_weight_name(path)}.{leaf}", {})[
+                        slot] = torch.from_numpy(np.array(v, np.float32))
+    names = list(per)
+    hp = state["hyperparams"]
+    return {"state": {i: {"step": step.clone(), **per[n]}
+                      for i, n in enumerate(names)},
+            "param_groups": [{
+                "param_names": names, "lr": _py(hp["learning_rate"]),
+                "betas": (_py(hp["b1"]), _py(hp["b2"])),
+                "eps": _py(hp["eps"]), "weight_decay": 0, "amsgrad": False,
+                "maximize": False, "foreach": None, "capturable": False,
+                "differentiable": False, "fused": None,
+                "params": list(range(len(names)))}]}
+
+
+def _port_weight_name(kernel_path: str) -> str:
+    """JAX's Dense kernel path -> the port's weight name (the inverse of
+    ``jax_kernel_path``)."""
+    name, _ = next(iter(flax_params_to_state_dict(
+        {kernel_path: np.zeros((1, 1), np.float32)}).items()))
+    return name
+
+
+def adam_state_for(opt_state: Dict, names: List[str],
+                   template: Dict) -> Dict:
+    """A checkpoint's Adam ``state_dict`` laid out for an optimizer over
+    ``names`` (its parameter of each index), whose own ``state_dict()`` is
+    ``template``: the moments by name, the group's settings the
+    optimizer's own (a state without ``param_names``, the port's layout
+    before JAX's, is taken as it stands)."""
+    saved = opt_state["param_groups"][0].get("param_names")
+    if saved is None:
+        return opt_state
+    by_name = {n: opt_state["state"][i]
+               for i, n in zip(opt_state["param_groups"][0]["params"], saved)
+               if i in opt_state["state"]}
+    missing = sorted(set(names) - set(saved))
+    if missing:
+        raise KeyError(f"the checkpoint's optimizer state lacks {missing[:5]}"
+                       " (another set of trainable parameters)")
+    groups = [{k: v for k, v in g.items() if k != "param_names"}
+              for g in template["param_groups"]]
+    return {"state": {i: by_name[n] for i, n in enumerate(names)
+                      if n in by_name},
+            "param_groups": groups}
+
+
+def with_param_names(opt_state: Dict, names: List[str]) -> Dict:
+    """``opt_state`` with its group naming each index's parameter (what
+    ``adam_to_optax`` needs)."""
+    groups = [dict(g) for g in opt_state["param_groups"]]
+    groups[0]["param_names"] = list(names)
+    return {"state": opt_state["state"], "param_groups": groups}
+
+
 def _commit(path: Path, payload: Dict) -> None:
-    """Write ``state/`` into a temporary directory, then rename it into
-    place (a reader never sees a half-written ``state/``)."""
+    """Write ``state/`` (JAX's layout) into a temporary directory, then
+    rename it into place (a reader never sees a half-written
+    ``state/``)."""
     tmp = path / f"state.tmp-{os.getpid()}-{threading.get_ident()}"
     if tmp.exists():
         shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
-    torch.save(payload, tmp / PAYLOAD)
+    tree = {"params": _nest(state_dict_to_flax_params(payload["params"]))}
+    if "opt_state" in payload:
+        tree["opt_state"] = adam_to_optax(payload["opt_state"],
+                                          payload["params"])
+    orbax.write_state(tmp, tree)
     final = path / "state"
     if final.exists():   # the same model, epoch and hour saved again
         shutil.rmtree(final)
@@ -112,8 +276,9 @@ def wait_for_async_saves() -> None:
 def save_checkpoint(cfg, params: Dict, opt_state: Any = None, epoch: int = 0,
                     extra_meta: Optional[Dict] = None,
                     async_save: bool = False) -> Path:
-    """``params``: {name: tensor}; ``opt_state``: an optimizer
-    ``state_dict()`` (kept when ``finetune.save_optimizer``, default true).
+    """``params``: {name: tensor}; ``opt_state``: an Adam ``state_dict()``
+    naming its parameters (``with_param_names``; kept when
+    ``finetune.save_optimizer``, default true).
     ``async_save``: return once the tensors are on the host, and write on
     the background thread; call ``wait_for_async_saves()`` before relying
     on the files."""
@@ -154,15 +319,23 @@ def _cfg_to_jsonable(cfg) -> Dict:
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
-    """{"params": {name: CPU tensor}, "opt_state" (when saved), "meta"}."""
+    """{"params": {name: CPU tensor}, "opt_state" (an Adam ``state_dict``
+    naming its parameters, when saved), "meta"}, from JAX's layout (either
+    package's) or the port's older ``payload.pt``."""
     path = Path(path).resolve()
     meta = json.loads((path / "meta.json").read_text())
     state = path / "state"
-    if not (state / PAYLOAD).is_file():
+    if (state / LEGACY_PAYLOAD).is_file():
+        restored = dict(torch.load(state / LEGACY_PAYLOAD,
+                                   map_location="cpu", weights_only=True))
+    elif (state / "_METADATA").is_file():
+        tree = orbax.read_state(state)
+        restored = {"params": flax_params_to_state_dict(tree["params"])}
+        if "opt_state" in tree:
+            restored["opt_state"] = optax_to_adam(tree["opt_state"])
+    else:
         raise FileNotFoundError(
             f"{path} holds no committed state/ (its write never finished)")
-    restored = dict(torch.load(state / PAYLOAD, map_location="cpu",
-                               weights_only=True))
     restored["meta"] = meta
     return restored
 

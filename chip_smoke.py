@@ -7,11 +7,19 @@ Phases (any failure raises and the exit code is non-zero):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every source of ``aihab_clip_tpu_torch/csrc/`` into
      ``build/`` (one nvcc for each ``.cu``, the host compiler for
-     ``jpeg_entropy.cpp``, all started together) and print the seconds
+     ``jpeg_entropy.cpp``, ``zstd_decode.cpp`` and ``blosc_lz4.cpp``, all
+     started together) and print the seconds
      and ptxas's register/smem report; then the launch plans of the TMA +
      wgmma kernels at the paths' shapes (registers, local bytes, shared
      bytes a block, ring stages, tiles or blocks and waves): the bf16 GEMM,
      the flash attention, K6b's dq and dk/dv kernels, the int8 GEMM;
+     A18 (c): the files JAX wrote (``tests/golden/jax_written``, by
+     ``tests/make_jax_written_fixtures.py``), read with the host codecs just
+     built: 20 libzstd frames (levels -5 to 22) by the SHA-256 of their
+     output, JAX's orbax checkpoint of a ViT tower with its Adam state and a
+     TensorStoreStore directory (blosc/LZ4, 8 dtypes) against the arrays
+     recorded beside them, bit for bit; the host codecs' GB/s on this
+     machine's CPU (zstd decode, the raw-frame writer, XXH64, blosc/LZ4);
   3. kernels — every block kernel at ViT-B/16 shapes (B=64, S=197, W=768,
      12 heads, hidden 3072, bf16) and at SigLIP SO400M shapes (B=64, S=576,
      W=1152, 16 heads of 72, hidden 4304 in two 2152-wide chunks, bf16)
@@ -189,7 +197,13 @@ Phases (any failure raises and the exit code is non-zero):
      leaves; one more PEFT epoch with ``aug_impl: exact`` (the per-image
      gather augment: one ``train_transform`` a step); Tip-Adapter's search
      on the ProLIP cache (``train/tip_adapter.py``) on the card against the
-     CPU (the same best accuracy, logits within 1e-5 rel L2); the fast
+     CPU (the same best accuracy, logits within 1e-5 rel L2); A18 (b): the
+     ProLIP run again with ``root_path file://<tmp>`` (the zarr store,
+     blosc/LZ4, as JAX's TensorStoreStore writes it; K1 encodes the views):
+     the cached views and labels bit for bit with the ``.npy`` run's, the
+     same grid pick, the projector within ``RUNNER_PROJ_REL``, and the
+     store's write and read GB/s on the views and on the views tiled to
+     ``CACHE_ROWS`` rows; the fast
      decode's ms per 64 px photo and for the 12 MP JPEG at
      full scale and m = 2 (s per megapixel), the predict CLI over the test
      folder against an engine's rows, build_loaders s, cache write and test
@@ -215,7 +229,11 @@ Phases (any failure raises and the exit code is non-zero):
      -m aihab_clip_tpu_torch`` (3 epochs, the K1 prefix) sent SIGTERM after
      its first epoch, exit 0 with the epoch checkpoint, then resumed by a
      second CLI run: its final parameters against an uninterrupted run, bit
-     for bit;
+     for bit; A18b (a): the checkpoints are JAX's orbax layout
+     (``state/manifest.ocdbt``, ``_METADATA``), and the final one is
+     written again and read back bit for bit, its bytes and seconds beside
+     ``torch.save``/``torch.load`` of the same payload; the uninterrupted
+     run's K1 prefix launches go to K1's A10 count;
   10. weights path — the ViT-B/16 engine's weights as an OpenAI fp16
      state-dict ``.pt`` (after 8b), the SO400M engine's as an HF snapshot
      of BF16 safetensors in 2 shards with a stripped ``config.json`` and a
@@ -245,7 +263,8 @@ Phases (any failure raises and the exit code is non-zero):
      CPU; ``canny_rgb`` and ``edge_blend`` on 64 x 224^2 photos and the
      12 MP one bit for bit with the CPU; the seconds and ms of each;
   7. one JSON line listing every kernel (with each kernel's A10 launches)
-     and every phase's figures; last line ``{"ok": true, ...}``.
+     and every phase's figures (A18's under ``jax_formats``); last line
+     ``{"ok": true, ...}``.
 Each phase prints its seconds.
 """
 
@@ -387,6 +406,9 @@ RUNNER_TIMED = 40   # photos timed for the fast decode figures
 LOADER_RSS_FILES = 64   # 12 MP JPEGs of the loader's peak RSS figure
 LOADER_RSS_RESIZE = 439   # configs/cs.yaml's resize: the prescale's m = 4
 RUNNER_PROJ_REL = 1e-4
+# A18: the rows of the tiled ViT-B/16 feature cache the store's GB/s is
+# read on (each of the runner's 3 views repeated to this many rows)
+CACHE_ROWS = 20_000
 # 9: A10 — the LoRA rank of the runner's and SO400M's LoRA runs, the chunks
 # an epoch of the chunked regime, and the SO400M profiled finetune's train
 # and test images (5 steps at batch 16, one test batch)
@@ -531,6 +553,10 @@ def main() -> None:
                 print(f"[build] {line.strip()}")
     kernel_plans(_build)
     phase("build")
+
+    # ---- A18 (c): the files JAX wrote, read by the codecs just built
+    jax_fixtures = jax_fixtures_path(smi)
+    phase("jax-written fixtures")
     big, mids, adobe = smoke_jpegs()
 
     # ---- 3. kernels at ViT-B/16 shapes
@@ -1009,7 +1035,8 @@ def main() -> None:
     # (ViT-B/16 bf16 and int8, SO400M)
     a10_counts = {
         "full_block_fused": a10_l["lora_run"]["full_block_fused"]
-        + a10_l["lora_engine"]["full_block_fused"] + a10_l["regimes_k1"],
+        + a10_l["lora_engine"]["full_block_fused"] + a10_l["regimes_k1"]
+        + a10_l["resume_ref_k1"],
         "quant_full_block_fused":
             a10_l["lora_engine_int8"]["quant_full_block_fused"],
         "fused_attention_fwd": so_step["fused_attention_fwd"]
@@ -1027,7 +1054,8 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
         if counter == "full_block_fused":
             row["runner_launches"] = (runner["prolip_k1_launches"]
-                                      + runner["peft_k1_launches"])
+                                      + runner["peft_k1_launches"]
+                                      + runner["file_root"]["k1_launches"])
             # the DP step's K1 per rank (the parallel phase's subprocesses)
             row["parallel_launches"] = parallel["pair"]["k1_per_dp_rank"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all")
@@ -1041,7 +1069,14 @@ def main() -> None:
                       "a10": {"vit_b16": a10_vit, "so400m": a10_so},
                       "jpeg": jpeg_figures, "serving": serving_figures,
                       "weights": weights, "resnet": resnet, "a17": a17,
-                      "tools": tools, "parallel": parallel}))
+                      "tools": tools, "parallel": parallel,
+                      "jax_formats": {
+                          "fixtures": jax_fixtures,
+                          "resume": dict(a10_vit["jax_layout"],
+                                         k1_launches=a10_l["resume_ref_k1"],
+                                         bit_identical=a10_vit[
+                                             "resume_bit_identical"]),
+                          "file_root": runner["file_root"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -5268,6 +5303,8 @@ def runner_path(bk, smi: str, big: bytes) -> dict:
         figures["tip_adapter"] = tip_adapter_check(
             feature_cache_dir(cfg), views_n, model, bundle["text_weights"],
             out["val_feats"], out["val_labels"])
+        figures["file_root"] = file_root_prolip(bk, smi, here, opts, views,
+                                                labels, out)
 
         figures.update({
             "build_loaders_s": timings["build_loaders_s"],
@@ -5429,6 +5466,275 @@ def tip_adapter_check(cache_dir, views_n: int, model, text_weights,
                 acc=pick["acc"][0], cpu_pick=(pick["beta"][1],
                                               pick["alpha"][1]),
                 logits_rel_l2=rel, search_s=out["cuda"]["seconds"])
+
+
+# ---------------------------------------------------------------------------
+# A18 + A18b: what the JAX package writes (orbax checkpoints, the zarr
+# cache store under scheme:// roots), through the port's own codecs
+# ---------------------------------------------------------------------------
+
+
+def host_cpu() -> str:
+    """The host CPU's model and the cores this process may use (the host
+    codecs' rates stand beside it); the architecture where the machine
+    does not name its model."""
+    import os
+    import platform
+
+    model = platform.machine() or "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith(("model name", "cpu model")):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{model}, {len(os.sched_getaffinity(0))} cores"
+
+
+def _orbax_leaves(tree, prefix=""):
+    """{orbax name: array} of a payload tree read by ``utils/orbax``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        if v is not None and not (isinstance(v, (dict, tuple, list))
+                                  and not v):
+            out.update(_orbax_leaves(v, f"{prefix}{k}."))
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.atleast_1d(np.asarray(a)), np.atleast_1d(np.asarray(b))
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def jax_fixtures_path(smi: str) -> dict:
+    """(c) the files JAX wrote (``tests/golden/jax_written``, by
+    ``tests/make_jax_written_fixtures.py``), read with the codecs this
+    machine's compiler built: the 20 libzstd frames (levels -5 to 22) by
+    the SHA-256 of their output, the orbax checkpoint (a ViT tower and its
+    Adam state) and the TensorStoreStore directory (blosc/LZ4, 8 dtypes)
+    against the arrays recorded beside them, bit for bit.  Then the host
+    codecs' rates on this machine's CPU: zstd decode of the committed
+    frames, the raw-frame writer and its decode, XXH64, blosc/LZ4 compress
+    and decompress of fp16 features."""
+    import hashlib
+    from pathlib import Path
+
+    import torch
+
+    from aihab_clip_tpu_torch.cache.array_store import open_store
+    from aihab_clip_tpu_torch.ops import blosc, zstd
+    from aihab_clip_tpu_torch.utils import load_checkpoint, orbax
+
+    golden = Path(__file__).resolve().parent / "tests" / "golden" / \
+        "jax_written"
+    figures = {"card": smi, "host_cpu": host_cpu()}
+    digests = json.loads((golden / "zstd.json").read_text())
+    frames = {n: (golden / "zstd" / n).read_bytes() for n in digests}
+    bad = [n for n, f in frames.items() if hashlib.sha256(
+        zstd.decompress(f, name=n)).hexdigest() != digests[n]]
+    print(f"[jax formats] {len(frames) - len(bad)} of {len(frames)} libzstd "
+          f"frames (levels -5, 1, 3, 19, 22) decode to their SHA-256")
+    check(not bad and len(frames) == 20, f"zstd frames differ: {bad}")
+    want = np.load(golden / "orbax_ckpt.npz")
+    got = _orbax_leaves(orbax.read_state(golden / "orbax_ckpt" / "state"))
+    diff = [k for k in want.files if k not in got
+            or not _bits_equal(got[k], want[k])]
+    restored = load_checkpoint(golden / "orbax_ckpt")
+    print(f"[jax formats] JAX's orbax checkpoint: {len(want.files) - len(diff)}"
+          f" of {len(want.files)} arrays bit for bit; load_checkpoint: "
+          f"{len(restored['params'])} parameters, Adam over "
+          f"{len(restored['opt_state']['state'])}, epoch "
+          f"{restored['meta']['epoch']}")
+    check(not diff and sorted(got) == sorted(want.files)
+          and restored["meta"]["epoch"] == 3, f"orbax arrays differ: {diff}")
+    want_s = np.load(golden / "tensorstore_store.npz")
+    store = open_store(f"file://{golden / 'tensorstore_store'}")
+    diff_s = []
+    for name in want_s.files:
+        a = store.load(name)
+        if isinstance(a, torch.Tensor):
+            a = a.view(torch.int16).numpy().view(np.uint16)
+        if not _bits_equal(a, want_s[name]):
+            diff_s.append(name)
+    print(f"[jax formats] JAX's TensorStoreStore: "
+          f"{len(want_s.files) - len(diff_s)} of {len(want_s.files)} arrays "
+          f"bit for bit")
+    check(not diff_s, f"store arrays differ: {diff_s}")
+    figures.update(zstd_frames=len(frames), orbax_arrays=len(want.files),
+                   store_arrays=len(want_s.files))
+
+    def rate(fn, nbytes, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return nbytes * reps / (time.perf_counter() - t0) / 1e9
+
+    rng = np.random.default_rng(SEED)
+    decoded = sum(len(zstd.decompress(f)) for f in frames.values())
+    weights = (rng.standard_normal(1 << 24) * 0.02).astype(np.float32)
+    raw = zstd.compress_raw(weights)
+    feats = rng.standard_normal((1 << 15, W)).astype(np.float16)
+    frame = blosc.compress(feats, 2)
+    rates = {
+        "zstd_decode_libzstd_frames_gbps": rate(
+            lambda: [zstd.decompress(f) for f in frames.values()], decoded,
+            20),
+        "zstd_write_raw_gbps": rate(lambda: zstd.compress_raw(weights),
+                                    weights.nbytes, 3),
+        "zstd_decode_raw_gbps": rate(lambda: zstd.decompress(raw),
+                                     weights.nbytes, 3),
+        "xxh64_gbps": rate(lambda: zstd.xxh64(weights), weights.nbytes, 5),
+        "blosc_lz4_compress_gbps": rate(lambda: blosc.compress(feats, 2),
+                                        feats.nbytes, 3),
+        "blosc_lz4_decompress_gbps": rate(lambda: blosc.decompress(frame),
+                                          feats.nbytes, 3),
+        "blosc_lz4_ratio": len(frame) / feats.nbytes}
+    print(f"[jax formats] host codecs on {figures['host_cpu']}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+          + f" ({smi})")
+    figures["host_codecs"] = rates
+    return figures
+
+
+def file_root_prolip(bk, smi: str, here, opts, views, labels, out) -> dict:
+    """(b) The runner's ProLIP run again with the cache under a
+    ``file://`` root (``ZarrStore``: blosc/LZ4 chunks through
+    ``ops/blosc.py``, as JAX's ``TensorStoreStore`` writes them): every
+    cached view and the labels read back bit for bit against the local
+    ``.npy`` run's, the same grid pick and the projector within
+    ``RUNNER_PROJ_REL``; K1 encodes the views.  Then the store's write and
+    read GB/s on the run's views and on the views tiled to
+    ``CACHE_ROWS`` rows."""
+    import os
+
+    import torch
+
+    from aihab_clip_tpu_torch.cache import (feature_cache_dir,
+                                            read_preprojection_cache)
+    from aihab_clip_tpu_torch.cache.array_store import ZarrStore
+    from aihab_clip_tpu_torch.config import load_configs
+    from aihab_clip_tpu_torch.runner import run
+
+    root = f"file://{os.getcwd()}/file_root"
+    cfg = load_configs(str(here / "configs/base.yaml"),
+                       str(here / "configs/cs.yaml"),
+                       opts + ["root_path", root])
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run(cfg, config_file="cs", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = bk.launch_counts()["full_block_fused"]
+    cache = feature_cache_dir(cfg)
+    got, got_labels = read_preprojection_cache(cache, len(views))
+    same = np.array_equal(got_labels, labels) and all(
+        _bits_equal(a, b) for a, b in zip(got, views))
+    mine = result["prolip"]
+    w, wf = out["projector"].weight.float().cpu(), \
+        mine["projector"].weight.float().cpu()
+    rel = ((w - wf).norm() / w.norm()).item()
+    pick = (mine["lr"], mine["lambda"]) == (out["lr"], out["lambda"])
+    print(f"[runner file://] ProLIP with the cache under {cache}: {wall:.2f}s,"
+          f" K1 {k1}; {len(views)} views + labels bit for bit with the .npy "
+          f"run: {same}; grid pick {(mine['lr'], mine['lambda'])} (same: "
+          f"{pick}); projector rel L2 {rel:.3e}, bit for bit "
+          f"{torch.equal(w, wf)}; test acc {mine['acc']:.4f}")
+    check(str(cache).startswith("file://") and same, "file:// cache differs")
+    check(pick and rel <= RUNNER_PROJ_REL, "file:// ProLIP differs")
+    check(k1 > 0, "no K1 in the file:// ProLIP run")
+    figures = {"card": smi, "host_cpu": host_cpu(), "k1_launches": k1,
+               "wall_s": wall, "cache_bit_identical": same,
+               "projector_rel_l2": rel, "test_acc": mine["acc"]}
+    store = ZarrStore(f"file://{os.getcwd()}/gbps")
+    tiled = [np.resize(v, (CACHE_ROWS, v.shape[1])) for v in views]
+    for label, arrays in (("runner_views", views), ("tiled_views", tiled)):
+        nbytes = sum(a.nbytes for a in arrays)
+        t0 = time.perf_counter()
+        for i, a in enumerate(arrays):
+            store.save(f"{label}{i}", a)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [store.load(f"{label}{i}") for i in range(len(arrays))]
+        read_s = time.perf_counter() - t0
+        check(all(_bits_equal(a, b) for a, b in zip(back, arrays)),
+              f"{label}: store round trip")
+        stored = sum(p.stat().st_size for p in (store.kv.root).rglob("*")
+                     if p.is_file() and p.relative_to(
+                         store.kv.root).parts[0].startswith(label))
+        figures[label] = dict(shape=[len(arrays), *arrays[0].shape],
+                              bytes=nbytes, stored_bytes=stored,
+                              write_gbps=nbytes / write_s / 1e9,
+                              read_gbps=nbytes / read_s / 1e9)
+        print(f"[runner file://] blosc/LZ4 store, {label} "
+              f"{figures[label]['shape']} fp16: {nbytes / 1e6:.1f} MB -> "
+              f"{stored / 1e6:.1f} MB, write "
+              f"{figures[label]['write_gbps']:.3f} GB/s, read "
+              f"{figures[label]['read_gbps']:.3f} GB/s (host "
+              f"{figures['host_cpu']}; {smi})")
+    return figures
+
+
+def checkpoint_io(restored: dict, tmp: str, smi: str) -> dict:
+    """(a) A ViT-B/16 fine-tune checkpoint (``restored``: its params and
+    Adam state) written in JAX's layout by ``save_checkpoint`` and read by
+    ``load_checkpoint``, bit for bit, timed, beside ``torch.save`` and
+    ``torch.load`` of the same payload: bytes and seconds."""
+    from pathlib import Path
+
+    import torch
+
+    from aihab_clip_tpu_torch.config import ConfigNode
+    from aihab_clip_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    cfg = ConfigNode({"root_path": tmp, "clip_backend": "openai",
+                      "backbone": "ViT-B/16",
+                      "finetune": {"save_model_dir": "io_ck"}})
+    params, opt_state = restored["params"], restored["opt_state"]
+    t0 = time.perf_counter()
+    path = save_checkpoint(cfg, params, opt_state, epoch=9)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_checkpoint(path)
+    read_s = time.perf_counter() - t0
+    same = all(torch.equal(back["params"][n], t) for n, t in params.items())
+    names = opt_state["param_groups"][0]["param_names"]
+    back_names = back["opt_state"]["param_groups"][0]["param_names"]
+    by_name = dict(zip(back_names, back["opt_state"]["state"].values()))
+    same_opt = sorted(back_names) == sorted(names) and all(
+        torch.equal(by_name[n][k], st[k]) for n, st in zip(
+            names, opt_state["state"].values())
+        for k in ("exp_avg", "exp_avg_sq", "step"))
+    nbytes = sum(p.stat().st_size for p in (path / "state").rglob("*")
+                 if p.is_file())
+    pt = Path(tmp) / "payload.pt"
+    t0 = time.perf_counter()
+    torch.save({"params": params, "opt_state": opt_state}, pt)
+    pt_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.load(pt, map_location="cpu", weights_only=True)
+    pt_read_s = time.perf_counter() - t0
+    figures = dict(card=smi, host_cpu=host_cpu(), bytes=nbytes,
+                   write_s=write_s, read_s=read_s,
+                   torch_save_bytes=pt.stat().st_size,
+                   torch_save_s=pt_write_s, torch_load_s=pt_read_s,
+                   params=len(params), adam_slots=len(names))
+    print(f"[a10 resume] JAX's layout: {nbytes / 1e6:.1f} MB ({len(params)} "
+          f"params, Adam over {len(names)}), save_checkpoint {write_s:.2f}s, "
+          f"load_checkpoint {read_s:.2f}s, bit for bit {same and same_opt}; "
+          f"torch.save {pt.stat().st_size / 1e6:.1f} MB in {pt_write_s:.2f}s, "
+          f"torch.load {pt_read_s:.2f}s (host {figures['host_cpu']}; {smi})")
+    check(same and same_opt, "the checkpoint's round trip differs")
+    return figures
 
 
 # ---------------------------------------------------------------------------
@@ -5711,8 +6017,10 @@ def a10_runner_path(bk, smi: str) -> dict:
                   "finetune.save_model", "True",
                   "finetune.cache_embeddings", "False"]
         ref_cfg = config(*opts_b, "finetune.save_model_dir", f"{tmp}/ck_ref")
+        bk.reset_launch_counts()
         ref_out = run(ref_cfg, config_file="cs", logger_mode="off",
                       device="cuda")["peft"]
+        launches["resume_ref_k1"] = bk.launch_counts()["full_block_fused"]
         want_params = {n: t.detach().cpu() for n, t in
                        ref_out["params"].items()}
         del ref_out
@@ -5746,6 +6054,10 @@ def a10_runner_path(bk, smi: str) -> dict:
               f"checkpoint {ck1.name if ck1 else None} ({smi})")
         check(rc == 0 and stopped and ck1 is not None,
               f"the interrupted CLI run: exit {rc}\n{text[-3000:]}")
+        layout = sorted(p.name for p in (ck1 / "state").iterdir())
+        print(f"[a10 resume] the epoch checkpoint's state/: {layout}")
+        check({"manifest.ocdbt", "_METADATA", "d"} <= set(layout),
+              "the epoch checkpoint is not in JAX's orbax layout")
         t0 = time.perf_counter()
         proc = subprocess.run(cmd + ["finetune.resume", "True"], cwd=tmp,
                               env=env, capture_output=True, text=True,
@@ -5779,6 +6091,7 @@ def a10_runner_path(bk, smi: str) -> dict:
         figures.update(resume_bit_identical=not diff,
                        interrupted_run_s=first_s, resumed_run_s=second_s,
                        interrupted_at=stopped[-1].strip())
+        figures["jax_layout"] = checkpoint_io(final, tmp, smi)
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)

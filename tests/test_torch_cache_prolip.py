@@ -114,10 +114,28 @@ def test_projector_npz_both_ways(tmp_path):
     assert json.loads((tmp_path / "p.json").read_text()) == {"lr": 1e-3}
 
 
-def test_remote_root_raises_a18():
-    with pytest.raises(NotImplementedError, match="A18"):
-        array_store.open_store("gs://bucket/prefix")
-    assert array_store.join_cache_path("gs://b/", "x", "y") == "gs://b/x/y"
+def test_remote_root_raises_a18(tmp_path):
+    """A ``scheme://`` root opens the zarr store, as JAX's ``open_store``
+    opens its ``TensorStoreStore``; ``gs://`` raises at its first read or
+    write, naming A18c (no network, no cloud client)."""
+    from aihab_clip_tpu.cache import array_store as jax_store
+
+    for root in (tmp_path, f"file://{tmp_path}", "gs://bucket/prefix",
+                 "s3://bucket/prefix"):
+        ours, ref = array_store.open_store(root), jax_store.open_store(root)
+        assert isinstance(ours, array_store.ZarrStore) == isinstance(
+            ref, jax_store.TensorStoreStore), root
+        assert isinstance(ours, array_store.LocalNpyStore) == isinstance(
+            ref, jax_store.LocalNpyStore), root
+    assert array_store.join_cache_path("gs://b/", "x", "y") == \
+        jax_store.join_cache_path("gs://b/", "x", "y") == "gs://b/x/y"
+    remote = array_store.open_store("gs://bucket/prefix")
+    for io in (lambda: remote.exists("f0"), lambda: remote.load("f0"),
+               lambda: remote.save("f0", np.zeros(2)),
+               lambda: remote.write_json("m.json", {}),
+               lambda: remote.list_arrays("f")):
+        with pytest.raises(NotImplementedError, match="A18c"):
+            io()
 
 
 def _problem(n=40, views=3, seed=0):

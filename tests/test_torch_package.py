@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "aihab_clip_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "aihab_clip_tpu", "yaml", "pandas",
              "sklearn", "cv2", "PIL", "optax", "orbax", "tensorstore",
-             "transformers", "tokenizers", "safetensors", "open_clip"}
+             "zstandard", "lz4", "transformers", "tokenizers", "safetensors",
+             "open_clip"}
 # optional at run time: imported inside a function only, behind a guard
 GUARDED = {"wandb", "matplotlib", "seaborn"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

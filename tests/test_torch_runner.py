@@ -267,7 +267,7 @@ def test_cache_refusals(base_cfg):
         run(cfg, device="cpu")
     cfg = base_cfg.clone()
     cfg.root_path = "gs://bucket/prefix"
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(NotImplementedError, match="A18c"):
         run(cfg, device="cpu")
 
 
