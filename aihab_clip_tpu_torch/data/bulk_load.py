@@ -11,7 +11,7 @@ file libjpeg-turbo 2.1 cannot decode to RGB is dropped with its warning),
 any other folder to ``cv2.imread`` at full scale (JAX
 ``data/bulk_load.py:90-100, 153-156``).  Files are read and decoded a chunk
 at a time through ``ops/jpeg.decode_blobs``: JPEGs by the fast decode (the
-C++ Huffman decode on the host, J1 and J2 on ``device``), PNGs and BMPs by
+C++ entropy decode on the host, J1 and J2 on ``device``), PNGs and BMPs by
 ``data/decode.py`` on a thread pool.  The loader emits RGB; with
 ``channel_order='bgr'`` it reproduces the reference's swapped channels.  An
 optional on-disk cache of the decoded arrays (``decode_cache_dir``) has the
@@ -64,9 +64,7 @@ def decode_files(paths: Sequence[str], resize_dim: int,
     route only.  ``JPEG_CHUNK`` files at a
     time are read on a thread pool and decoded by ``ops/jpeg.decode_blobs``
     (JPEGs on ``device``, the card by default), so one chunk's bytes is
-    held at a time.  A file that the route reads and this package does not
-    decode (A9c) raises ``NotImplementedError`` naming it, as skipping it
-    would change the split."""
+    held at a time."""
     import torch
 
     from ..backend import resolve_device
@@ -88,12 +86,9 @@ def decode_files(paths: Sequence[str], resize_dim: int,
     with ThreadPoolExecutor(max_workers=workers) as pool:
         for start in range(0, len(paths), JPEG_CHUNK):
             chunk = paths[start:start + JPEG_CHUNK]
-            images, unsupported = decode_blobs(
+            images = decode_blobs(
                 list(pool.map(read, chunk)), resize_dim, route, prescale_min,
                 device, workers, stream, pool)
-            if unsupported:
-                i = min(unsupported)
-                raise NotImplementedError(f"{chunk[i]}: {unsupported[i]}")
             out.extend(None if img is None else np.ascontiguousarray(
                 img[:, :, ::-1] if channel_order == "bgr" else img)
                 for img in images)

@@ -6,11 +6,15 @@ decode (``ops/jpeg.py``): its header parser serves both, its Huffman decode
 and pixel stage are what the C++ entropy decoder and the card's kernels are
 held against.
 
-  * **JPEG**, sequential (SOF0/SOF1) and progressive (SOF2), Huffman,
-    8-bit, 1, 3 or 4 components: libjpeg's Huffman decode with its rules
-    for data that runs out (a cut file decodes, the rest of its scan left
-    as it is) and, for a cut progressive file, its interblock smoothing
-    (``jdcoefct.c``, libjpeg-turbo >= 2.1); the integer "islow" IDCT
+  * **JPEG**, sequential (SOF0/SOF1/SOF9) and progressive (SOF2/SOF10),
+    Huffman- or arithmetic-coded, 8-bit, 1, 3 or 4 components: libjpeg's
+    Huffman decode (``jdhuff.c``, ``jdphuff.c``) and its QM arithmetic
+    decode (``jdarith.c``: ITU-T T.81 Annex D, F.1.4.4 and G.1.3, with
+    the conditioning of DAC markers), with their rules for data that runs
+    out (a cut Huffman file decodes, the rest of its scan left as it is;
+    a cut arithmetic one decodes every later MCU from zero bytes) and, for
+    a cut progressive file, libjpeg's interblock smoothing (``jdcoefct.c``,
+    libjpeg-turbo >= 2.1); the integer "islow" IDCT
     (``jidctint.c``), h2v1/h1v2/h2v2 "fancy" (triangular) chroma
     upsampling with libjpeg's edge rows and biases, its fixed-point YCbCr
     -> RGB tables, restart markers, grayscale and Adobe/RGB JPEGs; CMYK and
@@ -36,14 +40,10 @@ held against.
     the fixed point of the native path (11-bit weights, 22-bit rounding),
     which equals that path bit for bit and cv2 within one level.
 
-``parse_jpeg`` raises ``UnsupportedJpeg`` (a ``NotImplementedError``) naming
-ROADMAP A9c for arithmetic-coded, lossless and 12-bit JPEGs.  JAX's native
-path and cv2 decode the arithmetic-coded ones, so a route that reaches one
-raises; neither reads the lossless or 12-bit ones, which are None on every
-route (``decode_image`` takes them as a ``DecodeError``), as are
-hierarchical ones, which no libjpeg decodes.  The Huffman decode here is
-pure Python (seconds per megapixel): the reference, not the production
-path.
+Lossless (SOF3, SOF11), 12-bit and hierarchical JPEGs are a
+``DecodeError``: neither JAX's native libjpeg path nor cv2 reads them, so
+they are None on every route.  The entropy decodes here are pure Python
+(seconds per megapixel): the reference, not the production path.
 """
 
 from __future__ import annotations
@@ -59,11 +59,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 # the pixels this module produces; part of the decoded-array cache key
-DECODE_RULE = ("aihab_clip_tpu_torch.decode/3:islow,jidctred,fancy,linear11,"
-               "progressive,smooth9,cut,cmyk,routes")
-
-_A9C = ("ROADMAP A9c (arithmetic-coded, lossless, hierarchical and 12-bit "
-        "JPEGs)")
+DECODE_RULE = ("aihab_clip_tpu_torch.decode/4:islow,jidctred,fancy,linear11,"
+               "progressive,smooth9,cut,cmyk,routes,arith")
 
 
 class DecodeError(ValueError):
@@ -86,19 +83,24 @@ _ZZ = _ZIGZAG.tolist()
 # corrupt scan's index past 63 writes coefficient 63
 _ZZX = _ZZ + [63] * 16
 
-# frame markers of the modes left to A9c: (what it is, decoded by JAX's
-# native libjpeg path, decoded by cv2 5.0); 12-bit frames are refused by both
-_SOF_A9C = {
-    0xC3: ("lossless", False, False),
-    0xC9: ("arithmetic-coded", True, True),
-    0xCA: ("arithmetic-coded progressive", True, True),
-    0xCB: ("arithmetic-coded lossless", False, False)}
-# hierarchical (differential) frames: no libjpeg decodes them
-_SOF_HIERARCHICAL = {0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF}
+# the frames decoded: marker -> (progressive, arithmetic-coded)
+_SOF = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+        0xC9: (False, True), 0xCA: (True, True)}
+# lossless frames (Huffman, arithmetic) and hierarchical (differential)
+# ones: neither JAX's native libjpeg path nor cv2 5.0 reads them
+_SOF_REFUSED = {0xC3: "lossless", 0xCB: "lossless",
+                **{m: "hierarchical" for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE,
+                                               0xCF)}}
 
-# the marker that ends an entropy-coded segment: 0xFF followed by anything
-# but a stuffed zero, a fill byte or a restart marker
-_SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
+# a stuffed 0xFF in entropy-coded data, after fill bytes; a marker (each
+# pattern starts with a literal, which re scans for fast)
+_STUFFED = re.compile(rb"\xff\xff*\x00")
+_MARKER = re.compile(rb"\xff\xff*[^\x00\xff]")
+
+# the markers libjpeg's read_markers refuses (reserved ones, JPG, DHP, EXP,
+# JPGn, a second SOI)
+_UNKNOWN_MARKERS = frozenset([*range(0x02, 0xC0), 0xC8, 0xD8, 0xDE, 0xDF,
+                              *range(0xF0, 0xFE)])
 
 # a lookup entry for bits that start no code: libjpeg reads 17 bits and
 # takes symbol 0 (jdhuff.c jpeg_huff_decode)
@@ -106,17 +108,6 @@ _MISS = 17 << 8
 # zero bytes after a restart segment: more than one MCU can read, so the MCU
 # in which the data runs out decodes with zero bits
 _PAD = 4096
-
-
-class UnsupportedJpeg(NotImplementedError):
-    """A JPEG mode this package does not decode (ROADMAP A9c).  ``native``
-    and ``cv2`` say whether JAX's native libjpeg path and cv2 decode it: a
-    route that would decode it raises, the others drop the file as they
-    do."""
-
-    def __init__(self, kind: str, native: bool, cv2: bool):
-        super().__init__(f"{kind} JPEG is not decoded: {_A9C}")
-        self.kind, self.native, self.cv2 = kind, native, cv2
 
 
 def _check_huffman(counts: bytes, n_symbols: int) -> None:
@@ -198,11 +189,15 @@ class _Component:
 @dataclasses.dataclass
 class JpegScan:
     """One scan: its components (indices into ``JpegHeader.comps``), their
-    DC and AC table specs (16 counts, then the symbols; ``b""`` where the
-    scan reads none), the entropy-coded bytes ``data[start:end]``, the
-    restart interval in force and its spectral band ``ss``..``se`` and
-    successive-approximation bits ``ah``, ``al`` (0, 63, 0, 0 in a
-    sequential frame)."""
+    DC and AC Huffman table specs (16 counts, then the symbols; ``b""``
+    where the scan reads none, and in an arithmetic-coded frame), the
+    entropy-coded bytes ``data[start:end]``, the restart interval in force
+    and its spectral band ``ss``..``se`` and successive-approximation bits
+    ``ah``, ``al`` (0, 63, 0, 0 in a sequential frame).  An
+    arithmetic-coded scan has ``arith`` instead of table specs: per
+    component its DC statistics table and that table's conditioning L and
+    U, its AC statistics table and that table's Kx, as the DAC markers
+    before the scan left them."""
 
     comps: List[int]
     dc: List[bytes]
@@ -214,6 +209,7 @@ class JpegScan:
     se: int = 63
     ah: int = 0
     al: int = 0
+    arith: Optional[List[Tuple[int, int, int, int, int]]] = None
 
 
 @dataclasses.dataclass
@@ -223,10 +219,15 @@ class JpegHeader:
     blocks, MCU-padded, of which ``wib`` x ``hib`` hold the image),
     quantization tables (int64 [8, 8], natural order), the scans, the EXIF
     orientation, the colour transform ("ycc", "rgb", "gray", "cmyk" or
-    "ycck"), whether the frame is progressive (SOF2), whether the data
-    reaches its EOI marker (``complete``; a cut file does not) and the
-    bytes libjpeg's fake EOI adds to a scan cut in its header (``tail``,
-    to append to the data)."""
+    "ycck"), whether the frame is progressive (SOF2, SOF10) and whether it
+    is arithmetic-coded (SOF9, SOF10), whether what libjpeg reads for the
+    image lies inside the data (``complete``: the data reaches its EOI
+    marker, or a marker ends a one-scan sequential frame's scan; a cut
+    file's does not), the bytes libjpeg's fake EOI adds to
+    a scan cut in its header (``tail``, to append to the data) and whether
+    a marker after a one-scan sequential frame's scan is one libjpeg
+    refuses (``tail_error``: JAX's native path returns None, cv2 the
+    image)."""
 
     width: int
     height: int
@@ -238,6 +239,8 @@ class JpegHeader:
     progressive: bool = False
     complete: bool = True
     tail: bytes = b""
+    arithmetic: bool = False
+    tail_error: bool = False
 
     @property
     def hmax(self) -> int:
@@ -280,13 +283,13 @@ def jpeg_size(data: bytes) -> Optional[Tuple[int, int]]:
 def parse_jpeg(data: bytes) -> JpegHeader:
     """Walk a JPEG's markers (the entropy-coded data is skipped, not
     decoded).  Raises ``DecodeError`` for a file that libjpeg refuses (a
-    segment cut short, no scan, a bad progression, ...) and
-    ``UnsupportedJpeg`` (A9c) for one in a mode this package leaves out.
-    A file cut inside its entropy-coded data, or missing its EOI, parses:
-    libjpeg decodes it with the missing data as zeros."""
+    segment cut short, no scan, a bad progression, ...) and for the modes
+    neither JAX's native path nor cv2 reads (lossless, 12-bit,
+    hierarchical).  A file cut inside its entropy-coded data, or missing
+    its EOI, parses: libjpeg decodes it with the missing data as zeros."""
     try:
         return _parse_jpeg(data)
-    except (DecodeError, NotImplementedError):
+    except DecodeError:
         raise
     except (IndexError, ValueError) as e:   # a segment shorter than its kind
         raise DecodeError(f"corrupt JPEG marker segment ({e})") from e
@@ -308,135 +311,197 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
     comps: List[_Component] = []
     scans: List[JpegScan] = []
     frame = None
-    progressive = False
+    progressive = arithmetic = False
+    # DAC conditioning by table (jdmarker.c get_soi's defaults)
+    dc_cond = {t: (0, 1) for t in range(16)}
+    ac_cond = {t: 5 for t in range(16)}
     restart = 0
     orientation = 1
     saw_jfif = False
     adobe_transform = None
     pos = 2
     n = len(data)
-    eoi = False
+    eoi = tail_error = False
     tail = b""
-    while pos < n:
-        if data[pos] != 0xFF:
-            raise DecodeError(f"expected a marker at byte {pos}")
-        if pos + 1 >= n:
-            break                   # a fill byte cut from its marker
-        marker = data[pos + 1]
-        if marker == 0xFF:
-            pos += 1
-            continue
-        if marker == 0xD9:          # EOI
-            eoi = True
-            break
-        if marker == 0x01 or 0xD0 <= marker <= 0xD7:
-            pos += 2
-            continue
-        if pos + 4 > n:
-            if scans and (marker == 0xFE or 0xE0 <= marker <= 0xEF):
-                break               # libjpeg skips its garbage length
-            raise DecodeError("truncated marker segment")
-        length = _u16(data, pos + 2)
-        body_end = pos + 2 + length
-        if body_end > n or length < 2:
-            part = data[pos + 4:]
-            if (marker == 0xDA and frame is not None and not progressive
-                    and length >= 2 and part
-                    and len(part) >= 1 + 2 * part[0]):
-                # a sequential scan cut in its band bytes, which libjpeg
-                # only warns about: it reads them from its fake EOI (FF D9
-                # FF D9 ...), and a D9 left over is the scan's one byte
-                missing = length - 2 - len(part)
-                part += b"\xff\xd9" * (length // 2)
-                scans.append(_parse_sos(part[:length - 2], comps, dc_specs,
-                                        ac_specs, False, restart, n))
-                tail = b"\xd9" * (missing % 2)
-                scans[-1].end = n + len(tail)
+    # each component's quantization table as its first scan found it
+    # (jdinput.c latch_quant_tables: a DQT after that changes nothing)
+    latched: Dict[int, np.ndarray] = {}
+
+    def latch(scan: JpegScan) -> None:
+        for k in scan.comps:
+            if k not in latched:
+                if comps[k].tq not in qt:
+                    raise DecodeError("missing quantization table")
+                latched[k] = qt[comps[k].tq]
+
+    try:
+        while pos < n:
+            if pos + 1 >= n:
+                break                   # a byte cut from its marker
+            if data[pos] != 0xFF or data[pos + 1] == 0:
+                pos = _next_marker(data, pos)[0]   # libjpeg skips such bytes
+                continue
+            marker = data[pos + 1]
+            if marker == 0xFF:
+                pos += 1
+                continue
+            if marker == 0xD9:          # EOI
+                eoi = True
                 break
-            if scans and _cut_after_scans(marker, part, length):
-                break
-            raise DecodeError("truncated marker segment")
-        seg = data[pos + 4:body_end]
-        if marker == 0xE0 and seg[:5] == b"JFIF\x00":
-            saw_jfif = True
-        elif marker == 0xE1 and seg[:6] == b"Exif\x00\x00":
-            orientation = _parse_exif_orientation(seg)
-        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            adobe_transform = seg[11]
-        elif marker == 0xDB:        # DQT
-            i = 0
-            while i < len(seg):
-                pq, tq = seg[i] >> 4, seg[i] & 15
-                if pq:
-                    vals = np.frombuffer(seg[i + 1:i + 129], ">u2")
-                    i += 129
-                else:
-                    vals = np.frombuffer(seg[i + 1:i + 65], np.uint8)
-                    i += 65
-                if len(vals) != 64:
-                    raise DecodeError("truncated quantization table")
-                table = np.zeros(64, np.int64)
-                table[_ZIGZAG] = vals.astype(np.int64)
-                qt[tq] = table.reshape(8, 8)
-        elif marker == 0xC4:        # DHT
-            i = 0
-            while i < len(seg):
-                tc, th = seg[i] >> 4, seg[i] & 15
-                counts = seg[i + 1:i + 17]
-                if len(counts) < 16:
-                    raise DecodeError("truncated Huffman table")
-                total = sum(counts)
-                spec = seg[i + 1:i + 17 + total]
-                _check_huffman(counts, len(spec) - 16)
-                (ac_specs if tc else dc_specs)[th] = spec
-                i += 17 + total
-        elif marker == 0xDD:        # DRI
-            restart = _u16(seg, 0)
-        elif marker in (0xC0, 0xC1, 0xC2):
-            if frame is not None:
-                raise DecodeError("a second frame header")
-            if seg[0] == 12:
-                raise UnsupportedJpeg("12-bit", False, False)
-            if seg[0] != 8:
-                raise DecodeError(f"{seg[0]}-bit JPEG")
-            height, width, nf = _u16(seg, 1), _u16(seg, 3), seg[5]
-            if height == 0 or width == 0:
-                raise DecodeError("JPEG frame with a zero dimension (DNL)")
-            if nf not in (1, 3, 4):
-                raise DecodeError(f"{nf}-component JPEG")
-            for c in range(nf):
-                cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
-                if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
-                    raise DecodeError("bad sampling factors")
-                comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-            frame = (width, height)
-            progressive = marker == 0xC2
-            hmax = max(c.h for c in comps)
-            vmax = max(c.v for c in comps)
-            mcux = -(-width // (8 * hmax))
-            mcuy = -(-height // (8 * vmax))
-            for c in comps:
-                c.bw, c.bh = mcux * c.h, mcuy * c.v
-                c.wib = -(-(-(-width * c.h // hmax)) // 8)
-                c.hib = -(-(-(-height * c.v // vmax)) // 8)
-        elif marker in _SOF_A9C:
-            raise UnsupportedJpeg(*_SOF_A9C[marker])
-        elif marker in _SOF_HIERARCHICAL:
-            raise DecodeError("hierarchical JPEG")
-        elif marker == 0xDA:        # SOS
-            if frame is None:
-                raise DecodeError("scan before frame header")
-            scans.append(_parse_sos(seg, comps, dc_specs, ac_specs,
-                                    progressive, restart, body_end))
-            m = _SCAN_END.search(data, body_end)
-            scans[-1].end = m.start() if m else n
-            pos = scans[-1].end
-            continue
-        pos = body_end
+            if marker == 0x01 or 0xD0 <= marker <= 0xD7:
+                pos += 2
+                continue
+            if marker in _UNKNOWN_MARKERS:
+                raise DecodeError(f"unknown JPEG marker 0x{marker:02X}")
+            if pos + 4 > n:
+                if scans and (marker in (0xDC, 0xFE)
+                              or 0xE0 <= marker <= 0xEF):
+                    break               # libjpeg skips its garbage length
+                raise DecodeError("truncated marker segment")
+            length = _u16(data, pos + 2)
+            body_end = pos + 2 + length
+            if body_end > n or length < 2:
+                part = data[pos + 4:]
+                if (marker == 0xDA and frame is not None and not progressive
+                        and length >= 2 and part):
+                    # a sequential scan cut in its header: libjpeg reads the
+                    # rest from its fake EOI (FF D9 FF D9 ...), which its band
+                    # bytes take in (it only warns about them) and, in an
+                    # arithmetic-coded frame, a table selector too (FF:
+                    # statistics tables 15); a D9 left over is the scan's one
+                    # byte
+                    missing = length - 2 - len(part)
+                    part += b"\xff\xd9" * (length // 2)
+                    scans.append(_parse_sos(part[:length - 2], comps, dc_specs,
+                                            ac_specs, False, restart, n,
+                                            arithmetic and (dc_cond, ac_cond)))
+                    latch(scans[-1])
+                    tail = b"\xd9" * (missing % 2)
+                    scans[-1].end = n + len(tail)
+                    break
+                if scans and _cut_after_scans(marker, part, length):
+                    break
+                raise DecodeError("truncated marker segment")
+            seg = data[pos + 4:body_end]
+            if marker == 0xE0 and seg[:5] == b"JFIF\x00":
+                saw_jfif = True
+            elif marker == 0xE1 and seg[:6] == b"Exif\x00\x00":
+                orientation = _parse_exif_orientation(seg)
+            elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+                adobe_transform = seg[11]
+            elif marker == 0xDB:        # DQT
+                i = 0
+                while i < len(seg):
+                    pq, tq = seg[i] >> 4, seg[i] & 15
+                    if tq >= 4:         # libjpeg's JERR_DQT_INDEX
+                        raise DecodeError(f"DQT table index {tq}")
+                    if pq:
+                        vals = np.frombuffer(seg[i + 1:i + 129], ">u2")
+                        i += 129
+                    else:
+                        vals = np.frombuffer(seg[i + 1:i + 65], np.uint8)
+                        i += 65
+                    if len(vals) != 64:
+                        raise DecodeError("truncated quantization table")
+                    table = np.zeros(64, np.int64)
+                    table[_ZIGZAG] = vals.astype(np.int64)
+                    qt[tq] = table.reshape(8, 8)
+            elif marker == 0xC4:        # DHT
+                i = 0
+                while i < len(seg):
+                    tc, th = seg[i] & 0x10, seg[i] & 0xEF
+                    if th >= 4:         # libjpeg's JERR_DHT_INDEX
+                        raise DecodeError(f"DHT table index {seg[i]}")
+                    counts = seg[i + 1:i + 17]
+                    if len(counts) < 16:
+                        raise DecodeError("truncated Huffman table")
+                    total = sum(counts)
+                    spec = seg[i + 1:i + 17 + total]
+                    _check_huffman(counts, len(spec) - 16)
+                    (ac_specs if tc else dc_specs)[th] = spec
+                    i += 17 + total
+            elif marker == 0xCC:        # DAC (jdmarker.c get_dac)
+                if len(seg) % 2:
+                    raise DecodeError("DAC segment of odd length")
+                for i in range(0, len(seg), 2):
+                    index, val = seg[i], seg[i + 1]
+                    if index >= 32:
+                        raise DecodeError(f"DAC table index {index}")
+                    if index >= 16:
+                        ac_cond[index - 16] = val
+                    elif val & 15 > val >> 4:
+                        raise DecodeError(f"DAC conditioning L > U ({val})")
+                    else:
+                        dc_cond[index] = (val & 15, val >> 4)
+            elif marker == 0xDD:        # DRI
+                if length != 4:
+                    raise DecodeError("DRI segment of a bad length")
+                restart = _u16(seg, 0)
+            elif marker in _SOF:
+                if frame is not None:
+                    raise DecodeError("a second frame header")
+                if seg[0] != 8:
+                    raise DecodeError(f"{seg[0]}-bit JPEG")
+                height, width, nf = _u16(seg, 1), _u16(seg, 3), seg[5]
+                if height == 0 or width == 0:
+                    raise DecodeError("JPEG frame with a zero dimension (DNL)")
+                if nf not in (1, 3, 4):
+                    raise DecodeError(f"{nf}-component JPEG")
+                for c in range(nf):
+                    cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
+                    if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
+                        raise DecodeError("bad sampling factors")
+                    comps.append(_Component(cid, hv >> 4, hv & 15, tq))
+                frame = (width, height)
+                progressive, arithmetic = _SOF[marker]
+                hmax = max(c.h for c in comps)
+                vmax = max(c.v for c in comps)
+                mcux = -(-width // (8 * hmax))
+                mcuy = -(-height // (8 * vmax))
+                for c in comps:
+                    c.bw, c.bh = mcux * c.h, mcuy * c.v
+                    c.wib = -(-(-(-width * c.h // hmax)) // 8)
+                    c.hib = -(-(-(-height * c.v // vmax)) // 8)
+            elif marker in _SOF_REFUSED:
+                raise DecodeError(f"{_SOF_REFUSED[marker]} JPEG")
+            elif marker == 0xDA:        # SOS
+                if frame is None:
+                    raise DecodeError("scan before frame header")
+                scans.append(_parse_sos(seg, comps, dc_specs, ac_specs,
+                                        progressive, restart, body_end,
+                                        arithmetic and (dc_cond, ac_cond)))
+                latch(scans[-1])
+                scans[-1].end = _restart_walk(
+                    data, body_end, _intervals(
+                        _scan_mcus(width, height, comps, scans[-1].comps),
+                        restart))[1]
+                pos = scans[-1].end
+                continue
+            pos = body_end
+    except (DecodeError, IndexError, ValueError):
+        # libjpeg reads what follows a one-scan sequential frame's scan
+        # only in jpeg_finish_decompress, whose error JAX's native path
+        # takes as a failure and cv2 shrugs off: the image stands
+        if not (scans and not progressive and pos >= scans[0].end
+                and len(scans[0].comps) == len(comps)):
+            raise
+        tail_error = True
     if frame is None or not scans:
         raise DecodeError("no frame header" if frame is None else "no scan")
-    if any(c.tq not in qt for c in comps):
-        raise DecodeError("missing quantization table")
+    # whether libjpeg's reading of what the image needs stays inside the
+    # data: all of it in a progressive or multi-scan frame, read before any
+    # output; a one-scan sequential frame's scan alone, if a marker ends it
+    complete = eoi or (not progressive and scans[0].end < n
+                       and len(scans[0].comps) == len(comps))
+    tables: Dict[int, np.ndarray] = {}
+    for k, c in enumerate(comps):
+        table = latched.get(k, qt.get(c.tq))
+        if table is None:
+            raise DecodeError("missing quantization table")
+        if c.tq in tables and tables[c.tq] is not table:
+            c.tq = 4 + k     # its table redefined before another's first scan
+        tables[c.tq] = table
+    qt = tables
     if len(comps) == 1:
         color = "gray"
     elif len(comps) == 4:
@@ -449,17 +514,40 @@ def _parse_jpeg(data: bytes) -> JpegHeader:
         color = ("rgb" if tuple(c.cid for c in comps) == (82, 71, 66)
                  else "ycc")
     return JpegHeader(frame[0], frame[1], comps, qt, scans, orientation,
-                      color, progressive, eoi, tail)
+                      color, progressive, complete, tail, arithmetic,
+                      tail_error)
 
 
 def _cut_after_scans(marker: int, seg: bytes, length: int) -> bool:
     """Whether libjpeg still decodes a file cut inside a marker segment
     that follows its scans: its source then reads fake EOI bytes (FF D9
-    ...), which a skipped segment (APPn, COM), a restart interval or the
-    symbols of a DHT's last table take in, and the counts or index of a
+    ...), which a skipped segment (APPn, COM, DNL), a DRI's interval, the
+    symbols of a DHT's last table, the values of a DQT's last table or the
+    value of a DAC's last entry take in, and the counts or index of a
     table, or any other segment, refuse."""
-    if marker in (0xDD, 0xFE) or 0xE0 <= marker <= 0xEF:
-        return True
+    if marker in (0xDC, 0xFE) or 0xE0 <= marker <= 0xEF:
+        return True                 # skipped (DNL, COM, APPn)
+    if marker == 0xDD:
+        return length == 4          # the interval read from FF D9
+    if marker == 0xDB:
+        # the values of its last table, which nothing reads (a table is
+        # latched at a component's first scan)
+        i = 0
+        while i < len(seg):
+            if seg[i] & 15 >= 4:
+                return False
+            end = i + 1 + (128 if seg[i] >> 4 else 64)
+            if end >= len(seg):
+                return end == length - 2
+            i = end
+        return False
+    if marker == 0xCC:
+        # the value read is FF: a DC entry's L = U = 15, an AC entry's 255
+        return (len(seg) == length - 3 and len(seg) % 2 == 1
+                and all(seg[i] < 32 and (seg[i] >= 16 or seg[i + 1] & 15
+                                         <= seg[i + 1] >> 4)
+                        for i in range(0, len(seg) - 1, 2))
+                and seg[-1] < 32)
     if marker != 0xC4:
         return False
     i = 0
@@ -473,10 +561,68 @@ def _cut_after_scans(marker: int, seg: bytes, length: int) -> bool:
     return False
 
 
+def _scan_mcus(width: int, height: int, comps, ks) -> int:
+    """The MCUs of a scan of components ``ks`` (``_scan_units``' count)."""
+    if len(ks) == 1:
+        c = comps[ks[0]]
+        return c.wib * c.hib
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    return -(-width // (8 * hmax)) * -(-height // (8 * vmax))
+
+
+def _next_marker(data: bytes, pos: int) -> Tuple[int, int]:
+    """jdmarker.c next_marker from ``pos``: (where the marker's last 0xFF
+    lies, its code), past stuffed zeros and fill bytes; past the data,
+    libjpeg's fake EOI at ``len(data)``."""
+    m = _MARKER.search(data, pos)
+    return (m.end() - 2, data[m.end() - 1]) if m else (len(data), 0xD9)
+
+
+def _intervals(total: int, restart: int) -> int:
+    """The restart intervals of a scan of ``total`` MCUs."""
+    return -(-total // restart) if restart else 1
+
+
+def _restart_walk(data: bytes, start: int,
+                  intervals: int) -> Tuple[List[Tuple[Optional[int], bool]],
+                                           int]:
+    """libjpeg's reading of a scan's restart markers (jdmarker.c
+    read_restart_marker and jpeg_resync_to_restart), which no decode
+    changes: a decoder reads no further than a marker, and at each
+    interval's start the next marker is taken, a stray code below SOF0 or
+    a restart before the one due skipped, the due one (or one too far
+    off) read, and any other marker or a restart one or two ahead left
+    unread.  Returns, per interval, where its data starts (None: a marker
+    was left unread, so none) and whether the Huffman decoder starts
+    afresh there (its ``insufficient_data`` cleared: the marker was read),
+    and where the scan ends: the marker left after the last interval.
+    ``_ArithSource.restart`` is the arithmetic decoder's side of it."""
+    out: List[Tuple[Optional[int], bool]] = [(start, True)]
+    pos, marker, want = start, 0, 0
+    for _ in range(intervals - 1):
+        if not marker:
+            pos, marker = _next_marker(data, pos)
+        while marker < 0xC0 or marker in (0xD0 + ((want - 1) & 7),
+                                          0xD0 + ((want - 2) & 7)):
+            pos, marker = _next_marker(data, pos + 2)
+        if 0xD0 <= marker <= 0xD7 and marker not in (
+                0xD0 + ((want + 1) & 7), 0xD0 + ((want + 2) & 7)):
+            pos, marker = pos + 2, 0          # read: its interval's data
+            out.append((pos, True))
+        else:
+            out.append((None, False))
+        want = (want + 1) & 7
+    return out, pos if marker else _next_marker(data, pos)[0]
+
+
 def _parse_sos(seg, comps, dc_specs, ac_specs, progressive, restart,
-               start) -> JpegScan:
+               start, cond=None) -> JpegScan:
     """An SOS segment -> its ``JpegScan`` (end unset), with the checks of
-    libjpeg's start_pass (jdhuff.c, jdphuff.c)."""
+    libjpeg's start_pass (jdhuff.c, jdphuff.c; jdarith.c's are the same
+    on the progression).  ``cond``: an arithmetic-coded frame's DAC
+    conditioning in force, (DC (L, U) by table, AC Kx by table); its scan
+    reads statistics tables 0-15, which need no marker."""
     index = {c.cid: k for k, c in enumerate(comps)}
     ns = seg[0]
     if not 1 <= ns <= 4 or len(seg) != 2 * ns + 4:
@@ -492,45 +638,35 @@ def _parse_sos(seg, comps, dc_specs, ac_specs, progressive, restart,
     else:
         ss, se, ah, al = 0, 63, 0, 0
         need_dc = need_ac = True
-    ks, dcs, acs = [], [], []
+    ks, dcs, acs, arith = [], [], [], []
     for s in range(ns):
         cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
         if cid not in index or index[cid] in ks:
             raise DecodeError("scan references a missing component")
+        ks.append(index[cid])
+        if cond:
+            dcs.append(b"")
+            acs.append(b"")
+            arith.append((t >> 4, *cond[0][t >> 4], t & 15, cond[1][t & 15]))
+            continue
         if (need_dc and (t >> 4) not in dc_specs) or \
                 (need_ac and (t & 15) not in ac_specs):
             raise DecodeError("scan references a missing table")
-        ks.append(index[cid])
         dcs.append(_dc_table(dc_specs[t >> 4]) if need_dc else b"")
         acs.append(ac_specs[t & 15] if need_ac else b"")
-    return JpegScan(ks, dcs, acs, start, start, restart, ss, se, ah, al)
+    return JpegScan(ks, dcs, acs, start, start, restart, ss, se, ah, al,
+                    arith if cond else None)
 
 
-def _scan_segments(data: bytes, pos: int) -> List[bytes]:
-    """The entropy-coded data from ``pos``: unstuffed segments split at
-    RSTn markers, up to the marker that ends the scan or the end of the
-    data (a 0xFF cut from its marker is dropped, as libjpeg reads it)."""
-    segments = []
-    start = pos
-    n = len(data)
-    while True:
-        i = data.find(b"\xff", pos)
-        if i < 0:
-            segments.append(data[start:].replace(b"\xff\x00", b"\xff"))
-            return segments
-        if i + 1 >= n:
-            segments.append(data[start:i].replace(b"\xff\x00", b"\xff"))
-            return segments
-        nxt = data[i + 1]
-        if nxt == 0x00 or nxt == 0xFF:
-            pos = i + (2 if nxt == 0x00 else 1)
-            continue
-        if 0xD0 <= nxt <= 0xD7:
-            segments.append(data[start:i].replace(b"\xff\x00", b"\xff"))
-            start = pos = i + 2
-            continue
-        segments.append(data[start:i].replace(b"\xff\x00", b"\xff"))
-        return segments
+def _segment(data: bytes, start: Optional[int]) -> bytes:
+    """One restart interval's entropy-coded bytes from ``start`` (None:
+    none) to the next marker, unstuffed as libjpeg's jpeg_fill_bit_buffer
+    reads them: 0xFF bytes and then 0x00 are one 0xFF; the 0xFF bytes
+    before the marker (or cut from one at the end of the data) none."""
+    if start is None:
+        return b""
+    seg = data[start:_next_marker(data, start)[0]].rstrip(b"\xff")
+    return _STUFFED.sub(b"\xff", seg)
 
 
 def _decode_segment(seg: bytes, units, n_units: int) -> int:
@@ -747,47 +883,42 @@ def _scan_units(header: JpegHeader, scomps):
 
 
 def _decode_scan(header: JpegHeader, scan: JpegScan, scomps,
-                 segments) -> Optional[int]:
-    """Decode one scan's restart segments (libjpeg's rules for data that
-    runs out: the MCU that reads past a segment's data decodes with zero
-    bits, every later MCU is left as it is until a restart marker; a
-    segment missing from the data is empty).  Returns the iMCU row of the
-    first MCU that read past the data, or None."""
+                 data: bytes) -> Optional[int]:
+    """Decode one Huffman-coded scan's restart intervals (libjpeg's rules
+    for data that runs out: the MCU that reads past an interval's data
+    decodes with zero bits, every later MCU is left as it is until a
+    restart marker is read; an interval whose marker was left unread has
+    no data, ``_restart_walk``).  Returns the iMCU row of the first MCU
+    that read past the data, or None."""
     total, per_row, unit_fn = _scan_units(header, scomps)
     decode = (_decode_segment if not header.progressive
               else lambda s, u, k: _decode_progressive_segment(s, u, k, scan))
     per = scan.restart if scan.restart else total
-    done = si = 0
+    walk = _restart_walk(data, scan.start, _intervals(total, scan.restart))[0]
     short = False
     first_bad = None
-    while done < total:
+    for i, (start, afresh) in enumerate(walk):
+        done = i * per
         k = min(per, total - done)
-        if si < len(segments):
-            seg = segments[si]
-            if si:                      # a restart marker clears the flag
-                short = False
-        else:
-            seg = b""
+        short &= not afresh
         if not short:
-            bad = decode(seg, unit_fn(done), k)
+            bad = decode(_segment(data, start), unit_fn(done), k)
             if bad >= 0:
                 short = True
                 if first_bad is None:
                     first_bad = (done + bad) // per_row
-        done += k
-        si += 1
     return first_bad
 
 
 def jpeg_coefficients(data: bytes, header: Optional[JpegHeader] = None,
                       smooth: Optional[str] = "2.1") -> List[np.ndarray]:
     """The quantized DCT coefficients of each component, int32 [bh * bw,
-    64] in natural order (blocks row-major), by the pure-Python Huffman
-    decode: the reference of ``csrc/jpeg_entropy.cpp``.  A progressive
-    file whose low coefficients are not all known (a cut one) gets
-    libjpeg's interblock smoothing, as its IDCT reads them: ``smooth``
-    names the libjpeg-turbo whose rows it takes ("2.1": JAX's native path,
-    "3.1": cv2's; None: no smoothing)."""
+    64] in natural order (blocks row-major), by the pure-Python Huffman or
+    arithmetic decode: the reference of ``csrc/jpeg_entropy.cpp``.  A
+    progressive file whose low coefficients are not all known (a cut one)
+    gets libjpeg's interblock smoothing, as its IDCT reads them:
+    ``smooth`` names the libjpeg-turbo whose rows it takes ("2.1": JAX's
+    native path, "3.1": cv2's; None: no smoothing)."""
     header = header or parse_jpeg(data)
     data += header.tail
     luts: Dict[bytes, List[int]] = {}
@@ -796,13 +927,17 @@ def jpeg_coefficients(data: bytes, header: Optional[JpegHeader] = None,
     last_good = header.imcu_rows
     for scan in header.scans:
         scomps = [header.comps[k] for k in scan.comps]
+        if header.arithmetic:
+            # jdarith.c never runs short of data, so libjpeg's smoothing
+            # takes every iMCU row as decoded
+            _arith_decode_scan(header, scan, scomps, data)
+            continue
         for c, dc, ac in zip(scomps, scan.dc, scan.ac):
             for spec in (dc, ac):
                 if spec and spec not in luts:
                     luts[spec] = _build_lut(spec)
             c.dc, c.ac = luts.get(dc), luts.get(ac)
-        bad = _decode_scan(header, scan, scomps,
-                           _scan_segments(data, scan.start))
+        bad = _decode_scan(header, scan, scomps, data)
         last_good = header.imcu_rows if bad is None else bad
     coefs = [np.frombuffer(c.coef, np.int32).reshape(-1, 64)
              for c in header.comps]
@@ -811,6 +946,267 @@ def jpeg_coefficients(data: bytes, header: Optional[JpegHeader] = None,
         coefs = [smooth_blocks(header, k, coef, plan[k], last_good, smooth)
                  for k, coef in enumerate(coefs)]
     return coefs
+
+
+# ---------------------------------------------------------------------------
+# arithmetic decoding (libjpeg's jdarith.c)
+# ---------------------------------------------------------------------------
+
+# ITU-T T.81 Table D.2 as libjpeg's jaricom.c packs it: per state, Qe << 16
+# | the next state after an MPS << 8 | whether an LPS switches the MPS << 7
+# | the next state after an LPS; state 113 is the fixed estimate of 0.5
+# (signs of AC values, DC refinement bits)
+_ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+)
+_FIXED = 113
+
+
+class _ArithSource:
+    """jdarith.c's QM decoder (``arith_decode``) over one restart
+    interval's data from ``pos`` (None: none, a marker was left unread),
+    with libjpeg's data source around it: 0xFF bytes and then 0x00 are a
+    stuffed 0xFF; any marker ends the data and zero bytes follow; past the
+    end of ``data`` the source reads libjpeg's fake EOI (FF D9 FF D9 ...),
+    a marker too.  ``ct`` -1 marks an interval whose data went bad (a code
+    past its range)."""
+
+    def __init__(self, data: bytes, pos: Optional[int]):
+        self.data, self.pos, self.n = data, pos, len(data)
+        self.ended = pos is None
+        self.c = self.a = 0
+        self.ct = -16
+
+    def byte(self) -> int:
+        p = self.pos
+        self.pos += 1
+        if p < self.n:
+            return self.data[p]
+        return 0xD9 if (p - self.n) & 1 else 0xFF
+
+    def decode(self, st, i: int) -> int:
+        """One binary decision with the statistics bin ``st[i]``."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                d = 0
+                if not self.ended:
+                    d = self.byte()
+                    if d == 0xFF:
+                        d = self.byte()
+                        while d == 0xFF:
+                            d = self.byte()
+                        if d == 0:
+                            d = 0xFF
+                        else:
+                            self.ended, d = True, 0
+                c = (c << 8) | d
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        e = _ARITAB[sv & 0x7F]
+        qe = e >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+            else:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_decode_scan(header: JpegHeader, scan: JpegScan, scomps,
+                       data: bytes) -> None:
+    """Decode one arithmetic-coded scan (jdarith.c decode_mcu and, in a
+    progressive frame, decode_mcu_DC_first / _DC_refine / _AC_first /
+    _AC_refine) into the components' coefficients.  Each restart interval
+    (``_restart_walk``) zeroes the scan's statistics and DC predictions
+    and starts a decoder afresh; data that runs out decodes on from zero
+    bytes, every MCU of the scan; a bad code (a magnitude past 15 bits, an
+    index past the band) leaves every later MCU as it is up to the next
+    restart."""
+    total, _, unit_fn = _scan_units(header, scomps)
+    walk = _restart_walk(data, scan.start, _intervals(total, scan.restart))[0]
+    src = _ArithSource(data, scan.start)
+    prog = header.progressive
+    ss, se, al = scan.ss, scan.se, scan.al
+    dc_first = not prog or (ss == 0 and scan.ah == 0)
+    dc_refine = prog and ss == 0 and scan.ah > 0
+    ac = not prog or ss > 0
+    dc_stats = {t[0]: bytearray(64) for t in scan.arith}
+    ac_stats = {t[3]: bytearray(256) for t in scan.arith}
+    fixed = bytearray([_FIXED])
+    slot = {id(c): j for j, c in enumerate(scomps)}
+    last = [0] * len(scomps)
+    ctx = [0] * len(scomps)
+    zz = _ZZX
+    p1, m1 = 1 << al, -1 << al
+    units = unit_fn(0)
+
+    def magnitude(st, i, x2):
+        """Figures F.23 and F.24: |v| of a non-zero value and m, the top
+        bit of its category (of |v| - 1), from the category's first bin
+        ``st[i]``.  A DC value (``x2`` None) goes on from X1 = 20; an AC
+        value tests ``st[i]`` again, then goes on from X2 = ``x2``.  Each
+        category's magnitude bits take the bin 14 further on.  None: a
+        category past 15 bits (a bad code)."""
+        m = src.decode(st, i)
+        if m and (x2 is None or src.decode(st, i)):
+            if x2 is None:
+                i = 20
+            else:
+                m, i = 2, x2
+            while src.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    return None
+                i += 1
+        v, bit = m, m >> 1
+        i += 14
+        while bit:
+            if src.decode(st, i):
+                v |= bit
+            bit >>= 1
+        return v + 1, m
+
+    def dc_diff(j, t):
+        """Figure F.19 with the conditioning of F.1.4.4.1.2: the DC
+        difference of a block of scan component j (None: a bad code)."""
+        st = dc_stats[t[0]]
+        s0 = ctx[j]
+        if src.decode(st, s0) == 0:
+            ctx[j] = 0
+            return 0
+        sign = src.decode(st, s0 + 1)
+        got = magnitude(st, s0 + 2 + sign, None)
+        if got is None:
+            return None
+        v, m = got
+        if m < (1 << t[1]) >> 1:
+            ctx[j] = 0
+        elif m > (1 << t[2]) >> 1:
+            ctx[j] = 12 + 4 * sign
+        else:
+            ctx[j] = 4 + 4 * sign
+        return -v if sign else v
+
+    def ac_band(coef, base, t, lo, hi):
+        """Figure F.20: coefficients lo..hi, scaled by 2^Al (False: a bad
+        code)."""
+        st = ac_stats[t[3]]
+        k = lo
+        while k <= hi:
+            i = 3 * (k - 1)
+            if src.decode(st, i):
+                break                            # EOB
+            while src.decode(st, i + 1) == 0:
+                i += 3
+                k += 1
+                if k > hi:
+                    return False
+            sign = src.decode(fixed, 0)
+            got = magnitude(st, i + 2, 189 if k <= t[4] else 217)
+            if got is None:
+                return False
+            coef[base + zz[k]] = _wrap16((-got[0] if sign else got[0]) << al)
+            k += 1
+        return True
+
+    def ac_refine(coef, base, t):
+        """Figure G.10's decoding: correction bits of coefficients already
+        non-zero, new ones of +-1 << Al (False: a bad code)."""
+        st = ac_stats[t[3]]
+        kex = se
+        while kex > 0 and not coef[base + zz[kex]]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and src.decode(st, i):
+                break                            # EOB
+            while True:
+                pos = base + zz[k]
+                if coef[pos]:
+                    if src.decode(st, i + 2):
+                        coef[pos] = _wrap16(coef[pos]
+                                            + (m1 if coef[pos] < 0 else p1))
+                    break
+                if src.decode(st, i + 1):
+                    coef[pos] = m1 if src.decode(fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    return False
+            k += 1
+        return True
+
+    for mcu in range(total):
+        if mcu and scan.restart and mcu % scan.restart == 0:
+            src = _ArithSource(data, walk[mcu // scan.restart][0])
+            for j, t in enumerate(scan.arith):
+                if dc_first:
+                    dc_stats[t[0]][:] = bytes(64)
+                    last[j] = ctx[j] = 0
+                if ac:
+                    ac_stats[t[3]][:] = bytes(256)
+        if src.ct == -1 and not dc_refine:
+            continue
+        for comp, base in units(mcu):
+            j = slot[id(comp)]
+            t = scan.arith[j]
+            coef = comp.coef
+            if dc_refine:
+                if src.decode(fixed, 0):
+                    coef[base] = _wrap16(coef[base] | p1)
+                continue
+            if dc_first:
+                diff = dc_diff(j, t)
+                if diff is None:
+                    src.ct = -1
+                    break
+                last[j] = (last[j] + diff) & 0xFFFF
+                coef[base] = _wrap16(last[j] << al)
+            if ac:
+                ok = (ac_band(coef, base, t, max(ss, 1), se) if scan.ah == 0
+                      else ac_refine(coef, base, t))
+                if not ok:
+                    src.ct = -1
+                    break
 
 
 # ---------------------------------------------------------------------------
@@ -1656,12 +2052,7 @@ def decode_image(data: bytes) -> np.ndarray:
     """Encoded bytes -> upright RGB [H, W, 3] uint8 (``cv2.imread``'s
     IMREAD_COLOR pixels, in RGB order)."""
     if data[:2] == b"\xff\xd8":
-        try:
-            return decode_jpeg(data, smooth="3.1")
-        except UnsupportedJpeg as e:
-            if e.cv2:
-                raise
-            raise DecodeError(str(e)) from None     # cv2 returns None too
+        return decode_jpeg(data, smooth="3.1")
     try:
         if data[:8] == b"\x89PNG\r\n\x1a\n":
             return decode_png(data)
@@ -1723,7 +2114,8 @@ def decode_resize(path: str, resize_dim: int, channel_order: str = "rgb",
     """One file -> [resize_dim, resize_dim, 3] uint8 in ``channel_order``,
     or None where JAX's decode returns None.  With ``prescale`` the file
     takes JAX's native path (a JPEG at the DCT scale for ``prescale_min =
-    2 * resize_dim``; what libjpeg-turbo 2.1 cannot decode to RGB is None),
+    2 * resize_dim``; what libjpeg-turbo 2.1 cannot decode to RGB, or
+    meets an error after, is None),
     else ``cv2.imread``'s."""
     try:
         data = Path(path).read_bytes()
@@ -1732,7 +2124,8 @@ def decode_resize(path: str, resize_dim: int, channel_order: str = "rgb",
     try:
         if prescale:
             header = parse_jpeg(data)
-            if header.color not in ("ycc", "rgb", "gray"):
+            if header.color not in ("ycc", "rgb", "gray") or \
+                    header.tail_error:
                 return None
             m = prescale_factor((header.width, header.height), 2 * resize_dim)
             img = reconstruct_jpeg(header, jpeg_coefficients(data, header), m)

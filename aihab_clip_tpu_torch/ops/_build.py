@@ -30,7 +30,9 @@ The host sources compile the same way with the host C++ compiler (``$CXX``,
 else ``c++``; ``-O2``, no ``-march=native``, no ``-ffast-math``) and run on
 the CPU too: ``host_library`` builds one alone, without ``nvcc``.
 
-  jpeg_entropy.cpp       the fast JPEG decode's Huffman stage
+  jpeg_entropy.cpp       the fast JPEG decode's entropy stage (Huffman and
+                         arithmetic coding; and the fixture tool's QM
+                         encoder)
   zstd_decode.cpp        the zstd decoder (orbax checkpoints, ops/zstd.py)
   blosc_lz4.cpp          LZ4 blocks and blosc1 frames (the zarr cache store,
                          ops/blosc.py)
@@ -102,6 +104,7 @@ _ARGTYPES = {
 _HOST_ARGTYPES = {
     "jpeg_entropy": {
         "aihab_jpeg_entropy": [_p, _p, _p, _p, _p, _i, _p, _i, _p, _p, _i],
+        "aihab_jpeg_arith_encode": [_p, _p, _p, _ll],
         "aihab_jpeg_packed_size": [_i],
     },
     "zstd_decode": {
@@ -120,7 +123,7 @@ _HOST_ARGTYPES = {
 }
 
 # the entry points that return a value other than an error code
-_RESTYPES = {"aihab_zstd_content_size": _ll}
+_RESTYPES = {"aihab_zstd_content_size": _ll, "aihab_jpeg_arith_encode": _ll}
 
 _SOURCE_OF = {fn: src for src, fns in _ARGTYPES.items() for fn in fns}
 

@@ -1,13 +1,15 @@
-"""The fast JPEG decode: Huffman on the host in C++, pixels on the card.
+"""The fast JPEG decode: entropy decoding on the host in C++, pixels on the
+card.
 
 The JAX package decodes JPEGs with libjpeg on the host
 (``native/image_pipeline.cpp:58-111``; no TPU kernel).  Here a batch of N
 JPEGs decodes in three stages:
 
   1. ``data/decode.parse_jpeg`` reads each header (Python), and
-     ``csrc/jpeg_entropy.cpp`` Huffman-decodes the scans (sequential or
-     progressive; a cut file as libjpeg decodes it, with its interblock
-     smoothing where a progressive one needs it), one photo a thread,
+     ``csrc/jpeg_entropy.cpp`` decodes the scans (Huffman or arithmetic
+     coding, sequential or progressive; a cut file as libjpeg decodes it,
+     with its interblock smoothing where a progressive one needs it), one
+     photo a thread,
      into int16 coefficients in pinned memory: only those the chosen IDCT
      reads (64, 49, 25 or 1 a block).
   2. **J1** ``jpeg_idct`` (``csrc/jpeg_pixels.cu``): dequantize and IDCT
@@ -51,9 +53,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.decode import (DecodeError, JpegHeader, UnsupportedJpeg,
-                           decode_image, jpeg_layout, linear_taps, parse_jpeg,
-                           prescale_factor, resize_bilinear, smoothing_plan)
+from ..data.decode import (DecodeError, JpegHeader, decode_image, jpeg_layout,
+                           linear_taps, parse_jpeg, prescale_factor,
+                           resize_bilinear, smoothing_plan)
 from ._build import host_library, launch
 
 # natural indices each IDCT size reads, in packed order (jidctred.c: the
@@ -78,7 +80,7 @@ SL_OFF, SL_STRIDE, SL_DW, SL_DH, SL_HR, SL_VR, SL_MODE = range(7)
 MODES = {"none": 0, "box": 1, "h2v1": 2, "h1v2": 3, "h2v2": 4}
 COLORS = {"ycc": 0, "rgb": 1, "gray": 2, "cmyk": 3, "ycck": 4}
 # jpeg_entropy.cpp's scan descriptor, photo descriptor and table layout
-_SCAN_SLOTS, _SLOT_FIELDS = 14, 9
+_SCAN_SLOTS, _SLOT_FIELDS = 15, 9
 _SCAN_FIELDS = _SCAN_SLOTS + 4 * _SLOT_FIELDS
 _PI_SLOTS, _PI_FIELDS = 4, 37
 _PHOTO_FIELDS = _PI_SLOTS + 4 * _PI_FIELDS
@@ -143,7 +145,10 @@ def plan_batch(headers: Sequence[JpegHeader], scales: Sequence[int],
     [len(headers), dim, dim, 3]; ``layouts`` (one ``jpeg_layout`` result a
     photo) overrides the scales' own; ``rules`` (one a photo) names the
     interblock smoothing of a cut progressive photo ("2.1", the default:
-    JAX's native path; "3.1": cv2's)."""
+    JAX's native path; "3.1": cv2's).  A scan slot carries its Huffman
+    tables' indices into ``tables``, or in an arithmetic-coded photo its
+    statistics tables and their conditioning (DC: table | L << 4 | U <<
+    8; AC: table | Kx << 4)."""
     spec_ids: dict = {}
     scans, photo_scans, info = [], [0], []
     segs, photos, taps_x, taps_y, unscanned = [], [], [], [], []
@@ -176,12 +181,16 @@ def plan_batch(headers: Sequence[JpegHeader], scales: Sequence[int],
             d[:_SCAN_SLOTS] = (p, scan.start, scan.end, scan.restart,
                                h.width, h.height, h.hmax, h.vmax,
                                len(scan.comps), scan.ss, scan.se, scan.ah,
-                               scan.al, h.progressive)
+                               scan.al, h.progressive, h.arithmetic)
             for j, (k, dc, ac) in enumerate(zip(scan.comps, scan.dc,
                                                 scan.ac)):
                 c, lay = h.comps[k], lays[k]
-                ids = [spec_ids.setdefault(spec, len(spec_ids))
-                       for spec in (dc, ac)]
+                if h.arithmetic:     # statistics tables and conditioning
+                    dt, lo, hi, at, kx = scan.arith[j]
+                    ids = [dt | lo << 4 | hi << 8, at | kx << 4]
+                else:
+                    ids = [spec_ids.setdefault(spec, len(spec_ids))
+                           for spec in (dc, ac)]
                 f = _SCAN_SLOTS + j * _SLOT_FIELDS
                 d[f:f + _SLOT_FIELDS] = (c.h, c.v, c.bw, c.bh, comp_off[k],
                                          lay.s, *ids, k)
@@ -220,7 +229,7 @@ def plan_batch(headers: Sequence[JpegHeader], scales: Sequence[int],
 
 def entropy_decode(plan: Plan, blobs: Sequence[bytes], coef: torch.Tensor,
                    threads: int = 0) -> np.ndarray:
-    """Huffman-decode the plan's photos (``blobs[plan.index[p]]``) into
+    """Entropy-decode the plan's photos (``blobs[plan.index[p]]``) into
     ``coef`` (int16, CPU, ``plan.coef_total``) with
     ``csrc/jpeg_entropy.cpp``; returns the status of each photo (0 = ok,
     else a key of ``_STATUS``)."""
@@ -267,6 +276,38 @@ def coefficients(data: bytes, s: int = 8, rule: Optional[str] = "2.1"
         raise DecodeError(_STATUS[status])
     return [coef[off:off + nb * PACKED[s]].view(nb, PACKED[s]).numpy().copy()
             for off, nb in plan.segs[:, [SEG_COEF, SEG_NB]].tolist()]
+
+
+def arith_encode_scan(header: JpegHeader, coef: np.ndarray, offsets,
+                      comps: Sequence[int], band: Tuple[int, int, int, int],
+                      restart: int, conds, progressive: bool) -> bytes:
+    """jcarith.c's coding of one scan of ``header``'s frame geometry by
+    ``csrc/jpeg_entropy.cpp`` (``aihab_jpeg_arith_encode``): ``coef``
+    int16, every component's [bh * bw, 64] blocks (natural order) from its
+    ``offsets`` entry; the scan's component indices ``comps``, its ``band``
+    (Ss, Se, Ah, Al) and restart interval, and per component (DC table, L,
+    U, AC table, Kx) in ``conds``, in a ``progressive`` frame or not: the
+    entropy-coded bytes, RSTn markers included.  The fixture tool's
+    (``tools/jpeg_fixtures.arith_recode``); no decode calls it."""
+    lib = host_library("jpeg_entropy")
+    d = np.zeros(_SCAN_FIELDS, np.int64)
+    d[:_SCAN_SLOTS] = (0, 0, 0, restart, header.width, header.height,
+                       header.hmax, header.vmax, len(comps), *band,
+                       progressive, True)
+    for j, (k, (dt, lo, hi, at, kx)) in enumerate(zip(comps, conds)):
+        c = header.comps[k]
+        f = _SCAN_SLOTS + j * _SLOT_FIELDS
+        d[f:f + _SLOT_FIELDS] = (c.h, c.v, c.bw, c.bh, offsets[k], 8,
+                                 dt | lo << 4 | hi << 8, at | kx << 4, k)
+    coef = np.ascontiguousarray(coef, np.int16)
+    cap = 2 * coef.nbytes + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.aihab_jpeg_arith_encode(coef.ctypes.data, d.ctypes.data,
+                                        out.ctypes.data, cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        cap *= 4
 
 
 def pack_blocks(blocks: np.ndarray, s: int) -> np.ndarray:
@@ -592,7 +633,7 @@ def _decode_parsed(blobs, headers, dim: int, mins, rules, device, threads,
     in host memory, ok mask bool [N]): each decoded on ``device`` at the
     DCT scale for its ``mins`` entry (0: full size) with its interblock
     smoothing rule (``rules``), EXIF-oriented and resized, bit for bit
-    with ``data/decode.py``.  A blob whose layout or Huffman data is bad
+    with ``data/decode.py``.  A blob whose layout or Huffman tables are bad
     has ok False and zero pixels; one bad blob never fails the others.  On
     the card every step (upload, J1, J2, the copy back into pinned memory)
     runs on ``stream`` (a new one when None), never the current stream, so
@@ -645,22 +686,15 @@ _NATIVE_COLORS = ("ycc", "rgb", "gray")   # what libjpeg-turbo 2.1 -> RGBX takes
 
 def _route(blob: bytes, route: str):
     """Where ``decode_blobs`` takes one blob on ``route``: ("jpeg", its
-    header, prescaled, smoothing rule), ("other",), ("none",) for a blob
-    the route's decoder refuses, or ("unsupported", reason) for one in a
-    mode it decodes and this package does not (A9c)."""
+    header, prescaled, smoothing rule), ("other",) or ("none",) for a blob
+    the route's decoder refuses."""
     if blob[:2] != b"\xff\xd8":
         return ("none",) if route == "native" else ("other",)
     try:
         h = parse_jpeg(blob)
     except DecodeError:
         return ("none",)
-    except UnsupportedJpeg as e:
-        if route == "native":
-            return ("unsupported", str(e)) if e.native else ("none",)
-        if route == "serve" and blob[:3] == b"\xff\xd8\xff" and e.native:
-            return ("unsupported", str(e))
-        return ("unsupported", str(e)) if e.cv2 else ("none",)
-    native_ok = h.color in _NATIVE_COLORS
+    native_ok = h.color in _NATIVE_COLORS and not h.tail_error
     if route == "native":
         return ("jpeg", h, True, "2.1") if native_ok else ("none",)
     if route == "serve" and native_ok and blob[:3] == b"\xff\xd8\xff":
@@ -672,16 +706,16 @@ def _route(blob: bytes, route: str):
 
 def decode_blobs(blobs: Sequence[bytes], dim: int, route: str,
                  prescale_min: int = 0, device="cuda", threads: int = 0,
-                 stream=None, pool=None
-                 ) -> Tuple[List[Optional[np.ndarray]], Dict[int, str]]:
-    """Encoded images -> (one RGB uint8 [dim, dim, 3] array or None a blob,
-    unsupported): the one place that routes a format, as the JAX package's
-    decoder on ``route`` (``ROUTES``) would:
+                 stream=None, pool=None) -> List[Optional[np.ndarray]]:
+    """Encoded images -> one RGB uint8 [dim, dim, 3] array or None a blob:
+    the one place that routes a format, as the JAX package's decoder on
+    ``route`` (``ROUTES``) would:
 
       * "native": JAX's native libjpeg path (``native_bulk_decode_resize``,
         its loader's all-JPEG RGB folders): a JPEG at the DCT scale for
         ``prescale_min``; what libjpeg-turbo 2.1 refuses to decode to RGB
-        (CMYK/YCCK, bytes that are no JPEG) is None;
+        (CMYK/YCCK, bytes that are no JPEG, a marker it refuses after a
+        one-scan sequential frame's scan) is None;
       * "imread": ``cv2.imread`` at full scale (its other folders, its BGR
         loader, its server's files): JPEGs (cut ones and CMYK/YCCK too),
         PNGs and BMPs;
@@ -691,21 +725,20 @@ def decode_blobs(blobs: Sequence[bytes], dim: int, route: str,
         that the native path takes at the prescale, any other as
         "imdecode".
 
-    A ``prescale_min`` on a route that decodes at full scale raises.  All
-    JPEGs go through the fast decode in one call (``_decode_parsed``, on
-    ``device`` and ``stream``; their headers parsed once, here); PNGs and
-    BMPs through ``data/decode.py`` at full scale and its bilinear resize,
-    on ``pool`` (an executor) when given.  None marks a blob that the
-    route does not read; ``unsupported`` maps the index of one that it
-    reads and this package does not (A9c) to the reason, and its entry is
-    None too."""
+    JPEGs are Huffman- or arithmetic-coded, sequential or progressive, on
+    every route; lossless, 12-bit and hierarchical ones are None, as
+    neither libjpeg reads them.  A ``prescale_min`` on a route that
+    decodes at full scale raises.  All JPEGs go through the fast decode in
+    one call (``_decode_parsed``, on ``device`` and ``stream``; their
+    headers parsed once, here); PNGs and BMPs through ``data/decode.py``
+    at full scale and its bilinear resize, on ``pool`` (an executor) when
+    given.  None marks a blob that the route does not read."""
     if route not in ROUTES:
         raise ValueError(f"route {route!r} is not one of {ROUTES}")
     if prescale_min and route not in ("native", "serve"):
         raise ValueError(f"route {route!r} decodes at full scale: "
                          f"prescale_min must be 0, not {prescale_min}")
     out: List[Optional[np.ndarray]] = [None] * len(blobs)
-    unsupported: Dict[int, str] = {}
     jpegs, headers, others, mins, rules = [], [], [], [], []
     for i, blob in enumerate(blobs):
         how = _route(blob, route)
@@ -716,8 +749,6 @@ def decode_blobs(blobs: Sequence[bytes], dim: int, route: str,
             rules.append(how[3])
         elif how[0] == "other":
             others.append(i)
-        elif how[0] == "unsupported":
-            unsupported[i] = how[1]
     if jpegs:
         images, ok = _decode_parsed(
             [blobs[i] for i in jpegs], headers, dim, mins, rules,
@@ -729,18 +760,13 @@ def decode_blobs(blobs: Sequence[bytes], dim: int, route: str,
 
     def other(i):
         try:
-            return resize_bilinear(decode_image(blobs[i]), dim, dim), None
+            return resize_bilinear(decode_image(blobs[i]), dim, dim)
         except DecodeError:
-            return None, None
-        except NotImplementedError as e:
-            return None, str(e)
+            return None
 
-    for i, (img, why) in zip(others, (pool.map if pool else map)(other,
-                                                                  others)):
+    for i, img in zip(others, (pool.map if pool else map)(other, others)):
         out[i] = img
-        if why is not None:
-            unsupported[i] = why
-    return out, unsupported
+    return out
 
 
 def _pixels(plan: Plan, coef: torch.Tensor, n: int, dim: int,

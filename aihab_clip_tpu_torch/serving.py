@@ -268,8 +268,7 @@ class ClassifierEngine:
     # -- decoding ----------------------------------------------------------
 
     def _decode(self, blobs: Sequence[bytes], route: str):
-        """Blobs -> (RGB uint8 [decode_dim, decode_dim, 3] or None each,
-        {index: reason} of those in a mode this package does not decode):
+        """Blobs -> RGB uint8 [decode_dim, decode_dim, 3] or None each:
         ``ops/jpeg.decode_blobs`` on ``route`` (with the JAX native rule's
         prescale, 2 x decode_dim, on the "serve" route, where a blob may
         take the native path), on the engine's device and decode
@@ -290,16 +289,11 @@ class ClassifierEngine:
     def decode_bytes(self, data: bytes) -> Optional[np.ndarray]:
         """Encoded image bytes -> RGB uint8 [decode_dim, decode_dim, 3], or
         None where JAX's ``decode_bytes`` answers None."""
-        return self._decode([data], self._bytes_route())[0][0]
+        return self._decode([data], self._bytes_route())[0]
 
     def decode_blobs(self, blobs: List[bytes]) -> List[Optional[np.ndarray]]:
         """A request's image list, its JPEGs in one decode call: one
         [D, D, 3] uint8 array (or None) per blob."""
-        return self._decode(blobs, self._bytes_route())[0]
-
-    def decode_request(self, blobs: List[bytes]):
-        """``decode_blobs`` and, beside it, {index: reason} for the blobs in
-        a mode this package does not decode (A9c)."""
         return self._decode(blobs, self._bytes_route())
 
     def decode_files(self, paths: Sequence[str]) -> List[Optional[np.ndarray]]:
@@ -311,7 +305,7 @@ class ClassifierEngine:
                 blobs.append(Path(p).read_bytes())
             except OSError:
                 blobs.append(b"")
-        return self._decode(blobs, "imread")[0]
+        return self._decode(blobs, "imread")
 
     def decode_file(self, path: str) -> Optional[np.ndarray]:
         return self.decode_files([path])[0]
@@ -576,7 +570,7 @@ class _Handler(BaseHTTPRequestHandler):
                                  f"{srv.max_request_images})"})
                 return
 
-            images, unsupported = srv.engine.decode_request(blobs)
+            images = srv.engine.decode_blobs(blobs)
             decoded, bad = [], []
             for i, img in enumerate(images):
                 if img is None:
@@ -592,10 +586,8 @@ class _Handler(BaseHTTPRequestHandler):
                 probs = fut.result(timeout=srv.request_timeout)
                 results[i] = {"topk": srv.engine.topk(probs[None],
                                                       srv.topk)[0]}
-            for i in bad:   # a mode of A9c names itself
-                results[i] = {"error": (
-                    f"unsupported image format: {unsupported[i]}"
-                    if i in unsupported else "undecodable image")}
+            for i in bad:
+                results[i] = {"error": "undecodable image"}
             srv.stats.record_request(len(decoded))
             srv.stats.record_latency(time.perf_counter() - t0)
             self._json(200, {"predictions": results})

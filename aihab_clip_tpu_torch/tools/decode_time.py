@@ -13,7 +13,7 @@ of the parent commit unpacked, or this one), so each builds its own
 libraries and decodes the same bytes.  The order is parent, change, change,
 parent (``--reps`` rounds), or this checkout alone without ``--parent``.
 Each process reports the median of ``TIMED`` Huffman decodes after one
-warm-up (the plan made once, at full scale; ``huffman_ms``) and the median
+warm-up (the plan made once, at full scale; ``entropy_ms``) and the median
 of ``J1_TIMED`` J1 launches after one, by CUDA events (``j1_ms``); this
 checkout also times the photo's progressive re-code
 (``tools/jpeg_fixtures.py``).  Prints one JSON line per run and, with
@@ -35,10 +35,10 @@ from pathlib import Path
 SIZE, SEED, TIMED, J1_TIMED = (3000, 4000), 0, 7, 50
 
 
-def huffman_ms(blob: bytes, timed: int) -> float:
-    """The C++ Huffman decode of one photo at full scale (``entropy_decode``
-    alone, the plan made once): the median ms of ``timed`` decodes after
-    one warm-up.  Runs in whichever checkout it is imported from (``run``
+def entropy_ms(blob: bytes, timed: int) -> float:
+    """The C++ entropy decode (Huffman or arithmetic coding) of one photo
+    at full scale (``entropy_decode`` alone, the plan made once): the
+    median ms of ``timed`` decodes after one warm-up.  Runs in whichever checkout it is imported from (``run``
     passes its source to each one)."""
     import statistics
     import time
@@ -54,7 +54,7 @@ def huffman_ms(blob: bytes, timed: int) -> float:
     for _ in range(timed + 1):
         t0 = time.perf_counter()
         if int(J.entropy_decode(plan, [blob], coef)[0]) != 0:
-            raise RuntimeError("the C++ Huffman decode failed")
+            raise RuntimeError("the C++ entropy decode failed")
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times[1:])
 
@@ -75,7 +75,7 @@ def j1_ms(blob: bytes, m: int, timed: int):
     plan = J.plan_batch([D.parse_jpeg(blob)], [m], 224)
     coef = torch.empty(plan.coef_total, dtype=torch.int16)
     if int(J.entropy_decode(plan, [blob], coef)[0]) != 0:
-        raise RuntimeError("the C++ Huffman decode failed")
+        raise RuntimeError("the C++ entropy decode failed")
     dev = torch.device("cuda")
     args = [coef.to(dev)] + [torch.from_numpy(a).to(dev)
                              for a in (plan.qtables, plan.segs)]
@@ -92,17 +92,17 @@ def j1_ms(blob: bytes, m: int, timed: int):
     return statistics.median(times[1:])
 
 
-# one checkout's measurement, after the sources of huffman_ms and j1_ms
+# one checkout's measurement, after the sources of entropy_ms and j1_ms
 _RUN = r"""
 import json, subprocess, sys
 
 timed, j1_timed = int(sys.argv[1]), int(sys.argv[2])
 blobs = [open(p, "rb").read() for p in sys.argv[3:]]
-out = {"baseline_ms": huffman_ms(blobs[0], timed)}
+out = {"baseline_ms": entropy_ms(blobs[0], timed)}
 for m in (8, 2):
     out[f"j1_m{m}_ms"] = j1_ms(blobs[0], m, j1_timed)
 if len(blobs) > 1:
-    out["progressive_ms"] = huffman_ms(blobs[1], timed)
+    out["progressive_ms"] = entropy_ms(blobs[1], timed)
 try:
     out["card"] = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -127,7 +127,7 @@ def photo(h: int = SIZE[0], w: int = SIZE[1], seed: int = SEED):
 
 def run(tree: Path, files) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
-    script = inspect.getsource(huffman_ms) + inspect.getsource(j1_ms) + _RUN
+    script = inspect.getsource(entropy_ms) + inspect.getsource(j1_ms) + _RUN
     proc = subprocess.run([sys.executable, "-c", script, str(TIMED),
                            str(J1_TIMED), *map(str, files)], cwd=tree,
                           env=env, capture_output=True, text=True,

@@ -10,6 +10,10 @@ point of the package.
     refinements) with optimal Huffman tables per scan (``jchuff.c``
     ``jpeg_gen_optimal_table``), each table's DHT just before its scan.
     The decoders must give back the baseline file's coefficients exactly.
+  * ``arith_recode``: a JPEG's coefficients arithmetic-coded (SOF9, or
+    SOF10 under the same script) by the QM encoder of
+    ``csrc/jpeg_entropy.cpp`` (libjpeg's ``jcarith.c``): the bytes libjpeg
+    writes for them, DAC, DRI and SOS markers included.
   * ``encode_adobe``: an Adobe baseline JPEG of four components, CMYK
     (APP14 transform 0) or YCCK (transform 2, libjpeg's CMYK -> YCCK).
 
@@ -18,6 +22,8 @@ seconds): every code of a scan is an event with a sort key, the events are
 ordered once and packed into bits in bulk.
 
     python -m aihab_clip_tpu_torch.tools.jpeg_fixtures recode in.jpg out.jpg
+    python -m aihab_clip_tpu_torch.tools.jpeg_fixtures arith in.jpg out.jpg \
+        [--progressive] [--restart MCUS]
     python -m aihab_clip_tpu_torch.tools.jpeg_fixtures ycck out.jpg --size 64x96
 """
 
@@ -457,6 +463,87 @@ def progressive_recode(data: bytes, coefs: Sequence[np.ndarray] = None
     return b"".join(out)
 
 
+def _selectors(data: bytes, header) -> Dict[int, Tuple[int, int]]:
+    """Component index -> (DC table, AC table) as the file's scans select
+    them (the first scan that reads each)."""
+    out: Dict[int, List[int]] = {}
+    for scan in header.scans:
+        pairs = scan.start - 2 * len(scan.comps) - 3   # SOS's (id, tables)
+        for j, k in enumerate(scan.comps):
+            t = data[pairs + 2 * j + 1]
+            sel = out.setdefault(k, [None, None])
+            if scan.ss == 0 and scan.ah == 0 and sel[0] is None:
+                sel[0] = t >> 4
+            if scan.se and sel[1] is None:
+                sel[1] = t & 15
+    return {k: (dc or 0, ac or 0) for k, (dc, ac) in out.items()}
+
+
+def arith_recode(data: bytes, coefs: Sequence[np.ndarray] = None,
+                 progressive: bool = False, restart: int = 0,
+                 conditioning: Dict[int, Tuple[int, int, int]] = None
+                 ) -> bytes:
+    """A complete JPEG (Huffman- or arithmetic-coded, sequential or
+    progressive) -> the same coefficients arithmetic-coded as libjpeg's
+    compressor writes them
+    (``jcarith.c``, ITU-T T.81 Annex D): SOF9, or with ``progressive``
+    SOF10 under ``simple_progression``; each scan after its DAC, which
+    lists every statistics table the scan reads with its
+    ``conditioning`` ({table: (L, U, Kx)}; libjpeg's (0, 1, 5) for the
+    others), the first after a DRI where ``restart`` (MCUs) is set.  The
+    components keep the file's table selectors; the JFIF, EXIF, Adobe and
+    DQT segments stand as they were.  ``coefs`` as ``progressive_recode``
+    takes them."""
+    from ..ops.jpeg import arith_encode_scan, coefficients
+
+    header = parse_jpeg(data)
+    if not header.complete:
+        raise ValueError("arith_recode takes a complete JPEG")
+    if coefs is None:
+        coefs = coefficients(data, 8, None)
+    flat = [np.asarray(co, np.int16).reshape(-1) for co in coefs]
+    offsets = np.cumsum([0] + [len(f) for f in flat])[:-1].tolist()
+    coef = np.concatenate(flat)
+    cond = {t: (0, 1, 5) for t in range(16)}
+    cond.update(conditioning or {})
+    sel = _selectors(data, header)
+    nc = len(header.comps)
+    sof = bytes([8]) + header.height.to_bytes(2, "big") \
+        + header.width.to_bytes(2, "big") + bytes([nc])
+    for c in header.comps:
+        sof += bytes([c.cid, (c.h << 4) | c.v, c.tq])
+    out = [b"\xff\xd8", *_markers_before_frame(data),
+           _segment(0xCA if progressive else 0xC9, sof)]
+    script = (simple_progression(nc, header.color == "ycc") if progressive
+              else [(tuple(range(nc)), 0, 63, 0, 0)])
+    for i, (comps, ss, se, ah, al) in enumerate(script):
+        dc_use = {sel[k][0] for k in comps} if ss == 0 and ah == 0 else set()
+        ac_use = {sel[k][1] for k in comps} if se else set()
+        dac = []
+        for t in range(16):
+            if t in dc_use:
+                dac += [t, cond[t][0] | cond[t][1] << 4]
+            if t in ac_use:
+                dac += [t + 16, cond[t][2]]
+        if dac:
+            out.append(_segment(0xCC, bytes(dac)))
+        if restart and i == 0:
+            out.append(_segment(0xDD, restart.to_bytes(2, "big")))
+        sos = bytes([len(comps)])
+        for k in comps:
+            td = sel[k][0] if ss == 0 and ah == 0 else 0
+            ta = sel[k][1] if se else 0
+            sos += bytes([header.comps[k].cid, (td << 4) | ta])
+        out.append(_segment(0xDA, sos + bytes([ss, se, (ah << 4) | al])))
+        conds = [(sel[k][0], *cond[sel[k][0]][:2], sel[k][1],
+                  cond[sel[k][1]][2]) for k in comps]
+        out.append(arith_encode_scan(header, coef, offsets, comps,
+                                     (ss, se, ah, al), restart, conds,
+                                     progressive))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
 def _baseline_events(blocks, header) -> _Events:
     """One interleaved sequential scan (``header``: the frame's geometry):
     per block its DC difference (table = component) and its AC run
@@ -569,6 +656,11 @@ def main(argv=None) -> None:
     rc = sub.add_parser("recode", help="baseline -> progressive")
     rc.add_argument("src")
     rc.add_argument("dst")
+    ar = sub.add_parser("arith", help="any complete JPEG -> arithmetic-coded")
+    ar.add_argument("src")
+    ar.add_argument("dst")
+    ar.add_argument("--progressive", action="store_true", help="SOF10")
+    ar.add_argument("--restart", type=int, default=0, help="MCUs")
     for name in ("cmyk", "ycck"):
         p = sub.add_parser(name, help=f"write an Adobe {name.upper()} JPEG")
         p.add_argument("dst")
@@ -578,6 +670,10 @@ def main(argv=None) -> None:
     if args.cmd == "recode":
         Path(args.dst).write_bytes(progressive_recode(
             Path(args.src).read_bytes()))
+    elif args.cmd == "arith":
+        Path(args.dst).write_bytes(arith_recode(
+            Path(args.src).read_bytes(), progressive=args.progressive,
+            restart=args.restart))
     else:
         h, w = (int(v) for v in args.size.lower().split("x"))
         Path(args.dst).write_bytes(encode_adobe(

@@ -48,7 +48,8 @@ Phases (any failure raises and the exit code is non-zero):
      K14 adds (the residual-first c_proj GEMM, the attention at head_dim 64
      with fp32 output and P normalised before its cast, the c_fc GEMM with
      its hidden row requantized in one and in two chunks, also against the
-     fp32 GEMM + row_quant bit for bit), the GEMMs beside ``torch._int_mm``;
+     fp32 GEMM + row_quant bit for bit), the GEMMs beside ``torch._int_mm``,
+     the attention beside SDPA;
      5c: ``ClassifierEngine("random:ViT-B/16", quantize="int8")`` answers the
      same requests: per batch 1 K8 and 12 K14, no K1; features against the
      same encode with every kernel plain and against the fp32 tower; top-1
@@ -128,6 +129,8 @@ Phases (any failure raises and the exit code is non-zero):
      bf16, grouped bf16 and fp32, P normalised) beside SDPA, K1, K5 + K4 and
      K13 + K9 -> K10 on JAX's routes (``JAX_ROUTES``), K14 and its c_fc
      GEMM's quantized output, and K8 at the patch-14 K = 588 (bit for bit);
+     the int8 GEMMs (K14's c_fc, K9's and K10's slices, K8) beside
+     ``torch._int_mm`` at their shapes;
      the ``[plan]`` lines of the attention instances at head_dim 64-104
      (the normalised-P instance at all four), which must not spill;
      5f: ``ClassifierEngine`` of ViT-H/14 (bf16), ViT-g/14 and ViT-bigG/14
@@ -166,7 +169,11 @@ Phases (any failure raises and the exit code is non-zero):
      pure-Python ones; the card decode at full scale and at m = 2 equals the
      numpy pipeline on them; the photo's progressive re-code (the fixture
      tool) has the same C++ coefficients and card pixels at m = 8 and 2,
-     and the host Huffman ms of both; J1 (``jpeg_idct``), J2
+     and the host Huffman ms of both; so have its arithmetic-coded re-codes
+     (SOF9, SOF10; A9c), their host arithmetic ms beside; the libjpeg-written
+     arithmetic fixtures (``tests/golden/jpeg_arith``) through C++ -> J1 ->
+     J2 against decode.py's coefficients and JAX's native pixels
+     (``reference.npz``); J1 (``jpeg_idct``), J2
      (``jpeg_color_resize``) and J2's four-component instance
      (``jpeg_color_resize_cmyk``) against their plain versions, max|d| 0,
      timed at the 12 MP (full, m = 2), 1024 x 768 and CMYK/YCCK shapes to
@@ -177,9 +184,10 @@ Phases (any failure raises and the exit code is non-zero):
      every answer against ``classify_batch`` of ``decode_bytes`` of the same
      blob (top-1, max|dprob| <= 1e-3), one J1 a request and one launch of
      each J2 instance its photos need, 12 K1 a batch; garbage and a JPEG cut
-     in its header counted as decode failures, an arithmetic-coded one
-     answered with an A9c error, a 1024 x 768 JPEG cut in its scan answered
-     with probabilities (JAX's native path keeps it); images/s over HTTP,
+     in its header counted as decode failures, a 1024 x 768 JPEG re-coded
+     arithmetic-coded (SOF9) and one cut in its scan answered with the
+     probabilities of ``classify_batch(decode_bytes(blob))`` (JAX's native
+     path keeps both); images/s over HTTP,
      latency p50/p99, fill, decode ms per photo split into host (parse +
      C++ Huffman) and card (upload + J1 + J2); 8c: 8 requests through the
      int8 engine (K8 + 12 K14 a batch);
@@ -279,6 +287,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1913,7 +1922,8 @@ def vit_int8_kernel_cases(rnd, vec, run_cases, timed) -> dict:
     gelu_poly and at ViT-B/32's S=50, each against its plain version; and
     the pieces K14 runs at these shapes: its four GEMMs (each timed beside
     ``torch._int_mm`` at its shape, the GEMM core only), the attention at
-    head_dim 64 with fp32 output, and the requantize of the attention row."""
+    head_dim 64 with fp32 output (beside SDPA at its shape), and the
+    requantize of the attention row."""
     import torch
 
     from aihab_clip_tpu_torch.ops import block_kernel as bk
@@ -1943,6 +1953,9 @@ def vit_int8_kernel_cases(rnd, vec, run_cases, timed) -> dict:
                        q_width=W).reshape(B, S, 3 * W)
     att = bk.attention(qkv, HEADS, q_scaled=True, out_dtype=f32,
                        normalize_p=True)
+    # SDPA's q, k, v at the normalised-P attention's shape (its yardstick)
+    heads_of = [t.reshape(B, S, HEADS, d).transpose(1, 2)
+                for t in qkv.split(W, -1)]
     a8, sa = qm.row_quant(att.reshape(m, W))
     y1 = qm.int8_gemm(a8, sa, wo.t(), so, attn[5], residual=x2, out_dtype=f32)
     l8, sl = qm.row_quant(y1, *ln2)
@@ -2012,7 +2025,8 @@ def vit_int8_kernel_cases(rnd, vec, run_cases, timed) -> dict:
                               normalize_p=True),
          lambda: bk.attention_plain(qkv, HEADS, q_scaled=True,
                                     normalize_p=True, out_dtype=f32),
-         None, f_att, 2 * m * 3 * W + 4 * m * W, bk.attention, "vit_int8"),
+         lambda: torch.nn.functional.scaled_dot_product_attention(*heads_of),
+         f_att, 2 * m * 3 * W + 4 * m * W, bk.attention, "vit_int8"),
         ("row_quant[requantize the fp32 attention row, 768]", f"{JAX_QM}:761",
          "codes", lambda: qm.row_quant(att.reshape(m, W)),
          lambda: qm.row_quant_plain(att.reshape(m, W)), None, 0,
@@ -3561,7 +3575,9 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
     fp32; P normalised as K12 and K14 run it), each beside SDPA at its
     shape; K1; JAX's bf16 route K5 + K4 (``JAX_ROUTES``); K14; JAX's int8
     route K13 + one slice of the chained K9 -> K10; and K8 over the patch-14
-    im2col (K = 588, padded to 592), bit for bit."""
+    im2col (K = 588, padded to 592), bit for bit; the int8 GEMMs each beside
+    ``torch._int_mm`` at its shape (int32 out; K8's with K padded to
+    592)."""
     import torch
 
     from aihab_clip_tpu_torch.models.clip import CLIP_ARCHS
@@ -3571,10 +3587,15 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
 
     f32 = torch.float32
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    int_mm = torch._int_mm
 
     def weight(k, n):
         w8, ws = quantize_weight(rnd(k, n, scale=k ** -0.5, dtype=f32))
         return qm.int8_weight(w8), ws
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8,
+                             device="cuda")
 
     for arch in ("ViT-g/14", "ViT-bigG/14"):
         cfg, route = CLIP_ARCHS[arch], JAX_ROUTES[arch]
@@ -3625,6 +3646,11 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
         kp = 14 * 14 * 3
         patches = rnd(B * 256, kp)
         wp8, sp = weight(kp, w)
+        # torch._int_mm yardsticks (int32 out) at the int8 GEMMs' shapes, B
+        # K-major as the kernels read it (cuBLASLt's fast layout), the patch
+        # GEMM's K padded to 592
+        h8_lib, w2_lib = codes(m, hid // ich), w28[sl].t().contiguous().t()
+        p8_lib, wp_lib = codes(B * 256, 592), codes(w, 592).t()
         bp = torch.zeros(w, device=x.device)
         f_att = 4 * B * heads * s * s * d
         f_qkv, f_out, f_mlp = 2 * m * w * 3 * w, 2 * m * w * w, 4 * m * w * hid
@@ -3697,7 +3723,8 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
                                   out_dtype=torch.int8),
              lambda: qm.int8_gemm_plain(*c_fc, act="gelu_poly",
                                         out_dtype=torch.int8),
-             None, (0, f_mlp // 2), m * w + 4 * m + w * hid + 8 * hid
+             lambda: int_mm(l8, w18), (0, f_mlp // 2),
+             m * w + 4 * m + w * hid + 8 * hid
              + m * hid + 4 * m, qm.int8_gemm, tag + "_int8", SRC_Q),
             (f"quant_attn_block_split[{arch}, {igroups} groups]",
              f"{JAX_QM}:622", "int8_block",
@@ -3710,22 +3737,22 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
              lambda: qm.quant_matmul_fused_qout(x2, *k9, act="gelu_poly"),
              lambda: qm.quant_matmul_fused_qout_plain(x2, *k9,
                                                       act="gelu_poly"),
-             None, (0, f_mlp // 2 // ich),
+             lambda: int_mm(l8, w18[:, sl]), (0, f_mlp // 2 // ich),
              2 * m * w + w * hid // ich + 8 * (w + hid // ich)
              + m * hid // ich + 4 * m, qm.quant_matmul_fused_qout,
              tag + "_int8_jax", SRC_Q),
             (f"quant_matmul_q8in[{arch} c_proj, 1 of {ich} slices]",
              f"{JAX_QM}:165", "kernel",
              lambda: qm.quant_matmul_q8in(*k10),
-             lambda: qm.quant_matmul_q8in_plain(*k10), None,
-             (0, f_mlp // 2 // ich),
+             lambda: qm.quant_matmul_q8in_plain(*k10),
+             lambda: int_mm(h8_lib, w2_lib), (0, f_mlp // 2 // ich),
              m * hid // ich + 4 * m + hid // ich * w + 8 * w + 4 * m * w,
              qm.quant_matmul_q8in, tag + "_int8_jax", SRC_Q),
             (f"quant_matmul_fused[{arch} patch 14, K 588 in 592]",
              f"{JAX_QM}:376", "exact",
              lambda: qm.quant_matmul_fused(patches, wp8, sp, bp),
-             lambda: qm.quant_matmul_fused_plain(patches, wp8, sp, bp), None,
-             (0, 2 * B * 256 * kp * w),
+             lambda: qm.quant_matmul_fused_plain(patches, wp8, sp, bp),
+             lambda: int_mm(p8_lib, wp_lib), (0, 2 * B * 256 * kp * w),
              2 * B * 256 * kp + kp * w + 8 * w + 2 * B * 256 * w,
              qm.quant_matmul_fused, tag + "_int8", SRC_Q),
         ])
@@ -3736,7 +3763,7 @@ def large_vit_kernel_cases(rnd, vec, run_cases) -> None:
               f"{k1_ms:.4f} ms, {cfg.vision_layers} blocks "
               f"{cfg.vision_layers * k1_ms:.3f} ms; K14 {k14_ms:.4f} ms")
         del x, x2, qkv, qkv_g, qkv_s, sq, sk, sv, h8, patches, p, wg, og, l8
-        del c_fc
+        del c_fc, h8_lib, w2_lib, p8_lib, wp_lib
         torch.cuda.empty_cache()
 
 
@@ -4551,7 +4578,7 @@ def progressive_case(big: bytes, coefs, dev) -> dict:
     and m = 2; the host Huffman ms of both (``tools/decode_time``).
     Returns the figures."""
     from aihab_clip_tpu_torch.ops import jpeg as J
-    from aihab_clip_tpu_torch.tools.decode_time import huffman_ms
+    from aihab_clip_tpu_torch.tools.decode_time import entropy_ms
     from aihab_clip_tpu_torch.tools.jpeg_fixtures import progressive_recode
 
     figures = {}
@@ -4565,15 +4592,108 @@ def progressive_case(big: bytes, coefs, dev) -> dict:
           f"coefficients equal the baseline file's: {same}")
     check(same, "the progressive 12 MP photo's coefficients differ")
     for m, pm in ((8, 0), (2, 2 * SERVE_DIM)):
-        (a, b), _ = J.decode_blobs([big, prog], SERVE_DIM, "native", pm, dev)
+        a, b = J.decode_blobs([big, prog], SERVE_DIM, "native", pm, dev)
         equal = a is not None and b is not None and np.array_equal(a, b)
         print(f"[jpeg] 12 MP progressive card decode at m = {m} equals the "
               f"baseline's: {equal}")
         check(equal, f"the progressive card decode differs at m = {m}")
-    base_ms, prog_ms = huffman_ms(big, 3), huffman_ms(prog, 3)
+    base_ms, prog_ms = entropy_ms(big, 3), entropy_ms(prog, 3)
     figures["huffman_ms_12mp"] = {"baseline": base_ms, "progressive": prog_ms}
     print(f"[jpeg] 12 MP host Huffman (C++, one thread): baseline "
           f"{base_ms:.1f} ms, progressive {prog_ms:.1f} ms")
+    return figures
+
+
+ARITH_FIXTURES = Path(__file__).resolve().parent / "tests" / "golden" \
+    / "jpeg_arith"
+
+
+def arith_case(big: bytes, coefs, dev, huffman_ms: dict) -> dict:
+    """3i, arithmetic coding (A9c): the 12 MP photo re-coded by
+    tools/jpeg_fixtures.arith_recode (libjpeg's jcarith.c) as SOF9 and as
+    SOF10 (libjpeg's simple_progression): the C++ decoder's coefficients
+    of each equal the baseline file's (``coefs``) bit for bit, and the card
+    decode of each equals the baseline's at m = 8 and m = 2; the host
+    arithmetic ms of both (``tools/decode_time.entropy_ms``, one thread)
+    beside the Huffman ms.  Then every file of ``ARITH_FIXTURES`` (written
+    by libjpeg's own compressor) through C++ -> J1 -> J2 on the card: its
+    C++ coefficients equal data/decode.py's pure-Python arithmetic decode,
+    exactly; its pixels at 64 px equal JAX's native path's in
+    ``reference.npz``, without and with the prescale (the port applies the
+    EXIF orientation, which that path ignores), bit for bit; the CMYK and
+    YCCK ones, which that path refuses, are None there; where cv2's
+    full-scale pixels are recorded, the imread route equals them resized.
+    Returns the figures."""
+    from aihab_clip_tpu_torch.data import decode as D
+    from aihab_clip_tpu_torch.ops import jpeg as J
+    from aihab_clip_tpu_torch.tools.decode_time import entropy_ms
+    from aihab_clip_tpu_torch.tools.jpeg_fixtures import arith_recode
+
+    figures = {}
+    t0 = time.perf_counter()
+    coded = {"sof9": arith_recode(big, coefs),
+             "sof10": arith_recode(big, coefs, progressive=True)}
+    figures["arith_recode_s_12mp"] = time.perf_counter() - t0
+    for name, blob in coded.items():
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(J.coefficients(blob), coefs))
+        print(f"[jpeg] 12 MP arithmetic re-code {name} ({len(blob)} bytes); "
+              f"its C++ coefficients equal the baseline file's: {same}")
+        check(same, f"the 12 MP {name} photo's coefficients differ")
+    for m, pm in ((8, 0), (2, 2 * SERVE_DIM)):
+        a, *rest = J.decode_blobs([big, *coded.values()], SERVE_DIM,
+                                  "native", pm, dev)
+        equal = all(b is not None and np.array_equal(a, b) for b in rest)
+        print(f"[jpeg] 12 MP SOF9 and SOF10 card decode at m = {m} equal "
+              f"the baseline's: {equal}")
+        check(a is not None and equal,
+              f"the arithmetic card decode differs at m = {m}")
+    figures["arith_ms_12mp"] = {k: entropy_ms(b, 3) for k, b in coded.items()}
+    print(f"[jpeg] 12 MP host entropy decode (C++, one thread): arithmetic "
+          f"SOF9 {figures['arith_ms_12mp']['sof9']:.1f} ms, SOF10 "
+          f"{figures['arith_ms_12mp']['sof10']:.1f} ms; Huffman baseline "
+          f"{huffman_ms['baseline']:.1f} ms, progressive "
+          f"{huffman_ms['progressive']:.1f} ms")
+    ref = np.load(ARITH_FIXTURES / "reference.npz")
+    paths = sorted(ARITH_FIXTURES.glob("*.jpg"))
+    check(len(paths) >= 19, f"{len(paths)} arithmetic fixtures")
+    blobs = [p.read_bytes() for p in paths]
+    coef_ok = 0
+    for path, blob in zip(paths, blobs):
+        header = D.parse_jpeg(blob)
+        same = all(np.array_equal(a, b) for a, b in zip(
+            J.coefficients(blob, 8, None),
+            D.jpeg_coefficients(blob, header, None)))
+        coef_ok += same
+        check(same, f"{path.name}: C++ coefficients differ from decode.py's")
+    pix_ok = 0
+    for key, pm in (("native64", 0), ("native64_pre", 128)):
+        got = J.decode_blobs(blobs, 64, "native", pm, dev)
+        for path, blob, img in zip(paths, blobs, got):
+            want = ref.get(f"{path.stem}/{key}",
+                           ref.get(f"{path.stem}/native64"))
+            if want is None:
+                ok = img is None
+            else:
+                want = D.apply_orientation(want, D.parse_jpeg(blob)
+                                           .orientation)
+                ok = img is not None and np.array_equal(img, want)
+            pix_ok += ok
+            check(ok, f"{path.name}: card pixels ({key}) differ from JAX's "
+                  "native path")
+    with_cv2 = [i for i, p in enumerate(paths) if f"{p.stem}/cv2" in ref]
+    got = J.decode_blobs([blobs[i] for i in with_cv2], 64, "imread", 0, dev)
+    for i, img in zip(with_cv2, got):
+        want = D.resize_bilinear(ref[f"{paths[i].stem}/cv2"], 64, 64)
+        ok = img is not None and np.array_equal(img, want)
+        pix_ok += ok
+        check(ok, f"{paths[i].name}: the imread route differs from cv2's")
+    print(f"[jpeg] {len(paths)} libjpeg-written arithmetic fixtures: C++ "
+          f"coefficients equal decode.py's in {coef_ok}; card pixels equal "
+          f"reference.npz in {pix_ok} of {2 * len(paths) + len(with_cv2)} "
+          f"(native 64 px without and with the prescale, imread vs cv2)")
+    figures["arith_fixtures"] = dict(files=len(paths), coefficients=coef_ok,
+                                     pixels=pix_ok)
     return figures
 
 
@@ -4649,13 +4769,14 @@ def jpeg_kernel_cases(timed, rows, big, mids, adobe) -> dict:
               "the 12 MP photo's prescale")
         want = D.resize_bilinear(full if m == 8 else D.reconstruct_jpeg(
             header, ref, m), SERVE_DIM, SERVE_DIM)
-        got, _ = J.decode_blobs([big], SERVE_DIM, "native", pm, dev)
+        got = J.decode_blobs([big], SERVE_DIM, "native", pm, dev)
         equal = got[0] is not None and np.array_equal(got[0], want)
         print(f"[jpeg] 12 MP card decode at m = {m} vs the numpy pipeline on "
               f"those coefficients: equal {equal}")
         check(equal, f"the card decode at m = {m} differs from numpy's")
     del ref, full
     figures.update(progressive_case(big, mine, dev))
+    figures.update(arith_case(big, mine, dev, figures["huffman_ms_12mp"]))
     del mine
 
     def case(name, blobs, prescale_min, timing=True):
@@ -4824,16 +4945,18 @@ def serving_path(engine, big, mids, adobe, smi: str):
     the same blob (top-1 equal, max|dprob| <= SERVE_PROB_TOL), one J1
     launch a request and one launch of each J2 instance its photos need,
     12 K1 a batch, no decode failure; then, in one request, garbage and a
-    JPEG cut in its frame header count as undecodable, one marked
-    arithmetic-coded gets an A9c error, and a 1024 x 768 JPEG cut in its
-    scan (JAX's native path keeps it) and a good photo beside them are
-    answered.  Images/s through HTTP, latency p50/p99, fill, and the decode
+    JPEG cut in its frame header count as undecodable; a 1024 x 768 JPEG
+    re-coded arithmetic-coded (SOF9, ``tools/jpeg_fixtures.arith_recode``),
+    one cut in its scan (JAX's native path keeps both) and a good photo
+    beside them are answered, the first two with the probabilities of
+    ``classify_batch(decode_bytes(blob))``.  Images/s through HTTP, latency p50/p99, fill, and the decode
     split per photo.  Returns (launch counts, figures)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from aihab_clip_tpu_torch.ops import block_kernel as bk
     from aihab_clip_tpu_torch.ops import jpeg as J
     from aihab_clip_tpu_torch.serving import PredictServer, ServerStats
+    from aihab_clip_tpu_torch.tools.jpeg_fixtures import arith_recode
 
     photos = [big] + list(mids) + list(adobe)
     four = [False] * (1 + len(mids)) + [True] * len(adobe)
@@ -4854,6 +4977,8 @@ def serving_path(engine, big, mids, adobe, smi: str):
 
     cut = mids[0][:int(len(mids[0]) * 0.6)]
     cut_ref = engine.classify_batch(engine.decode_bytes(cut)[None])[0]
+    arithmetic = arith_recode(mids[0])
+    arith_ref = engine.classify_batch(engine.decode_bytes(arithmetic)[None])[0]
     try:
         send(reqs[2])        # a first request: streams, pinned staging
         server.stats = server.batcher.stats = ServerStats()
@@ -4866,7 +4991,6 @@ def serving_path(engine, big, mids, adobe, smi: str):
         counts = {**bk.launch_counts(), **J.launch_counts()}
         snap = server.stats.snapshot(engine.batch_size)
         sof = mids[0].index(b"\xff\xc0")
-        arithmetic = mids[0][:sof] + b"\xff\xc9" + mids[0][sof + 2:]
         bad = _post(url, "json", [b"not an image", cut, mids[0][:sof + 8],
                                   arithmetic, mids[0]])
         stats_after = server.stats.snapshot(engine.batch_size)
@@ -4893,17 +5017,18 @@ def serving_path(engine, big, mids, adobe, smi: str):
     check(len(answers_bad) == 5
           and answers_bad[0] == answers_bad[2] == {"error":
                                                    "undecodable image"}
-          and "A9c" in answers_bad[3].get("error", "")
-          and stats_after["decode_failures"] == 3, "bad blobs not counted")
+          and stats_after["decode_failures"] == 2, "bad blobs not counted")
     check(answers_bad[4]["topk"][0]["label"] == int(ref[1].argmax()),
           "a good blob beside bad ones")
-    cut_top = answers_bad[1].get("topk", [{}])[0]
-    print(f"[serving] a 1024x768 JPEG cut to 60%: top-1 {cut_top} (the "
-          f"engine's decode_bytes: {int(cut_ref.argmax())}, "
-          f"{float(cut_ref.max()):.4f})")
-    check(cut_top.get("label") == int(cut_ref.argmax())
-          and abs(cut_top.get("prob", -1) - float(cut_ref.max()))
-          <= SERVE_PROB_TOL, "a cut JPEG comes back with probabilities")
+    for i, what, want in ((1, "cut to 60%", cut_ref),
+                          (3, "arithmetic-coded (SOF9)", arith_ref)):
+        top = answers_bad[i].get("topk", [{}])[0]
+        print(f"[serving] a 1024x768 JPEG {what}: top-1 {top} (the engine's "
+              f"decode_bytes: {int(want.argmax())}, {float(want.max()):.4f})")
+        check(top.get("label") == int(want.argmax())
+              and abs(top.get("prob", -1) - float(want.max()))
+              <= SERVE_PROB_TOL, f"a JPEG {what} comes back with its "
+              "probabilities")
     figures = {"images_per_s": images / wall, "requests": len(reqs),
                "images": images, "batches": batches,
                "fill": snap["mean_batch_fill"],

@@ -1780,7 +1780,7 @@ def test_cuda_jpeg_kernels_match_plain(prescale_min):
     torch.cuda.synchronize()
     assert J.launch_counts()["jpeg_color_resize"] == 1
     assert torch.equal(out_d.cpu(), out)
-    got, ok, _ = decode_batch(blobs, dim, "native", prescale_min,
+    got, ok = decode_batch(blobs, dim, "native", prescale_min,
                               "cuda")
     assert ok.all() and torch.equal(got.cpu(), out)
     for i, (b, h) in enumerate(zip(blobs, headers)):
@@ -1852,13 +1852,13 @@ def test_cuda_jpeg_formats_match_plain():
     dim = 24
     for prescale_min in (0, 40):
         J.reset_launch_counts()
-        got, ok, _ = decode_batch(blobs, dim, "serve", prescale_min,
+        got, ok = decode_batch(blobs, dim, "serve", prescale_min,
                                    "cuda")
         assert ok.all()
         counts = J.launch_counts()
         assert counts == {"jpeg_idct": 1, "jpeg_color_resize": 1,
                           "jpeg_color_resize_cmyk": 1}
-        plain, ok_p, _ = decode_batch(blobs, dim, "serve",
+        plain, ok_p = decode_batch(blobs, dim, "serve",
                                        prescale_min)
         assert ok_p.all() and torch.equal(got, plain)
         for i, b in enumerate(blobs):

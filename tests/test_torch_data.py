@@ -6,8 +6,8 @@ JAX package's native resize), the JPEG encoder (the bytes ``cv2.imwrite``
 writes), the CSV index, the stratified-group split (scikit-learn's and
 JAX's indices), few-shot selection, ``build_loaders`` on a JAX-written
 tree, the decoded-array cache, the DCT-domain prescale and BMPs (ROADMAP
-A9), cut JPEGs as JAX's routes decode them, and the refusals that name
-ROADMAP A9c."""
+A9), cut JPEGs as JAX's routes decode them, an arithmetic-coded JPEG
+(ROADMAP A9c) and the JPEG modes no libjpeg reads."""
 
 import io
 import json
@@ -173,12 +173,12 @@ def test_encoder_writes_cv2_bytes(size):
 
 
 def test_refusals_name_a9(tmp_path):
-    """The DCT-domain prescale and the formats of A9 and A9b decode: the
-    prescale equals the JAX native path's bit for bit, a BMP, a
-    progressive and a CMYK JPEG, an Adam7 PNG and an RLE8 BMP cv2.imread's.
-    Only the JPEG modes of A9c raise, naming it: an arithmetic-coded one
-    (which JAX's native path and cv2 decode); lossless and 12-bit ones,
-    which neither reads, are no image."""
+    """The DCT-domain prescale and the formats of A9, A9b and A9c decode:
+    the prescale equals the JAX native path's bit for bit, a BMP, a
+    progressive, a CMYK and an arithmetic-coded JPEG, an Adam7 PNG and an
+    RLE8 BMP cv2.imread's.  Lossless and 12-bit JPEGs, which neither JAX's
+    native path nor cv2 reads, are no image, their errors naming the
+    mode."""
     big = tmp_path / "big.jpg"
     cv2.imwrite(str(big), _photo(256, 256))
     native = native_bulk_decode_resize([str(big)], 64, 1, prescale_min=128)
@@ -212,15 +212,15 @@ def test_refusals_name_a9(tmp_path):
     sof = base.index(b"\xff\xc0")
     arith = bytearray(base)
     arith[sof + 1] = 0xC9
-    with pytest.raises(NotImplementedError, match="A9c"):
-        decode_image(bytes(arith))
+    assert np.array_equal(decode_image(bytes(arith)), _cv2_rgb(bytes(arith)))
     lossless = bytearray(base)
     lossless[sof + 1] = 0xC3
     twelve = bytearray(base)
     twelve[sof + 4] = 12
-    for blob in (lossless, twelve):
-        with pytest.raises(DecodeError, match="A9c"):
+    for blob, mode in ((lossless, "lossless"), (twelve, "12-bit")):
+        with pytest.raises(DecodeError, match=mode):
             decode_image(bytes(blob))
+        assert cv2.imdecode(np.frombuffer(bytes(blob), np.uint8), 1) is None
     with pytest.raises(DecodeError):
         decode_image(b"BM" + bytes(60))
     with pytest.raises(DecodeError):
@@ -463,10 +463,9 @@ def test_prescale_routes_match_jax_loader(large_tree):
 
 
 def test_loader_names_an_unsupported_file(jax_tree, tmp_path):
-    """A labelled photo in a mode this package does not decode and JAX's
-    native path does (here an arithmetic-coded JPEG, A9c) stops the load
-    with an error naming the file and A9c; skipping it would change the
-    split."""
+    """A labelled photo that only arithmetic coding sets apart (A9c, which
+    JAX's native path decodes) loads as JAX's loader loads it: the same
+    files, the same pixels bit for bit."""
     src = jax_tree["dataset_paths"][0]
     folder = tmp_path / os.path.basename(src)
     shutil.copytree(src, folder)
@@ -477,6 +476,7 @@ def test_loader_names_an_unsupported_file(jax_tree, tmp_path):
     arith[arith.index(b"\xff\xc0") + 1] = 0xC9
     (folder / victim).write_bytes(bytes(arith))
     assert native_bulk_decode_resize([str(folder / victim)], 40, 1)[1].all()
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(victim) + ".*A9c"):
-        load_folders([str(folder)], [name], 40, device="cpu")
+    mine = load_folders([str(folder)], [name], 40, device="cpu")
+    ref = jax_load_folders([str(folder)], [name], 40)
+    assert mine.file_names == ref.file_names and victim in mine.file_names
+    assert np.array_equal(mine.images, ref.images)

@@ -5,8 +5,9 @@ Python reference, the pixels against JAX's native libjpeg path at m = 8, 4,
 2, 1), cut JPEGs (baseline and progressive, with libjpeg's interblock
 smoothing) against the native path and ``cv2.imread``, CMYK and YCCK JPEGs,
 Adam7 PNGs and the BMPs cv2 reads against ``cv2.imdecode``, the loader's
-routes folder by folder (C5) and the server's, the A9c refusals, and the
-fixture tool's re-codes.  The Python reference runs at <= 64 x 96, the C++
+routes folder by folder (C5) and the server's, an arithmetic-coded JPEG on
+every route and the modes no libjpeg reads, and the fixture tool's
+re-codes.  The Python reference runs at <= 64 x 96, the C++
 at <= 256 x 256."""
 
 import io
@@ -112,9 +113,8 @@ def test_progressive_native_bit_for_bit(m, prescale_min):
     the Python pipeline."""
     blobs = list(_progressive_files(256, 256, seed=m).values())
     dim = 64
-    got, ok, unsupported = decode_batch(blobs, dim, "native",
-                                                 prescale_min)
-    assert ok.all() and not unsupported
+    got, ok = decode_batch(blobs, dim, "native", prescale_min)
+    assert ok.all()
     for i, data in enumerate(blobs):
         h = D.parse_jpeg(data)
         assert D.prescale_factor((h.width, h.height), prescale_min) == m
@@ -201,7 +201,7 @@ def test_idct_simd_forms_match_native_and_cv2(seed):
         assert ref.shape == (size, size, 3) and np.array_equal(ref, native), m
         cv = cv2.imdecode(np.frombuffer(data, np.uint8), GRAY_REDUCED[m])
         assert np.array_equal(cv, ref[:, :, 0]), m
-        got, _ = J.decode_blobs([data], size, "native",
+        got = J.decode_blobs([data], size, "native",
                                 0 if m == 8 else size, device="cpu")
         assert np.array_equal(got[0], native), m
 
@@ -239,17 +239,17 @@ def test_cut_jpeg_matches_native_and_imread(kind, tmp_path):
         _assert_cpp_equals_python(cut, ("2.1", "3.1"))
         for pm in (0, 24, 12):
             native = native_decode_resize_mem(cut, 24, pm)
-            got, _ = J.decode_blobs([cut], 24, "native", pm,
+            got = J.decode_blobs([cut], 24, "native", pm,
                                     device="cpu")
             assert native is not None and np.array_equal(got[0], native), \
                 (cut_at, pm)
         full = D.decode_image(cut)
         assert np.array_equal(full, _imread(tmp_path, cut)), cut_at
-        got, _ = J.decode_blobs([cut], 48, "imread", device="cpu")
+        got = J.decode_blobs([cut], 48, "imread", device="cpu")
         assert np.array_equal(got[0], D.resize_bilinear(full, 48, 48))
         assert cv2.imdecode(np.frombuffer(cut, np.uint8), 1) is None
         assert J.decode_blobs([cut], 48, "imdecode",
-                              device="cpu")[0] == [None]
+                              device="cpu") == [None]
 
 
 @pytest.mark.parametrize("size", [24, 32])
@@ -265,7 +265,7 @@ def test_cut_narrow_progressive_matches_native_and_imread(size, tmp_path):
         if native is None:
             continue
         _assert_cpp_equals_python(cut, ("2.1", "3.1"))
-        got, _ = J.decode_blobs([cut], size, "native", device="cpu")
+        got = J.decode_blobs([cut], size, "native", device="cpu")
         assert np.array_equal(got[0], native), cut_at
         assert np.array_equal(D.decode_image(cut), _imread(tmp_path, cut))
 
@@ -287,7 +287,7 @@ def test_cut_segments_after_the_scans_as_libjpeg():
             refused += 1
             continue
         assert native is not None, cut_at
-        got, _ = J.decode_blobs([cut], 16, "native", device="cpu")
+        got = J.decode_blobs([cut], 16, "native", device="cpu")
         assert np.array_equal(got[0], native), cut_at
         decoded += header.progressive
     assert refused and decoded
@@ -317,9 +317,8 @@ def test_cmyk_ycck_against_cv2():
     refuses them, and so does the port's native route."""
     files = _adobe_files()
     blobs = list(files.values())
-    got, unsupported = J.decode_blobs(blobs, 20, "imread", device="cpu")
-    assert not unsupported
-    native, _ = J.decode_blobs(blobs, 20, "native", 40, device="cpu")
+    got = J.decode_blobs(blobs, 20, "imread", device="cpu")
+    native = J.decode_blobs(blobs, 20, "native", 40, device="cpu")
     for (name, data), img, nat in zip(files.items(), got, native):
         ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
         full = D.decode_image(data)
@@ -604,9 +603,10 @@ def test_cut_and_progressive_files_kept_by_the_loader(tmp_path):
 
 
 def _a9c_blobs():
-    """name -> (JPEG in a mode left to A9c, whether JAX decodes it): the
-    frame marker of a baseline file changed to arithmetic coding (which
-    native and cv2 decode), lossless, hierarchical, and 12-bit precision
+    """name -> (JPEG in a mode of ROADMAP A9c, whether JAX decodes it):
+    the frame marker of a baseline file changed to arithmetic coding
+    (which native and cv2 decode, the Huffman data read as arithmetic
+    codes until a bad one), lossless, hierarchical, and 12-bit precision
     (which neither reads)."""
     base = _cv2_jpeg(_photo(24, 24, 2), False)
     sof = base.index(b"\xff\xc0")
@@ -627,22 +627,27 @@ def _a9c_blobs():
 
 @pytest.mark.parametrize("route", ["native", "imread", "imdecode", "serve"])
 def test_a9c_raises_only_where_jax_decodes(route):
-    """Arithmetic-coded JPEGs raise naming A9c on every route (JAX's native
-    path and cv2 decode them); lossless, hierarchical and 12-bit ones are
-    None on every route (neither reads them), as JAX's decode returns."""
+    """An arithmetic-coded JPEG decodes on every route as JAX's decoder
+    there does: native and serve as ``native_decode_resize_mem`` at the
+    prescale, bit for bit; imread and imdecode as cv2 at full scale, bit
+    for bit, then the native path's resize.  Lossless, hierarchical and
+    12-bit ones are None on every route (neither reads them), as JAX's
+    decode returns."""
     for name, (data, jax_decodes) in _a9c_blobs().items():
-        assert (native_decode_resize_mem(data, 16, 0) is not None) \
-            == jax_decodes, name
-        assert (cv2.imdecode(np.frombuffer(data, np.uint8), 1) is not None) \
-            == jax_decodes, name
-        got, unsupported = J.decode_blobs(
+        native = native_decode_resize_mem(data, 16, 32)
+        full = cv2.imdecode(np.frombuffer(data, np.uint8), 1)
+        assert (native is not None) == (full is not None) == jax_decodes
+        got = J.decode_blobs(
             [data], 16, route, 32 if route in ("native", "serve") else 0,
             device="cpu")
-        assert got == [None]
-        if jax_decodes:
-            assert "A9c" in unsupported[0], name
+        if not jax_decodes:
+            assert got == [None], name
+        elif route in ("native", "serve"):
+            assert np.array_equal(got[0], native), name
         else:
-            assert not unsupported, name
+            assert np.array_equal(D.decode_image(data), full[:, :, ::-1])
+            assert np.array_equal(got[0], D.resize_bilinear(
+                full[:, :, ::-1], 16, 16)), name
 
 
 def test_server_route_as_jax_decode_bytes(monkeypatch):
@@ -654,13 +659,11 @@ def test_server_route_as_jax_decode_bytes(monkeypatch):
     cut = big[:int(len(big) * 0.6)]
     cmyk = _adobe_files()["cmyk (1, 1)"]
     dim = 24
-    got, unsupported = J.decode_blobs([cut, cmyk], dim, "serve", 2 * dim,
-                                      device="cpu")
-    assert not unsupported
+    got = J.decode_blobs([cut, cmyk], dim, "serve", 2 * dim, device="cpu")
     assert np.array_equal(got[0], native_decode_resize_mem(cut, dim, 2 * dim))
     assert np.array_equal(got[1], D.resize_bilinear(D.decode_image(cmyk),
                                                     dim, dim))
-    imdecoded, _ = J.decode_blobs([cut, cmyk], dim, "imdecode",
+    imdecoded = J.decode_blobs([cut, cmyk], dim, "imdecode",
                                   device="cpu")
     assert imdecoded[0] is None and np.array_equal(imdecoded[1], got[1])
 

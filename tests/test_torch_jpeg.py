@@ -93,7 +93,7 @@ def test_entropy_gray_truncated_and_corrupt():
         ref = D.jpeg_coefficients(blob)
         for a, b in zip(J.coefficients(blob), ref):
             assert np.array_equal(a, b)
-        got, ok, _ = decode_batch([blob], 32)
+        got, ok = decode_batch([blob], 32)
         assert ok.all()
         assert np.array_equal(got[0].numpy(),
                               native_decode_resize_mem(blob, 32, 0))
@@ -164,7 +164,7 @@ def test_non_interleaved_scans(sampling, rst):
     cv = cv2.imdecode(np.frombuffer(multi, np.uint8), cv2.IMREAD_COLOR)
     assert np.array_equal(D.decode_jpeg(multi), cv[:, :, ::-1])
     for pm in (0, 16):
-        got, ok, _ = decode_batch([multi], 12, "native", pm)
+        got, ok = decode_batch([multi], 12, "native", pm)
         m = D.prescale_factor((header.width, header.height), pm)
         assert ok.all() and np.array_equal(
             got[0].numpy(), D.resize_bilinear(D.decode_jpeg(multi, m), 12, 12))
@@ -184,7 +184,7 @@ def test_fast_decode_full_scale_equals_decode_py_and_native(dim, tmp_path):
     for i, b in enumerate(blobs):
         paths.append(tmp_path / f"{i}.jpg")
         paths[-1].write_bytes(b)
-    got, ok, _ = decode_batch(blobs + [b"junk", blobs[0][:200]], dim)
+    got, ok = decode_batch(blobs + [b"junk", blobs[0][:200]], dim)
     assert got.shape == (len(blobs) + 2, dim, dim, 3)
     assert ok.tolist() == [True] * len(blobs) + [False, False]
     assert not got[-2:].any()
@@ -210,7 +210,7 @@ def test_prescale_equals_native_and_cv2(sampling, dim, m, tmp_path):
     assert D.prescale_factor((w, h), 2 * dim) == m
     path = tmp_path / "p.jpg"
     path.write_bytes(data)
-    got, ok, _ = decode_batch([data], dim, "native", 2 * dim)
+    got, ok = decode_batch([data], dim, "native", 2 * dim)
     assert ok.all()
     mine = got[0].numpy()
     assert np.array_equal(mine, native_decode_resize_mem(data, dim, 2 * dim))
@@ -232,7 +232,7 @@ def test_prescale_batch_mixes_scales_and_restarts():
              in enumerate([(336, 448, "420", 0), (200, 160, "422", 4),
                            (100, 90, "444", 0), (40, 48, "440", 1),
                            (330, 250, "420", 7)])]
-    got, ok, _ = decode_batch(blobs, 20, "native", 40)
+    got, ok = decode_batch(blobs, 20, "native", 40)
     ref, rok = native_bulk_decode_resize_mem(blobs, 20, prescale_min=40)
     assert ok.all() and rok.all()
     assert np.array_equal(got.numpy(), ref)
@@ -251,7 +251,7 @@ def test_fast_decode_applies_exif_as_decode_py(orientation):
     pil.save(b, "JPEG", quality=90, exif=exif.tobytes())
     data = b.getvalue()
     for dim, pm in ((24, 0), (24, 48), (40, 0)):
-        got, ok, _ = decode_batch([data], dim, "native", pm)
+        got, ok = decode_batch([data], dim, "native", pm)
         m = D.prescale_factor(D.jpeg_size(data), pm)
         ref = D.resize_bilinear(D.decode_jpeg(data, m), dim, dim)
         assert ok.all() and np.array_equal(got[0].numpy(), ref)
@@ -278,7 +278,7 @@ def test_exif_is_the_only_difference_from_native(orientation):
     pil.save(b, "JPEG", quality=90, exif=exif.tobytes())
     data = b.getvalue()
     for dim, pm in ((24, 0), (24, 48), (40, 80), (37, 0)):
-        got, ok, _ = decode_batch([data], dim, "native", pm)
+        got, ok = decode_batch([data], dim, "native", pm)
         native = native_decode_resize_mem(data, dim, pm)
         mine = got[0].numpy()
         assert ok.all()
@@ -286,27 +286,31 @@ def test_exif_is_the_only_difference_from_native(orientation):
         assert np.array_equal(mine, native) == (orientation == 1)
 
 
-def _arithmetic(data: bytes) -> bytes:
-    """``data`` with its frame marked arithmetic-coded (SOF9): a mode of
-    A9c that JAX's native path and cv2 decode."""
+def _marked(data: bytes, marker: int = 0xC9) -> bytes:
+    """``data`` with its frame marker changed: SOF9 reads its Huffman data
+    as arithmetic codes (JAX's native path and cv2 decode it, up to a bad
+    code), SOF3 marks it lossless (neither reads it)."""
     b = bytearray(data)
-    b[b.index(b"\xff\xc0") + 1] = 0xC9
+    b[b.index(b"\xff\xc0") + 1] = marker
     return bytes(b)
 
 
 def test_fast_decode_refuses_what_decode_py_refuses():
-    """An arithmetic-coded JPEG is refused on its own, naming A9c, while
-    the good blob beside it decodes; a batch of no good blob launches
-    nothing."""
-    arith = _arithmetic(_jpeg(_photo(32, 32)))
+    """A lossless JPEG is refused on its own while the good blob and an
+    arithmetic-coded one beside it decode as decode.py and JAX's native
+    path do; a batch of no good blob launches nothing."""
+    arith = _marked(_jpeg(_photo(32, 32, 1)))
     good = _jpeg(_photo(32, 32))
-    got, ok, unsupported = decode_batch([good, arith], 16)
-    assert ok.tolist() == [True, False] and list(unsupported) == [1]
-    assert "A9c" in unsupported[1] and not got[1].any()
-    assert np.array_equal(got[0].numpy(),
-                          D.resize_bilinear(D.decode_jpeg(good), 16, 16))
+    lossless = _marked(good, 0xC3)
+    got, ok = decode_batch([good, arith, lossless], 16)
+    assert ok.tolist() == [True, True, False] and not got[2].any()
+    for i, blob in enumerate((good, arith)):
+        assert np.array_equal(got[i].numpy(),
+                              D.resize_bilinear(D.decode_jpeg(blob), 16, 16))
+    assert np.array_equal(got[1].numpy(),
+                          native_decode_resize_mem(arith, 16, 0))
     J.reset_launch_counts()
-    decode_batch([arith, b"junk"], 16)
+    decode_batch([lossless, b"junk"], 16)
     assert set(J.launch_counts().values()) == {0}
 
 
@@ -345,7 +349,7 @@ def test_parse_jpeg_raises_decode_error_on_every_cut_header():
                 D.parse_jpeg(base[:cut])
             continue
         assert cut >= scan + 11, cut
-        got, ok, _ = decode_batch([base[:cut]], 16)
+        got, ok = decode_batch([base[:cut]], 16)
         assert ok.all() and np.array_equal(got[0].numpy(), native)
     for name, blob in _bad_blobs().items():
         with pytest.raises(D.DecodeError):
@@ -362,11 +366,12 @@ def _decodes_to_none(blob) -> bool:
 
 
 def test_one_bad_blob_fails_alone():
-    """Header-cut, short-segment, fractional-sampling and arithmetic-coded
-    JPEGs, garbage, a cut PNG and one whose IHDR no longer matches its CRC,
-    mixed with good JPEGs (one progressive), a PNG and a BMP on the
-    server's route: the good ones decode as data/decode.py does, the bad
-    ones are None, and only the A9c mode is reported as unsupported."""
+    """Header-cut, short-segment, fractional-sampling and lossless JPEGs,
+    garbage, a cut PNG and one whose IHDR no longer matches its CRC, mixed
+    with good JPEGs (one progressive, one arithmetic-coded), a PNG and a
+    BMP on the server's route: the good ones decode as data/decode.py (and
+    the arithmetic-coded one as JAX's native path) does, the bad ones are
+    None."""
     good = [_jpeg(_photo(48, 64, 1)), _jpeg(_photo(33, 41, 2), sampling="422"),
             cv2.imencode(".jpg", _photo(32, 32),
                          [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()]
@@ -374,16 +379,17 @@ def test_one_bad_blob_fails_alone():
     bmp = cv2.imencode(".bmp", _photo(21, 19, 4))[1].tobytes()
     adam7 = bytearray(png)
     adam7[28] = 1                       # IHDR's interlace method
-    arith = _arithmetic(good[0])
-    bad = list(_bad_blobs().values()) + [b"junk", png[:20]]
+    arith = _marked(good[0])
+    bad = list(_bad_blobs().values()) + [b"junk", png[:20],
+                                        _marked(good[1], 0xC3)]
     blobs = [good[0], *bad[:3], arith, good[1], png, bytes(adam7), *bad[3:],
              bmp, good[2]]
-    images, unsupported = J.decode_blobs(blobs, 20, "serve", 40,
-                                         device="cpu")
-    assert sorted(unsupported) == [blobs.index(arith)]
-    assert all("A9c" in why for why in unsupported.values())
+    images = J.decode_blobs(blobs, 20, "serve", 40, device="cpu")
     for blob, img in zip(blobs, images):
-        if blob in good or blob in (png, bmp):
+        if blob == arith:
+            assert np.array_equal(img, native_decode_resize_mem(blob, 20,
+                                                                40))
+        elif blob in good or blob in (png, bmp):
             m = D.prescale_factor(D.jpeg_size(blob), 40) \
                 if blob in good else 8
             ref = D.resize_bilinear(
